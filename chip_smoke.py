@@ -4,11 +4,16 @@
 Drives the port's main path on one CUDA card — spiral points ->
 ``make_normalized_adjacency`` -> ``eigsh`` (single-vector and block) ->
 ``spectral_clustering`` at n = 100,000 — after building the hand-written
-window kernels from ``src/repro_torch/kernels/csrc`` and holding each one
-against its plain PyTorch version at the main path's shapes.  Then it
-times the kernels beside their roofline bounds and the fused matvec at
-n = 10^5 and 10^6.  Any failed check raises, so the run exits non-zero and
-prints no result line.
+kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all
+at once) and holding each one against its plain PyTorch version at the
+paths' shapes.  Then the paths of the exact direct sum (``kernel_matvec``):
+the accuracy guard's direct floor under ``eigsh`` (spiral n = 8,000), kernel
+SSL on crescent-fullmoon at n = 100,000 (paper Section 6.2.3), kernel ridge
+regression at n = 10,000 with fast and direct prediction (Section 6.3), and
+one direct matvec at n = 10^5.  Each path starts with every launch count at
+0 and must launch its kernels.  Last it times the kernels beside their
+roofline bounds and the fused matvec at n = 10^5 and 10^6.  Any failed
+check raises, so the run exits non-zero and prints no result line.
 
     python3 chip_smoke.py [--json PATH]
 
@@ -28,9 +33,12 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 CU_SOURCE = "src/repro_torch/kernels/csrc/nfft_window.cu"
+KM_SOURCE = "src/repro_torch/kernels/csrc/kernel_matvec.cu"
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and the peaks outside the tensor
 # cores (the window kernels issue plain FP64/FP32 FMAs).
@@ -56,6 +64,41 @@ TIERS = {"SETUP_1": 5e-3, "SETUP_2": 5e-8, "SETUP_3": 1e-13}
 BLOCK_ITERS = {1: None, 4: 80}
 # the kernels' JSON record is taken at this main-path shape
 RECORD = ("SETUP_3", 3, 1, "float64")
+
+# kernel_matvec vs plain, relative to the plain output's largest entry: the
+# sums run in another order than the plain matrix product, and float32
+# exp/sqrt differ by an ulp or two
+KM_TOL = {"float64": 1e-12, "float32": 1e-4}
+KM_PROFILES = (("gaussian", SIGMA), ("laplacian_rbf", SIGMA),
+               ("multiquadric", 2.0), ("inverse_multiquadric", 2.0))
+# operations of each profile on r^2, each exp/sqrt/divide counted as one
+KM_PROFILE_OPS = {"gaussian": 2, "laplacian_rbf": 3, "multiquadric": 2,
+                  "inverse_multiquadric": 3}
+KM_SQUARE_N = (8000, N_MAIN)
+KM_RECT = (400, 10_000)  # the KRR path's test x training points
+# kernel_matvec's JSON record: the direct baseline's shape (n, d, C, dtype,
+# profile)
+KM_RECORD = (N_MAIN, 3, 1, "float64", "gaussian")
+# guard floor: spiral n=8000, SETUP_1 and a policy that can only end on the
+# direct floor (tests/test_runtime_guards.py:143-150)
+N_GUARD = 8000
+GUARD_EIG_TOL = 1e-10
+# kernel SSL, paper Section 6.2.3 at benchmarks/fig7_kernel_ssl.py's setting
+N_SSL = 100_000
+SSL_SIGMA, SSL_BETA, SSL_TOL, SSL_MAXITER, SSL_SAMPLES = 0.75, 1e3, 1e-4, 1000, 5
+# kernel ridge regression, Section 6.3 at benchmarks/fig9_krr.py's setting
+N_KRR, N_KRR_TEST = 10_000, 400
+KRR_BETA, KRR_TOL, KRR_MAXITER = 1e-2, 1e-8, 2000
+# The JAX package's values at the same settings, taken on the CPU (x64):
+# max|fast - exact| / max|exact| of the SSL operator's degrees and of the
+# KRR test predictions.  The smoke's limit is 10x each.
+JAX_SSL_DEGREE_REL = 6.449000181882818e-05
+JAX_KRR_PREDICT_REL = {"gaussian": 1.899438831679044e-07,
+                       "inverse_multiquadric": 6.9855183886505294e-06}
+# ... and of the fused matvec against the direct sum at n = 10^5 (spiral,
+# x ~ N(0, 1) from np.random.default_rng(0))
+JAX_DIRECT_REL = {"SETUP_2": 1.7666062474585884e-07,
+                  "SETUP_3": 1.7613001593982948e-13}
 
 
 def log(msg: str = "") -> None:
@@ -100,9 +143,10 @@ class Smoke:
         from repro_torch.core import fastsum, fastsum_exec, lanczos
         from repro_torch.core.kernels import make_kernel
         from repro_torch.core.nfft import build_window_geometry, padded_grid_size
-        from repro_torch.data.synthetic import spiral
-        from repro_torch.graph import spectral
-        from repro_torch.kernels import _build, nfft_window
+        from repro_torch.data.synthetic import crescent_fullmoon, spiral
+        from repro_torch.graph import krr, spectral, ssl
+        from repro_torch.kernels import _build, kernel_matvec, nfft_window
+        from repro_torch.runtime import guards
 
         self.torch = torch
         self.fs, self.lan, self.spec = fastsum, lanczos, spectral
@@ -111,6 +155,11 @@ class Smoke:
         self.build_window_geometry = build_window_geometry
         self.padded_grid_size = padded_grid_size
         self.build, self.win = _build, nfft_window
+        self.km, self.guards, self.ssl, self.krr = (kernel_matvec, guards,
+                                                    ssl, krr)
+        self.crescent = crescent_fullmoon
+        self.make_kernel = make_kernel
+        self.path_launches = {}
         self.dev = torch.device("cuda", 0)
         self.kernel = make_kernel("gaussian", sigma=SIGMA)
         self.record = {"checks": [], "times": []}
@@ -136,6 +185,58 @@ class Smoke:
 
     def setup(self, name):
         return getattr(self.fs, name)
+
+    def reset_launches(self):
+        self.win.window_spread.launches = 0
+        self.win.window_gather.launches = 0
+        self.km.kernel_matvec.launches = 0
+
+    def read_launches(self, path: str) -> dict:
+        counts = {"window_spread": self.win.window_spread.launches,
+                  "window_gather": self.win.window_gather.launches,
+                  "kernel_matvec": self.km.kernel_matvec.launches}
+        self.path_launches[path] = counts
+        return counts
+
+    @staticmethod
+    def km_bound(n_out, n_in, d, c, profile, dtype_name, zero_diagonal):
+        """(ms, bound_by, flops, bytes) of the card's least time for one
+        direct sum: per pair d subtractions and d multiply-adds (3d), the
+        profile's operations, and 2C for the accumulation; each input read
+        once and each output written once."""
+        s = 8 if dtype_name == "float64" else 4
+        pairs = n_out * n_in - (min(n_out, n_in) if zero_diagonal else 0)
+        flops = pairs * (3 * d + KM_PROFILE_OPS[profile] + 2 * c)
+        nbytes = s * (n_out * d + n_in * (d + c) + n_out * c)
+        t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+                else "bytes", flops, nbytes)
+
+    def km_inputs(self, n_out, n_in, d, c, dtype):
+        """Square: spiral nodes (first d coordinates) as both point sets;
+        rectangular: the KRR path's crescent-fullmoon test and training
+        points.  x is standard normal."""
+        torch = self.torch
+        if n_out == n_in:
+            pts, _ = self.spiral(n_in, seed=0)
+            b = a = torch.as_tensor(pts[:, :d], dtype=dtype, device=self.dev)
+        else:
+            pts, _ = self.crescent(n_in + n_out, seed=5)
+            b = torch.as_tensor(pts[:n_in], dtype=dtype, device=self.dev)
+            a = torch.as_tensor(pts[n_in:], dtype=dtype, device=self.dev)
+        gen = torch.Generator(device=self.dev).manual_seed(c)
+        x = torch.randn((n_in, c), generator=gen, dtype=dtype,
+                        device=self.dev)
+        return a, b, x
+
+    def km_shapes(self):
+        """(n_out, n_in, d, c, zero_diagonal) of every kernel_matvec check."""
+        for n in KM_SQUARE_N:
+            for d in (2, 3):
+                for c in (1, 4):
+                    yield n, n, d, c, True
+        yield KM_RECT[0], KM_RECT[1], 2, 1, False
 
     def geometry(self, setup_name, d, n, dtype):
         """Main-path window geometry: spiral nodes (first d coordinates)."""
@@ -169,8 +270,13 @@ class Smoke:
         self.phase_device()
         self.phase_build()
         self.phase_kernels()
+        self.phase_kernel_matvec()
         self.phase_anchor()
         self.phase_main_path()
+        self.phase_guard()
+        self.phase_ssl()
+        self.phase_krr()
+        self.phase_direct()
         self.phase_times()
 
     def phase_device(self):
@@ -194,23 +300,35 @@ class Smoke:
     def phase_build(self):
         t0 = time.perf_counter()
         info = self.build.build()
-        self.build.load_library()
+        for source in info:
+            self.build.load_library(source)
         took = time.perf_counter() - t0
         self.record["build_s"] = took
-        log(f"[build] nvcc sm_90a {CU_SOURCE}: {took:.1f}s "
-            f"({'built' if info['seconds'] else 'cached'})")
-        fn = None
-        for line in info["log"].splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                fn = m.group(1)
-            m = re.search(r"Used (\d+) registers", line)
-            if m and fn:
-                log(f"[build]   {fn}: {m.group(1)} registers")
-            if "spill" in line and fn and not re.search(r"\b0 bytes spill "
-                                                        r"stores, 0 bytes "
-                                                        r"spill loads", line):
-                log(f"[build]   {fn}: {line.strip()}")
+        log(f"[build] {len(info)} nvcc sm_90a builds, all at once: "
+            f"{took:.1f}s wall")
+        for source, one in info.items():
+            log(f"[build] {source}: {one['seconds']:.1f}s "
+                f"({'built' if one['seconds'] else 'cached'})")
+            regs, spills, fn = {}, [], None
+            for line in one["log"].splitlines():
+                m = re.search(r"Compiling entry function '(\w+)'", line)
+                if m:
+                    fn = m.group(1)
+                m = re.search(r"Used (\d+) registers", line)
+                if m and fn:
+                    regs[fn] = int(m.group(1))
+                if "spill" in line and fn and not re.search(
+                        r"\b0 bytes spill stores, 0 bytes spill loads",
+                        line):
+                    spills.append(f"{fn}: {line.strip()}")
+            if len(regs) <= 8:
+                for fn, r in regs.items():
+                    log(f"[build]   {fn}: {r} registers")
+            elif regs:
+                log(f"[build]   {len(regs)} entry functions, "
+                    f"{min(regs.values())}-{max(regs.values())} registers")
+            for line in spills:
+                log(f"[build]   {line}")
 
     def phase_kernels(self):
         torch, win = self.torch, self.win
@@ -268,6 +386,35 @@ class Smoke:
                 check(rel <= ADJOINT_TOL,
                       f"adjoint {setup_name} d={d}: {rel:.3e}")
 
+    def phase_kernel_matvec(self):
+        torch, km = self.torch, self.km
+        log("[kernels] kernel_matvec vs plain, rel = max|k-p| / max|p|")
+        for n_out, n_in, d, c, zd in self.km_shapes():
+            for dtype in (torch.float64, torch.float32):
+                dname = str(dtype).split(".")[1]
+                a, b, x = self.km_inputs(n_out, n_in, d, c, dtype)
+                for kname, param in KM_PROFILES:
+                    kw = dict(kernel_name=kname, param=param,
+                              zero_diagonal=zd)
+                    k_out = km.kernel_matvec(a, b, x, **kw)
+                    p_out = km.kernel_matvec_plain(a, b, x, **kw)
+                    self.sync()
+                    err = float((k_out - p_out).abs().max())
+                    rel = err / float(p_out.abs().max())
+                    ok = rel <= KM_TOL[dname]
+                    self.record["checks"].append({
+                        "kernel": "kernel_matvec", "profile": kname,
+                        "n_out": n_out, "n_in": n_in, "d": d, "c": c,
+                        "dtype": dname, "zero_diagonal": zd,
+                        "max_abs_err": err, "rel_err": rel,
+                        "tol": KM_TOL[dname], "ok": ok})
+                    log(f"[kernels] kernel_matvec {kname:20s} {n_out}x"
+                        f"{n_in} d={d} C={c} {dname} zero_diag={zd}: "
+                        f"max_abs_err={err:.3e} rel={rel:.3e} (tol "
+                        f"{KM_TOL[dname]:g}) {'ok' if ok else 'FAIL'}")
+                    check(ok, f"kernel_matvec {kname} {n_out}x{n_in} d={d} "
+                          f"C={c} {dname}: rel {rel:.3e}")
+
     def phase_anchor(self):
         torch = self.torch
         pts, _ = self.spiral(N_ANCHOR, seed=0)
@@ -290,7 +437,7 @@ class Smoke:
         pts, labels = self.spiral(N_MAIN, seed=0)
         pts = torch.as_tensor(pts, device=self.dev)
         self.sync()
-        win.window_spread.launches = win.window_gather.launches = 0
+        self.reset_launches()
         t_start = time.perf_counter()
         for name in ("SETUP_2", "SETUP_3"):
             t0 = time.perf_counter()
@@ -336,8 +483,7 @@ class Smoke:
         self.sync()
         t_sc = time.perf_counter() - t0
         wall = time.perf_counter() - t_start
-        self.launches = {"window_spread": win.window_spread.launches,
-                         "window_gather": win.window_gather.launches}
+        self.launches = self.read_launches("main")
         agree = self.spec.clustering_agreement(
             labels, res.assignments.cpu().numpy(), K_CLUSTERS)
         check(res.assignments.shape == (op_sc.n,), "clustering shape")
@@ -348,8 +494,207 @@ class Smoke:
             f"agreement with true arms {agree:.3f}")
         log(f"[main] wall {wall:.3f}s (ends in synchronize); launches "
             f"{self.launches}")
-        for kname, count in self.launches.items():
-            check(count > 0, f"{kname} never launched on the main path")
+        for kname in ("window_spread", "window_gather"):
+            check(self.launches[kname] > 0,
+                  f"{kname} never launched on the main path")
+
+    def phase_guard(self):
+        """Accuracy guard forced onto its direct floor, then eigsh on it."""
+        torch, g = self.torch, self.guards
+        pts, _ = self.spiral(N_GUARD, seed=0)
+        pts = torch.as_tensor(pts, device=self.dev)
+        policy = g.GuardPolicy(bound_tol=0.0, max_bandwidth=16,
+                               direct_threshold=N_GUARD)
+        self.sync()
+        self.reset_launches()
+        t0 = time.perf_counter()
+        adj, report = g.guarded_normalized_adjacency(
+            self.kernel, pts, self.fs.SETUP_1, policy=policy, device=self.dev)
+        res = self.lan.eigsh(adj.matvec, adj.n, K_EIG, device=self.dev)
+        self.sync()
+        wall = time.perf_counter() - t0
+        launches = self.read_launches("guard")
+        check(report.fallback == "direct" and report.ok,
+              f"guard did not settle on the direct floor: {report}")
+        lam_ref = torch.linalg.eigvalsh(
+            self.fs.dense_normalized_adjacency(self.kernel, pts)).flip(0)[:K_EIG]
+        err = float((res.eigenvalues - lam_ref).abs().max())
+        self.record["guard"] = {
+            "n": N_GUARD, "wall_s": wall, "matvecs": res.num_matvecs,
+            "attempts": [a.n_bandwidth for a in report.attempts],
+            "bounds": [a.bound for a in report.attempts],
+            "eig_err": err, "launches": launches}
+        log(f"[guard] spiral n={N_GUARD}: attempts N="
+            f"{[a.n_bandwidth for a in report.attempts]} (bounds "
+            f"{[f'{a.bound:.3g}' for a in report.attempts]}) -> "
+            f"{report.fallback}; eigsh k={K_EIG} {res.num_matvecs} matvecs, "
+            f"{wall:.3f}s wall (guard + eigsh, ends in synchronize)")
+        log(f"[guard] max eigenvalue error vs dense eigvalsh = {err:.3e} "
+            f"(tol {GUARD_EIG_TOL:g}); launches {launches}")
+        check(err <= GUARD_EIG_TOL, f"guard floor eigenvalues: {err:.3e}")
+        check(launches["kernel_matvec"] >= res.num_matvecs + 1,
+              f"guard floor: {launches['kernel_matvec']} kernel_matvec "
+              f"launches for {res.num_matvecs} matvecs + 1 degree matvec")
+
+    def phase_ssl(self):
+        """Kernel SSL (I + beta L_s) u = f by CG at n = 10^5, and the fast
+        operator's degrees against the exact direct sum."""
+        torch, ssl = self.torch, self.ssl
+        pts, labels = self.crescent(N_SSL, seed=0)
+        pts = torch.as_tensor(pts, device=self.dev)
+        kernel = self.make_kernel("gaussian", sigma=SSL_SIGMA)
+        params = self.fs.FastsumParams(n_bandwidth=128, m=3, eps_b=0.0)
+        self.sync()
+        self.reset_launches()
+        t0 = time.perf_counter()
+        op = self.fs.make_normalized_adjacency(kernel, pts, params,
+                                               device=self.dev)
+        f, _ = ssl.make_training_vector(
+            labels, SSL_SAMPLES, 2,
+            generator=torch.Generator(device=self.dev).manual_seed(0),
+            positive_class=1)
+        res = ssl.kernel_ssl_cg(op, f, SSL_BETA, tol=SSL_TOL,
+                                maxiter=SSL_MAXITER)
+        self.sync()
+        t_ssl = time.perf_counter() - t0
+        exact = self.fs.direct_matvec_tiled(
+            kernel, pts, torch.ones(N_SSL, dtype=pts.dtype, device=self.dev))
+        self.sync()
+        launches = self.read_launches("ssl")
+        resid = float(torch.linalg.vector_norm(
+            f - (res.u + SSL_BETA * op.laplacian_matvec(res.u))))
+        tol_abs = SSL_TOL * max(float(torch.linalg.vector_norm(f)), 1.0)
+        deg_rel = float((op.degrees - exact).abs().max() / exact.abs().max())
+        mis = float(((res.u > 0).cpu().numpy().astype("int32")
+                     != labels).mean())
+        # one operator application of CG, beside CG's time per iteration
+        matvec_ms = self.time_ms(lambda: op.laplacian_matvec(res.u), reps=20)
+        self.record["ssl"] = {
+            "n": N_SSL, "wall_s": t_ssl, "cg_iters": int(res.num_iters),
+            "converged": bool(res.converged), "residual": resid,
+            "tol_abs": tol_abs, "misclassification": mis,
+            "degree_rel_err": deg_rel, "matvec_ms": matvec_ms,
+            "launches": launches}
+        log(f"[ssl] crescent-fullmoon n={N_SSL} gaussian sigma={SSL_SIGMA} "
+            f"N=128 m=3, {SSL_SAMPLES}/class, beta={SSL_BETA:g}: "
+            f"{t_ssl:.3f}s (plan + CG, ends in synchronize), CG "
+            f"{int(res.num_iters)} iters, converged={bool(res.converged)}, "
+            f"true residual {resid:.3e} (tol {tol_abs:.3e}), "
+            f"misclassification {mis * 100:.2f}%; one Laplacian matvec "
+            f"{matvec_ms:.3f} ms (CUDA events)")
+        log(f"[ssl] fast vs exact degrees: rel {deg_rel:.3e} (JAX package "
+            f"{JAX_SSL_DEGREE_REL:.3e}, limit {10 * JAX_SSL_DEGREE_REL:.3e}); "
+            f"launches {launches}")
+        check(bool(res.converged) and resid <= tol_abs,
+              f"SSL CG: converged={bool(res.converged)} residual {resid:.3e}")
+        check(deg_rel <= 10 * JAX_SSL_DEGREE_REL,
+              f"SSL degrees vs exact: {deg_rel:.3e}")
+        check(launches["kernel_matvec"] > 0, "SSL: kernel_matvec not launched")
+
+    def phase_krr(self):
+        """KRR fit by CG at n = 10^4, fast prediction against the direct
+        kernel on 400 test points, for both of fig9's kernels."""
+        torch, krr = self.torch, self.krr
+        points, labels = self.crescent(N_KRR + N_KRR_TEST, seed=5)
+        xtr = torch.as_tensor(points[:N_KRR], device=self.dev)
+        ytr = torch.as_tensor(2.0 * labels[:N_KRR] - 1.0, device=self.dev)
+        xte = torch.as_tensor(points[N_KRR:], device=self.dev)
+        params = self.fs.FastsumParams(n_bandwidth=256, m=5, eps_b=None)
+        self.record["krr"] = {}
+        for kname, kern in (
+                ("gaussian", self.make_kernel("gaussian", sigma=2.0)),
+                ("inverse_multiquadric",
+                 self.make_kernel("inverse_multiquadric", c=2.0))):
+            self.sync()
+            self.reset_launches()
+            t0 = time.perf_counter()
+            model = krr.krr_fit(kern, xtr, ytr, KRR_BETA, params,
+                                tol=KRR_TOL, maxiter=KRR_MAXITER,
+                                device=self.dev)
+            self.sync()
+            t_fit = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            pred = krr.krr_predict(model, xte)
+            self.sync()
+            t_pred = time.perf_counter() - t0
+            many = krr.krr_predict_many(model, [xte[:100], xte[100:]])
+            t0 = time.perf_counter()
+            direct = krr.krr_predict_direct(model, xte)
+            self.sync()
+            t_direct = time.perf_counter() - t0
+            launches = self.read_launches(f"krr_{kname}")
+            gram = self.fs.make_fastsum(kern, xtr, params, device=self.dev)
+            resid = float(torch.linalg.vector_norm(
+                ytr - (gram.matvec_tilde(model.alpha)
+                       + KRR_BETA * model.alpha)))
+            tol_abs = KRR_TOL * max(float(torch.linalg.vector_norm(ytr)), 1.0)
+            rel = float((pred - direct).abs().max() / direct.abs().max())
+            many_gap = float((torch.cat(many) - pred).abs().max())
+            acc = float(((pred > 0).cpu().numpy() == (labels[N_KRR:] == 1))
+                        .mean())
+            # one Gram application of CG, beside CG's time per iteration
+            matvec_ms = self.time_ms(lambda: gram.matvec_tilde(model.alpha),
+                                     reps=20)
+            limit = 10 * JAX_KRR_PREDICT_REL[kname]
+            self.record["krr"][kname] = {
+                "n": N_KRR, "n_test": N_KRR_TEST, "fit_s": t_fit,
+                "predict_s": t_pred, "direct_s": t_direct,
+                "cg_iters": int(model.num_iters),
+                "converged": bool(model.converged), "residual": resid,
+                "tol_abs": tol_abs, "predict_rel_err": rel,
+                "jax_predict_rel_err": JAX_KRR_PREDICT_REL[kname],
+                "accuracy": acc, "matvec_ms": matvec_ms,
+                "launches": launches}
+            log(f"[krr] {kname} n={N_KRR} N=256 m=5 beta={KRR_BETA:g}: fit "
+                f"{t_fit:.3f}s, CG {int(model.num_iters)} iters, converged="
+                f"{bool(model.converged)}, true residual {resid:.3e} (tol "
+                f"{tol_abs:.3e}); predict {N_KRR_TEST} pts {t_pred:.4f}s, "
+                f"direct {t_direct:.4f}s; test accuracy {acc:.4f}; one Gram "
+                f"matvec {matvec_ms:.3f} ms (CUDA events)")
+            log(f"[krr] {kname} fast vs direct prediction: rel {rel:.3e} "
+                f"(JAX package {JAX_KRR_PREDICT_REL[kname]:.3e}, limit "
+                f"{limit:.3e}); predict_many gap {many_gap:.1e}; launches "
+                f"{launches}")
+            check(bool(model.converged) and resid <= tol_abs,
+                  f"KRR {kname} CG: converged={bool(model.converged)} "
+                  f"residual {resid:.3e}")
+            check(rel <= limit, f"KRR {kname} fast vs direct: {rel:.3e}")
+            check(many_gap <= 1e-12 * float(pred.abs().max()),
+                  f"KRR {kname} predict_many vs predict: {many_gap:.3e}")
+            check(launches["kernel_matvec"] > 0,
+                  f"KRR {kname}: kernel_matvec not launched")
+
+    def phase_direct(self):
+        """The paper's direct baseline at the main path's n = 10^5, d = 3,
+        against the fused matvec of both setups."""
+        torch = self.torch
+        pts, _ = self.spiral(N_MAIN, seed=0)
+        pts = torch.as_tensor(pts, device=self.dev)
+        x = torch.as_tensor(np.random.default_rng(0).normal(size=N_MAIN),
+                            device=self.dev)
+        self.sync()
+        self.reset_launches()
+        t0 = time.perf_counter()
+        exact = self.fs.direct_matvec_tiled(self.kernel, pts, x)
+        self.sync()
+        wall = time.perf_counter() - t0
+        launches = self.read_launches("direct")
+        row = {"n": N_MAIN, "wall_s": wall, "launches": launches}
+        for name in ("SETUP_2", "SETUP_3"):
+            op = self.fs.make_fastsum(self.kernel, pts, self.setup(name),
+                                      device=self.dev)
+            row[f"fused_rel_err_{name}"] = float(
+                (op.matvec(x) - exact).abs().max() / exact.abs().max())
+        self.record["direct"] = row
+        log(f"[direct] direct_matvec_tiled n={N_MAIN} d=3 float64: {wall:.4f}s "
+            f"(one call, ends in synchronize); launches {launches}")
+        check(bool(torch.isfinite(exact).all()), "direct: non-finite output")
+        for name, want in JAX_DIRECT_REL.items():
+            got = row[f"fused_rel_err_{name}"]
+            log(f"[direct] fused matvec {name} vs exact: rel {got:.3e} (JAX "
+                f"package {want:.3e}, limit {10 * want:.3e})")
+            check(got <= 10 * want, f"fused {name} vs exact: {got:.3e}")
+        check(launches["kernel_matvec"] == 1, "direct: kernel_matvec launches")
 
     def phase_times(self):
         torch, win = self.torch, self.win
@@ -394,9 +739,49 @@ class Smoke:
                             f"({by}, {flops / 1e9:.3f} GFLOP, "
                             f"{nbytes / 1e6:.1f} MB)  plain {plain_ms:.3f} ms "
                             "(no yardstick)  library: none")
+        self.time_kernel_matvec()
         for n, setup_name in ((N_MAIN, "SETUP_2"), (N_MAIN, "SETUP_3"),
                               (N_BIG, "SETUP_2")):
             self.time_matvec(n, setup_name)
+
+    def time_kernel_matvec(self):
+        """kernel_matvec at every checked shape but n = 8000 (that one only
+        for the guard path's Gaussian, d = 3, C = 1, float64)."""
+        torch, km = self.torch, self.km
+        for n_out, n_in, d, c, zd in self.km_shapes():
+            for dtype in (torch.float64, torch.float32):
+                dname = str(dtype).split(".")[1]
+                if n_in == KM_SQUARE_N[0] and (d, c, dname) != (3, 1,
+                                                                "float64"):
+                    continue
+                a, b, x = self.km_inputs(n_out, n_in, d, c, dtype)
+                for kname, param in KM_PROFILES:
+                    if n_in == KM_SQUARE_N[0] and kname != "gaussian":
+                        continue
+                    kw = dict(kernel_name=kname, param=param,
+                              zero_diagonal=zd)
+                    ms = self.time_ms(lambda: km.kernel_matvec(a, b, x, **kw),
+                                      reps=5, warmup=1)
+                    plain_ms = self.time_ms(
+                        lambda: km.kernel_matvec_plain(a, b, x, **kw),
+                        reps=1, warmup=1)
+                    bound_ms, by, flops, nbytes = self.km_bound(
+                        n_out, n_in, d, c, kname, dname, zd)
+                    row = {"kernel": "kernel_matvec", "profile": kname,
+                           "n_out": n_out, "n_in": n_in, "d": d, "c": c,
+                           "dtype": dname, "zero_diagonal": zd, "ms": ms,
+                           "plain_ms": plain_ms, "bound_ms": bound_ms,
+                           "bound_by": by, "flops": flops, "bytes": nbytes,
+                           "library_ms": None}
+                    self.record["times"].append(row)
+                    self.kernel_times[("kernel_matvec", n_out, n_in, d, c,
+                                       dname, kname)] = row
+                    log(f"[times] kernel_matvec {kname:20s} {n_out}x{n_in} "
+                        f"d={d} C={c} {dname}: {ms:.4f} ms  bound "
+                        f"{bound_ms:.4f} ms ({by}, {flops / 1e9:.2f} GFLOP, "
+                        f"{nbytes / 1e6:.2f} MB, {100 * bound_ms / ms:.1f}% "
+                        f"of bound)  plain {plain_ms:.3f} ms (no yardstick)  "
+                        "library: none")
 
     def time_matvec(self, n, setup_name):
         """Fused matvec at C = 1 and 4, its stages at C = 1, and eigsh."""
@@ -450,9 +835,9 @@ class Smoke:
         out = []
         for kname, line in (("spread", 51), ("gather", 108)):
             check_row = next(r for r in self.record["checks"]
-                             if (r["kernel"], r["setup"], r["d"], r["c"],
-                                 r["dtype"]) == (kname, setup_name, d, c,
-                                                 dname))
+                             if r["kernel"] == kname
+                             and (r["setup"], r["d"], r["c"], r["dtype"])
+                             == (setup_name, d, c, dname))
             t = self.kernel_times[(kname, setup_name, d, c, dname)]
             out.append({
                 "name": f"window_{kname}", "route": "cuda",
@@ -462,6 +847,22 @@ class Smoke:
                 "max_abs_err": check_row["max_abs_err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": None})
+        # kernel_matvec: its launches on all of this slice's paths
+        n, d, c, dname, kname = KM_RECORD
+        check_row = next(r for r in self.record["checks"]
+                         if r["kernel"] == "kernel_matvec"
+                         and (r["n_out"], r["n_in"], r["d"], r["c"],
+                              r["dtype"], r["profile"])
+                         == (n, n, d, c, dname, kname))
+        t = self.kernel_times[("kernel_matvec", n, n, d, c, dname, kname)]
+        out.append({
+            "name": "kernel_matvec", "route": "cuda", "source": KM_SOURCE,
+            "replaces": "src/repro/kernels/kernel_matvec.py:35",
+            "launches": sum(v["kernel_matvec"]
+                            for v in self.path_launches.values()),
+            "max_abs_err": check_row["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
         return out
 
 

@@ -2,8 +2,10 @@
 
 A second package beside the JAX reference ``repro``, with the same module
 names: ``core`` (kernels, regularization, NFFT plan, fused execution,
-fastsum operators, Lanczos), ``kernels`` (hand-written CUDA kernels for
-Hopper and their plain PyTorch versions), ``graph`` (spectral clustering)
-and ``data`` (synthetic point sets).  Entry points run on the CUDA card
-unless the caller asks for ``device="cpu"``.
+fastsum operators and the exact direct sum, Lanczos, CG/MINRES, the
+Lemma 3.1 error bound), ``kernels`` (hand-written CUDA kernels for Hopper
+and their plain PyTorch versions), ``graph`` (spectral clustering, kernel
+SSL, kernel ridge regression), ``runtime`` (accuracy guards) and ``data``
+(synthetic point sets).  Entry points run on the CUDA card unless the
+caller asks for ``device="cpu"``.
 """

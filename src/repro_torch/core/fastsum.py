@@ -1,10 +1,12 @@
 """NFFT-based fast summation — Algorithms 3.1 and 3.2 of the paper, in PyTorch.
 
-Counterpart of ``repro.core.fastsum`` for square operators (sources equal
-targets).  Algorithm 3.1 computes ``(W̃ x)_j = sum_i x_i K(v_j - v_i)``
-(diagonal ``K(0)``) in O(n); Algorithm 3.2 wraps it into the normalized
-adjacency ``A = D^{-1/2} W D^{-1/2}`` with ``W = W̃ - K(0) I`` and
-``D = diag(W 1)``, including the node rescaling by ``rho``.
+Counterpart of ``repro.core.fastsum``.  Algorithm 3.1 computes
+``(W̃ x)_j = sum_i x_i K(v_j - v_i)`` (diagonal ``K(0)``) in O(n), also
+from sources to separate targets; Algorithm 3.2 wraps it into the
+normalized adjacency ``A = D^{-1/2} W D^{-1/2}`` with ``W = W̃ - K(0) I``
+and ``D = diag(W 1)``, including the node rescaling by ``rho``.
+:func:`direct_matvec_tiled` is the exact O(n^2) direct method, on the
+card the hand-written kernel of :mod:`repro_torch.kernels.kernel_matvec`.
 
 Entry points run on the CUDA card unless the caller passes ``device``
 (see :mod:`repro_torch.device`).
@@ -24,6 +26,7 @@ from repro_torch.core.nfft import (
 )
 from repro_torch.core.regularization import kernel_fourier_coefficients
 from repro_torch.device import resolve_device
+from repro_torch.kernels.kernel_matvec import kernel_matvec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,10 +82,11 @@ def scale_nodes(points: torch.Tensor, eps_b: float):
 
 @dataclasses.dataclass
 class FastsumOperator:
-    """Algorithm 3.1 as a linear operator ``x -> W̃ x`` on one node set.
+    """Algorithm 3.1 as a linear operator ``x -> W̃ x`` (+ optional targets).
 
     Build with :func:`make_fastsum` (or :func:`fastsum_from_arrays`).
-    ``matvec`` maps (n,) or (n, C) real tensors to the same shape.
+    ``matvec_tilde`` maps (n_src,) or (n_src, C) real tensors to (n_tgt,)
+    or (n_tgt, C).
     """
 
     plan: NfftPlan
@@ -94,10 +98,17 @@ class FastsumOperator:
     src_window: WindowGeometry
     rho: float
     fs_params: FastsumParams
+    scaled_tgt: torch.Tensor | None = None  # (n_tgt, d); None: targets = sources
+    tgt_window: WindowGeometry | None = None
 
     @property
     def n_source(self) -> int:
         return self.scaled_src.shape[0]
+
+    @property
+    def n_target(self) -> int:
+        return self.n_source if self.scaled_tgt is None \
+            else self.scaled_tgt.shape[0]
 
     @property
     def device(self) -> torch.device:
@@ -105,13 +116,19 @@ class FastsumOperator:
 
     def matvec_tilde(self, x: torch.Tensor) -> torch.Tensor:
         """y = W̃ x (diagonal K(0) included)."""
+        tgt = self.src_window if self.tgt_window is None else self.tgt_window
         f = fastsum_exec.fused_matvec_tilde(
-            self.plan, self.multiplier_half, self.src_window,
-            self.src_window, x)
+            self.plan, self.multiplier_half, self.src_window, tgt, x)
         return f * self.output_scale
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """y = W x = (W̃ - K(0) I) x."""
+        """y = W x = (W̃ - K(0) I) x.  Requires src == tgt nodes."""
+        if self.scaled_tgt is not None:
+            raise ValueError(
+                "FastsumOperator.matvec subtracts the K(0) diagonal, which "
+                "is only defined when source and target nodes coincide; this "
+                "operator was built with target_points — use matvec_tilde "
+                "for rectangular kernel sums.")
         return self.matvec_tilde(x) - self.kernel_at_zero * x
 
     def degrees(self) -> torch.Tensor:
@@ -132,16 +149,27 @@ def _as_points(points, device) -> torch.Tensor:
 
 
 def make_fastsum(kernel: Kernel, points, params: FastsumParams, *,
+                 target_points=None,
                  device: str | torch.device | None = None) -> FastsumOperator:
     """Set up Algorithm 3.1 for ``points`` (n, d) in original coordinates.
 
     ``points`` (numpy or tensor) keep their float dtype; ``device``
-    defaults to ``cuda``.
+    defaults to ``cuda``.  With ``target_points`` (m, d) the operator sums
+    from ``points`` to them, and the *union* of both sets is rescaled into
+    the admissible ball.
     """
     pts = _as_points(points, device)
-    scaled, rho, _ = scale_nodes(pts, params.eps_b_eff)
+    if target_points is None:
+        scaled, rho, _ = scale_nodes(pts, params.eps_b_eff)
+        scaled_tgt = None
+    else:
+        tgt = _as_points(target_points, pts.device).to(pts.dtype)
+        both, rho, _ = scale_nodes(torch.cat([pts, tgt]), params.eps_b_eff)
+        scaled, scaled_tgt = both[:pts.shape[0]], both[pts.shape[0]:]
     plan = params.nfft_plan(pts.shape[1])
     window = build_window_geometry(plan, scaled)
+    tgt_window = None if scaled_tgt is None \
+        else build_window_geometry(plan, scaled_tgt)
     rescaled = kernel.rescaled(rho)
     b_hat = kernel_fourier_coefficients(rescaled, plan.d, params.n_bandwidth,
                                         params.p_eff, params.eps_b_eff,
@@ -153,7 +181,8 @@ def make_fastsum(kernel: Kernel, points, params: FastsumParams, *,
         plan=plan, b_hat=b_hat, scaled_src=scaled, output_scale=out_scale,
         kernel_at_zero=out_scale * rescaled.at_zero(),
         multiplier_half=fastsum_exec.fused_spectral_multiplier(plan, b_hat),
-        src_window=window, rho=rho, fs_params=params)
+        src_window=window, rho=rho, fs_params=params, scaled_tgt=scaled_tgt,
+        tgt_window=tgt_window)
 
 
 def fastsum_from_arrays(arrays: dict, params: FastsumParams, *,
@@ -201,12 +230,28 @@ class NormalizedAdjacencyOperator:
         scale = self.inv_sqrt_deg if x.ndim == 1 else self.inv_sqrt_deg[:, None]
         return scale * self.fastsum.matvec(scale * x)
 
+    def laplacian_matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """L_s x = x - A x."""
+        return x - self.matvec(x)
+
+    def stochastic_matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """P x = D^{-1} W x."""
+        inv_deg = self.inv_sqrt_deg ** 2
+        scale = inv_deg if x.ndim == 1 else inv_deg[:, None]
+        return scale * self.fastsum.matvec(x)
+
 
 def make_normalized_adjacency(kernel: Kernel, points, params: FastsumParams,
                               *, device: str | torch.device | None = None
                               ) -> NormalizedAdjacencyOperator:
     """Algorithm 3.2 on ``points`` (n, d); ``device`` defaults to ``cuda``."""
-    fs = make_fastsum(kernel, points, params, device=device)
+    return _normalized_adjacency_from(
+        make_fastsum(kernel, points, params, device=device))
+
+
+def _normalized_adjacency_from(fs) -> NormalizedAdjacencyOperator:
+    """Algorithm 3.2 over any operator with ``matvec`` and ``degrees``
+    (a :class:`FastsumOperator` or the guard's direct floor)."""
     deg = fs.degrees()
     # Lemma 3.1 needs the approximation error below the smallest degree;
     # clamp so D^{-1/2} stays real where it is not
@@ -233,3 +278,18 @@ def dense_normalized_adjacency(kernel: Kernel,
     w = dense_weight_matrix(kernel, points)
     inv_sqrt = 1.0 / torch.sqrt(w.sum(dim=1))
     return inv_sqrt[:, None] * w * inv_sqrt[None, :]
+
+
+def direct_matvec_tiled(kernel: Kernel, points: torch.Tensor,
+                        x: torch.Tensor) -> torch.Tensor:
+    """W x with zero diagonal, exact, in O(n^2) operations (the paper's
+    direct-method baseline); ``x`` (n,) or (n, C).
+
+    Never materializes W: on the card it is the hand-written kernel of
+    :func:`repro_torch.kernels.kernel_matvec.kernel_matvec`, on the CPU its
+    plain version in row tiles.  The profile is evaluated on r^2, so it
+    agrees with ``kernel.phi(r)`` to round-off.
+    """
+    (param,) = kernel.params.values()  # sigma or c
+    return kernel_matvec(points, points, x, kernel_name=kernel.name,
+                         param=param, zero_diagonal=True)

@@ -129,3 +129,28 @@ def kernel_fourier_coefficients(kernel: Kernel, d: int, n_bandwidth: int,
     radius = torch.sqrt(sum(g * g for g in grids))
     samples = profile(radius)
     return torch.fft.fftn(samples) / (n ** d)
+
+
+# points per chunk of trigonometric_eval: bounds the (points, N^d) phase
+# matrix at ~2^22 complex entries
+_TRIG_EVAL_ELEMS = 1 << 22
+
+
+def trigonometric_eval(b_hat: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Direct evaluation of ``K_RF(y) = sum_l b_hat[l] e^{2 pi i l.y}``.
+
+    Reference/oracle only — O(N^d) per point.  ``b_hat``: complex (N,)*d
+    in FFT order; ``y``: real (..., d).  Returns complex (...,).
+    """
+    d, n = b_hat.ndim, b_hat.shape[0]
+    freqs = torch.fft.fftfreq(n, d=1.0 / n, dtype=y.dtype, device=y.device)
+    grids = torch.meshgrid(*([freqs] * d), indexing="ij")
+    l = torch.stack([g.reshape(-1) for g in grids], dim=-1)  # (N^d, d)
+    coeffs = b_hat.reshape(-1)
+    flat = y.reshape(-1, d)
+    out = torch.empty((flat.shape[0],), dtype=coeffs.dtype, device=y.device)
+    step = max(1, _TRIG_EVAL_ELEMS // coeffs.shape[0])
+    for s in range(0, flat.shape[0], step):
+        phase = 2.0 * math.pi * (flat[s:s + step] @ l.T)
+        out[s:s + step] = torch.polar(torch.ones_like(phase), phase) @ coeffs
+    return out.reshape(y.shape[:-1])

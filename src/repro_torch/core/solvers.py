@@ -1,0 +1,274 @@
+"""Krylov linear solvers driven by fast matvecs (paper Sections 4, 6.2.3, 6.3).
+
+PyTorch counterpart of the forward solvers of ``repro.core.solvers``:
+Conjugate Gradients (Hestenes–Stiefel) and MINRES (Paige–Saunders), both
+matrix-free, for
+
+    (I + beta L_s) u = f        (kernel SSL, Eq. 6.4)
+    (K + beta I) alpha = f      (kernel ridge regression, Section 6.3).
+
+Batched right-hand sides ``b`` of shape (n, C) run C *independent*
+recurrences in lockstep: per-column step sizes, per-column tolerances
+(``tol * max(||b_c||, 1)``) and per-column masks that freeze a column once
+it converges while the others go on.  The matvec is applied once per
+iteration to the whole (n, C) block.
+
+Guards, as in the JAX package: a non-finite right-hand-side column is
+quarantined before the loop; a column whose iterate goes non-finite
+mid-solve reverts to its last finite iterate and is frozen; a column whose
+residual stops improving for ``stall_window`` iterations is frozen as
+stagnated.  Every solve recomputes the true residual ``||b - A x||`` per
+column at exit, so ``residual_norm`` / ``converged`` describe the returned
+iterate.
+
+A plain Python loop takes the place of ``lax.while_loop``; its "any column
+still active" test reads one boolean from the device per iteration.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+Matvec = Callable[[torch.Tensor], torch.Tensor]
+
+# A column "improves" only when its residual beats its best-so-far by this
+# relative margin; anything smaller feeds the stagnation counter.
+_STALL_RTOL = 1e-3
+
+
+class SolveHealth(NamedTuple):
+    """Per-column solver guard flags (shapes mirror ``converged``).
+
+    ``rhs_nonfinite``: the right-hand side (or ``x0``) held NaN/Inf; the
+    column was quarantined before the first iteration and ``x`` is 0 for
+    it.  ``nonfinite``: the iterate went non-finite mid-solve; ``x`` is the
+    last finite iterate.  ``stagnated``: the residual stopped improving for
+    ``stall_window`` iterations.  ``breakdown_iter``: the iteration at
+    which ``nonfinite`` tripped, -1 if never.
+    """
+
+    rhs_nonfinite: torch.Tensor
+    nonfinite: torch.Tensor
+    stagnated: torch.Tensor
+    breakdown_iter: torch.Tensor
+
+    @property
+    def any_fault(self) -> torch.Tensor:
+        return self.rhs_nonfinite | self.nonfinite | self.stagnated
+
+
+class SolveResult(NamedTuple):
+    x: torch.Tensor
+    num_iters: torch.Tensor
+    residual_norm: torch.Tensor
+    converged: torch.Tensor
+    health: SolveHealth | None = None
+
+
+def _col_norms(v: torch.Tensor) -> torch.Tensor:
+    """Per-column 2-norms of (n, C) -> (C,); complex-safe (|v|^2)."""
+    return torch.sqrt(torch.real(v * torch.conj(v)).sum(dim=0))
+
+
+def _col_dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Per-column <u, v> (conjugating, real part) of (n, C) -> (C,)."""
+    return torch.real((torch.conj(u) * v).sum(dim=0))
+
+
+def _as_columns(matvec: Matvec, b, x0, preconditioner):
+    """Normalize a (n,)- or (n, C)-shaped solve to the (n, C) layout."""
+    if b.ndim == 2:
+        return matvec, b, x0, preconditioner, True
+    mv = lambda u: matvec(u[:, 0])[:, None]
+    pc = None if preconditioner is None \
+        else (lambda u: preconditioner(u[:, 0])[:, None])
+    return mv, b[:, None], None if x0 is None else x0[:, None], pc, False
+
+
+def _validate_rhs(b: torch.Tensor, x0: torch.Tensor | None):
+    """Quarantine non-finite rhs / x0 columns before the loop: they get a
+    zero rhs (and start), so they never enter the active set."""
+    rhs_bad = ~torch.isfinite(b).all(dim=0)  # (C,)
+    if x0 is not None:
+        rhs_bad = rhs_bad | ~torch.isfinite(x0).all(dim=0)
+        x0 = torch.where(rhs_bad[None, :], 0.0, x0)
+    return rhs_bad, torch.where(rhs_bad[None, :], 0.0, b), x0
+
+
+def _finish(matvec: Matvec, b: torch.Tensor, x: torch.Tensor,
+            tol_abs: torch.Tensor, iters: torch.Tensor,
+            rhs_bad: torch.Tensor, poisoned: torch.Tensor,
+            stalled: torch.Tensor, bad_iter: torch.Tensor,
+            batched: bool) -> SolveResult:
+    """Shared exit: one more matvec for the true residual, and the health
+    flags.  Quarantined or non-finite columns report ``inf``."""
+    res = _col_norms(b - matvec(x))
+    res = torch.where(rhs_bad | ~torch.isfinite(res), torch.inf, res)
+    health = SolveHealth(rhs_nonfinite=rhs_bad, nonfinite=poisoned,
+                         stagnated=stalled, breakdown_iter=bad_iter)
+    out = SolveResult(x=x, num_iters=iters, residual_norm=res,
+                      converged=res <= tol_abs, health=health)
+    if batched:
+        return out
+    return SolveResult(x=out.x[:, 0], num_iters=out.num_iters[0],
+                       residual_norm=out.residual_norm[0],
+                       converged=out.converged[0],
+                       health=SolveHealth(*(f[0] for f in health)))
+
+
+class _Guard:
+    """Per-column freeze state shared by both solvers: non-finite revert
+    and stagnation over ``stall_window`` iterations."""
+
+    def __init__(self, resn0: torch.Tensor, stall_window: int):
+        dev = resn0.device
+        self.best = resn0
+        self.stall = torch.zeros(resn0.shape, dtype=torch.int32, device=dev)
+        self.poisoned = torch.zeros(resn0.shape, dtype=torch.bool, device=dev)
+        self.stalled = torch.zeros(resn0.shape, dtype=torch.bool, device=dev)
+        self.bad = torch.full(resn0.shape, -1, dtype=torch.int32, device=dev)
+        self.iters = torch.zeros(resn0.shape, dtype=torch.int32, device=dev)
+        self.window = stall_window
+
+    def trip(self, active: torch.Tensor, ok: torch.Tensor,
+             i: int) -> torch.Tensor:
+        """Columns that take this step: active and finite.  Active columns
+        whose step went non-finite are poisoned and keep their state."""
+        trip = active & ~ok
+        self.poisoned = self.poisoned | trip
+        self.bad = torch.where(trip & (self.bad < 0), i, self.bad)
+        self.iters = self.iters + active.to(torch.int32)
+        return active & ok
+
+    def record(self, resn: torch.Tensor, upd: torch.Tensor) -> None:
+        improved = resn < self.best * (1.0 - _STALL_RTOL)
+        self.best = torch.minimum(self.best, resn)
+        self.stall = torch.where(upd & ~improved, self.stall + 1, 0)
+        if self.window:
+            self.stalled = self.stalled | (self.stall >= self.window)
+
+    def frozen(self) -> torch.Tensor:
+        return self.poisoned | self.stalled
+
+
+def cg(matvec: Matvec, b: torch.Tensor, *, x0: torch.Tensor | None = None,
+       tol: float = 1e-8, maxiter: int = 1000,
+       preconditioner: Matvec | None = None,
+       stall_window: int = 250) -> SolveResult:
+    """Preconditioned conjugate gradients for SPD operators.
+
+    ``b`` (n,): scalar result fields.  ``b`` (n, C): per-column recurrences
+    in lockstep; ``x`` (n, C) and ``num_iters`` / ``residual_norm`` /
+    ``converged`` (C,).  ``stall_window`` > 0 freezes a column whose
+    residual fails to improve (by a relative 1e-3) for that many
+    consecutive iterations; 0 disables it.  Guard flags land in
+    ``result.health``.
+    """
+    matvec, b, x0, preconditioner, batched = _as_columns(
+        matvec, b, x0, preconditioner)
+    rhs_bad, b, x0 = _validate_rhs(b, x0)
+    if x0 is None:
+        x, r = torch.zeros_like(b), b  # r0 = b - A·0: no matvec
+    else:
+        x, r = x0, b - matvec(x0)
+    z = preconditioner(r) if preconditioner is not None else r
+    p = z
+    rz = _col_dot(r, z)
+    tol_abs = tol * torch.clamp(_col_norms(b), min=1.0)
+    guard = _Guard(_col_norms(r), stall_window)
+    for i in range(maxiter):
+        active = (_col_norms(r) > tol_abs) & ~guard.frozen()
+        if not bool(active.any()):
+            break
+        ap = matvec(p)
+        denom = _col_dot(p, ap)
+        alpha = rz / torch.where(denom != 0, denom, 1.0)
+        alpha = torch.where(active, alpha, 0.0)
+        x_new = x + alpha * p
+        r_new = r - alpha * ap
+        z_new = preconditioner(r_new) if preconditioner is not None else r_new
+        rz_new = _col_dot(r_new, z_new)
+        beta = torch.where(active, rz_new / torch.where(rz != 0, rz, 1.0), 0.0)
+        p_new = z_new + beta * p
+        ok = (torch.isfinite(x_new).all(dim=0)
+              & torch.isfinite(r_new).all(dim=0)
+              & torch.isfinite(p_new).all(dim=0))
+        upd = guard.trip(active, ok, i)
+        sel = lambda new, old: torch.where(upd[None, :], new, old)
+        x, r, z, p = sel(x_new, x), sel(r_new, r), sel(z_new, z), \
+            sel(p_new, p)
+        rz = torch.where(upd, rz_new, rz)
+        guard.record(_col_norms(r), upd)
+    return _finish(matvec, b, x, tol_abs, guard.iters, rhs_bad,
+                   guard.poisoned, guard.stalled, guard.bad, batched)
+
+
+def minres(matvec: Matvec, b: torch.Tensor, *,
+           x0: torch.Tensor | None = None, tol: float = 1e-8,
+           maxiter: int = 1000, stall_window: int = 250) -> SolveResult:
+    """MINRES for symmetric (possibly indefinite) operators.
+
+    Batched ``b`` (n, C) runs per-column Lanczos + Givens recurrences in
+    lockstep; a frozen column (converged, poisoned or stagnated) stops
+    updating its whole recurrence.  Guard flags land in ``result.health``;
+    ``stall_window=0`` disables stagnation detection.
+    """
+    matvec, b, x0, _, batched = _as_columns(matvec, b, x0, None)
+    rhs_bad, b, x0 = _validate_rhs(b, x0)
+    if x0 is None:
+        x, r = torch.zeros_like(b), b  # r0 = b - A·0 (matvec elided)
+    else:
+        x, r = x0, b - matvec(x0)
+    beta1 = _col_norms(r)
+    tol_abs = tol * torch.clamp(_col_norms(b), min=1.0)
+    dtype = b.dtype
+    eps = torch.finfo(dtype).tiny
+    v = r / torch.clamp(beta1, min=eps)
+    v_prev, w, w_prev = (torch.zeros_like(b) for _ in range(3))
+    phi_bar = beta1
+    delta1 = torch.zeros_like(beta1)
+    eps_k = torch.zeros_like(beta1)
+    cs = -torch.ones_like(beta1)
+    sn = torch.zeros_like(beta1)
+    beta = beta1
+    guard = _Guard(beta1, stall_window)  # stagnation on |phi_bar|
+    for i in range(maxiter):
+        active = (phi_bar.abs() > tol_abs) & ~guard.frozen()
+        if not bool(active.any()):
+            break
+        av = matvec(v)
+        alpha = _col_dot(v, av).to(dtype)
+        av = av - alpha * v - beta * v_prev
+        beta_new = _col_norms(av)
+        v_new = av / torch.clamp(beta_new, min=eps)
+        # previous rotation
+        delta2 = cs * delta1 + sn * alpha
+        gamma1 = sn * delta1 - cs * alpha
+        eps_next = sn * beta_new
+        delta1_next = -cs * beta_new
+        # new rotation
+        gamma2 = torch.clamp(torch.sqrt(gamma1 * gamma1 + beta_new * beta_new),
+                             min=eps)
+        cs_new = gamma1 / gamma2
+        sn_new = beta_new / gamma2
+        tau = cs_new * phi_bar
+        phi_bar_new = sn_new * phi_bar
+        w_new = (v - delta2 * w - eps_k * w_prev) / gamma2
+        x_new = x + tau * w_new
+        ok = (torch.isfinite(x_new).all(dim=0)
+              & torch.isfinite(v_new).all(dim=0)
+              & torch.isfinite(phi_bar_new))
+        upd = guard.trip(active, ok, i)
+        seln = lambda new, old: torch.where(upd[None, :], new, old)
+        selc = lambda new, old: torch.where(upd, new, old)
+        x, v, v_prev = seln(x_new, x), seln(v_new, v), seln(v, v_prev)
+        w, w_prev = seln(w_new, w), seln(w, w_prev)
+        phi_bar = selc(phi_bar_new, phi_bar)
+        delta1, eps_k = selc(delta1_next, delta1), selc(eps_next, eps_k)
+        cs, sn = selc(cs_new, cs), selc(sn_new, sn)
+        beta = selc(beta_new, beta)
+        guard.record(phi_bar.abs(), upd)
+    return _finish(matvec, b, x, tol_abs, guard.iters, rhs_bad,
+                   guard.poisoned, guard.stalled, guard.bad, batched)

@@ -1,11 +1,14 @@
 """Synthetic datasets of the paper's experiments (Section 6), numpy only.
 
-The port's own copy of ``spiral`` and ``gaussian_blobs``: the same seeds
-give the same points as the JAX package's generators.
+The port's own copy of ``spiral``, ``crescent_fullmoon`` and
+``gaussian_blobs``: the same seeds give the same points as the JAX
+package's generators.
 
-* spiral         — 3-D conical spiral with C arms (Fig. 2a), calibrated so
-                   that sigma = 3.5 reproduces the paper's three error tiers.
-* gaussian_blobs — C isotropic clusters (Section 6.2.2).
+* spiral            — 3-D conical spiral with C arms (Fig. 2a), calibrated
+                      so that sigma = 3.5 reproduces the paper's three
+                      error tiers.
+* crescent_fullmoon — 2-D crescent + full moon (Section 6.2.3, SSL/KRR).
+* gaussian_blobs    — C isotropic clusters (Section 6.2.2).
 """
 
 from __future__ import annotations
@@ -32,6 +35,34 @@ def spiral(n: int, n_classes: int = 5, h: float = 8.0, r: float = 2.0,
     points = np.concatenate(pts).astype(np.float64)
     labels = np.concatenate(labs)
     order = rng.permutation(points.shape[0])
+    return points[order], labels[order]
+
+
+def crescent_fullmoon(n: int, r1: float = 5.0, r2: float = 5.0,
+                      r3: float = 8.0,
+                      seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """2-D crescent + full moon (paper Section 6.2.3), 1-to-3 class ratio.
+
+    Class 0: disk of radius r1 at the origin (the "full moon"), n/4 points.
+    Class 1: half-annulus with radii (r2+r1, r3+r1) (the "crescent"), 3n/4.
+    """
+    rng = np.random.default_rng(seed)
+    n_moon = n // 4
+    n_cres = n - n_moon
+
+    ang = rng.uniform(0, 2 * np.pi, n_moon)
+    rad = r1 * np.sqrt(rng.uniform(0, 1, n_moon))
+    moon = np.stack([rad * np.cos(ang), rad * np.sin(ang)], -1)
+
+    inner, outer = r1 + r2, r1 + r3
+    ang_c = rng.uniform(np.pi, 2 * np.pi, n_cres)  # lower half-plane arc
+    rad_c = np.sqrt(rng.uniform(inner ** 2, outer ** 2, n_cres))
+    cres = np.stack([rad_c * np.cos(ang_c), rad_c * np.sin(ang_c) + r1], -1)
+
+    points = np.concatenate([moon, cres]).astype(np.float64)
+    labels = np.concatenate([np.zeros(n_moon, np.int32),
+                             np.ones(n_cres, np.int32)])
+    order = rng.permutation(n)
     return points[order], labels[order]
 
 

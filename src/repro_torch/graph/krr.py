@@ -1,0 +1,195 @@
+"""Kernel ridge regression with NFFT-accelerated Gram matvecs (Section 6.3).
+
+PyTorch counterpart of the fit/predict part of ``repro.graph.krr``.  Dual
+solve:  alpha = (K + beta I)^{-1} f  by CG, where the Gram matrix
+K_ij = K(x_i - x_j) (*with* diagonal K(0), unlike the graph weight matrix)
+is applied by Algorithm 3.1.  Prediction at new points x uses the
+separate-target fast summation  F(x) = sum_i alpha_i K(x_i - x);
+:func:`krr_predict_direct` is the exact O(n m) oracle, on the card the
+hand-written direct-sum kernel.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import threading
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.fastsum import (
+    FastsumOperator, FastsumParams, _as_points, make_fastsum,
+)
+from repro_torch.core.kernels import Kernel
+from repro_torch.core.solvers import cg
+from repro_torch.kernels.kernel_matvec import kernel_matvec
+
+# serving cache capacity: how many target sets a model keeps planned
+# operators for (a validation set and a live set alternating both stay)
+PRED_CACHE_SLOTS = 4
+
+
+def points_fingerprint(arr) -> tuple:
+    """Content key for a point set: (shape, dtype, sha1 of the raw bytes).
+
+    Cache lookups key on content, not object identity, so a round-tripped
+    copy of a resident target set is a hit.  Tensors on the card are
+    copied to the host to be hashed.
+    """
+    if isinstance(arr, torch.Tensor):
+        arr = arr.detach().cpu().numpy()
+    a = np.ascontiguousarray(np.asarray(arr))
+    return (a.shape, a.dtype.str, hashlib.sha1(a.tobytes()).digest())
+
+
+class KRRModel(NamedTuple):
+    alpha: torch.Tensor
+    train_points: torch.Tensor
+    kernel: Kernel
+    params: FastsumParams
+    num_iters: torch.Tensor
+    converged: torch.Tensor
+    # keyed LRU of the last PRED_CACHE_SLOTS target sets' operators;
+    # mutable on purpose (shared by every _replace copy of the model), and
+    # only touched under the lock stored inside it (_pred_cache_lock)
+    pred_cache: dict | None = None
+
+
+def krr_fit(kernel: Kernel, points, f, beta: float, params: FastsumParams,
+            *, tol: float = 1e-8, maxiter: int = 1000,
+            device: str | torch.device | None = None) -> KRRModel:
+    """Fit the dual variable alpha = (K + beta I)^{-1} f via CG.
+
+    ``device`` defaults to ``cuda``."""
+    pts = _as_points(points, device)
+    f = torch.as_tensor(f, device=pts.device)
+    gram = make_fastsum(kernel, pts, params, device=pts.device)
+
+    def matvec(x):
+        # Gram matrix = W̃ (diagonal K(0) kept)
+        return gram.matvec_tilde(x) + beta * x
+
+    sol = cg(matvec, f, tol=tol, maxiter=maxiter)
+    return KRRModel(alpha=sol.x, train_points=pts, kernel=kernel,
+                    params=params, num_iters=sol.num_iters,
+                    converged=sol.converged, pred_cache={})
+
+
+def _pred_cache_lock(cache: dict) -> threading.Lock:
+    """The cache's lock, created on first use (``dict.setdefault`` is atomic
+    under the GIL, so concurrent first calls agree on one lock)."""
+    lock = cache.get("lock")
+    if lock is None:
+        lock = cache.setdefault("lock", threading.Lock())
+    return lock
+
+
+def krr_pred_cache_stats(model: KRRModel) -> dict:
+    """Snapshot of the prediction-cache counters: hits / misses / plans."""
+    cache = model.pred_cache
+    if cache is None:
+        return {"hits": 0, "misses": 0, "plans": 0, "resident": 0}
+    with _pred_cache_lock(cache):
+        return {"hits": cache.get("hits", 0),
+                "misses": cache.get("misses", 0),
+                "plans": cache.get("plans", 0),
+                "resident": len(cache.get("targets", []))}
+
+
+def krr_prediction_operator(model: KRRModel, new_points, *,
+                            cache_key=None) -> FastsumOperator:
+    """Plan-once prediction operator for ``new_points``.
+
+    Operators are cached on the model in a keyed LRU of
+    :data:`PRED_CACHE_SLOTS` entries.  The key is the content of the target
+    and training points plus the kernel's name and parameter and the
+    params; a caller that knows its target set's identity may pass
+    ``cache_key`` instead of having the targets hashed (equal keys must
+    then mean equal content).
+    """
+    cache = model.pred_cache
+    key = (cache_key if cache_key is not None
+           else points_fingerprint(new_points),
+           points_fingerprint(model.train_points), model.kernel.name,
+           tuple(sorted(model.kernel.params.items())), model.params)
+    if cache is not None:
+        with _pred_cache_lock(cache):
+            entries = cache.setdefault("targets", [])
+            for i, (ek, op) in enumerate(entries):
+                if ek == key:
+                    if i:  # move to front (most recently used)
+                        entries.insert(0, entries.pop(i))
+                    cache["hits"] = cache.get("hits", 0) + 1
+                    return op
+            cache["misses"] = cache.get("misses", 0) + 1
+    # plan outside the lock: planning is the expensive part
+    op = make_fastsum(model.kernel, model.train_points, model.params,
+                      target_points=new_points,
+                      device=model.train_points.device)
+    if cache is not None:
+        with _pred_cache_lock(cache):
+            cache["plans"] = cache.get("plans", 0) + 1
+            entries = cache.setdefault("targets", [])
+            if not any(ek == key for ek, _ in entries):  # racing builder won
+                entries.insert(0, (key, op))
+                del entries[PRED_CACHE_SLOTS:]
+    return op
+
+
+def krr_predict(model: KRRModel, new_points, *, op=None,
+                cache_key=None) -> torch.Tensor:
+    """F(x) = sum_i alpha_i K(x_i - x) via separate-target fast summation
+    (the operator is planned once per target set and cached on the model;
+    pass a prebuilt ``op`` to manage caching yourself)."""
+    if op is None:
+        op = krr_prediction_operator(model, new_points, cache_key=cache_key)
+    return op.matvec_tilde(model.alpha)
+
+
+def krr_predict_many(model: KRRModel, queries: Sequence,
+                     rhs: Sequence | None = None, *,
+                     cache_key=None) -> list:
+    """Many query sets through ONE plan application.
+
+    Packs the query sets into one target set, dedupes the per-request dual
+    vectors into channel columns (``rhs[i] is None`` means the model's own
+    ``alpha``), runs one multi-RHS ``matvec_tilde`` and splits the rows
+    back per request.
+    """
+    dev = model.train_points.device
+    queries = [torch.as_tensor(q, device=dev) for q in queries]
+    if rhs is None:
+        rhs = [None] * len(queries)
+    if len(rhs) != len(queries):
+        raise ValueError(f"got {len(queries)} query sets but {len(rhs)} rhs")
+    op = krr_prediction_operator(model, torch.cat(queries),
+                                 cache_key=cache_key)
+    cols, col_of_req, col_ids = [], [], {}
+    for r in rhs:
+        cid = "alpha" if r is None else points_fingerprint(r)
+        if cid not in col_ids:
+            col_ids[cid] = len(cols)
+            cols.append(model.alpha if r is None
+                        else torch.as_tensor(r, device=dev))
+        col_of_req.append(col_ids[cid])
+    if len(cols) == 1:
+        out = op.matvec_tilde(cols[0])[:, None]
+    else:
+        out = op.matvec_tilde(torch.stack(cols, dim=1))
+    results, row = [], 0
+    for q, c in zip(queries, col_of_req):
+        results.append(out[row:row + q.shape[0], c])
+        row += q.shape[0]
+    return results
+
+
+def krr_predict_direct(model: KRRModel, new_points) -> torch.Tensor:
+    """Exact O(n m) prediction (the oracle): the rectangular direct sum
+    with no zero diagonal, on the card the hand-written kernel."""
+    pts = torch.as_tensor(new_points, device=model.train_points.device,
+                          dtype=model.train_points.dtype)
+    (param,) = model.kernel.params.values()  # sigma or c
+    return kernel_matvec(pts, model.train_points, model.alpha,
+                         kernel_name=model.kernel.name, param=param,
+                         zero_diagonal=False)

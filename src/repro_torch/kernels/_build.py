@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
-The library is compiled at first use from the sources under ``csrc/`` for
-``sm_90a`` with a plain C interface, so no PyTorch headers are involved and
-the build takes seconds.  It lands in ``build/repro_torch_kernels/`` at the
-root of the checkout (an installed package uses
-``repro_torch_kernels/`` under ``$XDG_CACHE_HOME`` or ``~/.cache``), named by a hash of the sources and flags, so a stale
-library is never loaded.  Nothing here runs at import time.
+Each source under ``csrc/`` is compiled at first use for ``sm_90a`` into a
+shared library of its own, with a plain C interface, so no PyTorch headers
+are involved; the ``nvcc`` processes of all sources run at the same time.
+The libraries land in ``build/repro_torch_kernels/`` at the root of the
+checkout (an installed package uses ``repro_torch_kernels/`` under
+``$XDG_CACHE_HOME`` or ``~/.cache``), each named by a hash of its source and
+the flags, so a stale library is never loaded.  Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("nfft_window.cu",)
+SOURCES = ("nfft_window.cu", "kernel_matvec.cu")
 _PACKAGE = Path(__file__).resolve().parents[1]
 
 
@@ -41,10 +43,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _PTR = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
-# (grid|x, base, weights, out|grid, n, d, taps, c, P, stream)
-_WINDOW_ARGTYPES = [_PTR, _PTR, _PTR, _PTR, _I64, _I32, _I32, _I32, _I64, _PTR]
-ENTRY_POINTS = ("repro_window_spread_f64", "repro_window_spread_f32",
-                "repro_window_gather_f64", "repro_window_gather_f32")
+# source -> (argtypes shared by its entry points, entry points)
+ENTRY_POINTS = {
+    # (grid|x, base, weights, out|grid, n, d, taps, c, P, stream)
+    "nfft_window.cu": (
+        [_PTR, _PTR, _PTR, _PTR, _I64, _I32, _I32, _I32, _I64, _PTR],
+        ("repro_window_spread_f64", "repro_window_spread_f32",
+         "repro_window_gather_f64", "repro_window_gather_f32")),
+    # (a, b, x, y, n_out, n_in, d, c, profile, param, zero_diagonal, stream)
+    "kernel_matvec.cu": (
+        [_PTR, _PTR, _PTR, _PTR, _I64, _I64, _I32, _I32, _I32,
+         ctypes.c_double, _I32, _PTR],
+        ("repro_kernel_matvec_f64", "repro_kernel_matvec_f32")),
+}
 
 
 def _nvcc() -> str:
@@ -59,51 +70,64 @@ def _nvcc() -> str:
                        "CUDA kernels are built on the machine with the card")
 
 
-def _digest() -> str:
+def _stem(source: str) -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    h.update(source.encode())
+    h.update((CSRC / source).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return h.hexdigest()[:16]
+    return f"lib{Path(source).stem}_{h.hexdigest()[:16]}"
 
 
 @functools.lru_cache(maxsize=None)
 def build() -> dict:
-    """Compile the kernels if no library for these sources exists yet.
+    """Compile every source that has no library yet, all at once.
 
-    Returns ``{"path", "seconds", "log"}``: the library, the build's wall
-    time (0 when it was already built), and nvcc's ``-Xptxas -v`` report.
+    Returns ``{source: {"path", "seconds", "log"}}``: the library, its
+    build's wall time (0 when it was already built), and nvcc's
+    ``-Xptxas -v`` report.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    stem = f"libreprotorch_{_digest()}"
-    lib, log = BUILD_DIR / f"{stem}.so", BUILD_DIR / f"{stem}.log"
-    if lib.exists():
-        return {"path": lib, "seconds": 0.0,
-                "log": log.read_text() if log.exists() else ""}
-    # build under a unique name, then rename: a concurrent loader never
-    # sees a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    log.write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return {"path": lib, "seconds": seconds, "log": proc.stdout + proc.stderr}
+    out, running = {}, []
+    for source in SOURCES:
+        stem = _stem(source)
+        lib, log = BUILD_DIR / f"{stem}.so", BUILD_DIR / f"{stem}.log"
+        if lib.exists():
+            out[source] = {"path": lib, "seconds": 0.0,
+                           "log": log.read_text() if log.exists() else ""}
+            continue
+        # build under a unique name, then rename: a concurrent loader never
+        # sees a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running.append((source, lib, log, tmp, cmd, proc, time.perf_counter()))
+    failures = []
+    for source, lib, log, tmp, cmd, proc, t0 in running:
+        text, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failures.append(f"nvcc failed ({proc.returncode}):\n"
+                            f"{' '.join(cmd)}\n{text}")
+            continue
+        log.write_text(text)
+        os.replace(tmp, lib)
+        out[source] = {"path": lib, "seconds": seconds, "log": text}
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return out
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """The built kernel library, with every entry point's signature set."""
-    lib = ctypes.CDLL(str(build()["path"]))
-    for name in ENTRY_POINTS:
+def load_library(source: str) -> ctypes.CDLL:
+    """The built library of ``source``, with every entry point's signature
+    set."""
+    argtypes, names = ENTRY_POINTS[source]
+    lib = ctypes.CDLL(str(build()[source]["path"]))
+    for name in names:
         fn = getattr(lib, name)
-        fn.argtypes = _WINDOW_ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib

@@ -60,7 +60,7 @@ def _launch(entry: str, args, device: torch.device) -> None:
     for t in args[:4]:
         if not t.is_contiguous():
             raise ValueError("the CUDA window kernels need contiguous tensors")
-    fn = getattr(_build.load_library(), entry)
+    fn = getattr(_build.load_library("nfft_window.cu"), entry)
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = fn(*(t.data_ptr() for t in args[:4]), *args[4:], stream)
     if rc != 0:

@@ -1,4 +1,4 @@
-"""The CUDA window kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 Marked ``gpu``; each test skips (inside the ``cuda`` fixture) when no card
 is present.  Run on a machine with an H100:
@@ -6,7 +6,9 @@ is present.  Run on a machine with an H100:
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
 Tolerances, relative to the largest output entry: spread 1e-12 (f64) /
-1e-4 (f32), since its atomics add in a varying order; gather 1e-13 / 1e-5.
+1e-4 (f32), since its atomics add in a varying order; gather 1e-13 / 1e-5;
+kernel_matvec 1e-12 / 1e-4 (its sums run in another order than the plain
+version's matrix product, and float32 exp/sqrt differ by an ulp or two).
 """
 
 import numpy as np
@@ -17,7 +19,10 @@ from repro_torch.core import fastsum as tfs
 from repro_torch.core.kernels import make_kernel
 from repro_torch.core.nfft import build_window_geometry, padded_grid_size
 from repro_torch.data.synthetic import spiral
+from repro_torch.graph import krr as tkrr
+from repro_torch.kernels import kernel_matvec as tkm
 from repro_torch.kernels import nfft_window as twin
+from repro_torch.runtime import guards as tguards
 
 pytestmark = pytest.mark.gpu
 
@@ -91,3 +96,64 @@ def test_matvec_on_card_matches_cpu(cuda):
     got = on_card.matvec(torch.as_tensor(x, device=cuda)).cpu()
     want = on_cpu.matvec(torch.as_tensor(x))
     assert _rel(got, want) <= 1e-12
+
+
+KM_TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
+PROFILES = [("gaussian", 2.0), ("laplacian_rbf", 0.7), ("multiquadric", 1.0),
+            ("inverse_multiquadric", 1.0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("zero_diagonal", [True, False])
+@pytest.mark.parametrize("n_out,n_in,d,c", [(1000, 1000, 3, 1),
+                                            (777, 1301, 2, 4),
+                                            (129, 65, 1, 3),
+                                            (300, 500, 5, 9)])
+@pytest.mark.parametrize("kname,param", PROFILES)
+def test_kernel_matvec_matches_plain(cuda, kname, param, n_out, n_in, d, c,
+                                     zero_diagonal, dtype):
+    rng = np.random.default_rng(n_out + d)
+    a = torch.as_tensor(rng.normal(size=(n_out, d)), dtype=dtype, device=cuda)
+    b = torch.as_tensor(rng.normal(size=(n_in, d)), dtype=dtype, device=cuda)
+    x = torch.as_tensor(rng.normal(size=(n_in, c)), dtype=dtype, device=cuda)
+    kw = dict(kernel_name=kname, param=param, zero_diagonal=zero_diagonal)
+    launches = tkm.kernel_matvec.launches
+    got = tkm.kernel_matvec(a, b, x, **kw)
+    again = tkm.kernel_matvec(a, b, x, **kw)
+    torch.cuda.synchronize()
+    assert tkm.kernel_matvec.launches == launches + 2
+    assert torch.equal(got, again)  # fixed summation order
+    assert _rel(got, tkm.kernel_matvec_plain(a, b, x, **kw)) <= KM_TOL[dtype]
+
+
+def test_direct_operators_on_card_match_cpu(cuda):
+    pts, _ = spiral(1500, seed=4)
+    kern = make_kernel("gaussian", sigma=3.5)
+    x = np.random.default_rng(1).normal(size=(1500, 2))
+    got = tfs.direct_matvec_tiled(kern, torch.as_tensor(pts, device=cuda),
+                                  torch.as_tensor(x, device=cuda)).cpu()
+    want = tfs.direct_matvec_tiled(kern, torch.as_tensor(pts),
+                                   torch.as_tensor(x))
+    assert _rel(got, want) <= 1e-12
+    adj, report = tguards.guarded_normalized_adjacency(
+        kern, pts, tfs.SETUP_1,
+        policy=tguards.GuardPolicy(bound_tol=0.0, max_bandwidth=16,
+                                   direct_threshold=1500), device=cuda)
+    assert report.fallback == "direct"
+    dense = tfs.dense_normalized_adjacency(kern, torch.as_tensor(pts))
+    got = adj.matvec(torch.as_tensor(x, device=cuda)).cpu()
+    assert _rel(got, dense @ torch.as_tensor(x)) <= 1e-12
+
+
+def test_krr_predict_direct_on_card_matches_cpu(cuda):
+    rng = np.random.default_rng(2)
+    pts, tgt = rng.normal(size=(800, 2)), rng.normal(size=(90, 2))
+    alpha = rng.normal(size=800)
+    kern = make_kernel("inverse_multiquadric", c=2.0)
+    model = {dev: tkrr.KRRModel(torch.as_tensor(alpha, device=dev),
+                                torch.as_tensor(pts, device=dev), kern,
+                                tfs.SETUP_2, None, None)
+             for dev in (cuda, torch.device("cpu"))}
+    got = tkrr.krr_predict_direct(model[cuda], tgt).cpu()
+    assert _rel(got, tkrr.krr_predict_direct(model[torch.device("cpu")],
+                                             tgt)) <= 1e-12

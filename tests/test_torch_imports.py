@@ -9,6 +9,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
+# every module of the port; the walk below must find each of them
+MODULES = ("core.kernels", "core.regularization", "core.nfft",
+           "core.fastsum_exec", "core.fastsum", "core.lanczos", "core.error",
+           "core.solvers", "kernels._build", "kernels.nfft_window",
+           "kernels.kernel_matvec", "graph.spectral", "graph.ssl",
+           "graph.krr", "runtime.guards", "data.synthetic", "device",
+           "quickstart", "ssl_crescent")
 
 
 def _imported_roots(path: Path) -> set:
@@ -24,9 +31,13 @@ def _imported_roots(path: Path) -> set:
 def test_importing_the_port_loads_no_jax_and_no_reference():
     code = (
         "import pkgutil, sys\n"
-        "import repro_torch, repro_torch.quickstart\n"
+        "import repro_torch\n"
+        "found = set()\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    __import__(m.name)\n"
+        "    found.add(m.name)\n"
+        f"missing = {{'repro_torch.' + m for m in {MODULES!r}}} - found\n"
+        "assert not missing, missing\n"
         "bad = sorted(m for m in sys.modules\n"
         f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"

@@ -10,10 +10,18 @@ paths' shapes.  Then the paths of the exact direct sum (``kernel_matvec``):
 the accuracy guard's direct floor under ``eigsh`` (spiral n = 8,000), kernel
 SSL on crescent-fullmoon at n = 100,000 (paper Section 6.2.3), kernel ridge
 regression at n = 10,000 with fast and direct prediction (Section 6.3), and
-one direct matvec at n = 10^5.  Each path starts with every launch count at
-0 and must launch its kernels.  Last it times the kernels beside their
-roofline bounds and the fused matvec at n = 10^5 and 10^6.  Any failed
-check raises, so the run exits non-zero and prints no result line.
+one direct matvec at n = 10^5.  Then the LM serving path: the flash
+attention kernel against its plain version (the JAX kernel tests' shapes,
+bf16 at the granite-3-2b shape up to one layer at its 32,768-token prefill
+length, decode alignment), and granite-3-2b at full width and depth (40
+layers, bf16, seeded random weights) served by ``ServeEngine``: every
+prefill must launch the flash kernel once per layer, every logit must be
+finite, and in float32 the engine's tokens must equal a manual
+prefill+decode loop's.  Each path starts with every launch count at 0 and
+must launch its kernels.  Last it times the kernels beside their roofline
+bounds (and flash attention beside PyTorch's SDPA), the fused matvec at
+n = 10^5 and 10^6, prefill and decode.  Any failed check raises, so the
+run exits non-zero and prints no result line.
 
     python3 chip_smoke.py [--json PATH]
 
@@ -26,6 +34,7 @@ repository checkout around this file; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
 import subprocess
@@ -39,11 +48,15 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 CU_SOURCE = "src/repro_torch/kernels/csrc/nfft_window.cu"
 KM_SOURCE = "src/repro_torch/kernels/csrc/kernel_matvec.cu"
+FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and the peaks outside the tensor
 # cores (the window kernels issue plain FP64/FP32 FMAs).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
+# ... and the bf16 dense tensor-core peak: the bound of attention, whatever
+# units a kernel uses
+PEAK_BF16_TENSOR = 989e12
 
 N_MAIN = 100_000
 N_BIG = 1_000_000
@@ -100,6 +113,36 @@ JAX_KRR_PREDICT_REL = {"gaussian": 1.899438831679044e-07,
 JAX_DIRECT_REL = {"SETUP_2": 1.7666062474585884e-07,
                   "SETUP_3": 1.7613001593982948e-13}
 
+# flash attention vs plain, (atol, rtol): elementwise |k - p| <= atol +
+# rtol |p|.  float32: the JAX kernel tests' 2e-5 absolute
+# (tests/test_kernels_pallas.py).  bfloat16: both sides sum in float32 and
+# round once, so they differ by at most one bf16 ulp (<= 2^-7 |p|); the
+# limit allows two.  (The JAX tests' bf16 limit, 5e-2 absolute, is about
+# the size of an output row that sees ~1000 random keys.)
+FLASH_TOL = {"float32": (2e-5, 0.0), "bfloat16": (2e-5, 2.0 ** -6)}
+# the JAX sweep (b, hq, hkv, sq, sk, dh), causal and not, float32
+FLASH_SWEEP = ((2, 4, 2, 128, 128, 64), (1, 8, 1, 100, 100, 64),
+               (1, 2, 2, 64, 192, 32), (1, 16, 8, 96, 96, 128))
+# prompt lengths of the serve path (1000 is a ragged 64-row tile), the
+# decode cache length, and the config's own prefill length (PREFILL_32K,
+# its batch of 32 cut to 1)
+FLASH_LENGTHS = (512, 1000, 2048)
+FLASH_DECODE_SK = 4096
+FLASH_LAYER_S = 32768
+# the served model and the engine (the record's flash timing is at 2048)
+SERVE_ARCH = "granite-3-2b"
+SERVE_SEED = 0
+SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_REQUESTS, SERVE_NEW = 4, 4096, 8, 32
+# float32 engine-vs-manual check: stop a request's comparison at the first
+# step whose top-2 margin is under this share of the top logit (a near tie)
+SERVE_MARGIN = 1e-3
+# prefill, flash vs einsum attention, relative to the largest |logit|.
+# bf16: the einsum path rounds logits and probabilities to bf16, the kernel
+# keeps them in float32, over 40 layers.  float32 (TF32 off): only the
+# order of the sums differs.
+SERVE_FLASH_VS_EINSUM = {"bfloat16": 5e-2, "float32": 1e-4}
+TICKS_TIMED = 32
+
 
 def log(msg: str = "") -> None:
     print(msg, flush=True)
@@ -146,9 +189,15 @@ class Smoke:
         from repro_torch.data.synthetic import crescent_fullmoon, spiral
         from repro_torch.graph import krr, spectral, ssl
         from repro_torch.kernels import _build, kernel_matvec, nfft_window
+        from repro_torch.configs import get_config
+        from repro_torch.kernels import flash_attention
+        from repro_torch.models import model as lm
         from repro_torch.runtime import guards
+        from repro_torch.serving.engine import Request, ServeEngine
 
         self.torch = torch
+        self.fa, self.lm, self.get_config = flash_attention, lm, get_config
+        self.Request, self.ServeEngine = Request, ServeEngine
         self.fs, self.lan, self.spec = fastsum, lanczos, spectral
         self.exec = fastsum_exec
         self.spiral = spiral
@@ -190,11 +239,13 @@ class Smoke:
         self.win.window_spread.launches = 0
         self.win.window_gather.launches = 0
         self.km.kernel_matvec.launches = 0
+        self.fa.flash_attention.launches = 0
 
     def read_launches(self, path: str) -> dict:
         counts = {"window_spread": self.win.window_spread.launches,
                   "window_gather": self.win.window_gather.launches,
-                  "kernel_matvec": self.km.kernel_matvec.launches}
+                  "kernel_matvec": self.km.kernel_matvec.launches,
+                  "flash_attention": self.fa.flash_attention.launches}
         self.path_launches[path] = counts
         return counts
 
@@ -238,6 +289,45 @@ class Smoke:
                     yield n, n, d, c, True
         yield KM_RECT[0], KM_RECT[1], 2, 1, False
 
+    @staticmethod
+    def flash_bound(b, hq, hkv, sq, sk, dh, causal, itemsize):
+        """(ms, bound_by, flops, bytes) of the card's least time for one
+        attention forward: 4 dh flops per visible (query, key) pair (QK^T
+        and PV), over the bf16 dense tensor-core peak; q, k, v read once and
+        o written once."""
+        if causal:  # row t sees keys [0, t + sk - sq], clipped to [0, sk)
+            rows = np.arange(sq)
+            pairs = int(np.clip(rows + (sk - sq) + 1, 0, sk).sum())
+        else:
+            pairs = sq * sk
+        flops = 4 * b * hq * dh * pairs
+        nbytes = itemsize * (2 * b * hq * sq * dh + 2 * b * hkv * sk * dh)
+        t_ops = flops / PEAK_BF16_TENSOR * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+                else "bytes", flops, nbytes)
+
+    def flash_inputs(self, b, hq, hkv, sq, sk, dh, dtype, seed):
+        torch = self.torch
+        gen = torch.Generator(device=self.dev).manual_seed(seed)
+        return [torch.randn(shape, generator=gen, device=self.dev).to(dtype)
+                for shape in ((b, hq, sq, dh), (b, hkv, sk, dh),
+                              (b, hkv, sk, dh))]
+
+    def flash_shapes(self):
+        """(label, (b, hq, hkv, sq, sk, dh), causal, dtype name) of every
+        flash attention check."""
+        for shape in FLASH_SWEEP:
+            for causal in (False, True):
+                yield "sweep", shape, causal, "float32"
+        for s in FLASH_LENGTHS:
+            for dname in ("float32", "bfloat16"):
+                yield "granite", (1, 32, 8, s, s, 64), True, dname
+        for dname in ("float32", "bfloat16"):
+            yield "decode", (1, 32, 8, 1, FLASH_DECODE_SK, 64), True, dname
+        yield ("layer", (1, 32, 8, FLASH_LAYER_S, FLASH_LAYER_S, 64), True,
+               "bfloat16")
+
     def geometry(self, setup_name, d, n, dtype):
         """Main-path window geometry: spiral nodes (first d coordinates)."""
         pts, _ = self.spiral(n, seed=0)
@@ -271,12 +361,14 @@ class Smoke:
         self.phase_build()
         self.phase_kernels()
         self.phase_kernel_matvec()
+        self.phase_flash()
         self.phase_anchor()
         self.phase_main_path()
         self.phase_guard()
         self.phase_ssl()
         self.phase_krr()
         self.phase_direct()
+        self.phase_serve()
         self.phase_times()
 
     def phase_device(self):
@@ -414,6 +506,39 @@ class Smoke:
                         f"{KM_TOL[dname]:g}) {'ok' if ok else 'FAIL'}")
                     check(ok, f"kernel_matvec {kname} {n_out}x{n_in} d={d} "
                           f"C={c} {dname}: rel {rel:.3e}")
+
+    def flash_reading(self, shape, causal, dname, seed):
+        """(max |k - p|, largest |k - p| / (atol + rtol |p|), all finite)
+        of the kernel against its plain version on seeded inputs."""
+        torch, fa = self.torch, self.fa
+        q, k, v = self.flash_inputs(*shape, getattr(torch, dname), seed)
+        k_out = fa.flash_attention(q, k, v, causal=causal).float()
+        p_out = fa.flash_attention_plain(q, k, v, causal=causal).float()
+        self.sync()
+        atol, rtol = FLASH_TOL[dname]
+        diff = (k_out - p_out).abs()
+        share = float((diff / (atol + rtol * p_out.abs())).max())
+        return float(diff.max()), share, bool(torch.isfinite(k_out).all())
+
+    def phase_flash(self):
+        log("[flash] flash_attention kernel vs plain: max |k - p|, and the "
+            "largest share of the limit atol + rtol |p| (at most 1)")
+        for i, (label, shape, causal, dname) in enumerate(self.flash_shapes()):
+            err, share, finite = self.flash_reading(shape, causal, dname, i)
+            ok = share <= 1.0 and finite
+            atol, rtol = FLASH_TOL[dname]
+            b, hq, hkv, sq, sk, dh = shape
+            self.record["checks"].append({
+                "kernel": "flash_attention", "label": label, "b": b,
+                "hq": hq, "hkv": hkv, "sq": sq, "sk": sk, "dh": dh,
+                "causal": causal, "dtype": dname, "max_abs_err": err,
+                "limit_share": share, "atol": atol, "rtol": rtol, "ok": ok})
+            log(f"[flash] {label:7s} b={b} hq={hq} hkv={hkv} sq={sq} sk={sk} "
+                f"dh={dh} causal={causal} {dname}: max_abs_err={err:.3e}, "
+                f"{share:.3f} of the limit (atol {atol:g}, rtol {rtol:g}) "
+                f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"flash {label} {shape} causal={causal} {dname}: "
+                  f"{err:.3e}, {share:.3f} of the limit")
 
     def phase_anchor(self):
         torch = self.torch
@@ -696,6 +821,186 @@ class Smoke:
             check(got <= 10 * want, f"fused {name} vs exact: {got:.3e}")
         check(launches["kernel_matvec"] == 1, "direct: kernel_matvec launches")
 
+    def serve_prompts(self, cfg):
+        """SERVE_REQUESTS seeded prompts, lengths in 512..2048 with one of
+        exactly 2048 and one of 1000."""
+        rng = np.random.default_rng(SERVE_SEED)
+        lengths = [2048, 1000] + rng.integers(
+            512, 2049, SERVE_REQUESTS - 2).tolist()
+        return [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+
+    def watch_logits(self, model):
+        """Count, on the card, the non-finite logits the model's forwards
+        return; returns the counters.  ``unwatch`` restores the model."""
+        torch = self.torch
+        seen = {"bad": torch.zeros((), dtype=torch.int64, device=self.dev),
+                "n": 0}
+        for name in ("forward_prefill", "forward_decode"):
+            def wrapped(*a, _orig=getattr(model, name), **kw):
+                logits, caches = _orig(*a, **kw)
+                seen["bad"] += (~torch.isfinite(logits)).sum()
+                seen["n"] += logits.numel()
+                return logits, caches
+            setattr(model, name, wrapped)
+        return seen
+
+    @staticmethod
+    def unwatch(model):
+        for name in ("forward_prefill", "forward_decode"):
+            delattr(model, name)
+
+    def serve(self, cfg, model, prompts):
+        """The prompts through a fresh ServeEngine; (requests, wall s)."""
+        engine = self.ServeEngine(cfg, model, slots=SERVE_SLOTS,
+                                  max_seq=SERVE_MAX_SEQ, device=self.dev)
+        reqs = [self.Request(uid=i, tokens=p, max_new_tokens=SERVE_NEW)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            check(engine.submit(r), f"request {r.uid} refused")
+        t0 = time.perf_counter()
+        engine.run_until_drained()
+        self.sync()
+        wall = time.perf_counter() - t0
+        check(all(r.done and r.error is None
+                  and len(r.output) == SERVE_NEW for r in reqs),
+              "serve: a request did not finish with all its tokens")
+        return reqs, wall
+
+    def manual_greedy(self, cfg, model, prompt):
+        """Unbatched prefill + decode; (tokens, top-2 margin / |top| per
+        step)."""
+        torch, lm = self.torch, self.lm
+        caches = lm.init_caches(cfg, 1, SERVE_MAX_SEQ, device=self.dev)
+        logits, caches = model.forward_prefill(
+            {"tokens": torch.as_tensor([prompt], device=self.dev)}, caches)
+        logits = logits[0, -1]
+        out, margins, pos = [], [], len(prompt)
+        for _ in range(SERVE_NEW):
+            top = torch.topk(logits.float(), 2).values
+            margins.append(float((top[0] - top[1]) / top[0].abs()))
+            out.append(int(torch.argmax(logits)))
+            if len(out) == SERVE_NEW:
+                break
+            logits, caches = model.forward_decode(
+                torch.as_tensor([[out[-1]]], device=self.dev),
+                torch.as_tensor([pos], device=self.dev), caches)
+            logits = logits[0, 0]
+            pos += 1
+        return out, margins
+
+    def flash_vs_einsum(self, cfg, model, prompt):
+        """max |flash - einsum| / max |einsum| of one prefill's logits."""
+        torch, lm = self.torch, self.lm
+        toks = torch.as_tensor([prompt], device=self.dev)
+        logits = {}
+        for flag in (True, False):
+            caches = lm.init_caches(cfg, 1, len(prompt), device=self.dev)
+            logits[flag] = model.forward_prefill({"tokens": toks}, caches,
+                                                 use_flash=flag)[0].float()
+            del caches
+        return float((logits[True] - logits[False]).abs().max()
+                     / logits[False].abs().max())
+
+    def check_flash_vs_einsum(self, cfg, model, prompt):
+        dname = cfg.activation_dtype
+        rel = self.flash_vs_einsum(cfg, model, prompt)
+        self.record["serve"].setdefault("flash_vs_einsum_rel", {})[dname] = rel
+        limit = SERVE_FLASH_VS_EINSUM[dname]
+        log(f"[serve] {dname} prefill of {len(prompt)} tokens, flash vs "
+            f"einsum attention: rel {rel:.3e} of max |logit| (limit "
+            f"{limit:g})")
+        check(rel <= limit, f"{dname} flash vs einsum prefill: {rel}")
+
+    def phase_serve(self):
+        """granite-3-2b at full width and depth (bf16) through ServeEngine:
+        flash launches, finite logits; then in float32 the engine against a
+        manual greedy loop; one prefill in each dtype, flash vs einsum."""
+        torch, lm = self.torch, self.lm
+        cfg = self.get_config(SERVE_ARCH)
+        t0 = time.perf_counter()
+        model = lm.init_params(cfg, SERVE_SEED, device=self.dev)
+        self.sync()
+        t_init = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        prompts = self.serve_prompts(cfg)
+        seen = self.watch_logits(model)
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        self.sync()
+        self.reset_launches()
+        reqs, wall = self.serve(cfg, model, prompts)
+        launches = self.read_launches("serve")
+        self.unwatch(model)
+        bad = int(seen["bad"])
+        peak_gb = torch.cuda.max_memory_allocated(self.dev) / 1e9
+        new_tokens = sum(len(r.output) for r in reqs)
+        self.serve_launches = launches["flash_attention"]
+        self.record["serve"] = {
+            "arch": cfg.name, "layers": cfg.num_layers,
+            "dtype": cfg.activation_dtype, "params": n_params,
+            "init_s": t_init, "prompt_lengths": [len(p) for p in prompts],
+            "wall_s": wall, "new_tokens": new_tokens,
+            "tokens_per_s": new_tokens / wall, "nonfinite_logits": bad,
+            "logits_checked": seen["n"], "peak_memory_gb": peak_gb,
+            "launches": launches}
+        log(f"[serve] {cfg.name} {cfg.num_layers} layers d={cfg.d_model} "
+            f"hq={cfg.num_heads} hkv={cfg.num_kv_heads} "
+            f"hd={cfg.head_dim_eff} {cfg.activation_dtype}: "
+            f"{n_params / 1e9:.3f}e9 params (seed {SERVE_SEED}, init "
+            f"{t_init:.2f}s); ServeEngine slots={SERVE_SLOTS} "
+            f"max_seq={SERVE_MAX_SEQ}, {len(prompts)} requests, prompts "
+            f"{[len(p) for p in prompts]}, {SERVE_NEW} new tokens each")
+        log(f"[serve] {cfg.activation_dtype}: {wall:.3f}s wall (ends in "
+            "synchronize), "
+            f"{new_tokens} tokens, {new_tokens / wall:.1f} tok/s; peak "
+            f"memory {peak_gb:.2f} GB; {seen['n']} logits, {bad} "
+            f"non-finite; launches {launches}")
+        check(bad == 0, f"serve: {bad} non-finite logits")
+        check(launches["flash_attention"] == cfg.num_layers * len(prompts),
+              f"serve: {launches['flash_attention']} flash launches for "
+              f"{len(prompts)} prefills of {cfg.num_layers} layers")
+
+        self.check_flash_vs_einsum(cfg, model, prompts[0])
+        self.serve_model, self.serve_cfg = model, cfg
+        self.serve_prompt_list = prompts
+
+        # float32: engine vs manual greedy, TF32 off
+        prev = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                        activation_dtype="float32")
+            model32 = lm.init_params(cfg32, SERVE_SEED, device=self.dev)
+            self.check_flash_vs_einsum(cfg32, model32, prompts[0])
+            self.reset_launches()
+            reqs32, wall32 = self.serve(cfg32, model32, prompts)
+            launches32 = self.read_launches("serve_f32")
+            compared, stops = 0, []
+            for r in reqs32:
+                want, margins = self.manual_greedy(cfg32, model32, r.tokens)
+                n = next((i for i, m in enumerate(margins)
+                          if m < SERVE_MARGIN), len(margins))
+                stops.append(n)
+                compared += n
+                check(r.output[:n] == want[:n],
+                      f"f32 engine vs manual, request {r.uid}: "
+                      f"{r.output[:n]} != {want[:n]}")
+            del model32
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev[0]
+            torch.backends.cudnn.allow_tf32 = prev[1]
+        self.record["serve"]["f32"] = {
+            "wall_s": wall32, "steps_compared": stops,
+            "launches": launches32}
+        log(f"[serve] float32 (TF32 off): engine {wall32:.3f}s; engine vs "
+            f"manual prefill+decode tokens equal on {compared} of "
+            f"{SERVE_NEW * len(reqs32)} steps (per request {stops}; a "
+            f"request's comparison stops at its first top-2 margin under "
+            f"{SERVE_MARGIN:g} of the top logit); launches {launches32}")
+        check(launches32["flash_attention"] == cfg.num_layers * len(prompts),
+              "serve f32: flash launches")
+
     def phase_times(self):
         torch, win = self.torch, self.win
         self.kernel_times = {}
@@ -743,6 +1048,91 @@ class Smoke:
         for n, setup_name in ((N_MAIN, "SETUP_2"), (N_MAIN, "SETUP_3"),
                               (N_BIG, "SETUP_2")):
             self.time_matvec(n, setup_name)
+        self.time_flash()
+        self.time_serve()
+
+    def time_flash(self):
+        """The flash kernel at the serve path's prompt lengths and at one
+        layer of the config's prefill length, causal, bf16, b=1, granite
+        heads; beside its plain version and PyTorch's SDPA (the yardstick
+        only: the port never calls it)."""
+        torch, fa = self.torch, self.fa
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        # fused backends only: the math fallback would hold the whole
+        # (32, s, s) score matrix at s = 32768
+        fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                 SDPBackend.CUDNN_ATTENTION]
+        for s in FLASH_LENGTHS + (FLASH_LAYER_S,):
+            shape = (1, 32, 8, s, s, 64)
+            q, k, v = self.flash_inputs(*shape, torch.bfloat16, s)
+            long = s == FLASH_LAYER_S
+            ms = self.time_ms(lambda: fa.flash_attention(q, k, v, causal=True),
+                              reps=2 if long else 20, warmup=1)
+            plain_ms = self.time_ms(
+                lambda: fa.flash_attention_plain(q, k, v, causal=True),
+                reps=1 if long else 3, warmup=1)
+            with sdpa_kernel(fused):
+                lib_ms = self.time_ms(
+                    lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+                    reps=3 if long else 20, warmup=1)
+            bound_ms, by, flops, nbytes = self.flash_bound(*shape, True, 2)
+            row = {"kernel": "flash_attention", "b": 1, "hq": 32, "hkv": 8,
+                   "sq": s, "sk": s, "dh": 64, "causal": True,
+                   "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": by, "flops": flops,
+                   "bytes": nbytes, "library_ms": lib_ms}
+            self.record["times"].append(row)
+            self.kernel_times[("flash_attention", s)] = row
+            log(f"[times] flash_attention b=1 hq=32 hkv=8 s={s} dh=64 causal "
+                f"bf16: {ms:.4f} ms  bound {bound_ms:.4f} ms ({by}, "
+                f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB, "
+                f"{100 * bound_ms / ms:.2f}% of bound)  plain {plain_ms:.3f} "
+                f"ms  SDPA {lib_ms:.4f} ms (kernel {ms / lib_ms:.1f}x SDPA)")
+            del q, k, v
+
+    def time_serve(self):
+        """Prefill at the serve path's lengths (CUDA events) and engine
+        ticks with SERVE_SLOTS active slots (host clock; every tick ends in
+        a host read of the sampled tokens)."""
+        torch, lm = self.torch, self.lm
+        cfg, model = self.serve_cfg, self.serve_model
+        prefill_ms = {}
+        for s in FLASH_LENGTHS:
+            toks = torch.as_tensor([self.serve_prompt_list[0][:s]],
+                                   device=self.dev)
+            caches = lm.init_caches(cfg, 1, s, device=self.dev)
+            prefill_ms[s] = self.time_ms(
+                lambda: model.forward_prefill({"tokens": toks}, caches),
+                reps=3, warmup=1)
+        engine = self.ServeEngine(cfg, model, slots=SERVE_SLOTS,
+                                  max_seq=SERVE_MAX_SEQ, device=self.dev)
+        for i in range(SERVE_SLOTS):
+            engine.submit(self.Request(
+                uid=i, tokens=self.serve_prompt_list[i][:512],
+                max_new_tokens=10 ** 6))
+        engine.step()  # admits every slot, and one decode step
+        engine.step()
+        check(all(r is not None for r in engine.active), "tick: idle slot")
+        self.sync()
+        t0 = time.perf_counter()
+        for _ in range(TICKS_TIMED):
+            engine.step()
+        tick_ms = (time.perf_counter() - t0) / TICKS_TIMED * 1e3
+        row = {"serve": cfg.name, "dtype": cfg.activation_dtype,
+               "prefill_ms": prefill_ms, "tick_ms": tick_ms,
+               "active_slots": SERVE_SLOTS,
+               "tokens_per_s": SERVE_SLOTS * 1e3 / tick_ms,
+               "cache_len": SERVE_MAX_SEQ}
+        self.record["times"].append(row)
+        log(f"[times] {cfg.name} bf16 prefill (b=1, CUDA events): "
+            + ", ".join(f"{s} tokens {ms:.2f} ms" for s, ms in
+                        prefill_ms.items()))
+        log(f"[times] {cfg.name} bf16 decode tick, {SERVE_SLOTS} active "
+            f"slots, cache {SERVE_MAX_SEQ} (host clock over {TICKS_TIMED} "
+            f"ticks): {tick_ms:.3f} ms per tick, "
+            f"{row['tokens_per_s']:.1f} tok/s")
+        del engine
 
     def time_kernel_matvec(self):
         """kernel_matvec at every checked shape but n = 8000 (that one only
@@ -863,6 +1253,21 @@ class Smoke:
             "max_abs_err": check_row["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})
+        # flash_attention: the serve path's launches; error and times at
+        # the longest prompt (bf16, causal, granite heads, s = 2048)
+        s = FLASH_LENGTHS[-1]
+        check_row = next(r for r in self.record["checks"]
+                         if r["kernel"] == "flash_attention"
+                         and r["label"] == "granite" and r["sq"] == s
+                         and r["dtype"] == "bfloat16")
+        t = self.kernel_times[("flash_attention", s)]
+        out.append({
+            "name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
+            "replaces": "src/repro/kernels/flash_attention.py:34",
+            "launches": self.serve_launches,
+            "max_abs_err": check_row["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
         return out
 
 

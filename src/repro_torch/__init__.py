@@ -5,7 +5,10 @@ names: ``core`` (kernels, regularization, NFFT plan, fused execution,
 fastsum operators and the exact direct sum, Lanczos, CG/MINRES, the
 Lemma 3.1 error bound), ``kernels`` (hand-written CUDA kernels for Hopper
 and their plain PyTorch versions), ``graph`` (spectral clustering, kernel
-SSL, kernel ridge regression), ``runtime`` (accuracy guards) and ``data``
-(synthetic point sets).  Entry points run on the CUDA card unless the
-caller asks for ``device="cpu"``.
+SSL, kernel ridge regression), ``runtime`` (accuracy guards), ``data``
+(synthetic point sets), and the LM framework's serving path: ``configs``
+(architectures), ``models`` (dense GQA blocks, prefill and decode),
+``serving`` (the continuous-batching engine) and ``launch`` (its command
+line).  Entry points run on the CUDA card unless the caller asks for
+``device="cpu"``.
 """

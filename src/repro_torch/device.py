@@ -11,11 +11,15 @@ import torch
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """``None`` -> ``cuda``; a CUDA device without a card raises."""
+    """``None`` -> ``cuda``; a CUDA device without a card raises.  A CUDA
+    device without an index gets the current card's, so that it compares
+    equal to the device of the tensors made on it."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch runs on a CUDA card by default, but "
             "torch.cuda.is_available() is False; pass device=\"cpu\" to run "
             "on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -23,7 +23,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("nfft_window.cu", "kernel_matvec.cu")
+SOURCES = ("nfft_window.cu", "kernel_matvec.cu", "flash_attention.cu")
 _PACKAGE = Path(__file__).resolve().parents[1]
 
 
@@ -55,6 +55,12 @@ ENTRY_POINTS = {
         [_PTR, _PTR, _PTR, _PTR, _I64, _I64, _I32, _I32, _I32,
          ctypes.c_double, _I32, _PTR],
         ("repro_kernel_matvec_f64", "repro_kernel_matvec_f32")),
+    # (q, k, v, o, b, hq, hkv, sq, sk, dh, scale, causal, stream)
+    "flash_attention.cu": (
+        [_PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _I32, _I32,
+         ctypes.c_double, _I32, _PTR],
+        ("repro_flash_attention_f32", "repro_flash_attention_bf16",
+         "repro_flash_attention_f16")),
 }
 
 

@@ -9,20 +9,31 @@ Tolerances, relative to the largest output entry: spread 1e-12 (f64) /
 1e-4 (f32), since its atomics add in a varying order; gather 1e-13 / 1e-5;
 kernel_matvec 1e-12 / 1e-4 (its sums run in another order than the plain
 version's matrix product, and float32 exp/sqrt differ by an ulp or two).
+flash_attention, elementwise |k - p| <= atol + rtol |p|: float32 2e-5
+absolute, the JAX kernel tests' own limit (tests/test_kernels_pallas.py);
+bfloat16 and float16 two ulps of the output dtype (rtol 2^-6 and 2^-9,
+atol 2e-5), since both sides sum in float32 and round once.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config, reduced_config
 from repro_torch.core import fastsum as tfs
 from repro_torch.core.kernels import make_kernel
 from repro_torch.core.nfft import build_window_geometry, padded_grid_size
 from repro_torch.data.synthetic import spiral
 from repro_torch.graph import krr as tkrr
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import kernel_matvec as tkm
+from repro_torch.device import resolve_device
 from repro_torch.kernels import nfft_window as twin
+from repro_torch.launch import serve as tserve
+from repro_torch.launch import trace_serve as ttrace
+from repro_torch.models import model as tmodel
 from repro_torch.runtime import guards as tguards
+from repro_torch.serving.engine import Request, ServeEngine
 
 pytestmark = pytest.mark.gpu
 
@@ -157,3 +168,132 @@ def test_krr_predict_direct_on_card_matches_cpu(cuda):
     got = tkrr.krr_predict_direct(model[cuda], tgt).cpu()
     assert _rel(got, tkrr.krr_predict_direct(model[torch.device("cpu")],
                                              tgt)) <= 1e-12
+
+
+FLASH_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (2e-5, 2.0 ** -6),
+             torch.float16: (2e-5, 2.0 ** -9)}
+
+
+def _flash_close(got, want, dtype):
+    atol, rtol = FLASH_TOL[dtype]
+    got, want = got.float(), want.float()
+    return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+
+
+def _qkv(shape_q, shape_kv, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
+                            device=device).to(dtype)
+            for s in (shape_q, shape_kv, shape_kv)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,dh", [
+    (2, 4, 2, 128, 128, 64), (1, 8, 1, 100, 100, 64), (1, 2, 2, 64, 192, 32),
+    (1, 16, 8, 96, 96, 128), (1, 4, 2, 70, 70, 16), (2, 4, 4, 1, 300, 64),
+    (1, 4, 2, 200, 130, 64)])
+def test_flash_matches_plain(cuda, b, hq, hkv, sq, sk, dh, causal):
+    q, k, v = _qkv((b, hq, sq, dh), (b, hkv, sk, dh), torch.float32, cuda,
+                   sq + dh)
+    launches = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == launches + 1
+    want = tfa.flash_attention_plain(q, k, v, causal=causal)
+    assert _flash_close(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("s", [512, 1000, 2048])
+def test_flash_granite_heads_float32_matches_plain(cuda, s):
+    """Many causal 64-row tiles (the early stop at each tile's diagonal)."""
+    q, k, v = _qkv((1, 32, s, 64), (1, 8, s, 64), torch.float32, cuda, s)
+    got = tfa.flash_attention(q, k, v, causal=True)
+    want = tfa.flash_attention_plain(q, k, v, causal=True)
+    assert _flash_close(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("sq", [512, 1000])
+def test_flash_half_precision_matches_plain(cuda, dtype, sq):
+    q, k, v = _qkv((1, 32, sq, 64), (1, 8, sq, 64), dtype, cuda, sq)
+    got = tfa.flash_attention(q, k, v, causal=True)
+    assert got.dtype == dtype
+    want = tfa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                     causal=True)
+    assert _flash_close(got, want, dtype)
+
+
+def test_flash_rows_without_keys_are_zero_on_card(cuda):
+    q, k, v = _qkv((1, 2, 40, 32), (1, 1, 25, 32), torch.float32, cuda, 3)
+    got = tfa.flash_attention(q, k, v, causal=True)
+    assert bool((got[:, :, :15] == 0).all())
+    assert bool(torch.isfinite(got).all())
+    want = tfa.flash_attention_plain(q, k, v, causal=True)
+    assert _flash_close(got, want, torch.float32)
+
+
+def test_flash_rejects_unsupported_head_dim(cuda):
+    q, k, v = _qkv((1, 2, 8, 48), (1, 2, 8, 48), torch.float32, cuda, 0)
+    with pytest.raises(ValueError, match="16, 32, 64, 128"):
+        tfa.flash_attention(q, k, v)
+
+
+def test_reduced_serve_on_card_matches_cpu(cuda):
+    """Reduced granite-3-2b (float32, head dim 16) served on the card: every
+    prefill launches the flash kernel once per layer, and the tokens equal
+    the same weights' greedy tokens on the CPU."""
+    cfg = reduced_config(get_config("granite-3-2b"))
+    on_card = tmodel.init_params(cfg, 5, device=cuda)
+    on_cpu = tmodel.init_params(cfg, 5, device="cpu")
+    on_cpu.load_state_dict({k: v.cpu()
+                            for k, v in on_card.state_dict().items()})
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(3, 20, 5)]
+    outputs = {}
+    for dev, model in ((cuda, on_card), (torch.device("cpu"), on_cpu)):
+        engine = ServeEngine(cfg, model, slots=2, max_seq=64, device=dev)
+        reqs = [Request(uid=i, tokens=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            engine.submit(r)
+        launches = tfa.flash_attention.launches
+        engine.run_until_drained()
+        if dev.type == "cuda":
+            assert tfa.flash_attention.launches - launches \
+                == cfg.num_layers * len(prompts)
+        outputs[dev.type] = [r.output for r in reqs]
+    assert outputs["cuda"] == outputs["cpu"]
+
+
+def test_flash_prefill_matches_einsum_on_card(cuda):
+    cfg = reduced_config(get_config("llama3-405b"))
+    model = tmodel.init_params(cfg, 2, device=cuda)
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 40)), device=cuda)
+    got = {flag: model.forward_prefill(
+        {"tokens": toks}, tmodel.init_caches(cfg, 2, 48, device=cuda),
+        use_flash=flag)[0] for flag in (True, False)}
+    assert _rel(got[True], got[False]) <= 1e-5
+
+
+def test_default_device_matches_tensors_on_card(cuda):
+    dev = resolve_device()
+    assert dev == torch.zeros(1, device=cuda).device
+    assert dev == resolve_device("cuda")
+
+
+def test_trace_serve_sees_the_device_timeline(cuda):
+    out = ttrace.main(["--reduced", "--prompt-len", "40", "--max-seq", "64",
+                       "--reps", "2"])
+    for what in ("prefill", "tick"):
+        r = out[what]
+        assert 0 < r["device_busy_ms"] and r["device_events"] > 0
+        assert r["device_idle_share"] < 1
+
+
+def test_serve_cli_runs_on_card_by_default(cuda, capsys):
+    tserve.main(["--requests", "3", "--max-new", "4"])
+    out = capsys.readouterr().out
+    assert "served 3 requests / 12 tokens" in out
+    assert "device=cuda" in out

@@ -13,9 +13,12 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 MODULES = ("core.kernels", "core.regularization", "core.nfft",
            "core.fastsum_exec", "core.fastsum", "core.lanczos", "core.error",
            "core.solvers", "kernels._build", "kernels.nfft_window",
-           "kernels.kernel_matvec", "graph.spectral", "graph.ssl",
-           "graph.krr", "runtime.guards", "data.synthetic", "device",
-           "quickstart", "ssl_crescent")
+           "kernels.kernel_matvec", "kernels.flash_attention",
+           "graph.spectral", "graph.ssl", "graph.krr", "runtime.guards",
+           "data.synthetic", "device", "quickstart", "ssl_crescent",
+           "configs", "configs.base", "configs.archs", "models.common",
+           "models.mlp", "models.attention", "models.model",
+           "serving.engine", "launch.serve", "launch.trace_serve")
 
 
 def _imported_roots(path: Path) -> set:

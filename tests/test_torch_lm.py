@@ -1,0 +1,205 @@
+"""The port's LM configs and serving forwards against the JAX package.
+
+Configs and layer plans must equal the JAX package's for every registered
+architecture.  For the reduced dense token architectures (granite-3-2b:
+GQA and a tied head; gemma-7b: GeGLU, embedding scale; qwen1.5-32b: MHA
+with QKV biases; llama3-405b: GQA, an untied head), the JAX model's
+weights are carried onto the port by ``params_from_arrays`` and both run
+the same numpy-seeded tokens in float32.  Logits must agree within 1e-5 of
+the largest |logit|, and KV caches within 1e-5 of their largest entry
+(sums run in another order).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.models import model as JM
+from repro_torch import configs as tconfigs
+from repro_torch.models import model as TM
+
+DENSE = ["granite-3-2b", "gemma-7b", "qwen1.5-32b", "llama3-405b"]
+NOT_PORTED = ["deepseek-v3-671b", "olmoe-1b-7b", "mamba2-1.3b",
+              "jamba-1.5-large-398b", "hubert-xlarge", "paligemma-3b",
+              "granite-3-2b-nfft"]
+TOL = 1e-5
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+@pytest.mark.parametrize("name", jconfigs.list_archs())
+def test_registry_matches_jax(name):
+    assert tconfigs.list_archs() == jconfigs.list_archs()
+    jcfg, tcfg = jconfigs.get_config(name), tconfigs.get_config(name)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert tcfg.param_count() == jcfg.param_count()
+    assert tcfg.active_param_count() == jcfg.active_param_count()
+    assert tcfg.head_dim_eff == jcfg.head_dim_eff
+    assert tcfg.dtype == getattr(torch, jcfg.dtype.name)
+    assert tcfg.pdtype == getattr(torch, jcfg.pdtype.name)
+    jred = jconfigs.reduced_config(jcfg, seq_len=32, global_batch=4)
+    tred = tconfigs.reduced_config(tcfg, seq_len=32, global_batch=4)
+    assert dataclasses.asdict(tred) == dataclasses.asdict(jred)
+    assert tred.param_count() == jred.param_count()
+    assert [tcfg.is_moe_layer(i) for i in range(tcfg.num_layers)] == \
+        [jcfg.is_moe_layer(i) for i in range(jcfg.num_layers)]
+
+
+@pytest.mark.parametrize("name", jconfigs.list_archs())
+def test_layer_plan_matches_jax(name):
+    for reduce in (False, True):
+        jcfg, tcfg = jconfigs.get_config(name), tconfigs.get_config(name)
+        if reduce:
+            jcfg, tcfg = (jconfigs.reduced_config(jcfg),
+                          tconfigs.reduced_config(tcfg))
+        jplan, tplan = JM.make_layer_plan(jcfg), TM.make_layer_plan(tcfg)
+        assert tuple(tplan) == tuple(jplan)
+        assert tplan.num_layers == jplan.num_layers == tcfg.num_layers
+
+
+@pytest.mark.parametrize("name", NOT_PORTED)
+def test_unported_blocks_raise(name):
+    cfg = tconfigs.reduced_config(tconfigs.get_config(name))
+    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+        TM.init_params(cfg, 0, device="cpu")
+
+
+def _carry(name, seed=1):
+    """(JAX cfg, JAX params, port cfg, port model) on the same weights;
+    QKV biases (zeros at init) are made nonzero so that they count."""
+    jcfg = jconfigs.reduced_config(jconfigs.get_config(name))
+    tcfg = tconfigs.reduced_config(tconfigs.get_config(name))
+    params = JM.init_params(jax.random.PRNGKey(seed), jcfg)
+    if jcfg.qkv_bias:
+        rng = np.random.default_rng(seed)
+        for slot in params["stack"]:
+            for key in ("bq", "bk", "bv"):
+                a = slot["attn"][key]
+                slot["attn"][key] = jnp.asarray(
+                    0.1 * rng.normal(size=a.shape), a.dtype)
+    tree = jax.tree.map(np.asarray, params)
+    return jcfg, params, tcfg, TM.params_from_arrays(tree, tcfg,
+                                                     device="cpu")
+
+
+def _jax_cache_layers(caches, cfg):
+    """Per-layer (k, v) numpy arrays of a JAX cache tree."""
+    plan = JM.make_layer_plan(cfg)
+    out = [None] * cfg.num_layers
+    for i, c in caches.get("prefix", {}).items():
+        out[i] = (np.asarray(c.k), np.asarray(c.v))
+    for slot, c in enumerate(caches.get("stack", [])):
+        for p in range(plan.n_periods):
+            layer = len(plan.prefix) + p * len(plan.period) + slot
+            out[layer] = (np.asarray(c.k[p]), np.asarray(c.v[p]))
+    return out
+
+
+def _assert_caches_match(tcaches, jcaches, cfg):
+    for i, (jk, jv) in enumerate(_jax_cache_layers(jcaches, cfg)):
+        assert _rel(tcaches[i].k.numpy(), jk) <= TOL, ("k", i)
+        assert _rel(tcaches[i].v.numpy(), jv) <= TOL, ("v", i)
+
+
+@pytest.mark.parametrize("name", DENSE)
+def test_prefill_matches_jax(name):
+    jcfg, params, tcfg, model = _carry(name)
+    toks = np.random.default_rng(0).integers(0, tcfg.vocab_size, (2, 12))
+    jl, jc = JM.forward_prefill(params, jcfg,
+                                {"tokens": jnp.asarray(toks, jnp.int32)},
+                                JM.init_caches(jcfg, 2, 24))
+    tl, tc = model.forward_prefill({"tokens": torch.as_tensor(toks)},
+                                   TM.init_caches(tcfg, 2, 24, device="cpu"))
+    assert tl.shape == jl.shape == (2, 1, tcfg.vocab_size)
+    assert _rel(tl.numpy(), jl) <= TOL
+    _assert_caches_match(tc, jc, jcfg)
+
+
+@pytest.mark.parametrize("name", DENSE)
+def test_decode_steps_match_jax(name):
+    """Prefill, then four decode steps with the two rows at different
+    positions (one rewriting rows its prefill wrote), teacher-forced with
+    the same tokens on both sides."""
+    jcfg, params, tcfg, model = _carry(name, seed=2)
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, tcfg.vocab_size, (2, 10))
+    _, jc = JM.forward_prefill(params, jcfg,
+                               {"tokens": jnp.asarray(toks, jnp.int32)},
+                               JM.init_caches(jcfg, 2, 24))
+    _, tc = model.forward_prefill({"tokens": torch.as_tensor(toks)},
+                                  TM.init_caches(tcfg, 2, 24, device="cpu"))
+    pos = np.array([10, 6])
+    for step in range(4):
+        tok = rng.integers(0, tcfg.vocab_size, (2, 1))
+        jl, jc = JM.forward_decode(params, jcfg, jnp.asarray(tok, jnp.int32),
+                                   jnp.asarray(pos + step, jnp.int32), jc)
+        tl, tc = model.forward_decode(torch.as_tensor(tok),
+                                      torch.as_tensor(pos + step), tc)
+        assert tl.shape == (2, 1, tcfg.vocab_size)
+        assert _rel(tl.numpy(), jl) <= TOL, step
+    _assert_caches_match(tc, jc, jcfg)
+
+
+@pytest.mark.parametrize("name", DENSE)
+def test_flash_and_einsum_prefill_agree(name):
+    """use_flash=True (the flash kernel's plain version on the CPU) and the
+    einsum path give the same logits and caches; both match JAX."""
+    jcfg, params, tcfg, model = _carry(name, seed=3)
+    toks = np.random.default_rng(1).integers(0, tcfg.vocab_size, (2, 9))
+    batch = {"tokens": torch.as_tensor(toks)}
+    out = {flag: model.forward_prefill(
+        batch, TM.init_caches(tcfg, 2, 16, device="cpu"), use_flash=flag)
+        for flag in (True, False)}
+    assert _rel(out[True][0].numpy(), out[False][0].numpy()) <= TOL
+    for a, b in zip(out[True][1], out[False][1]):
+        assert torch.equal(a.k, b.k) and torch.equal(a.v, b.v)
+    jl, _ = JM.forward_prefill(params, jcfg,
+                               {"tokens": jnp.asarray(toks, jnp.int32)},
+                               JM.init_caches(jcfg, 2, 16))
+    assert _rel(out[True][0].numpy(), jl) <= TOL
+
+
+@pytest.mark.parametrize("name", DENSE)
+def test_prefill_decode_consistency(name):
+    """Prefill s-1 tokens then decode token s-1 equals the whole-sequence
+    forward at position s-1 (as tests/test_arch_smoke.py does for JAX)."""
+    cfg = tconfigs.reduced_config(tconfigs.get_config(name))
+    model = TM.init_params(cfg, 1, device="cpu")
+    b, s = 2, 16
+    toks = torch.as_tensor(
+        np.random.default_rng(7).integers(0, cfg.vocab_size, (b, s)))
+    x, positions, _ = model.embed_inputs({"tokens": toks})
+    full = model.lm_logits(model.run_backbone(x, positions, mode="train"))
+    caches = TM.init_caches(cfg, b, s, device="cpu")
+    _, caches = model.forward_prefill({"tokens": toks[:, :s - 1]}, caches)
+    dec, _ = model.forward_decode(toks[:, s - 1:], torch.full((b,), s - 1),
+                                  caches)
+    assert _rel(dec[:, 0].numpy(), full[:, -1].numpy()) <= TOL
+
+
+def test_params_from_arrays_carries_bf16_leaves():
+    """The full configs are bfloat16: JAX's bf16 numpy leaves (ml_dtypes)
+    arrive bit for bit."""
+    jcfg = dataclasses.replace(
+        jconfigs.reduced_config(jconfigs.get_config("granite-3-2b")),
+        param_dtype="bfloat16", activation_dtype="bfloat16")
+    tcfg = dataclasses.replace(
+        tconfigs.reduced_config(tconfigs.get_config("granite-3-2b")),
+        param_dtype="bfloat16", activation_dtype="bfloat16")
+    params = JM.init_params(jax.random.PRNGKey(4), jcfg)
+    model = TM.params_from_arrays(jax.tree.map(np.asarray, params), tcfg,
+                                  device="cpu")
+    assert model.embed.dtype == torch.bfloat16
+    want = np.asarray(params["stack"][0]["attn"]["wq"][3], np.float32)
+    got = model.blocks[3].attn.wq.float().numpy()
+    assert np.array_equal(got, want)
+    assert np.array_equal(model.embed.float().numpy(),
+                          np.asarray(params["embed"], np.float32))

@@ -11,17 +11,18 @@ the accuracy guard's direct floor under ``eigsh`` (spiral n = 8,000), kernel
 SSL on crescent-fullmoon at n = 100,000 (paper Section 6.2.3), kernel ridge
 regression at n = 10,000 with fast and direct prediction (Section 6.3), and
 one direct matvec at n = 10^5.  Then the LM serving path: the flash
-attention kernel against its plain version (the JAX kernel tests' shapes,
-bf16 at the granite-3-2b shape up to one layer at its 32,768-token prefill
-length, decode alignment), and granite-3-2b at full width and depth (40
-layers, bf16, seeded random weights) served by ``ServeEngine``: every
-prefill must launch the flash kernel once per layer, every logit must be
-finite, and in float32 the engine's tokens must equal a manual
-prefill+decode loop's.  Each path starts with every launch count at 0 and
-must launch its kernels.  Last it times the kernels beside their roofline
-bounds (and flash attention beside PyTorch's SDPA), the fused matvec at
-n = 10^5 and 10^6, prefill and decode.  Any failed check raises, so the
-run exits non-zero and prints no result line.
+attention kernels against their plain version (float32 on the CUDA cores,
+bf16 and f16 on the tensor cores: the JAX kernel tests' shapes in float32
+and bf16, granite-3-2b's heads in all three up to one bf16 layer at its
+32,768-token prefill length, decode alignment), and granite-3-2b at full
+width and depth (40 layers, bf16, seeded random weights) served by
+``ServeEngine``: every prefill must launch the flash kernel once per
+layer, every logit must be finite, and in float32 the engine's tokens must
+equal a manual prefill+decode loop's.  Each path starts with every launch
+count at 0 and must launch its kernels.  Last it times the kernels beside
+their roofline bounds (and flash attention beside PyTorch's SDPA), the
+fused matvec at n = 10^5 and 10^6, prefill and decode.  Any failed check
+raises, so the run exits non-zero and prints no result line.
 
     python3 chip_smoke.py [--json PATH]
 
@@ -115,12 +116,18 @@ JAX_DIRECT_REL = {"SETUP_2": 1.7666062474585884e-07,
 
 # flash attention vs plain, (atol, rtol): elementwise |k - p| <= atol +
 # rtol |p|.  float32: the JAX kernel tests' 2e-5 absolute
-# (tests/test_kernels_pallas.py).  bfloat16: both sides sum in float32 and
-# round once, so they differ by at most one bf16 ulp (<= 2^-7 |p|); the
-# limit allows two.  (The JAX tests' bf16 limit, 5e-2 absolute, is about
-# the size of an output row that sees ~1000 random keys.)
-FLASH_TOL = {"float32": (2e-5, 0.0), "bfloat16": (2e-5, 2.0 ** -6)}
-# the JAX sweep (b, hq, hkv, sq, sk, dh), causal and not, float32
+# (tests/test_kernels_pallas.py).  bfloat16 and float16: both sides sum in
+# float32 and round once, so they differ by about one ulp of the dtype
+# (2^-7 |p| in bf16, 2^-10 |p| in f16); the limit allows two.  The
+# tensor-core kernel splits P into hi + lo in the input dtype to stay
+# there: one rounding of P misses it by up to ~30x near zero
+# (tests/test_torch_flash.py).  (The JAX tests' bf16 limit, 5e-2 absolute,
+# is about the size of an output row that sees ~1000 random keys.)
+FLASH_TOL = {"float32": (2e-5, 0.0), "bfloat16": (2e-5, 2.0 ** -6),
+             "float16": (2e-5, 2.0 ** -9)}
+# the tensor-core kernel that ships for bf16 / fp16
+FLASH_DESIGN = "wgmma"
+# the JAX sweep (b, hq, hkv, sq, sk, dh), causal and not, float32 and bf16
 FLASH_SWEEP = ((2, 4, 2, 128, 128, 64), (1, 8, 1, 100, 100, 64),
                (1, 2, 2, 64, 192, 32), (1, 16, 8, 96, 96, 128))
 # prompt lengths of the serve path (1000 is a ragged 64-row tile), the
@@ -319,9 +326,10 @@ class Smoke:
         flash attention check."""
         for shape in FLASH_SWEEP:
             for causal in (False, True):
-                yield "sweep", shape, causal, "float32"
+                for dname in ("float32", "bfloat16"):
+                    yield "sweep", shape, causal, dname
         for s in FLASH_LENGTHS:
-            for dname in ("float32", "bfloat16"):
+            for dname in ("float32", "bfloat16", "float16"):
                 yield "granite", (1, 32, 8, s, s, 64), True, dname
         for dname in ("float32", "bfloat16"):
             yield "decode", (1, 32, 8, 1, FLASH_DECODE_SK, 64), True, dname
@@ -421,6 +429,48 @@ class Smoke:
                     f"{min(regs.values())}-{max(regs.values())} registers")
             for line in spills:
                 log(f"[build]   {line}")
+            if source == "flash_attention.cu":
+                self.flash_build_report(one["log"])
+
+    def flash_build_report(self, text):
+        """Registers, shared memory and spills of each instance of the
+        tensor-core flash kernel, from nvcc's -Xptxas -v report."""
+        rows, name = {}, None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '\w*flash_fwd_wgmmaI\d*"
+                          r"(__nv_bfloat16|__half)Li(\d+)E", line)
+            if m:
+                name = ("bfloat16" if "bf" in m.group(1) else "float16",
+                        int(m.group(2)))
+                rows[name] = {"smem": 0}
+                continue
+            if "Compiling entry function" in line:
+                name = None
+            if name is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                rows[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                rows[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                rows[name]["smem"] = int(m.group(1))
+        check(len(rows) == 8, f"flash: {len(rows)} tensor-core kernel "
+              "instances in the ptxas report, expected 8 (2 dtypes x 4 dh)")
+        self.record["flash_build"] = []
+        for (dname, dh), r in sorted(rows.items()):
+            # dynamic: two stages of K and V tiles (64 x dh), 1024 bytes of
+            # alignment slack, three barriers per stage
+            dyn = 2 * 2 * 64 * dh * 2 + 1024 + 2 * 24
+            self.record["flash_build"].append(
+                {"dtype": dname, "dh": dh, **r, "dynamic_smem": dyn})
+            log(f"[build]   flash_fwd_wgmma {dname} dh={dh}: "
+                f"{r.get('registers')} registers, {r['smem'] + dyn} bytes "
+                f"shared memory per block ({dyn} dynamic), "
+                f"{r.get('spill_bytes')} bytes spilled")
 
     def phase_kernels(self):
         torch, win = self.torch, self.win
@@ -1079,17 +1129,38 @@ class Smoke:
             bound_ms, by, flops, nbytes = self.flash_bound(*shape, True, 2)
             row = {"kernel": "flash_attention", "b": 1, "hq": 32, "hkv": 8,
                    "sq": s, "sk": s, "dh": 64, "causal": True,
-                   "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bound_ms, "bound_by": by, "flops": flops,
-                   "bytes": nbytes, "library_ms": lib_ms}
+                   "dtype": "bfloat16", "design": FLASH_DESIGN, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": by, "flops": flops, "bytes": nbytes,
+                   "tflops": flops / ms / 1e9, "library_ms": lib_ms,
+                   "library_tflops": flops / lib_ms / 1e9,
+                   "kernel_over_library": ms / lib_ms}
             self.record["times"].append(row)
             self.kernel_times[("flash_attention", s)] = row
             log(f"[times] flash_attention b=1 hq=32 hkv=8 s={s} dh=64 causal "
-                f"bf16: {ms:.4f} ms  bound {bound_ms:.4f} ms ({by}, "
+                f"bf16 ({FLASH_DESIGN}): {ms:.4f} ms, {row['tflops']:.1f} "
+                f"TFLOP/s  bound {bound_ms:.4f} ms ({by}, "
                 f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB, "
                 f"{100 * bound_ms / ms:.2f}% of bound)  plain {plain_ms:.3f} "
-                f"ms  SDPA {lib_ms:.4f} ms (kernel {ms / lib_ms:.1f}x SDPA)")
+                f"ms  SDPA {lib_ms:.4f} ms, {row['library_tflops']:.1f} "
+                f"TFLOP/s (kernel {ms / lib_ms:.2f}x SDPA)")
             del q, k, v
+        # the float32 kernel (CUDA cores) at the longest serve prompt
+        s = FLASH_LENGTHS[-1]
+        shape = (1, 32, 8, s, s, 64)
+        q, k, v = self.flash_inputs(*shape, torch.float32, s)
+        ms = self.time_ms(lambda: fa.flash_attention(q, k, v, causal=True),
+                          reps=10, warmup=1)
+        _, _, flops, _ = self.flash_bound(*shape, True, 4)
+        self.record["times"].append({
+            "kernel": "flash_attention", "b": 1, "hq": 32, "hkv": 8,
+            "sq": s, "sk": s, "dh": 64, "causal": True, "dtype": "float32",
+            "design": "cuda cores", "ms": ms, "flops": flops,
+            "tflops": flops / ms / 1e9})
+        log(f"[times] flash_attention b=1 hq=32 hkv=8 s={s} dh=64 causal "
+            f"float32 (CUDA cores): {ms:.4f} ms, {flops / ms / 1e9:.1f} "
+            "TFLOP/s")
+        del q, k, v
 
     def time_serve(self):
         """Prefill at the serve path's lengths (CUDA events) and engine
@@ -1263,6 +1334,7 @@ class Smoke:
         t = self.kernel_times[("flash_attention", s)]
         out.append({
             "name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
+            "design": FLASH_DESIGN,
             "replaces": "src/repro/kernels/flash_attention.py:34",
             "launches": self.serve_launches,
             "max_abs_err": check_row["max_abs_err"], "ms": t["ms"],

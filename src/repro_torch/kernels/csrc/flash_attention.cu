@@ -13,30 +13,67 @@
 // kernel walks (q tile, KV tile) grid steps in order and carries the running
 // max, normaliser and accumulator in VMEM scratch from one KV step to the
 // next.  Hopper runs blocks in parallel and in no order, so the KV walk is a
-// loop inside the block instead: each block owns kRows query rows of one
-// (batch, q head), a query row per thread (two threads for dh = 128, each
-// with half the dims, joined by one shuffle per key), with the row's q, its
-// float32 accumulator and its running max and normaliser in registers.  K
-// and V tiles of the block's KV head are staged through shared memory as
-// float32, and every thread of a warp reads the same key at the same time
-// (broadcast, 16 bytes per load).  Keys are scored kChunk at a time, so the
-// accumulator is rescaled once per chunk and not once per key.  Causal
-// blocks stop at the diagonal of their last row (the tiles past it are never
-// read), and the heaviest causal tiles are launched first.
+// loop inside the block instead, over 64-key tiles.  Causal blocks stop at
+// the diagonal of their last row (the tiles past it are never read), only
+// the diagonal (or ragged) tile is masked, and the heaviest causal tiles are
+// launched first.  Two kernels, by dtype:
 //
-// What bounds it: operations.  It reads q, k and v once from device memory
-// (per q head, K/V again from L2) and writes o once, but does 2 * dh
-// multiply-adds per visible (query, key) pair.  Without tensor cores those
-// run on the CUDA cores (67 TFLOP/s FP32 on the H100 SXM, against 989 for
-// bf16 on the tensor cores), and each multiply-add needs a quarter of a
-// shared-memory load.  A wgmma/TMA version is later work.
+// bf16 and fp16: flash_fwd_wgmma, on the tensor cores through wgmma.
+//   A block is one consumer warpgroup, owning 64 query rows of one (batch,
+//   q head), and one producer warp.  The producer keeps a two-stage ring of
+//   K and V tiles (64 keys, in T) full with TMA copies, each tile swizzled
+//   as wgmma reads it (128-, 64- or 32-byte swizzle, the widest a row of dh
+//   allows; dh = 128 is two 64-column regions), against mbarriers: tile
+//   j + 1 loads while tile j is multiplied.  The warpgroup keeps its q rows
+//   in registers as wgmma A fragments and computes S = Q K^T (K-major B from
+//   shared memory, float32 accumulator).  The online softmax runs in
+//   float32 on the accumulator fragments: row max and sum over the 4
+//   threads of a quad, p = exp2((s - m) c) with c = |scale| log2(e), the
+//   difference taken on the raw scores (exact for the keys that carry the
+//   weight, so large logits lose no bits to the scaling; a negative scale
+//   flips q's sign bits once).  P is then split into hi = T(p) and
+//   lo = T(p - hi), straight from the S fragments in registers, and
+//   O += P_hi V + P_lo V: two wgmma products with A from registers and V as
+//   a transposed (MN-major) B.  One rounding of P to T (what the TPU kernel
+//   and the usual tensor-core flash kernels do) leaves outputs near zero
+//   up to ~30 bf16 ulps off; hi + lo keeps 16 bits of p, and the result
+//   within two ulps of T of the float32 attention.  The split costs half as
+//   much tensor work again as one rounding.
+//   What bounds it: operations, 4 dh flops per visible (query, key) pair
+//   (6 dh on the tensor cores with the split), against 989 TFLOP/s dense
+//   bf16/fp16 on the H100 SXM; q, k, v are read once from device memory
+//   (K/V again per q head, from L2) and o written once.  Beside the tensor
+//   work, each score costs ~10 float32 operations and one exp2 on the
+//   CUDA cores; three blocks share an SM (at dh = 64), so one block's
+//   softmax overlaps another's products.
+//
+// float32: flash_fwd_kernel, on the CUDA cores.  TF32 tensor cores would
+//   miss the float32 limit (2e-5 absolute), so float32, the path of the
+//   parity checks, keeps a query row per thread (two threads for dh = 128,
+//   each with half the dims, joined by one shuffle per key), with the row's
+//   q, its float32 accumulator and its running max and normaliser in
+//   registers.  K and V tiles are staged through shared memory as float32,
+//   and every thread of a warp reads the same key at the same time
+//   (broadcast, 16 bytes per load).  Keys are scored kChunk at a time, so
+//   the accumulator is rescaled once per chunk and not once per key.
+//   What bounds it: operations, 2 dh multiply-adds per visible pair on the
+//   FP32 cores (67 TFLOP/s), each needing a quarter of a shared-memory load.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// float32: the CUDA-core kernel
+// ---------------------------------------------------------------------------
 
 constexpr int kRows = 64;   // query rows per block
 constexpr int kChunk = 16;  // keys scored per online-softmax update
@@ -45,27 +82,11 @@ template <typename T>
 __device__ __forceinline__ float to_float(T x);
 template <>
 __device__ __forceinline__ float to_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <>
-__device__ __forceinline__ float to_float<__half>(__half x) {
-  return __half2float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <>
-__device__ __forceinline__ __half from_float<__half>(float x) {
-  return __float2half_rn(x);
-}
 
 template <int DH>
 struct Shape {
@@ -200,6 +221,619 @@ int launch_dh(const void* q, const void* k, const void* v, void* o, int b,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 / fp16: the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kTcRows = 64;      // query rows per block: one warpgroup
+constexpr int kTcKeys = 64;      // keys per K/V tile
+constexpr int kTcStages = 2;     // K/V tiles in flight
+constexpr int kTcThreads = 160;  // warps 0-3 consume, warp 4 loads
+
+// One 64-row tile of dh elements in shared memory, as TMA writes it with
+// the widest swizzle a row allows and as wgmma reads it: kRegions column
+// regions of 64 rows x kSw bytes.
+template <int DH>
+struct TcTile {
+  static_assert(DH == 16 || DH == 32 || DH == 64 || DH == 128,
+                "unsupported head dim");
+  static constexpr int kSw = DH * 2 >= 128 ? 128 : DH * 2;  // swizzle bytes
+  static constexpr int kBoxCols = kSw / 2;                   // elements
+  static constexpr int kRegions = DH / kBoxCols;
+  static constexpr int kRegionBytes = 64 * kSw;
+  static constexpr int kBytes = 64 * DH * 2;
+  // wgmma descriptor layout: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte swizzle
+  static constexpr uint64_t kLayout = kSw == 128 ? 1 : (kSw == 64 ? 2 : 3);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// a shared-memory matrix descriptor: start, leading and stride byte
+// offsets (16-byte units), swizzle layout
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo, uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// Waits for the phase of `parity` to complete.  A wait that never ends
+// (a lost copy) traps, so the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spin > (1u << 24)) __trap();
+  }
+}
+
+// rows [row, row + 64) of one head through `map`, all column regions, into
+// a tile at dst; rows past the head's end arrive as zeros
+template <int DH>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int row, int head) {
+  using L = TcTile<DH>;
+#pragma unroll
+  for (int r = 0; r < L::kRegions; ++r)
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
+            dst + r * L::kRegionBytes),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(r * L::kBoxCols),
+        "r"(row), "r"(head)
+        : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving reads or writes of wgmma accumulators
+// across the asynchronous products
+template <int R, int C>
+__device__ __forceinline__ void wg_pin(float (&d)[R][C]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) asm volatile("" : "+f"(d[i][j])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// (x, y) -> hi = T(x), T(y) packed, and lo = T(x - hi.x), T(y - hi.y)
+template <typename T>
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
+                                       uint32_t& lo);
+template <>
+__device__ __forceinline__ void split2<__nv_bfloat16>(float x, float y,
+                                                      uint32_t& hi,
+                                                      uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+template <>
+__device__ __forceinline__ void split2<__half>(float x, float y, uint32_t& hi,
+                                               uint32_t& lo) {
+  const __half2 h = __floats2half2_rn(x, y);
+  const float2 hf = __half22float2(h);
+  const __half2 l = __floats2half2_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float x, float y);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float x, float y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float x, float y) {
+  const __half2 h = __floats2half2_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// d (+)= a b for the warpgroup's 64 rows, A from registers (the layout of
+// mma.m16n8k16's A, one warp per 16 rows), B through a descriptor; d is
+// laid out as mma.m16n8k16's accumulator, one [4] per 8 columns.
+// S = Q K^T: m64n64k16, K-major B; `accumulate` = 0 overwrites d.
+template <typename T>
+__device__ __forceinline__ void wgmma_qk(float (&d)[8][4],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate);
+// O += P V: m64nDHk16, V as a transposed (MN-major) B.
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_pv(float (&d)[N / 8][4],
+                                         const uint32_t (&a)[4], uint64_t b);
+
+#define REPRO_ACC(i) \
+  "+f"(d[i][0]), "+f"(d[i][1]), "+f"(d[i][2]), "+f"(d[i][3])
+
+template <>
+__device__ __forceinline__ void wgmma_qk<__nv_bfloat16>(
+    float (&d)[8][4], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : REPRO_ACC(0), REPRO_ACC(1), REPRO_ACC(2), REPRO_ACC(3), REPRO_ACC(4),
+        REPRO_ACC(5), REPRO_ACC(6), REPRO_ACC(7)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv<__nv_bfloat16, 16>(
+    float (&d)[2][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : REPRO_ACC(0), REPRO_ACC(1)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv<__nv_bfloat16, 32>(
+    float (&d)[4][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : REPRO_ACC(0), REPRO_ACC(1), REPRO_ACC(2), REPRO_ACC(3)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv<__nv_bfloat16, 64>(
+    float (&d)[8][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : REPRO_ACC(0), REPRO_ACC(1), REPRO_ACC(2), REPRO_ACC(3), REPRO_ACC(4),
+        REPRO_ACC(5), REPRO_ACC(6), REPRO_ACC(7)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv<__nv_bfloat16, 128>(
+    float (&d)[16][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : REPRO_ACC(0), REPRO_ACC(1), REPRO_ACC(2), REPRO_ACC(3), REPRO_ACC(4),
+        REPRO_ACC(5), REPRO_ACC(6), REPRO_ACC(7), REPRO_ACC(8), REPRO_ACC(9),
+        REPRO_ACC(10), REPRO_ACC(11), REPRO_ACC(12), REPRO_ACC(13),
+        REPRO_ACC(14), REPRO_ACC(15)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_qk<__half>(
+    float (&d)[8][4], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : REPRO_ACC(0), REPRO_ACC(1), REPRO_ACC(2), REPRO_ACC(3), REPRO_ACC(4),
+        REPRO_ACC(5), REPRO_ACC(6), REPRO_ACC(7)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv<__half, 16>(
+    float (&d)[2][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : REPRO_ACC(0), REPRO_ACC(1)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv<__half, 32>(
+    float (&d)[4][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : REPRO_ACC(0), REPRO_ACC(1), REPRO_ACC(2), REPRO_ACC(3)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv<__half, 64>(
+    float (&d)[8][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : REPRO_ACC(0), REPRO_ACC(1), REPRO_ACC(2), REPRO_ACC(3), REPRO_ACC(4),
+        REPRO_ACC(5), REPRO_ACC(6), REPRO_ACC(7)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv<__half, 128>(
+    float (&d)[16][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : REPRO_ACC(0), REPRO_ACC(1), REPRO_ACC(2), REPRO_ACC(3), REPRO_ACC(4),
+        REPRO_ACC(5), REPRO_ACC(6), REPRO_ACC(7), REPRO_ACC(8), REPRO_ACC(9),
+        REPRO_ACC(10), REPRO_ACC(11), REPRO_ACC(12), REPRO_ACC(13),
+        REPRO_ACC(14), REPRO_ACC(15)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef REPRO_ACC
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(kTcThreads)
+flash_fwd_wgmma(const T* __restrict__ q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, T* __restrict__ o,
+                int hq, int hkv, int sq, int sk, float scale_log2,
+                int causal) {
+  using L = TcTile<DH>;
+  constexpr int kD8 = DH / 8;  // 8-wide column blocks of O
+  extern __shared__ unsigned char tc_smem[];
+  // 1024-byte aligned stages of K, then of V; then the barriers
+  const uint32_t base = (smem_u32(tc_smem) + 1023u) & ~1023u;
+  const uint32_t k_s = base, v_s = base + kTcStages * L::kBytes;
+  const uint32_t bars = base + 2 * kTcStages * L::kBytes;
+  const uint32_t k_full = bars, v_full = bars + 8 * kTcStages,
+                 empty = bars + 16 * kTcStages;  // + stage * 8
+
+  const int bh = blockIdx.x;
+  const int tile = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
+  const int b = bh / hq, h = bh - b * hq;
+  const int kvh = b * hkv + h / (hq / hkv);
+  const int r0 = tile * kTcRows;
+  const int shift = sk - sq;
+  // keys the block reads: all, or (causal) up to its last row's diagonal
+  int k_end = sk;
+  if (causal) {
+    const int last = min(r0 + kTcRows, sq) - 1;
+    k_end = max(0, min(sk, last + shift + 1));
+  }
+  const int n_tiles = (k_end + kTcKeys - 1) / kTcKeys;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < kTcStages; ++st) {
+      mbar_init(k_full + 8 * st, 1);
+      mbar_init(v_full + 8 * st, 1);
+      mbar_init(empty + 8 * st, 128);  // every consumer thread arrives
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // producer: one thread issues every copy
+    if (lane == 0) {
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kTcStages;
+        if (j >= kTcStages)  // the stage's previous tile is consumed
+          mbar_wait(empty + 8 * st, (j / kTcStages - 1) & 1);
+        mbar_expect_tx(k_full + 8 * st, L::kBytes);
+        tma_tile<DH>(k_s + st * L::kBytes, &tm_k, k_full + 8 * st,
+                     j * kTcKeys, kvh);
+        mbar_expect_tx(v_full + 8 * st, L::kBytes);
+        tma_tile<DH>(v_s + st * L::kBytes, &tm_v, v_full + 8 * st,
+                     j * kTcKeys, kvh);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: warp w holds rows 16 w + g and 16 w + g + 8
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wr = r0 + warp * 16 + g;
+  // keys each row sees: [0, lim)
+  const int lim0 = causal ? min(sk, wr + shift + 1) : sk;
+  const int lim1 = causal ? min(sk, wr + 8 + shift + 1) : sk;
+  const float cexp = fabsf(scale_log2);
+
+  // the rows' q as A fragments, straight from device memory; a negative
+  // scale flips their sign bits (exact), for cexp = |scale_log2|
+  uint32_t qf[DH / 16][4];
+  {
+    const uint32_t flip = scale_log2 < 0.0f ? 0x80008000u : 0u;
+    const T* q0 = q + ((long long)bh * sq + wr) * DH + t4 * 2;
+    const bool live0 = wr < sq, live1 = wr + 8 < sq;
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint32_t* p0 = reinterpret_cast<const uint32_t*>(q0 + kk * 16);
+      const uint32_t* p1 =
+          reinterpret_cast<const uint32_t*>(q0 + kk * 16 + 8 * DH);
+      qf[kk][0] = live0 ? p0[0] ^ flip : 0u;  // row g, columns 2 t4 + {0, 1}
+      qf[kk][1] = live1 ? p1[0] ^ flip : 0u;  // row g + 8
+      qf[kk][2] = live0 ? p0[4] ^ flip : 0u;  // row g, columns + 8
+      qf[kk][3] = live1 ? p1[4] ^ flip : 0u;
+    }
+  }
+
+  float acc[kD8][4];
+#pragma unroll
+  for (int n = 0; n < kD8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.0f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * kTcKeys;
+    const int st = j % kTcStages;
+    const uint32_t phase = (j / kTcStages) & 1;
+    const uint32_t kt = k_s + st * L::kBytes, vt = v_s + st * L::kBytes;
+
+    // S = Q K^T, 64 rows x 64 keys; a 16-deep k step moves 32 bytes along
+    // a swizzled row, or to the next column region
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+    mbar_wait(k_full + 8 * st, phase);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint32_t off = (kk * 16 / L::kBoxCols) * L::kRegionBytes +
+                           (kk * 16 % L::kBoxCols) * 2;
+      wgmma_qk<T>(s, qf[kk], wg_desc(kt + off, 16, 8 * L::kSw, L::kLayout),
+                  kk > 0);
+    }
+    wg_commit_wait();
+    wg_pin(s);
+
+    // only a ragged or diagonal tile is masked
+    const bool masked =
+        k0 + kTcKeys > sk || (causal && k0 + kTcKeys - 1 > r0 + shift);
+    if (masked) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + n * 8 + t4 * 2 + (e & 1);
+          if (key >= (e < 2 ? lim0 : lim1)) s[n][e] = -INFINITY;
+        }
+    }
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    // a row with nothing visible yet keeps m = -inf: subtract 0 instead,
+    // and its alpha is 0, never NaN
+    const float mu0 = mn0 == -INFINITY ? 0.0f : mn0;
+    const float mu1 = mn1 == -INFINITY ? 0.0f : mn1;
+    const float alpha0 = m0 == -INFINITY ? 0.0f : ex2((m0 - mu0) * cexp);
+    const float alpha1 = m1 == -INFINITY ? 0.0f : ex2((m1 - mu1) * cexp);
+    m0 = mn0;
+    m1 = mn1;
+    l0 *= alpha0;
+    l1 *= alpha1;
+#pragma unroll
+    for (int n = 0; n < kD8; ++n) {
+      acc[n][0] *= alpha0;
+      acc[n][1] *= alpha0;
+      acc[n][2] *= alpha1;
+      acc[n][3] *= alpha1;
+    }
+    if (masked) {  // a masked key is 0 even at scale 0 (-inf * 0 is NaN)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[n][e] = s[n][e] == -INFINITY
+                        ? 0.0f
+                        : ex2((s[n][e] - (e < 2 ? mu0 : mu1)) * cexp);
+    } else {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[n][e] = ex2((s[n][e] - (e < 2 ? mu0 : mu1)) * cexp);
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      l0 += s[n][0] + s[n][1];
+      l1 += s[n][2] + s[n][3];
+    }
+
+    // O += P_hi V + P_lo V.  The S fragments of 8-key blocks 2 kk and
+    // 2 kk + 1 are the A fragment of 16-key step kk; a step is two 8-row
+    // swizzle groups further on in V.
+    uint32_t p_hi[4][4], p_lo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      split2<T>(s[2 * kk][0], s[2 * kk][1], p_hi[kk][0], p_lo[kk][0]);
+      split2<T>(s[2 * kk][2], s[2 * kk][3], p_hi[kk][1], p_lo[kk][1]);
+      split2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1], p_hi[kk][2],
+                p_lo[kk][2]);
+      split2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3], p_hi[kk][3],
+                p_lo[kk][3]);
+    }
+    mbar_wait(v_full + 8 * st, phase);
+    wg_pin(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t vd = wg_desc(vt + kk * 16 * L::kSw, L::kRegionBytes,
+                                  8 * L::kSw, L::kLayout);
+      wgmma_pv<T, DH>(acc, p_hi[kk], vd);
+      wgmma_pv<T, DH>(acc, p_lo[kk], vd);
+    }
+    wg_commit_wait();
+    wg_pin(acc);
+    mbar_arrive(empty + 8 * st);  // this stage may be refilled
+  }
+
+  // the row sums over the quad; no visible key -> 0
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = l0 > 0.0f ? 1.0f / l0 : 0.0f;
+  const float inv1 = l1 > 0.0f ? 1.0f / l1 : 0.0f;
+  T* orow = o + ((long long)bh * sq + wr) * DH + t4 * 2;
+  const bool live0 = wr < sq, live1 = wr + 8 < sq;
+#pragma unroll
+  for (int n = 0; n < kD8; ++n) {
+    if (live0)
+      *reinterpret_cast<uint32_t*>(orow + n * 8) =
+          pack2<T>(acc[n][0] * inv0, acc[n][1] * inv0);
+    if (live1)
+      *reinterpret_cast<uint32_t*>(orow + 8 * DH + n * 8) =
+          pack2<T>(acc[n][2] * inv1, acc[n][3] * inv1);
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found at run time: the library
+// links no libcuda
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// K or V as (heads, rows, dh), in boxes of 64 rows x one column region
+template <typename T, int DH>
+bool make_tensor_map(CUtensorMap* map, const void* ptr, int rows, int heads) {
+  using L = TcTile<DH>;
+  const auto encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)DH, (cuuint64_t)rows,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)DH * sizeof(T),
+                                 (cuuint64_t)rows * DH * sizeof(T)};
+  const cuuint32_t box[3] = {(cuuint32_t)L::kBoxCols, 64, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      L::kSw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                    : (L::kSw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                    : CU_TENSOR_MAP_SWIZZLE_32B);
+  return encode(map,
+                std::is_same<T, __half>::value
+                    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                3, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T, int DH>
+int launch_tc(const void* q, const void* k, const void* v, void* o, int b,
+              int hq, int hkv, int sq, int sk, float scale_log2, int causal,
+              cudaStream_t stream) {
+  const int tiles = (sq + kTcRows - 1) / kTcRows;
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  if (sk == 0)  // no row sees a key
+    return (int)cudaMemsetAsync(o, 0, (size_t)b * hq * sq * DH * sizeof(T),
+                                stream);
+  CUtensorMap tk, tv;
+  if (!make_tensor_map<T, DH>(&tk, k, sk, b * hkv) ||
+      !make_tensor_map<T, DH>(&tv, v, sk, b * hkv))
+    return (int)cudaErrorInvalidValue;
+  // K and V stages, 1024 bytes of alignment slack, 3 barriers per stage
+  constexpr int smem = 2 * kTcStages * TcTile<DH>::kBytes + 1024 +
+                       24 * kTcStages;
+  const cudaError_t set = cudaFuncSetAttribute(
+      flash_fwd_wgmma<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (set != cudaSuccess) return (int)set;
+  const dim3 grid((unsigned)(b * hq), (unsigned)tiles);
+  flash_fwd_wgmma<T, DH><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const T*>(q), tk, tv, static_cast<T*>(o), hq, hkv, sq, sk,
+      scale_log2, causal);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int hq, int hkv, int sq, int sk, int dh, double scale, int causal,
@@ -209,17 +843,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
     return (int)cudaErrorInvalidValue;
   const float scale_log2 = (float)(scale * 1.4426950408889634);  // log2(e)
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // float32 on the CUDA cores, bf16 / fp16 on the tensor cores
+#define REPRO_FLASH_DH(DH)                                                \
+  case DH:                                                                \
+    if constexpr (std::is_same<T, float>::value)                          \
+      return launch_dh<T, DH>(q, k, v, o, b, hq, hkv, sq, sk, scale_log2, \
+                              causal, s);                                 \
+    else                                                                  \
+      return launch_tc<T, DH>(q, k, v, o, b, hq, hkv, sq, sk, scale_log2, \
+                              causal, s);
   switch (dh) {
-    case 16: return launch_dh<T, 16>(q, k, v, o, b, hq, hkv, sq, sk,
-                                     scale_log2, causal, s);
-    case 32: return launch_dh<T, 32>(q, k, v, o, b, hq, hkv, sq, sk,
-                                     scale_log2, causal, s);
-    case 64: return launch_dh<T, 64>(q, k, v, o, b, hq, hkv, sq, sk,
-                                     scale_log2, causal, s);
-    case 128: return launch_dh<T, 128>(q, k, v, o, b, hq, hkv, sq, sk,
-                                       scale_log2, causal, s);
+    REPRO_FLASH_DH(16)
+    REPRO_FLASH_DH(32)
+    REPRO_FLASH_DH(64)
+    REPRO_FLASH_DH(128)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef REPRO_FLASH_DH
 }
 
 }  // namespace

@@ -13,8 +13,12 @@ tile, and the serving path never reaches such a row.
 Replaces the TPU kernel ``src/repro/kernels/flash_attention.py:_flash_kernel``
 (its oracle is ``src/repro/kernels/ref.py:flash_attention_ref``).  A
 tensor on the CPU takes :func:`flash_attention_plain`; a CUDA tensor
-launches the hand-written kernel in ``csrc/flash_attention.cu`` or raises.
-The wrapper counts its launches in ``flash_attention.launches``.
+launches a hand-written kernel in ``csrc/flash_attention.cu`` or raises:
+bfloat16 and float16 the tensor-core kernel (wgmma, K/V tiles copied by
+TMA, P split into hi + lo in the input dtype for the PV product, so the
+result stays within two ulps of the float32 attention), float32 the
+CUDA-core kernel.  The wrapper counts its launches in
+``flash_attention.launches``.
 """
 
 from __future__ import annotations
@@ -96,7 +100,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "(65535)")
     if scale is None:
         scale = 1.0 / dh ** 0.5
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # the kernels copy rows in 16-byte pieces
+    q, k, v = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+               else t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out

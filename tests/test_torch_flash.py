@@ -7,6 +7,16 @@ oracle ``repro.kernels.ref.flash_attention_ref``, on the sweep of
 alignment).  Absolute limits are the JAX tests' own: 2e-5 in float32 and
 5e-2 in bfloat16.  Rows that see no key are 0 in the port (the oracle
 gives NaN there).
+
+The card runs bfloat16 and float16 on a tensor-core kernel that no CPU can
+run; ``_tile_emulation`` repeats its arithmetic tile by tile in plain
+PyTorch (64-row x 64-key tiles, float32 running max and normaliser, the
+causal stop at a block's last row, P split into hi + lo in the input
+dtype for the PV product, 0 for rows with no visible key), and the tests
+below hold it against the JAX kernel and the plain version.  The limit is
+two ulps of the output dtype, elementwise: |e - p| <= 2e-5 + r |p| with r
+= 2^-6 (bfloat16) or 2^-9 (float16), as on the card
+(tests/test_torch_gpu.py).
 """
 
 import jax.numpy as jnp
@@ -18,6 +28,13 @@ from repro.kernels import ops, ref
 from repro_torch.kernels import flash_attention as tfa
 
 RNG = np.random.default_rng(13)
+LOG2E = 1.4426950408889634
+# two ulps of the output dtype, (atol, rtol)
+TWO_ULPS = {torch.bfloat16: (2e-5, 2.0 ** -6),
+            torch.float16: (2e-5, 2.0 ** -9)}
+# unit roundoff of each dtype (half an ulp at 1)
+UNIT = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
+JNP = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}
 
 
 def _inputs(b, hq, hkv, sq, sk, dh):
@@ -109,3 +126,123 @@ def test_flash_attention_rejects_bad_inputs(shapes, dtypes, err):
     q, k, v = (torch.zeros(s, dtype=d) for s, d in zip(shapes, dtypes))
     with pytest.raises(err):
         tfa.flash_attention(q, k, v)
+
+
+def _tile_emulation(q, k, v, *, causal, scale=None, split=True, rows=64,
+                    keys=64):
+    """The tensor-core kernel's arithmetic (csrc/flash_attention.cu,
+    flash_fwd_wgmma) in plain PyTorch, one 64-row block and one 64-key tile
+    at a time.  ``split=False`` rounds P to the input dtype once instead, as
+    the TPU kernel does."""
+    dtype = q.dtype
+    b, hq, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    scale_log2 = torch.tensor((1.0 / dh ** 0.5 if scale is None else scale)
+                              * LOG2E, dtype=torch.float32)
+    if scale_log2 < 0:  # the kernel flips q's sign and uses |scale_log2|
+        q, scale_log2 = -q, -scale_log2
+    kk = k.float().repeat_interleave(hq // hkv, dim=1)
+    vv = v.float().repeat_interleave(hq // hkv, dim=1)
+    out = torch.zeros(q.shape, dtype=dtype)
+    shift = sk - sq
+    for r0 in range(0, sq, rows):
+        qt = q[:, :, r0:r0 + rows].float()
+        row = torch.arange(r0, r0 + qt.shape[2])
+        # the block stops at its last row's diagonal
+        k_end = min(sk, r0 + qt.shape[2] + shift) if causal else sk
+        lim = (row + shift + 1).clamp(max=sk) if causal \
+            else torch.full_like(row, sk)
+        m = torch.full(qt.shape[:3] + (1,), float("-inf"))
+        l = torch.zeros(qt.shape[:3] + (1,))
+        acc = torch.zeros(qt.shape)
+        for k0 in range(0, max(k_end, 0), keys):
+            key = torch.arange(k0, min(k0 + keys, sk))
+            # raw scores; p = exp2((s - m) scale_log2), the difference first
+            s = torch.einsum("bhqd,bhkd->bhqk", qt, kk[:, :, key])
+            s = s.masked_fill(key[None, :] >= lim[:, None], float("-inf"))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            m_use = m_new.masked_fill(m_new == float("-inf"), 0.0)
+            alpha = torch.where(m == float("-inf"), 0.0,
+                                torch.exp2((m - m_use) * scale_log2))
+            p = torch.where(s == float("-inf"), 0.0,
+                            torch.exp2((s - m_use) * scale_log2))
+            l = l * alpha + p.sum(-1, keepdim=True)
+            hi = p.to(dtype).float()
+            acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", hi,
+                                             vv[:, :, key])
+            if split:
+                acc = acc + torch.einsum("bhqk,bhkd->bhqd",
+                                         (p - hi).to(dtype).float(),
+                                         vv[:, :, key])
+            m = m_new
+        out[:, :, r0:r0 + rows] = torch.where(
+            l > 0, acc / l.clamp(min=1e-30), 0.0).to(dtype)
+    return out
+
+
+def _limit_share(got, want, atol, rtol, extra=0.0):
+    """Largest |got - want| / (atol + extra + rtol |want|): at most 1 when
+    every element is within the limit."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (atol + extra + rtol * want.abs()))
+                 .max())
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,dh", [
+    (1, 32, 8, 128, 128, 64),   # granite-3-2b heads
+    (1, 32, 8, 100, 100, 64),   # granite, ragged 64-row block
+    (2, 8, 1, 70, 70, 32),      # GQA group 8
+    (1, 4, 4, 1, 256, 64),      # decode alignment
+    (1, 4, 2, 65, 200, 128),    # ragged, sk > sq
+    (1, 2, 1, 60, 24, 16),      # sk < sq: rows without keys
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_tile_emulation_matches_jax_and_plain(dtype, b, hq, hkv, sq, sk, dh):
+    """The emulated kernel within two ulps of the plain version, and
+    against the Pallas kernel (interpret mode) within two ulps plus the
+    Pallas kernel's own error: it rounds P to the input dtype once, which
+    moves an output by at most u max|v| (u the unit roundoff)."""
+    q, k, v = (torch.as_tensor(a).to(dtype)
+               for a in _inputs(b, hq, hkv, sq, sk, dh))
+    got = _tile_emulation(q, k, v, causal=True)
+    plain = tfa.flash_attention_plain(q, k, v, causal=True)
+    atol, rtol = TWO_ULPS[dtype]
+    assert _limit_share(got, plain, atol, rtol) <= 1.0
+    jq, jk, jv = (jnp.asarray(t.float().numpy(), JNP[dtype])
+                  for t in (q, k, v))
+    pallas = torch.as_tensor(np.asarray(ops.flash_attention(
+        jq, jk, jv, causal=True, block_q=64, block_k=64, interpret=True),
+        np.float32))
+    seen = sq - max(0, sq - sk)  # the Pallas kernel's rows with keys
+    assert _limit_share(got[:, :, sq - seen:], pallas[:, :, sq - seen:],
+                        atol, rtol,
+                        extra=UNIT[dtype] * float(v.float().abs().max())) \
+        <= 1.0
+
+
+@pytest.mark.parametrize("scale", [0.05, -0.2, 0.0])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_tile_emulation_explicit_scale_matches_plain(dtype, causal, scale):
+    """A given scale, negative (the kernel flips q's sign) and 0 (every
+    visible key weighs the same)."""
+    q, k, v = (torch.as_tensor(a).to(dtype)
+               for a in _inputs(1, 4, 2, 130, 130, 64))
+    got = _tile_emulation(q, k, v, causal=causal, scale=scale)
+    want = tfa.flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    assert _limit_share(got, want, *TWO_ULPS[dtype]) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_one_rounding_of_p_fails_the_two_ulp_limit(dtype):
+    """Why the kernel splits P: at s = 2048 (causal, dh = 64), rounding P
+    once to the input dtype puts outputs near zero many ulps off the
+    float32 attention; hi + lo stays within two ulps."""
+    q, k, v = (torch.as_tensor(a).to(dtype)
+               for a in _inputs(1, 4, 1, 2048, 2048, 64))
+    want = tfa.flash_attention_plain(q, k, v, causal=True)
+    atol, rtol = TWO_ULPS[dtype]
+    once = _tile_emulation(q, k, v, causal=True, split=False)
+    split = _tile_emulation(q, k, v, causal=True)
+    assert _limit_share(once, want, atol, rtol) > 2.0
+    assert _limit_share(split, want, atol, rtol) <= 1.0

@@ -223,6 +223,113 @@ def test_flash_half_precision_matches_plain(cuda, dtype, sq):
     assert _flash_close(got, want, dtype)
 
 
+HALF = [torch.bfloat16, torch.float16]
+
+
+def _flash_tc_case(cuda, dtype, shape_q, shape_kv, seed, q_gain=1.0,
+                   grid=None, **kw):
+    """The tensor-core kernel (bf16/f16) against the plain version on the
+    same inputs, upcast to float32; launches counted.  ``grid`` rounds q
+    and k to multiples of 1/grid first."""
+    q, k, v = _qkv(shape_q, shape_kv, torch.float32, cuda, seed)
+    if grid:
+        q, k = (torch.round(t * grid) / grid for t in (q, k))
+    q, k, v = (q * q_gain).to(dtype), k.to(dtype), v.to(dtype)
+    launches = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == launches + 1
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    want = tfa.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    assert _flash_close(got, want, dtype)
+    return got
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq", [1, 63, 64, 65, 1000, 2048])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", HALF)
+def test_flash_tensor_cores_match_plain(cuda, dtype, dh, sq, causal):
+    """Every head dim over full, partial (sq = 1, 63, 65, 1000) and
+    many-tile query ranges; sk = sq."""
+    _flash_tc_case(cuda, dtype, (1, 4, sq, dh), (1, 2, sq, dh), sq + dh,
+                   causal=causal)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk", [(65, 40), (200, 130), (1, 4096),
+                                   (100, 300), (1000, 1500), (63, 2048)])
+@pytest.mark.parametrize("dtype", HALF)
+def test_flash_tensor_cores_cross_lengths(cuda, dtype, sq, sk, causal):
+    """sk < sq (causal: the first sq - sk rows see no key) and sk > sq
+    (decode alignment: row t sees keys <= t + sk - sq)."""
+    _flash_tc_case(cuda, dtype, (1, 4, sq, 64), (1, 4, sk, 64), sq + sk,
+                   causal=causal)
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("dtype", HALF)
+def test_flash_tensor_cores_gqa_and_batch(cuda, dtype, group, b):
+    _flash_tc_case(cuda, dtype, (b, 2 * group, 300, 64), (b, 2, 300, 64),
+                   group + b, causal=True)
+
+
+@pytest.mark.parametrize("scale", [0.05, -0.2, 0.0])
+@pytest.mark.parametrize("dtype", HALF)
+def test_flash_tensor_cores_explicit_scale(cuda, dtype, scale):
+    """A given scale; negative (the kernel flips q's sign) and 0 (every
+    visible key weighs the same) too."""
+    _flash_tc_case(cuda, dtype, (1, 8, 257, 128), (1, 2, 257, 128), 5,
+                   causal=True, scale=scale)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", HALF)
+def test_flash_tensor_cores_underflowing_probabilities(cuda, dtype, causal):
+    """q scaled by 30: logits of ~30 standard deviations, most
+    probabilities underflow to 0 in float32.  q and k are rounded to
+    quarter units first, so that every q.k and its partial sums are exact
+    in float32: at this gain the float32 sums of unrounded inputs alone
+    put the plain version 0.7 of the float16 limit off the exact
+    attention, whatever the kernel does."""
+    _flash_tc_case(cuda, dtype, (1, 8, 512, 64), (1, 2, 512, 64), 9,
+                   q_gain=30.0, grid=4, causal=causal)
+
+
+@pytest.mark.parametrize("dtype", HALF)
+def test_flash_tensor_cores_rows_without_keys_are_zero(cuda, dtype):
+    got = _flash_tc_case(cuda, dtype, (2, 4, 100, 32), (2, 2, 30, 32), 4,
+                         causal=True)
+    assert bool((got[:, :, :70] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", HALF)
+def test_flash_tensor_cores_take_unaligned_views(cuda, dtype):
+    """Tensors whose data starts off a 16-byte boundary (the kernel copies
+    rows in 16-byte pieces) are copied first: same result."""
+    q, k, v = _qkv((1, 4, 70, 64), (1, 2, 70, 64), dtype, cuda, 8)
+
+    def shifted(t):
+        view = torch.empty(t.numel() + 1, dtype=dtype,
+                           device=cuda)[1:].view(t.shape)
+        return view.copy_(t)
+
+    qs, ks, vs = (shifted(t) for t in (q, k, v))
+    assert qs.data_ptr() % 16 != 0
+    got = tfa.flash_attention(qs, ks, vs, causal=True)
+    assert torch.equal(got, tfa.flash_attention(q, k, v, causal=True))
+
+
+def test_flash_bf16_launch_counts(cuda):
+    q, k, v = _qkv((1, 32, 128, 64), (1, 8, 128, 64), torch.bfloat16, cuda,
+                   1)
+    launches = tfa.flash_attention.launches
+    tfa.flash_attention(q, k, v, causal=True)
+    tfa.flash_attention(q, k, v)
+    assert tfa.flash_attention.launches == launches + 2
+
+
 def test_flash_rows_without_keys_are_zero_on_card(cuda):
     q, k, v = _qkv((1, 2, 40, 32), (1, 1, 25, 32), torch.float32, cuda, 3)
     got = tfa.flash_attention(q, k, v, causal=True)

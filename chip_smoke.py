@@ -6,9 +6,11 @@ Drives the port's main path on one CUDA card — spiral points ->
 ``spectral_clustering`` at n = 100,000 — after building the hand-written
 kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all
 at once) and holding each one against its plain PyTorch version at the
-paths' shapes.  Then the paths of the exact direct sum (``kernel_matvec``):
-the accuracy guard's direct floor under ``eigsh`` (spiral n = 8,000), kernel
-SSL on crescent-fullmoon at n = 100,000 (paper Section 6.2.3), kernel ridge
+paths' shapes (the window kernels also on geometries that stress their
+tile plan: uniform, unsorted, the SSL path's d = 2, 16 channels).  Then
+the paths of the exact direct sum (``kernel_matvec``): the accuracy
+guard's direct floor under ``eigsh`` (spiral n = 8,000), kernel SSL on
+crescent-fullmoon at n = 100,000 (paper Section 6.2.3), kernel ridge
 regression at n = 10,000 with fast and direct prediction (Section 6.3), and
 one direct matvec at n = 10^5.  Then the LM serving path: the flash
 attention kernels against their plain version (float32 on the CUDA cores,
@@ -21,7 +23,8 @@ layer, every logit must be finite, and in float32 the engine's tokens must
 equal a manual prefill+decode loop's.  Each path starts with every launch
 count at 0 and must launch its kernels.  Last it times the kernels beside
 their roofline bounds (and flash attention beside PyTorch's SDPA), the
-fused matvec at n = 10^5 and 10^6, prefill and decode.  Any failed check
+window kernels' tile plan, the fused matvec at n = 10^5 and 10^6, prefill
+and decode.  Any failed check
 raises, so the run exits non-zero and prints no result line.
 
     python3 chip_smoke.py [--json PATH]
@@ -65,8 +68,11 @@ N_ANCHOR = 4000
 SIGMA = 3.5
 K_EIG = 10
 K_CLUSTERS = 5
-# kernel vs plain, relative to the plain output's largest entry: spread
-# adds with atomics in a varying order; gather differs only in order
+# kernel vs plain, relative to the plain output's largest entry.  Spread:
+# a tile's windows are summed in row order in registers, and the tiles'
+# boxes land on the grid with atomics in a varying order; gather: each
+# node's window is summed in a fixed order that differs from the plain
+# version's
 TOL = {("spread", "float64"): 1e-12, ("spread", "float32"): 1e-4,
        ("gather", "float64"): 1e-13, ("gather", "float32"): 1e-5}
 ADJOINT_TOL = 1e-10
@@ -78,6 +84,16 @@ TIERS = {"SETUP_1": 5e-3, "SETUP_2": 5e-8, "SETUP_3": 1e-13}
 BLOCK_ITERS = {1: None, 4: 80}
 # the kernels' JSON record is taken at this main-path shape
 RECORD = ("SETUP_3", 3, 1, "float64")
+# Window geometries beyond the main path's spirals that stress the tile
+# plan, checked kernel vs plain and by the adjoint identity at n = 10^5:
+# (kind, setup, d, channels).  "uniform": uniform random nodes (boxes ~2x
+# a window); "unsorted": the spiral without the Morton sort (tiles split
+# down to single rows); "ssl": the SSL path's crescent-fullmoon at N=128,
+# m=3, d=2; C = 16: two channel chunks.
+WINDOW_STRESS = (("uniform", "SETUP_3", 3, (1, 4)),
+                 ("unsorted", "SETUP_3", 3, (1, 4)),
+                 ("ssl", "SSL", 2, (1, 4)),
+                 ("spiral", "SETUP_3", 3, (16,)))
 
 # kernel_matvec vs plain, relative to the plain output's largest entry: the
 # sums run in another order than the plain matrix product, and float32
@@ -219,6 +235,7 @@ class Smoke:
         self.dev = torch.device("cuda", 0)
         self.kernel = make_kernel("gaussian", sigma=SIGMA)
         self.record = {"checks": [], "times": []}
+        self.geometries = {}
 
     # -- helpers -----------------------------------------------------------
     def sync(self):
@@ -336,15 +353,37 @@ class Smoke:
         yield ("layer", (1, 32, 8, FLASH_LAYER_S, FLASH_LAYER_S, 64), True,
                "bfloat16")
 
-    def geometry(self, setup_name, d, n, dtype):
-        """Main-path window geometry: spiral nodes (first d coordinates)."""
-        pts, _ = self.spiral(n, seed=0)
-        pts = self.torch.as_tensor(pts[:, :d], device=self.dev)
-        params = self.setup(setup_name)
+    def window_geometry(self, setup_name, d, n, kind="spiral"):
+        """(NFFT plan, window geometry), built once per argument set.
+
+        "spiral": the main path's nodes (first d coordinates), Morton-sorted;
+        "unsorted": the same without the sort; "uniform": uniform random
+        nodes; "ssl": crescent-fullmoon under the SSL path's parameters."""
+        key = (setup_name, d, n, kind)
+        if key in self.geometries:
+            return self.geometries[key]
+        torch = self.torch
+        if kind == "ssl":
+            pts, _ = self.crescent(n, seed=0)
+            params = self.fs.FastsumParams(n_bandwidth=128, m=3, eps_b=0.0)
+        else:
+            if kind == "uniform":
+                pts = np.random.default_rng(0).uniform(-1, 1, (n, d))
+            else:
+                pts, _ = self.spiral(n, seed=0)
+            params = self.setup(setup_name)
+        pts = torch.as_tensor(pts[:, :d], device=self.dev)
         scaled, _, _ = self.fs.scale_nodes(pts, params.eps_b_eff)
         plan = params.nfft_plan(d)
-        geom = self.build_window_geometry(plan, scaled)
-        return plan, geom.base, geom.weights.to(dtype)
+        geom = self.build_window_geometry(plan, scaled,
+                                          sort=kind != "unsorted")
+        self.geometries[key] = plan, geom
+        return plan, geom
+
+    def geometry(self, setup_name, d, n, dtype, kind="spiral"):
+        """(plan, base, weights in ``dtype``, tile plan) of a geometry."""
+        plan, geom = self.window_geometry(setup_name, d, n, kind)
+        return plan, geom.base, geom.weights.to(dtype), geom.tiles
 
     @staticmethod
     def bound(n, d, taps, c, pad, dtype_name):
@@ -472,61 +511,81 @@ class Smoke:
                 f"shared memory per block ({dyn} dynamic), "
                 f"{r.get('spill_bytes')} bytes spilled")
 
+    def window_cases(self):
+        """(kind, setup, d, channels, dtypes) of every window check."""
+        torch = self.torch
+        both = (torch.float64, torch.float32)
+        for setup_name in ("SETUP_2", "SETUP_3"):
+            for d in (1, 2, 3):
+                yield "spiral", setup_name, d, (1, 4), both
+        for kind, setup_name, d, chans in WINDOW_STRESS:
+            yield kind, setup_name, d, chans, both
+
     def phase_kernels(self):
         torch, win = self.torch, self.win
         log(f"[kernels] kernel vs plain at n={N_MAIN}, rel = max|k-p| / "
-            "max|p|")
-        for setup_name in ("SETUP_2", "SETUP_3"):
-            for d in (1, 2, 3):
-                for dtype in (torch.float64, torch.float32):
-                    dname = str(dtype).split(".")[1]
-                    plan, base, w = self.geometry(setup_name, d, N_MAIN, dtype)
-                    pad = self.padded_grid_size(plan)
-                    for c in (1, 4):
-                        gen = torch.Generator(device=self.dev).manual_seed(c)
-                        x = torch.randn((N_MAIN, c), generator=gen,
-                                        dtype=dtype, device=self.dev)
-                        g = torch.randn((pad,) * d + (c,), generator=gen,
-                                        dtype=dtype, device=self.dev)
-                        for kname, k_out, p_out in (
-                                ("spread",
-                                 win.window_spread(x, base, w, padded_size=pad),
-                                 win.window_spread_plain(x, base, w,
-                                                         padded_size=pad)),
-                                ("gather", win.window_gather(g, base, w),
-                                 win.window_gather_plain(g, base, w))):
-                            self.sync()
-                            err = float((k_out - p_out).abs().max())
-                            rel = err / float(p_out.abs().max())
-                            ok = rel <= TOL[(kname, dname)]
-                            self.record["checks"].append({
-                                "kernel": kname, "setup": setup_name, "d": d,
-                                "c": c, "dtype": dname, "n": N_MAIN,
-                                "max_abs_err": err, "rel_err": rel,
-                                "tol": TOL[(kname, dname)], "ok": ok})
-                            log(f"[kernels] {kname:6s} {setup_name} d={d} "
-                                f"C={c} {dname}: max_abs_err={err:.3e} "
-                                f"rel={rel:.3e} (tol {TOL[(kname, dname)]:g})"
-                                f" {'ok' if ok else 'FAIL'}")
-                            check(ok, f"{kname} {setup_name} d={d} C={c} "
-                                  f"{dname}: rel {rel:.3e}")
-                # adjoint identity, float64
-                plan, base, w = self.geometry(setup_name, d, N_MAIN,
-                                              torch.float64)
+            "max|p|; each geometry's tile plan built once")
+        for kind, setup_name, d, chans, dtypes in self.window_cases():
+            for dtype in dtypes:
+                dname = str(dtype).split(".")[1]
+                plan, base, w, tiles = self.geometry(setup_name, d, N_MAIN,
+                                                     dtype, kind)
                 pad = self.padded_grid_size(plan)
-                gen = torch.Generator(device=self.dev).manual_seed(7)
-                x = torch.randn((N_MAIN, 1), generator=gen,
-                                dtype=torch.float64, device=self.dev)
-                g = torch.randn((pad,) * d + (1,), generator=gen,
-                                dtype=torch.float64, device=self.dev)
-                lhs = float((win.window_gather(g, base, w) * x).sum())
-                rhs = float((g * win.window_spread(
-                    x, base, w, padded_size=pad)).sum())
-                rel = abs(lhs - rhs) / abs(lhs)
-                log(f"[kernels] adjoint {setup_name} d={d} float64: "
-                    f"rel={rel:.3e} (tol {ADJOINT_TOL:g})")
-                check(rel <= ADJOINT_TOL,
-                      f"adjoint {setup_name} d={d}: {rel:.3e}")
+                for c in chans:
+                    gen = torch.Generator(device=self.dev).manual_seed(c)
+                    x = torch.randn((N_MAIN, c), generator=gen, dtype=dtype,
+                                    device=self.dev)
+                    g = torch.randn((pad,) * d + (c,), generator=gen,
+                                    dtype=dtype, device=self.dev)
+                    for kname, k_out, p_out in (
+                            ("spread",
+                             win.window_spread(x, base, w, padded_size=pad,
+                                               tiles=tiles),
+                             win.window_spread_plain(x, base, w,
+                                                     padded_size=pad)),
+                            ("gather", win.window_gather(g, base, w,
+                                                         tiles=tiles),
+                             win.window_gather_plain(g, base, w))):
+                        self.sync()
+                        err = float((k_out - p_out).abs().max())
+                        rel = err / float(p_out.abs().max())
+                        tol = TOL[(kname, dname)]
+                        ok = rel <= tol
+                        self.record["checks"].append({
+                            "kernel": kname, "geometry": kind,
+                            "setup": setup_name, "d": d, "c": c,
+                            "dtype": dname, "n": N_MAIN,
+                            "tiles": tiles.n_tiles,
+                            "max_box_cells": tiles.max_cells,
+                            "max_abs_err": err, "rel_err": rel, "tol": tol,
+                            "ok": ok})
+                        log(f"[kernels] {kname:6s} {kind} {setup_name} d={d} "
+                            f"C={c} {dname}: max_abs_err={err:.3e} "
+                            f"rel={rel:.3e} (tol {tol:g}, {rel / tol:.3g} of "
+                            f"it) {'ok' if ok else 'FAIL'}")
+                        check(ok, f"{kname} {kind} {setup_name} d={d} C={c} "
+                              f"{dname}: rel {rel:.3e}")
+            # adjoint identity, float64
+            plan, base, w, tiles = self.geometry(setup_name, d, N_MAIN,
+                                                 torch.float64, kind)
+            pad = self.padded_grid_size(plan)
+            gen = torch.Generator(device=self.dev).manual_seed(7)
+            c = max(chans)
+            x = torch.randn((N_MAIN, c), generator=gen, dtype=torch.float64,
+                            device=self.dev)
+            g = torch.randn((pad,) * d + (c,), generator=gen,
+                            dtype=torch.float64, device=self.dev)
+            lhs = float((win.window_gather(g, base, w, tiles=tiles)
+                         * x).sum())
+            rhs = float((g * win.window_spread(
+                x, base, w, padded_size=pad, tiles=tiles)).sum())
+            rel = abs(lhs - rhs) / abs(lhs)
+            log(f"[kernels] adjoint {kind} {setup_name} d={d} C={c} "
+                f"float64: rel={rel:.3e} (tol {ADJOINT_TOL:g}); "
+                f"{tiles.n_tiles} tiles, largest box {tiles.max_cells} "
+                "cells")
+            check(rel <= ADJOINT_TOL,
+                  f"adjoint {kind} {setup_name} d={d}: {rel:.3e}")
 
     def phase_kernel_matvec(self):
         torch, km = self.torch, self.km
@@ -1058,42 +1117,64 @@ class Smoke:
             f"bounds: {HBM_BYTES_PER_S / 1e12} TB/s, FP64 "
             f"{PEAK_FLOPS['float64'] / 1e12} / FP32 "
             f"{PEAK_FLOPS['float32'] / 1e12} TFLOP/s (H100 SXM data sheet)")
-        for setup_name in ("SETUP_2", "SETUP_3"):
-            for dtype in (torch.float64, torch.float32):
-                dname = str(dtype).split(".")[1]
-                plan, base, w = self.geometry(setup_name, 3, N_MAIN, dtype)
-                pad, taps = self.padded_grid_size(plan), plan.taps
-                for c in (1, 4):
-                    gen = torch.Generator(device=self.dev).manual_seed(c)
-                    x = torch.randn((N_MAIN, c), generator=gen, dtype=dtype,
-                                    device=self.dev)
-                    g = torch.randn((pad,) * 3 + (c,), generator=gen,
-                                    dtype=dtype, device=self.dev)
-                    bound_ms, by, flops, nbytes = self.bound(
-                        N_MAIN, 3, taps, c, pad, dname)
-                    for kname, kfn, pfn in (
-                            ("spread",
-                             lambda: win.window_spread(x, base, w,
-                                                       padded_size=pad),
-                             lambda: win.window_spread_plain(
-                                 x, base, w, padded_size=pad)),
-                            ("gather", lambda: win.window_gather(g, base, w),
-                             lambda: win.window_gather_plain(g, base, w))):
-                        ms = self.time_ms(kfn, reps=20)
-                        plain_ms = self.time_ms(pfn, reps=3, warmup=1)
-                        row = {"kernel": kname, "setup": setup_name, "d": 3,
-                               "c": c, "dtype": dname, "n": N_MAIN,
-                               "taps": taps, "padded": pad, "ms": ms,
-                               "plain_ms": plain_ms, "bound_ms": bound_ms,
-                               "bound_by": by, "flops": flops,
-                               "bytes": nbytes, "library_ms": None}
-                        self.record["times"].append(row)
-                        self.kernel_times[(kname, setup_name, 3, c, dname)] = row
-                        log(f"[times] {kname:6s} {setup_name} d=3 C={c} "
-                            f"{dname}: {ms:.4f} ms  bound {bound_ms:.4f} ms "
-                            f"({by}, {flops / 1e9:.3f} GFLOP, "
-                            f"{nbytes / 1e6:.1f} MB)  plain {plain_ms:.3f} ms "
-                            "(no yardstick)  library: none")
+        shapes = [(N_MAIN, s, dt, (1, 4)) for s in ("SETUP_2", "SETUP_3")
+                  for dt in (torch.float64, torch.float32)]
+        shapes.append((N_BIG, "SETUP_2", torch.float64, (1,)))
+        for n, setup_name in ((N_MAIN, "SETUP_2"), (N_MAIN, "SETUP_3"),
+                              (N_BIG, "SETUP_2")):
+            plan, geom = self.window_geometry(setup_name, 3, n)
+            self.sync()
+            t0 = time.perf_counter()
+            tiles = win.build_tile_plan(geom.base, plan.taps)
+            self.sync()
+            build_ms = (time.perf_counter() - t0) * 1e3
+            self.record["times"].append({
+                "tile_plan": setup_name, "n": n, "d": 3,
+                "tiles": tiles.n_tiles, "max_box_cells": tiles.max_cells,
+                "build_ms": build_ms})
+            log(f"[times] tile plan n={n} {setup_name} d=3: {build_ms:.2f} ms "
+                f"(host clock, ends in synchronize; once per geometry), "
+                f"{tiles.n_tiles} tiles, largest box {tiles.max_cells} cells")
+        for n, setup_name, dtype, chans in shapes:
+            dname = str(dtype).split(".")[1]
+            plan, base, w, tiles = self.geometry(setup_name, 3, n, dtype)
+            pad, taps = self.padded_grid_size(plan), plan.taps
+            for c in chans:
+                gen = torch.Generator(device=self.dev).manual_seed(c)
+                x = torch.randn((n, c), generator=gen, dtype=dtype,
+                                device=self.dev)
+                g = torch.randn((pad,) * 3 + (c,), generator=gen,
+                                dtype=dtype, device=self.dev)
+                bound_ms, by, flops, nbytes = self.bound(
+                    n, 3, taps, c, pad, dname)
+                for kname, kfn, pfn in (
+                        ("spread",
+                         lambda: win.window_spread(x, base, w,
+                                                   padded_size=pad,
+                                                   tiles=tiles),
+                         lambda: win.window_spread_plain(
+                             x, base, w, padded_size=pad)),
+                        ("gather",
+                         lambda: win.window_gather(g, base, w,
+                                                   tiles=tiles),
+                         lambda: win.window_gather_plain(g, base, w))):
+                    ms = self.time_ms(kfn, reps=20)
+                    plain_ms = self.time_ms(pfn, reps=3, warmup=1)
+                    row = {"kernel": kname, "setup": setup_name, "d": 3,
+                           "c": c, "dtype": dname, "n": n,
+                           "taps": taps, "padded": pad, "ms": ms,
+                           "plain_ms": plain_ms, "bound_ms": bound_ms,
+                           "bound_by": by, "flops": flops,
+                           "bytes": nbytes, "library_ms": None}
+                    self.record["times"].append(row)
+                    self.kernel_times[(kname, setup_name, 3, c, dname,
+                                       n)] = row
+                    log(f"[times] {kname:6s} n={n} {setup_name} d=3 C={c} "
+                        f"{dname}: {ms:.4f} ms  bound {bound_ms:.4f} ms "
+                        f"({by}, {flops / 1e9:.3f} GFLOP, "
+                        f"{nbytes / 1e6:.1f} MB, "
+                        f"{100 * bound_ms / ms:.2f}% of bound)  plain "
+                        f"{plain_ms:.3f} ms (no yardstick)  library: none")
         self.time_kernel_matvec()
         for n, setup_name in ((N_MAIN, "SETUP_2"), (N_MAIN, "SETUP_3"),
                               (N_BIG, "SETUP_2")):
@@ -1297,9 +1378,10 @@ class Smoke:
         for kname, line in (("spread", 51), ("gather", 108)):
             check_row = next(r for r in self.record["checks"]
                              if r["kernel"] == kname
+                             and r.get("geometry") == "spiral"
                              and (r["setup"], r["d"], r["c"], r["dtype"])
                              == (setup_name, d, c, dname))
-            t = self.kernel_times[(kname, setup_name, d, c, dname)]
+            t = self.kernel_times[(kname, setup_name, d, c, dname, N_MAIN)]
             out.append({
                 "name": f"window_{kname}", "route": "cuda",
                 "source": CU_SOURCE,

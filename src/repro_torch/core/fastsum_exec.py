@@ -76,7 +76,7 @@ def window_spread(plan: NfftPlan, geometry: WindowGeometry,
     pad_n = padded_grid_size(plan)
     xs = x[geometry.perm].contiguous()
     gpad = nfft_window.window_spread(xs, geometry.base, geometry.weights,
-                                     padded_size=pad_n)
+                                     padded_size=pad_n, tiles=geometry.tiles)
     ext = pad_n - grid  # taps - 1: unwrapped u and u - M are the same cell
     for ax in range(d):
         main = gpad.narrow(ax, 0, grid)
@@ -98,7 +98,7 @@ def window_gather(plan: NfftPlan, geometry: WindowGeometry,
     for ax in range(d):  # wrap padding, one axis at a time
         gpad = torch.cat([gpad, gpad.narrow(ax, 0, taps - 1)], dim=ax)
     out = nfft_window.window_gather(gpad.contiguous(), geometry.base,
-                                    geometry.weights)
+                                    geometry.weights, tiles=geometry.tiles)
     return out[geometry.inv]
 
 

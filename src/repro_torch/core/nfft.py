@@ -18,6 +18,8 @@ import numpy as np
 import scipy.special
 import torch
 
+from repro_torch.kernels.nfft_window import TilePlan, build_tile_plan
+
 KAISER_BESSEL = "kaiser_bessel"
 GAUSSIAN_WINDOW = "gaussian"
 
@@ -130,12 +132,23 @@ class WindowGeometry:
     perm: (n,) int64 — row ``r`` holds node ``perm[r]``.
     inv: (n,) int64 — the inverse permutation (node ``j`` is row
       ``inv[j]``), built once here instead of on every gather.
+
+    :attr:`tiles`, the window kernels' tile plan, is built at first use
+    and kept: it depends only on ``base`` and ``taps``.
     """
 
     base: torch.Tensor
     weights: torch.Tensor
     perm: torch.Tensor
     inv: torch.Tensor
+    _tiles: TilePlan | None = dataclasses.field(default=None, repr=False,
+                                                compare=False)
+
+    @property
+    def tiles(self) -> TilePlan:
+        if self._tiles is None:
+            self._tiles = build_tile_plan(self.base, self.weights.shape[2])
+        return self._tiles
 
     @classmethod
     def from_sorted(cls, base: torch.Tensor, weights: torch.Tensor,

@@ -45,9 +45,11 @@ _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 # source -> (argtypes shared by its entry points, entry points)
 ENTRY_POINTS = {
-    # (grid|x, base, weights, out|grid, n, d, taps, c, P, stream)
+    # (x|grid, base, weights, grid|out, tiles, n_tiles, d, taps, c, P,
+    #  chunk, max_cells, max_rows, stream)
     "nfft_window.cu": (
-        [_PTR, _PTR, _PTR, _PTR, _I64, _I32, _I32, _I32, _I64, _PTR],
+        [_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I32, _I32, _I32, _I64, _I32,
+         _I32, _I32, _PTR],
         ("repro_window_spread_f64", "repro_window_spread_f32",
          "repro_window_gather_f64", "repro_window_gather_f32")),
     # (a, b, x, y, n_out, n_in, d, c, profile, param, zero_diagonal, stream)

@@ -6,200 +6,490 @@
 //   weights (n, d, taps)  T      per-dimension window values
 //   grid    (P,)^d x C    T      channels-last, wrap-padded (P = M + taps - 1)
 //   x / out (n, C)        T      node values, Morton-sorted rows
-// with d in {1, 2, 3}, T in {float, double}, C >= 1 at run time.  Every
-// grid offset is 64-bit.
+// with d in {1, 2, 3}, T in {float, double}, C >= 1 at run time, and a
+// tile plan (repro_torch/kernels/nfft_window.py: build_tile_plan):
+//   tiles   (n_tiles, 8)  int32  first row, row count, box corner[3],
+//                                box extent[3] (unused axes: 0 and 1)
+// that cuts the rows into contiguous tiles of at most 64 rows, each with
+// the bounding box of its windows; a box holds at most 6,144 cells (48 KB
+// of float64).  One block walks one tile.  Every grid offset is 64-bit.
 //
 // window_spread replaces src/repro/kernels/nfft_window.py:_spread_kernel.
 //   The TPU kernel keeps the whole padded grid resident in VMEM as one
-//   revisited output block and walks Morton node tiles in order.  Hopper
-//   runs blocks in parallel and in no order, and a SETUP_3 grid (142^3 x
-//   8 B = 22.9 MB per channel) is far beyond 227 KB of shared memory, so the
-//   grid lives in global memory (inside the 50 MB L2 for C <= 2) and
-//   overlapping windows are resolved with atomicAdd.  One thread owns one
-//   (node, leading (taps)^(d-1) index): it forms the leading weight product
-//   in a register and walks the contiguous last axis, taps x C atomics.
-//   Morton order keeps the atomics of neighbouring threads close together
-//   in L2.  What bounds it: by the data-sheet roofline it is
-//   operation-bound (n * (2C * taps^d + (d-1) * taps^(d-1)) flops against
-//   n * (4d + s*d*taps + s*C) + s*P^d*C bytes), but in practice the L2 atomic rate
-//   bounds it.  Atomics make the floating-point sum order, and so the
-//   result's last bits, vary from run to run; a deterministic variant is
-//   later work.
+//   revisited output block.  Hopper runs blocks in parallel and in no
+//   order, and a SETUP_3 grid (142^3 x 8 B = 22.9 MB a channel) is far
+//   beyond 227 KB of shared memory, so the grid stays in global memory.
+//   What bounds a scatter there is the number of global atomics: the main
+//   path's Morton-sorted spiral nodes collapse onto a few thousand window
+//   corners, so one atomic per (node, cell, channel), 3.4e8 at n = 10^5,
+//   SETUP_3, serialises on a few thousand contended L2 lines.  This kernel
+//   is output-stationary.  A block stages its tile's weights, corners and
+//   up to 4 channels of x in shared memory; a thread owns up to 8 cells of
+//   one column of the box (its first axis) at one cell of the box's other
+//   axes, and sums the tile's nodes into registers in row order: one
+//   window test and plane weight per node, then w0 * (w1 * w2) * x per
+//   column cell inside the window.  Each cell then goes to the grid with
+//   one atomicAdd per channel, coalesced along the last axis (neighbouring
+//   tiles' boxes overlap): ~n * box / 64 global atomics, ~50x fewer, at
+//   the price of box / taps^d window tests (1.0-1.2 on the main path).  By
+//   the data-sheet roofline it is operation-bound; in practice instruction
+//   issue and latency bound it.  The sum within a tile has a fixed order;
+//   the atomics make the order across tiles, and the result's last bits,
+//   vary from run to run.  A deterministic mode would write each tile's
+//   box to scratch and add the boxes in tile order in a second pass.
 //
 // window_gather replaces src/repro/kernels/nfft_window.py:_gather_kernel.
-//   One warp owns one node.  Lanes stride over the taps^d window cells
-//   (neighbouring lanes on neighbouring last-axis cells), keep up to
-//   kChunk channel sums in registers (channel chunks loop for larger C),
-//   and reduce with shuffles in a fixed order; lane 0 writes.  It is
+//   A block stages its tile's box in shared memory once, coalesced along
+//   the last axis, as many channels wide (a power of two up to 8) as fit
+//   48 KB, so the ~56 nodes of a tile that read each cell read it from
+//   shared memory.  A warp contracts one node: its lanes own the window's
+//   cells on the last two axes (up to 8 each, weight and offset in
+//   registers), and for d = 3 it walks the first axis one box plane per
+//   tap.  A shuffle butterfly sums the lanes in a fixed order.  It is
 //   read-only on the grid and deterministic.  It is operation-bound by the
-//   same roofline; in practice the L2 load rate of the taps^d grid reads
-//   bounds it, and Morton order lets neighbouring warps share those lines.
+//   same roofline; shared-memory reads and their latency bound it in
+//   practice.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 1LL << 20;  // grid-stride beyond this
-constexpr int kChunk = 8;                    // gather channels per pass
+constexpr int kChunk = 8;       // gather: channels in registers per pass
+constexpr int kSpreadChunk = 4;  // spread: channels in registers per pass
+constexpr int kCol = 8;         // spread: column cells a thread owns
+constexpr int kPlane = 8;       // gather: window-plane cells a lane owns
+constexpr int kTileCols = 8;
+constexpr int kBoxBytes = 48 * 1024;  // a box's shared memory (BOX_BYTES)
 
+struct Tile {
+  int start, count;
+  int corner[3], ext[3];
+};
+
+__device__ inline Tile load_tile(const int* __restrict__ tiles) {
+  const int* t = tiles + (long long)blockIdx.x * kTileCols;
+  Tile out;
+  out.start = t[0];
+  out.count = t[1];
+  for (int a = 0; a < 3; ++a) {
+    out.corner[a] = t[2 + a];
+    out.ext[a] = t[5 + a];
+  }
+  return out;
+}
+
+// Stage a tile's weights and its corners relative to the box corner.
 template <typename T, int D>
-__global__ void spread_kernel(const T* __restrict__ x,
-                              const int* __restrict__ base,
-                              const T* __restrict__ w, T* __restrict__ grid,
-                              long long n, int taps, int c, long long P) {
-  long long lead_count = 1;
-  for (int t = 0; t < D - 1; ++t) lead_count *= taps;
-  const long long total = n * lead_count;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       tid < total; tid += stride) {
-    const long long node = tid / lead_count;
-    int rem = (int)(tid - node * lead_count);
-    const int* b = base + node * D;
-    const T* wn = w + node * D * taps;
-    int idx[D > 1 ? D - 1 : 1];
-    for (int t = D - 2; t >= 0; --t) {
-      idx[t] = rem % taps;
-      rem /= taps;
+__device__ inline void stage_nodes(const Tile& tile, const int* __restrict__ base,
+                                   const T* __restrict__ w, int taps, T* sw,
+                                   int* sb) {
+  const long long row0 = tile.start;
+  for (int i = threadIdx.x; i < tile.count * D * taps; i += blockDim.x)
+    sw[i] = w[row0 * D * taps + i];
+  for (int i = threadIdx.x; i < tile.count * D; i += blockDim.x)
+    sb[i] = base[row0 * D + i] - tile.corner[i % D];
+}
+
+// Spread.  A thread owns up to kCol cells of one column of the box (the
+// first axis; for d = 1 one cell) at one cell of the box's "plane" (the
+// other axes); consecutive threads take consecutive plane cells, so the
+// flush is coalesced along the last axis.  For each node of the tile, in
+// row order, a thread tests its plane cell against the node's window once,
+// forms the plane weight, and then adds w0 * (w_plane * x) to each of its
+// column cells inside the window.  CC channels ride along in registers.
+template <typename T, int D, int CC>
+__global__ void __launch_bounds__(kThreads)
+spread_kernel(const T* __restrict__ x, const int* __restrict__ base,
+              const T* __restrict__ w, T* __restrict__ grid,
+              const int* __restrict__ tiles, int taps, int c, long long P,
+              int chunk, int max_rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Tile tile = load_tile(tiles);
+  T* sw = reinterpret_cast<T*>(smem);           // max_rows * D * taps
+  T* sx = sw + (long long)max_rows * D * taps;  // max_rows * chunk
+  int* sb = reinterpret_cast<int*>(sx + (long long)max_rows * chunk);
+  stage_nodes<T, D>(tile, base, w, taps, sw, sb);
+
+  // column: axis 0 for d >= 2; plane: the remaining axes (d = 1: axis 0)
+  const int col_len = D > 1 ? tile.ext[0] : 1;
+  int plane = 1;
+  for (int a = (D > 1 ? 1 : 0); a < D; ++a) plane *= tile.ext[a];
+  const int segs = (col_len + kCol - 1) / kCol;
+  const int seg_len = (col_len + segs - 1) / segs;  // balanced, <= kCol
+  const int items = plane * segs;
+  const long long row0 = tile.start;
+
+  for (int c0 = 0; c0 < c; c0 += chunk) {
+    const int cc = min(chunk, c - c0);
+    __syncthreads();  // the last chunk's readers are done
+    for (int i = threadIdx.x; i < tile.count * cc; i += blockDim.x) {
+      const int r = i / cc, q = i - r * cc;
+      sx[r * chunk + q] = x[(row0 + r) * c + c0 + q];
     }
-    // same product order as the plain version: ((w0 * w1) * w2) * x
-    T wl = T(1);
-    long long cell = 0;
-    for (int t = 0; t < D - 1; ++t) {
-      wl *= wn[t * taps + idx[t]];
-      cell = cell * P + (b[t] + idx[t]);
-    }
-    cell = cell * P + b[D - 1];
-    const T* wlast = wn + (D - 1) * taps;
-    const T* xn = x + node * c;
-    for (int k = 0; k < taps; ++k) {
-      const T wk = wl * wlast[k];
-      T* g = grid + (cell + k) * c;
-      for (int ch = 0; ch < c; ++ch) atomicAdd(g + ch, wk * xn[ch]);
+    __syncthreads();
+    for (int item = threadIdx.x; item < items; item += blockDim.x) {
+      const int seg = item / plane, pc = item - seg * plane;
+      const int k0 = seg * seg_len;                 // first column cell
+      const int nk = min(seg_len, col_len - k0);    // column cells owned
+      // plane coordinates: (p1, p2) for d = 3, p1 for d = 2, p0 for d = 1
+      const int p_last = D == 3 ? pc % tile.ext[2] : pc;
+      const int p_mid = D == 3 ? pc / tile.ext[2] : 0;
+      T acc[kCol][CC];
+#pragma unroll
+      for (int k = 0; k < kCol; ++k)
+#pragma unroll
+        for (int q = 0; q < CC; ++q) acc[k][q] = T(0);
+      for (int r = 0; r < tile.count; ++r) {
+        const int* b = sb + r * D;
+        const T* wr = sw + r * D * taps;
+        const T* xr = sx + r * chunk;
+        T xq[CC];
+#pragma unroll
+        for (int q = 0; q < CC; ++q) xq[q] = q < cc ? xr[q] : T(0);
+        if constexpr (D == 1) {
+          const unsigned i0 = (unsigned)(p_last - b[0]);
+          if (i0 < (unsigned)taps) {
+            const T w0 = wr[i0];
+#pragma unroll
+            for (int q = 0; q < CC; ++q) acc[0][q] += w0 * xq[q];
+          }
+        } else {
+          const unsigned il = (unsigned)(p_last - b[D - 1]);
+          const unsigned im = D == 3 ? (unsigned)(p_mid - b[1]) : 0u;
+          if (il < (unsigned)taps && im < (unsigned)taps) {
+            T wp = wr[(D - 1) * taps + il];
+            if (D == 3) wp = wr[taps + im] * wp;
+            const int lo = b[0] - k0;  // column cell k sees tap k - lo
+#pragma unroll
+            for (int k = 0; k < kCol; ++k) {
+              const unsigned i0 = (unsigned)(k - lo);
+              if (k < nk && i0 < (unsigned)taps) {
+                const T wt = wr[i0] * wp;
+#pragma unroll
+                for (int q = 0; q < CC; ++q) acc[k][q] += wt * xq[q];
+              }
+            }
+          }
+        }
+      }
+      // one add per owned cell and channel; neighbouring tiles overlap
+      long long cell = 0;
+      if constexpr (D == 1) {
+        cell = tile.corner[0] + p_last;
+      } else {
+        cell = tile.corner[0] + k0;
+        if (D == 3) cell = cell * P + (tile.corner[1] + p_mid);
+        cell = cell * P + (tile.corner[D - 1] + p_last);
+      }
+      const long long col_stride = D == 3 ? P * P : P;
+#pragma unroll
+      for (int k = 0; k < kCol; ++k) {
+        if (k >= nk) break;
+        T* g = grid + (cell + k * col_stride) * c + c0;
+#pragma unroll
+        for (int q = 0; q < CC; ++q)
+          if (q < cc && acc[k][q] != T(0)) atomicAdd(g + q, acc[k][q]);
+      }
     }
   }
 }
 
-template <typename T, int D>
-__global__ void gather_kernel(const T* __restrict__ grid,
-                              const int* __restrict__ base,
-                              const T* __restrict__ w, T* __restrict__ out,
-                              long long n, int taps, int c, long long P) {
-  const int lane = threadIdx.x & 31;
-  const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
-  int cells = 1;
-  for (int t = 0; t < D; ++t) cells *= taps;
-  for (long long node = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-       node < n; node += warps) {
-    const int* b = base + node * D;
-    const T* wn = w + node * D * taps;
-    for (int c0 = 0; c0 < c; c0 += kChunk) {
-      const int cc = min(kChunk, c - c0);
-      T acc[kChunk];
+// Gather.  A block stages its tile's box, CC channels wide (channels past
+// C are zero), and contracts one node per warp at a time.  The lanes own
+// the cells of the window's plane (the last two axes for d >= 2, the only
+// axis for d = 1), up to kPlane each, with the plane weight and box offset
+// of each in registers; for d = 3 the warp then walks the first axis, one
+// box plane per tap, weighting the plane's partial sum by w0.  A shuffle
+// butterfly sums the lanes in a fixed order.
+template <typename T, int D, int CC>
+__device__ inline void gather_tile(const Tile& tile,
+                                   const T* __restrict__ grid,
+                                   T* __restrict__ out, T* sbox, const T* sw,
+                                   const int* sb, int taps, int c,
+                                   long long P) {
+  const int elast = tile.ext[D - 1];
+  int lines = 1;  // box lines along the last axis
+  for (int a = 0; a < D - 1; ++a) lines *= tile.ext[a];
+  const int wplane = D == 1 ? taps : taps * taps;  // window plane cells
+  const int outer = D == 3 ? taps : 1;
+  const int box_plane = D == 3 ? tile.ext[1] * elast : 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  const long long row0 = tile.start;
+  // the lane's cells of the window's first plane block, decomposed once
+  int im0[kPlane], il0[kPlane];
 #pragma unroll
-      for (int q = 0; q < kChunk; ++q) acc[q] = T(0);
-      for (int j = lane; j < cells; j += 32) {
-        int rem = j;
-        int idx[D];
-        for (int t = D - 1; t >= 0; --t) {
-          idx[t] = rem % taps;
-          rem /= taps;
+  for (int k = 0; k < kPlane; ++k) {
+    const int p = lane + 32 * k;
+    im0[k] = D == 1 ? 0 : p / taps;
+    il0[k] = D == 1 ? p : p - im0[k] * taps;
+  }
+
+  for (int c0 = 0; c0 < c; c0 += CC) {
+    const int cc = min(CC, c - c0);
+    const int row_elems = elast * CC;
+    __syncthreads();  // the last pass's readers are done
+    // stage the box, one warp per line, coalesced along the last axis
+    for (int line = warp; line < lines; line += nwarps) {
+      long long cell = 0;
+      {
+        int rem = line, cb[D > 1 ? D - 1 : 1];
+        for (int a = D - 2; a >= 0; --a) {
+          cb[a] = rem % tile.ext[a];
+          rem /= tile.ext[a];
         }
-        T wt = T(1);
-        long long cell = 0;
-        for (int t = 0; t < D; ++t) {
-          wt *= wn[t * taps + idx[t]];
-          cell = cell * P + (b[t] + idx[t]);
+        for (int a = 0; a < D - 1; ++a)
+          cell = cell * P + (tile.corner[a] + cb[a]);
+      }
+      cell = cell * P + tile.corner[D - 1];
+      const T* src = grid + cell * c + c0;
+      T* dst = sbox + (long long)line * row_elems;
+      if (cc == c && cc == CC) {  // the box line is contiguous in the grid
+        for (int e = lane; e < row_elems; e += 32) dst[e] = src[e];
+      } else {
+        for (int e = lane; e < row_elems; e += 32) {
+          const int cl = e / CC, q = e % CC;
+          dst[e] = q < cc ? src[(long long)cl * c + q] : T(0);
         }
-        const T* g = grid + cell * c + c0;
+      }
+    }
+    __syncthreads();
+    for (int r = warp; r < tile.count; r += nwarps) {
+      const int* b = sb + r * D;
+      const T* wr = sw + r * D * taps;
+      T acc[CC];
 #pragma unroll
-        for (int q = 0; q < kChunk; ++q)
-          if (q < cc) acc[q] += wt * g[q];
+      for (int q = 0; q < CC; ++q) acc[q] = T(0);
+      for (int p0 = 0; p0 < wplane; p0 += 32 * kPlane) {
+        const int kcount = min(kPlane, (wplane - p0 + 31) / 32);
+        T wk[kPlane];
+        int off[kPlane];
+#pragma unroll
+        for (int k = 0; k < kPlane; ++k) {
+          const int p = p0 + lane + 32 * k;
+          int im = im0[k], il = il0[k];
+          if (p0 > 0) {
+            im = D == 1 ? 0 : p / taps;
+            il = D == 1 ? p : p - im * taps;
+          }
+          wk[k] = T(0);
+          off[k] = 0;
+          if (k < kcount && p < wplane) {
+            if constexpr (D == 1) {
+              wk[k] = wr[il];
+              off[k] = b[0] + il;
+            } else {
+              // the plane's axes: (1, 2) for d = 3, (0, 1) for d = 2
+              wk[k] = wr[(D - 2) * taps + im] * wr[(D - 1) * taps + il];
+              off[k] = (b[D - 2] + im) * elast + b[D - 1] + il;
+            }
+          }
+        }
+        for (int i0 = 0; i0 < outer; ++i0) {
+          const T* pl = sbox + (long long)(D == 3 ? (b[0] + i0) * box_plane
+                                                  : 0) * CC;
+          T part[CC];
+#pragma unroll
+          for (int q = 0; q < CC; ++q) part[q] = T(0);
+#pragma unroll
+          for (int k = 0; k < kPlane; ++k) {
+            if (k < kcount) {
+              const T* v = pl + off[k] * CC;
+#pragma unroll
+              for (int q = 0; q < CC; ++q) part[q] += wk[k] * v[q];
+            }
+          }
+          const T w0 = D == 3 ? wr[i0] : T(1);
+#pragma unroll
+          for (int q = 0; q < CC; ++q) acc[q] += w0 * part[q];
+        }
       }
 #pragma unroll
-      for (int q = 0; q < kChunk; ++q)
-        for (int off = 16; off > 0; off >>= 1)
-          acc[q] += __shfl_down_sync(0xffffffffu, acc[q], off);
-      if (lane == 0)
-        for (int q = 0; q < cc; ++q) out[node * c + c0 + q] = acc[q];
+      for (int q = 0; q < CC; ++q)
+        for (int s = 16; s > 0; s >>= 1)
+          acc[q] += __shfl_xor_sync(0xffffffffu, acc[q], s);
+      T v = T(0);
+#pragma unroll
+      for (int q = 0; q < CC; ++q)
+        if (q == lane) v = acc[q];
+      if (lane < cc) out[(row0 + r) * c + c0 + lane] = v;
     }
   }
 }
 
-long long blocks_for(long long threads_needed) {
-  long long blocks = (threads_needed + kThreads - 1) / kThreads;
-  return blocks < 1 ? 1 : (blocks > kMaxBlocks ? kMaxBlocks : blocks);
+// One block per tile.  The box takes the most channels per pass, a power
+// of two up to `chunk`, that fit `box_bytes` of shared memory.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+gather_kernel(const T* __restrict__ grid, const int* __restrict__ base,
+              const T* __restrict__ w, T* __restrict__ out,
+              const int* __restrict__ tiles, int taps, int c, long long P,
+              int chunk, int box_bytes, int max_rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Tile tile = load_tile(tiles);
+  T* sbox = reinterpret_cast<T*>(smem);  // box_bytes
+  T* sw = sbox + box_bytes / sizeof(T);  // max_rows * D * taps
+  int* sb = reinterpret_cast<int*>(sw + (long long)max_rows * D * taps);
+  stage_nodes<T, D>(tile, base, w, taps, sw, sb);
+  const long long cells =
+      (long long)tile.ext[0] * tile.ext[1] * tile.ext[2];
+  int cct = chunk;
+  while (cct > 1 && cells * cct * (long long)sizeof(T) > box_bytes) cct >>= 1;
+  switch (cct) {
+    case 8: gather_tile<T, D, 8>(tile, grid, out, sbox, sw, sb, taps, c, P); break;
+    case 4: gather_tile<T, D, 4>(tile, grid, out, sbox, sw, sb, taps, c, P); break;
+    case 2: gather_tile<T, D, 2>(tile, grid, out, sbox, sw, sb, taps, c, P); break;
+    default: gather_tile<T, D, 1>(tile, grid, out, sbox, sw, sb, taps, c, P);
+  }
+}
+
+// Allow `bytes` of dynamic shared memory for `kernel` (above the 48 KB
+// default only after an explicit opt-in).
+template <typename K>
+int allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <typename T, int D, int CC>
+int spread_cc(const T* x, const int* base, const T* w, T* grid,
+              const int* tiles, long long n_tiles, int taps, int c,
+              long long P, int chunk, int max_rows, cudaStream_t s) {
+  const size_t bytes = (size_t)max_rows * (D * taps + chunk) * sizeof(T) +
+                       (size_t)max_rows * D * sizeof(int);
+  auto kernel = spread_kernel<T, D, CC>;
+  int rc = allow_smem(kernel, bytes);
+  if (rc) return rc;
+  kernel<<<(unsigned)n_tiles, kThreads, bytes, s>>>(x, base, w, grid, tiles,
+                                                     taps, c, P, chunk,
+                                                     max_rows);
+  return (int)cudaGetLastError();
+}
+
+// registers for exactly the chunk's channels: 1, 2 or 4
+template <typename T, int D>
+int spread_d(const T* x, const int* base, const T* w, T* grid,
+             const int* tiles, long long n_tiles, int taps, int c,
+             long long P, int chunk, int max_rows, cudaStream_t s) {
+  if (chunk == 1)
+    return spread_cc<T, D, 1>(x, base, w, grid, tiles, n_tiles, taps, c, P,
+                              chunk, max_rows, s);
+  if (chunk == 2)
+    return spread_cc<T, D, 2>(x, base, w, grid, tiles, n_tiles, taps, c, P,
+                              chunk, max_rows, s);
+  return spread_cc<T, D, kSpreadChunk>(x, base, w, grid, tiles, n_tiles,
+                                       taps, c, P, chunk, max_rows, s);
+}
+
+template <typename T, int D>
+int gather_d(const T* grid, const int* base, const T* w, T* out,
+             const int* tiles, long long n_tiles, int taps, int c,
+             long long P, int chunk, int max_cells, int max_rows,
+             cudaStream_t s) {
+  // the largest box at `chunk` channels, within kBoxBytes
+  const size_t box = (size_t)max_cells * chunk * sizeof(T);
+  const int box_bytes = (int)(box < (size_t)kBoxBytes ? box : kBoxBytes);
+  const size_t bytes = (size_t)box_bytes +
+                       (size_t)max_rows * D * taps * sizeof(T) +
+                       (size_t)max_rows * D * sizeof(int);
+  auto kernel = gather_kernel<T, D>;
+  int rc = allow_smem(kernel, bytes);
+  if (rc) return rc;
+  kernel<<<(unsigned)n_tiles, kThreads, bytes, s>>>(
+      grid, base, w, out, tiles, taps, c, P, chunk, box_bytes, max_rows);
+  return (int)cudaGetLastError();
+}
+
+bool bad_args(long long n_tiles, int d, int chunk, int max_chunk,
+              int max_rows) {
+  return n_tiles < 1 || n_tiles > 0x7fffffffLL || d < 1 || d > 3 ||
+         chunk < 1 || chunk > max_chunk || max_rows < 1;
 }
 
 template <typename T>
 int launch_spread(const void* x, const void* base, const void* w, void* grid,
-                  long long n, int d, int taps, int c, long long P,
-                  void* stream) {
-  long long lead = 1;
-  for (int t = 0; t < d - 1; ++t) lead *= taps;
-  const unsigned blocks = (unsigned)blocks_for(n * lead);
+                  const void* tiles, long long n_tiles, int d, int taps,
+                  int c, long long P, int chunk, int max_rows, void* stream) {
+  if (bad_args(n_tiles, d, chunk, kSpreadChunk, max_rows))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* xp = static_cast<const T*>(x);
   const int* bp = static_cast<const int*>(base);
   const T* wp = static_cast<const T*>(w);
   T* gp = static_cast<T*>(grid);
+  const int* tp = static_cast<const int*>(tiles);
   switch (d) {
-    case 1: spread_kernel<T, 1><<<blocks, kThreads, 0, s>>>(xp, bp, wp, gp, n, taps, c, P); break;
-    case 2: spread_kernel<T, 2><<<blocks, kThreads, 0, s>>>(xp, bp, wp, gp, n, taps, c, P); break;
-    case 3: spread_kernel<T, 3><<<blocks, kThreads, 0, s>>>(xp, bp, wp, gp, n, taps, c, P); break;
-    default: return (int)cudaErrorInvalidValue;
+    case 1: return spread_d<T, 1>(xp, bp, wp, gp, tp, n_tiles, taps, c, P, chunk, max_rows, s);
+    case 2: return spread_d<T, 2>(xp, bp, wp, gp, tp, n_tiles, taps, c, P, chunk, max_rows, s);
+    default: return spread_d<T, 3>(xp, bp, wp, gp, tp, n_tiles, taps, c, P, chunk, max_rows, s);
   }
-  return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_gather(const void* grid, const void* base, const void* w, void* out,
-                  long long n, int d, int taps, int c, long long P,
-                  void* stream) {
-  const unsigned blocks = (unsigned)blocks_for(n * 32);
+int launch_gather(const void* grid, const void* base, const void* w,
+                  void* out, const void* tiles, long long n_tiles, int d,
+                  int taps, int c, long long P, int chunk, int max_cells,
+                  int max_rows, void* stream) {
+  if (bad_args(n_tiles, d, chunk, kChunk, max_rows) || max_cells < 1 ||
+      (chunk & (chunk - 1)) || (long long)max_cells * sizeof(T) > kBoxBytes)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* gp = static_cast<const T*>(grid);
   const int* bp = static_cast<const int*>(base);
   const T* wp = static_cast<const T*>(w);
   T* op = static_cast<T*>(out);
+  const int* tp = static_cast<const int*>(tiles);
   switch (d) {
-    case 1: gather_kernel<T, 1><<<blocks, kThreads, 0, s>>>(gp, bp, wp, op, n, taps, c, P); break;
-    case 2: gather_kernel<T, 2><<<blocks, kThreads, 0, s>>>(gp, bp, wp, op, n, taps, c, P); break;
-    case 3: gather_kernel<T, 3><<<blocks, kThreads, 0, s>>>(gp, bp, wp, op, n, taps, c, P); break;
-    default: return (int)cudaErrorInvalidValue;
+    case 1: return gather_d<T, 1>(gp, bp, wp, op, tp, n_tiles, taps, c, P, chunk, max_cells, max_rows, s);
+    case 2: return gather_d<T, 2>(gp, bp, wp, op, tp, n_tiles, taps, c, P, chunk, max_cells, max_rows, s);
+    default: return gather_d<T, 3>(gp, bp, wp, op, tp, n_tiles, taps, c, P, chunk, max_cells, max_rows, s);
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Each entry point launches on `stream` without synchronising and returns
-// cudaGetLastError() (0 on success).  The caller zeroes `grid` for spread.
+// Each entry point launches one block per tile on `stream` without
+// synchronising and returns cudaGetLastError() (0 on success).  The caller
+// zeroes `grid` for spread.  `chunk` is the channels of one pass (spread
+// <= 4, gather <= 8);
+// `max_cells` / `max_rows` are the plan's largest box and tile, which size
+// the dynamic shared memory.
 extern "C" {
 
 int repro_window_spread_f64(const void* x, const void* base, const void* w,
-                            void* grid, long long n, int d, int taps, int c,
-                            long long P, void* stream) {
-  return launch_spread<double>(x, base, w, grid, n, d, taps, c, P, stream);
+                            void* grid, const void* tiles, long long n_tiles,
+                            int d, int taps, int c, long long P, int chunk,
+                            int max_cells, int max_rows, void* stream) {
+  (void)max_cells;
+  return launch_spread<double>(x, base, w, grid, tiles, n_tiles, d, taps, c,
+                               P, chunk, max_rows, stream);
 }
 
 int repro_window_spread_f32(const void* x, const void* base, const void* w,
-                            void* grid, long long n, int d, int taps, int c,
-                            long long P, void* stream) {
-  return launch_spread<float>(x, base, w, grid, n, d, taps, c, P, stream);
+                            void* grid, const void* tiles, long long n_tiles,
+                            int d, int taps, int c, long long P, int chunk,
+                            int max_cells, int max_rows, void* stream) {
+  (void)max_cells;
+  return launch_spread<float>(x, base, w, grid, tiles, n_tiles, d, taps, c,
+                              P, chunk, max_rows, stream);
 }
 
 int repro_window_gather_f64(const void* grid, const void* base, const void* w,
-                            void* out, long long n, int d, int taps, int c,
-                            long long P, void* stream) {
-  return launch_gather<double>(grid, base, w, out, n, d, taps, c, P, stream);
+                            void* out, const void* tiles, long long n_tiles,
+                            int d, int taps, int c, long long P, int chunk,
+                            int max_cells, int max_rows, void* stream) {
+  return launch_gather<double>(grid, base, w, out, tiles, n_tiles, d, taps,
+                               c, P, chunk, max_cells, max_rows, stream);
 }
 
 int repro_window_gather_f32(const void* grid, const void* base, const void* w,
-                            void* out, long long n, int d, int taps, int c,
-                            long long P, void* stream) {
-  return launch_gather<float>(grid, base, w, out, n, d, taps, c, P, stream);
+                            void* out, const void* tiles, long long n_tiles,
+                            int d, int taps, int c, long long P, int chunk,
+                            int max_cells, int max_rows, void* stream) {
+  return launch_gather<float>(grid, base, w, out, tiles, n_tiles, d, taps,
+                              c, P, chunk, max_cells, max_rows, stream);
 }
 
 }  // extern "C"

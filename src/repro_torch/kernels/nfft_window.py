@@ -17,17 +17,41 @@ the periodic pad is the caller's job.
 A tensor on the CPU takes the plain PyTorch version (same semantics as
 ``repro.kernels.ref``); a CUDA tensor launches the hand-written kernel in
 ``csrc/nfft_window.cu`` or raises.  Each wrapper counts its launches in a
-``launches`` attribute.  The CUDA spread uses atomics, so its float sum
-order, and its result's last bits, vary from run to run.
+``launches`` attribute.
+
+Both kernels walk a :class:`TilePlan` (:func:`build_tile_plan`): the rows
+cut into contiguous tiles, each with the bounding box of its windows.  The
+CUDA spread sums a tile's windows in registers, in row order, and adds the
+box onto the grid once with atomics; neighbouring tiles' boxes overlap, so
+the order in which tiles land, and the result's last bits, vary from run
+to run.  The gather stages a tile's box in shared memory and is
+deterministic.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch.kernels import _build
 
 _FLOATS = (torch.float32, torch.float64)
+# Tile plan.  A tile takes at most TILE_ROWS rows, and at most TILE_WEIGHTS
+# per-dimension weights (rows * d * taps), which the kernels stage in
+# shared memory.  Its box, one channel wide, must fit BOX_BYTES of shared
+# memory in the widest type (float64): at most BOX_CELLS cells.
+TILE_ROWS = 64
+TILE_WEIGHTS = 4096
+BOX_BYTES = 48 * 1024
+BOX_CELLS = BOX_BYTES // 8
+# channels a kernel thread keeps in registers per pass (csrc kSpreadChunk,
+# kChunk)
+SPREAD_CHUNK = 4
+KERNEL_CHUNK = 8
+# columns of TilePlan.table: row start, row count, box corner (3), box
+# extent (3); unused dimensions have corner 0 and extent 1
+_TABLE_COLS = 8
 # nodes per chunk of the plain versions: bounds the materialized cube at
 # ~2^24 elements per channel
 _PLAIN_CUBE_ELEMS = 1 << 24
@@ -56,13 +80,139 @@ def _check_geometry(base: torch.Tensor, weights: torch.Tensor,
     return n, d, taps
 
 
-def _launch(entry: str, args, device: torch.device) -> None:
-    for t in args[:4]:
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """The rows of a window geometry cut into contiguous tiles.
+
+    table: (n_tiles, 8) int32 on the geometry's device, one row per tile in
+      row order: first row, row count, box corner (d values, then 0) and
+      box extent (d values, then 1), in padded-grid cells.  The box is the
+      bounding box of the tile's windows: corner = min base, extent =
+      max base - min base + taps along each axis.
+    n, d, taps: the geometry's shape.
+    max_cells: the largest box, in cells (at most :data:`BOX_CELLS`).
+    max_rows: the most rows of one tile.
+    """
+
+    table: torch.Tensor
+    n: int
+    d: int
+    taps: int
+    max_cells: int
+    max_rows: int
+
+    @property
+    def n_tiles(self) -> int:
+        return self.table.shape[0]
+
+
+def tile_rows(d: int, taps: int) -> int:
+    """Most rows of a tile: a power of two <= TILE_ROWS whose weights,
+    rows * d * taps, fit TILE_WEIGHTS (at least 1)."""
+    rows = TILE_ROWS
+    while rows > 1 and rows * d * taps > TILE_WEIGHTS:
+        rows //= 2
+    return rows
+
+
+def build_tile_plan(base: torch.Tensor, taps: int) -> TilePlan:
+    """Cut the rows of ``base`` (n, d) int32 into tiles whose box fits.
+
+    Aligned blocks of :func:`tile_rows` rows are tried first; a block whose
+    box exceeds :data:`BOX_CELLS` is split in halves, down to one row if
+    need be (one row's box is taps^d cells, which must fit).  Runs on
+    ``base``'s device and reads back two integers.  Works for any row
+    order; Morton-sorted rows give the small boxes the kernels are fast
+    on.  Counts its calls in ``build_tile_plan.builds``.
+    """
+    if base.ndim != 2 or not 1 <= base.shape[1] <= 3:
+        raise ValueError(f"base must be (n, d) with d in 1..3, got "
+                         f"{tuple(base.shape)}")
+    n, d = base.shape
+    if taps < 1 or taps ** d > BOX_CELLS:
+        raise ValueError(f"one window of {taps}^{d} cells exceeds the "
+                         f"{BOX_CELLS}-cell box budget: no tile plan exists")
+    build_tile_plan.builds += 1
+    dev = base.device
+    rows = tile_rows(d, taps)
+    table = torch.zeros((0, _TABLE_COLS), dtype=torch.int32, device=dev)
+    if n == 0:
+        return TilePlan(table, 0, d, taps, 0, 0)
+    n_pad = -(-n // rows) * rows
+    # pad with copies of the last row: a ragged tile's box is unchanged
+    b = base.to(torch.long)
+    b = torch.cat([b, b[-1:].expand(n_pad - n, d)])
+    starts, sizes, corners, extents = [], [], [], []
+    size, covered = rows, None
+    while size >= 1:
+        blocks = b.view(-1, size, d)
+        lo = blocks.amin(dim=1)
+        ext = blocks.amax(dim=1) - lo + taps
+        fits = ext.prod(dim=1) <= BOX_CELLS
+        first = torch.arange(blocks.shape[0], device=dev) * size
+        use = fits & (first < n)
+        if covered is not None:
+            use &= ~covered
+        starts.append(first[use])
+        sizes.append(torch.full_like(first[use], size))
+        corners.append(lo[use])
+        extents.append(ext[use])
+        covered = fits if covered is None else covered | fits
+        covered = covered.repeat_interleave(2)
+        size //= 2
+    start = torch.cat(starts)
+    order = torch.argsort(start)
+    start = start[order]
+    count = torch.minimum(torch.cat(sizes)[order], n - start)
+    corner = torch.cat(corners)[order]
+    extent = torch.cat(extents)[order]
+    table = torch.zeros((start.shape[0], _TABLE_COLS), dtype=torch.long,
+                        device=dev)
+    table[:, 0], table[:, 1] = start, count
+    table[:, 2:2 + d] = corner
+    table[:, 5:8] = 1
+    table[:, 5:5 + d] = extent
+    max_cells = int(extent.prod(dim=1).max())
+    max_rows = int(count.max())
+    return TilePlan(table.to(torch.int32).contiguous(), n, d, taps,
+                    max_cells, max_rows)
+
+
+build_tile_plan.builds = 0
+
+
+def _check_plan(tiles: TilePlan, n: int, d: int, taps: int,
+                device: torch.device) -> None:
+    if (tiles.n, tiles.d, tiles.taps) != (n, d, taps):
+        raise ValueError(f"tile plan is for (n, d, taps) = "
+                         f"{(tiles.n, tiles.d, tiles.taps)}, geometry is "
+                         f"{(n, d, taps)}")
+    if tiles.table.device != device:
+        raise ValueError(f"tile plan is on {tiles.table.device}, values on "
+                         f"{device}")
+    if tiles.max_cells > BOX_CELLS:
+        raise ValueError(f"tile plan has a {tiles.max_cells}-cell box, over "
+                         f"the {BOX_CELLS}-cell budget")
+
+
+def gather_chunk(c: int) -> int:
+    """Most channels of one gather pass: min(C, KERNEL_CHUNK) rounded up to
+    a power of two (channels past C are zero)."""
+    chunk = 1
+    while chunk < min(c, KERNEL_CHUNK):
+        chunk *= 2
+    return chunk
+
+
+def _launch(entry: str, tensors, tiles: TilePlan, args,
+            device: torch.device) -> None:
+    for t in tensors:
         if not t.is_contiguous():
             raise ValueError("the CUDA window kernels need contiguous tensors")
     fn = getattr(_build.load_library("nfft_window.cu"), entry)
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = fn(*(t.data_ptr() for t in args[:4]), *args[4:], stream)
+    rc = fn(*(t.data_ptr() for t in tensors), tiles.table.data_ptr(),
+            tiles.n_tiles, *args, tiles.max_cells, tiles.max_rows, stream)
     if rc != 0:
         raise RuntimeError(f"{entry} failed to launch: CUDA error {rc}")
 
@@ -72,11 +222,13 @@ def _suffix(dtype: torch.dtype) -> str:
 
 
 def window_spread(x: torch.Tensor, base: torch.Tensor, weights: torch.Tensor,
-                  *, padded_size: int) -> torch.Tensor:
+                  *, padded_size: int,
+                  tiles: TilePlan | None = None) -> torch.Tensor:
     """Scatter-add separable node windows onto the padded grid.
 
     x: (n, C); base: (n, d) int32 with ``0 <= base`` and
     ``base + taps <= padded_size``; weights: (n, d, taps), x's dtype.
+    ``tiles``: the geometry's :class:`TilePlan` (built here when None).
     Returns the padded grid ``(padded_size,)*d + (C,)``.
     """
     if x.ndim != 2:
@@ -86,6 +238,8 @@ def window_spread(x: torch.Tensor, base: torch.Tensor, weights: torch.Tensor,
         raise ValueError(f"x has {x.shape[0]} rows, geometry has {n}")
     if padded_size < taps:
         raise ValueError(f"padded_size {padded_size} < taps {taps}")
+    if tiles is not None:
+        _check_plan(tiles, n, d, taps, x.device)
     if x.device.type == "cpu":
         return window_spread_plain(x, base, weights, padded_size=padded_size)
     if x.device.type != "cuda":
@@ -95,8 +249,12 @@ def window_spread(x: torch.Tensor, base: torch.Tensor, weights: torch.Tensor,
                        device=x.device)
     if n == 0 or c == 0:
         return grid
+    if tiles is None:
+        tiles = build_tile_plan(base, taps)
     _launch(f"repro_window_spread_{_suffix(x.dtype)}",
-            (x, base, weights, grid, n, d, taps, c, padded_size), x.device)
+            (x, base, weights, grid), tiles,
+            (d, taps, c, padded_size, min(c, SPREAD_CHUNK)),
+            x.device)
     window_spread.launches += 1
     return grid
 
@@ -105,10 +263,12 @@ window_spread.launches = 0
 
 
 def window_gather(grid: torch.Tensor, base: torch.Tensor,
-                  weights: torch.Tensor) -> torch.Tensor:
+                  weights: torch.Tensor, *,
+                  tiles: TilePlan | None = None) -> torch.Tensor:
     """Gather separable node windows from the padded grid -> (n, C).
 
-    grid: ``(P,)*d + (C,)``; base/weights as in :func:`window_spread`.
+    grid: ``(P,)*d + (C,)``; base/weights/tiles as in
+    :func:`window_spread`.
     """
     n, d, taps = _check_geometry(base, weights, grid.device, grid.dtype)
     if grid.ndim != d + 1 or len(set(grid.shape[:d])) != 1:
@@ -117,6 +277,8 @@ def window_gather(grid: torch.Tensor, base: torch.Tensor,
     padded_size, c = grid.shape[0], grid.shape[-1]
     if padded_size < taps:
         raise ValueError(f"padded grid {padded_size} < taps {taps}")
+    if tiles is not None:
+        _check_plan(tiles, n, d, taps, grid.device)
     if grid.device.type == "cpu":
         return window_gather_plain(grid, base, weights)
     if grid.device.type != "cuda":
@@ -124,8 +286,11 @@ def window_gather(grid: torch.Tensor, base: torch.Tensor,
     out = torch.empty((n, c), dtype=grid.dtype, device=grid.device)
     if n == 0 or c == 0:
         return out
+    if tiles is None:
+        tiles = build_tile_plan(base, taps)
     _launch(f"repro_window_gather_{_suffix(grid.dtype)}",
-            (grid, base, weights, out, n, d, taps, c, padded_size),
+            (grid, base, weights, out), tiles,
+            (d, taps, c, padded_size, gather_chunk(c)),
             grid.device)
     window_gather.launches += 1
     return out

@@ -6,7 +6,8 @@ is present.  Run on a machine with an H100:
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
 Tolerances, relative to the largest output entry: spread 1e-12 (f64) /
-1e-4 (f32), since its atomics add in a varying order; gather 1e-13 / 1e-5;
+1e-4 (f32), since its tiles' boxes land on the grid with atomics in a
+varying order; gather 1e-13 / 1e-5 (another order of the window's sum);
 kernel_matvec 1e-12 / 1e-4 (its sums run in another order than the plain
 version's matrix product, and float32 exp/sqrt differ by an ulp or two).
 flash_attention, elementwise |k - p| <= atol + rtol |p|: float32 2e-5
@@ -23,7 +24,7 @@ from repro_torch.configs import get_config, reduced_config
 from repro_torch.core import fastsum as tfs
 from repro_torch.core.kernels import make_kernel
 from repro_torch.core.nfft import build_window_geometry, padded_grid_size
-from repro_torch.data.synthetic import spiral
+from repro_torch.data.synthetic import crescent_fullmoon, spiral
 from repro_torch.graph import krr as tkrr
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import kernel_matvec as tkm
@@ -96,6 +97,106 @@ def test_adjoint_identity_on_card(cuda, d):
     lhs = float((twin.window_gather(g, base, w) * x).sum())
     rhs = float((g * twin.window_spread(x, base, w, padded_size=pad)).sum())
     assert abs(lhs - rhs) <= 1e-10 * abs(lhs)
+
+
+def _stress_geometry(kind, setup, d, n, device):
+    """Geometries that stress the tile plan: uniform random nodes, the
+    spiral unsorted, and the SSL path's crescent-fullmoon (N=128, m=3)."""
+    if kind == "ssl":
+        pts, _ = crescent_fullmoon(n, seed=0)
+        params = tfs.FastsumParams(n_bandwidth=128, m=3, eps_b=0.0)
+    else:
+        if kind == "uniform":
+            pts = np.random.default_rng(0).uniform(-1, 1, (n, d))
+        else:
+            pts, _ = spiral(n, seed=d)
+        params = getattr(tfs, setup)
+    pts = torch.as_tensor(pts[:, :d], device=device)
+    scaled, _, _ = tfs.scale_nodes(pts, params.eps_b_eff)
+    plan = params.nfft_plan(d)
+    return plan, build_window_geometry(plan, scaled,
+                                       sort=kind != "unsorted")
+
+
+STRESS = [("uniform", "SETUP_3", 3, 4), ("unsorted", "SETUP_3", 3, 4),
+          ("unsorted", "SETUP_2", 1, 4), ("ssl", None, 2, 4),
+          ("spiral", "SETUP_3", 3, 16), ("spiral", "SETUP_2", 2, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kind,setup,d,c", STRESS)
+def test_kernels_match_plain_on_stress_geometries(cuda, kind, setup, d, c,
+                                                  dtype):
+    plan, geom = _stress_geometry(kind, setup, d, 5000, cuda)
+    pad = padded_grid_size(plan)
+    base, w, tiles = geom.base, geom.weights.to(dtype), geom.tiles
+    gen = torch.Generator(device=cuda).manual_seed(d + c)
+    x = torch.randn((base.shape[0], c), generator=gen, dtype=dtype,
+                    device=cuda)
+    g = torch.randn((pad,) * d + (c,), generator=gen, dtype=dtype,
+                    device=cuda)
+    launches = (twin.window_spread.launches, twin.window_gather.launches)
+    got_s = twin.window_spread(x, base, w, padded_size=pad, tiles=tiles)
+    got_g = twin.window_gather(g, base, w, tiles=tiles)
+    torch.cuda.synchronize()
+    assert (twin.window_spread.launches,
+            twin.window_gather.launches) == (launches[0] + 1,
+                                             launches[1] + 1)
+    assert _rel(got_s, twin.window_spread_plain(x, base, w, padded_size=pad)) \
+        <= TOL[("spread", dtype)]
+    assert _rel(got_g, twin.window_gather_plain(g, base, w)) \
+        <= TOL[("gather", dtype)]
+
+
+@pytest.mark.parametrize("kind,setup,d,c", STRESS)
+def test_adjoint_identity_on_stress_geometries(cuda, kind, setup, d, c):
+    plan, geom = _stress_geometry(kind, setup, d, 5000, cuda)
+    pad = padded_grid_size(plan)
+    gen = torch.Generator(device=cuda).manual_seed(c)
+    x = torch.randn((geom.base.shape[0], c), generator=gen,
+                    dtype=torch.float64, device=cuda)
+    g = torch.randn((pad,) * d + (c,), generator=gen, dtype=torch.float64,
+                    device=cuda)
+    lhs = float((twin.window_gather(g, geom.base, geom.weights,
+                                    tiles=geom.tiles) * x).sum())
+    rhs = float((g * twin.window_spread(x, geom.base, geom.weights,
+                                        padded_size=pad,
+                                        tiles=geom.tiles)).sum())
+    assert abs(lhs - rhs) <= 1e-10 * abs(lhs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,d,taps,padded,c", [
+    (1, 3, 15, 40, 1), (37, 2, 9, 64, 3), (300, 1, 301, 700, 2),
+    (300, 2, 21, 64, 4), (200, 3, 17, 48, 5), (500, 3, 5, 40, 16)])
+def test_kernels_match_plain_on_random_windows(cuda, n, d, taps, padded, c,
+                                               dtype):
+    """Random corners and weights: ragged and single-row tiles, windows
+    wider than a warp's plane block (d = 2, taps 21; d = 1, taps 301, with
+    fewer rows a tile), ragged channel passes."""
+    rng = np.random.default_rng(n + d)
+    base = torch.as_tensor(rng.integers(0, padded - taps + 1, (n, d)),
+                           dtype=torch.int32, device=cuda)
+    w = torch.as_tensor(rng.normal(size=(n, d, taps)), dtype=dtype,
+                        device=cuda)
+    x = torch.as_tensor(rng.normal(size=(n, c)), dtype=dtype, device=cuda)
+    g = torch.as_tensor(rng.normal(size=(padded,) * d + (c,)), dtype=dtype,
+                        device=cuda)
+    assert _rel(twin.window_spread(x, base, w, padded_size=padded),
+                twin.window_spread_plain(x, base, w, padded_size=padded)) \
+        <= TOL[("spread", dtype)]
+    assert _rel(twin.window_gather(g, base, w),
+                twin.window_gather_plain(g, base, w)) \
+        <= TOL[("gather", dtype)]
+
+
+def test_gather_is_deterministic_and_wrappers_build_a_plan(cuda):
+    plan, geom = _stress_geometry("spiral", "SETUP_3", 3, 5000, cuda)
+    pad = padded_grid_size(plan)
+    g = torch.randn((pad,) * 3 + (2,), dtype=torch.float64, device=cuda)
+    first = twin.window_gather(g, geom.base, geom.weights, tiles=geom.tiles)
+    again = twin.window_gather(g, geom.base, geom.weights)  # plan built here
+    assert torch.equal(first, again)
 
 
 def test_matvec_on_card_matches_cpu(cuda):

@@ -18,7 +18,8 @@ MODULES = ("core.kernels", "core.regularization", "core.nfft",
            "data.synthetic", "device", "quickstart", "ssl_crescent",
            "configs", "configs.base", "configs.archs", "models.common",
            "models.mlp", "models.attention", "models.model",
-           "serving.engine", "launch.serve", "launch.trace_serve")
+           "serving.engine", "launch.serve", "launch.trace_serve",
+           "launch.time_window")
 
 
 def _imported_roots(path: Path) -> set:

@@ -1,0 +1,394 @@
+"""The window kernels' tile plan, and their tile arithmetic, on the CPU.
+
+``build_tile_plan`` cuts a geometry's rows into tiles whose windows' box
+fits the shared-memory budget; the CUDA spread sums each tile's windows
+into its box and adds the box onto the grid at its corner, and the CUDA
+gather contracts each node's window out of its tile's box.  Here the plan's
+invariants are checked on the geometries the paths build, and both kernels'
+arithmetic is emulated tile by tile in PyTorch through the plan and held
+against the plain versions, ``repro.kernels.ref`` and the JAX package's
+Pallas kernels in interpret mode (as ``tests/test_kernels_pallas.py`` runs
+them).  Tolerances: 1e-12 relative to the largest output entry in float64
+(only the order of the sums differs), 1e-5 in float32.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import nfft_window as jwin
+from repro.kernels import ref
+from repro_torch.core import fastsum as tfs
+from repro_torch.core import fastsum_exec as tex
+from repro_torch.core import lanczos as tlan
+from repro_torch.core.kernels import make_kernel
+from repro_torch.core.nfft import (
+    NfftPlan, WindowGeometry, build_window_geometry, padded_grid_size,
+)
+from repro_torch.data.synthetic import crescent_fullmoon, spiral
+from repro_torch.kernels import nfft_window as twin
+
+
+def _tol(dtype):
+    return 1e-5 if dtype == torch.float32 else 1e-12
+
+
+def _geometry(kind, setup_name, d, n):
+    """(NFFT plan, geometry) as the paths build them; "ssl" is the SSL
+    path's crescent-fullmoon at N=128, m=3, d=2."""
+    if kind == "ssl":
+        pts, _ = crescent_fullmoon(n, seed=0)
+        params = tfs.FastsumParams(n_bandwidth=128, m=3, eps_b=0.0)
+    else:
+        if kind == "uniform":
+            pts = np.random.default_rng(0).uniform(-1, 1, (n, d))
+        else:
+            pts, _ = spiral(n, seed=0)
+        params = getattr(tfs, setup_name)
+    pts = torch.as_tensor(pts[:, :d])
+    scaled, _, _ = tfs.scale_nodes(pts, params.eps_b_eff)
+    plan = params.nfft_plan(d)
+    return plan, build_window_geometry(plan, scaled, sort=kind != "unsorted")
+
+
+def _gather_channels(tiles, dtype, c):
+    """(n_tiles,) channels of one gather pass over each tile's box, as the
+    CUDA gather picks them: ``gather_chunk(c)`` halved until the box fits
+    the block's box memory, min(BOX_BYTES, the largest box at
+    ``gather_chunk(c)`` channels)."""
+    s, chunk = (8 if dtype == torch.float64 else 4), twin.gather_chunk(c)
+    alloc = min(twin.BOX_BYTES, tiles.max_cells * chunk * s)
+    cells = tiles.table[:, 5:8].to(torch.long).prod(dim=1)
+    out = torch.full_like(cells, chunk)
+    while chunk > 1:
+        out[cells * out * s > alloc] //= 2
+        chunk //= 2
+    return out
+
+
+def _check_plan(tiles, base, taps):
+    """Every invariant the kernels rely on."""
+    n, d = base.shape
+    t = tiles.table.long()
+    assert tiles.table.dtype == torch.int32 and tiles.table.shape[1] == 8
+    assert (tiles.n, tiles.d, tiles.taps) == (n, d, taps)
+    start, count = t[:, 0], t[:, 1]
+    corner, ext = t[:, 2:5], t[:, 5:8]
+    # each row in exactly one tile, in order
+    assert int(start[0]) == 0 and int(count.sum()) == n
+    assert torch.equal(start[1:], (start + count)[:-1])
+    assert bool((count >= 1).all())
+    assert int(count.max()) == tiles.max_rows <= twin.tile_rows(d, taps)
+    assert tiles.max_rows * d * taps <= max(twin.TILE_WEIGHTS, d * taps)
+    # unused axes: corner 0, extent 1
+    assert bool((corner[:, d:] == 0).all() and (ext[:, d:] == 1).all())
+    # each box holds every window of its tile
+    tile_of = torch.repeat_interleave(torch.arange(len(t)), count)
+    b = base.long()
+    assert bool((b >= corner[tile_of, :d]).all())
+    assert bool((b + taps <= corner[tile_of, :d] + ext[tile_of, :d]).all())
+    # ... and fits the budget, in both types, at the gather's channels
+    cells = ext.prod(dim=1)
+    assert int(cells.max()) == tiles.max_cells <= twin.BOX_CELLS
+    for dtype in (torch.float64, torch.float32):
+        for c in (1, 3, 4, 16):
+            chunk = twin.gather_chunk(c)
+            per_tile = _gather_channels(tiles, dtype, c)
+            assert chunk <= 2 * min(c, twin.KERNEL_CHUNK)
+            assert bool((per_tile >= 1).all() and (per_tile <= chunk).all())
+            assert bool(((per_tile & (per_tile - 1)) == 0).all())
+            itemsize = 8 if dtype == torch.float64 else 4
+            assert int((cells * per_tile).max()) * itemsize <= twin.BOX_BYTES
+
+
+def _emulate_spread(x, base, weights, padded_size, tiles, chunk):
+    """The spread kernel's arithmetic, tile by tile: each tile's windows
+    summed into its box in row order, the box added at its corner."""
+    n, d, taps = weights.shape
+    c = x.shape[1]
+    grid = torch.zeros((padded_size,) * d + (c,), dtype=x.dtype)
+    cube = twin._weight_cube(weights)  # (n, taps^d)
+    for start, count, *rest in tiles.table.tolist():
+        corner, ext = rest[:d], rest[3:3 + d]
+        for c0 in range(0, c, chunk):
+            cc = min(chunk, c - c0)
+            box = torch.zeros(ext + [cc], dtype=x.dtype)
+            for r in range(start, start + count):
+                lo = [int(base[r, a]) - corner[a] for a in range(d)]
+                patch = tuple(slice(v, v + taps) for v in lo)
+                box[patch] += (cube[r].reshape((taps,) * d)[..., None]
+                               * x[r, c0:c0 + cc])
+            at = tuple(slice(v, v + e) for v, e in zip(corner, ext))
+            grid[at + (slice(c0, c0 + cc),)] += box
+    return grid
+
+
+def _emulate_gather(grid, base, weights, tiles, chunk=None):
+    """The gather kernel's arithmetic: each tile's box read once per pass of
+    ``chunk`` channels (by default the kernel's per-tile choice), each node
+    contracted from it, the last axis innermost."""
+    n, d, taps = weights.shape
+    c = grid.shape[-1]
+    out = torch.empty((n, c), dtype=grid.dtype)
+    chunks = _gather_channels(tiles, grid.dtype, c).tolist()
+    for t, (start, count, *rest) in enumerate(tiles.table.tolist()):
+        corner, ext = rest[:d], rest[3:3 + d]
+        chunk = chunks[t] if chunk is None else chunk
+        for c0 in range(0, c, chunk):
+            cc = min(chunk, c - c0)
+            at = tuple(slice(v, v + e) for v, e in zip(corner, ext))
+            box = grid[at + (slice(c0, c0 + cc),)]
+            for r in range(start, start + count):
+                lo = [int(base[r, a]) - corner[a] for a in range(d)]
+                patch = box[tuple(slice(v, v + taps) for v in lo)]
+                acc = patch
+                for a in range(d - 1, -1, -1):  # last axis first
+                    acc = torch.tensordot(acc, weights[r, a],
+                                          dims=([a], [0]))
+                out[r, c0:c0 + cc] = acc
+    return out
+
+
+def _close(got, want, dtype):
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= _tol(dtype) * max(scale, 1e-300)
+
+
+# -- the plan ---------------------------------------------------------------
+
+PLAN_CASES = ([("spiral", s, d) for s in ("SETUP_2", "SETUP_3")
+               for d in (1, 2, 3)]
+              + [("unsorted", s, d) for s in ("SETUP_2", "SETUP_3")
+                 for d in (1, 2, 3)]
+              + [("uniform", "SETUP_3", 3), ("ssl", None, 2)])
+
+
+@pytest.mark.parametrize("kind,setup_name,d", PLAN_CASES)
+def test_plan_invariants_on_path_geometries(kind, setup_name, d):
+    plan, geom = _geometry(kind, setup_name, d, 5000)
+    _check_plan(geom.tiles, geom.base, plan.taps)
+
+
+@pytest.mark.parametrize("n", [1, 37, 64, 65])
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_plan_invariants_on_small_and_ragged_row_counts(n, d):
+    base = torch.as_tensor(
+        np.random.default_rng(n).integers(0, 40, (n, d)), dtype=torch.int32)
+    _check_plan(twin.build_tile_plan(base, 7), base, 7)
+
+
+def test_all_nodes_on_one_corner_make_full_tiles():
+    base = torch.full((1000, 3), 11, dtype=torch.int32)
+    tiles = twin.build_tile_plan(base, 15)
+    _check_plan(tiles, base, 15)
+    assert tiles.n_tiles == 16 and tiles.max_cells == 15 ** 3
+    assert tiles.table[:, 1].tolist() == [64] * 15 + [40]
+
+
+def test_boxes_over_budget_split_down_to_single_rows():
+    """Far-apart corners: no two windows share a box, every tile is one
+    row, and its box is one window."""
+    base = torch.as_tensor([[0, 0, 0], [60, 60, 60]] * 8, dtype=torch.int32)
+    tiles = twin.build_tile_plan(base, 15)
+    _check_plan(tiles, base, 15)
+    assert tiles.n_tiles == 16 and tiles.max_rows == 1
+    assert tiles.max_cells == 15 ** 3
+
+
+def test_wide_windows_take_fewer_rows_per_tile():
+    base = torch.zeros((300, 1), dtype=torch.int32)
+    tiles = twin.build_tile_plan(base, 101)  # 64 * 101 > TILE_WEIGHTS
+    _check_plan(tiles, base, 101)
+    assert tiles.max_rows == twin.tile_rows(1, 101) == 32
+
+
+@pytest.mark.parametrize("d,taps", [(3, 19), (2, 79), (1, twin.BOX_CELLS + 1)])
+def test_no_plan_when_one_window_exceeds_the_budget(d, taps):
+    with pytest.raises(ValueError, match="no tile plan"):
+        twin.build_tile_plan(torch.zeros((4, d), dtype=torch.int32), taps)
+
+
+def test_invariants_catch_a_shrunk_box_and_a_dropped_row():
+    """The checks above fail on the two faults a plan could have."""
+    plan, geom = _geometry("spiral", "SETUP_3", 3, 3000)
+    good = geom.tiles
+    shrunk = good.table.clone()
+    shrunk[:, 7] -= 1  # every box one cell short on its last axis
+    dropped = good.table.clone()
+    dropped[0, 1] -= 1  # the first tile loses its last row
+    for table in (shrunk, dropped):
+        bad = twin.TilePlan(table, good.n, good.d, good.taps,
+                            good.max_cells, good.max_rows)
+        with pytest.raises(AssertionError):
+            _check_plan(bad, geom.base, plan.taps)
+
+
+# -- the tile arithmetic ----------------------------------------------------
+
+EMULATION_CASES = [("spiral", "SETUP_2", 3), ("spiral", "SETUP_3", 3),
+                   ("spiral", "SETUP_3", 2), ("spiral", "SETUP_3", 1),
+                   ("unsorted", "SETUP_3", 3), ("uniform", "SETUP_3", 3),
+                   ("ssl", None, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kind,setup_name,d", EMULATION_CASES)
+def test_tile_emulation_matches_plain(kind, setup_name, d, dtype):
+    plan, geom = _geometry(kind, setup_name, d, 600)
+    pad = padded_grid_size(plan)
+    base, w, tiles = geom.base, geom.weights.to(dtype), geom.tiles
+    rng = np.random.default_rng(d)
+    x = torch.as_tensor(rng.normal(size=(600, 3)), dtype=dtype)
+    g = torch.as_tensor(rng.normal(size=(pad,) * d + (3,)), dtype=dtype)
+    _close(_emulate_spread(x, base, w, pad, tiles, min(3, twin.SPREAD_CHUNK)),
+           twin.window_spread_plain(x, base, w, padded_size=pad), dtype)
+    _close(_emulate_gather(g, base, w, tiles),
+           twin.window_gather_plain(g, base, w), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tile_emulation_in_channel_chunks(dtype):
+    """C = 16 takes four spread passes of 4 channels, and gather passes of
+    the kernel's per-tile width; a chunk of 3 forces a ragged last pass."""
+    plan, geom = _geometry("spiral", "SETUP_2", 3, 400)
+    pad = padded_grid_size(plan)
+    base, w, tiles = geom.base, geom.weights.to(dtype), geom.tiles
+    rng = np.random.default_rng(16)
+    x = torch.as_tensor(rng.normal(size=(400, 16)), dtype=dtype)
+    g = torch.as_tensor(rng.normal(size=(pad,) * 3 + (16,)), dtype=dtype)
+    want_s = twin.window_spread_plain(x, base, w, padded_size=pad)
+    want_g = twin.window_gather_plain(g, base, w)
+    for spread_chunk, gather_chunk in ((twin.SPREAD_CHUNK, None), (3, 3)):
+        _close(_emulate_spread(x, base, w, pad, tiles, spread_chunk), want_s,
+               dtype)
+        _close(_emulate_gather(g, base, w, tiles, gather_chunk), want_g,
+               dtype)
+
+
+@pytest.mark.parametrize("kind,setup_name,d", [("spiral", "SETUP_2", 3),
+                                               ("spiral", "SETUP_3", 2),
+                                               ("unsorted", "SETUP_2", 2),
+                                               ("ssl", None, 2),
+                                               ("spiral", "SETUP_3", 1)])
+def test_tile_emulation_matches_jax_ref_and_pallas(kind, setup_name, d):
+    """float64, against repro.kernels.ref and the Pallas kernels run in
+    interpret mode."""
+    n = 150
+    plan, geom = _geometry(kind, setup_name, d, n)
+    pad = padded_grid_size(plan)
+    base, w, tiles = geom.base, geom.weights, geom.tiles
+    rng = np.random.default_rng(n + d)
+    x = rng.normal(size=(n,))
+    g = rng.normal(size=(pad,) * d)
+    spread = _emulate_spread(torch.as_tensor(x[:, None]), base, w, pad,
+                             tiles, 1)[..., 0]
+    gather = _emulate_gather(torch.as_tensor(g[..., None]), base, w, tiles,
+                             1)[:, 0]
+    jb, jw = jnp.asarray(base.numpy()), jnp.asarray(w.numpy())
+    for want in (ref.window_spread_ref(jnp.asarray(x), jb, jw, pad),
+                 jwin.window_spread(jnp.asarray(x), jb, jw, padded_size=pad,
+                                    node_tile=128, interpret=True)):
+        _close(spread, torch.as_tensor(np.array(want)), torch.float64)
+    for want in (ref.window_gather_ref(jnp.asarray(g), jb, jw),
+                 jwin.window_gather(jnp.asarray(g), jb, jw, node_tile=128,
+                                    interpret=True)):
+        _close(gather, torch.as_tensor(np.array(want)), torch.float64)
+
+
+def test_tile_emulation_adjoint_identity():
+    plan, geom = _geometry("uniform", "SETUP_3", 3, 300)
+    pad = padded_grid_size(plan)
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.normal(size=(300, 2)))
+    g = torch.as_tensor(rng.normal(size=(pad,) * 3 + (2,)))
+    lhs = float((_emulate_gather(g, geom.base, geom.weights, geom.tiles, 2)
+                 * x).sum())
+    rhs = float((g * _emulate_spread(x, geom.base, geom.weights, pad,
+                                     geom.tiles, 2)).sum())
+    assert abs(lhs - rhs) <= 1e-12 * abs(lhs)
+
+
+# -- one plan per geometry --------------------------------------------------
+
+def test_plan_built_once_per_geometry_across_matvecs_and_eigsh():
+    pts, _ = spiral(2000, seed=0)
+    kern = make_kernel("gaussian", sigma=3.5)
+    before = twin.build_tile_plan.builds
+    op = tfs.make_normalized_adjacency(kern, pts, tfs.SETUP_1, device="cpu")
+    assert twin.build_tile_plan.builds == before + 1  # the degrees' matvec
+    x = torch.as_tensor(np.random.default_rng(0).normal(size=(2000, 2)))
+    for _ in range(3):
+        op.matvec(x)
+    res = tlan.eigsh(op.matvec, op.n, 4, device="cpu")
+    assert res.num_matvecs > 3
+    assert twin.build_tile_plan.builds == before + 1
+    assert op.fastsum.src_window.tiles is op.fastsum.src_window.tiles
+
+
+def test_rectangular_operator_builds_one_plan_per_geometry():
+    pts, _ = spiral(500, seed=1)
+    kern = make_kernel("gaussian", sigma=3.5)
+    op = tfs.make_fastsum(kern, pts, tfs.SETUP_1, target_points=pts[:70],
+                          device="cpu")
+    before = twin.build_tile_plan.builds
+    x = torch.ones(500, dtype=torch.float64)
+    for _ in range(3):
+        assert op.matvec_tilde(x).shape == (70,)
+    assert twin.build_tile_plan.builds == before + 2
+
+
+def test_window_geometry_from_sorted_builds_its_plan_lazily():
+    plan, geom = _geometry("spiral", "SETUP_2", 2, 300)
+    fresh = WindowGeometry.from_sorted(geom.base, geom.weights, geom.perm)
+    before = twin.build_tile_plan.builds
+    x = torch.ones((300, 1), dtype=torch.float64)
+    tex.window_spread(plan, fresh, x)
+    tex.window_gather(plan, fresh, torch.ones((plan.grid_size,) * 2 + (1,),
+                                              dtype=torch.float64))
+    assert twin.build_tile_plan.builds == before + 1
+    assert torch.equal(fresh.tiles.table, geom.tiles.table)
+
+
+def test_plan_does_not_depend_on_the_weights_dtype():
+    plan, geom = _geometry("spiral", "SETUP_3", 3, 800)
+    as_f32 = WindowGeometry.from_sorted(geom.base, geom.weights.float(),
+                                        geom.perm)
+    assert torch.equal(as_f32.tiles.table, geom.tiles.table)
+    assert as_f32.tiles.max_cells == geom.tiles.max_cells
+
+
+def test_wrappers_check_the_plan():
+    plan, geom = _geometry("spiral", "SETUP_2", 2, 100)
+    pad = padded_grid_size(plan)
+    x = torch.ones((100, 1), dtype=torch.float64)
+    g = torch.ones((pad, pad, 1), dtype=torch.float64)
+    got = twin.window_spread(x, geom.base, geom.weights, padded_size=pad,
+                             tiles=geom.tiles)
+    assert torch.equal(got, twin.window_spread_plain(x, geom.base,
+                                                     geom.weights,
+                                                     padded_size=pad))
+    other = twin.build_tile_plan(geom.base[:50], plan.taps)
+    with pytest.raises(ValueError, match="tile plan is for"):
+        twin.window_spread(x, geom.base, geom.weights, padded_size=pad,
+                           tiles=other)
+    with pytest.raises(ValueError, match="tile plan is for"):
+        twin.window_gather(g, geom.base, geom.weights, tiles=other)
+    wide = twin.TilePlan(geom.tiles.table, 100, 2, plan.taps,
+                         twin.BOX_CELLS + 1, geom.tiles.max_rows)
+    with pytest.raises(ValueError, match="budget"):
+        twin.window_gather(g, geom.base, geom.weights, tiles=wide)
+    assert isinstance(NfftPlan(d=2, n_bandwidth=8, m=1), NfftPlan)
+
+
+def test_time_window_reports_the_plan_and_needs_a_card():
+    from repro_torch.launch import time_window
+    plan, geom = time_window.geometry(2000, "SETUP_2", "cpu")
+    line = time_window.plan_line(2000, "SETUP_2", geom, 1.5)
+    corners = torch.unique(geom.base, dim=0).shape[0]
+    cells = int(geom.tiles.table[:, 5:8].prod(dim=1).sum())
+    assert f"{corners} distinct window corners" in line
+    assert f"all boxes {cells} cells against {2000 * 9 ** 3}" in line
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="needs a CUDA card"):
+            time_window.main([])

@@ -7,7 +7,10 @@ Drives the port's main path on one CUDA card — spiral points ->
 kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all
 at once) and holding each one against its plain PyTorch version at the
 paths' shapes (the window kernels also on geometries that stress their
-tile plan: uniform, unsorted, the SSL path's d = 2, 16 channels).  Then
+tile plan: uniform, unsorted, the SSL path's d = 2, 16 channels, and
+windows over the box budget, d = 3 with m = 9 and 16, cut into slabs;
+``kernel_matvec`` also at the guard and KRR paths' small shapes, which
+split the sources).  Then
 the paths of the exact direct sum (``kernel_matvec``): the accuracy
 guard's direct floor under ``eigsh`` (spiral n = 8,000), kernel SSL on
 crescent-fullmoon at n = 100,000 (paper Section 6.2.3), kernel ridge
@@ -31,7 +34,8 @@ raises, so the run exits non-zero and prints no result line.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
-the line before it is the kernels' JSON record.  Needs one card and the
+the line before it is the kernels' JSON record (``kernel_matvec`` once per
+path that launches it, with that path's launches and shape).  Needs one card and the
 repository checkout around this file; imports nothing of JAX.
 """
 
@@ -94,6 +98,12 @@ WINDOW_STRESS = (("uniform", "SETUP_3", 3, (1, 4)),
                  ("unsorted", "SETUP_3", 3, (1, 4)),
                  ("ssl", "SSL", 2, (1, 4)),
                  ("spiral", "SETUP_3", 3, (16,)))
+# Windows over the box budget (6,144 cells): SETUP_2's N = 32 with m = 9
+# and m = 16 (taps 19 and 33), d = 3, each window cut into slabs along its
+# first axis; checked like the geometries above, and once more with seeded
+# standard normal weights ("random"), whose outer taps are not ~0 as the
+# Kaiser-Bessel window's are at m = 16, so every slab counts.
+WIDE_WINDOWS = {"WIDE_M9": 9, "WIDE_M16": 16}
 
 # kernel_matvec vs plain, relative to the plain output's largest entry: the
 # sums run in another order than the plain matrix product, and float32
@@ -106,9 +116,6 @@ KM_PROFILE_OPS = {"gaussian": 2, "laplacian_rbf": 3, "multiquadric": 2,
                   "inverse_multiquadric": 3}
 KM_SQUARE_N = (8000, N_MAIN)
 KM_RECT = (400, 10_000)  # the KRR path's test x training points
-# kernel_matvec's JSON record: the direct baseline's shape (n, d, C, dtype,
-# profile)
-KM_RECORD = (N_MAIN, 3, 1, "float64", "gaussian")
 # guard floor: spiral n=8000, SETUP_1 and a policy that can only end on the
 # direct floor (tests/test_runtime_guards.py:143-150)
 N_GUARD = 8000
@@ -129,6 +136,18 @@ JAX_KRR_PREDICT_REL = {"gaussian": 1.899438831679044e-07,
 # x ~ N(0, 1) from np.random.default_rng(0))
 JAX_DIRECT_REL = {"SETUP_2": 1.7666062474585884e-07,
                   "SETUP_3": 1.7613001593982948e-13}
+# kernel_matvec on each path that launches it, at that path's own inputs
+# (float64, C = 1): (path, points, n_out, n_in, d, profile, param,
+# zero_diagonal).  "spiral": spiral nodes as both point sets; "krr": the
+# KRR path's crescent-fullmoon test x training points; "ssl": the SSL
+# path's crescent-fullmoon nodes.  One JSON record each.
+KM_PATHS = (("guard", "spiral", N_GUARD, N_GUARD, 3, "gaussian", SIGMA, True),
+            ("ssl", "ssl", N_SSL, N_SSL, 2, "gaussian", SSL_SIGMA, True),
+            ("direct", "spiral", N_MAIN, N_MAIN, 3, "gaussian", SIGMA, True),
+            ("krr_gaussian", "krr", N_KRR_TEST, N_KRR, 2, "gaussian", 2.0,
+             False),
+            ("krr_inverse_multiquadric", "krr", N_KRR_TEST, N_KRR, 2,
+             "inverse_multiquadric", 2.0, False))
 
 # flash attention vs plain, (atol, rtol): elementwise |k - p| <= atol +
 # rtol |p|.  float32: the JAX kernel tests' 2e-5 absolute
@@ -257,6 +276,9 @@ class Smoke:
         return start.elapsed_time(end) / reps
 
     def setup(self, name):
+        if name in WIDE_WINDOWS:
+            return self.fs.FastsumParams(n_bandwidth=32, m=WIDE_WINDOWS[name],
+                                         eps_b=0.0)
         return getattr(self.fs, name)
 
     def reset_launches(self):
@@ -288,13 +310,17 @@ class Smoke:
         return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
                 else "bytes", flops, nbytes)
 
-    def km_inputs(self, n_out, n_in, d, c, dtype):
-        """Square: spiral nodes (first d coordinates) as both point sets;
-        rectangular: the KRR path's crescent-fullmoon test and training
+    def km_inputs(self, n_out, n_in, d, c, dtype, points=None):
+        """(a, b, x).  "spiral" (the default when square): spiral nodes
+        (first d coordinates) as both point sets; "ssl": the SSL path's
+        crescent-fullmoon nodes as both; "krr" (the default when
+        rectangular): the KRR path's crescent-fullmoon test and training
         points.  x is standard normal."""
         torch = self.torch
-        if n_out == n_in:
-            pts, _ = self.spiral(n_in, seed=0)
+        points = points or ("spiral" if n_out == n_in else "krr")
+        if points != "krr":
+            pts, _ = (self.crescent(n_in, seed=0) if points == "ssl"
+                      else self.spiral(n_in, seed=0))
             b = a = torch.as_tensor(pts[:, :d], dtype=dtype, device=self.dev)
         else:
             pts, _ = self.crescent(n_in + n_out, seed=5)
@@ -312,6 +338,7 @@ class Smoke:
                 for c in (1, 4):
                     yield n, n, d, c, True
         yield KM_RECT[0], KM_RECT[1], 2, 1, False
+        yield KM_RECT[0], KM_RECT[1], 2, 1, True
 
     @staticmethod
     def flash_bound(b, hq, hkv, sq, sk, dh, causal, itemsize):
@@ -381,9 +408,16 @@ class Smoke:
         return plan, geom
 
     def geometry(self, setup_name, d, n, dtype, kind="spiral"):
-        """(plan, base, weights in ``dtype``, tile plan) of a geometry."""
-        plan, geom = self.window_geometry(setup_name, d, n, kind)
-        return plan, geom.base, geom.weights.to(dtype), geom.tiles
+        """(plan, base, weights in ``dtype``, tile plan) of a geometry;
+        "random": the spiral's, with seeded standard normal weights."""
+        plan, geom = self.window_geometry(
+            setup_name, d, n, "spiral" if kind == "random" else kind)
+        w = geom.weights
+        if kind == "random":
+            gen = self.torch.Generator(device=self.dev).manual_seed(plan.taps)
+            w = self.torch.randn(w.shape, generator=gen, dtype=w.dtype,
+                                 device=self.dev)
+        return plan, geom.base, w.to(dtype), geom.tiles
 
     @staticmethod
     def bound(n, d, taps, c, pad, dtype_name):
@@ -470,6 +504,51 @@ class Smoke:
                 log(f"[build]   {line}")
             if source == "flash_attention.cu":
                 self.flash_build_report(one["log"])
+            if source == "kernel_matvec.cu":
+                self.km_build_report(one["log"])
+
+    def km_build_report(self, text):
+        """Registers and spills of kernel_matvec's first pass, by type,
+        channel chunk CH and rows per thread R (over d and the profile),
+        from nvcc's -Xptxas -v report."""
+        rows, key = {}, None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '\w*kernel_matvec_kernel"
+                          r"I([df])Li(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", line)
+            if m:
+                key = ("float64" if m.group(1) == "d" else "float32",
+                       int(m.group(4)), int(m.group(5)))
+                rows.setdefault(key, {"registers": [], "spill_bytes": 0,
+                                      "instances": 0})
+                rows[key]["instances"] += 1
+                continue
+            if "Compiling entry function" in line:
+                key = None
+            if key is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                rows[key]["spill_bytes"] += int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                rows[key]["registers"].append(int(m.group(1)))
+        check(sum(r["instances"] for r in rows.values()) == 72,
+              "kernel_matvec: expected 72 first-pass instances (2 types x "
+              "3 d paths x 4 profiles x 3 channel chunks) in the ptxas "
+              "report")
+        self.record["km_build"] = []
+        for (dname, ch, r_rows), r in sorted(rows.items()):
+            regs = r["registers"]
+            self.record["km_build"].append(
+                {"dtype": dname, "channel_chunk": ch,
+                 "rows_per_thread": r_rows, "registers_min": min(regs),
+                 "registers_max": max(regs),
+                 "spill_bytes": r["spill_bytes"]})
+            log(f"[build]   kernel_matvec_kernel {dname} CH={ch} R={r_rows}: "
+                f"{min(regs)}-{max(regs)} registers over "
+                f"{r['instances']} instances (d, profile), "
+                f"{r['spill_bytes']} bytes spilled")
 
     def flash_build_report(self, text):
         """Registers, shared memory and spills of each instance of the
@@ -520,6 +599,9 @@ class Smoke:
                 yield "spiral", setup_name, d, (1, 4), both
         for kind, setup_name, d, chans in WINDOW_STRESS:
             yield kind, setup_name, d, chans, both
+        for setup_name in WIDE_WINDOWS:
+            yield "spiral", setup_name, 3, (1, 4), both
+            yield "random", setup_name, 3, (1,), both
 
     def phase_kernels(self):
         torch, win = self.torch, self.win
@@ -1175,6 +1257,7 @@ class Smoke:
                         f"{nbytes / 1e6:.1f} MB, "
                         f"{100 * bound_ms / ms:.2f}% of bound)  plain "
                         f"{plain_ms:.3f} ms (no yardstick)  library: none")
+        self.time_km_paths()
         self.time_kernel_matvec()
         for n, setup_name in ((N_MAIN, "SETUP_2"), (N_MAIN, "SETUP_3"),
                               (N_BIG, "SETUP_2")):
@@ -1286,20 +1369,57 @@ class Smoke:
             f"{row['tokens_per_s']:.1f} tok/s")
         del engine
 
+    def time_km_paths(self):
+        """kernel_matvec at each KM_PATHS row, on that path's inputs: time,
+        plain time, bound, error against the plain version, and the source
+        splits chosen on this card."""
+        torch, km = self.torch, self.km
+        sms = torch.cuda.get_device_properties(self.dev).multi_processor_count
+        self.km_path_rows = {}
+        for path, points, n_out, n_in, d, kname, param, zd in KM_PATHS:
+            a, b, x = self.km_inputs(n_out, n_in, d, 1, torch.float64, points)
+            kw = dict(kernel_name=kname, param=param, zero_diagonal=zd)
+            p_out = km.kernel_matvec_plain(a, b, x, **kw)
+            err = float((km.kernel_matvec(a, b, x, **kw) - p_out).abs().max())
+            rel = err / float(p_out.abs().max())
+            check(rel <= KM_TOL["float64"],
+                  f"kernel_matvec at the {path} path's shape: rel {rel:.3e}")
+            ms = self.time_ms(lambda: km.kernel_matvec(a, b, x, **kw),
+                              reps=20 if n_in < N_MAIN else 5, warmup=1)
+            plain_ms = self.time_ms(
+                lambda: km.kernel_matvec_plain(a, b, x, **kw), reps=1,
+                warmup=1)
+            bound_ms, by, flops, nbytes = self.km_bound(
+                n_out, n_in, d, 1, kname, "float64", zd)
+            splits = km.choose_splits(n_out, n_in, d, 1, sms)
+            row = {"kernel": "kernel_matvec", "path": path, "points": points,
+                   "profile": kname, "param": param, "n_out": n_out,
+                   "n_in": n_in, "d": d, "c": 1, "dtype": "float64",
+                   "zero_diagonal": zd, "splits": splits,
+                   "rows_per_thread": km.rows_per_thread(1, d), "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": by, "flops": flops, "bytes": nbytes,
+                   "max_abs_err": err, "rel_err": rel, "library_ms": None}
+            self.record["times"].append(row)
+            self.km_path_rows[path] = row
+            log(f"[times] kernel_matvec {path} path: {kname} {n_out}x{n_in} "
+                f"d={d} C=1 float64 zero_diag={zd} (S={splits} source "
+                f"splits, R={km.rows_per_thread(1, d)}): {ms:.4f} ms  bound "
+                f"{bound_ms:.4f} ms ({by}, {100 * bound_ms / ms:.2f}% of "
+                f"bound)  plain {plain_ms:.3f} ms (no yardstick)  library: "
+                f"none; rel err vs plain {rel:.2e}")
+
     def time_kernel_matvec(self):
-        """kernel_matvec at every checked shape but n = 8000 (that one only
-        for the guard path's Gaussian, d = 3, C = 1, float64)."""
+        """kernel_matvec at every checked shape but n = 8000 (the guard
+        path's, which time_km_paths times)."""
         torch, km = self.torch, self.km
         for n_out, n_in, d, c, zd in self.km_shapes():
+            if n_in == KM_SQUARE_N[0]:
+                continue
             for dtype in (torch.float64, torch.float32):
                 dname = str(dtype).split(".")[1]
-                if n_in == KM_SQUARE_N[0] and (d, c, dname) != (3, 1,
-                                                                "float64"):
-                    continue
                 a, b, x = self.km_inputs(n_out, n_in, d, c, dtype)
                 for kname, param in KM_PROFILES:
-                    if n_in == KM_SQUARE_N[0] and kname != "gaussian":
-                        continue
                     kw = dict(kernel_name=kname, param=param,
                               zero_diagonal=zd)
                     ms = self.time_ms(lambda: km.kernel_matvec(a, b, x, **kw),
@@ -1390,22 +1510,29 @@ class Smoke:
                 "max_abs_err": check_row["max_abs_err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": None})
-        # kernel_matvec: its launches on all of this slice's paths
-        n, d, c, dname, kname = KM_RECORD
-        check_row = next(r for r in self.record["checks"]
-                         if r["kernel"] == "kernel_matvec"
-                         and (r["n_out"], r["n_in"], r["d"], r["c"],
-                              r["dtype"], r["profile"])
-                         == (n, n, d, c, dname, kname))
-        t = self.kernel_times[("kernel_matvec", n, n, d, c, dname, kname)]
-        out.append({
-            "name": "kernel_matvec", "route": "cuda", "source": KM_SOURCE,
-            "replaces": "src/repro/kernels/kernel_matvec.py:35",
-            "launches": sum(v["kernel_matvec"]
-                            for v in self.path_launches.values()),
-            "max_abs_err": check_row["max_abs_err"], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None})
+        # kernel_matvec: one record per path that launches it, with that
+        # path's launches and the times at its shape
+        total = sum(v["kernel_matvec"] for v in self.path_launches.values())
+        unrecorded = [p for p, v in self.path_launches.items()
+                      if v["kernel_matvec"] and p not in self.km_path_rows]
+        check(not unrecorded, f"kernel_matvec launched on {unrecorded}, "
+              "which have no shape in KM_PATHS")
+        recorded = 0
+        for path, t in self.km_path_rows.items():
+            launches = self.path_launches[path]["kernel_matvec"]
+            recorded += launches
+            out.append({
+                "name": "kernel_matvec", "route": "cuda", "source": KM_SOURCE,
+                "replaces": "src/repro/kernels/kernel_matvec.py:35",
+                "path": path, "shape": {k: t[k] for k in (
+                    "profile", "n_out", "n_in", "d", "c", "dtype",
+                    "zero_diagonal", "splits")},
+                "launches": launches, "max_abs_err": t["max_abs_err"],
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": None})
+        check(recorded == total, f"kernel_matvec records hold {recorded} "
+              f"launches, the paths made {total}")
         # flash_attention: the serve path's launches; error and times at
         # the longest prompt (bf16, causal, granite heads, s = 2048)
         s = FLASH_LENGTHS[-1]

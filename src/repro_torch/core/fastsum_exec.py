@@ -63,6 +63,12 @@ def spectral_support(plan: NfftPlan) -> tuple:
     return tuple([full] * (plan.d - 1) + [half])
 
 
+def _tiles(geometry: WindowGeometry, values: torch.Tensor):
+    """The geometry's tile plan for values on the card; None on the CPU,
+    whose plain window versions need no plan (none is built there)."""
+    return geometry.tiles if values.is_cuda else None
+
+
 def window_spread(plan: NfftPlan, geometry: WindowGeometry,
                   x: torch.Tensor) -> torch.Tensor:
     """Spread node values (n, C) onto the oversampled grid -> (M,)*d + (C,).
@@ -76,7 +82,8 @@ def window_spread(plan: NfftPlan, geometry: WindowGeometry,
     pad_n = padded_grid_size(plan)
     xs = x[geometry.perm].contiguous()
     gpad = nfft_window.window_spread(xs, geometry.base, geometry.weights,
-                                     padded_size=pad_n, tiles=geometry.tiles)
+                                     padded_size=pad_n,
+                                     tiles=_tiles(geometry, xs))
     ext = pad_n - grid  # taps - 1: unwrapped u and u - M are the same cell
     for ax in range(d):
         main = gpad.narrow(ax, 0, grid)
@@ -98,7 +105,8 @@ def window_gather(plan: NfftPlan, geometry: WindowGeometry,
     for ax in range(d):  # wrap padding, one axis at a time
         gpad = torch.cat([gpad, gpad.narrow(ax, 0, taps - 1)], dim=ax)
     out = nfft_window.window_gather(gpad.contiguous(), geometry.base,
-                                    geometry.weights, tiles=geometry.tiles)
+                                    geometry.weights,
+                                    tiles=_tiles(geometry, gpad))
     return out[geometry.inv]
 
 

@@ -46,16 +46,17 @@ _I32 = ctypes.c_int
 # source -> (argtypes shared by its entry points, entry points)
 ENTRY_POINTS = {
     # (x|grid, base, weights, grid|out, tiles, n_tiles, d, taps, c, P,
-    #  chunk, max_cells, max_rows, stream)
+    #  chunk, max_cells, max_rows, pieces, stream)
     "nfft_window.cu": (
         [_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I32, _I32, _I32, _I64, _I32,
-         _I32, _I32, _PTR],
+         _I32, _I32, _I32, _PTR],
         ("repro_window_spread_f64", "repro_window_spread_f32",
          "repro_window_gather_f64", "repro_window_gather_f32")),
-    # (a, b, x, y, n_out, n_in, d, c, profile, param, zero_diagonal, stream)
+    # (a, b, x, y, partial, n_out, n_in, d, c, profile, param,
+    #  zero_diagonal, splits, split_len, stream)
     "kernel_matvec.cu": (
-        [_PTR, _PTR, _PTR, _PTR, _I64, _I64, _I32, _I32, _I32,
-         ctypes.c_double, _I32, _PTR],
+        [_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I64, _I32, _I32, _I32,
+         ctypes.c_double, _I32, _I32, _I64, _PTR],
         ("repro_kernel_matvec_f64", "repro_kernel_matvec_f32")),
     # (q, k, v, o, b, hq, hkv, sq, sk, dh, scale, causal, stream)
     "flash_attention.cu": (

@@ -8,11 +8,16 @@
 //   x / out (n, C)        T      node values, Morton-sorted rows
 // with d in {1, 2, 3}, T in {float, double}, C >= 1 at run time, and a
 // tile plan (repro_torch/kernels/nfft_window.py: build_tile_plan):
-//   tiles   (n_tiles, 8)  int32  first row, row count, box corner[3],
-//                                box extent[3] (unused axes: 0 and 1)
+//   tiles   (n_tiles, 11) int32  first row, row count, box corner[3],
+//                                box extent[3], first window tap[3]
+//                                (unused axes: 0, 1 and 0)
 // that cuts the rows into contiguous tiles of at most 64 rows, each with
 // the bounding box of its windows; a box holds at most 6,144 cells (48 KB
-// of float64).  One block walks one tile.  Every grid offset is 64-bit.
+// of float64).  Where one window exceeds that, each row's window is cut
+// along its leading axes into pieces that fit, one single-row tile each,
+// consecutive in the table: taps [first, first + extent) on each axis, the
+// box corner at base + first.  One block walks one tile, except that one
+// gather block walks all pieces of a row.  Every grid offset is 64-bit.
 //
 // window_spread replaces src/repro/kernels/nfft_window.py:_spread_kernel.
 //   The TPU kernel keeps the whole padded grid resident in VMEM as one
@@ -49,6 +54,15 @@
 //   read-only on the grid and deterministic.  It is operation-bound by the
 //   same roofline; shared-memory reads and their latency bound it in
 //   practice.
+//
+// Pieces of a window over the budget.  The spread needs nothing more: a
+//   thread only visits its box's cells, and a cell's window tap is its
+//   offset from the node's base, so a piece adds exactly its own taps and
+//   two pieces never add the same cell.  The gather block that owns a
+//   row's first piece walks all of the row's pieces in table order,
+//   staging each piece's box in turn and adding the pieces' sums in that
+//   order (the blocks of the other pieces return at once): deterministic,
+//   no scratch.
 
 #include <cuda_runtime.h>
 
@@ -59,7 +73,7 @@ constexpr int kChunk = 8;       // gather: channels in registers per pass
 constexpr int kSpreadChunk = 4;  // spread: channels in registers per pass
 constexpr int kCol = 8;         // spread: column cells a thread owns
 constexpr int kPlane = 8;       // gather: window-plane cells a lane owns
-constexpr int kTileCols = 8;
+constexpr int kTileCols = 11;
 constexpr int kBoxBytes = 48 * 1024;  // a box's shared memory (BOX_BYTES)
 
 struct Tile {
@@ -67,8 +81,9 @@ struct Tile {
   int corner[3], ext[3];
 };
 
-__device__ inline Tile load_tile(const int* __restrict__ tiles) {
-  const int* t = tiles + (long long)blockIdx.x * kTileCols;
+__device__ inline Tile load_tile(const int* __restrict__ tiles,
+                                 long long index) {
+  const int* t = tiles + index * kTileCols;
   Tile out;
   out.start = t[0];
   out.count = t[1];
@@ -77,6 +92,12 @@ __device__ inline Tile load_tile(const int* __restrict__ tiles) {
     out.ext[a] = t[5 + a];
   }
   return out;
+}
+
+// The first window tap a tile covers on axis a (0 for whole windows).
+__device__ inline int tile_first(const int* __restrict__ tiles,
+                                 long long index, int a) {
+  return tiles[index * kTileCols + 8 + a];
 }
 
 // Stage a tile's weights and its corners relative to the box corner.
@@ -105,7 +126,7 @@ spread_kernel(const T* __restrict__ x, const int* __restrict__ base,
               const int* __restrict__ tiles, int taps, int c, long long P,
               int chunk, int max_rows) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Tile tile = load_tile(tiles);
+  const Tile tile = load_tile(tiles, blockIdx.x);
   T* sw = reinterpret_cast<T*>(smem);           // max_rows * D * taps
   T* sx = sw + (long long)max_rows * D * taps;  // max_rows * chunk
   int* sb = reinterpret_cast<int*>(sx + (long long)max_rows * chunk);
@@ -195,6 +216,42 @@ spread_kernel(const T* __restrict__ x, const int* __restrict__ base,
   }
 }
 
+// Stage channels [c0, c0 + CC) of a tile's box in shared memory, one warp
+// per line, coalesced along the last axis; channels past C are zero.
+template <typename T, int D, int CC>
+__device__ inline void stage_box(const Tile& tile, const T* __restrict__ grid,
+                                 T* sbox, int c, int c0, long long P) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  const int cc = min(CC, c - c0);
+  const int row_elems = tile.ext[D - 1] * CC;
+  int lines = 1;  // box lines along the last axis
+  for (int a = 0; a < D - 1; ++a) lines *= tile.ext[a];
+  for (int line = warp; line < lines; line += nwarps) {
+    long long cell = 0;
+    {
+      int rem = line, cb[D > 1 ? D - 1 : 1];
+      for (int a = D - 2; a >= 0; --a) {
+        cb[a] = rem % tile.ext[a];
+        rem /= tile.ext[a];
+      }
+      for (int a = 0; a < D - 1; ++a)
+        cell = cell * P + (tile.corner[a] + cb[a]);
+    }
+    cell = cell * P + tile.corner[D - 1];
+    const T* src = grid + cell * c + c0;
+    T* dst = sbox + (long long)line * row_elems;
+    if (cc == c && cc == CC) {  // the box line is contiguous in the grid
+      for (int e = lane; e < row_elems; e += 32) dst[e] = src[e];
+    } else {
+      for (int e = lane; e < row_elems; e += 32) {
+        const int cl = e / CC, q = e % CC;
+        dst[e] = q < cc ? src[(long long)cl * c + q] : T(0);
+      }
+    }
+  }
+}
+
 // Gather.  A block stages its tile's box, CC channels wide (channels past
 // C are zero), and contracts one node per warp at a time.  The lanes own
 // the cells of the window's plane (the last two axes for d >= 2, the only
@@ -209,8 +266,6 @@ __device__ inline void gather_tile(const Tile& tile,
                                    const int* sb, int taps, int c,
                                    long long P) {
   const int elast = tile.ext[D - 1];
-  int lines = 1;  // box lines along the last axis
-  for (int a = 0; a < D - 1; ++a) lines *= tile.ext[a];
   const int wplane = D == 1 ? taps : taps * taps;  // window plane cells
   const int outer = D == 3 ? taps : 1;
   const int box_plane = D == 3 ? tile.ext[1] * elast : 0;
@@ -228,32 +283,8 @@ __device__ inline void gather_tile(const Tile& tile,
 
   for (int c0 = 0; c0 < c; c0 += CC) {
     const int cc = min(CC, c - c0);
-    const int row_elems = elast * CC;
     __syncthreads();  // the last pass's readers are done
-    // stage the box, one warp per line, coalesced along the last axis
-    for (int line = warp; line < lines; line += nwarps) {
-      long long cell = 0;
-      {
-        int rem = line, cb[D > 1 ? D - 1 : 1];
-        for (int a = D - 2; a >= 0; --a) {
-          cb[a] = rem % tile.ext[a];
-          rem /= tile.ext[a];
-        }
-        for (int a = 0; a < D - 1; ++a)
-          cell = cell * P + (tile.corner[a] + cb[a]);
-      }
-      cell = cell * P + tile.corner[D - 1];
-      const T* src = grid + cell * c + c0;
-      T* dst = sbox + (long long)line * row_elems;
-      if (cc == c && cc == CC) {  // the box line is contiguous in the grid
-        for (int e = lane; e < row_elems; e += 32) dst[e] = src[e];
-      } else {
-        for (int e = lane; e < row_elems; e += 32) {
-          const int cl = e / CC, q = e % CC;
-          dst[e] = q < cc ? src[(long long)cl * c + q] : T(0);
-        }
-      }
-    }
+    stage_box<T, D, CC>(tile, grid, sbox, c, c0, P);
     __syncthreads();
     for (int r = warp; r < tile.count; r += nwarps) {
       const int* b = sb + r * D;
@@ -327,7 +358,7 @@ gather_kernel(const T* __restrict__ grid, const int* __restrict__ base,
               const int* __restrict__ tiles, int taps, int c, long long P,
               int chunk, int box_bytes, int max_rows) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Tile tile = load_tile(tiles);
+  const Tile tile = load_tile(tiles, blockIdx.x);
   T* sbox = reinterpret_cast<T*>(smem);  // box_bytes
   T* sw = sbox + box_bytes / sizeof(T);  // max_rows * D * taps
   int* sb = reinterpret_cast<int*>(sw + (long long)max_rows * D * taps);
@@ -341,6 +372,153 @@ gather_kernel(const T* __restrict__ grid, const int* __restrict__ base,
     case 4: gather_tile<T, D, 4>(tile, grid, out, sbox, sw, sb, taps, c, P); break;
     case 2: gather_tile<T, D, 2>(tile, grid, out, sbox, sw, sb, taps, c, P); break;
     default: gather_tile<T, D, 1>(tile, grid, out, sbox, sw, sb, taps, c, P);
+  }
+}
+
+// Gather of a plan whose windows are cut into pieces: gather_tile's
+// arithmetic, but a tile is one row and covers only the taps
+// [first, first + n) of each axis, n = min(taps - first, extent), and a
+// block walks the `parts` consecutive tiles of the row's pieces in turn,
+// staging each piece's box and adding the pieces' sums in table order
+// (warp 0 contracts the row).
+template <typename T, int D, int CC>
+__device__ inline void gather_tiles(const int* __restrict__ tiles,
+                                    long long t0, int parts,
+                                    const int* __restrict__ base,
+                                    const T* __restrict__ w,
+                                    const T* __restrict__ grid,
+                                    T* __restrict__ out, T* sbox, T* sw,
+                                    int* sb, int taps, int c, long long P) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  for (int c0 = 0; c0 < c; c0 += CC) {
+    const int cc = min(CC, c - c0);
+    T total[CC];  // the row's sum, in warp 0
+#pragma unroll
+    for (int q = 0; q < CC; ++q) total[q] = T(0);
+    long long row0 = 0;
+    for (int part = 0; part < parts; ++part) {
+      const Tile tile = load_tile(tiles, t0 + part);
+      row0 = tile.start;
+      int tf[D], tn[D];  // the tile's first tap and tap count per axis
+#pragma unroll
+      for (int a = 0; a < D; ++a) {
+        tf[a] = tile_first(tiles, t0 + part, a);
+        tn[a] = min(taps - tf[a], tile.ext[a]);
+      }
+      const int al = D - 1, am = D >= 2 ? D - 2 : 0;  // the plane's axes
+      const int nl = tn[al];
+      const int wplane = D == 1 ? nl : tn[am] * nl;  // window plane cells
+      const int elast = tile.ext[D - 1];
+      const int box_plane = D == 3 ? tile.ext[1] * elast : 0;
+      // the lane's cells of the window's first plane block, decomposed once
+      int im0[kPlane], il0[kPlane];
+#pragma unroll
+      for (int k = 0; k < kPlane; ++k) {
+        const int p = lane + 32 * k;
+        im0[k] = D == 1 ? 0 : p / nl;
+        il0[k] = D == 1 ? p : p - im0[k] * nl;
+      }
+      __syncthreads();  // the last piece's readers are done
+      stage_nodes<T, D>(tile, base, w, taps, sw, sb);
+      stage_box<T, D, CC>(tile, grid, sbox, c, c0, P);
+      __syncthreads();
+      for (int r = warp; r < tile.count; r += nwarps) {
+        const int* b = sb + r * D;
+        const T* wr = sw + r * D * taps;
+        T acc[CC];
+#pragma unroll
+        for (int q = 0; q < CC; ++q) acc[q] = T(0);
+        for (int p0 = 0; p0 < wplane; p0 += 32 * kPlane) {
+          const int kcount = min(kPlane, (wplane - p0 + 31) / 32);
+          T wk[kPlane];
+          int off[kPlane];
+#pragma unroll
+          for (int k = 0; k < kPlane; ++k) {
+            const int p = p0 + lane + 32 * k;
+            int im = im0[k], il = il0[k];
+            if (p0 > 0) {
+              im = D == 1 ? 0 : p / nl;
+              il = D == 1 ? p : p - im * nl;
+            }
+            im += D == 1 ? 0 : tf[am];
+            il += tf[al];
+            wk[k] = T(0);
+            off[k] = 0;
+            if (k < kcount && p < wplane) {
+              if constexpr (D == 1) {
+                wk[k] = wr[il];
+                off[k] = b[0] + il;
+              } else {
+                // the plane's axes: (1, 2) for d = 3, (0, 1) for d = 2
+                wk[k] = wr[(D - 2) * taps + im] * wr[(D - 1) * taps + il];
+                off[k] = (b[D - 2] + im) * elast + b[D - 1] + il;
+              }
+            }
+          }
+          const int outer_lo = D == 3 ? tf[0] : 0;
+          const int outer_hi = D == 3 ? tf[0] + tn[0] : 1;
+          for (int i0 = outer_lo; i0 < outer_hi; ++i0) {
+            const T* pl = sbox + (long long)(D == 3 ? (b[0] + i0) * box_plane
+                                                    : 0) * CC;
+            T part_sum[CC];
+#pragma unroll
+            for (int q = 0; q < CC; ++q) part_sum[q] = T(0);
+#pragma unroll
+            for (int k = 0; k < kPlane; ++k) {
+              if (k < kcount) {
+                const T* v = pl + off[k] * CC;
+#pragma unroll
+                for (int q = 0; q < CC; ++q) part_sum[q] += wk[k] * v[q];
+              }
+            }
+            const T w0 = D == 3 ? wr[i0] : T(1);
+#pragma unroll
+            for (int q = 0; q < CC; ++q) acc[q] += w0 * part_sum[q];
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < CC; ++q)
+          for (int s = 16; s > 0; s >>= 1)
+            acc[q] += __shfl_xor_sync(0xffffffffu, acc[q], s);
+#pragma unroll
+        for (int q = 0; q < CC; ++q) total[q] += acc[q];
+      }
+    }
+    if (warp == 0) {
+      T v = T(0);
+#pragma unroll
+      for (int q = 0; q < CC; ++q)
+        if (q == lane) v = total[q];
+      if (lane < cc) out[row0 * c + c0 + lane] = v;
+    }
+  }
+}
+
+// One block per row of a pieced plan: its `pieces` tiles, the largest
+// (the first) choosing the channels per pass.  A kernel of its own, so the
+// whole-window gather above keeps its registers.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+gather_pieces_kernel(const T* __restrict__ grid, const int* __restrict__ base,
+                     const T* __restrict__ w, T* __restrict__ out,
+                     const int* __restrict__ tiles, int pieces, int taps,
+                     int c, long long P, int chunk, int box_bytes) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long t0 = (long long)blockIdx.x * pieces;
+  T* sbox = reinterpret_cast<T*>(smem);  // box_bytes
+  T* sw = sbox + box_bytes / sizeof(T);  // D * taps
+  int* sb = reinterpret_cast<int*>(sw + (long long)D * taps);
+  const Tile tile = load_tile(tiles, t0);
+  const long long cells =
+      (long long)tile.ext[0] * tile.ext[1] * tile.ext[2];
+  int cct = chunk;
+  while (cct > 1 && cells * cct * (long long)sizeof(T) > box_bytes) cct >>= 1;
+  switch (cct) {
+    case 8: gather_tiles<T, D, 8>(tiles, t0, pieces, base, w, grid, out, sbox, sw, sb, taps, c, P); break;
+    case 4: gather_tiles<T, D, 4>(tiles, t0, pieces, base, w, grid, out, sbox, sw, sb, taps, c, P); break;
+    case 2: gather_tiles<T, D, 2>(tiles, t0, pieces, base, w, grid, out, sbox, sw, sb, taps, c, P); break;
+    default: gather_tiles<T, D, 1>(tiles, t0, pieces, base, w, grid, out, sbox, sw, sb, taps, c, P);
   }
 }
 
@@ -386,7 +564,7 @@ int spread_d(const T* x, const int* base, const T* w, T* grid,
 template <typename T, int D>
 int gather_d(const T* grid, const int* base, const T* w, T* out,
              const int* tiles, long long n_tiles, int taps, int c,
-             long long P, int chunk, int max_cells, int max_rows,
+             long long P, int chunk, int max_cells, int max_rows, int pieces,
              cudaStream_t s) {
   // the largest box at `chunk` channels, within kBoxBytes
   const size_t box = (size_t)max_cells * chunk * sizeof(T);
@@ -394,6 +572,14 @@ int gather_d(const T* grid, const int* base, const T* w, T* out,
   const size_t bytes = (size_t)box_bytes +
                        (size_t)max_rows * D * taps * sizeof(T) +
                        (size_t)max_rows * D * sizeof(int);
+  if (pieces > 1) {  // one block per row, max_rows == 1
+    auto kernel = gather_pieces_kernel<T, D>;
+    int rc = allow_smem(kernel, bytes);
+    if (rc) return rc;
+    kernel<<<(unsigned)(n_tiles / pieces), kThreads, bytes, s>>>(
+        grid, base, w, out, tiles, pieces, taps, c, P, chunk, box_bytes);
+    return (int)cudaGetLastError();
+  }
   auto kernel = gather_kernel<T, D>;
   int rc = allow_smem(kernel, bytes);
   if (rc) return rc;
@@ -402,17 +588,20 @@ int gather_d(const T* grid, const int* base, const T* w, T* out,
   return (int)cudaGetLastError();
 }
 
+// A plan with pieces holds `pieces` single-row tiles for every row.
 bool bad_args(long long n_tiles, int d, int chunk, int max_chunk,
-              int max_rows) {
+              int max_rows, int pieces) {
   return n_tiles < 1 || n_tiles > 0x7fffffffLL || d < 1 || d > 3 ||
-         chunk < 1 || chunk > max_chunk || max_rows < 1;
+         chunk < 1 || chunk > max_chunk || max_rows < 1 || pieces < 1 ||
+         n_tiles % pieces != 0 || (pieces > 1 && max_rows != 1);
 }
 
 template <typename T>
 int launch_spread(const void* x, const void* base, const void* w, void* grid,
                   const void* tiles, long long n_tiles, int d, int taps,
-                  int c, long long P, int chunk, int max_rows, void* stream) {
-  if (bad_args(n_tiles, d, chunk, kSpreadChunk, max_rows))
+                  int c, long long P, int chunk, int max_rows, int pieces,
+                  void* stream) {
+  if (bad_args(n_tiles, d, chunk, kSpreadChunk, max_rows, pieces))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* xp = static_cast<const T*>(x);
@@ -431,8 +620,8 @@ template <typename T>
 int launch_gather(const void* grid, const void* base, const void* w,
                   void* out, const void* tiles, long long n_tiles, int d,
                   int taps, int c, long long P, int chunk, int max_cells,
-                  int max_rows, void* stream) {
-  if (bad_args(n_tiles, d, chunk, kChunk, max_rows) || max_cells < 1 ||
+                  int max_rows, int pieces, void* stream) {
+  if (bad_args(n_tiles, d, chunk, kChunk, max_rows, pieces) || max_cells < 1 ||
       (chunk & (chunk - 1)) || (long long)max_cells * sizeof(T) > kBoxBytes)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -442,54 +631,61 @@ int launch_gather(const void* grid, const void* base, const void* w,
   T* op = static_cast<T*>(out);
   const int* tp = static_cast<const int*>(tiles);
   switch (d) {
-    case 1: return gather_d<T, 1>(gp, bp, wp, op, tp, n_tiles, taps, c, P, chunk, max_cells, max_rows, s);
-    case 2: return gather_d<T, 2>(gp, bp, wp, op, tp, n_tiles, taps, c, P, chunk, max_cells, max_rows, s);
-    default: return gather_d<T, 3>(gp, bp, wp, op, tp, n_tiles, taps, c, P, chunk, max_cells, max_rows, s);
+    case 1: return gather_d<T, 1>(gp, bp, wp, op, tp, n_tiles, taps, c, P, chunk, max_cells, max_rows, pieces, s);
+    case 2: return gather_d<T, 2>(gp, bp, wp, op, tp, n_tiles, taps, c, P, chunk, max_cells, max_rows, pieces, s);
+    default: return gather_d<T, 3>(gp, bp, wp, op, tp, n_tiles, taps, c, P, chunk, max_cells, max_rows, pieces, s);
   }
 }
 
 }  // namespace
 
-// Each entry point launches one block per tile on `stream` without
-// synchronising and returns cudaGetLastError() (0 on success).  The caller
-// zeroes `grid` for spread.  `chunk` is the channels of one pass (spread
-// <= 4, gather <= 8);
+// Each entry point launches one block per tile (the gather of a pieced
+// plan: per row) on `stream` without synchronising and returns
+// cudaGetLastError() (0 on success).  The caller zeroes `grid` for spread.
+// `chunk` is the channels of one pass (spread <= 4, gather <= 8);
 // `max_cells` / `max_rows` are the plan's largest box and tile, which size
-// the dynamic shared memory.
+// the dynamic shared memory; `pieces` is the tiles of each row's window
+// (1: whole windows).
 extern "C" {
 
 int repro_window_spread_f64(const void* x, const void* base, const void* w,
                             void* grid, const void* tiles, long long n_tiles,
                             int d, int taps, int c, long long P, int chunk,
-                            int max_cells, int max_rows, void* stream) {
+                            int max_cells, int max_rows, int pieces,
+                            void* stream) {
   (void)max_cells;
   return launch_spread<double>(x, base, w, grid, tiles, n_tiles, d, taps, c,
-                               P, chunk, max_rows, stream);
+                               P, chunk, max_rows, pieces, stream);
 }
 
 int repro_window_spread_f32(const void* x, const void* base, const void* w,
                             void* grid, const void* tiles, long long n_tiles,
                             int d, int taps, int c, long long P, int chunk,
-                            int max_cells, int max_rows, void* stream) {
+                            int max_cells, int max_rows, int pieces,
+                            void* stream) {
   (void)max_cells;
   return launch_spread<float>(x, base, w, grid, tiles, n_tiles, d, taps, c,
-                              P, chunk, max_rows, stream);
+                              P, chunk, max_rows, pieces, stream);
 }
 
 int repro_window_gather_f64(const void* grid, const void* base, const void* w,
                             void* out, const void* tiles, long long n_tiles,
                             int d, int taps, int c, long long P, int chunk,
-                            int max_cells, int max_rows, void* stream) {
+                            int max_cells, int max_rows, int pieces,
+                            void* stream) {
   return launch_gather<double>(grid, base, w, out, tiles, n_tiles, d, taps,
-                               c, P, chunk, max_cells, max_rows, stream);
+                               c, P, chunk, max_cells, max_rows, pieces,
+                               stream);
 }
 
 int repro_window_gather_f32(const void* grid, const void* base, const void* w,
                             void* out, const void* tiles, long long n_tiles,
                             int d, int taps, int c, long long P, int chunk,
-                            int max_cells, int max_rows, void* stream) {
+                            int max_cells, int max_rows, int pieces,
+                            void* stream) {
   return launch_gather<float>(grid, base, w, out, tiles, n_tiles, d, taps,
-                              c, P, chunk, max_cells, max_rows, stream);
+                              c, P, chunk, max_cells, max_rows, pieces,
+                              stream);
 }
 
 }  // extern "C"

@@ -16,9 +16,17 @@ the CPU takes :func:`kernel_matvec_plain`; a CUDA tensor launches the
 hand-written kernel in ``csrc/kernel_matvec.cu`` or raises.  The wrapper
 counts its launches in ``kernel_matvec.launches``.  The kernel adds in a
 fixed order, so its result is the same from run to run.
+
+On the card the sources are cut into S contiguous splits
+(:func:`choose_splits`), each summed by its own blocks; S > 1 sums go to a
+scratch array and a second kernel adds them in split order.  Each row's
+sum runs over its split's sources in tiles of :data:`SOURCE_TILE`: the
+sources of a tile added one by one, the tiles' sums added in order.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -32,6 +40,58 @@ MAX_D = 8
 _FLOATS = (torch.float32, torch.float64)
 # bounds the plain version's (rows, n_in, d) difference tile, in elements
 _PLAIN_TILE_ELEMS = 1 << 25
+# The CUDA kernel's shape (csrc/kernel_matvec.cu): threads per block,
+# sources per shared-memory tile; target rows per thread by channel chunk.
+BLOCK_THREADS = 128
+SOURCE_TILE = 64
+# Source splits: enough (row block, split) blocks for BLOCKS_PER_SM per SM
+# (about two waves at the four blocks of 128 threads an SM holds at ~100
+# registers a thread), at most MAX_SPLITS, and a scratch array of at most
+# SCRATCH_ELEMS values.
+BLOCKS_PER_SM = 8
+MAX_SPLITS = 1024
+SCRATCH_ELEMS = 1 << 24
+
+
+def channel_chunk(c: int) -> int:
+    """Channels the kernel accumulates per pass over the sources."""
+    return 1 if c == 1 else 4 if c <= 4 else 8
+
+
+def rows_per_thread(c: int, d: int) -> int:
+    """Target rows each kernel thread owns (R): four independent chains at
+    one channel and d = 2, 3; fewer where the coordinates (the generic d
+    path keeps 8 a row) or a wider channel chunk's sums take more
+    registers."""
+    if channel_chunk(c) == 1:
+        return 4 if d in (2, 3) else 2
+    return 1
+
+
+def split_length(n_in: int, splits: int) -> int:
+    """Sources per split: a whole number of tiles, as even as that allows."""
+    tiles = -(-n_in // SOURCE_TILE)
+    return -(-tiles // max(1, splits)) * SOURCE_TILE
+
+
+def choose_splits(n_out: int, n_in: int, d: int, c: int,
+                  sm_count: int) -> int:
+    """Source splits S for one launch on a card with ``sm_count`` SMs.
+
+    The grid is (row blocks x S).  Where the row blocks alone give every SM
+    BLOCKS_PER_SM blocks, S = 1; else S is what brings the grid there,
+    capped by the source tiles, MAX_SPLITS and the scratch budget, and
+    rounded to the splits that :func:`split_length` actually makes.
+    """
+    if n_out < 1 or n_in < 1:
+        return 1
+    row_blocks = -(-n_out // (BLOCK_THREADS * rows_per_thread(c, d)))
+    target = BLOCKS_PER_SM * sm_count
+    if row_blocks >= target:
+        return 1
+    want = min(-(-target // row_blocks), -(-n_in // SOURCE_TILE), MAX_SPLITS,
+               max(1, SCRATCH_ELEMS // (n_out * c)))
+    return -(-n_in // split_length(n_in, want))
 
 
 def kernel_profile_r2(r2: torch.Tensor, kernel_name: str,
@@ -67,6 +127,11 @@ def kernel_matvec_plain(points_out: torch.Tensor, points_in: torch.Tensor,
             w.diagonal(offset=s).zero_()
         out[s:s + step] = w @ x2
     return out[:, 0] if x.ndim == 1 else out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def kernel_matvec(points_out: torch.Tensor, points_in: torch.Tensor,
@@ -107,21 +172,27 @@ def kernel_matvec(points_out: torch.Tensor, points_in: torch.Tensor,
     if d > MAX_D:
         raise ValueError(f"the CUDA kernel takes d <= {MAX_D}, got {d}")
     x2 = (x[:, None] if x.ndim == 1 else x).contiguous()
-    c = x2.shape[1]
-    out = torch.zeros((n_out, c), dtype=x.dtype, device=x.device)
-    if n_out and c:
-        a, b = points_out.contiguous(), points_in.contiguous()
-        suffix = "f64" if x.dtype == torch.float64 else "f32"
-        fn = getattr(_build.load_library("kernel_matvec.cu"),
-                     f"repro_kernel_matvec_{suffix}")
-        rc = fn(a.data_ptr(), b.data_ptr(), x2.data_ptr(), out.data_ptr(),
-                n_out, b.shape[0], d, c, PROFILES.index(kernel_name),
-                float(param), int(bool(zero_diagonal)),
-                torch.cuda.current_stream(x.device).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"repro_kernel_matvec_{suffix} failed to "
-                               f"launch: CUDA error {rc}")
-        kernel_matvec.launches += 1
+    c, n_in = x2.shape[1], points_in.shape[0]
+    if not (n_out and c and n_in):
+        out = torch.zeros((n_out, c), dtype=x.dtype, device=x.device)
+        return out[:, 0] if x.ndim == 1 else out
+    out = torch.empty((n_out, c), dtype=x.dtype, device=x.device)
+    a, b = points_out.contiguous(), points_in.contiguous()
+    splits = choose_splits(n_out, n_in, d, c, _sm_count(x.device))
+    partial = (torch.empty((splits, n_out, c), dtype=x.dtype,
+                           device=x.device) if splits > 1 else None)
+    suffix = "f64" if x.dtype == torch.float64 else "f32"
+    fn = getattr(_build.load_library("kernel_matvec.cu"),
+                 f"repro_kernel_matvec_{suffix}")
+    rc = fn(a.data_ptr(), b.data_ptr(), x2.data_ptr(), out.data_ptr(),
+            None if partial is None else partial.data_ptr(), n_out, n_in, d,
+            c, PROFILES.index(kernel_name), float(param),
+            int(bool(zero_diagonal)), splits, split_length(n_in, splits),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"repro_kernel_matvec_{suffix} failed to launch: "
+                           f"CUDA error {rc}")
+    kernel_matvec.launches += 1
     return out[:, 0] if x.ndim == 1 else out
 
 

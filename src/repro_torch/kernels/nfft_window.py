@@ -25,7 +25,10 @@ CUDA spread sums a tile's windows in registers, in row order, and adds the
 box onto the grid once with atomics; neighbouring tiles' boxes overlap, so
 the order in which tiles land, and the result's last bits, vary from run
 to run.  The gather stages a tile's box in shared memory and is
-deterministic.
+deterministic.  A window larger than the box budget is cut into pieces
+along its leading axes, one tile each (:func:`piece_lengths`): the spread
+adds each piece's cells, and one gather block sums a node's pieces in
+table order.  Only tensors on the card use the plan.
 """
 
 from __future__ import annotations
@@ -50,8 +53,9 @@ BOX_CELLS = BOX_BYTES // 8
 SPREAD_CHUNK = 4
 KERNEL_CHUNK = 8
 # columns of TilePlan.table: row start, row count, box corner (3), box
-# extent (3); unused dimensions have corner 0 and extent 1
-_TABLE_COLS = 8
+# extent (3), first window tap (3); unused dimensions have corner 0,
+# extent 1 and first tap 0
+_TABLE_COLS = 11
 # nodes per chunk of the plain versions: bounds the materialized cube at
 # ~2^24 elements per channel
 _PLAIN_CUBE_ELEMS = 1 << 24
@@ -84,14 +88,20 @@ def _check_geometry(base: torch.Tensor, weights: torch.Tensor,
 class TilePlan:
     """The rows of a window geometry cut into contiguous tiles.
 
-    table: (n_tiles, 8) int32 on the geometry's device, one row per tile in
-      row order: first row, row count, box corner (d values, then 0) and
-      box extent (d values, then 1), in padded-grid cells.  The box is the
+    table: (n_tiles, 11) int32 on the geometry's device, one row per tile
+      in row order: first row, row count, box corner (d values, then 0),
+      box extent (d values, then 1), in padded-grid cells, and the first
+      window tap the tile covers (d values, then 0).  The box is the
       bounding box of the tile's windows: corner = min base, extent =
-      max base - min base + taps along each axis.
+      max base - min base + taps along each axis, first taps 0.  Where one
+      window exceeds the budget, every tile is one row and one piece of
+      its window: taps [first, first + extent) along each axis, corner =
+      base + first; a row's pieces are consecutive, in C order.
     n, d, taps: the geometry's shape.
     max_cells: the largest box, in cells (at most :data:`BOX_CELLS`).
     max_rows: the most rows of one tile.
+    pieces: tiles per row where windows are cut into pieces (every row has
+      that many, consecutive); 1 for tiles of whole windows.
     """
 
     table: torch.Tensor
@@ -100,6 +110,7 @@ class TilePlan:
     taps: int
     max_cells: int
     max_rows: int
+    pieces: int = 1
 
     @property
     def n_tiles(self) -> int:
@@ -115,25 +126,64 @@ def tile_rows(d: int, taps: int) -> int:
     return rows
 
 
+def piece_lengths(d: int, taps: int) -> tuple:
+    """Taps per axis of the pieces a window is cut into: (taps,)*d when
+    taps^d fits :data:`BOX_CELLS`; else the leading axes are cut, the
+    first as little as the budget allows (to one tap, then the next axis,
+    and so on)."""
+    lengths = []
+    for a in range(d):
+        rest = taps ** (d - 1 - a)  # cells of one tap on this axis
+        if rest <= BOX_CELLS:
+            return tuple(lengths) + (min(taps, BOX_CELLS // rest),) \
+                + (taps,) * (d - 1 - a)
+        lengths.append(1)
+    return tuple(lengths)
+
+
+def _piece_plan(base: torch.Tensor, taps: int, lengths: tuple) -> TilePlan:
+    """One tile per (row, piece): every row's window cut into the pieces
+    of ``lengths``, in C order over the axes."""
+    n, d = base.shape
+    dev = base.device
+    firsts = torch.cartesian_prod(*[torch.arange(0, taps, step, device=dev)
+                                    for step in lengths]).reshape(-1, d)
+    k = firsts.shape[0]
+    ext = torch.minimum(torch.as_tensor(lengths, device=dev),
+                        taps - firsts)
+    table = torch.zeros((n, k, _TABLE_COLS), dtype=torch.long, device=dev)
+    table[:, :, 0] = torch.arange(n, device=dev)[:, None]
+    table[:, :, 1] = 1
+    table[:, :, 2:2 + d] = base.to(torch.long)[:, None, :] + firsts
+    table[:, :, 5:8] = 1
+    table[:, :, 5:5 + d] = ext
+    table[:, :, 8:8 + d] = firsts
+    max_cells = int(ext.prod(dim=1).max())
+    return TilePlan(table.reshape(n * k, _TABLE_COLS).to(torch.int32)
+                    .contiguous(), n, d, taps, max_cells, 1 if n else 0, k)
+
+
 def build_tile_plan(base: torch.Tensor, taps: int) -> TilePlan:
     """Cut the rows of ``base`` (n, d) int32 into tiles whose box fits.
 
     Aligned blocks of :func:`tile_rows` rows are tried first; a block whose
     box exceeds :data:`BOX_CELLS` is split in halves, down to one row if
-    need be (one row's box is taps^d cells, which must fit).  Runs on
-    ``base``'s device and reads back two integers.  Works for any row
-    order; Morton-sorted rows give the small boxes the kernels are fast
-    on.  Counts its calls in ``build_tile_plan.builds``.
+    need be.  Where one row's window (taps^d cells) exceeds the budget,
+    each row's window is cut into pieces instead (:func:`piece_lengths`),
+    one tile each.  Runs on ``base``'s device and reads back two integers.
+    Works for any row order; Morton-sorted rows give the small boxes the
+    kernels are fast on.  Counts its calls in ``build_tile_plan.builds``.
     """
     if base.ndim != 2 or not 1 <= base.shape[1] <= 3:
         raise ValueError(f"base must be (n, d) with d in 1..3, got "
                          f"{tuple(base.shape)}")
     n, d = base.shape
-    if taps < 1 or taps ** d > BOX_CELLS:
-        raise ValueError(f"one window of {taps}^{d} cells exceeds the "
-                         f"{BOX_CELLS}-cell box budget: no tile plan exists")
+    if taps < 1:
+        raise ValueError(f"taps must be >= 1, got {taps}")
     build_tile_plan.builds += 1
     dev = base.device
+    if taps ** d > BOX_CELLS:
+        return _piece_plan(base, taps, piece_lengths(d, taps))
     rows = tile_rows(d, taps)
     table = torch.zeros((0, _TABLE_COLS), dtype=torch.int32, device=dev)
     if n == 0:
@@ -190,9 +240,20 @@ def _check_plan(tiles: TilePlan, n: int, d: int, taps: int,
     if tiles.table.device != device:
         raise ValueError(f"tile plan is on {tiles.table.device}, values on "
                          f"{device}")
+    if tiles.table.ndim != 2 or tiles.table.shape[1] != _TABLE_COLS:
+        raise ValueError(f"tile plan table must be (n_tiles, {_TABLE_COLS}), "
+                         f"got {tuple(tiles.table.shape)}")
     if tiles.max_cells > BOX_CELLS:
         raise ValueError(f"tile plan has a {tiles.max_cells}-cell box, over "
                          f"the {BOX_CELLS}-cell budget")
+    # whole-window tiles need a window that fits a box; pieces are single
+    # rows, the same number for every row
+    if tiles.pieces < 1 or (tiles.pieces == 1 and taps ** d > BOX_CELLS) or (
+            tiles.pieces > 1 and (tiles.n_tiles != n * tiles.pieces
+                                  or tiles.max_rows != 1)):
+        raise ValueError(f"tile plan with {tiles.pieces} pieces a row has "
+                         f"{tiles.n_tiles} tiles of up to {tiles.max_rows} "
+                         f"rows for {n} rows of {taps}^{d}-cell windows")
 
 
 def gather_chunk(c: int) -> int:
@@ -212,7 +273,8 @@ def _launch(entry: str, tensors, tiles: TilePlan, args,
     fn = getattr(_build.load_library("nfft_window.cu"), entry)
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = fn(*(t.data_ptr() for t in tensors), tiles.table.data_ptr(),
-            tiles.n_tiles, *args, tiles.max_cells, tiles.max_rows, stream)
+            tiles.n_tiles, *args, tiles.max_cells, tiles.max_rows,
+            tiles.pieces, stream)
     if rc != 0:
         raise RuntimeError(f"{entry} failed to launch: CUDA error {rc}")
 

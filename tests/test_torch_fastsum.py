@@ -19,6 +19,7 @@ from repro_torch.core import fastsum as tfs
 from repro_torch.core import fastsum_exec as texec
 from repro_torch.core import kernels as tkern
 from repro_torch.core import lanczos as tlan
+from repro_torch.data.synthetic import spiral
 from repro_torch.device import resolve_device
 from repro_torch.kernels import nfft_window as twin
 
@@ -100,6 +101,29 @@ def test_degrees_and_normalized_adjacency(setup):
     x = np.random.default_rng(5).normal(size=(400, 4))
     assert _rel(tadj.matvec(torch.as_tensor(x)).numpy(),
                 np.asarray(jadj.matvec(jnp.asarray(x)))) <= 1e-12
+
+
+@pytest.mark.parametrize("m", [9, 16])
+def test_windows_over_the_box_budget_match_jax(m):
+    """d = 3, N = 32 with m = 9 and 16: windows of 19^3 and 33^3 cells,
+    beyond the card kernels' 6,144-cell box (the card cuts them into
+    pieces; 33^3 float64 cells would not fit 227 KB of shared memory
+    either).  The JAX package takes any m; so does the port, and on the
+    CPU it builds no tile plan."""
+    pts, _ = spiral(200, seed=0)
+    x = np.random.default_rng(m).normal(size=(200, 2))
+    jop = jfs.make_fastsum(jkern.make_kernel("gaussian", sigma=3.5),
+                           jnp.asarray(pts),
+                           jfs.FastsumParams(n_bandwidth=32, m=m, eps_b=0.0))
+    before = twin.build_tile_plan.builds
+    top = tfs.make_fastsum(tkern.make_kernel("gaussian", sigma=3.5), pts,
+                           tfs.FastsumParams(n_bandwidth=32, m=m, eps_b=0.0),
+                           device="cpu")
+    got = top.matvec(torch.as_tensor(x)).numpy()
+    assert twin.build_tile_plan.builds == before
+    want = np.asarray(jop.matvec(jnp.asarray(x), backend="xla"))
+    assert np.isfinite(got).all() and got.shape == (200, 2)
+    assert _rel(got, want) <= 1e-12
 
 
 def test_dense_oracles_match():

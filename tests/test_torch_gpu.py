@@ -168,12 +168,14 @@ def test_adjoint_identity_on_stress_geometries(cuda, kind, setup, d, c):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("n,d,taps,padded,c", [
     (1, 3, 15, 40, 1), (37, 2, 9, 64, 3), (300, 1, 301, 700, 2),
-    (300, 2, 21, 64, 4), (200, 3, 17, 48, 5), (500, 3, 5, 40, 16)])
+    (300, 2, 21, 64, 4), (200, 3, 17, 48, 5), (500, 3, 5, 40, 16),
+    (60, 3, 19, 40, 2), (20, 3, 33, 50, 1), (40, 2, 79, 100, 3)])
 def test_kernels_match_plain_on_random_windows(cuda, n, d, taps, padded, c,
                                                dtype):
     """Random corners and weights: ragged and single-row tiles, windows
     wider than a warp's plane block (d = 2, taps 21; d = 1, taps 301, with
-    fewer rows a tile), ragged channel passes."""
+    fewer rows a tile), ragged channel passes, and windows over the box
+    budget, cut into slabs (d = 3, taps 19 and 33; d = 2, taps 79)."""
     rng = np.random.default_rng(n + d)
     base = torch.as_tensor(rng.integers(0, padded - taps + 1, (n, d)),
                            dtype=torch.int32, device=cuda)
@@ -188,6 +190,49 @@ def test_kernels_match_plain_on_random_windows(cuda, n, d, taps, padded, c,
     assert _rel(twin.window_gather(g, base, w),
                 twin.window_gather_plain(g, base, w)) \
         <= TOL[("gather", dtype)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("c", [1, 4])
+@pytest.mark.parametrize("m", [9, 16])
+def test_windows_over_the_box_budget_match_plain(cuda, m, c, dtype):
+    """d = 3, N = 32, m = 9 and 16 (taps 19 and 33): every window is cut
+    into slabs, one tile each; the spread adds each slab's cells, the
+    gather sums a node's slabs in order."""
+    params = tfs.FastsumParams(n_bandwidth=32, m=m, eps_b=0.0)
+    plan, base, w = _geometry(params, 3, 3000, dtype, cuda)
+    pad = padded_grid_size(plan)
+    tiles = twin.build_tile_plan(base, plan.taps)
+    assert tiles.max_rows == 1 and tiles.n_tiles > base.shape[0]
+    gen = torch.Generator(device=cuda).manual_seed(m + c)
+    x = torch.randn((base.shape[0], c), generator=gen, dtype=dtype,
+                    device=cuda)
+    g = torch.randn((pad,) * 3 + (c,), generator=gen, dtype=dtype,
+                    device=cuda)
+    got_s = twin.window_spread(x, base, w, padded_size=pad, tiles=tiles)
+    got_g = twin.window_gather(g, base, w, tiles=tiles)
+    assert _rel(got_s, twin.window_spread_plain(x, base, w, padded_size=pad)) \
+        <= TOL[("spread", dtype)]
+    assert _rel(got_g, twin.window_gather_plain(g, base, w)) \
+        <= TOL[("gather", dtype)]
+    assert torch.equal(got_g, twin.window_gather(g, base, w, tiles=tiles))
+    if dtype == torch.float64:
+        lhs = float((got_g * x).sum())
+        rhs = float((g * got_s).sum())
+        assert abs(lhs - rhs) <= 1e-10 * abs(lhs)
+
+
+@pytest.mark.parametrize("m", [9, 16])
+def test_fastsum_with_wide_windows_on_card_matches_cpu(cuda, m):
+    pts, _ = spiral(200, seed=0)
+    kern = make_kernel("gaussian", sigma=3.5)
+    params = tfs.FastsumParams(n_bandwidth=32, m=m, eps_b=0.0)
+    x = np.random.default_rng(m).normal(size=(200, 2))
+    got = tfs.make_fastsum(kern, pts, params, device=cuda).matvec(
+        torch.as_tensor(x, device=cuda)).cpu()
+    want = tfs.make_fastsum(kern, pts, params, device="cpu").matvec(
+        torch.as_tensor(x))
+    assert _rel(got, want) <= 1e-12
 
 
 def test_gather_is_deterministic_and_wrappers_build_a_plan(cuda):
@@ -220,7 +265,9 @@ PROFILES = [("gaussian", 2.0), ("laplacian_rbf", 0.7), ("multiquadric", 1.0),
 @pytest.mark.parametrize("n_out,n_in,d,c", [(1000, 1000, 3, 1),
                                             (777, 1301, 2, 4),
                                             (129, 65, 1, 3),
-                                            (300, 500, 5, 9)])
+                                            (300, 500, 5, 9),
+                                            (8000, 8000, 3, 1),
+                                            (400, 10_000, 2, 1)])
 @pytest.mark.parametrize("kname,param", PROFILES)
 def test_kernel_matvec_matches_plain(cuda, kname, param, n_out, n_in, d, c,
                                      zero_diagonal, dtype):
@@ -236,6 +283,27 @@ def test_kernel_matvec_matches_plain(cuda, kname, param, n_out, n_in, d, c,
     assert tkm.kernel_matvec.launches == launches + 2
     assert torch.equal(got, again)  # fixed summation order
     assert _rel(got, tkm.kernel_matvec_plain(a, b, x, **kw)) <= KM_TOL[dtype]
+
+
+@pytest.mark.parametrize("n_out,n_in,c", [(8000, 8000, 1), (8000, 8000, 4),
+                                          (400, 10_000, 1)])
+def test_kernel_matvec_splits_the_sources_at_small_shapes(cuda, n_out, n_in,
+                                                          c):
+    """The guard path's and KRR's shapes run several source splits on this
+    card (the cases above then exercise the second pass), and the split
+    result equals one split's up to the order of the sum."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits = tkm.choose_splits(n_out, n_in, 3, c, sms)
+    assert splits > 1
+    rng = np.random.default_rng(c)
+    a = torch.as_tensor(rng.normal(size=(n_out, 3)), device=cuda)
+    b = a if n_out == n_in else torch.as_tensor(rng.normal(size=(n_in, 3)),
+                                                device=cuda)
+    x = torch.as_tensor(rng.normal(size=(n_in, c)), device=cuda)
+    got = tkm.kernel_matvec(a, b, x, kernel_name="gaussian", param=2.0)
+    want = tkm.kernel_matvec_plain(a, b, x, kernel_name="gaussian",
+                                   param=2.0)
+    assert _rel(got, want) <= KM_TOL[torch.float64]
 
 
 def test_direct_operators_on_card_match_cpu(cuda):

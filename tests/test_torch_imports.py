@@ -19,7 +19,7 @@ MODULES = ("core.kernels", "core.regularization", "core.nfft",
            "configs", "configs.base", "configs.archs", "models.common",
            "models.mlp", "models.attention", "models.model",
            "serving.engine", "launch.serve", "launch.trace_serve",
-           "launch.time_window")
+           "launch.time_window", "launch.time_kernel_matvec")
 
 
 def _imported_roots(path: Path) -> set:

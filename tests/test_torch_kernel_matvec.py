@@ -120,6 +120,143 @@ def test_direct_matvec_tiled_matches_jax(kname, param, d, batched):
     assert _rel(got.numpy(), want) <= 1e-12
 
 
+def _emulate_kernel(a, b, x, kname, param, zero_diagonal, splits):
+    """The CUDA kernel's summation order, in PyTorch on the CPU: the
+    sources cut into runs of ``split_length(n_in, splits)``; in a run, tiles
+    of SOURCE_TILE sources, each tile's sources added one by one into a
+    partial sum, the partial sums added in tile order; the runs' sums
+    added in split order.  Rows are independent (R rows a thread changes
+    nothing in a row's sum), so all rows go at once."""
+    a, b, x = (torch.as_tensor(t) for t in (a, b, x))
+    x2 = x[:, None] if x.ndim == 1 else x
+    n_out, n_in = a.shape[0], b.shape[0]
+    step = tkm.split_length(n_in, splits)
+    total = None
+    for i_begin in range(0, n_in, step):
+        i_end = min(n_in, i_begin + step)
+        acc = torch.zeros((n_out, x2.shape[1]), dtype=x.dtype)
+        for i0 in range(i_begin, i_end, tkm.SOURCE_TILE):
+            part = torch.zeros_like(acc)
+            for j in range(i0, min(i_end, i0 + tkm.SOURCE_TILE)):
+                r2 = torch.zeros(n_out, dtype=x.dtype)
+                for m in range(a.shape[1]):
+                    r2 = r2 + (a[:, m] - b[j, m]) ** 2
+                w = tkm.kernel_profile_r2(r2, kname, param)
+                if zero_diagonal and j < n_out:
+                    w[j] = 0.0
+                part += w[:, None] * x2[j]
+            acc += part
+        total = acc if total is None else total + acc
+    return (total[:, 0] if x.ndim == 1 else total).numpy()
+
+
+@pytest.mark.parametrize("splits", ["chosen", 1, 3])
+@pytest.mark.parametrize("zero_diagonal", [True, False])
+@pytest.mark.parametrize("n_out,n_in,d,c", [(300, 300, 3, 1),
+                                            (150, 220, 2, 3)])
+@pytest.mark.parametrize("kname,param", KERNELS)
+def test_split_summation_order_matches_jax(kname, param, n_out, n_in, d, c,
+                                           zero_diagonal, splits):
+    """float64, square and rectangular, against the Pallas kernel in
+    interpret mode and the oracle; "chosen" is choose_splits' S for a card
+    of 4 SMs (5 and 4 splits here)."""
+    if splits == "chosen":
+        splits = tkm.choose_splits(n_out, n_in, d, c, 4)
+        assert splits > 3
+    a = RNG.normal(size=(n_out, d))
+    b = a if n_out == n_in else RNG.normal(size=(n_in, d))
+    x = RNG.normal(size=(n_in, c) if c > 1 else (n_in,))
+    got = _emulate_kernel(a, b, x, kname, param, zero_diagonal, splits)
+    port, pallas, oracle = _both(a, b, x, kname, param, zero_diagonal)
+    assert got.shape == port.shape
+    assert _rel(got, oracle) < 1e-12
+    assert _rel(got, pallas) < 1e-12
+    assert _rel(got, port) < 1e-12
+
+
+def test_split_summation_order_float32_matches_jax():
+    a = RNG.normal(size=(200, 3)).astype(np.float32)
+    x = RNG.normal(size=(200, 2)).astype(np.float32)
+    for splits in (1, tkm.choose_splits(200, 200, 3, 2, 8)):
+        got = _emulate_kernel(a, a, x, "laplacian_rbf", 0.7, True, splits)
+        port, pallas, oracle = _both(a, a, x, "laplacian_rbf", 0.7)
+        assert got.dtype == np.float32
+        assert _rel(got, oracle) < _tol(np.float32)
+        assert _rel(got, pallas) < _tol(np.float32)
+
+
+@pytest.mark.parametrize("sm_count", [132, 114, 66])
+@pytest.mark.parametrize("n_out,n_in,d,c", [(8000, 8000, 3, 1),
+                                            (8000, 8000, 3, 4),
+                                            (400, 10_000, 2, 1),
+                                            (100_000, 100_000, 2, 1),
+                                            (5000, 5000, 5, 8)])
+def test_choose_splits_fills_the_card(n_out, n_in, d, c, sm_count):
+    """The guard path's n = 8000 and KRR's 400 x 10^4 run many (row block,
+    split) blocks, at least one per SM; the split length is a whole number
+    of tiles and no split is empty."""
+    s = tkm.choose_splits(n_out, n_in, d, c, sm_count)
+    row_blocks = -(-n_out // (tkm.BLOCK_THREADS
+                               * tkm.rows_per_thread(c, d)))
+    assert 1 <= s <= tkm.MAX_SPLITS
+    assert s * row_blocks >= sm_count
+    if row_blocks < sm_count:
+        assert s > 1
+    step = tkm.split_length(n_in, s)
+    assert step % tkm.SOURCE_TILE == 0
+    assert (s - 1) * step < n_in <= s * step
+    assert s * n_out * c <= max(tkm.SCRATCH_ELEMS, n_out * c)
+
+
+@pytest.mark.parametrize("n,c", [(1_000_000, 1), (300_000, 4),
+                                 (2_000_000, 9)])
+def test_choose_splits_is_one_where_row_blocks_fill_the_card(n, c):
+    row_blocks = -(-n // (tkm.BLOCK_THREADS * tkm.rows_per_thread(c, 3)))
+    assert row_blocks >= tkm.BLOCKS_PER_SM * 132
+    assert tkm.choose_splits(n, n, 3, c, 132) == 1
+    assert tkm.split_length(n, 1) >= n
+
+
+SASS = """\
+\t\tFunction : _ZN12_GLOBAL__N_120kernel_matvec_kernelIdLi3ELi0ELi1ELi4EEEvPKT_
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   DADD R2, R4, -R6 ;
+.L_x_1:
+        /*0020*/                   LDS.64 R8, [R3] ;
+        /*0030*/                   DADD R10, R12, -R8 ;
+        /*0040*/                   DFMA R14, R10, R10, R14 ;
+        /*0050*/              @!P0 BRA `(.L_x_2) ;
+        /*0060*/                   DMUL R16, R14, R18 ;
+        /*0070*/                   DSETP.GEU.AND P1, PT, |R16|, 708, PT ;
+        /*0080*/               @P2 BRA `(.L_x_1) ;
+        /*0090*/                   DFMA R20, R20, R20, R20 ;
+        /*00a0*/               @P3 BRA 0x10 ;
+.L_x_2:
+        /*00b0*/                   BRA `(.L_x_1) ;
+        /*00c0*/                   EXIT ;
+"""
+
+
+def test_time_kernel_matvec_counts_the_pair_loop(monkeypatch, tmp_path):
+    """The SASS reader resolves labels, and the pair loop is the smallest
+    span closed by a conditional backward branch (the unconditional jump
+    back from out-of-line code is not a loop)."""
+    from repro_torch.launch import time_kernel_matvec as tkt
+    monkeypatch.setattr(tkt.subprocess, "run", lambda *a, **k: type(
+        "P", (), {"stdout": SASS})())
+    funcs = tkt.sass_functions(tmp_path / "lib.so")
+    (name,) = funcs
+    ops, lines = tkt.pair_loop(funcs[name])
+    assert ops == {"LDS": 1, "DADD": 1, "DFMA": 1, "BRA": 2, "DMUL": 1,
+                   "DSETP": 1}
+    assert lines[0].startswith("/*0020*/ LDS") and "0x20" in lines[-1]
+    assert tkt.pairs(400, 10_000, False) == 4_000_000
+    assert tkt.pairs(8000, 8000, True) == 8000 * 7999
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="needs a CUDA card"):
+            tkt.main([])
+
+
 def test_kernel_matvec_rejects_what_it_does_not_take():
     pts = torch.zeros((4, 2), dtype=torch.float64)
     with pytest.raises(ValueError, match="unknown kernel"):

@@ -12,6 +12,8 @@ them).  Tolerances: 1e-12 relative to the largest output entry in float64
 (only the order of the sums differs), 1e-5 in float32.
 """
 
+import hashlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -67,27 +69,58 @@ def _gather_channels(tiles, dtype, c):
     return out
 
 
+def _tile_rows(table):
+    """(rows, tile index) of every (row, tile) pair of a plan's table."""
+    start, count = table[:, 0], table[:, 1]
+    tile = torch.repeat_interleave(torch.arange(len(table)), count)
+    offset = torch.arange(len(tile)) - (torch.cumsum(count, 0) - count)[tile]
+    return start[tile] + offset, tile
+
+
 def _check_plan(tiles, base, taps):
     """Every invariant the kernels rely on."""
     n, d = base.shape
     t = tiles.table.long()
-    assert tiles.table.dtype == torch.int32 and tiles.table.shape[1] == 8
+    assert tiles.table.dtype == torch.int32 and tiles.table.shape[1] == 11
     assert (tiles.n, tiles.d, tiles.taps) == (n, d, taps)
     start, count = t[:, 0], t[:, 1]
-    corner, ext = t[:, 2:5], t[:, 5:8]
-    # each row in exactly one tile, in order
-    assert int(start[0]) == 0 and int(count.sum()) == n
-    assert torch.equal(start[1:], (start + count)[:-1])
+    corner, ext, first = t[:, 2:5], t[:, 5:8], t[:, 8:11]
+    # each row in exactly one tile, or in one run of consecutive pieces of
+    # its window (single-row tiles with the same start), in order
+    head = torch.ones(len(t), dtype=torch.bool)
+    head[1:] = start[1:] != start[:-1]
+    assert int(start[0]) == 0 and int(count[head].sum()) == n
+    assert torch.equal(start[head][1:], (start + count)[head][:-1])
+    assert bool((count[~head] == 1).all())
     assert bool((count >= 1).all())
+    # a plan of pieces has the same number for every row, one row a tile
+    runs = torch.diff(torch.cat([torch.nonzero(head)[:, 0],
+                                 torch.tensor([len(t)])]))
+    assert bool((runs == tiles.pieces).all())
+    assert tiles.pieces == 1 or tiles.max_rows == 1
     assert int(count.max()) == tiles.max_rows <= twin.tile_rows(d, taps)
     assert tiles.max_rows * d * taps <= max(twin.TILE_WEIGHTS, d * taps)
-    # unused axes: corner 0, extent 1
-    assert bool((corner[:, d:] == 0).all() and (ext[:, d:] == 1).all())
-    # each box holds every window of its tile
-    tile_of = torch.repeat_interleave(torch.arange(len(t)), count)
-    b = base.long()
-    assert bool((b >= corner[tile_of, :d]).all())
-    assert bool((b + taps <= corner[tile_of, :d] + ext[tile_of, :d]).all())
+    # unused axes: corner 0, extent 1, first tap 0
+    assert bool((corner[:, d:] == 0).all() and (ext[:, d:] == 1).all()
+                and (first[:, d:] == 0).all())
+    # a tile covers the taps [first, first + span) of each axis
+    span = torch.minimum(ext[:, :d], taps - first[:, :d])
+    assert bool((first[:, :d] >= 0).all() and (span >= 1).all())
+    # each box holds those taps of every window of its tile ...
+    rows, tile = _tile_rows(t)
+    lo = base.long()[rows] + first[tile, :d]
+    assert bool((lo >= corner[tile, :d]).all())
+    assert bool((lo + span[tile] <= corner[tile, :d] + ext[tile, :d]).all())
+    # ... and a row's tiles cover each cell of its window once
+    volume = torch.zeros(n, dtype=torch.long).index_add_(
+        0, rows, span.prod(dim=1)[tile])
+    assert bool((volume == taps ** d).all())
+    for r in {0, n - 1}:
+        seen = torch.zeros((taps,) * d, dtype=torch.long)
+        for i in tile[rows == r].tolist():
+            seen[tuple(slice(f, f + s) for f, s in
+                       zip(first[i, :d].tolist(), span[i].tolist()))] += 1
+        assert bool((seen == 1).all())
     # ... and fits the budget, in both types, at the gather's channels
     cells = ext.prod(dim=1)
     assert int(cells.max()) == tiles.max_cells <= twin.BOX_CELLS
@@ -102,22 +135,31 @@ def _check_plan(tiles, base, taps):
             assert int((cells * per_tile).max()) * itemsize <= twin.BOX_BYTES
 
 
+def _covered(rest, d, taps):
+    """(corner, extent, first taps, tap spans) of a table row's tail."""
+    corner, ext, first = rest[:d], rest[3:3 + d], rest[6:6 + d]
+    return corner, ext, first, [min(e, taps - f) for e, f in zip(ext, first)]
+
+
 def _emulate_spread(x, base, weights, padded_size, tiles, chunk):
     """The spread kernel's arithmetic, tile by tile: each tile's windows
-    summed into its box in row order, the box added at its corner."""
+    (the taps it covers) summed into its box in row order, the box added
+    at its corner."""
     n, d, taps = weights.shape
     c = x.shape[1]
     grid = torch.zeros((padded_size,) * d + (c,), dtype=x.dtype)
     cube = twin._weight_cube(weights)  # (n, taps^d)
     for start, count, *rest in tiles.table.tolist():
-        corner, ext = rest[:d], rest[3:3 + d]
+        corner, ext, first, span = _covered(rest, d, taps)
+        taps_at = tuple(slice(f, f + s) for f, s in zip(first, span))
         for c0 in range(0, c, chunk):
             cc = min(chunk, c - c0)
             box = torch.zeros(ext + [cc], dtype=x.dtype)
             for r in range(start, start + count):
-                lo = [int(base[r, a]) - corner[a] for a in range(d)]
-                patch = tuple(slice(v, v + taps) for v in lo)
-                box[patch] += (cube[r].reshape((taps,) * d)[..., None]
+                lo = [int(base[r, a]) + first[a] - corner[a]
+                      for a in range(d)]
+                patch = tuple(slice(v, v + s) for v, s in zip(lo, span))
+                box[patch] += (cube[r].reshape((taps,) * d)[taps_at][..., None]
                                * x[r, c0:c0 + cc])
             at = tuple(slice(v, v + e) for v, e in zip(corner, ext))
             grid[at + (slice(c0, c0 + cc),)] += box
@@ -127,26 +169,28 @@ def _emulate_spread(x, base, weights, padded_size, tiles, chunk):
 def _emulate_gather(grid, base, weights, tiles, chunk=None):
     """The gather kernel's arithmetic: each tile's box read once per pass of
     ``chunk`` channels (by default the kernel's per-tile choice), each node
-    contracted from it, the last axis innermost."""
+    contracted from it, the last axis innermost; the pieces of a row's
+    window added in table order."""
     n, d, taps = weights.shape
     c = grid.shape[-1]
-    out = torch.empty((n, c), dtype=grid.dtype)
+    out = torch.zeros((n, c), dtype=grid.dtype)
     chunks = _gather_channels(tiles, grid.dtype, c).tolist()
     for t, (start, count, *rest) in enumerate(tiles.table.tolist()):
-        corner, ext = rest[:d], rest[3:3 + d]
+        corner, ext, first, span = _covered(rest, d, taps)
         chunk = chunks[t] if chunk is None else chunk
         for c0 in range(0, c, chunk):
             cc = min(chunk, c - c0)
             at = tuple(slice(v, v + e) for v, e in zip(corner, ext))
             box = grid[at + (slice(c0, c0 + cc),)]
             for r in range(start, start + count):
-                lo = [int(base[r, a]) - corner[a] for a in range(d)]
-                patch = box[tuple(slice(v, v + taps) for v in lo)]
-                acc = patch
+                lo = [int(base[r, a]) + first[a] - corner[a]
+                      for a in range(d)]
+                acc = box[tuple(slice(v, v + s) for v, s in zip(lo, span))]
                 for a in range(d - 1, -1, -1):  # last axis first
-                    acc = torch.tensordot(acc, weights[r, a],
-                                          dims=([a], [0]))
-                out[r, c0:c0 + cc] = acc
+                    acc = torch.tensordot(
+                        acc, weights[r, a, first[a]:first[a] + span[a]],
+                        dims=([a], [0]))
+                out[r, c0:c0 + cc] += acc
     return out
 
 
@@ -203,10 +247,111 @@ def test_wide_windows_take_fewer_rows_per_tile():
     assert tiles.max_rows == twin.tile_rows(1, 101) == 32
 
 
+def _random_base(n, d, taps, padded, seed):
+    return torch.as_tensor(np.random.default_rng(seed).integers(
+        0, padded - taps + 1, (n, d)), dtype=torch.int32)
+
+
 @pytest.mark.parametrize("d,taps", [(3, 19), (2, 79), (1, twin.BOX_CELLS + 1)])
 def test_no_plan_when_one_window_exceeds_the_budget(d, taps):
-    with pytest.raises(ValueError, match="no tile plan"):
-        twin.build_tile_plan(torch.zeros((4, d), dtype=torch.int32), taps)
+    """No tile holds such a window whole: the plan cuts each row's window
+    along its first axis into slabs that fit, one single-row tile each."""
+    base = _random_base(4, d, taps, taps + 30, taps)
+    tiles = twin.build_tile_plan(base, taps)
+    _check_plan(tiles, base, taps)
+    lengths = twin.piece_lengths(d, taps)
+    assert lengths[0] < taps and lengths[1:] == (taps,) * (d - 1)
+    slabs = -(-taps // lengths[0])
+    assert slabs == 2 and tiles.n_tiles == 4 * slabs and tiles.max_rows == 1
+    assert tiles.max_cells == lengths[0] * taps ** (d - 1) <= twin.BOX_CELLS
+    first = tiles.table[:, 8].view(4, slabs)
+    assert first.tolist() == [[0, lengths[0]]] * 4
+
+
+@pytest.mark.parametrize("d,taps,lengths", [
+    (3, 19, (17, 19, 19)), (3, 33, (5, 33, 33)), (3, 80, (1, 76, 80)),
+    (2, 79, (77, 79)), (2, 6145, (1, 6144)),
+    (1, twin.BOX_CELLS + 1, (twin.BOX_CELLS,)), (3, 15, (15, 15, 15))])
+def test_piece_lengths_cut_the_leading_axes_least(d, taps, lengths):
+    assert twin.piece_lengths(d, taps) == lengths
+    cells = 1
+    for n in lengths:
+        cells *= n
+    assert cells <= twin.BOX_CELLS
+
+
+@pytest.mark.parametrize("d,taps", [(3, 19), (3, 33), (3, 80), (2, 79),
+                                    (1, twin.BOX_CELLS + 1)])
+def test_piece_plans_cover_every_window_once(d, taps):
+    """Pieces over two axes too (d = 3, taps 80: one tap of the first axis
+    is 6,400 cells), and a plan whose last piece is dropped fails the
+    checks."""
+    base = _random_base(5, d, taps, taps + 20, d + taps)
+    tiles = twin.build_tile_plan(base, taps)
+    _check_plan(tiles, base, taps)
+    pieces = tiles.n_tiles // 5
+    assert pieces == np.prod([-(-taps // n)
+                              for n in twin.piece_lengths(d, taps)])
+    cut = twin.TilePlan(tiles.table[:-1], tiles.n, d, taps, tiles.max_cells,
+                        tiles.max_rows)
+    with pytest.raises(AssertionError):
+        _check_plan(cut, base, taps)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d,taps,padded,n", [
+    (3, 19, 40, 12), (3, 33, 45, 4), (3, 80, 84, 2), (2, 79, 100, 9),
+    (1, twin.BOX_CELLS + 1, twin.BOX_CELLS + 40, 7)])
+def test_tile_emulation_on_piece_plans_matches_plain(d, taps, padded, n,
+                                                     dtype):
+    base = _random_base(n, d, taps, padded, n)
+    tiles = twin.build_tile_plan(base, taps)
+    rng = np.random.default_rng(taps)
+    w = torch.as_tensor(rng.normal(size=(n, d, taps)), dtype=dtype)
+    x = torch.as_tensor(rng.normal(size=(n, 3)), dtype=dtype)
+    g = torch.as_tensor(rng.normal(size=(padded,) * d + (3,)), dtype=dtype)
+    _close(_emulate_spread(x, base, w, padded, tiles, twin.SPREAD_CHUNK),
+           twin.window_spread_plain(x, base, w, padded_size=padded), dtype)
+    _close(_emulate_gather(g, base, w, tiles),
+           twin.window_gather_plain(g, base, w), dtype)
+
+
+# sha256 of the first 8 columns of the tile plan of the main path's spiral
+# (n = 5000, first d coordinates) as built before window pieces existed:
+# the plans of every geometry whose windows fit must not change
+MAIN_PATH_PLANS = {
+    ("SETUP_2", 1): "6d41a97d9dd491c9b8aeaf837731c63d102e74fb766517468e403e2280d6f931",
+    ("SETUP_2", 2): "999297b8dff4740a5d611f8b5533f5b33391bfd0f0bbdabb3b70d33392b150a0",
+    ("SETUP_2", 3): "a29305ef298ec69ae2eaaedc8bed418b5ed09b58d1464d328ac13907f39f0ce9",
+    ("SETUP_3", 1): "ca033ae11b1da2e42c4d55bf0960ecc9ebe1a338bfa64843e2e2cd48cc6d0a70",
+    ("SETUP_3", 2): "27b8ab1bacbf6265515009362bb1750bfef7eb1260228592cb38897e07b9dd09",
+    ("SETUP_3", 3): "8dd0fa5cc7b28e0f422ab15754500e1646a7e2086b65068b300f5731d1f32f54",
+}
+
+
+def test_wrappers_check_a_pieced_plan():
+    base = _random_base(6, 3, 19, 40, 1)
+    w = torch.ones((6, 3, 19), dtype=torch.float64)
+    tiles = twin.build_tile_plan(base, 19)
+    assert tiles.pieces == 2 and tiles.n_tiles == 12
+    x = torch.ones((6, 1), dtype=torch.float64)
+    got = twin.window_spread(x, base, w, padded_size=40, tiles=tiles)
+    assert torch.equal(got, twin.window_spread_plain(x, base, w,
+                                                     padded_size=40))
+    for bad in (twin.TilePlan(tiles.table, 6, 3, 19, tiles.max_cells, 1, 3),
+                twin.TilePlan(tiles.table[:-2], 6, 3, 19, tiles.max_cells, 1,
+                              2)):
+        with pytest.raises(ValueError, match="pieces a row"):
+            twin.window_spread(x, base, w, padded_size=40, tiles=bad)
+
+
+@pytest.mark.parametrize("setup_name,d", sorted(MAIN_PATH_PLANS))
+def test_main_path_plans_are_unchanged(setup_name, d):
+    plan, geom = _geometry("spiral", setup_name, d, 5000)
+    table = geom.tiles.table
+    digest = hashlib.sha256(table[:, :8].contiguous().numpy().tobytes())
+    assert digest.hexdigest() == MAIN_PATH_PLANS[(setup_name, d)]
+    assert bool((table[:, 8:] == 0).all()) and geom.tiles.pieces == 1
 
 
 def test_invariants_catch_a_shrunk_box_and_a_dropped_row():
@@ -312,18 +457,20 @@ def test_tile_emulation_adjoint_identity():
 # -- one plan per geometry --------------------------------------------------
 
 def test_plan_built_once_per_geometry_across_matvecs_and_eigsh():
+    """On the CPU the matvecs build no plan (the plain window versions need
+    none); the geometry builds its plan at first read, and only then."""
     pts, _ = spiral(2000, seed=0)
     kern = make_kernel("gaussian", sigma=3.5)
     before = twin.build_tile_plan.builds
     op = tfs.make_normalized_adjacency(kern, pts, tfs.SETUP_1, device="cpu")
-    assert twin.build_tile_plan.builds == before + 1  # the degrees' matvec
     x = torch.as_tensor(np.random.default_rng(0).normal(size=(2000, 2)))
     for _ in range(3):
         op.matvec(x)
     res = tlan.eigsh(op.matvec, op.n, 4, device="cpu")
     assert res.num_matvecs > 3
-    assert twin.build_tile_plan.builds == before + 1
+    assert twin.build_tile_plan.builds == before
     assert op.fastsum.src_window.tiles is op.fastsum.src_window.tiles
+    assert twin.build_tile_plan.builds == before + 1
 
 
 def test_rectangular_operator_builds_one_plan_per_geometry():
@@ -335,19 +482,25 @@ def test_rectangular_operator_builds_one_plan_per_geometry():
     x = torch.ones(500, dtype=torch.float64)
     for _ in range(3):
         assert op.matvec_tilde(x).shape == (70,)
+    assert twin.build_tile_plan.builds == before
+    for _ in range(2):
+        assert op.src_window.tiles.n == 500 and op.tgt_window.tiles.n == 70
     assert twin.build_tile_plan.builds == before + 2
 
 
 def test_window_geometry_from_sorted_builds_its_plan_lazily():
     plan, geom = _geometry("spiral", "SETUP_2", 2, 300)
     fresh = WindowGeometry.from_sorted(geom.base, geom.weights, geom.perm)
+    want = geom.tiles.table
     before = twin.build_tile_plan.builds
     x = torch.ones((300, 1), dtype=torch.float64)
     tex.window_spread(plan, fresh, x)
     tex.window_gather(plan, fresh, torch.ones((plan.grid_size,) * 2 + (1,),
                                               dtype=torch.float64))
+    assert twin.build_tile_plan.builds == before  # none on the CPU
+    assert torch.equal(fresh.tiles.table, want)
+    assert fresh.tiles is fresh.tiles
     assert twin.build_tile_plan.builds == before + 1
-    assert torch.equal(fresh.tiles.table, geom.tiles.table)
 
 
 def test_plan_does_not_depend_on_the_weights_dtype():
@@ -378,6 +531,10 @@ def test_wrappers_check_the_plan():
                          twin.BOX_CELLS + 1, geom.tiles.max_rows)
     with pytest.raises(ValueError, match="budget"):
         twin.window_gather(g, geom.base, geom.weights, tiles=wide)
+    narrow = twin.TilePlan(geom.tiles.table[:, :8], 100, 2, plan.taps,
+                           geom.tiles.max_cells, geom.tiles.max_rows)
+    with pytest.raises(ValueError, match="11"):
+        twin.window_gather(g, geom.base, geom.weights, tiles=narrow)
     assert isinstance(NfftPlan(d=2, n_bandwidth=8, m=1), NfftPlan)
 
 

@@ -15,27 +15,36 @@ the paths of the exact direct sum (``kernel_matvec``): the accuracy
 guard's direct floor under ``eigsh`` (spiral n = 8,000), kernel SSL on
 crescent-fullmoon at n = 100,000 (paper Section 6.2.3), kernel ridge
 regression at n = 10,000 with fast and direct prediction (Section 6.3), and
-one direct matvec at n = 10^5.  Then the LM serving path: the flash
-attention kernels against their plain version (float32 on the CUDA cores,
-bf16 and f16 on the tensor cores: the JAX kernel tests' shapes in float32
-and bf16, granite-3-2b's heads in all three up to one bf16 layer at its
-32,768-token prefill length, decode alignment), and granite-3-2b at full
+one direct matvec at n = 10^5.  Then the paper's Section 5 and 6.2.1
+paths: the fused matvec against the two-NFFT reference (flat geometry,
+no hand-written kernel) at n = 10^5; traditional and hybrid Nyström at
+n = 4000 against dense eigvalsh (tests/test_nystrom.py's tiers) and at
+n = 10^5, where the hybrid's probe blocks run the window kernels at
+C = L = 20 and 50 (checked kernel vs plain too); and image segmentation
+of a 533 x 800 synthetic image (426,400 pixels).  Then the LM serving
+path: the flash attention kernels against their plain version (float32
+on the CUDA cores, bf16 and f16 on the tensor cores: the JAX kernel
+tests' shapes in float32 and bf16, granite-3-2b's heads in all three up
+to one bf16 layer at its 32,768-token prefill length, decode
+alignment), and granite-3-2b at full
 width and depth (40 layers, bf16, seeded random weights) served by
 ``ServeEngine``: every prefill must launch the flash kernel once per
 layer, every logit must be finite, and in float32 the engine's tokens must
 equal a manual prefill+decode loop's.  Each path starts with every launch
 count at 0 and must launch its kernels.  Last it times the kernels beside
 their roofline bounds (and flash attention beside PyTorch's SDPA), the
-window kernels' tile plan, the fused matvec at n = 10^5 and 10^6, prefill
-and decode.  Any failed check
-raises, so the run exits non-zero and prints no result line.
+window kernels' tile plan, the fused matvec at n = 10^5 and 10^6, the
+Nyström methods and the segmentation's eigsh, prefill and decode.  Any
+failed check raises, so the run exits non-zero and prints no result
+line.
 
     python3 chip_smoke.py [--json PATH]
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
-the line before it is the kernels' JSON record (``kernel_matvec`` once per
-path that launches it, with that path's launches and shape).  Needs one card and the
+the line before it is the kernels' JSON record (the window kernels once
+per path of WINDOW_RECORDS, ``kernel_matvec`` once per path that launches
+it, each with that path's launches and shape).  Needs one card and the
 repository checkout around this file; imports nothing of JAX.
 """
 
@@ -86,8 +95,6 @@ TIERS = {"SETUP_1": 5e-3, "SETUP_2": 5e-8, "SETUP_3": 1e-13}
 # tier, so the block run takes the 80 of tests/test_fastsum_exec.py (20
 # block matvecs).
 BLOCK_ITERS = {1: None, 4: 80}
-# the kernels' JSON record is taken at this main-path shape
-RECORD = ("SETUP_3", 3, 1, "float64")
 # Window geometries beyond the main path's spirals that stress the tile
 # plan, checked kernel vs plain and by the adjoint identity at n = 10^5:
 # (kind, setup, d, channels).  "uniform": uniform random nodes (boxes ~2x
@@ -104,6 +111,52 @@ WINDOW_STRESS = (("uniform", "SETUP_3", 3, (1, 4)),
 # standard normal weights ("random"), whose outer taps are not ~0 as the
 # Kaiser-Bessel window's are at m = 16, so every slab counts.
 WIDE_WINDOWS = {"WIDE_M9": 9, "WIDE_M16": 16}
+
+# The window kernels at C = L columns, the hybrid Nyström's probe blocks
+# (L = 20 and 50): spiral SETUP_2, d = 3, kernel vs plain with the
+# geometry's own weights and with seeded random ones
+NYS_COLUMNS = (20, 50)
+
+# [oracle]: the fused matvec (window kernels) against the two-NFFT path
+# (flat geometry, index_add_, cuFFT), relative to the reference's largest
+# entry: tests/test_fastsum_exec.py's limit
+ORACLE_TOL = 1e-12
+ORACLE_COLUMNS = (1, 4)
+# [nystrom], paper Section 5, Gaussian sigma = SIGMA, float64.  Tiers at the
+# anchor n = 4000 (tests/test_nystrom.py's): (method, L, rank, generator
+# seed, largest eigenvalue error; None: reported, not tiered).  There the
+# traditional method at L = n/10 = 400 is already within ~6e-7 (the JAX
+# package: 5.7e-7), so the hybrid L=50 is held against the traditional at
+# the same L = 50; "hybrid L=50 beats traditional L=n/10" is checked on
+# the problem tests/test_nystrom.py states it for, spiral n = 800 (seed 4)
+NYS_ANCHOR_RUNS = (("hybrid", 20, 10, 4, 5e-2), ("hybrid", 50, 10, 1, 1e-2),
+                   ("hybrid", 50, 50, 1, None),
+                   ("traditional", N_ANCHOR // 4, None, 0, 0.5),
+                   ("traditional", N_ANCHOR // 10, None, 2, None),
+                   ("traditional", 50, None, 2, None))
+NYS_SMALL_N, NYS_SMALL_SEED = 800, 4
+NYS_MAX_ABS_EIG = 1.01  # A's spectrum lies in [-1, 1]
+# n = 10^5: the hybrid at each L (rank K_EIG) on the SETUP_2 operator, the
+# traditional method at L = n/20 (fig6's rule; n/10 would hold ~40 GB of
+# n x L matrices)
+NYS_TRAD_L = N_MAIN // 20
+# [segment], paper Section 6.2.1: synthetic_image at the photograph's
+# 533 x 800 = 426,400 pixels, RGB nodes, sigma = 90, N=16, m=2, p=2,
+# eps_B=1/8
+SEG_H, SEG_W = 533, 800
+N_SEG = SEG_H * SEG_W
+SEG_SIGMA = 90.0
+SEG_K = (2, 4)
+# the JAX package's |lambda_1 - 1| from spectral_clustering on the 100 x 150
+# example image (same parameters, key 0, k = 2 and 4, x64, CPU); the smoke's
+# limit is 10x
+JAX_SEG_LAMBDA1_ERR = 1.5543122344752192e-15
+# the kernels' JSON record per path: (path, geometry kind, setup, d, C,
+# dtype, n); the window kernels' launches of that path, times at its shape
+WINDOW_RECORDS = (("main", "spiral", "SETUP_3", 3, 1, "float64", N_MAIN),
+                  ("nystrom", "spiral", "SETUP_2", 3, NYS_COLUMNS[-1],
+                   "float64", N_MAIN),
+                  ("segment", "segment", "SEG", 3, 1, "float64", N_SEG))
 
 # kernel_matvec vs plain, relative to the plain output's largest entry: the
 # sums run in another order than the plain matrix product, and float32
@@ -228,7 +281,11 @@ class Smoke:
         from repro_torch.core import fastsum, fastsum_exec, lanczos
         from repro_torch.core.kernels import make_kernel
         from repro_torch.core.nfft import build_window_geometry, padded_grid_size
-        from repro_torch.data.synthetic import crescent_fullmoon, spiral
+        from repro_torch import image_segmentation
+        from repro_torch.core import nystrom
+        from repro_torch.data.synthetic import (
+            crescent_fullmoon, spiral, synthetic_image,
+        )
         from repro_torch.graph import krr, spectral, ssl
         from repro_torch.kernels import _build, kernel_matvec, nfft_window
         from repro_torch.configs import get_config
@@ -249,6 +306,9 @@ class Smoke:
         self.km, self.guards, self.ssl, self.krr = (kernel_matvec, guards,
                                                     ssl, krr)
         self.crescent = crescent_fullmoon
+        self.synthetic_image = synthetic_image
+        self.seg_params = image_segmentation.PARAMS
+        self.nys = nystrom
         self.make_kernel = make_kernel
         self.path_launches = {}
         self.dev = torch.device("cuda", 0)
@@ -276,6 +336,8 @@ class Smoke:
         return start.elapsed_time(end) / reps
 
     def setup(self, name):
+        if name == "SEG":
+            return self.seg_params
         if name in WIDE_WINDOWS:
             return self.fs.FastsumParams(n_bandwidth=32, m=WIDE_WINDOWS[name],
                                          eps_b=0.0)
@@ -385,7 +447,8 @@ class Smoke:
 
         "spiral": the main path's nodes (first d coordinates), Morton-sorted;
         "unsorted": the same without the sort; "uniform": uniform random
-        nodes; "ssl": crescent-fullmoon under the SSL path's parameters."""
+        nodes; "ssl": crescent-fullmoon under the SSL path's parameters;
+        "segment": the [segment] path's pixels (n is theirs)."""
         key = (setup_name, d, n, kind)
         if key in self.geometries:
             return self.geometries[key]
@@ -393,6 +456,9 @@ class Smoke:
         if kind == "ssl":
             pts, _ = self.crescent(n, seed=0)
             params = self.fs.FastsumParams(n_bandwidth=128, m=3, eps_b=0.0)
+        elif kind == "segment":
+            pts = self.segment_pixels()
+            params = self.setup("SEG")
         else:
             if kind == "uniform":
                 pts = np.random.default_rng(0).uniform(-1, 1, (n, d))
@@ -406,6 +472,13 @@ class Smoke:
                                           sort=kind != "unsorted")
         self.geometries[key] = plan, geom
         return plan, geom
+
+    def segment_pixels(self):
+        """(N_SEG, 3) RGB nodes of synthetic_image(SEG_H, SEG_W); the
+        truth labels are in ``self.segment_truth``."""
+        img, truth = self.synthetic_image(SEG_H, SEG_W)
+        self.segment_truth = truth.reshape(-1)
+        return img.reshape(-1, 3)
 
     def geometry(self, setup_name, d, n, dtype, kind="spiral"):
         """(plan, base, weights in ``dtype``, tile plan) of a geometry;
@@ -449,6 +522,9 @@ class Smoke:
         self.phase_ssl()
         self.phase_krr()
         self.phase_direct()
+        self.phase_oracle()
+        self.phase_nystrom()
+        self.phase_segment()
         self.phase_serve()
         self.phase_times()
 
@@ -602,20 +678,26 @@ class Smoke:
         for setup_name in WIDE_WINDOWS:
             yield "spiral", setup_name, 3, (1, 4), both
             yield "random", setup_name, 3, (1,), both
+        # the hybrid Nyström's C = L probe blocks, and the segmentation's
+        # pixel geometry
+        yield "spiral", "SETUP_2", 3, NYS_COLUMNS, both
+        yield "random", "SETUP_2", 3, NYS_COLUMNS, both
+        yield "segment", "SEG", 3, (1, 4), both
 
     def phase_kernels(self):
         torch, win = self.torch, self.win
-        log(f"[kernels] kernel vs plain at n={N_MAIN}, rel = max|k-p| / "
-            "max|p|; each geometry's tile plan built once")
+        log(f"[kernels] kernel vs plain at n={N_MAIN} (segment: n={N_SEG}), "
+            "rel = max|k-p| / max|p|; each geometry's tile plan built once")
         for kind, setup_name, d, chans, dtypes in self.window_cases():
+            n = N_SEG if kind == "segment" else N_MAIN
             for dtype in dtypes:
                 dname = str(dtype).split(".")[1]
-                plan, base, w, tiles = self.geometry(setup_name, d, N_MAIN,
-                                                     dtype, kind)
+                plan, base, w, tiles = self.geometry(setup_name, d, n, dtype,
+                                                     kind)
                 pad = self.padded_grid_size(plan)
                 for c in chans:
                     gen = torch.Generator(device=self.dev).manual_seed(c)
-                    x = torch.randn((N_MAIN, c), generator=gen, dtype=dtype,
+                    x = torch.randn((n, c), generator=gen, dtype=dtype,
                                     device=self.dev)
                     g = torch.randn((pad,) * d + (c,), generator=gen,
                                     dtype=dtype, device=self.dev)
@@ -636,7 +718,7 @@ class Smoke:
                         self.record["checks"].append({
                             "kernel": kname, "geometry": kind,
                             "setup": setup_name, "d": d, "c": c,
-                            "dtype": dname, "n": N_MAIN,
+                            "dtype": dname, "n": n,
                             "tiles": tiles.n_tiles,
                             "max_box_cells": tiles.max_cells,
                             "max_abs_err": err, "rel_err": rel, "tol": tol,
@@ -647,13 +729,13 @@ class Smoke:
                             f"it) {'ok' if ok else 'FAIL'}")
                         check(ok, f"{kname} {kind} {setup_name} d={d} C={c} "
                               f"{dname}: rel {rel:.3e}")
-            # adjoint identity, float64
-            plan, base, w, tiles = self.geometry(setup_name, d, N_MAIN,
+            # adjoint identity, float64, at the case's widest C
+            plan, base, w, tiles = self.geometry(setup_name, d, n,
                                                  torch.float64, kind)
             pad = self.padded_grid_size(plan)
             gen = torch.Generator(device=self.dev).manual_seed(7)
             c = max(chans)
-            x = torch.randn((N_MAIN, c), generator=gen, dtype=torch.float64,
+            x = torch.randn((n, c), generator=gen, dtype=torch.float64,
                             device=self.dev)
             g = torch.randn((pad,) * d + (c,), generator=gen,
                             dtype=torch.float64, device=self.dev)
@@ -737,6 +819,7 @@ class Smoke:
         pts = torch.as_tensor(pts, device=self.dev)
         lam_ref = torch.linalg.eigvalsh(
             self.fs.dense_normalized_adjacency(self.kernel, pts)).flip(0)[:K_EIG]
+        self.anchor_points, self.anchor_lam = pts, lam_ref
         for name, tol in TIERS.items():
             op = self.fs.make_normalized_adjacency(self.kernel, pts,
                                                    self.setup(name),
@@ -777,6 +860,8 @@ class Smoke:
                     f"max residual bound "
                     f"{float(res.residual_bounds.max()):.2e}, top "
                     f"{[round(v, 6) for v in res.eigenvalues[:3].tolist()]}")
+            if name == "SETUP_3":  # [nystrom]'s reference at n = 10^5
+                self.main_lam = runs[1][0].eigenvalues
             gap = float((runs[1][0].eigenvalues
                          - runs[4][0].eigenvalues).abs().max())
             self.record[f"main_{name}"] = {
@@ -1012,6 +1097,253 @@ class Smoke:
             check(got <= 10 * want, f"fused {name} vs exact: {got:.3e}")
         check(launches["kernel_matvec"] == 1, "direct: kernel_matvec launches")
 
+    def phase_oracle(self):
+        """The fused matvec (the window kernels) against the two-NFFT
+        reference (flat geometry, index_add_, cuFFT; no hand-written
+        kernel) at n = 10^5, spiral, SETUP_2."""
+        torch = self.torch
+        pts, _ = self.spiral(N_MAIN, seed=0)
+        pts = torch.as_tensor(pts, device=self.dev)
+        op = self.fs.make_fastsum(self.kernel, pts, self.fs.SETUP_2,
+                                  device=self.dev)
+        taps = op.plan.taps
+        # flat geometry: int64 indices + float64 weights, n x taps^3 each
+        geom_gb = N_MAIN * taps ** 3 * 16 / 1e9
+        self.sync()
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        t0 = time.perf_counter()
+        geom = op.src_geometry
+        self.sync()
+        t_geom = time.perf_counter() - t0
+        self.record["oracle"] = {"n": N_MAIN, "setup": "SETUP_2",
+                                 "taps_cubed": taps ** 3,
+                                 "flat_geometry_gb": geom_gb,
+                                 "geometry_s": t_geom, "runs": []}
+        log(f"[oracle] n={N_MAIN} spiral SETUP_2: flat geometry "
+            f"({N_MAIN} x {taps ** 3} int64 indices + float64 weights, "
+            f"{geom_gb:.2f} GB reckoned, {geom.indices.numel() * 16 / 1e9:.2f}"
+            f" GB held) built in {t_geom:.3f}s")
+        for c in ORACLE_COLUMNS:
+            gen = torch.Generator(device=self.dev).manual_seed(c)
+            x = torch.randn((N_MAIN, c), generator=gen, dtype=torch.float64,
+                            device=self.dev)
+            self.sync()
+            self.reset_launches()
+            fused = op.matvec_tilde(x)
+            self.sync()
+            launches = self.read_launches(f"oracle_c{c}")
+            t0 = time.perf_counter()
+            ref = op.matvec_tilde_reference(x)
+            self.sync()
+            t_ref = time.perf_counter() - t0
+            check(self.win.window_spread.launches == launches["window_spread"],
+                  "the two-NFFT reference launched a window kernel")
+            rel = float((fused - ref).abs().max() / ref.abs().max())
+            peak = torch.cuda.max_memory_allocated(self.dev) / 1e9
+            self.record["oracle"]["runs"].append({
+                "c": c, "rel_err": rel, "tol": ORACLE_TOL,
+                "reference_s": t_ref, "peak_memory_gb": peak,
+                "launches": launches})
+            log(f"[oracle] C={c}: fused matvec_tilde vs two-NFFT reference "
+                f"rel {rel:.3e} of max|ref| (tol {ORACLE_TOL:g}); reference "
+                f"{t_ref:.3f}s; peak memory {peak:.2f} GB; fused launches "
+                f"{launches}")
+            check(launches["window_spread"] == 1
+                  and launches["window_gather"] == 1,
+                  f"oracle C={c}: fused matvec launches {launches}")
+            check(rel <= ORACLE_TOL, f"oracle C={c}: rel {rel:.3e}")
+            del fused, ref
+        del op, geom
+
+    def nystrom_run(self, method, adj, points, l_size, rank, seed):
+        """One Nyström run; (result, seconds, spread launches, gather
+        launches, GB the run allocated at its peak above what was held
+        before it).  Launch counts are read as differences, so the path's
+        totals keep running."""
+        torch = self.torch
+        gen = torch.Generator(device=self.dev).manual_seed(seed)
+        spread0 = self.win.window_spread.launches
+        gather0 = self.win.window_gather.launches
+        self.sync()
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        held = torch.cuda.memory_allocated(self.dev)
+        t0 = time.perf_counter()
+        if method == "hybrid":
+            res = self.nys.nystrom_gaussian_nfft(adj, K_EIG,
+                                                 num_columns=l_size,
+                                                 rank=rank, generator=gen)
+        else:
+            res = self.nys.nystrom_traditional(self.kernel, points, K_EIG,
+                                               l_size, generator=gen)
+        self.sync()
+        took = time.perf_counter() - t0
+        return (res, took, self.win.window_spread.launches - spread0,
+                self.win.window_gather.launches - gather0,
+                (torch.cuda.max_memory_allocated(self.dev) - held) / 1e9)
+
+    def phase_nystrom(self):
+        """Traditional and hybrid Nyström (paper Section 5), float64: the
+        tiers of tests/test_nystrom.py at n = 4000 against dense eigvalsh,
+        then n = 10^5 against [main]'s SETUP_3 eigsh."""
+        torch = self.torch
+        self.record["nystrom"] = []
+        pts = self.anchor_points
+        adj = self.fs.make_normalized_adjacency(self.kernel, pts,
+                                                self.fs.SETUP_2,
+                                                device=self.dev)
+        self.reset_launches()
+        errs = {}
+        for method, l_size, rank, seed, tier in NYS_ANCHOR_RUNS:
+            res, took, n_spread, n_gather, peak = self.nystrom_run(
+                method, adj, pts, l_size, rank, seed)
+            err = float((res.eigenvalues - self.anchor_lam).abs().max())
+            top = float(res.eigenvalues.abs().max())
+            errs[(method, l_size, rank)] = err
+            self.record["nystrom"].append({
+                "n": N_ANCHOR, "method": method, "L": l_size, "rank": rank,
+                "seed": seed, "eig_err": err, "max_abs_eig": top,
+                "tier": tier, "s": took, "run_peak_memory_gb": peak,
+                "window_launches": [n_spread, n_gather]})
+            log(f"[nystrom] n={N_ANCHOR} {method} L={l_size} rank={rank} "
+                f"seed {seed}: max eigenvalue error vs dense eigvalsh "
+                f"{err:.3e} (tier {tier}), max|lambda| {top:.6f}, "
+                f"{took:.3f}s, "
+                f"run's peak {peak:.3f} GB, spread/gather launches "
+                f"{n_spread}/{n_gather}")
+            if tier is not None:
+                check(err < tier, f"nystrom n={N_ANCHOR} {method} "
+                      f"L={l_size}: {err:.3e} >= {tier:g}")
+            if method == "hybrid":
+                check(top <= NYS_MAX_ABS_EIG, f"nystrom n={N_ANCHOR} hybrid "
+                      f"L={l_size} rank={rank}: max|lambda| {top}")
+        hybrid = errs[("hybrid", 50, 10)]
+        log(f"[nystrom] n={N_ANCHOR}: hybrid L=50 {hybrid:.3e} against "
+            f"traditional L=50 {errs[('traditional', 50, None)]:.3e} and "
+            f"L=n/10 {errs[('traditional', N_ANCHOR // 10, None)]:.3e}")
+        check(hybrid < errs[("traditional", 50, None)],
+              "hybrid L=50 does not beat traditional L=50")
+        self.read_launches("nystrom_anchor")
+
+        # tests/test_nystrom.py's own problem for hybrid vs traditional
+        small, _ = self.spiral(NYS_SMALL_N, seed=NYS_SMALL_SEED)
+        small = torch.as_tensor(small, device=self.dev)
+        lam_small = torch.linalg.eigvalsh(
+            self.fs.dense_normalized_adjacency(self.kernel, small)
+        ).flip(0)[:K_EIG]
+        adj_small = self.fs.make_normalized_adjacency(
+            self.kernel, small, self.fs.SETUP_2, device=self.dev)
+        err_h = float((self.nystrom_run("hybrid", adj_small, small, 50, K_EIG,
+                                        1)[0].eigenvalues
+                       - lam_small).abs().max())
+        err_t = float((self.nystrom_run("traditional", None, small,
+                                        NYS_SMALL_N // 10, None, 2)[0]
+                       .eigenvalues - lam_small).abs().max())
+        self.record["nystrom_small"] = {"n": NYS_SMALL_N, "hybrid_L50": err_h,
+                                        "traditional_L_n10": err_t}
+        log(f"[nystrom] n={NYS_SMALL_N} (spiral seed {NYS_SMALL_SEED}): "
+            f"hybrid L=50 {err_h:.3e} (tier 1e-2) against traditional "
+            f"L=n/10 {err_t:.3e}")
+        check(err_h < 1e-2 and err_h < err_t,
+              f"n={NYS_SMALL_N}: hybrid L=50 {err_h:.3e}, traditional "
+              f"L=n/10 {err_t:.3e}")
+
+        pts, _ = self.spiral(N_MAIN, seed=0)
+        pts = torch.as_tensor(pts, device=self.dev)
+        adj = self.fs.make_normalized_adjacency(self.kernel, pts,
+                                                self.fs.SETUP_2,
+                                                device=self.dev)
+        self.sync()
+        self.reset_launches()
+        for l_size in NYS_COLUMNS:
+            res, took, n_spread, n_gather, peak = self.nystrom_run(
+                "hybrid", adj, pts, l_size, K_EIG, l_size)
+            self.nystrom_row(res, took, n_spread, n_gather, peak, "hybrid",
+                             l_size)
+            check(n_spread >= 2 and n_gather >= 2,
+                  f"hybrid L={l_size}: {n_spread} spread, {n_gather} gather "
+                  "launches")
+            check(bool(torch.isfinite(res.eigenvalues).all())
+                  and bool(torch.isfinite(res.eigenvectors).all()),
+                  f"hybrid L={l_size}: non-finite result")
+            check(float(res.eigenvalues.abs().max()) <= NYS_MAX_ABS_EIG,
+                  f"hybrid L={l_size}: max|lambda| "
+                  f"{float(res.eigenvalues.abs().max())}")
+            check(res.eigenvectors.shape == (N_MAIN, K_EIG),
+                  "hybrid eigenvector shape")
+        self.read_launches("nystrom")
+        del adj
+        res, took, _, _, peak = self.nystrom_run(
+            "traditional", None, pts, NYS_TRAD_L, None, 0)
+        self.nystrom_row(res, took, 0, 0, peak, "traditional", NYS_TRAD_L)
+        check(res.eigenvectors.shape == (N_MAIN, K_EIG),
+              "traditional eigenvector shape")
+
+    def nystrom_row(self, res, took, n_spread, n_gather, peak, method,
+                    l_size):
+        err = float((res.eigenvalues - self.main_lam).abs().max())
+        self.record["nystrom"].append({
+            "n": N_MAIN, "method": method, "L": l_size, "rank": K_EIG,
+            "eig_err": err, "max_abs_eig": float(res.eigenvalues.abs().max()),
+            "s": took, "run_peak_memory_gb": peak,
+            "window_launches": [n_spread, n_gather],
+            "device": self.record["device"]["nvidia_smi"]})
+        log(f"[nystrom] n={N_MAIN} {method} L={l_size} rank={K_EIG}: max "
+            f"eigenvalue error vs [main] SETUP_3 eigsh {err:.3e}, "
+            f"{took:.3f}s (host clock, ends in synchronize), the run's peak "
+            f"{peak:.2f} GB (max_memory_allocated above what it found held), "
+            f"spread/gather launches "
+            f"{n_spread}/{n_gather}; {self.record['device']['nvidia_smi']}")
+
+    def phase_segment(self):
+        """Image segmentation (paper Section 6.2.1) at the photograph's
+        426,400 pixels: spectral_clustering at k = 2 and 4."""
+        torch = self.torch
+        pixels = torch.as_tensor(self.segment_pixels(), device=self.dev)
+        kernel = self.make_kernel("gaussian", sigma=SEG_SIGMA)
+        self.sync()
+        self.reset_launches()
+        t0 = time.perf_counter()
+        op = self.fs.make_normalized_adjacency(kernel, pixels,
+                                               self.setup("SEG"),
+                                               device=self.dev)
+        self.sync()
+        t_plan = time.perf_counter() - t0
+        row = {"n": N_SEG, "height": SEG_H, "width": SEG_W,
+               "plan_s": t_plan, "runs": {}}
+        limit = 10 * JAX_SEG_LAMBDA1_ERR
+        for k in SEG_K:
+            t0 = time.perf_counter()
+            gen = torch.Generator(device=self.dev).manual_seed(0)
+            res = self.spec.spectral_clustering(op, k, generator=gen)
+            self.sync()
+            took = time.perf_counter() - t0
+            lam1 = abs(float(res.eigenvalues[0]) - 1.0)
+            agree = self.spec.clustering_agreement(
+                self.segment_truth, res.assignments.cpu().numpy(), k)
+            row["runs"][k] = {"s": took, "lambda1_err": lam1,
+                              "agreement": agree,
+                              "eigenvalues": res.eigenvalues.tolist()}
+            log(f"[segment] {SEG_H}x{SEG_W} = {N_SEG} pixels, sigma="
+                f"{SEG_SIGMA:g}, N=16 m=2 p=2 eps_B=1/8, k={k}: "
+                f"spectral_clustering {took:.3f}s (ends in synchronize), "
+                f"agreement with the truth regions {agree:.4f}, "
+                f"|lambda_1 - 1| = {lam1:.3e} (JAX package "
+                f"{JAX_SEG_LAMBDA1_ERR:.3e} on 100x150, limit {limit:.3e}), "
+                f"eigenvalues "
+                f"{[round(v, 6) for v in res.eigenvalues.tolist()]}")
+            check(res.assignments.shape == (N_SEG,), "segment: shape")
+            check(bool(torch.isfinite(res.eigenvalues).all()),
+                  f"segment k={k}: non-finite eigenvalues")
+            check(lam1 <= limit, f"segment k={k}: |lambda_1 - 1| {lam1:.3e}")
+        row["launches"] = self.read_launches("segment")
+        self.record["segment"] = row
+        log(f"[segment] plan {t_plan:.3f}s; launches {row['launches']}; "
+            f"{self.record['device']['nvidia_smi']}")
+        for kname in ("window_spread", "window_gather"):
+            check(row["launches"][kname] > 0,
+                  f"{kname} never launched on the segment path")
+        self.segment_op = op
+
     def serve_prompts(self, cfg):
         """SERVE_REQUESTS seeded prompts, lengths in 512..2048 with one of
         exactly 2048 and one of 1000."""
@@ -1199,9 +1531,14 @@ class Smoke:
             f"bounds: {HBM_BYTES_PER_S / 1e12} TB/s, FP64 "
             f"{PEAK_FLOPS['float64'] / 1e12} / FP32 "
             f"{PEAK_FLOPS['float32'] / 1e12} TFLOP/s (H100 SXM data sheet)")
-        shapes = [(N_MAIN, s, dt, (1, 4)) for s in ("SETUP_2", "SETUP_3")
+        shapes = [(N_MAIN, s, dt, (1, 4), "spiral")
+                  for s in ("SETUP_2", "SETUP_3")
                   for dt in (torch.float64, torch.float32)]
-        shapes.append((N_BIG, "SETUP_2", torch.float64, (1,)))
+        shapes.append((N_BIG, "SETUP_2", torch.float64, (1,), "spiral"))
+        # the hybrid Nyström's probe blocks and the segmentation's pixels
+        shapes.append((N_MAIN, "SETUP_2", torch.float64, NYS_COLUMNS,
+                       "spiral"))
+        shapes.append((N_SEG, "SEG", torch.float64, (1,), "segment"))
         for n, setup_name in ((N_MAIN, "SETUP_2"), (N_MAIN, "SETUP_3"),
                               (N_BIG, "SETUP_2")):
             plan, geom = self.window_geometry(setup_name, 3, n)
@@ -1217,9 +1554,10 @@ class Smoke:
             log(f"[times] tile plan n={n} {setup_name} d=3: {build_ms:.2f} ms "
                 f"(host clock, ends in synchronize; once per geometry), "
                 f"{tiles.n_tiles} tiles, largest box {tiles.max_cells} cells")
-        for n, setup_name, dtype, chans in shapes:
+        for n, setup_name, dtype, chans, kind in shapes:
             dname = str(dtype).split(".")[1]
-            plan, base, w, tiles = self.geometry(setup_name, 3, n, dtype)
+            plan, base, w, tiles = self.geometry(setup_name, 3, n, dtype,
+                                                 kind)
             pad, taps = self.padded_grid_size(plan), plan.taps
             for c in chans:
                 gen = torch.Generator(device=self.dev).manual_seed(c)
@@ -1240,8 +1578,9 @@ class Smoke:
                          lambda: win.window_gather(g, base, w,
                                                    tiles=tiles),
                          lambda: win.window_gather_plain(g, base, w))):
-                    ms = self.time_ms(kfn, reps=20)
-                    plain_ms = self.time_ms(pfn, reps=3, warmup=1)
+                    ms = self.time_ms(kfn, reps=20 if c <= 4 else 5)
+                    plain_ms = self.time_ms(pfn, reps=3 if c <= 4 else 1,
+                                            warmup=1)
                     row = {"kernel": kname, "setup": setup_name, "d": 3,
                            "c": c, "dtype": dname, "n": n,
                            "taps": taps, "padded": pad, "ms": ms,
@@ -1262,8 +1601,48 @@ class Smoke:
         for n, setup_name in ((N_MAIN, "SETUP_2"), (N_MAIN, "SETUP_3"),
                               (N_BIG, "SETUP_2")):
             self.time_matvec(n, setup_name)
+        self.time_nystrom()
         self.time_flash()
         self.time_serve()
+
+    def time_nystrom(self):
+        """One hybrid (L=50) and one traditional (L=n/20) Nyström at
+        n = 10^5 and the segmentation's eigsh (k=4, 426,400 pixels), host
+        clock ending in synchronize, with peak memory."""
+        torch = self.torch
+        card = self.record["device"]["nvidia_smi"]
+        pts, _ = self.spiral(N_MAIN, seed=0)
+        pts = torch.as_tensor(pts, device=self.dev)
+        adj = self.fs.make_normalized_adjacency(self.kernel, pts,
+                                                self.fs.SETUP_2,
+                                                device=self.dev)
+        for method, l_size, a in (("hybrid", NYS_COLUMNS[-1], adj),
+                                  ("traditional", NYS_TRAD_L, None)):
+            res, took, n_spread, n_gather, peak = self.nystrom_run(
+                method, a, pts, l_size, K_EIG, 5)
+            err = float((res.eigenvalues - self.main_lam).abs().max())
+            self.record["times"].append({
+                "nystrom": method, "n": N_MAIN, "L": l_size, "rank": K_EIG,
+                "s": took, "eig_err": err, "run_peak_memory_gb": peak,
+                "window_launches": [n_spread, n_gather], "device": card})
+            log(f"[times] nystrom {method} n={N_MAIN} L={l_size} rank={K_EIG}"
+                f" (seed 5): {took:.3f}s (host clock, ends in synchronize), "
+                f"eigenvalue error {err:.3e}, the run's peak {peak:.2f} GB; "
+                f"{card}")
+            del res
+        del adj
+        op = self.segment_op
+        self.sync()
+        t0 = time.perf_counter()
+        res = self.lan.eigsh(op.matvec, op.n, SEG_K[-1], device=self.dev)
+        self.sync()
+        took = time.perf_counter() - t0
+        self.record["times"].append({
+            "segment_eigsh": SEG_K[-1], "n": N_SEG, "s": took,
+            "matvecs": res.num_matvecs, "device": card})
+        log(f"[times] segment eigsh k={SEG_K[-1]} n={N_SEG} N=16 m=2: "
+            f"{took:.3f}s (host clock, ends in synchronize), "
+            f"{res.num_matvecs} matvecs; {card}")
 
     def time_flash(self):
         """The flash kernel at the serve path's prompt lengths and at one
@@ -1493,23 +1872,29 @@ class Smoke:
             f"k={K_EIG} {row['eigsh_s']:.3f}s ({res.num_matvecs} matvecs)")
 
     def kernel_records(self):
-        setup_name, d, c, dname = RECORD
         out = []
-        for kname, line in (("spread", 51), ("gather", 108)):
-            check_row = next(r for r in self.record["checks"]
-                             if r["kernel"] == kname
-                             and r.get("geometry") == "spiral"
-                             and (r["setup"], r["d"], r["c"], r["dtype"])
-                             == (setup_name, d, c, dname))
-            t = self.kernel_times[(kname, setup_name, d, c, dname, N_MAIN)]
-            out.append({
-                "name": f"window_{kname}", "route": "cuda",
-                "source": CU_SOURCE,
-                "replaces": f"src/repro/kernels/nfft_window.py:{line}",
-                "launches": self.launches[f"window_{kname}"],
-                "max_abs_err": check_row["max_abs_err"], "ms": t["ms"],
-                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                "bound_by": t["bound_by"], "library_ms": None})
+        # window kernels: one record per WINDOW_RECORDS path, with that
+        # path's launches and the error and times at its shape
+        for path, kind, setup_name, d, c, dname, n in WINDOW_RECORDS:
+            for kname, line in (("spread", 51), ("gather", 108)):
+                check_row = next(r for r in self.record["checks"]
+                                 if r["kernel"] == kname
+                                 and r.get("geometry") == kind
+                                 and (r["setup"], r["d"], r["c"], r["dtype"],
+                                      r["n"])
+                                 == (setup_name, d, c, dname, n))
+                t = self.kernel_times[(kname, setup_name, d, c, dname, n)]
+                out.append({
+                    "name": f"window_{kname}", "route": "cuda",
+                    "source": CU_SOURCE,
+                    "replaces": f"src/repro/kernels/nfft_window.py:{line}",
+                    "path": path, "shape": {"geometry": kind,
+                                            "setup": setup_name, "n": n,
+                                            "d": d, "c": c, "dtype": dname},
+                    "launches": self.path_launches[path][f"window_{kname}"],
+                    "max_abs_err": check_row["max_abs_err"], "ms": t["ms"],
+                    "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                    "bound_by": t["bound_by"], "library_ms": None})
         # kernel_matvec: one record per path that launches it, with that
         # path's launches and the times at its shape
         total = sum(v["kernel_matvec"] for v in self.path_launches.values())

@@ -22,7 +22,8 @@ import torch
 from repro_torch.core import fastsum_exec
 from repro_torch.core.kernels import Kernel
 from repro_torch.core.nfft import (
-    KAISER_BESSEL, NfftPlan, WindowGeometry, build_window_geometry,
+    KAISER_BESSEL, NfftGeometry, NfftPlan, WindowGeometry, build_geometry,
+    build_window_geometry, nfft_adjoint, nfft_forward,
 )
 from repro_torch.core.regularization import kernel_fourier_coefficients
 from repro_torch.device import resolve_device
@@ -100,6 +101,11 @@ class FastsumOperator:
     fs_params: FastsumParams
     scaled_tgt: torch.Tensor | None = None  # (n_tgt, d); None: targets = sources
     tgt_window: WindowGeometry | None = None
+    # flat geometries of the two-NFFT oracle, built at first use
+    _src_geom: NfftGeometry | None = dataclasses.field(
+        default=None, repr=False, compare=False)
+    _tgt_geom: NfftGeometry | None = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def n_source(self) -> int:
@@ -121,15 +127,54 @@ class FastsumOperator:
             self.plan, self.multiplier_half, self.src_window, tgt, x)
         return f * self.output_scale
 
-    def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """y = W x = (W̃ - K(0) I) x.  Requires src == tgt nodes."""
+    @property
+    def src_geometry(self) -> NfftGeometry:
+        """O(n * taps^d) flat geometry of the sources, built at first use.
+
+        Only the two-NFFT oracle reads it; operators that never call
+        :meth:`matvec_tilde_reference` never pay its time or memory.
+        """
+        if self._src_geom is None:
+            self._src_geom = build_geometry(self.plan, self.scaled_src)
+        return self._src_geom
+
+    @property
+    def tgt_geometry(self) -> NfftGeometry:
+        if self.scaled_tgt is None:
+            return self.src_geometry
+        if self._tgt_geom is None:
+            self._tgt_geom = build_geometry(self.plan, self.scaled_tgt)
+        return self._tgt_geom
+
+    def matvec_tilde_reference(self, x: torch.Tensor) -> torch.Tensor:
+        """y = W̃ x by the two-NFFT path (adjoint -> multiply -> forward).
+
+        Plain torch ops on the flat geometry (``index_add_``, cuFFT on the
+        card) and no window kernel: the yardstick the fused engine is held
+        against.
+        """
+        x_hat = nfft_adjoint(self.plan, self.src_geometry, x)
+        b_hat = self.b_hat[..., None] if x.ndim == 2 else self.b_hat
+        f = nfft_forward(self.plan, self.tgt_geometry, b_hat * x_hat)
+        return f.real * self.output_scale
+
+    def _require_square(self, name: str) -> None:
         if self.scaled_tgt is not None:
             raise ValueError(
-                "FastsumOperator.matvec subtracts the K(0) diagonal, which "
+                f"FastsumOperator.{name} subtracts the K(0) diagonal, which "
                 "is only defined when source and target nodes coincide; this "
                 "operator was built with target_points — use matvec_tilde "
                 "for rectangular kernel sums.")
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """y = W x = (W̃ - K(0) I) x.  Requires src == tgt nodes."""
+        self._require_square("matvec")
         return self.matvec_tilde(x) - self.kernel_at_zero * x
+
+    def matvec_reference(self, x: torch.Tensor) -> torch.Tensor:
+        """Two-NFFT W x, the oracle counterpart of :meth:`matvec`."""
+        self._require_square("matvec_reference")
+        return self.matvec_tilde_reference(x) - self.kernel_at_zero * x
 
     def degrees(self) -> torch.Tensor:
         """d = W 1 (row sums of the zero-diagonal weight matrix)."""

@@ -226,3 +226,147 @@ def build_window_geometry(plan: NfftPlan, nodes: torch.Tensor, *,
     else:
         perm = torch.arange(n, device=nodes.device)
     return WindowGeometry.from_sorted(base[perm], w_d[perm], perm)
+
+
+# ---------------------------------------------------------------------------
+# Flat tensor-product geometry and the two-NFFT oracle transforms.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class NfftGeometry:
+    """Flattened tensor-product window geometry (oracle transforms only).
+
+    The fused engine runs on the separable :class:`WindowGeometry`; this
+    O(n * taps^d) layout serves the two-NFFT reference path
+    (:func:`nfft_forward` / :func:`nfft_adjoint`), plain torch ops with no
+    hand-written kernel, so that path is independent of the window kernels.
+
+    indices: (n, taps^d) int64 — flattened oversampled-grid indices.
+    weights: (n, taps^d) float — tensor-product window values.
+    perm: optional (n,) int64 — row ``r`` holds the geometry of node
+      ``perm[r]`` (Morton order); ``None`` means node order.
+    """
+
+    indices: torch.Tensor
+    weights: torch.Tensor
+    perm: torch.Tensor | None = None
+
+    @property
+    def n_nodes(self) -> int:
+        return self.indices.shape[0]
+
+
+def build_geometry(plan: NfftPlan, nodes: torch.Tensor, *,
+                   sort: bool = True) -> NfftGeometry:
+    """Flat window geometry for nodes (n, d) in [-1/2, 1/2)^d.
+
+    With ``sort=True`` rows are ordered by the Morton code of the node's
+    base grid cell and the permutation is kept in ``perm``; the transforms
+    undo it, so their results do not depend on ``sort``.
+    """
+    n, d = nodes.shape
+    if d != plan.d:
+        raise ValueError(f"nodes have d={d}, plan has d={plan.d}")
+    grid, taps = plan.grid_size, plan.taps
+    base, w_d = _window_taps_1d(plan, nodes)
+    offs = torch.arange(taps, dtype=torch.int64, device=nodes.device)
+    idx_mod = torch.remainder(base.to(torch.int64)[:, :, None] + offs, grid)
+    flat_idx, flat_w = idx_mod[:, 0, :], w_d[:, 0, :]
+    for t in range(1, d):  # tensor product across dimensions, C order
+        flat_idx = (flat_idx[:, :, None] * grid
+                    + idx_mod[:, t, None, :]).reshape(n, -1)
+        flat_w = (flat_w[:, :, None] * w_d[:, t, None, :]).reshape(n, -1)
+    perm = None
+    if sort:
+        cells = torch.remainder(base + plan.m, grid)  # node cell in [0, M)
+        perm = _morton_perm(cells, grid)
+        flat_idx, flat_w = flat_idx[perm], flat_w[perm]
+    return NfftGeometry(indices=flat_idx.contiguous(),
+                        weights=flat_w.contiguous(), perm=perm)
+
+
+def _embed_mesh(plan: NfftPlan, device) -> tuple:
+    emb = torch.tensor(_embed_map(plan), device=device)
+    return torch.meshgrid(*([emb] * plan.d), indexing="ij")
+
+
+def nfft_forward(plan: NfftPlan, geometry: NfftGeometry,
+                 f_hat: torch.Tensor) -> torch.Tensor:
+    """Forward NFFT.  f_hat: (N,)*d [+ trailing C] -> (n,) [, C], complex.
+
+    Deconvolve, embed I_N into I_M, inverse FFT (scaled 1/M^d), then each
+    node sums its window of the grid.
+    """
+    d, grid = plan.d, plan.grid_size
+    batched = f_hat.ndim == d + 1
+    if not batched:
+        f_hat = f_hat[..., None]
+    c = f_hat.shape[-1]
+    dev = f_hat.device
+    cdt = torch.complex64 if f_hat.dtype in (torch.float32, torch.complex64) \
+        else torch.complex128
+    phi_hat = torch.tensor(plan.deconvolution_grid(), device=dev)
+    g_hat = f_hat.to(cdt) / phi_hat[..., None]
+    big = torch.zeros((grid,) * d + (c,), dtype=cdt, device=dev)
+    big[_embed_mesh(plan, dev)] = g_hat
+    g = torch.fft.ifftn(big, dim=tuple(range(d)))
+    vals = g.reshape(-1, c)[geometry.indices.reshape(-1)]
+    vals = vals.reshape(*geometry.indices.shape, c)
+    out = (vals * geometry.weights[..., None].to(cdt)).sum(dim=1)
+    if geometry.perm is not None:  # rows are Morton-sorted: node order
+        out = torch.zeros_like(out).index_copy_(0, geometry.perm, out)
+    return out if batched else out[..., 0]
+
+
+def nfft_adjoint(plan: NfftPlan, geometry: NfftGeometry,
+                 x: torch.Tensor) -> torch.Tensor:
+    """Adjoint NFFT.  x: (n,) [+ trailing C] -> (N,)*d [, C], complex.
+
+    The exact matrix adjoint of :func:`nfft_forward`: spread
+    (``index_add_``), FFT, extract I_N, deconvolve by M^d * phi_hat.
+    """
+    d, grid = plan.d, plan.grid_size
+    batched = x.ndim == 2
+    if not batched:
+        x = x[..., None]
+    c = x.shape[-1]
+    dev = x.device
+    if geometry.perm is not None:  # rows are Morton-sorted: align x
+        x = x[geometry.perm]
+    dtype = torch.promote_types(x.dtype, geometry.weights.dtype)
+    vals = geometry.weights[..., None].to(dtype) * x[:, None, :].to(dtype)
+    g_flat = torch.zeros((grid ** d, c), dtype=dtype, device=dev)
+    g_flat.index_add_(0, geometry.indices.reshape(-1), vals.reshape(-1, c))
+    g_hat = torch.fft.fftn(g_flat.reshape((grid,) * d + (c,)),
+                           dim=tuple(range(d)))
+    small = g_hat[_embed_mesh(plan, dev)]
+    phi_hat = torch.tensor(plan.deconvolution_grid(), device=dev)
+    out = small / ((grid ** d) * phi_hat)[..., None]
+    return out if batched else out[..., 0]
+
+
+def _frequencies(n_bandwidth: int, d: int, nodes: torch.Tensor):
+    freqs = torch.fft.fftfreq(n_bandwidth, d=1.0 / n_bandwidth,
+                              dtype=nodes.dtype, device=nodes.device)
+    grids = torch.meshgrid(*([freqs] * d), indexing="ij")
+    return torch.stack([g.reshape(-1) for g in grids], dim=-1)  # (N^d, d)
+
+
+def ndft_forward(n_bandwidth: int, nodes: torch.Tensor,
+                 f_hat: torch.Tensor) -> torch.Tensor:
+    """Direct O(n N^d) forward transform, the NFFT's own oracle."""
+    d = nodes.shape[1]
+    freq = _frequencies(n_bandwidth, d, nodes)
+    phase = torch.exp(2j * np.pi * (nodes @ freq.T))  # (n, N^d)
+    flat = f_hat.reshape(n_bandwidth ** d, *f_hat.shape[d:])
+    return phase @ flat.to(phase.dtype)
+
+
+def ndft_adjoint(n_bandwidth: int, nodes: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+    """Direct O(n N^d) adjoint transform."""
+    d = nodes.shape[1]
+    freq = _frequencies(n_bandwidth, d, nodes)
+    phase = torch.exp(-2j * np.pi * (freq @ nodes.T))  # (N^d, n)
+    out = phase @ x.to(phase.dtype)
+    return out.reshape((n_bandwidth,) * d + tuple(x.shape[1:]))

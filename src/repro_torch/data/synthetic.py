@@ -1,14 +1,15 @@
 """Synthetic datasets of the paper's experiments (Section 6), numpy only.
 
-The port's own copy of ``spiral``, ``crescent_fullmoon`` and
-``gaussian_blobs``: the same seeds give the same points as the JAX
-package's generators.
+The port's own copy of the JAX package's generators: the same seeds give
+the same arrays.
 
 * spiral            — 3-D conical spiral with C arms (Fig. 2a), calibrated
                       so that sigma = 3.5 reproduces the paper's three
                       error tiers.
 * crescent_fullmoon — 2-D crescent + full moon (Section 6.2.3, SSL/KRR).
 * gaussian_blobs    — C isotropic clusters (Section 6.2.2).
+* synthetic_image   — piecewise-constant RGB image + noise, the stand-in
+                      for the paper's 533 x 800 photograph (Fig. 5).
 """
 
 from __future__ import annotations
@@ -77,3 +78,34 @@ def gaussian_blobs(n: int, n_classes: int = 5, d: int = 3,
     points = centers[labels] + rng.normal(0, scale, (n, d))
     d2 = ((points[:, None, :] - centers[None, :, :]) ** 2).sum(-1)
     return points.astype(np.float64), np.argmin(d2, axis=1).astype(np.int32)
+
+
+def synthetic_image(height: int = 60, width: int = 90, noise: float = 8.0,
+                    seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """Piecewise-constant RGB image (values 0..255) + truth segmentation.
+
+    Four regions: sky, ground, a disk ("sun"), a rectangle ("building").
+    Returns (image (H, W, 3) float64, labels (H, W) int32).
+    """
+    rng = np.random.default_rng(seed)
+    img = np.zeros((height, width, 3))
+    lab = np.zeros((height, width), np.int32)
+    img[:] = (70.0, 120.0, 200.0)  # sky
+
+    horizon = int(height * 0.65)
+    img[horizon:] = (60.0, 160.0, 70.0)  # ground
+    lab[horizon:] = 1
+
+    cy, cx, rad = int(height * 0.2), int(width * 0.75), max(3, height // 8)
+    yy, xx = np.mgrid[0:height, 0:width]
+    disk = (yy - cy) ** 2 + (xx - cx) ** 2 <= rad ** 2
+    img[disk] = (250.0, 220.0, 60.0)  # sun
+    lab[disk] = 2
+
+    y0, y1 = int(height * 0.35), horizon
+    x0, x1 = int(width * 0.15), int(width * 0.4)
+    img[y0:y1, x0:x1] = (150.0, 60.0, 50.0)  # building
+    lab[y0:y1, x0:x1] = 3
+
+    img = np.clip(img + rng.normal(0, noise, img.shape), 0.0, 255.0)
+    return img, lab

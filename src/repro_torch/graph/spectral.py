@@ -2,9 +2,17 @@
 
 Pipeline: k largest eigenvectors of A = D^{-1/2} W D^{-1/2} by the
 NFFT-based Lanczos method -> row-normalize -> k-means (k-means++ init and
-Lloyd iterations) on the embedded rows.  Randomness comes from one
-``torch.Generator`` on the operator's device: the Lanczos start vector
-and the k-means++ draws are consecutive, independent draws from it.
+Lloyd iterations) on the embedded rows.
+
+Randomness comes from one ``torch.Generator`` on the operator's device:
+the Lanczos start vector is drawn first and the k-means++ draws follow it
+in sequence, where the reference splits its key into two.  That is no
+fault: a JAX key gives the same numbers each time it is used, so two
+consumers of one key would see the same stream and must split it, but a
+torch generator advances its state with every draw, so consecutive draws
+are different, independent parts of one stream.  The two packages cannot
+give the same numbers for one seed either way (``jax.random`` and torch's
+generators are different algorithms).
 """
 
 from __future__ import annotations
@@ -71,25 +79,33 @@ def kmeans(points: torch.Tensor, k: int, num_iters: int = 50, *,
 def spectral_clustering(adjacency: NormalizedAdjacencyOperator, k: int, *,
                         generator: torch.Generator | None = None,
                         num_lanczos_iters: int | None = None,
-                        block_size: int = 1) -> SpectralResult:
+                        block_size: int = 1,
+                        eigenvectors: torch.Tensor | None = None,
+                        eigenvalues: torch.Tensor | None = None
+                        ) -> SpectralResult:
     """NJW spectral clustering with NFFT-accelerated eigenvectors.
 
     ``generator`` must live on the operator's device (default: one seeded
-    with 0).  ``block_size > 1`` uses block Lanczos.
+    with 0).  ``block_size > 1`` uses block Lanczos.  Pass precomputed
+    ``eigenvectors`` (and their ``eigenvalues``) to reuse them, e.g. from
+    Nyström: then no Lanczos runs and the adjacency is used only for its
+    device.
     """
     dev = adjacency.inv_sqrt_deg.device
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    res = eigsh(adjacency.matvec, adjacency.n, k,
-                num_iters=num_lanczos_iters, generator=generator,
-                block_size=block_size, dtype=adjacency.inv_sqrt_deg.dtype,
-                device=dev)
-    vecs = res.eigenvectors
+    if eigenvectors is None:
+        res = eigsh(adjacency.matvec, adjacency.n, k,
+                    num_iters=num_lanczos_iters, generator=generator,
+                    block_size=block_size,
+                    dtype=adjacency.inv_sqrt_deg.dtype, device=dev)
+        eigenvectors, eigenvalues = res.eigenvectors, res.eigenvalues
+    vecs = eigenvectors
     rows = vecs / torch.clamp(torch.linalg.vector_norm(vecs, dim=1,
                                                        keepdim=True), min=1e-30)
     km = kmeans(rows, k, generator=generator)
     return SpectralResult(assignments=km.assignments,
-                          eigenvalues=res.eigenvalues, eigenvectors=vecs)
+                          eigenvalues=eigenvalues, eigenvectors=vecs)
 
 
 def clustering_agreement(a, b, k: int) -> float:

@@ -37,6 +37,7 @@ from repro_torch.core.kernels import make_kernel as tmake_kernel
 from repro_torch.data import synthetic as tdata
 from repro_torch.data.synthetic import gaussian_blobs
 from repro_torch.graph import krr as tkrr
+from repro_torch.graph import spectral as tspec
 from repro_torch.graph import ssl as tssl
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -229,3 +230,80 @@ def test_ssl_crescent_entry_point_runs_on_cpu():
     assert [ln.split()[0] for ln in lines] == ["gaussian", "laplacian_rbf"]
     assert all("misclassification" in ln and "device=cpu" in ln
                for ln in lines)
+
+
+@pytest.mark.parametrize("height,width,seed", [(60, 90, 0), (100, 150, 0),
+                                               (533, 800, 3)])
+def test_synthetic_image_identical(height, width, seed):
+    jimg, jlab = jdata.synthetic_image(height, width, seed=seed)
+    timg, tlab = tdata.synthetic_image(height, width, seed=seed)
+    np.testing.assert_array_equal(timg, jimg)
+    np.testing.assert_array_equal(tlab, jlab)
+    assert timg.dtype == jimg.dtype and tlab.dtype == jlab.dtype
+
+
+class _NoMatvec:
+    """An adjacency whose matvec must not be called."""
+
+    def __init__(self, n):
+        self.inv_sqrt_deg = torch.ones(n, dtype=torch.float64)
+        self.n = n
+
+    def matvec(self, x):
+        raise AssertionError("spectral_clustering ran Lanczos")
+
+
+def test_spectral_clustering_with_given_eigenvectors():
+    """Precomputed eigenvectors (here of the dense A of three far-apart
+    blobs): no operator application, full agreement with the labels."""
+    pts, labels = gaussian_blobs(600, 3, d=2, spread=20.0, scale=0.5,
+                                 seed=2)
+    from repro_torch.core import dense_normalized_adjacency
+    a = dense_normalized_adjacency(tmake_kernel("gaussian", sigma=2.0),
+                                   torch.as_tensor(pts))
+    lam, vec = torch.linalg.eigh(a)
+    vecs, vals = vec.flip(1)[:, :3], lam.flip(0)[:3]
+    res = tspec.spectral_clustering(_NoMatvec(600), 3, eigenvectors=vecs,
+                                    eigenvalues=vals)
+    assert res.eigenvectors is vecs and res.eigenvalues is vals
+    assert tspec.clustering_agreement(labels, res.assignments.numpy(),
+                                      3) == 1.0
+
+
+def _run_module(args, tmp_path):
+    proc = subprocess.run(
+        [sys.executable, "-m", *args], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 REPRO_BENCH_DIR=str(tmp_path)))
+    assert proc.returncode == 0, proc.stderr
+    return proc.stdout
+
+
+def test_image_segmentation_entry_point_runs_on_cpu(tmp_path):
+    out = _run_module(["repro_torch.image_segmentation", "--height", "30",
+                       "--width", "45", "--device", "cpu", "--out",
+                       str(tmp_path)], tmp_path)
+    assert "device=cpu" in out and "k=4: clustered" in out
+    for name in ("input.ppm", "segmentation_k2.ppm", "segmentation_k4.ppm"):
+        assert (tmp_path / name).read_bytes().startswith(b"P6 45 30 255\n")
+    assert "agreement with the truth regions 1.0000" in out
+
+
+@pytest.mark.parametrize("figure,size,cases", [
+    ("fig3_eigenvalues", "200", ("nfft-lanczos-setup3 n=200 eigerr",
+                                 "nystrom-L=n/4 n=200 eigerr",
+                                 "hybrid-L=50 n=200 eigerr")),
+    ("fig5_segmentation", "20", ("nfft k=4 n=600 disagreement",
+                                 "nystrom k=4 L=25 n=600 mean-disagreement"))])
+def test_figure_drivers_run_small_on_cpu(tmp_path, figure, size, cases):
+    _run_module([f"repro_torch.figures.{figure}", "--device", "cpu",
+                 "--sizes", size], tmp_path)
+    import json
+    rows = json.loads((tmp_path / f"torch_{figure}.json").read_text())
+    by_case = {r["case"]: r["value"] for r in rows}
+    for case in cases:
+        assert np.isfinite(by_case[case]), case
+    if figure == "fig3_eigenvalues":
+        assert by_case["nfft-lanczos-setup3 n=200 eigerr"] < 1e-13
+        assert by_case["hybrid-L=50 n=200 eigerr"] < 1e-2

@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core import fastsum as tfs
+from repro_torch.core import nystrom as tny
 from repro_torch.core.kernels import make_kernel
 from repro_torch.core.nfft import build_window_geometry, padded_grid_size
 from repro_torch.data.synthetic import crescent_fullmoon, spiral
@@ -253,6 +254,89 @@ def test_matvec_on_card_matches_cpu(cuda):
     got = on_card.matvec(torch.as_tensor(x, device=cuda)).cpu()
     want = on_cpu.matvec(torch.as_tensor(x))
     assert _rel(got, want) <= 1e-12
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("weights", ["window", "random"])
+@pytest.mark.parametrize("c", [20, 50])
+def test_kernels_match_plain_at_probe_widths(cuda, c, weights, dtype):
+    """C = L, the hybrid Nyström's probe blocks (L = 20 and 50): neither is
+    a multiple of the spread's 4- or the gather's 8-channel pass, so the
+    last pass runs padded; with the geometry's own weights and with seeded
+    standard normal ones.  The adjoint identity at float64."""
+    plan, base, w = _geometry(tfs.SETUP_2, 3, 20000, dtype, cuda)
+    if weights == "random":
+        w = torch.randn(w.shape, dtype=dtype, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(9))
+    pad = padded_grid_size(plan)
+    tiles = twin.build_tile_plan(base, plan.taps)
+    gen = torch.Generator(device=cuda).manual_seed(c)
+    x = torch.randn((base.shape[0], c), generator=gen, dtype=dtype,
+                    device=cuda)
+    g = torch.randn((pad,) * 3 + (c,), generator=gen, dtype=dtype,
+                    device=cuda)
+    got_s = twin.window_spread(x, base, w, padded_size=pad, tiles=tiles)
+    got_g = twin.window_gather(g, base, w, tiles=tiles)
+    assert _rel(got_s, twin.window_spread_plain(x, base, w, padded_size=pad)) \
+        <= TOL[("spread", dtype)]
+    assert _rel(got_g, twin.window_gather_plain(g, base, w)) \
+        <= TOL[("gather", dtype)]
+    if dtype == torch.float64:
+        lhs = float((got_g * x).sum())
+        rhs = float((g * got_s).sum())
+        assert abs(lhs - rhs) <= 1e-10 * abs(lhs)
+
+
+@pytest.mark.parametrize("c", [1, 4])
+def test_fused_matvec_matches_two_nfft_reference_on_card(cuda, c):
+    """The fused path (window kernels) against matvec_tilde_reference (flat
+    geometry, index_add_, cuFFT) within 1e-12 of the reference's largest
+    entry, the limit of tests/test_fastsum_exec.py."""
+    pts, _ = spiral(20000, seed=0)
+    op = tfs.make_fastsum(make_kernel("gaussian", sigma=3.5), pts,
+                          tfs.SETUP_2, device=cuda)
+    x = torch.randn((20000, c), dtype=torch.float64, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(c))
+    spread = twin.window_spread.launches
+    ref = op.matvec_tilde_reference(x)
+    assert twin.window_spread.launches == spread
+    assert _rel(op.matvec_tilde(x), ref) <= 1e-12
+
+
+def test_hybrid_nystrom_launches_kernels_and_matches_plain_windows(
+        cuda, monkeypatch):
+    """Algorithm 5.1 at n = 10^5, L = 50: both products with A take all 50
+    columns through one spread and one gather launch each.  The same run
+    with the plain window versions (on the card) agrees: eigenvalues within
+    1e-10, eigenvectors within 1e-8 after sign alignment (the top ten
+    Ritz values are 1e-2 apart)."""
+    pts, _ = spiral(100_000, seed=0)
+    adj = tfs.make_normalized_adjacency(make_kernel("gaussian", sigma=3.5),
+                                        pts, tfs.SETUP_2, device=cuda)
+
+    def run():
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        return tny.nystrom_gaussian_nfft(adj, 10, num_columns=50, rank=10,
+                                         generator=gen)
+
+    launches = (twin.window_spread.launches, twin.window_gather.launches)
+    got = run()
+    torch.cuda.synchronize()
+    assert (twin.window_spread.launches - launches[0],
+            twin.window_gather.launches - launches[1]) == (2, 2)
+    monkeypatch.setattr(twin, "window_spread",
+                        lambda x, b, w, *, padded_size, tiles=None:
+                        twin.window_spread_plain(x, b, w,
+                                                 padded_size=padded_size))
+    monkeypatch.setattr(twin, "window_gather",
+                        lambda g, b, w, *, tiles=None:
+                        twin.window_gather_plain(g, b, w))
+    want = run()
+    assert float((got.eigenvalues - want.eigenvalues).abs().max()) <= 1e-10
+    sign = torch.sign((got.eigenvectors * want.eigenvectors).sum(dim=0))
+    assert float((got.eigenvectors * sign - want.eigenvectors).abs().max()) \
+        <= 1e-8
+    assert float(got.eigenvalues.abs().max()) <= 1.01
 
 
 KM_TOL = {torch.float64: 1e-12, torch.float32: 1e-4}

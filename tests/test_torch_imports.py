@@ -19,7 +19,12 @@ MODULES = ("core.kernels", "core.regularization", "core.nfft",
            "configs", "configs.base", "configs.archs", "models.common",
            "models.mlp", "models.attention", "models.model",
            "serving.engine", "launch.serve", "launch.trace_serve",
-           "launch.time_window", "launch.time_kernel_matvec")
+           "launch.time_window", "launch.time_kernel_matvec",
+           "core.nystrom", "image_segmentation", "figures", "figures.common",
+           "figures.fig3_eigenvalues", "figures.fig5_segmentation",
+           "figures.fig6_phasefield", "figures.fig7_kernel_ssl",
+           "figures.fig8_kernel_ssl_laplacian", "figures.fig9_krr",
+           "figures.run")
 
 
 def _imported_roots(path: Path) -> set:

@@ -21,7 +21,13 @@ no hand-written kernel) at n = 10^5; traditional and hybrid Nyström at
 n = 4000 against dense eigvalsh (tests/test_nystrom.py's tiers) and at
 n = 10^5, where the hybrid's probe blocks run the window kernels at
 C = L = 20 and 50 (checked kernel vs plain too); and image segmentation
-of a 533 x 800 synthetic image (426,400 pixels).  Then the LM serving
+of a 533 x 800 synthetic image (426,400 pixels).  Then operator banks
+(four Gaussians at n = 100,000 against the single operators), the
+(sigma, beta) sweep of benchmarks/sweep_scaling.py at n = 50,000 against
+sequential fits, multilayer SSL at n = 100,000, and the graph-predict
+serving tier at benchmarks/serve_scaling.py's full size (plus the sweep's
+16 cells as tenants) against per-request replans and the direct oracle,
+with its guards and one tick taken apart.  Then the LM serving
 path: the flash attention kernels against their plain version (float32
 on the CUDA cores, bf16 and f16 on the tensor cores: the JAX kernel
 tests' shapes in float32 and bf16, granite-3-2b's heads in all three up
@@ -43,8 +49,9 @@ line.
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it is the kernels' JSON record (the window kernels once
-per path of WINDOW_RECORDS, ``kernel_matvec`` once per path that launches
-it, each with that path's launches and shape).  Needs one card and the
+per path of WINDOW_RECORDS and once per shape of the bank, sweep,
+multilayer and graph-serve paths, ``kernel_matvec`` once per path that
+launches it, each with that path's launches and shape).  Needs one card and the
 repository checkout around this file; imports nothing of JAX.
 """
 
@@ -238,6 +245,123 @@ SERVE_MARGIN = 1e-3
 SERVE_FLASH_VS_EINSUM = {"bfloat16": 5e-2, "float32": 1e-4}
 TICKS_TIMED = 32
 
+# [bank]: the main path's spiral at n = 10^5, d = 3, SETUP_2, four Gaussian
+# members; bank vs the S single operators, relative to the largest output
+# entry (the same kernels, one bank spread/gather against S of them)
+BANK_SIGMAS = (2.5, 3.0, 3.5, 4.0)
+BANK_C = 4
+BANK_TOL = 1e-13
+# [sweep]: benchmarks/sweep_scaling.py's configurations (CONFIGS, _dataset
+# and its seeds) at n = 50,000: d -> (N, m, sigma scale, betas), 8 sigmas
+# geomspace(0.8, 1.25) x scale, eps_B = p/N; tol 1e-8, maxiter 600, and
+# its bank-vs-sequential alpha limit (two CG runs agree to ~residual/beta)
+SWEEP_N = 50_000
+SWEEP_SIGMAS = 8
+SWEEP_CONFIGS = {1: (64, 4, 1.0, (0.02, 0.08)),
+                 2: (32, 4, 1.0, (10.0, 40.0)),
+                 3: (32, 4, 3.0, (100.0, 400.0))}
+SWEEP_TOL, SWEEP_MAXITER = 1e-8, 600
+SWEEP_ALPHA_REL = 1e-5
+# [multilayer]: the [ssl] crescent with two Gaussian layers
+ML_SIGMAS, ML_WEIGHTS = (0.75, 1.5), (0.5, 0.5)
+# [graph_serve]: benchmarks/serve_scaling.py's full mode (uniform d = 2
+# training set in (-3, 3), seed 3, +-1 labels, N = 64, m = 4, REG, two
+# Gaussian tenants; 64 requests x 256 query points in (-2.5, 2.5)), and a
+# second group: the [sweep] phase's d = 2 cells as 16 tenants, 4 requests
+# each from inside their training box
+GS_N_TRAIN, GS_REQUESTS, GS_M_QUERY = 20_000, 64, 256
+GS_SIGMAS, GS_REG, GS_SEED = (1.0, 1.5), 1e-2, 3
+GS_N_BANDWIDTH, GS_M = 64, 4
+GS_SLOTS, GS_CHUNK = 8, 256
+GS_SWEEP_D, GS_SWEEP_PER_CELL = 2, 4
+# just past the first group's serving domain (tests/test_chaos.py's points)
+GS_OUT_OF_DOMAIN = np.array([[4.5, -4.0], [5.0, 5.0], [4.2, 0.0]])
+# The JAX engine's max|served - direct| / max|direct| over each group's
+# burst at these settings; the same against the exact trigonometric sum
+# the served NFFT approximates (an NDFT of the frozen frame's nodes with
+# the kernel's Fourier coefficients: "ndft_*"); the sequential path's
+# (krr_predict, a joint replan per request) against direct; and of
+# GS_OUT_OF_DOMAIN served by the replan; on the CPU (x64), from
+# tests/jax_graph_serve_reference.py.  The smoke's limit is 10x each.
+# The sweep cells' N = 32 grid cannot resolve their sigma (~0.02 in the
+# frozen frame, a grid step of ~0.03): the JAX engine misses the direct
+# sum by ~98% there, so that group's served-vs-direct limit cannot fail
+# and the NDFT limit is the one that holds it.  Each served output is
+# also held against the same plan's unpacked fast prediction, to the
+# spread's 1e-12 relative to the same prediction over |alpha| (the size
+# of the sums the rounding acts on: KRR's dual vectors cancel ~100x in
+# the output)
+JAX_GRAPH_SERVE_REL = {"uniform": 0.020869642148381773,
+                       "sweep": 0.9773518649335858,
+                       "ndft_uniform": 0.0008468992237145356,
+                       "ndft_sweep": 8.953635540698428e-07,
+                       "sequential_uniform": 0.001604635277893625,
+                       "sequential_sweep": 1.0038908950635221,
+                       "replan": 0.00024284251027812897}
+GS_UNPACKED_TOL = 1e-12
+# timed traffic: GS_ROUNDS fresh bursts through the engine and the first
+# GS_SEQ_ROUNDS of them through the sequential path, per traffic mix
+GS_ROUNDS, GS_SEQ_ROUNDS = 8, 2
+GS_TRAFFIC = ("uniform", "sweep", "mixed")
+
+
+def sweep_sigmas(d: int) -> tuple:
+    return tuple(float(s) for s in SWEEP_CONFIGS[d][2]
+                 * np.geomspace(0.8, 1.25, SWEEP_SIGMAS))
+
+
+# the oracle of [graph_serve] (krr_predict_direct), one row per training
+# size: a request of the first group (256 queries x the 20,000 uniform
+# points) and of the sweep group (x the 50,000 crescent points; the
+# smallest of its sigmas)
+KM_PATHS += (("graph_serve_oracle_uniform", "serve", GS_M_QUERY, GS_N_TRAIN,
+              2, "gaussian", GS_SIGMAS[0], False),
+             ("graph_serve_oracle_sweep", "serve_sweep", GS_M_QUERY, SWEEP_N,
+              2, "gaussian", sweep_sigmas(GS_SWEEP_D)[0], False))
+
+
+def sweep_dataset(d: int, n: int, crescent_fullmoon, spiral):
+    """benchmarks/sweep_scaling.py's _dataset: (points (n, d), f (n,))."""
+    rng = np.random.default_rng(7)
+    if d == 1:
+        x = np.sort(rng.normal(size=(n, 1)) * 2.0, axis=0)
+    elif d == 2:
+        x, _ = crescent_fullmoon(n, seed=2)
+    else:
+        x, _ = spiral(n, seed=2)
+    x = np.asarray(x)
+    f = np.sin(3.0 * x[:, 0]) + 0.1 * rng.standard_normal(n)
+    return x, f
+
+
+def graph_serve_data(rng):
+    """serve_scaling.py's training set: (points, labels) from ``rng``."""
+    xtr = rng.uniform(-3, 3, (GS_N_TRAIN, 2))
+    return xtr, np.sign(rng.standard_normal(GS_N_TRAIN))
+
+
+def graph_serve_group(model_id: str) -> str:
+    return "uniform" if model_id.startswith("tenant") else "sweep"
+
+
+def graph_serve_burst(rng, sweep_points, kind="mixed"):
+    """One burst: [(model id, queries)].  "uniform": serve_scaling.py's
+    requests (tenants round-robin); "sweep": GS_SWEEP_PER_CELL per sweep
+    cell, drawn inside the sweep's training box; "mixed": both, in that
+    order."""
+    burst = []
+    if kind != "sweep":
+        burst += [(f"tenant{i % len(GS_SIGMAS)}",
+                   rng.uniform(-2.5, 2.5, (GS_M_QUERY, 2)))
+                  for i in range(GS_REQUESTS)]
+    if kind != "uniform":
+        lo, hi = sweep_points.min(axis=0), sweep_points.max(axis=0)
+        n_cells = SWEEP_SIGMAS * len(SWEEP_CONFIGS[GS_SWEEP_D][3])
+        burst += [(f"cell{i % n_cells}",
+                   rng.uniform(lo, hi, (GS_M_QUERY, 2)))
+                  for i in range(n_cells * GS_SWEEP_PER_CELL)]
+    return burst
+
 
 def log(msg: str = "") -> None:
     print(msg, flush=True)
@@ -280,7 +404,10 @@ class Smoke:
     def __init__(self, torch):
         from repro_torch.core import fastsum, fastsum_exec, lanczos
         from repro_torch.core.kernels import make_kernel
-        from repro_torch.core.nfft import build_window_geometry, padded_grid_size
+        from repro_torch.core.nfft import (
+            build_window_geometry, ndft_adjoint, ndft_forward,
+            padded_grid_size,
+        )
         from repro_torch import image_segmentation
         from repro_torch.core import nystrom
         from repro_torch.data.synthetic import (
@@ -292,6 +419,7 @@ class Smoke:
         from repro_torch.kernels import flash_attention
         from repro_torch.models import model as lm
         from repro_torch.runtime import guards
+        from repro_torch.serving import graph as graph_serving
         from repro_torch.serving.engine import Request, ServeEngine
 
         self.torch = torch
@@ -301,6 +429,7 @@ class Smoke:
         self.exec = fastsum_exec
         self.spiral = spiral
         self.build_window_geometry = build_window_geometry
+        self.ndft_adjoint, self.ndft_forward = ndft_adjoint, ndft_forward
         self.padded_grid_size = padded_grid_size
         self.build, self.win = _build, nfft_window
         self.km, self.guards, self.ssl, self.krr = (kernel_matvec, guards,
@@ -310,7 +439,10 @@ class Smoke:
         self.seg_params = image_segmentation.PARAMS
         self.nys = nystrom
         self.make_kernel = make_kernel
+        self.graph = graph_serving
         self.path_launches = {}
+        self.slice_records = []  # window kernels on the slice-8 paths
+        self.alpha_hat = {}  # [graph_serve]'s NDFT of each model's alpha
         self.dev = torch.device("cuda", 0)
         self.kernel = make_kernel("gaussian", sigma=SIGMA)
         self.record = {"checks": [], "times": []}
@@ -377,10 +509,24 @@ class Smoke:
         (first d coordinates) as both point sets; "ssl": the SSL path's
         crescent-fullmoon nodes as both; "krr" (the default when
         rectangular): the KRR path's crescent-fullmoon test and training
-        points.  x is standard normal."""
+        points; "serve" / "serve_sweep": [graph_serve]'s two training sets
+        and queries.  x is standard normal."""
         torch = self.torch
         points = points or ("spiral" if n_out == n_in else "krr")
-        if points != "krr":
+        if points == "serve":  # [graph_serve]'s training set and queries
+            rng = np.random.default_rng(GS_SEED)
+            b = torch.as_tensor(graph_serve_data(rng)[0][:n_in], dtype=dtype,
+                                device=self.dev)
+            a = torch.as_tensor(rng.uniform(-2.5, 2.5, (n_out, d)),
+                                dtype=dtype, device=self.dev)
+        elif points == "serve_sweep":  # the sweep group's, in its box
+            pts, _ = sweep_dataset(GS_SWEEP_D, n_in, self.crescent,
+                                   self.spiral)
+            b = torch.as_tensor(pts, dtype=dtype, device=self.dev)
+            a = torch.as_tensor(np.random.default_rng(GS_SEED).uniform(
+                pts.min(axis=0), pts.max(axis=0), (n_out, d)), dtype=dtype,
+                device=self.dev)
+        elif points != "krr":
             pts, _ = (self.crescent(n_in, seed=0) if points == "ssl"
                       else self.spiral(n_in, seed=0))
             b = a = torch.as_tensor(pts[:, :d], dtype=dtype, device=self.dev)
@@ -525,6 +671,10 @@ class Smoke:
         self.phase_oracle()
         self.phase_nystrom()
         self.phase_segment()
+        self.phase_bank()
+        self.phase_sweep()
+        self.phase_multilayer()
+        self.phase_graph_serve()
         self.phase_serve()
         self.phase_times()
 
@@ -1344,6 +1494,783 @@ class Smoke:
                   f"{kname} never launched on the segment path")
         self.segment_op = op
 
+    # -- slice 8: banks, the sweep, multilayer SSL, graph serving -----------
+    def window_path_record(self, path, geometry, plan, geom, c, kinds):
+        """The window kernels at one shape of a path: kernel vs plain (TOL),
+        kernel and plain ms (CUDA events), the bound, and that path's
+        launches; one kernels-JSON record each."""
+        torch, win = self.torch, self.win
+        n, d, taps = geom.weights.shape
+        pad = self.padded_grid_size(plan)
+        gen = torch.Generator(device=self.dev).manual_seed(c)
+        x = torch.randn((n, c), generator=gen, dtype=torch.float64,
+                        device=self.dev)
+        g = torch.randn((pad,) * d + (c,), generator=gen,
+                        dtype=torch.float64, device=self.dev)
+        tiles = geom.tiles
+        fns = {"spread": (lambda: win.window_spread(
+                   x, geom.base, geom.weights, padded_size=pad, tiles=tiles),
+                   lambda: win.window_spread_plain(
+                       x, geom.base, geom.weights, padded_size=pad)),
+               "gather": (lambda: win.window_gather(g, geom.base,
+                                                   geom.weights, tiles=tiles),
+                          lambda: win.window_gather_plain(g, geom.base,
+                                                          geom.weights))}
+        for kname in kinds:
+            kfn, pfn = fns[kname]
+            p_out = pfn()
+            err = float((kfn() - p_out).abs().max())
+            rel = err / float(p_out.abs().max())
+            tol = TOL[(kname, "float64")]
+            check(rel <= tol, f"{kname} at the {path} path's shape: rel "
+                  f"{rel:.3e}")
+            ms = self.time_ms(kfn, reps=20)
+            plain_ms = self.time_ms(pfn, reps=2, warmup=1)
+            bound_ms, by, flops, nbytes = self.bound(n, d, taps, c, pad,
+                                                     "float64")
+            launches = self.path_launches[path][f"window_{kname}"]
+            check(launches > 0, f"{path}: window_{kname} not launched")
+            row = {"kernel": kname, "path": path, "geometry": geometry,
+                   "n": n, "d": d, "taps": taps, "c": c, "dtype": "float64",
+                   "padded": pad, "tiles": tiles.n_tiles,
+                   "max_box_cells": tiles.max_cells, "max_abs_err": err,
+                   "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": by, "flops": flops,
+                   "bytes": nbytes, "launches": launches,
+                   "library_ms": None}
+            self.record["times"].append(row)
+            self.slice_records.append(row)
+            log(f"[times] {kname:6s} {path} path ({geometry}) n={n} d={d} "
+                f"C={c} float64: {ms:.4f} ms  bound {bound_ms:.4f} ms ({by}, "
+                f"{100 * bound_ms / ms:.2f}% of bound)  plain {plain_ms:.3f} "
+                f"ms (no yardstick)  library: none; rel err vs plain "
+                f"{rel:.2e}; {launches} launches on the path")
+
+    def one_launch_each(self, fn, what):
+        """fn() with exactly one spread and one gather launch."""
+        before = (self.win.window_spread.launches,
+                  self.win.window_gather.launches)
+        out = fn()
+        got = (self.win.window_spread.launches - before[0],
+               self.win.window_gather.launches - before[1])
+        check(got == (1, 1), f"{what}: {got} spread/gather launches, not 1/1")
+        return out
+
+    def phase_bank(self):
+        """[bank]: S = 4 Gaussian members on the main path's spiral at
+        n = 10^5 (SETUP_2) against the S single operators, every flavour
+        one spread and one gather launch."""
+        torch, fs = self.torch, self.fs
+        pts, _ = self.spiral(N_MAIN, seed=0)
+        pts = torch.as_tensor(pts, device=self.dev)
+        kernels = [self.make_kernel("gaussian", sigma=s) for s in BANK_SIGMAS]
+        s_n, c, n = len(kernels), BANK_C, N_MAIN
+        self.sync()
+        t0 = time.perf_counter()
+        bank = fs.make_fastsum_bank(kernels, pts, fs.SETUP_2, device=self.dev)
+        self.sync()
+        plan_s = time.perf_counter() - t0
+        singles = [fs.make_fastsum(k, pts, fs.SETUP_2, device=self.dev)
+                   for k in kernels]
+        gen = torch.Generator(device=self.dev).manual_seed(11)
+        x1 = torch.randn((n,), generator=gen, dtype=torch.float64,
+                         device=self.dev)
+        xc = torch.randn((n, c), generator=gen, dtype=torch.float64,
+                         device=self.dev)
+        xl = torch.randn((s_n, n, c), generator=gen, dtype=torch.float64,
+                         device=self.dev)
+        flat = xl.permute(1, 0, 2).reshape(n, s_n * c)
+        # the S single operators' outputs first, so that each path's counts
+        # hold the bank's own launches and nothing else.  One path per
+        # (spread C, gather C) shape: {path: (spread C, gather C, {case:
+        # (bank call, the singles' stacked outputs)})}
+        lockstep = torch.stack([op.matvec_tilde(xl[s])
+                                for s, op in enumerate(singles)])
+        w = np.linspace(1.0, 0.25, s_n)
+        paths = {
+            "bank_broadcast_c1": (1, s_n, {"broadcast C=1": (
+                lambda: bank.matvec_tilde(x1),
+                torch.stack([op.matvec_tilde(x1) for op in singles]))}),
+            "bank_broadcast": (c, s_n * c, {
+                f"broadcast C={c}": (lambda: bank.matvec_tilde(xc),
+                                     torch.stack([op.matvec_tilde(xc)
+                                                  for op in singles])),
+                f"matvec broadcast C={c}": (
+                    lambda: bank.matvec(xc),
+                    torch.stack([op.matvec(xc) for op in singles]))}),
+            "bank_lockstep": (s_n * c, s_n * c, {
+                f"lockstep S={s_n} C={c}": (lambda: bank.matvec_tilde(xl),
+                                             lockstep),
+                f"columns n x {s_n * c}": (
+                    lambda: bank.matvec_tilde_columns(flat).reshape(
+                        n, s_n, c).permute(1, 0, 2), lockstep)}),
+            "bank_mixture": (c, c, {f"mixture(w={[float(v) for v in w]})": (
+                lambda: bank.mixture(w).matvec(xc),
+                sum(float(wi) * op.matvec(xc)
+                    for wi, op in zip(w, singles)))})}
+        row = {"n": n, "S": s_n, "C": c, "sigmas": BANK_SIGMAS,
+               "plan_s": plan_s, "rel": {}, "launches": {}}
+        for path, (_, _, cases) in paths.items():
+            self.sync()
+            self.reset_launches()
+            got = {what: self.one_launch_each(fn, f"bank {what}")
+                   for what, (fn, _) in cases.items()}
+            self.sync()
+            row["launches"][path] = self.read_launches(path)
+            for what, (_, want) in cases.items():
+                rel = float((got[what] - want).abs().max()
+                            / want.abs().max())
+                row["rel"][what] = rel
+                log(f"[bank] {what}: bank vs "
+                    + ("the weighted sum of the members' matvec"
+                       if path == "bank_mixture"
+                       else f"{s_n} single operators")
+                    + f" rel {rel:.3e} (limit {BANK_TOL:g}); one spread + "
+                    "one gather")
+                check(rel <= BANK_TOL, f"bank {what}: rel {rel:.3e}")
+        # times: the bank against S single matvecs of the same columns
+        for what, bank_fn, single_fn in (
+                ("broadcast C=1", lambda: bank.matvec_tilde(x1),
+                 lambda: [op.matvec_tilde(x1) for op in singles]),
+                (f"lockstep S={s_n} C={c}", lambda: bank.matvec_tilde(xl),
+                 lambda: [op.matvec_tilde(xl[s])
+                          for s, op in enumerate(singles)])):
+            bank_ms = self.time_ms(bank_fn, reps=10)
+            single_ms = self.time_ms(single_fn, reps=10)
+            row[f"ms {what}"] = {"bank": bank_ms, "singles": single_ms}
+            log(f"[bank] {what}: bank matvec {bank_ms:.3f} ms, {s_n} single "
+                f"matvecs {single_ms:.3f} ms ({single_ms / bank_ms:.2f}x; "
+                "CUDA events)")
+        self.record["bank"] = row
+        log(f"[bank] plan {plan_s:.3f}s; launches {row['launches']}")
+        plan, geom = self.window_geometry("SETUP_2", 3, N_MAIN)
+        for path, (c_spread, c_gather, _) in paths.items():
+            self.window_path_record(path, "spiral SETUP_2", plan, geom,
+                                    c_spread, ("spread",))
+            self.window_path_record(path, "spiral SETUP_2", plan, geom,
+                                    c_gather, ("gather",))
+
+    def phase_sweep(self):
+        """[sweep]: benchmarks/sweep_scaling.py's grids at n = 50,000, one
+        krr_fit_sweep against 16 sequential krr_fit per d."""
+        torch, fs, krr = self.torch, self.fs, self.krr
+        self.record["sweep"] = {}
+        for d in sorted(SWEEP_CONFIGS):
+            n_bw, m, _, betas = SWEEP_CONFIGS[d]
+            sigmas = sweep_sigmas(d)
+            params = fs.FastsumParams(n_bandwidth=n_bw, m=m)
+            x, f = sweep_dataset(d, SWEEP_N, self.crescent, self.spiral)
+            pts = torch.as_tensor(x, device=self.dev)
+            ft = torch.as_tensor(f, device=self.dev)
+            # warm the card (the benchmark warms its shared jit caches)
+            warm = fs.make_fastsum(
+                self.make_kernel("gaussian", sigma=sigmas[0] * 1.01), pts,
+                params, device=self.dev)
+            warm.matvec_tilde(ft)
+            self.sync()
+            self.reset_launches()
+            t0 = time.perf_counter()
+            seq, seq_iters = {}, []
+            for i, s in enumerate(sigmas):
+                for j, b in enumerate(betas):
+                    model = krr.krr_fit(self.make_kernel("gaussian", sigma=s),
+                                        pts, ft, b, params, tol=SWEEP_TOL,
+                                        maxiter=SWEEP_MAXITER,
+                                        device=self.dev)
+                    seq[i, j] = model.alpha
+                    seq_iters.append(int(model.num_iters))
+            self.sync()
+            t_seq = time.perf_counter() - t0
+            self.read_launches(f"sweep_sequential_d{d}")
+            self.reset_launches()
+            t0 = time.perf_counter()
+            sweep = krr.krr_fit_sweep("gaussian", pts, ft, betas, sigmas,
+                                      params, tol=SWEEP_TOL,
+                                      maxiter=SWEEP_MAXITER, device=self.dev)
+            self.sync()
+            t_bank = time.perf_counter() - t0
+            launches = self.read_launches(f"sweep_d{d}")
+            iters = int(sweep.num_iters.max())
+            alpha_rel = max(
+                float((sweep.alphas[i, :, j] - a).abs().max()
+                      / a.abs().max()) for (i, j), a in seq.items())
+            # each system's true residual on its own single operator
+            tol_abs = SWEEP_TOL * max(float(torch.linalg.vector_norm(ft)),
+                                      1.0)
+            beta_t = torch.tensor(betas, dtype=ft.dtype, device=self.dev)
+            resid = 0.0
+            for i, s in enumerate(sigmas):
+                op = fs.make_fastsum(self.make_kernel("gaussian", sigma=s),
+                                     pts, params, device=self.dev)
+                a = sweep.alphas[i]
+                r = ft[:, None] - (op.matvec_tilde(a) + beta_t * a)
+                resid = max(resid, float(torch.linalg.vector_norm(
+                    r, dim=0).max()))
+            row = {"d": d, "n": SWEEP_N, "sigmas": sigmas, "betas": betas,
+                   "n_bandwidth": n_bw, "m": m, "sequential_s": t_seq,
+                   "bank_s": t_bank, "speedup": t_seq / t_bank,
+                   "sequential_iters": sum(seq_iters), "bank_iters": iters,
+                   "converged": bool(sweep.converged.all()),
+                   "max_residual": resid, "tol_abs": tol_abs,
+                   "alpha_rel": alpha_rel, "launches": launches}
+            self.record["sweep"][d] = row
+            log(f"[sweep] d={d} n={SWEEP_N} N={n_bw} m={m} {len(sigmas)} "
+                f"sigmas x {len(betas)} betas: sequential {t_seq:.3f}s "
+                f"({sum(seq_iters)} CG iterations), bank {t_bank:.3f}s "
+                f"({iters} lockstep iterations), {t_seq / t_bank:.2f}x "
+                "(host clock, ends in synchronize)")
+            log(f"[sweep] d={d}: converged={row['converged']}, largest true "
+                f"residual {resid:.3e} (tol {tol_abs:.3e}), bank vs "
+                f"sequential alpha rel {alpha_rel:.3e} (limit "
+                f"{SWEEP_ALPHA_REL:g}); launches {launches}")
+            check(row["converged"], f"sweep d={d}: not converged")
+            check(resid <= tol_abs, f"sweep d={d}: residual {resid:.3e}")
+            check(alpha_rel <= SWEEP_ALPHA_REL,
+                  f"sweep d={d}: alpha rel {alpha_rel:.3e}")
+            check(launches["window_spread"] == iters + 1
+                  and launches["window_gather"] == iters + 1,
+                  f"sweep d={d}: {launches} for {iters} iterations (+1 for "
+                  "the true residual)")
+            if d == GS_SWEEP_D:
+                self.sweep_cells = (x, sweep)
+            if d == 3:
+                scaled, _, _ = fs.scale_nodes(pts, params.eps_b_eff)
+                plan = params.nfft_plan(d)
+                geom = self.build_window_geometry(plan, scaled)
+                self.window_path_record(
+                    "sweep_d3", "spiral N=32 m=4", plan, geom,
+                    SWEEP_SIGMAS * len(betas), ("spread", "gather"))
+
+    def phase_multilayer(self):
+        """[multilayer]: the [ssl] crescent with two Gaussian layers
+        through kernel_ssl_cg_multilayer; its residual against (I + beta
+        L_s) built from the two single-layer operators."""
+        torch, fs, ssl = self.torch, self.fs, self.ssl
+        pts, labels = self.crescent(N_SSL, seed=0)
+        pts = torch.as_tensor(pts, device=self.dev)
+        params = fs.FastsumParams(n_bandwidth=128, m=3, eps_b=0.0)
+        kernels = [self.make_kernel("gaussian", sigma=s) for s in ML_SIGMAS]
+        f, _ = ssl.make_training_vector(
+            labels, SSL_SAMPLES, 2,
+            generator=torch.Generator(device=self.dev).manual_seed(0),
+            positive_class=1)
+        self.sync()
+        self.reset_launches()
+        t0 = time.perf_counter()
+        res = ssl.kernel_ssl_cg_multilayer(kernels, ML_WEIGHTS, pts, params,
+                                           f, SSL_BETA, tol=SSL_TOL,
+                                           maxiter=SSL_MAXITER,
+                                           device=self.dev)
+        self.sync()
+        wall = time.perf_counter() - t0
+        launches = self.read_launches("multilayer")
+        layers = [fs.make_fastsum(k, pts, params, device=self.dev)
+                  for k in kernels]
+
+        def weights_matvec(v):  # W = sum_l w_l (W~_l - K_l(0) I)
+            return sum(w * op.matvec(v) for w, op in zip(ML_WEIGHTS, layers))
+
+        deg = weights_matvec(torch.ones_like(f))
+        inv = 1.0 / torch.sqrt(torch.clamp(deg, min=torch.finfo(
+            deg.dtype).tiny))
+        u = res.u
+        lap_u = u - inv * weights_matvec(inv * u)
+        resid = float(torch.linalg.vector_norm(f - (u + SSL_BETA * lap_u)))
+        tol_abs = SSL_TOL * max(float(torch.linalg.vector_norm(f)), 1.0)
+        iters = int(res.num_iters)
+        mis = float(((u > 0).cpu().numpy().astype("int32") != labels).mean())
+        one = self.record["ssl"]
+        self.record["multilayer"] = {
+            "n": N_SSL, "sigmas": ML_SIGMAS, "weights": ML_WEIGHTS,
+            "wall_s": wall, "cg_iters": iters,
+            "converged": bool(res.converged), "residual": resid,
+            "tol_abs": tol_abs, "misclassification": mis,
+            "launches": launches}
+        log(f"[multilayer] crescent-fullmoon n={N_SSL}, gaussian layers "
+            f"sigma={ML_SIGMAS} weights={ML_WEIGHTS}, N=128 m=3, beta="
+            f"{SSL_BETA:g}: {wall:.3f}s (plan + CG, ends in synchronize), "
+            f"CG {iters} iters, converged={bool(res.converged)}; [ssl] "
+            f"(one layer, sigma={SSL_SIGMA}): {one['wall_s']:.3f}s, "
+            f"{one['cg_iters']} iters")
+        log(f"[multilayer] true residual against (I + beta L_s) of the two "
+            f"single-layer operators {resid:.3e} (tol {tol_abs:.3e}); "
+            f"misclassification {mis * 100:.2f}%; launches {launches}")
+        check(bool(res.converged) and resid <= tol_abs,
+              f"multilayer: converged={bool(res.converged)} residual "
+              f"{resid:.3e}")
+        # one spread per CG iteration, plus the degrees and CG's final
+        # true residual
+        check(launches["window_spread"] == iters + 2
+              and launches["window_gather"] == iters + 2,
+              f"multilayer: {launches} for {iters} iterations")
+        plan, geom = self.window_geometry("SSL", 2, N_SSL, "ssl")
+        self.window_path_record("multilayer", "crescent N=128 m=3", plan,
+                                geom, 1, ("spread", "gather"))
+
+    def ndft_served(self, group, entry, scaled_q):
+        """The exact trigonometric sum a served prediction approximates:
+        out_scale * Re sum_k b_hat_k e^{2 pi i k.y} alpha_hat_k over the
+        frozen frame's scaled queries y (plain torch NDFTs, no window
+        kernel); alpha_hat is cached per model."""
+        fs, pred, model = self.fs, group.pred, entry.model
+        n_bw = model.params.n_bandwidth
+        b_hat, _, out_scale, _ = fs._member_spectral(
+            model.kernel, pred.rho, pred.plan, model.params, self.dev)
+        if id(model) not in self.alpha_hat:
+            self.alpha_hat[id(model)] = self.ndft_adjoint(
+                n_bw, pred.scaled_src, model.alpha)
+        return self.ndft_forward(n_bw, scaled_q, b_hat * self.alpha_hat[
+            id(model)]).real * out_scale
+
+    def graph_serve_check(self, reqs, models, registry, what):
+        """Every served output, per group, against krr_predict_direct and
+        against the exact trigonometric sum (NDFT), each within 10x the
+        JAX engine's error, and against the same plan's unpacked fast
+        prediction (one request, its own channel) within
+        GS_UNPACKED_TOL."""
+        torch = self.torch
+        err, unpacked = {}, 0.0
+        for r in reqs:
+            check(r.done and r.error is None,
+                  f"graph_serve {what}: request {r.uid}: {r.error}")
+            q = torch.as_tensor(r.query_points, device=self.dev)
+            g = graph_serve_group(r.model_id)
+            group = registry.group_of(r.model_id)
+            entry, pred = group.entries[r.model_id], group.pred
+            scaled_q = pred.scale_targets(q)
+            for key, ref in (
+                    (g, self.krr.krr_predict_direct(models[r.model_id], q)),
+                    ("ndft_" + g, self.ndft_served(group, entry, scaled_q))):
+                ref = ref.cpu().numpy()
+                e = err.setdefault(key, [0.0, 0.0])
+                e[0] = max(e[0], float(np.abs(r.output - ref).max()))
+                e[1] = max(e[1], float(np.abs(ref).max()))
+            # the unpacked pipeline on alpha and on |alpha|: the latter's
+            # size is the size of the sums the rounding acts on
+            fast, size = (self.exec.fused_matvec_tilde(
+                pred.plan, group.multipliers[entry.member], pred.src_window,
+                pred.target_window(scaled_q), alpha).cpu().numpy()
+                for alpha in (entry.model.alpha, entry.model.alpha.abs()))
+            unpacked = max(unpacked, float(np.abs(r.output - fast).max()
+                                           / np.abs(size).max()))
+        rel = {k: v[0] / v[1] for k, v in err.items()}
+        for k, v in sorted(rel.items()):
+            limit = 10 * JAX_GRAPH_SERVE_REL[k]
+            against = "the NDFT" if k.startswith("ndft") else "direct"
+            log(f"[graph_serve] {what}, {k.removeprefix('ndft_')} group: "
+                f"served vs {against} rel {v:.3e} (JAX engine "
+                f"{JAX_GRAPH_SERVE_REL[k]:.3e}, limit {limit:.3e})")
+            check(v <= limit, f"graph_serve {what} {k}: rel {v:.3e}")
+        log(f"[graph_serve] {what}: served vs the plan's unpacked fast "
+            f"prediction, relative to the largest sum over |alpha|: "
+            f"{unpacked:.3e} (limit {GS_UNPACKED_TOL:g})")
+        check(unpacked <= GS_UNPACKED_TOL,
+              f"graph_serve {what} vs unpacked: {unpacked:.3e}")
+        rel["unpacked"] = unpacked
+        return rel
+
+    def graph_serve_rounds(self, engine, registry, models, bursts, kind,
+                           uid):
+        """One traffic mix: the sequential path (one krr_predict, a full
+        replan, per request) on the first GS_SEQ_ROUNDS bursts, then the
+        engine on every burst, each fresh to it, all of a burst queued at
+        t=0; the engine's launches are the path "graph_serve_<kind>".
+        Returns (row, served requests, sequential (model id, queries,
+        output))."""
+        torch, krr, G = self.torch, self.krr, self.graph
+        seq, seq_rps, seq_lat = [], [], []
+        for burst in bursts[:GS_SEQ_ROUNDS]:
+            t0 = time.perf_counter()
+            for mid, q in burst:
+                out = krr.krr_predict(models[mid], torch.as_tensor(
+                    q, device=self.dev)).cpu().numpy()
+                seq.append((mid, q, out))
+                seq_lat.append(time.perf_counter() - t0)
+            seq_rps.append(len(burst) / (time.perf_counter() - t0))
+        before = registry.stats()
+        ticks0, log0 = engine.counters["ticks"], len(engine.tick_log)
+        geo0 = engine.counters["geometry_builds"]
+        self.sync()
+        self.reset_launches()
+        served, eng_rps = [], []
+        for burst in bursts:
+            reqs = [G.PredictRequest(uid=uid + i, model_id=mid,
+                                     query_points=q)
+                    for i, (mid, q) in enumerate(burst)]
+            uid += len(reqs)
+            t0 = time.perf_counter()
+            for r in reqs:
+                engine.submit(r)
+            engine.run_until_drained()
+            eng_rps.append(len(reqs) / (time.perf_counter() - t0))
+            served += reqs
+        launches = self.read_launches(f"graph_serve_{kind}")
+        after = registry.stats()
+        ticks = engine.counters["ticks"] - ticks0
+        geo = engine.counters["geometry_builds"] - geo0
+        touched = sum(t.groups for t in engine.tick_log[log0:])
+        check(after["plan_builds"] == before["plan_builds"]
+              and after["grid_builds"] == before["grid_builds"],
+              f"graph_serve {kind}: the timed rounds built plans or grids: "
+              f"{after}")
+        check(geo == touched and launches["window_gather"] == touched,
+              f"graph_serve {kind}: {geo} geometries, "
+              f"{launches['window_gather']} gathers for {touched} touched "
+              f"groups in {ticks} ticks")
+        check(launches["window_spread"] == 0,
+              f"graph_serve {kind}: the timed rounds spread (a grid was "
+              "built)")
+        # engine vs sequential on the shared bursts, the first group only
+        # (serve_scaling.py's 1e-2 parity is a quick-mode (n=4000) limit;
+        # at full size the JAX engine alone misses direct by 2.1e-2)
+        parity = max((float(np.abs(r.output - out).max()
+                            / max(np.abs(out).max(), 1e-300))
+                      for r, (mid, _, out) in zip(served, seq)
+                      if graph_serve_group(mid) == "uniform"), default=None)
+
+        def stats(rps, lats):
+            return {"req_per_s": float(np.median(rps)),
+                    "req_per_s_min": float(np.min(rps)),
+                    "req_per_s_max": float(np.max(rps)),
+                    "req_per_s_rounds": [float(v) for v in rps],
+                    "p50_ms": float(np.percentile(lats, 50)) * 1e3,
+                    "p99_ms": float(np.percentile(lats, 99)) * 1e3,
+                    "requests": len(lats)}
+
+        row = {"sequential": stats(seq_rps, seq_lat),
+               "engine": stats(eng_rps, [r.latency for r in served]),
+               "ticks": ticks, "group_gathers": touched, "parity": parity,
+               "launches": launches}
+        row["speedup"] = (row["engine"]["req_per_s"]
+                          / row["sequential"]["req_per_s"])
+        return row, served, seq
+
+    def phase_graph_serve(self):
+        """[graph_serve]: benchmarks/serve_scaling.py's full mode, plus the
+        [sweep] d=2 grid's 16 cells as tenants of one plan, through the
+        registry and the engine, against per-request krr_predict: each
+        group alone and both mixed, GS_ROUNDS fresh bursts each."""
+        torch, fs, krr, G = self.torch, self.fs, self.krr, self.graph
+        card = self.record["device"]["nvidia_smi"]
+        rng = np.random.default_rng(GS_SEED)
+        xtr, ytr = graph_serve_data(rng)
+        params = fs.FastsumParams(n_bandwidth=GS_N_BANDWIDTH, m=GS_M)
+        spts, sweep = self.sweep_cells
+        self.sync()
+        self.reset_launches()
+        models = {f"tenant{i}": krr.krr_fit(
+            self.make_kernel("gaussian", sigma=s),
+            torch.as_tensor(xtr, device=self.dev),
+            torch.as_tensor(ytr, device=self.dev), GS_REG, params,
+            device=self.dev) for i, s in enumerate(GS_SIGMAS)}
+        self.sync()
+        self.read_launches("graph_serve_fit")
+        n_beta = len(sweep.betas)
+        for i in range(len(sweep.sigmas)):
+            for j in range(n_beta):
+                models[f"cell{i * n_beta + j}"] = krr.krr_sweep_model(
+                    sweep, i, j)
+        registry = G.GraphModelRegistry()
+        for mid, model in models.items():
+            registry.register(mid, model)
+        reg0 = registry.stats()
+        check(reg0["plan_builds"] == 2
+              and reg0["multiplier_builds"] == len(models),
+              f"graph_serve registration: {reg0}")
+        engine = G.GraphServeEngine(registry, slots=GS_SLOTS, chunk=GS_CHUNK)
+        # warm-up, one group at a time: builds every tenant's grid
+        burst1 = graph_serve_burst(rng, spts)
+        served = {"uniform": [], "sweep": []}
+        for g in served:
+            reqs = [G.PredictRequest(uid=i, model_id=mid, query_points=q)
+                    for i, (mid, q) in enumerate(burst1)
+                    if graph_serve_group(mid) == g]
+            before = registry.stats()["bank_transforms"]
+            self.sync()
+            self.reset_launches()
+            for r in reqs:
+                engine.submit(r)
+            engine.run_until_drained()
+            self.sync()
+            launches = self.read_launches(f"graph_serve_warm_{g}")
+            transforms = registry.stats()["bank_transforms"] - before
+            check(launches["window_spread"] == transforms > 0,
+                  f"graph_serve warm-up {g}: {launches} for {transforms} "
+                  "transforms")
+            served[g] += reqs
+        warm = registry.stats()
+        # timed: each group's traffic alone, then both mixed
+        rows, seq = {}, {"uniform": [], "sweep": []}
+        uid = len(burst1)
+        for kind in GS_TRAFFIC:
+            bursts = [graph_serve_burst(rng, spts, kind)
+                      for _ in range(GS_ROUNDS)]
+            rows[kind], reqs, outs = self.graph_serve_rounds(
+                engine, registry, models, bursts, kind, uid)
+            uid += sum(len(b) for b in bursts)
+            for r in reqs:
+                served[graph_serve_group(r.model_id)].append(r)
+            for item in outs:
+                seq[graph_serve_group(item[0])].append(item)
+        steady = registry.stats()
+        check(steady["plan_builds"] == warm["plan_builds"]
+              and steady["grid_builds"] == warm["grid_builds"],
+              f"graph_serve timed rounds built plans or grids: {steady}")
+        # the oracle, one training size at a time: every served output
+        # and every sequential one against the direct sum (kernel_matvec),
+        # within 10x the JAX package's errors
+        rel = {}
+        for g in served:
+            self.sync()
+            self.reset_launches()
+            rel[g] = self.graph_serve_check(served[g], models, registry,
+                                            f"{len(served[g])} served")
+            num = den = 0.0
+            for mid, q, out in seq[g]:
+                direct = krr.krr_predict_direct(models[mid], torch.as_tensor(
+                    q, device=self.dev)).cpu().numpy()
+                num = max(num, float(np.abs(out - direct).max()))
+                den = max(den, float(np.abs(direct).max()))
+            self.sync()
+            self.read_launches(f"graph_serve_oracle_{g}")
+            want = JAX_GRAPH_SERVE_REL[f"sequential_{g}"]
+            rel[g]["sequential"] = num / den
+            log(f"[graph_serve] {len(seq[g])} sequential, {g} group: "
+                f"krr_predict vs direct rel {num / den:.3e} (JAX package "
+                f"{want:.3e}, limit {10 * want:.3e})")
+            check(num / den <= 10 * want,
+                  f"graph_serve sequential {g}: rel {num / den:.3e}")
+        log(f"[graph_serve] 256 points a request; uniform traffic: "
+            f"serve_scaling.py's {GS_REQUESTS} requests over "
+            f"{len(GS_SIGMAS)} tenants (n={GS_N_TRAIN}); sweep traffic: "
+            f"{GS_SWEEP_PER_CELL} on each of the {len(models) - 2} sweep "
+            f"cells (n={SWEEP_N}); mixed: both; slots={GS_SLOTS} "
+            f"chunk={GS_CHUNK}; {GS_ROUNDS} fresh bursts through the "
+            f"engine, the first {GS_SEQ_ROUNDS} also sequentially; host "
+            f"clock, a burst queued at t=0, req/s the median burst (min-max)"
+            f", p50/p99 over every request; {card}")
+        for kind, row in rows.items():
+            for path in ("sequential", "engine"):
+                st = row[path]
+                log(f"[graph_serve] {kind} {path}: {st['req_per_s']:.1f} "
+                    f"req/s ({st['req_per_s_min']:.1f}-"
+                    f"{st['req_per_s_max']:.1f}), p50 {st['p50_ms']:.1f} ms, "
+                    f"p99 {st['p99_ms']:.1f} ms over {st['requests']} "
+                    "requests")
+            parity = ("" if row["parity"] is None else
+                      f", engine vs sequential rel {row['parity']:.2e} "
+                      "(uniform group)")
+            log(f"[graph_serve] {kind}: engine {row['speedup']:.2f}x "
+                f"sequential (BENCH_serve.json, CPU, uniform: 43x); "
+                f"{row['ticks']} ticks, {row['group_gathers']} group "
+                f"gathers{parity}; 0 plan and 0 grid builds; launches "
+                f"{row['launches']}")
+        self.record["graph_serve"] = {
+            "traffic": rows, "rel": rel, "registry": steady,
+            "engine": dict(engine.counters)}
+        self.graph_serve_guards(registry, models)
+        self.graph_serve_tick(registry, models)
+        self.graph_serve_records(registry, xtr, params, spts)
+
+    def graph_serve_records(self, registry, xtr, params, spts):
+        """The window kernels at each [graph_serve] path's shapes: the
+        fits (C=1 on the uniform training set), the cold transform's
+        spread (C = pad_to = 8) and the tick's packed gather (width
+        slots = 8, slots x chunk rows) of each group."""
+        torch, fs = self.torch, self.fs
+        scaled, _, _ = fs.scale_nodes(torch.as_tensor(xtr, device=self.dev),
+                                      params.eps_b_eff)
+        plan = params.nfft_plan(2)
+        self.window_path_record(
+            "graph_serve_fit", f"uniform n={GS_N_TRAIN} N=64 m=4", plan,
+            self.build_window_geometry(plan, scaled), 1,
+            ("spread", "gather"))
+        rng = np.random.default_rng(13)
+        for g, mid, lo, hi in (
+                ("uniform", "tenant0", -2.5, 2.5),
+                ("sweep", "cell0", spts.min(axis=0), spts.max(axis=0))):
+            pred = registry.group_of(mid).pred
+            n_bw = pred.plan.n_bandwidth
+            q = torch.as_tensor(rng.uniform(lo, hi, (GS_SLOTS * GS_CHUNK, 2)),
+                                device=self.dev)
+            tick = pred.target_window(pred.scale_targets(q))
+            what = f"{g} n={pred.n_source} N={n_bw}"
+            self.window_path_record(f"graph_serve_warm_{g}",
+                                    f"{what}, serving frame", pred.plan,
+                                    pred.src_window, min(GS_SLOTS, 8),
+                                    ("spread",))
+            for path in (f"graph_serve_warm_{g}", f"graph_serve_{g}"):
+                self.window_path_record(path, f"{what}, packed tick rows",
+                                        pred.plan, tick, GS_SLOTS,
+                                        ("gather",))
+
+    def graph_serve_guards(self, registry, models):
+        """Out-of-domain reject / replan, and a grid poisoned by hand that
+        trips the breaker and recovers (tests/test_chaos.py's case)."""
+        torch, G = self.torch, self.graph
+        rej = G.GraphServeEngine(registry, slots=2, chunk=GS_CHUNK)
+        r = G.PredictRequest(uid=0, model_id="tenant0",
+                             query_points=GS_OUT_OF_DOMAIN)
+        rej.submit(r)
+        rej.step()
+        check(r.done and r.error is not None and "domain" in r.error,
+              f"graph_serve: out-of-domain not rejected ({r.error})")
+        rep = G.GraphServeEngine(registry, slots=2, chunk=GS_CHUNK,
+                                 out_of_domain="replan")
+        r = G.PredictRequest(uid=1, model_id="tenant0",
+                             query_points=GS_OUT_OF_DOMAIN)
+        rep.submit(r)
+        rep.step()
+        direct = self.krr.krr_predict_direct(
+            models["tenant0"], torch.as_tensor(
+                GS_OUT_OF_DOMAIN, device=self.dev)).cpu().numpy()
+        rel = float(np.abs(r.output - direct).max() / np.abs(direct).max())
+        limit = 10 * JAX_GRAPH_SERVE_REL["replan"]
+        log(f"[graph_serve] out-of-domain: rejected; replanned rel {rel:.3e} "
+            f"(JAX engine {JAX_GRAPH_SERVE_REL['replan']:.3e}, limit "
+            f"{limit:.3e})")
+        check(r.error is None and rel <= limit,
+              f"graph_serve replan: {r.error} rel {rel:.3e}")
+        eng = G.GraphServeEngine(registry, slots=2, chunk=GS_CHUNK,
+                                 breaker_threshold=2, breaker_cooldown=2)
+        q = np.random.default_rng(5).uniform(-2, 2, (6, 8, 2))
+
+        def submit(uid, mid, k):
+            req = G.PredictRequest(uid=uid, model_id=mid, query_points=q[k])
+            eng.submit(req)
+            return req
+
+        warm = submit(0, "tenant0", 0)
+        eng.run_until_drained()
+        group = registry.group_of("tenant0")
+        key = ("tenant0", "alpha")
+        with registry._lock:
+            grid = group.grids[key]
+            mask = torch.rand(grid.shape, generator=torch.Generator(
+                device=self.dev).manual_seed(1), device=self.dev) < 0.5
+            group.grids[key] = torch.where(mask, float("nan"), grid)
+        bad = [submit(1, "tenant0", 1), submit(2, "tenant0", 2)]
+        stats = eng.step()
+        shed = submit(3, "tenant0", 3)
+        eng.step()
+        sibling = submit(4, "tenant1", 4)
+        eng.run_until_drained()
+        for _ in range(4):
+            eng.step()
+        back = submit(5, "tenant0", 5)
+        eng.run_until_drained()
+        ok = (warm.error is None and stats.nonfinite == 2
+              and all("non-finite" in (r.error or "") for r in bad)
+              and eng.counters["breaker_trips"] == 1
+              and "circuit open" in (shed.error or "")
+              and sibling.error is None and back.error is None)
+        log(f"[graph_serve] poisoned grid: {stats.nonfinite} requests failed "
+            f"non-finite, breaker trips {eng.counters['breaker_trips']}, "
+            f"shed: {shed.error!r}, sibling served: {sibling.error is None}, "
+            f"recovered: {back.error is None}")
+        check(ok, "graph_serve breaker: poisoned grid not contained")
+        self.graph_serve_check([sibling, back], models, registry,
+                               "after the breaker")
+
+    def graph_serve_tick(self, registry, models):
+        """One full tick of the first group taken apart: host packing, the
+        target geometry, its tile plan, the packed gather (CUDA events),
+        the output's copy to the host; the host syncs of the geometry and
+        the tile plan; the padding's cost."""
+        import warnings
+        torch, G, ex, win = self.torch, self.graph, self.exec, self.win
+        rng = np.random.default_rng(9)
+        eng = G.GraphServeEngine(registry, slots=GS_SLOTS, chunk=GS_CHUNK)
+        for i in range(GS_SLOTS):
+            eng.submit(G.PredictRequest(
+                uid=i, model_id=f"tenant{i % len(GS_SIGMAS)}",
+                query_points=rng.uniform(-2.5, 2.5, (GS_M_QUERY, 2))))
+        eng._admit()
+        slots = list(range(GS_SLOTS))
+        group = eng._group[0]
+        pred = group.pred
+        columns, col_of_slot, rhs = eng._columns(slots)
+        grids, _ = registry.ensure_grids(group, columns, rhs,
+                                         pad_to=min(GS_SLOTS, 8))
+        grid = torch.stack(list(grids) + [group.zero_grid()]
+                           * (GS_SLOTS - len(grids)), dim=-1)
+        reps = 20
+
+        def host_ms(fn):
+            fn()
+            self.sync()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                out = fn()
+            self.sync()
+            return (time.perf_counter() - t0) / reps * 1e3, out
+
+        pack_ms, (packed, col_index, _) = host_ms(
+            lambda: eng._pack(slots, col_of_slot, 2, np.float64))
+        geom_ms, tgt = host_ms(lambda: pred.target_window(packed))
+        tiles_ms, _ = host_ms(
+            lambda: win.build_tile_plan(tgt.base, pred.plan.taps))
+        col_t = torch.as_tensor(col_index, device=self.dev)
+        tgt.tiles  # built once, as the tick's first gather does
+        gather_ms = self.time_ms(
+            lambda: ex.fused_gather_columns(pred.plan, tgt, grid, col_t),
+            reps=reps)
+        used = grid[..., :len(grids)].contiguous()
+        gather_used_ms = self.time_ms(
+            lambda: ex.fused_gather_columns(pred.plan, tgt, used, col_t),
+            reps=reps)
+        out = ex.fused_gather_columns(pred.plan, tgt, grid, col_t)
+        copy_ms, _ = host_ms(lambda: out.cpu())
+        # host syncs of the per-tick plan work
+        syncs = {}
+        for what, fn in (("target geometry",
+                          lambda: pred.target_window(packed)),
+                         ("tile plan", lambda: win.build_tile_plan(
+                             tgt.base, pred.plan.taps))):
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as seen:
+                    warnings.simplefilter("always")
+                    fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            syncs[what] = sum("synchroniz" in str(w.message).lower()
+                              for w in seen)
+        # the transform's padding: pad_to columns against the used ones
+        src = pred.scaled_src
+        cols = [m.alpha for m in (models["tenant0"], models["tenant1"])]
+        members = torch.tensor([0, 1], device=self.dev)
+        xb2 = torch.stack(cols, dim=1)
+        xb8 = torch.cat([xb2, torch.zeros((src.shape[0], 6), dtype=src.dtype,
+                                          device=self.dev)], dim=1)
+        members8 = torch.tensor([0, 1] + [0] * 6, device=self.dev)
+        tr8_ms = self.time_ms(lambda: ex.fused_transform_columns(
+            pred.plan, group.mult_stack[members8], pred.src_window, xb8),
+            reps=reps)
+        tr2_ms = self.time_ms(lambda: ex.fused_transform_columns(
+            pred.plan, group.mult_stack[members], pred.src_window, xb2),
+            reps=reps)
+        eng.run_until_drained()
+        rows = packed.shape[0]
+        row = {"pack_ms": pack_ms, "geometry_ms": geom_ms,
+               "tile_plan_ms": tiles_ms, "gather_ms": gather_ms,
+               "gather_used_columns_ms": gather_used_ms,
+               "copy_to_host_ms": copy_ms, "syncs": syncs,
+               "packed_rows": rows, "channels": GS_SLOTS,
+               "used_columns": len(grids), "used_share": 1.0 / GS_SLOTS,
+               "transform_ms": {"pad_to_8": tr8_ms, "2_columns": tr2_ms}}
+        self.record["graph_serve"]["tick"] = row
+        log(f"[graph_serve] one tick ({rows} packed rows, {GS_SLOTS} "
+            f"channels, {len(grids)} used): host packing {pack_ms:.3f} ms, "
+            f"target geometry {geom_ms:.3f} ms, tile plan {tiles_ms:.3f} ms "
+            f"(host clock, ends in synchronize), packed gather "
+            f"{gather_ms:.4f} ms (CUDA events; at the {len(grids)} used "
+            f"channels {gather_used_ms:.4f} ms), output to host "
+            f"{copy_ms:.3f} ms; host syncs: {syncs}")
+        log(f"[graph_serve] the gather keeps 1 of {GS_SLOTS} channels a row "
+            f"({100.0 / GS_SLOTS:.1f}% used); the cold transform at pad_to=8 "
+            f"columns {tr8_ms:.3f} ms, at the 2 used {tr2_ms:.3f} ms")
+
     def serve_prompts(self, cfg):
         """SERVE_REQUESTS seeded prompts, lengths in 512..2048 with one of
         exactly 2048 and one of 1000."""
@@ -1918,6 +2845,20 @@ class Smoke:
                 "library_ms": None})
         check(recorded == total, f"kernel_matvec records hold {recorded} "
               f"launches, the paths made {total}")
+        # window kernels on the paths of banks, the sweep, multilayer SSL
+        # and graph serving: one record per path and shape
+        for t in self.slice_records:
+            out.append({
+                "name": f"window_{t['kernel']}", "route": "cuda",
+                "source": CU_SOURCE,
+                "replaces": "src/repro/kernels/nfft_window.py:"
+                            f"{51 if t['kernel'] == 'spread' else 108}",
+                "path": t["path"], "shape": {k: t[k] for k in (
+                    "geometry", "n", "d", "taps", "c", "dtype")},
+                "launches": t["launches"], "max_abs_err": t["max_abs_err"],
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": None})
         # flash_attention: the serve path's launches; error and times at
         # the longest prompt (bf16, causal, granite heads, s = 2048)
         s = FLASH_LENGTHS[-1]

@@ -1,7 +1,7 @@
 """Fused fast-summation execution: spread -> rfftn -> multiply -> irfftn -> gather.
 
-PyTorch counterpart of the hook-free single-operator part of
-``repro.core.fastsum_exec``.  One precomputed spectral multiplier on the
+PyTorch counterpart of the hook-free part of ``repro.core.fastsum_exec``:
+single operators and multiplier banks.  One precomputed spectral multiplier on the
 oversampled half-spectrum,
 
     C[k] = b_hat[k] / (M^d * phi_hat[k]^2)   for k in I_N^d, zero-padded
@@ -133,3 +133,119 @@ def fused_pipeline(plan: NfftPlan, multiplier_half: torch.Tensor,
 
 # the JAX package's name for y = W̃ x
 fused_matvec_tilde = fused_pipeline
+
+
+# ---------------------------------------------------------------------------
+# Multiplier banks: one spread and one forward rfftn shared by S operators.
+# As in fused_pipeline, the JAX package's spectral_reduce / spectral_op
+# hooks (distribution, ROADMAP queue 1 item 12) and its custom-VJP core
+# (item 9) are not here.
+# ---------------------------------------------------------------------------
+
+def stack_multipliers(plan: NfftPlan, b_hats) -> torch.Tensor:
+    """Stack per-member fused multipliers into an ``(S,) + half-spectrum``
+    bank: members share the plan, only their Fourier coefficients differ."""
+    return torch.stack([fused_spectral_multiplier(plan, bh) for bh in b_hats])
+
+
+def _bank_multiply(plan: NfftPlan, multiplier_bank: torch.Tensor,
+                   g_hat: torch.Tensor, broadcast: bool) -> torch.Tensor:
+    """Bank spectral multiply -> flat (..., S*C) half-spectrum product,
+    bank-major.  ``broadcast``: g_hat's C channels go to every member;
+    else g_hat holds S*C lockstep channels, C per member."""
+    d, nb = plan.d, multiplier_bank.shape[0]
+    mb = torch.movedim(multiplier_bank, 0, -1)  # spectrum + (S,)
+    if broadcast:
+        gh = g_hat[..., None, :]  # spectrum + (1, C)
+    else:
+        gh = g_hat.reshape(g_hat.shape[:d] + (nb, g_hat.shape[-1] // nb))
+    prod = mb[..., :, None].to(g_hat.dtype) * gh  # spectrum + (S, C)
+    return prod.reshape(prod.shape[:d] + (-1,))
+
+
+def _bank_columns_transform(plan: NfftPlan, multiplier_bank: torch.Tensor,
+                            src: WindowGeometry, xb: torch.Tensor, *,
+                            broadcast: bool) -> torch.Tensor:
+    """spread -> rfftn -> bank multiply -> batched irfftn of ``xb`` (n, K):
+    the gather-ready grid ``(M,)*d + (K*S,)`` (broadcast) or ``(K,)``
+    (lockstep, K = S*C), real, FFT order.  It depends only on the source
+    side, so any number of target sets can be gathered from it."""
+    dims = tuple(range(plan.d))
+    g_hat = torch.fft.rfftn(window_spread(plan, src, xb), dim=dims)
+    flat = _bank_multiply(plan, multiplier_bank, g_hat, broadcast)
+    y = torch.fft.irfftn(flat, s=(plan.grid_size,) * plan.d, dim=dims)
+    return y.to(xb.dtype)
+
+
+def fused_pipeline_bank(plan: NfftPlan, multiplier_bank: torch.Tensor,
+                        src: WindowGeometry, tgt: WindowGeometry,
+                        x: torch.Tensor) -> torch.Tensor:
+    """Bank matvec: one spread, one rfftn, one batched irfftn and one
+    gather for all S members of ``multiplier_bank`` ((S,) + half-spectrum).
+
+    Broadcast: ``x`` (n,) or (n, C), every member on the same columns ->
+    (S, n) / (S, n, C).  Lockstep: ``x`` (S, n, C), member ``s`` on
+    ``x[s]`` -> (S, n, C); its S*C columns ride the channel axis.
+    """
+    nb = multiplier_bank.shape[0]
+    lockstep = x.ndim == 3
+    if lockstep:
+        if x.shape[0] != nb:
+            raise ValueError(
+                f"lockstep x has bank axis {x.shape[0]}, bank has {nb}")
+        c = x.shape[-1]
+        xb = x.permute(1, 0, 2).reshape(x.shape[1], nb * c)
+    else:
+        batched = x.ndim == 2
+        xb = x if batched else x[:, None]
+        c = xb.shape[-1]
+    y = _bank_columns_transform(plan, multiplier_bank, src, xb,
+                                broadcast=not lockstep)
+    out = window_gather(plan, tgt, y)
+    out = out.reshape(out.shape[0], nb, c).permute(1, 0, 2)  # (S, n, C)
+    if lockstep or batched:
+        return out
+    return out[..., 0]
+
+
+def fused_pipeline_bank_columns(plan: NfftPlan, multiplier_bank: torch.Tensor,
+                                src: WindowGeometry, tgt: WindowGeometry,
+                                u: torch.Tensor) -> torch.Tensor:
+    """Lockstep bank matvec in flat columns: (n, S*C) -> (n, S*C), column
+    ``s*C + j`` belonging to member ``s``: the solvers' layout, with no
+    bank-axis copies."""
+    nb = multiplier_bank.shape[0]
+    if u.ndim != 2 or u.shape[-1] % nb:
+        raise ValueError(
+            f"columns input must be (n, S*C) with S={nb}, got "
+            f"{tuple(u.shape)}")
+    return window_gather(plan, tgt, _bank_columns_transform(
+        plan, multiplier_bank, src, u, broadcast=False))
+
+
+def fused_transform_columns(plan: NfftPlan, multiplier_columns: torch.Tensor,
+                            src: WindowGeometry,
+                            xb: torch.Tensor) -> torch.Tensor:
+    """Column ``j`` of ``xb`` (n, K) through multiplier ``j`` of
+    ``multiplier_columns`` ((K,) + half-spectrum) -> the grid
+    ``(M,)*d + (K,)``: one spread, one rfftn and one batched irfftn for all
+    K columns, the gather-ready state a serving tick caches."""
+    return _bank_columns_transform(plan, multiplier_columns, src, xb,
+                                   broadcast=False)
+
+
+def fused_gather_columns(plan: NfftPlan, tgt: WindowGeometry,
+                         grid: torch.Tensor,
+                         col_index: torch.Tensor) -> torch.Tensor:
+    """Ragged packed gather: row ``r`` of the target geometry reads channel
+    ``col_index[r]`` of ``grid`` ((M,)*d + (K,)) -> (m,).  All K channels
+    are gathered, then each row keeps its own (``take_along_axis`` in the
+    JAX package): one gather launch serves many requests' rows."""
+    out = window_gather(plan, tgt, grid)  # (m, K)
+    idx = torch.as_tensor(col_index, device=out.device).to(torch.long)
+    return torch.gather(out, 1, idx[:, None])[:, 0]
+
+
+# the JAX package's names for y[s] = W̃_s x
+fused_matvec_tilde_bank = fused_pipeline_bank
+fused_matvec_tilde_bank_columns = fused_pipeline_bank_columns

@@ -272,3 +272,67 @@ def minres(matvec: Matvec, b: torch.Tensor, *,
         guard.record(phi_bar.abs(), upd)
     return _finish(matvec, b, x, tol_abs, guard.iters, rhs_bad,
                    guard.poisoned, guard.stalled, guard.bad, batched)
+
+
+# ---------------------------------------------------------------------------
+# Lockstep bank solvers: one bank matvec per iteration for S·C systems.
+# ---------------------------------------------------------------------------
+
+def _bank_solve(solver, bank_matvec: Matvec, b: torch.Tensor,
+                x0: torch.Tensor | None, kwargs) -> SolveResult:
+    """Flatten the bank axis into the column axis and run a lockstep solve.
+
+    ``bank_matvec`` maps (S, n, C) -> (S, n, C), operator ``s`` on ``x[s]``
+    (e.g. the lockstep flavour of ``FastsumOperatorBank.matvec``).  Every
+    (s, c) system gets its own step sizes, tolerance and mask, and each
+    iteration costs one bank matvec.
+    """
+    if b.ndim not in (2, 3):
+        raise ValueError(
+            f"bank rhs must be (S, n) or (S, n, C), got {tuple(b.shape)}")
+    squeeze = b.ndim == 2
+    b3 = b[..., None] if squeeze else b
+    s, n, c = b3.shape
+
+    def to_flat(v):  # (S, n, C) -> (n, S*C)
+        return v.permute(1, 0, 2).reshape(n, s * c)
+
+    def from_flat(v):  # (n, S*C) -> (S, n, C)
+        return v.reshape(n, s, c).permute(1, 0, 2)
+
+    x0f = None if x0 is None else to_flat(x0[..., None] if squeeze else x0)
+    sol = solver(lambda u: to_flat(bank_matvec(from_flat(u))), to_flat(b3),
+                 x0=x0f, **kwargs)
+    x = from_flat(sol.x)
+    stats = [a.reshape(s, c) for a in
+             (sol.num_iters, sol.residual_norm, sol.converged)]
+    health = SolveHealth(*(a.reshape(s, c) for a in sol.health))
+    if squeeze:
+        x = x[..., 0]
+        stats = [a[:, 0] for a in stats]
+        health = SolveHealth(*(a[:, 0] for a in health))
+    return SolveResult(x, *stats, health=health)
+
+
+def cg_bank(bank_matvec: Matvec, b: torch.Tensor, *,
+            x0: torch.Tensor | None = None, tol: float = 1e-8,
+            maxiter: int = 1000, stall_window: int = 250) -> SolveResult:
+    """Lockstep CG over a bank axis: ``b`` (S, n) or (S, n, C).
+
+    One bank matvec per iteration solves all S·C systems.  Result fields
+    mirror the input: ``x`` (S, n[, C]), ``num_iters`` / ``residual_norm``
+    / ``converged`` and the ``health`` flags (S[, C]); a poisoned member's
+    systems are quarantined without touching its siblings.
+    """
+    return _bank_solve(cg, bank_matvec, b, x0,
+                       dict(tol=tol, maxiter=maxiter,
+                            stall_window=stall_window))
+
+
+def minres_bank(bank_matvec: Matvec, b: torch.Tensor, *,
+                x0: torch.Tensor | None = None, tol: float = 1e-8,
+                maxiter: int = 1000, stall_window: int = 250) -> SolveResult:
+    """Lockstep MINRES over a bank axis (see :func:`cg_bank`)."""
+    return _bank_solve(minres, bank_matvec, b, x0,
+                       dict(tol=tol, maxiter=maxiter,
+                            stall_window=stall_window))

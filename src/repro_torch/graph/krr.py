@@ -7,6 +7,10 @@ is applied by Algorithm 3.1.  Prediction at new points x uses the
 separate-target fast summation  F(x) = sum_i alpha_i K(x_i - x);
 :func:`krr_predict_direct` is the exact O(n m) oracle, on the card the
 hand-written direct-sum kernel.
+
+Model selection (:func:`krr_fit_sweep`) runs a whole (sigma, beta) grid as
+ONE lockstep solve on an operator bank: every CG iteration is one spread
+and one gather for the entire grid.
 """
 
 from __future__ import annotations
@@ -20,8 +24,9 @@ import torch
 
 from repro_torch.core.fastsum import (
     FastsumOperator, FastsumParams, _as_points, make_fastsum,
+    make_fastsum_bank,
 )
-from repro_torch.core.kernels import Kernel
+from repro_torch.core.kernels import Kernel, make_kernel
 from repro_torch.core.solvers import cg
 from repro_torch.kernels.kernel_matvec import kernel_matvec
 
@@ -74,6 +79,74 @@ def krr_fit(kernel: Kernel, points, f, beta: float, params: FastsumParams,
     return KRRModel(alpha=sol.x, train_points=pts, kernel=kernel,
                     params=params, num_iters=sol.num_iters,
                     converged=sol.converged, pred_cache={})
+
+
+class KRRSweepResult(NamedTuple):
+    """One lockstep fit of a whole (sigma, beta) model-selection grid.
+
+    ``alphas[i, :, j]`` is the dual variable of ``(sigmas[i], betas[j])``;
+    ``num_iters`` / ``residual_norm`` / ``converged`` are (|sigmas|,
+    |betas|), one tolerance mask per system.
+    """
+
+    alphas: torch.Tensor  # (S_sigma, n, S_beta)
+    sigmas: tuple
+    betas: tuple
+    num_iters: torch.Tensor  # (S_sigma, S_beta)
+    residual_norm: torch.Tensor
+    converged: torch.Tensor
+    kernel_name: str
+    train_points: torch.Tensor
+    params: FastsumParams
+
+
+def krr_fit_sweep(kernel_name: str, points, f, betas: Sequence[float],
+                  sigmas: Sequence[float], params: FastsumParams, *,
+                  tol: float = 1e-8, maxiter: int = 1000,
+                  device: str | torch.device | None = None) -> KRRSweepResult:
+    """Fit alpha = (K_sigma + beta I)^{-1} f for a whole (sigma, beta) grid.
+
+    ONE operator bank over the training points (a member per sigma, plan
+    and geometry shared) and lockstep CG on its flat bank-major columns:
+    per iteration one spread, one rfftn, |sigmas| multiplies, one batched
+    irfftn and one gather; the betas ride the channel axis.
+    ``kernel_name`` is "gaussian" or "laplacian_rbf".  ``device`` defaults
+    to ``cuda``.
+    """
+    sigmas = tuple(float(s) for s in sigmas)
+    betas = tuple(float(b) for b in betas)
+    ns, nb = len(sigmas), len(betas)
+    pts = _as_points(points, device)
+    f = torch.as_tensor(f, device=pts.device)
+    bank = make_fastsum_bank([make_kernel(kernel_name, sigma=s)
+                              for s in sigmas], pts, params,
+                             device=pts.device)
+    # column s*nb + j is the (sigmas[s], betas[j]) system
+    beta_cols = torch.tensor(betas, dtype=f.dtype, device=f.device).repeat(ns)
+
+    def matvec_cols(u):  # (n, S*B) -> (n, S*B)
+        return bank.matvec_tilde_columns(u) + beta_cols[None, :] * u
+
+    n = f.shape[0]
+    rhs = f[:, None].expand(n, ns * nb).contiguous()
+    sol = cg(matvec_cols, rhs, tol=tol, maxiter=maxiter)
+    alphas = sol.x.reshape(n, ns, nb).permute(1, 0, 2).contiguous()
+    stats = [a.reshape(ns, nb) for a in
+             (sol.num_iters, sol.residual_norm, sol.converged)]
+    return KRRSweepResult(
+        alphas=alphas, sigmas=sigmas, betas=betas, num_iters=stats[0],
+        residual_norm=stats[1], converged=stats[2], kernel_name=kernel_name,
+        train_points=pts, params=params)
+
+
+def krr_sweep_model(sweep: KRRSweepResult, i_sigma: int,
+                    j_beta: int) -> KRRModel:
+    """One (sigma, beta) cell of a sweep as a servable :class:`KRRModel`."""
+    return KRRModel(
+        alpha=sweep.alphas[i_sigma, :, j_beta], train_points=sweep.train_points,
+        kernel=make_kernel(sweep.kernel_name, sigma=sweep.sigmas[i_sigma]),
+        params=sweep.params, num_iters=sweep.num_iters[i_sigma, j_beta],
+        converged=sweep.converged[i_sigma, j_beta], pred_cache={})
 
 
 def _pred_cache_lock(cache: dict) -> threading.Lock:

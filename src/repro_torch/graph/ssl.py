@@ -24,7 +24,10 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from repro_torch.core.fastsum import NormalizedAdjacencyOperator
+from repro_torch.core.fastsum import (
+    FastsumParams, NormalizedAdjacencyOperator,
+    make_normalized_adjacency_mixture,
+)
 from repro_torch.core.lanczos import eigsh
 from repro_torch.core.solvers import cg
 
@@ -140,6 +143,24 @@ def kernel_ssl_cg(adjacency: NormalizedAdjacencyOperator, f: torch.Tensor,
     sol = cg(matvec, f, tol=tol, maxiter=maxiter)
     return KernelSSLResult(u=sol.x, num_iters=sol.num_iters,
                            converged=sol.converged)
+
+
+def kernel_ssl_cg_multilayer(kernels, weights, points,
+                             params: FastsumParams, f: torch.Tensor,
+                             beta: float, *, tol: float = 1e-4,
+                             maxiter: int = 1000,
+                             device: str | torch.device | None = None
+                             ) -> KernelSSLResult:
+    """Kernel SSL on an aggregated multilayer graph
+    ``W = sum_l w_l (W̃_l - K_l(0) I)`` over shared nodes.  The layers'
+    multipliers collapse into one
+    (:func:`repro_torch.core.fastsum.make_normalized_adjacency_mixture`),
+    so every CG iteration costs one fused matvec, as a single layer's.
+    ``device`` defaults to ``cuda``."""
+    adjacency = make_normalized_adjacency_mixture(kernels, weights, points,
+                                                  params, device=device)
+    f = torch.as_tensor(f, device=adjacency.inv_sqrt_deg.device)
+    return kernel_ssl_cg(adjacency, f, beta, tol=tol, maxiter=maxiter)
 
 
 def kernel_ssl_eig(eigenvalues_a: torch.Tensor, eigenvectors: torch.Tensor,

@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core import fastsum as tfs
+from repro_torch.core import fastsum_exec as texec
 from repro_torch.core import nystrom as tny
 from repro_torch.core.kernels import make_kernel
 from repro_torch.core.nfft import build_window_geometry, padded_grid_size
@@ -35,6 +36,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.launch import trace_serve as ttrace
 from repro_torch.models import model as tmodel
 from repro_torch.runtime import guards as tguards
+from repro_torch.serving import graph as tgraph
 from repro_torch.serving.engine import Request, ServeEngine
 
 pytestmark = pytest.mark.gpu
@@ -657,3 +659,114 @@ def test_serve_cli_runs_on_card_by_default(cuda, capsys):
     out = capsys.readouterr().out
     assert "served 3 requests / 12 tokens" in out
     assert "device=cuda" in out
+
+
+# ---------------------------------------------------------------------------
+# Operator banks and the graph-predict tier on the card (against the CPU
+# port: the window kernels' tolerances, the spread's for whole pipelines)
+# ---------------------------------------------------------------------------
+
+def _bank_pair(cuda, s, n=3000):
+    pts, _ = spiral(n, seed=1)
+    kernels = [make_kernel("gaussian", sigma=2.5 + 0.5 * k) for k in range(s)]
+    return pts, {dev: tfs.make_fastsum_bank(kernels, pts, tfs.SETUP_2,
+                                            device=dev)
+                 for dev in ("cpu", cuda)}
+
+
+@pytest.mark.parametrize("s", [1, 4])
+def test_bank_flavours_on_card_match_cpu(cuda, s):
+    """Broadcast (C = 1, 4), lockstep (S, n, 4) and flat columns: one spread
+    and one gather launch a call, whatever S is."""
+    pts, banks = _bank_pair(cuda, s)
+    n = pts.shape[0]
+    gen = np.random.default_rng(s)
+    for shape in [(n,), (n, 4), (s, n, 4), (n, 4 * s)]:
+        x = gen.normal(size=shape)
+        fn = "matvec_tilde_columns" if shape == (n, 4 * s) else "matvec"
+        want = getattr(banks["cpu"], fn)(torch.as_tensor(x))
+        before = (twin.window_spread.launches, twin.window_gather.launches)
+        got = getattr(banks[cuda], fn)(torch.as_tensor(x, device=cuda))
+        torch.cuda.synchronize()
+        assert (twin.window_spread.launches - before[0],
+                twin.window_gather.launches - before[1]) == (1, 1)
+        assert _rel(got.cpu(), want) <= TOL[("spread", torch.float64)], shape
+    w = np.linspace(0.2, 1.0, s)
+    x = torch.as_tensor(gen.normal(size=(n,)))
+    assert _rel(banks[cuda].mixture(w).matvec(x.to(cuda)).cpu(),
+                banks["cpu"].mixture(w).matvec(x)) \
+        <= TOL[("spread", torch.float64)]
+
+
+def test_packed_gather_on_card_matches_cpu(cuda):
+    """The tick's packed gather at width 8 with a ragged col_index."""
+    pts, _ = spiral(3000, seed=2)
+    pts = pts[:, :2]
+    params = tfs.FastsumParams(n_bandwidth=64, m=4)
+    preds = {dev: tfs.make_prediction_plan(pts, params, device=dev)
+             for dev in ("cpu", cuda)}
+    plan = preds["cpu"].plan
+    gen = np.random.default_rng(3)
+    grid = torch.as_tensor(gen.normal(size=(plan.grid_size,) * 2 + (8,)))
+    q = preds["cpu"].scale_targets(gen.uniform(-0.5, 0.5, size=(2048, 2)))
+    col = torch.as_tensor(gen.integers(0, 8, size=2048))
+    want = texec.fused_gather_columns(plan, preds["cpu"].target_window(q),
+                                      grid, col)
+    before = twin.window_gather.launches
+    got = texec.fused_gather_columns(plan, preds[cuda].target_window(q),
+                                     grid.to(cuda), col.to(cuda))
+    assert twin.window_gather.launches - before == 1
+    assert _rel(got.cpu(), want) <= TOL[("gather", torch.float64)]
+
+
+def test_graph_engine_on_card_matches_cpu(cuda):
+    """The same stream through a registry on the card and one on the CPU:
+    equal counters, outputs within the spread's tolerance."""
+    gen = np.random.default_rng(4)
+    xtr = gen.uniform(-3, 3, (2000, 2))
+    ytr = np.sign(gen.standard_normal(2000))
+    params = tfs.FastsumParams(n_bandwidth=64, m=4)
+    queries = [gen.uniform(-2.5, 2.5, (int(m), 2))
+               for m in gen.integers(10, 300, size=12)]
+    fits = [tkrr.krr_fit(make_kernel("gaussian", sigma=sigma), xtr, ytr,
+                         1e-2, params, device="cpu") for sigma in (1.0, 1.5)]
+    runs = {}
+    for dev in ("cpu", cuda):
+        reg = tgraph.GraphModelRegistry()
+        for i, fit in enumerate(fits):  # the same dual vectors on both
+            reg.register(f"t{i}", fit._replace(
+                alpha=fit.alpha.to(dev), train_points=fit.train_points.to(dev),
+                pred_cache={}))
+        engine = tgraph.GraphServeEngine(reg, slots=4, chunk=64)
+        reqs = [tgraph.PredictRequest(uid=i, model_id=f"t{i % 2}",
+                                      query_points=q)
+                for i, q in enumerate(queries)]
+        for r in reqs:
+            engine.submit(r)
+        engine.run_until_drained()
+        runs[dev] = reqs, engine, reg
+    (creqs, ceng, creg), (greqs, geng, greg) = runs["cpu"], runs[cuda]
+    assert geng.counters == ceng.counters and greg.counters == creg.counters
+    assert geng.counters["geometry_builds"] == geng.counters["ticks"] - 1
+    for c, g in zip(creqs, greqs):
+        assert g.error is None and c.error is None
+        # the spread's tolerance, relative to the sums over |alpha| (the
+        # dual vectors cancel ~100x in the predictions)
+        fit = fits[int(c.model_id[1])]
+        size = tkrr.krr_predict_direct(fit._replace(alpha=fit.alpha.abs()),
+                                       c.query_points)
+        assert np.abs(g.output - c.output).max() \
+            <= TOL[("spread", torch.float64)] * float(size.abs().max())
+
+
+def test_krr_fit_sweep_on_card_matches_cpu(cuda):
+    gen = np.random.default_rng(5)
+    x = gen.uniform(-1, 1, (3000, 2))
+    y = np.sin(3 * x[:, 0])
+    params = tfs.FastsumParams(n_bandwidth=32, m=4)
+    sweeps = {dev: tkrr.krr_fit_sweep("gaussian", x, y, (1e-2, 1e-1),
+                                      (0.8, 1.5), params, tol=1e-10,
+                                      maxiter=400, device=dev)
+              for dev in ("cpu", cuda)}
+    assert bool(sweeps[cuda].converged.all())
+    assert _rel(sweeps[cuda].alphas.cpu(), sweeps["cpu"].alphas) <= 1e-6

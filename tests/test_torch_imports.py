@@ -18,7 +18,8 @@ MODULES = ("core.kernels", "core.regularization", "core.nfft",
            "data.synthetic", "device", "quickstart", "ssl_crescent",
            "configs", "configs.base", "configs.archs", "models.common",
            "models.mlp", "models.attention", "models.model",
-           "serving.engine", "launch.serve", "launch.trace_serve",
+           "serving.engine", "serving.graph", "launch.serve",
+           "launch.trace_serve",
            "launch.time_window", "launch.time_kernel_matvec",
            "core.nystrom", "image_segmentation", "figures", "figures.common",
            "figures.fig3_eigenvalues", "figures.fig5_segmentation",

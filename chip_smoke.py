@@ -15,7 +15,17 @@ the paths of the exact direct sum (``kernel_matvec``): the accuracy
 guard's direct floor under ``eigsh`` (spiral n = 8,000), kernel SSL on
 crescent-fullmoon at n = 100,000 (paper Section 6.2.3), kernel ridge
 regression at n = 10,000 with fast and direct prediction (Section 6.3), and
-one direct matvec at n = 10^5.  Then the paper's Section 5 and 6.2.1
+one direct matvec at n = 10^5.  Gradients follow KRR ([grad], float64):
+d<w, W x>/d sigma and d/dx through ``with_kernel`` and the fused
+pipeline's transpose at the main path's n = 10^5 (SETUP_2 and SETUP_3)
+against a central difference of the card's own forward and the forward
+matvec of w, KRR's rectangular operator against the one with sources and
+targets swapped, sigma-bar at n = 10^4 against a central difference of
+the direct sum (``kernel_matvec``), a broadcast bank of four, and the KRR
+validation loss's (log sigma, log beta) gradients (implicit-diff CG)
+against Richardson differences, with a poisoned training vector and
+eight steps of ``krr_fit_grad``; every pass one spread and one gather
+launch each way.  Then the paper's Section 5 and 6.2.1
 paths: the fused matvec against the two-NFFT reference (flat geometry,
 no hand-written kernel) at n = 10^5; traditional and hybrid Nyström at
 n = 4000 against dense eigvalsh (tests/test_nystrom.py's tiers) and at
@@ -49,8 +59,8 @@ line.
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it is the kernels' JSON record (the window kernels once
-per path of WINDOW_RECORDS and once per shape of the bank, sweep,
-multilayer and graph-serve paths, ``kernel_matvec`` once per path that
+per path of WINDOW_RECORDS and once per shape of the gradient, bank,
+sweep, multilayer and graph-serve paths, ``kernel_matvec`` once per path that
 launches it, each with that path's launches and shape).  Needs one card and the
 repository checkout around this file; imports nothing of JAX.
 """
@@ -186,6 +196,21 @@ SSL_SIGMA, SSL_BETA, SSL_TOL, SSL_MAXITER, SSL_SAMPLES = 0.75, 1e3, 1e-4, 1000, 
 # kernel ridge regression, Section 6.3 at benchmarks/fig9_krr.py's setting
 N_KRR, N_KRR_TEST = 10_000, 400
 KRR_BETA, KRR_TOL, KRR_MAXITER = 1e-2, 1e-8, 2000
+# [grad]: gradients through the fused pipeline, float64.  sigma-bar against
+# a central difference of the card's own forward (step 1e-5 sigma) within
+# tests/test_differentiable.py's 1e-6; x-bar against a forward matvec of
+# w (the transposed operator's) within 1e-12 of max |x-bar|; the fused W's
+# sigma-bar at n = 10^4 against a central difference (step 1e-4) of the
+# direct sum within 1e-4; the KRR validation loss's (log sigma, log beta)
+# gradients against a Richardson-extrapolated central difference (steps
+# h and h/2) within 1e-5, its CG at GRAD_KRR_TOL; GRAD_FIT_STEPS Adam steps
+# of krr_fit_grad.  BENCH_grad.json's value-and-grad / forward target (a
+# CPU figure) is printed beside the card's ratio.
+GRAD_FD_TOL, GRAD_X_TOL = 1e-6, 1e-12
+GRAD_ORACLE_N, GRAD_ORACLE_TOL = 10_000, 1e-4
+GRAD_KRR_TOL, GRAD_KRR_FD_TOL, GRAD_KRR_H = 1e-10, 1e-5, 1e-3
+GRAD_FIT_STEPS = 8
+BENCH_GRAD_RATIO = 3.5
 # The JAX package's values at the same settings, taken on the CPU (x64):
 # max|fast - exact| / max|exact| of the SSL operator's degrees and of the
 # KRR test predictions.  The smoke's limit is 10x each.
@@ -207,7 +232,9 @@ KM_PATHS = (("guard", "spiral", N_GUARD, N_GUARD, 3, "gaussian", SIGMA, True),
             ("krr_gaussian", "krr", N_KRR_TEST, N_KRR, 2, "gaussian", 2.0,
              False),
             ("krr_inverse_multiquadric", "krr", N_KRR_TEST, N_KRR, 2,
-             "inverse_multiquadric", 2.0, False))
+             "inverse_multiquadric", 2.0, False),
+            ("grad_oracle", "spiral", GRAD_ORACLE_N, GRAD_ORACLE_N, 3,
+             "gaussian", SIGMA, True))
 
 # flash attention vs plain, (atol, rtol): elementwise |k - p| <= atol +
 # rtol |p|.  float32: the JAX kernel tests' 2e-5 absolute
@@ -363,6 +390,13 @@ def graph_serve_burst(rng, sweep_points, kind="mixed"):
     return burst
 
 
+def richardson(f, x0: float, h: float) -> float:
+    """Central differences at steps h and h/2, extrapolated: O(h^4)."""
+    d1 = (f(x0 + h) - f(x0 - h)) / (2 * h)
+    d2 = (f(x0 + h / 2) - f(x0 - h / 2)) / h
+    return (4 * d2 - d1) / 3
+
+
 def log(msg: str = "") -> None:
     print(msg, flush=True)
 
@@ -403,7 +437,9 @@ def main(argv=None) -> int:
 class Smoke:
     def __init__(self, torch):
         from repro_torch.core import fastsum, fastsum_exec, lanczos
-        from repro_torch.core.kernels import make_kernel
+        from repro_torch.core.kernels import (
+            KERNEL_PARAM_NAME, kernel_from_param, make_kernel,
+        )
         from repro_torch.core.nfft import (
             build_window_geometry, ndft_adjoint, ndft_forward,
             padded_grid_size,
@@ -438,10 +474,12 @@ class Smoke:
         self.synthetic_image = synthetic_image
         self.seg_params = image_segmentation.PARAMS
         self.nys = nystrom
-        self.make_kernel = make_kernel
+        self.make_kernel, self.kernel_from_param = (make_kernel,
+                                                    kernel_from_param)
+        self.param_name = KERNEL_PARAM_NAME
         self.graph = graph_serving
         self.path_launches = {}
-        self.slice_records = []  # window kernels on the slice-8 paths
+        self.slice_records = []  # window kernels on the slice-8/9 paths
         self.alpha_hat = {}  # [graph_serve]'s NDFT of each model's alpha
         self.dev = torch.device("cuda", 0)
         self.kernel = make_kernel("gaussian", sigma=SIGMA)
@@ -466,6 +504,18 @@ class Smoke:
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / reps
+
+    def host_ms(self, fn, reps: int, warmup: int = 1) -> float:
+        """Mean ms per call over ``reps`` calls, host clock ending in
+        ``synchronize()``."""
+        for _ in range(warmup):
+            fn()
+        self.sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        self.sync()
+        return (time.perf_counter() - t0) / reps * 1e3
 
     def setup(self, name):
         if name == "SEG":
@@ -667,6 +717,7 @@ class Smoke:
         self.phase_guard()
         self.phase_ssl()
         self.phase_krr()
+        self.phase_grad()
         self.phase_direct()
         self.phase_oracle()
         self.phase_nystrom()
@@ -1214,6 +1265,380 @@ class Smoke:
                   f"KRR {kname} predict_many vs predict: {many_gap:.3e}")
             check(launches["kernel_matvec"] > 0,
                   f"KRR {kname}: kernel_matvec not launched")
+
+    # -- [grad] -------------------------------------------------------------
+    def grad_pass(self, path, loss_fn, leaves):
+        """One value-and-grad on the card: the forward's launches counted as
+        ``path``, the backward's as ``path + "_backward"``.  Returns (loss,
+        grads, forward launches, backward launches)."""
+        torch = self.torch
+        self.sync()
+        self.reset_launches()
+        loss = loss_fn()
+        self.sync()
+        fwd = self.read_launches(path)
+        self.reset_launches()
+        grads = torch.autograd.grad(loss, leaves)
+        self.sync()
+        return loss, grads, fwd, self.read_launches(f"{path}_backward")
+
+    def grad_one_each(self, fwd, bwd, what):
+        """Exactly one spread and one gather launch in each direction."""
+        for direction, got in (("forward", fwd), ("backward", bwd)):
+            pair = (got["window_spread"], got["window_gather"])
+            check(pair == (1, 1), f"{what} {direction}: {pair} spread/gather "
+                  "launches, not 1/1")
+
+    def grad_records(self, path, label, plan, src, tgt, c_out, c_in=1):
+        """The window kernels of one [grad] pass at their shapes: the
+        forward's spread (sources, ``c_in`` columns) and gather (targets,
+        ``c_out``), the backward's spread (targets, ``c_out``) and gather
+        (sources, ``c_in``)."""
+        self.window_path_record(path, f"{label}, sources", plan, src, c_in,
+                                ("spread",))
+        self.window_path_record(path, f"{label}, targets", plan, tgt, c_out,
+                                ("gather",))
+        back = f"{path}_backward"
+        self.window_path_record(back, f"{label}, targets", plan, tgt, c_out,
+                                ("spread",))
+        self.window_path_record(back, f"{label}, sources", plan, src, c_in,
+                                ("gather",))
+
+    def grad_param(self, value):
+        return self.torch.tensor(float(value), dtype=self.torch.float64,
+                                 device=self.dev, requires_grad=True)
+
+    def grad_loss(self, op, kname, p, x, w):
+        """<w, W x> (square) or <w, W~ x> (rectangular) of ``op`` re-spectralized
+        for the kernel ``kname`` with parameter ``p``."""
+        o = op.with_kernel(self.kernel_from_param(kname, p))
+        out = o.matvec(x) if o.scaled_tgt is None else o.matvec_tilde(x)
+        return self.torch.dot(w, out)
+
+    def grad_operator(self, path, what, op, kname, p0, n_out=None,
+                      dense=None):
+        """The parameter's gradient against a central difference, one
+        spread and one gather launch each way, and the forward loss and
+        value-and-grad times.  The difference is of the card's own forward
+        (step 1e-5 p0, GRAD_FD_TOL), or ``dense(x, w)``'s, computed within
+        the counted forward pass (GRAD_ORACLE_TOL).  Returns (x, w, x-bar,
+        row)."""
+        torch = self.torch
+        n = op.n_source
+        gen = torch.Generator(device=self.dev).manual_seed(n)
+        x = torch.randn(n, generator=gen, dtype=torch.float64, device=self.dev)
+        w = torch.randn(n_out or n, generator=gen, dtype=torch.float64,
+                        device=self.dev)
+        p, xl = self.grad_param(p0), x.clone().requires_grad_(True)
+        fd = []
+
+        def forward():
+            if dense is not None:
+                fd.append(dense(x, w))
+            return self.grad_loss(op, kname, p, xl, w)
+
+        _, (g_p, g_x), fwd, bwd = self.grad_pass(path, forward, (p, xl))
+        self.grad_one_each(fwd, bwd, what)
+        if dense is None:
+            eps = 1e-5 * p0
+            with torch.no_grad():
+                fd.append((float(self.grad_loss(op, kname, p0 + eps, x, w))
+                           - float(self.grad_loss(op, kname, p0 - eps, x,
+                                                  w))) / (2 * eps))
+        fd, tol = fd[0], GRAD_FD_TOL if dense is None else GRAD_ORACLE_TOL
+        rel_p = abs(float(g_p) - fd) / abs(fd)
+        fwd_ms = self.host_ms(lambda: self.grad_no_grad(op, kname, p, x, w),
+                              reps=10)
+        vag_ms = self.host_ms(lambda: torch.autograd.grad(
+            self.grad_loss(op, kname, p, xl, w), (p, xl)), reps=10)
+        with torch.no_grad():  # the forward's re-spectralization alone
+            spec_ms = self.host_ms(lambda: op.with_kernel(
+                self.kernel_from_param(kname, p)), reps=10)
+        row = {"n": n, "n_out": n_out or n, "what": what,
+               "param_grad": float(g_p), "fd": fd, "param_rel": rel_p,
+               "forward_ms": fwd_ms, "with_kernel_ms": spec_ms,
+               "value_and_grad_ms": vag_ms, "ratio": vag_ms / fwd_ms,
+               "launches": {"forward": fwd, "backward": bwd}}
+        log(f"[grad] {what}: d loss / d {self.param_name[kname]} "
+            f"{float(g_p):.10e}, central difference"
+            f"{' of the direct sum (kernel_matvec)' if dense else ''} "
+            f"{fd:.10e}, rel {rel_p:.3e} (tol {tol:g}); forward loss "
+            f"{fwd_ms:.3f} ms (with_kernel {spec_ms:.3f} of it), "
+            f"value-and-grad {vag_ms:.3f} ms "
+            f"({vag_ms / fwd_ms:.2f}x; BENCH_grad.json's CPU target "
+            f"{BENCH_GRAD_RATIO}x; host clock ending in synchronize); one "
+            "spread + one gather each way")
+        check(rel_p <= tol, f"{what} parameter gradient vs central "
+              f"difference: rel {rel_p:.3e}")
+        return x, w, g_x, row
+
+    def grad_no_grad(self, op, kname, p, x, w):
+        with self.torch.no_grad():
+            return self.grad_loss(op, kname, p, x, w)
+
+    def grad_x_check(self, g_x, ref, what, ref_name):
+        rel = float((g_x - ref).abs().max() / g_x.abs().max())
+        log(f"[grad] {what}: x-bar vs {ref_name} rel {rel:.3e} "
+            f"(tol {GRAD_X_TOL:g}, of max |x-bar|)")
+        check(rel <= GRAD_X_TOL, f"{what} x-bar: rel {rel:.3e}")
+        return rel
+
+    def phase_grad(self):
+        """Gradients on the card through the public entry points, float64:
+        the main path's operator at n = 10^5 (SETUP_2, SETUP_3), [krr]'s
+        rectangular operator, the dense oracle at n = 10^4, a broadcast
+        bank of four, and KRR model selection."""
+        torch, fs = self.torch, self.fs
+        self.record["grad"] = {}
+        pts, _ = self.spiral(N_MAIN, seed=0)
+        pts = torch.as_tensor(pts, device=self.dev)
+        for name in ("SETUP_2", "SETUP_3"):
+            op = fs.make_fastsum(self.kernel, pts, self.setup(name),
+                                 device=self.dev)
+            path = f"grad_{name}"
+            x, w, g_x, row = self.grad_operator(
+                path, f"spiral n={N_MAIN} {name}", op, "gaussian", SIGMA)
+            row["x_rel"] = self.grad_x_check(g_x, op.matvec(w),
+                                             f"spiral n={N_MAIN} {name}",
+                                             "the forward matvec of w")
+            self.record["grad"][path] = row
+            self.grad_records(path, f"spiral {name}", op.plan, op.src_window,
+                              op.src_window, 1)
+        self.grad_rectangular()
+        self.grad_oracle()
+        self.grad_bank(pts)
+        self.grad_krr()
+
+    def krr_data(self):
+        """[krr]'s crescent-fullmoon: training points and +-1 labels, test
+        points and labels, its FastsumParams."""
+        torch = self.torch
+        points, labels = self.crescent(N_KRR + N_KRR_TEST, seed=5)
+        y = torch.as_tensor(2.0 * labels - 1.0, device=self.dev)
+        pts = torch.as_tensor(points, device=self.dev)
+        return (pts[:N_KRR], y[:N_KRR], pts[N_KRR:], y[N_KRR:],
+                self.fs.FastsumParams(n_bandwidth=256, m=5, eps_b=None))
+
+    def grad_rectangular(self):
+        """[krr]'s train -> test operator: x-bar against the operator with
+        sources and targets swapped (the backward's spread runs on the
+        400-row target geometry)."""
+        fs = self.fs
+        xtr, _, xte, _, params = self.krr_data()
+        kern = self.make_kernel("gaussian", sigma=2.0)
+        op = fs.make_fastsum(kern, xtr, params, target_points=xte,
+                             device=self.dev)
+        swapped = fs.make_fastsum(kern, xte, params, target_points=xtr,
+                                  device=self.dev)
+        check(swapped.rho == op.rho, "swapped operator: another rho")
+        what = f"crescent {N_KRR} -> {N_KRR_TEST} N=256 m=5"
+        op.tgt_window.tiles  # the target's tile plan, outside the timing
+        x, w, g_x, row = self.grad_operator("grad_rect", what, op,
+                                            "gaussian", 2.0,
+                                            n_out=N_KRR_TEST)
+        row["x_rel"] = self.grad_x_check(
+            g_x, swapped.matvec_tilde(w), what,
+            "the operator with sources and targets swapped")
+        self.record["grad"]["grad_rect"] = row
+        self.grad_records("grad_rect", "crescent N=256 m=5", op.plan,
+                          op.src_window, op.tgt_window, 1)
+
+    def grad_oracle(self):
+        """The fused W's sigma-gradient at n = 10^4 against a central
+        difference of the direct sum (kernel_matvec, two launches)."""
+        torch, fs = self.torch, self.fs
+        n = GRAD_ORACLE_N
+        pts, _ = self.spiral(n, seed=0)
+        pts = torch.as_tensor(pts, device=self.dev)
+        op = fs.make_fastsum(self.kernel, pts, fs.SETUP_2, device=self.dev)
+        what = f"spiral n={n} SETUP_2"
+        eps = 1e-4
+
+        def dense(x, w):
+            at = [float(torch.dot(w, fs.direct_matvec_tiled(
+                self.make_kernel("gaussian", sigma=s), pts, x)))
+                for s in (SIGMA + eps, SIGMA - eps)]
+            return (at[0] - at[1]) / (2 * eps)
+
+        x, w, g_x, row = self.grad_operator("grad_oracle", what, op,
+                                            "gaussian", SIGMA, dense=dense)
+        got = row["launches"]["forward"]["kernel_matvec"]
+        check(got == 2, f"oracle: {got} kernel_matvec launches, not 2")
+        row["x_rel"] = self.grad_x_check(g_x, op.matvec(w), what,
+                                         "the forward matvec of w")
+        self.record["grad"]["grad_oracle"] = row
+        self.grad_records("grad_oracle", what, op.plan, op.src_window,
+                          op.src_window, 1)
+
+    def grad_bank(self, pts):
+        """A broadcast bank of [bank]'s four Gaussians at n = 10^5 (SETUP_2):
+        each member's sigma-bar against a central difference of the bank's
+        own loss, x-bar against the members' matvecs of their w."""
+        torch, fs = self.torch, self.fs
+        s_n, n = len(BANK_SIGMAS), N_MAIN
+        gen = torch.Generator(device=self.dev).manual_seed(12)
+        x = torch.randn(n, generator=gen, dtype=torch.float64, device=self.dev)
+        w = torch.randn((s_n, n), generator=gen, dtype=torch.float64,
+                        device=self.dev)
+
+        def bank_of(sigmas):
+            return fs.make_fastsum_bank(
+                [self.make_kernel("gaussian", sigma=s) for s in sigmas], pts,
+                fs.SETUP_2, device=self.dev)
+
+        ps = [self.grad_param(s) for s in BANK_SIGMAS]
+        xl = x.clone().requires_grad_(True)
+        bank = bank_of(ps)
+        _, grads, fwd, bwd = self.grad_pass(
+            "grad_bank", lambda: (w * bank.matvec(xl)).sum(), ps + [xl])
+        self.grad_one_each(fwd, bwd, "bank")
+        eps = 1e-5 * SIGMA
+        rels = []
+        with torch.no_grad():
+            for i, s in enumerate(BANK_SIGMAS):
+                loss = [float((w * bank_of(
+                    [v + (sign * eps if j == i else 0.0)
+                     for j, v in enumerate(BANK_SIGMAS)]).matvec(x)).sum())
+                        for sign in (1, -1)]
+                fd = (loss[0] - loss[1]) / (2 * eps)
+                rels.append(abs(float(grads[i]) - fd) / abs(fd))
+            ref = bank_of(BANK_SIGMAS).matvec(w[:, :, None])[..., 0].sum(0)
+        what = f"bank S={s_n} broadcast, spiral n={n} SETUP_2"
+        x_rel = self.grad_x_check(grads[-1], ref, what,
+                                  "the sum of the members' matvecs of w")
+        self.record["grad"]["grad_bank"] = {
+            "n": n, "S": s_n, "sigmas": BANK_SIGMAS,
+            "param_grads": [float(g) for g in grads[:-1]], "param_rel": rels,
+            "x_rel": x_rel, "launches": {"forward": fwd, "backward": bwd}}
+        log(f"[grad] {what}: each member's d loss / d sigma vs a central "
+            f"difference of the bank's loss, rel "
+            f"{[f'{r:.2e}' for r in rels]} (tol {GRAD_FD_TOL:g}); one spread "
+            "+ one gather each way")
+        check(max(rels) <= GRAD_FD_TOL, f"bank sigma-bar: rel {max(rels):.3e}")
+        self.grad_records("grad_bank", "spiral SETUP_2", bank.plan,
+                          bank.src_window, bank.src_window, s_n)
+
+    def grad_krr(self):
+        """KRR model selection at [krr]'s data (Gaussian and inverse
+        multiquadric, parameter 2, beta KRR_BETA): krr_validation_loss's
+        (log sigma, log beta) gradients against Richardson central
+        differences and their cost beside the loss's; then, on the inverse
+        multiquadric, a poisoned training vector and krr_fit_grad."""
+        data = self.krr_data()
+        for kname in ("gaussian", "inverse_multiquadric"):
+            ops = self.krr_grad_check(kname, *data)
+        self.krr_grad_poisoned(kname, ops, *data)
+        self.krr_grad_fit(kname, *data)
+
+    def krr_loss(self, kname, ops, y_train, y_val, ls, lb):
+        gram, pred = ops
+        return self.krr.krr_validation_loss(
+            kname, gram, pred, y_train, y_val, ls, lb, tol=GRAD_KRR_TOL,
+            maxiter=KRR_MAXITER)
+
+    def krr_grad_check(self, kname, xtr, ytr, xte, yte, params):
+        """Returns the (Gram, prediction) operators of ``kname``."""
+        torch, fs = self.torch, self.fs
+        kern = self.kernel_from_param(kname, 2.0)
+        ops = (fs.make_fastsum(kern, xtr, params, device=self.dev),
+               fs.make_fastsum(kern, xtr, params, target_points=xte,
+                               device=self.dev))
+        ls0, lb0 = float(np.log(2.0)), float(np.log(KRR_BETA))
+        a, b = self.grad_param(ls0), self.grad_param(lb0)
+        path = f"grad_krr_{kname}"
+        self.sync()
+        self.reset_launches()
+        t0 = time.perf_counter()
+        g_ls, g_lb = torch.autograd.grad(
+            self.krr_loss(kname, ops, ytr, yte, a, b), (a, b))
+        self.sync()
+        vag_s = time.perf_counter() - t0
+        launches = self.read_launches(path)
+
+        def loss(ls, lb):
+            with torch.no_grad():
+                return float(self.krr_loss(kname, ops, ytr, yte, ls, lb))
+
+        t0 = time.perf_counter()
+        val = loss(ls0, lb0)
+        loss_s = time.perf_counter() - t0
+        h = GRAD_KRR_H
+        rels = [abs(float(g) - fd) / max(abs(fd), 1e-30) for g, fd in (
+            (g_ls, richardson(lambda v: loss(v, lb0), ls0, h)),
+            (g_lb, richardson(lambda v: loss(ls0, v), lb0, h)))]
+        self.record["grad"][path] = {
+            "n": N_KRR, "n_val": N_KRR_TEST, "loss": val,
+            "grads": [float(g_ls), float(g_lb)], "rel": rels,
+            "loss_s": loss_s, "value_and_grad_s": vag_s,
+            "ratio": vag_s / loss_s, "launches": launches}
+        log(f"[grad] krr_validation_loss {kname} n={N_KRR} val={N_KRR_TEST}: "
+            f"loss {val:.6e}, d/d log {self.param_name[kname]} "
+            f"{float(g_ls):.8e}, d/d log beta {float(g_lb):.8e}; vs "
+            f"Richardson central differences (h={h:g}) rel {rels[0]:.2e} / "
+            f"{rels[1]:.2e} (tol {GRAD_KRR_FD_TOL:g}); loss {loss_s:.3f}s, "
+            f"value-and-grad {vag_s:.3f}s ({vag_s / loss_s:.2f}x; host clock "
+            f"ending in synchronize); launches {launches}")
+        check(max(rels) <= GRAD_KRR_FD_TOL,
+              f"KRR {kname} gradients vs Richardson: {rels}")
+        self.window_path_record(
+            path, f"crescent N=256 m=5, {N_KRR} training rows (one launch "
+            f"each on the {N_KRR_TEST} validation rows)", ops[0].plan,
+            ops[0].src_window, 1, ("spread", "gather"))
+        return ops
+
+    def krr_grad_poisoned(self, kname, ops, xtr, ytr, xte, yte, params):
+        """A NaN in the training vector quarantines the solve: the
+        gradients are finite and exactly zero."""
+        torch = self.torch
+        bad = ytr.clone()
+        bad[5] = float("nan")
+        a = self.grad_param(np.log(2.0))
+        b = self.grad_param(np.log(KRR_BETA))
+        self.sync()
+        self.reset_launches()
+        g = torch.autograd.grad(self.krr_loss(kname, ops, bad, yte, a, b),
+                                (a, b))
+        self.sync()
+        self.read_launches("grad_krr_poisoned")
+        g = [float(v) for v in g]
+        log(f"[grad] poisoned training vector ({kname}): gradients {g}")
+        check(all(v == 0.0 for v in g), f"poisoned KRR gradients: {g}")
+        self.window_path_record(
+            "grad_krr_poisoned", f"crescent N=256 m=5, {N_KRR} training "
+            "rows", ops[0].plan, ops[0].src_window, 1, ("spread", "gather"))
+
+    def krr_grad_fit(self, kname, xtr, ytr, xte, yte, params):
+        """GRAD_FIT_STEPS Adam steps of krr_fit_grad (lr 0.1, CG tol
+        KRR_TOL): the best validation loss must not exceed the first."""
+        fs = self.fs
+        self.sync()
+        self.reset_launches()
+        t0 = time.perf_counter()
+        res = self.krr.krr_fit_grad(
+            kname, xtr, ytr, xte, yte, params, init_sigma=2.0,
+            init_beta=KRR_BETA, steps=GRAD_FIT_STEPS, lr=0.1, tol=KRR_TOL,
+            maxiter=KRR_MAXITER, device=self.dev)
+        self.sync()
+        fit_s = time.perf_counter() - t0
+        launches = self.read_launches("grad_krr_fit")
+        path = [float(v) for v in res.loss_path]
+        self.record["grad"]["grad_krr_fit"] = {
+            "kernel": kname, "steps": GRAD_FIT_STEPS, "loss_path": path,
+            "param": res.sigma, "beta": res.beta, "s": fit_s,
+            "launches": launches}
+        log(f"[grad] krr_fit_grad {kname} {GRAD_FIT_STEPS} steps: loss "
+            f"{path[0]:.6e} -> best {res.val_loss:.6e} at "
+            f"{self.param_name[kname]}={res.sigma:.4g}, beta={res.beta:.3g}; "
+            f"{fit_s:.2f}s (host clock, the refit included); launches "
+            f"{launches}")
+        check(all(np.isfinite(path)) and res.val_loss <= path[0],
+              f"krr_fit_grad: best {res.val_loss} vs start {path[0]}")
+        gram = fs.make_fastsum(self.kernel_from_param(kname, 2.0), xtr,
+                               params, device=self.dev)
+        self.window_path_record(
+            "grad_krr_fit", f"crescent N=256 m=5, {N_KRR} training rows "
+            f"(one launch each on the {N_KRR_TEST} validation rows a step)",
+            gram.plan, gram.src_window, 1, ("spread", "gather"))
 
     def phase_direct(self):
         """The paper's direct baseline at the main path's n = 10^5, d = 3,
@@ -2845,8 +3270,8 @@ class Smoke:
                 "library_ms": None})
         check(recorded == total, f"kernel_matvec records hold {recorded} "
               f"launches, the paths made {total}")
-        # window kernels on the paths of banks, the sweep, multilayer SSL
-        # and graph serving: one record per path and shape
+        # window kernels on the paths of gradients, banks, the sweep,
+        # multilayer SSL and graph serving: one record per path and shape
         for t in self.slice_records:
             out.append({
                 "name": f"window_{t['kernel']}", "route": "cuda",

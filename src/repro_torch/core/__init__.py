@@ -1,7 +1,7 @@
 """Core paper contribution: NFFT fast summation + Krylov methods, in PyTorch."""
 
 from repro_torch.core.kernels import (  # noqa: F401
-    ALL_KERNELS, Kernel, make_kernel,
+    ALL_KERNELS, KERNEL_PARAM_NAME, Kernel, kernel_from_param, make_kernel,
 )
 from repro_torch.core.fastsum import (  # noqa: F401
     SETUP_1, SETUP_2, SETUP_3, FastsumOperator, FastsumOperatorBank,

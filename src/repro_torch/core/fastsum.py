@@ -10,6 +10,12 @@ card the hand-written kernel of :mod:`repro_torch.kernels.kernel_matvec`.
 
 Entry points run on the CUDA card unless the caller passes ``device``
 (see :mod:`repro_torch.device`).
+
+Differentiation: :meth:`FastsumOperator.with_kernel` rebuilds an operator's
+spectral data for a kernel whose parameter is a tensor, so the matvec is
+differentiable in sigma or c, and in its values, through the transpose
+pipeline of :mod:`repro_torch.core.fastsum_exec`.  Node positions are
+plan-time data: they are detached and get no gradient.
 """
 
 from __future__ import annotations
@@ -92,14 +98,16 @@ class FastsumOperator:
 
     Build with :func:`make_fastsum` (or :func:`fastsum_from_arrays`).
     ``matvec_tilde`` maps (n_src,) or (n_src, C) real tensors to (n_tgt,)
-    or (n_tgt, C).
+    or (n_tgt, C).  The spectral fields (``b_hat``, ``multiplier_half``,
+    ``kernel_at_zero``) carry the graph of a kernel parameter that is a
+    tensor (:meth:`with_kernel`); the plan and geometry carry none.
     """
 
     plan: NfftPlan
     b_hat: torch.Tensor  # (N,)*d complex, FFT order
     scaled_src: torch.Tensor  # (n, d) nodes in the admissible ball
     output_scale: float  # rho**exponent correction
-    kernel_at_zero: float  # K(0), already corrected
+    kernel_at_zero: float | torch.Tensor  # K(0), already corrected
     multiplier_half: torch.Tensor  # fused multiplier, rfftn half-spectrum
     src_window: WindowGeometry
     rho: float
@@ -111,6 +119,24 @@ class FastsumOperator:
         default=None, repr=False, compare=False)
     _tgt_geom: NfftGeometry | None = dataclasses.field(
         default=None, repr=False, compare=False)
+
+    def with_kernel(self, kernel: Kernel) -> "FastsumOperator":
+        """The same plan and geometry with a new kernel: only the spectral
+        data (``b_hat``, ``multiplier_half``, ``output_scale``,
+        ``kernel_at_zero``) is rebuilt.  With a tensor parameter the new
+        operator's spectral data, and so its matvecs, are differentiable
+        in it: the seam gradient-based model selection goes through.
+        """
+        if self.rho is None or self.fs_params is None:
+            raise ValueError(
+                "with_kernel needs the planning state (rho, fs_params); "
+                "this operator was built by hand or by an older path — "
+                "re-plan it with make_fastsum")
+        b_hat, mult_half, out_scale, k0 = _member_spectral(
+            kernel, self.rho, self.plan, self.fs_params, self.device)
+        return dataclasses.replace(
+            self, b_hat=b_hat, multiplier_half=mult_half,
+            output_scale=out_scale, kernel_at_zero=k0)
 
     @property
     def n_source(self) -> int:
@@ -189,8 +215,10 @@ class FastsumOperator:
 
 
 def _as_points(points, device) -> torch.Tensor:
+    """Points as a tensor on ``device``, detached: node positions are
+    plan-time data, with no gradient (as in the JAX package)."""
     dev = resolve_device(device)
-    pts = torch.as_tensor(points, device=dev)
+    pts = torch.as_tensor(points, device=dev).detach()
     if not pts.is_floating_point():
         raise TypeError(f"points must be floating point, got {pts.dtype}")
     if pts.ndim != 2:
@@ -225,7 +253,10 @@ def _member_spectral(kernel: Kernel, rho: float, plan: NfftPlan,
                      params: FastsumParams, device: torch.device):
     """Per-kernel spectral data ``(b_hat, multiplier_half, out_scale,
     k0)``: the only kernel-dependent plan-time work, everything else
-    (:func:`_scaled_plan`) is shared by a bank's members."""
+    (:func:`_scaled_plan`) is shared by a bank's members.  ``out_scale``
+    depends on ``rho`` alone and is a float; ``k0`` is a float for a float
+    parameter and a tensor, like ``b_hat`` and the multiplier carrying the
+    graph, for a tensor parameter."""
     rescaled = kernel.rescaled(rho)
     b_hat = kernel_fourier_coefficients(rescaled, plan.d, params.n_bandwidth,
                                         params.p_eff, params.eps_b_eff,
@@ -431,7 +462,7 @@ class FastsumOperatorBank:
     def _operator(self, b_hat, kernel_at_zero, multiplier_half):
         return FastsumOperator(
             plan=self.plan, b_hat=b_hat, scaled_src=self.scaled_src,
-            output_scale=1.0, kernel_at_zero=float(kernel_at_zero),
+            output_scale=1.0, kernel_at_zero=kernel_at_zero,
             multiplier_half=multiplier_half, src_window=self.src_window,
             rho=self.rho, fs_params=self.fs_params,
             scaled_tgt=self.scaled_tgt, tgt_window=self.tgt_window)
@@ -515,10 +546,12 @@ def make_fastsum_bank(kernels, points, params: FastsumParams, *,
         mults.append(mult_half * out_scale)
         k0s.append(k0)
     b_hat_bank = torch.stack(b_hats)
+    rdt = b_hat_bank.real.dtype
     return FastsumOperatorBank(
         plan=plan, b_hat_bank=b_hat_bank, scaled_src=scaled,
-        kernel_at_zero=torch.tensor(k0s, dtype=b_hat_bank.real.dtype,
-                                    device=pts.device),
+        kernel_at_zero=torch.stack([torch.as_tensor(k, dtype=rdt,
+                                                    device=pts.device)
+                                    for k in k0s]),
         multiplier_bank=torch.stack(mults), src_window=window,
         scaled_tgt=scaled_tgt, tgt_window=tgt_window, rho=rho,
         fs_params=params)

@@ -12,6 +12,18 @@ two-NFFT path does.  The window step runs on
 :mod:`repro_torch.kernels.nfft_window`: the CUDA kernels for tensors on the
 card, their plain versions for tensors on the CPU.  The FFT mid-section is
 ``torch.fft`` (cuFFT on the card).  Everything takes (n,) or (n, C).
+
+Differentiation (the JAX package's custom-VJP core).  The pipeline is
+linear in the values and in the multiplier, and :func:`window_spread` and
+:func:`window_gather` are exact mutual adjoints on one geometry.  When
+autograd needs them, each window step runs as a ``torch.autograd.Function``
+whose backward is the other step on the same geometry, so a pipeline's
+backward is its transpose: spread the cotangent on the *target* geometry,
+the mid-section's VJP (autograd over ``torch.fft`` alone, which counts the
+half-spectrum's interior bins twice, as ``jax.vjp`` does), gather on the
+*source* geometry — one spread and one gather launch.  No window kernel,
+nor its plain version, is ever differentiated by autograd.  The geometry
+is plan-time data and gets no gradient.
 """
 
 from __future__ import annotations
@@ -69,6 +81,39 @@ def _tiles(geometry: WindowGeometry, values: torch.Tensor):
     return geometry.tiles if values.is_cuda else None
 
 
+def _needs_grad(t: torch.Tensor) -> bool:
+    return t.requires_grad and torch.is_grad_enabled()
+
+
+class _Spread(torch.autograd.Function):
+    """:func:`window_spread` whose backward is :func:`window_gather` on the
+    same geometry (its exact adjoint; itself differentiable, for higher
+    derivatives)."""
+
+    @staticmethod
+    def forward(ctx, x, plan, geometry):
+        ctx.plan, ctx.geometry = plan, geometry
+        return _spread(plan, geometry, x)
+
+    @staticmethod
+    def backward(ctx, g_bar):
+        return window_gather(ctx.plan, ctx.geometry, g_bar), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """:func:`window_gather` whose backward is :func:`window_spread` on the
+    same geometry (its exact adjoint)."""
+
+    @staticmethod
+    def forward(ctx, g, plan, geometry):
+        ctx.plan, ctx.geometry = plan, geometry
+        return _gather(plan, geometry, g)
+
+    @staticmethod
+    def backward(ctx, y_bar):
+        return window_spread(ctx.plan, ctx.geometry, y_bar), None, None
+
+
 def window_spread(plan: NfftPlan, geometry: WindowGeometry,
                   x: torch.Tensor) -> torch.Tensor:
     """Spread node values (n, C) onto the oversampled grid -> (M,)*d + (C,).
@@ -76,8 +121,16 @@ def window_spread(plan: NfftPlan, geometry: WindowGeometry,
     Permutes the values into Morton row order, runs the spread kernel into
     the wrap-padded grid, folds the pad back, and rolls into FFT order.
     The fold-back adds in place into the padded grid's leading block: the
-    pad tail and the block it folds onto never overlap.
+    pad tail and the block it folds onto never overlap.  Differentiable in
+    ``x``: the backward is :func:`window_gather` on the same geometry.
     """
+    if _needs_grad(x):
+        return _Spread.apply(x, plan, geometry)
+    return _spread(plan, geometry, x)
+
+
+def _spread(plan: NfftPlan, geometry: WindowGeometry,
+            x: torch.Tensor) -> torch.Tensor:
     d, grid = plan.d, plan.grid_size
     pad_n = padded_grid_size(plan)
     xs = x[geometry.perm].contiguous()
@@ -99,7 +152,16 @@ def window_gather(plan: NfftPlan, geometry: WindowGeometry,
 
     Exact transpose of :func:`window_spread`: roll, wrap-pad each axis by
     ``taps - 1``, run the gather kernel, restore node order.
+    Differentiable in ``g``: the backward is :func:`window_spread` on the
+    same geometry.
     """
+    if _needs_grad(g):
+        return _Gather.apply(g, plan, geometry)
+    return _gather(plan, geometry, g)
+
+
+def _gather(plan: NfftPlan, geometry: WindowGeometry,
+            g: torch.Tensor) -> torch.Tensor:
     d, taps = plan.d, plan.taps
     gpad = torch.roll(g, (window_shift(plan),) * d, dims=tuple(range(d)))
     for ax in range(d):  # wrap padding, one axis at a time
@@ -136,10 +198,10 @@ fused_matvec_tilde = fused_pipeline
 
 
 # ---------------------------------------------------------------------------
-# Multiplier banks: one spread and one forward rfftn shared by S operators.
-# As in fused_pipeline, the JAX package's spectral_reduce / spectral_op
-# hooks (distribution, ROADMAP queue 1 item 12) and its custom-VJP core
-# (item 9) are not here.
+# Multiplier banks: one spread and one forward rfftn shared by S operators,
+# differentiable as the single pipeline is.  The JAX package's
+# spectral_reduce / spectral_op hooks (distribution, ROADMAP queue 1 item
+# 12) are not here.
 # ---------------------------------------------------------------------------
 
 def stack_multipliers(plan: NfftPlan, b_hats) -> torch.Tensor:

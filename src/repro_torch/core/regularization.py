@@ -15,6 +15,10 @@ are the trapezoidal-rule/DFT approximation
     b_hat[l] = (1/N^d) * sum_{j in I_N^d} K_R(j/N) e^{-2 pi i j.l / N},
 
 kept in FFT order (no fftshift anywhere).
+
+A kernel whose parameter is a tensor carries its graph through every step
+(the radial derivatives, the Taylor solve, the samples and the FFT), so
+``b_hat`` is differentiable in sigma or c.
 """
 
 from __future__ import annotations
@@ -29,18 +33,26 @@ from repro_torch.core.kernels import Kernel
 
 def kernel_radial_derivatives(kernel: Kernel, r0: float,
                               order: int) -> torch.Tensor:
-    """``[K(r0), K'(r0), ..., K^(order-1)(r0)]`` in float64.
+    """``[K(r0), K'(r0), ..., K^(order-1)(r0)]`` in float64, on the kernel
+    parameter's device (the CPU for float parameters).
 
-    Repeated ``torch.autograd.grad(create_graph=True)`` takes the place of
-    the reference's nested ``jax.grad``.
+    Repeated ``torch.autograd.grad(create_graph=True)`` over r takes the
+    place of the reference's nested ``jax.grad``.  The result keeps its
+    graph to a parameter that requires grad, and is detached otherwise.
     """
-    r = torch.tensor(float(r0), dtype=torch.float64, requires_grad=True)
-    g = kernel.phi(r)
-    derivs = [g.detach()]
-    for _ in range(order - 1):
-        (g,) = torch.autograd.grad(g, r, create_graph=True)
-        derivs.append(g.detach())
-    return torch.stack(derivs)
+    r = torch.tensor(float(r0), dtype=torch.float64,
+                     device=kernel.param_device, requires_grad=True)
+    with torch.enable_grad():
+        g = kernel.phi(r)
+        derivs = [g]
+        for _ in range(order - 1):
+            (g,) = torch.autograd.grad(g, r, create_graph=True)
+            derivs.append(g)
+    out = torch.stack(derivs)
+    keep = torch.is_grad_enabled() and any(
+        isinstance(v, torch.Tensor) and v.requires_grad
+        for v in kernel.params.values())
+    return out if keep else out.detach()
 
 
 def two_point_taylor(kernel: Kernel, p: int, eps_b: float) -> torch.Tensor:
@@ -55,15 +67,16 @@ def two_point_taylor(kernel: Kernel, p: int, eps_b: float) -> torch.Tensor:
     # t=0 (r=a): T^(j)(a) = K^(j)(a) * h^j (chain rule in t)
     kd = kernel_radial_derivatives(kernel, a, p)
     rhs_head = kd * torch.tensor([h ** j for j in range(p)],
-                                 dtype=torch.float64)
+                                 dtype=torch.float64, device=kd.device)
     for j in range(p):
         mat[j, j] = float(math.factorial(j))
     # t=1 (r=b): T^(j)(b) = 0 for j=1..p-1
     for idx, j in enumerate(range(1, p)):
         for k in range(j, n_coef):
             mat[p + idx, k] = _falling(k, j)
-    rhs = torch.cat([rhs_head, torch.zeros(n_coef - p, dtype=torch.float64)])
-    return torch.linalg.solve(torch.as_tensor(mat), rhs)
+    rhs = torch.cat([rhs_head, torch.zeros(n_coef - p, dtype=torch.float64,
+                                           device=kd.device)])
+    return torch.linalg.solve(torch.as_tensor(mat, device=kd.device), rhs)
 
 
 def _falling(k: int, j: int) -> float:
@@ -81,7 +94,8 @@ def regularized_kernel_profile(kernel: Kernel, p: int, eps_b: float):
     """
     a = 0.5 - eps_b
     if eps_b <= 0.0:
-        edge = kernel.phi(torch.tensor(0.5, dtype=torch.float64))
+        edge = kernel.phi(torch.tensor(0.5, dtype=torch.float64,
+                                       device=kernel.param_device))
 
         def profile(r):
             edge_r = edge.to(r.device)
@@ -100,7 +114,8 @@ def regularized_kernel_profile(kernel: Kernel, p: int, eps_b: float):
             out = out * t + c[k]
         return out
 
-    edge_val = t_poly(torch.tensor(0.5, dtype=torch.float64))
+    edge_val = t_poly(torch.tensor(0.5, dtype=torch.float64,
+                                   device=coeffs.device))
 
     def profile(r):
         inner = kernel.phi(torch.clamp(r, max=a))

@@ -23,10 +23,19 @@ iterate.
 
 A plain Python loop takes the place of ``lax.while_loop``; its "any column
 still active" test reads one boolean from the device per iteration.
+
+:func:`cg` is differentiable by the implicit function theorem
+(``implicit_diff=True``, the default): the loop runs without a graph, and
+the solution it returns is ``x* + S(b - A x*)``, where the residual is the
+exit residual every solve computes anyway (now with the graph, at no extra
+matvec) and ``S`` is zero forward; backward, ``S`` solves ``A w = x̄`` by
+the same CG, so ``b̄ = w`` and every tensor the matvec closes over gets
+``−∂⟨w, A x*⟩``.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, NamedTuple
 
 import torch
@@ -101,13 +110,21 @@ def _finish(matvec: Matvec, b: torch.Tensor, x: torch.Tensor,
             tol_abs: torch.Tensor, iters: torch.Tensor,
             rhs_bad: torch.Tensor, poisoned: torch.Tensor,
             stalled: torch.Tensor, bad_iter: torch.Tensor,
-            batched: bool) -> SolveResult:
+            batched: bool, adjoint_solve: Matvec | None = None
+            ) -> SolveResult:
     """Shared exit: one more matvec for the true residual, and the health
-    flags.  Quarantined or non-finite columns report ``inf``."""
-    res = _col_norms(b - matvec(x))
+    flags.  Quarantined or non-finite columns report ``inf``.
+
+    With ``adjoint_solve`` (implicit differentiation) the residual keeps
+    its graph to ``b`` and to what the matvec closes over, and where it has
+    one, ``x`` becomes ``x + S(residual)`` (:class:`_ImplicitSolve`)."""
+    r = b - matvec(x)
+    res = _col_norms(r.detach())
     res = torch.where(rhs_bad | ~torch.isfinite(res), torch.inf, res)
     health = SolveHealth(rhs_nonfinite=rhs_bad, nonfinite=poisoned,
                          stagnated=stalled, breakdown_iter=bad_iter)
+    if adjoint_solve is not None and r.requires_grad:
+        x = x + _ImplicitSolve.apply(r, adjoint_solve, ~health.any_fault)
     out = SolveResult(x=x, num_iters=iters, residual_norm=res,
                       converged=res <= tol_abs, health=health)
     if batched:
@@ -153,10 +170,30 @@ class _Guard:
         return self.poisoned | self.stalled
 
 
+class _ImplicitSolve(torch.autograd.Function):
+    """``S(r)``: zero forward, so ``x* + S(b - A x*)`` is the solve's own
+    iterate, bit for bit.  Backward: ``w = A^{-1} x̄`` by ``solve``, with
+    the cotangents of faulted columns (``keep`` False) and non-finite
+    entries set to exactly 0; ``w`` is the residual's cotangent, whence
+    ``b̄ = w`` and ``θ̄ = −∂θ⟨w, A(θ) x*⟩`` (implicit function theorem)."""
+
+    @staticmethod
+    def forward(ctx, r, solve, keep):
+        ctx.solve, ctx.keep = solve, keep
+        return torch.zeros_like(r)
+
+    @staticmethod
+    def backward(ctx, x_bar):
+        keep = ctx.keep.to(x_bar.dtype)
+        x_bar = torch.where(torch.isfinite(x_bar), x_bar, 0.0) * keep
+        w = ctx.solve(x_bar)
+        return torch.where(torch.isfinite(w), w, 0.0) * keep, None, None
+
+
 def cg(matvec: Matvec, b: torch.Tensor, *, x0: torch.Tensor | None = None,
        tol: float = 1e-8, maxiter: int = 1000,
        preconditioner: Matvec | None = None,
-       stall_window: int = 250) -> SolveResult:
+       stall_window: int = 250, implicit_diff: bool = True) -> SolveResult:
     """Preconditioned conjugate gradients for SPD operators.
 
     ``b`` (n,): scalar result fields.  ``b`` (n, C): per-column recurrences
@@ -165,10 +202,39 @@ def cg(matvec: Matvec, b: torch.Tensor, *, x0: torch.Tensor | None = None,
     residual fails to improve (by a relative 1e-3) for that many
     consecutive iterations; 0 disables it.  Guard flags land in
     ``result.health``.
+
+    ``implicit_diff=True`` (the default): ``x`` is differentiable by the
+    implicit function theorem, not by unrolling the loop, which runs
+    without a graph.  The backward solves ``A w = x̄`` by CG on the same
+    operator, with the same tolerance, preconditioner and guards, giving
+    ``b̄ = w`` and, for every tensor the matvec closes over (a kernel
+    parameter, a shift), ``θ̄ = −∂θ⟨w, A(θ) x*⟩``.  Only ``x`` is
+    differentiable, not ``x0`` nor the diagnostics; faulted columns
+    (``health.any_fault``) get exactly zero cotangents.  ``A`` must be
+    symmetric.  ``implicit_diff=False`` is the plain recurrence (autograd
+    through every iteration).
     """
     matvec, b, x0, preconditioner, batched = _as_columns(
         matvec, b, x0, preconditioner)
     rhs_bad, b, x0 = _validate_rhs(b, x0)
+    loop = torch.no_grad() if implicit_diff else contextlib.nullcontext()
+    with loop:
+        x, tol_abs, guard = _cg_loop(matvec, b, x0, tol, maxiter,
+                                     preconditioner, stall_window)
+
+    def adjoint_solve(rhs):  # A w = rhs, as the forward solve
+        with torch.no_grad():
+            w, _, _ = _cg_loop(matvec, rhs, None, tol, maxiter,
+                               preconditioner, stall_window)
+        return w
+
+    return _finish(matvec, b, x, tol_abs, guard.iters, rhs_bad,
+                   guard.poisoned, guard.stalled, guard.bad, batched,
+                   adjoint_solve if implicit_diff else None)
+
+
+def _cg_loop(matvec, b, x0, tol, maxiter, preconditioner, stall_window):
+    """The CG recurrence on (n, C) columns: ``(x, tol_abs, guard)``."""
     if x0 is None:
         x, r = torch.zeros_like(b), b  # r0 = b - A·0: no matvec
     else:
@@ -201,8 +267,7 @@ def cg(matvec: Matvec, b: torch.Tensor, *, x0: torch.Tensor | None = None,
             sel(p_new, p)
         rz = torch.where(upd, rz_new, rz)
         guard.record(_col_norms(r), upd)
-    return _finish(matvec, b, x, tol_abs, guard.iters, rhs_bad,
-                   guard.poisoned, guard.stalled, guard.bad, batched)
+    return x, tol_abs, guard
 
 
 def minres(matvec: Matvec, b: torch.Tensor, *,

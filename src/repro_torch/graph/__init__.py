@@ -8,7 +8,8 @@ from repro_torch.graph.ssl import (  # noqa: F401
     kernel_ssl_cg_multilayer, kernel_ssl_eig, make_training_vector,
 )
 from repro_torch.graph.krr import (  # noqa: F401
-    KRRModel, KRRSweepResult, krr_fit, krr_fit_sweep, krr_pred_cache_stats,
-    krr_predict, krr_predict_direct, krr_predict_many,
-    krr_prediction_operator, krr_sweep_model, points_fingerprint,
+    KRRGradResult, KRRModel, KRRSweepResult, krr_fit, krr_fit_grad,
+    krr_fit_sweep, krr_pred_cache_stats, krr_predict, krr_predict_direct,
+    krr_predict_many, krr_prediction_operator, krr_sweep_model,
+    krr_validation_loss, points_fingerprint,
 )

@@ -168,6 +168,12 @@ def kernel_matvec(points_out: torch.Tensor, points_in: torch.Tensor,
                                    zero_diagonal=zero_diagonal)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel_matvec kernel for device {x.device}")
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in (points_out, points_in, x, param)):
+        raise ValueError("the CUDA kernel_matvec has no backward: detach "
+                         "its inputs (it is the direct-sum oracle, never "
+                         "differentiated) or run it under torch.no_grad()")
     n_out, d = points_out.shape
     if d > MAX_D:
         raise ValueError(f"the CUDA kernel takes d <= {MAX_D}, got {d}")

@@ -770,3 +770,97 @@ def test_krr_fit_sweep_on_card_matches_cpu(cuda):
               for dev in ("cpu", cuda)}
     assert bool(sweeps[cuda].converged.all())
     assert _rel(sweeps[cuda].alphas.cpu(), sweeps["cpu"].alphas) <= 1e-6
+
+
+def _grad_case(device, case):
+    """(loss, leaves) of <w, W x> on ``device``: a square operator, a
+    rectangular one (W~), or a broadcast bank of two; the leaves are the
+    kernel parameters and x, all float64 from the same seeds."""
+    pts, _ = spiral(3000, seed=5)
+    params = tfs.SETUP_2
+    rng = np.random.default_rng(6)
+    x = torch.as_tensor(rng.normal(size=3000), device=device)
+    x.requires_grad_(True)
+    ps = [torch.tensor(s, dtype=torch.float64, device=device,
+                       requires_grad=True) for s in (3.0, 2.0)]
+    kern = make_kernel("gaussian", sigma=ps[0])
+    if case == "bank":
+        bank = tfs.make_fastsum_bank(
+            [kern, make_kernel("laplacian_rbf", sigma=ps[1])], pts, params,
+            device=device)
+        w = torch.as_tensor(rng.normal(size=(2, 3000)), device=device)
+        return lambda: (w * bank.matvec(x)).sum(), ps + [x]
+    if case == "rectangular":
+        tgt, _ = spiral(500, seed=7)
+        op = tfs.make_fastsum(kern, pts, params, target_points=tgt * 0.8,
+                              device=device)
+        w = torch.as_tensor(rng.normal(size=500), device=device)
+        return lambda: torch.dot(w, op.matvec_tilde(x)), [ps[0], x]
+    op = tfs.make_fastsum(kern, pts, params, device=device)
+    w = torch.as_tensor(rng.normal(size=3000), device=device)
+    return lambda: torch.dot(w, op.matvec(x)), [ps[0], x]
+
+
+@pytest.mark.parametrize("case", ["square", "rectangular", "bank"])
+def test_fused_backward_on_card_matches_cpu(cuda, case):
+    """The transpose pipeline on the card against the same backward on the
+    CPU's plain window versions: parameter gradients and x-bar within
+    1e-12, one spread and one gather launch in each direction."""
+    loss, leaves = _grad_case("cpu", case)
+    want = torch.autograd.grad(loss(), leaves)
+    loss, leaves = _grad_case(cuda, case)
+    launches = []
+    for step in ("forward", "backward"):
+        before = (twin.window_spread.launches, twin.window_gather.launches)
+        if step == "forward":
+            out = loss()
+        else:
+            got = torch.autograd.grad(out, leaves)
+        torch.cuda.synchronize()
+        launches.append((twin.window_spread.launches - before[0],
+                         twin.window_gather.launches - before[1]))
+    assert launches == [(1, 1), (1, 1)]
+    for g, h in zip(got, want):
+        assert _rel(g.cpu(), h) <= 1e-12
+
+
+def test_krr_validation_loss_grads_on_card_match_cpu(cuda):
+    """Implicit-diff CG and the prediction's transpose on the card: the
+    (log sigma, log beta) gradients agree with the CPU's to 1e-8, what two
+    CG runs at tol 1e-12 agree to."""
+    pts, labels = crescent_fullmoon(1400, seed=5)
+    y = 2.0 * labels - 1.0
+    params = tfs.FastsumParams(n_bandwidth=64, m=5, eps_b=None)
+    grads = {}
+    for device in ("cpu", cuda):
+        kern = make_kernel("inverse_multiquadric", c=2.0)
+        gram = tfs.make_fastsum(kern, pts[:1200], params, device=device)
+        pred = tfs.make_fastsum(kern, pts[:1200], params,
+                                target_points=pts[1200:], device=device)
+        a, b = (torch.tensor(v, dtype=torch.float64, device=device,
+                             requires_grad=True)
+                for v in (np.log(2.0), np.log(1e-2)))
+        loss = tkrr.krr_validation_loss(
+            "inverse_multiquadric", gram, pred,
+            torch.as_tensor(y[:1200], device=device),
+            torch.as_tensor(y[1200:], device=device), a, b, tol=1e-12,
+            maxiter=3000)
+        grads[str(device)] = [float(g) for g in
+                              torch.autograd.grad(loss, (a, b))]
+    for g, h in zip(grads[str(cuda)], grads["cpu"]):
+        assert abs(g - h) <= 1e-8 * abs(h)
+
+
+def test_kernel_matvec_refuses_grad_on_card(cuda):
+    """The CUDA direct sum has no backward: a parameter or input that
+    requires grad raises instead of dropping the gradient."""
+    pts = torch.randn((50, 2), dtype=torch.float64, device=cuda)
+    x = torch.randn(50, dtype=torch.float64, device=cuda)
+    sigma = torch.tensor(1.0, dtype=torch.float64, device=cuda,
+                         requires_grad=True)
+    with pytest.raises(ValueError, match="no backward"):
+        tkm.kernel_matvec(pts, pts, x, param=sigma)
+    with pytest.raises(ValueError, match="no backward"):
+        tkm.kernel_matvec(pts, pts, x.requires_grad_(True), param=1.0)
+    with torch.no_grad():
+        tkm.kernel_matvec(pts, pts, x, param=sigma)

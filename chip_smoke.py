@@ -37,7 +37,22 @@ of a 533 x 800 synthetic image (426,400 pixels).  Then operator banks
 sequential fits, multilayer SSL at n = 100,000, and the graph-predict
 serving tier at benchmarks/serve_scaling.py's full size (plus the sweep's
 16 cells as tenants) against per-request replans and the direct oracle,
-with its guards and one tick taken apart.  Then the LM serving
+with its guards and one tick taken apart.  Then durability
+([durable]): cuFFT's and cuBLAS's products repeated bit for bit; the
+window spread's deterministic mode (the switch
+torch.use_deterministic_algorithms) five times bitwise equal and within
+the spread's tolerance of plain, at the main path's shapes (C = 1 and
+16), the sweep's d = 1 and 2 geometries and the d = 3, m = 9 pieces;
+resumable_eigsh on the main path's spiral (n = 10^5, SETUP_2 and
+SETUP_3, 80 steps) killed at step 37, in process and across processes,
+and resumable_solve on [krr]'s Gram (n = 10^4, tol 1e-10) and on
+[bank]'s four lockstep Gaussians, killed twice each: every result bitwise
+equal to the uninterrupted run and to the plain solver under the same
+switch (and, for information only, the drift of a resumed run with the
+switch off); the registry journal of [graph_serve]'s two uniform tenants
+recovered into a registry that serves the same bits with no replan; two
+dropped ticks counted and every output against the oracle; the fault
+schedule against the JAX package's.  Then the LM serving
 path: the flash attention kernels against their plain version (float32
 on the CUDA cores, bf16 and f16 on the tensor cores: the JAX kernel
 tests' shapes in float32 and bf16, granite-3-2b's heads in all three up
@@ -60,9 +75,10 @@ The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it is the kernels' JSON record (the window kernels once
 per path of WINDOW_RECORDS and once per shape of the gradient, bank,
-sweep, multilayer and graph-serve paths, ``kernel_matvec`` once per path that
-launches it, each with that path's launches and shape).  Needs one card and the
-repository checkout around this file; imports nothing of JAX.
+sweep, multilayer and graph-serve paths, the deterministic spread once per
+[durable] path, ``kernel_matvec`` once per path that launches it, each with
+that path's launches and shape).  Needs one card and the repository
+checkout around this file; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -330,6 +346,28 @@ GS_UNPACKED_TOL = 1e-12
 # GS_SEQ_ROUNDS of them through the sequential path, per traffic mix
 GS_ROUNDS, GS_SEQ_ROUNDS = 8, 2
 GS_TRAFFIC = ("uniform", "sweep", "mixed")
+# [durable]: the deterministic spread (five repeats bitwise, TOL of plain)
+# at the main path's shapes, the sweep's d = 1 and 2 geometries and the
+# d = 3, m = 9 pieces; resumable_eigsh on the main path's spiral (k =
+# K_EIG, 80 single-vector steps, snapshots every 20, killed at 37);
+# resumable_solve on [krr]'s Gaussian Gram (tol 1e-10) and on [bank]'s
+# four lockstep Gaussians (shift I + W~_s / n); the journal of [graph_serve]'s
+# two uniform tenants; dropped ticks
+DET_REPEATS = 5
+DUR_ITERS, DUR_EVERY, DUR_KILL, DUR_SEED = 80, 20, 37, 4
+DUR_KRR_TOL, DUR_KRR_EVERY, DUR_KRR_KILLS = 1e-10, 100, (250, 700)
+DUR_BANK_TOL, DUR_BANK_MAXITER, DUR_BANK_EVERY = 1e-10, 400, 5
+DUR_BANK_SHIFT = 1e-2
+DUR_BANK_KILLS = (7, 18)
+# BENCH_resume.json (CPU, n = 3000): durable vs plain, in percent
+BENCH_RESUME_OVERHEAD = {"cg": -19.278562135627958,
+                         "eigsh": -17.37640087225767}
+# repro.runtime.chaos_schedule(5, ticks=200, p_drop=0.1, p_slow=0.1), from
+# a CPU run of the JAX package
+JAX_CHAOS_DROPS = (4, 7, 8, 19, 23, 29, 31, 48, 50, 88, 99, 111, 112, 129,
+                   130, 134, 155, 156, 160, 179, 180, 186)
+JAX_CHAOS_SLOWS = (38, 64, 69, 79, 95, 97, 102, 107, 113, 131, 172, 183, 187,
+                   198)
 
 
 def sweep_sigmas(d: int) -> tuple:
@@ -436,7 +474,7 @@ def main(argv=None) -> int:
 
 class Smoke:
     def __init__(self, torch):
-        from repro_torch.core import fastsum, fastsum_exec, lanczos
+        from repro_torch.core import fastsum, fastsum_exec, lanczos, solvers
         from repro_torch.core.kernels import (
             KERNEL_PARAM_NAME, kernel_from_param, make_kernel,
         )
@@ -454,14 +492,16 @@ class Smoke:
         from repro_torch.configs import get_config
         from repro_torch.kernels import flash_attention
         from repro_torch.models import model as lm
-        from repro_torch.runtime import guards
+        from repro_torch.runtime import durable, faultinject, guards
         from repro_torch.serving import graph as graph_serving
+        from repro_torch.serving import journal
         from repro_torch.serving.engine import Request, ServeEngine
 
         self.torch = torch
         self.fa, self.lm, self.get_config = flash_attention, lm, get_config
         self.Request, self.ServeEngine = Request, ServeEngine
         self.fs, self.lan, self.spec = fastsum, lanczos, spectral
+        self.solvers = solvers
         self.exec = fastsum_exec
         self.spiral = spiral
         self.build_window_geometry = build_window_geometry
@@ -478,6 +518,8 @@ class Smoke:
                                                     kernel_from_param)
         self.param_name = KERNEL_PARAM_NAME
         self.graph = graph_serving
+        self.durable, self.faults, self.journal = durable, faultinject, journal
+        self.det_records = []  # the deterministic spread on [durable]'s paths
         self.path_launches = {}
         self.slice_records = []  # window kernels on the slice-8/9 paths
         self.alpha_hat = {}  # [graph_serve]'s NDFT of each model's alpha
@@ -527,12 +569,15 @@ class Smoke:
 
     def reset_launches(self):
         self.win.window_spread.launches = 0
+        self.win.window_spread_deterministic.launches = 0
         self.win.window_gather.launches = 0
         self.km.kernel_matvec.launches = 0
         self.fa.flash_attention.launches = 0
 
     def read_launches(self, path: str) -> dict:
         counts = {"window_spread": self.win.window_spread.launches,
+                  "window_spread_deterministic":
+                      self.win.window_spread_deterministic.launches,
                   "window_gather": self.win.window_gather.launches,
                   "kernel_matvec": self.km.kernel_matvec.launches,
                   "flash_attention": self.fa.flash_attention.launches}
@@ -726,6 +771,7 @@ class Smoke:
         self.phase_sweep()
         self.phase_multilayer()
         self.phase_graph_serve()
+        self.phase_durable()
         self.phase_serve()
         self.phase_times()
 
@@ -2493,6 +2539,8 @@ class Smoke:
         self.record["graph_serve"] = {
             "traffic": rows, "rel": rel, "registry": steady,
             "engine": dict(engine.counters)}
+        self.gs_tenants = {mid: m for mid, m in models.items()
+                           if graph_serve_group(mid) == "uniform"}
         self.graph_serve_guards(registry, models)
         self.graph_serve_tick(registry, models)
         self.graph_serve_records(registry, xtr, params, spts)
@@ -2695,6 +2743,511 @@ class Smoke:
         log(f"[graph_serve] the gather keeps 1 of {GS_SLOTS} channels a row "
             f"({100.0 / GS_SLOTS:.1f}% used); the cold transform at pad_to=8 "
             f"columns {tr8_ms:.3f} ms, at the 2 used {tr2_ms:.3f} ms")
+
+    # -- [durable] ----------------------------------------------------------
+    def phase_durable(self):
+        """[durable]: the deterministic spread against plain and across
+        repeats, then kill-and-resume on the card: resumable_eigsh on the
+        main path, resumable_solve on KRR's Gram and on a bank, each
+        bitwise equal to its uninterrupted run and to the plain solver
+        under the same switch; the registry journal's warm restart, and
+        dropped ticks."""
+        import shutil
+        import tempfile
+        work = Path(tempfile.mkdtemp(prefix="durable_", dir=ROOT / "build"))
+        t0 = time.perf_counter()
+        try:
+            self.durable_repeatable_libraries()
+            self.durable_spread_checks()
+            self.durable_eigsh()
+            self.durable_krr()
+            self.durable_bank()
+            self.durable_journal_and_chaos(work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+            for leftover in (ROOT / "build").glob("durable_*"):
+                shutil.rmtree(leftover, ignore_errors=True)
+        self.record["durable_s"] = time.perf_counter() - t0
+        log(f"[durable] phase {self.record['durable_s']:.1f}s wall")
+
+    def ckpt_dir(self, name):
+        """A fresh snapshot directory under build/ (removed at the
+        phase's end)."""
+        import tempfile
+        return tempfile.mkdtemp(prefix=f"durable_{name}_",
+                                dir=ROOT / "build")
+
+    def durable_repeatable_libraries(self):
+        """cuFFT and the cuBLAS products the durable paths run (Lanczos's
+        reorthogonalization gemv pair, block Lanczos's gemm, CG's column
+        dots) must repeat bit for bit in one stream."""
+        torch = self.torch
+        gen = torch.Generator(device=self.dev).manual_seed(3)
+        g = torch.randn((142,) * 3 + (1,), generator=gen, dtype=torch.float64,
+                        device=self.dev)
+        q = torch.randn((DUR_ITERS, N_MAIN), generator=gen,
+                        dtype=torch.float64, device=self.dev)
+        v = torch.randn((N_MAIN, 4), generator=gen, dtype=torch.float64,
+                        device=self.dev)
+        fns = {"cuFFT rfftn/irfftn 142^3": lambda: torch.fft.irfftn(
+                   torch.fft.rfftn(g, dim=(0, 1, 2)) * 0.5, s=g.shape[:3],
+                   dim=(0, 1, 2)),
+               "cuBLAS Q^T (Q w), 80 x 10^5": lambda: q.T @ (q @ v[:, 0]),
+               "cuBLAS block (Q^T W), 80 x 10^5 x 4": lambda: q @ v,
+               "column dots (n, 4)": lambda: (v * v).sum(dim=0)}
+        for what, fn in fns.items():
+            outs = [fn() for _ in range(DET_REPEATS)]
+            same = all(torch.equal(outs[0], o) for o in outs[1:])
+            log(f"[durable] {what}: {DET_REPEATS} runs bitwise equal: {same}")
+            check(same, f"{what} does not repeat bit for bit")
+
+    def det_cases(self):
+        """(label, plan, base, weights, tiles, channels) of every
+        deterministic-spread check."""
+        torch, fs = self.torch, self.fs
+        for setup_name in ("SETUP_2", "SETUP_3"):
+            for dtype in (torch.float64, torch.float32):
+                plan, base, w, tiles = self.geometry(setup_name, 3, N_MAIN,
+                                                     dtype)
+                yield (f"spiral {setup_name} d=3 n={N_MAIN}", plan, base, w,
+                       tiles, (1, 16))
+        for d in (1, 2):
+            n_bw, m, _, _ = SWEEP_CONFIGS[d]
+            x, _ = sweep_dataset(d, SWEEP_N, self.crescent, self.spiral)
+            params = fs.FastsumParams(n_bandwidth=n_bw, m=m)
+            pts = torch.as_tensor(x, device=self.dev)
+            scaled, _, _ = fs.scale_nodes(pts, params.eps_b_eff)
+            plan = params.nfft_plan(d)
+            geom = self.build_window_geometry(plan, scaled)
+            yield (f"sweep d={d} N={n_bw} m={m} n={SWEEP_N}", plan, geom.base,
+                   geom.weights, geom.tiles, (1, SWEEP_SIGMAS * 2))
+        for dtype in (torch.float64, torch.float32):
+            plan, base, w, tiles = self.geometry("WIDE_M9", 3, N_MAIN, dtype)
+            yield (f"spiral N=32 m=9 d=3 n={N_MAIN} (pieces)", plan, base, w,
+                   tiles, (1,))
+
+    def det_reading(self, plan, base, w, tiles, c, reps):
+        """The deterministic spread at one shape: repeats bitwise equal,
+        error against plain, CUDA-event times of it, of the atomic mode and
+        of plain, the bound and the scratch."""
+        torch, win = self.torch, self.win
+        n, d, taps = w.shape
+        pad = self.padded_grid_size(plan)
+        dname = str(w.dtype).split(".")[1]
+        gen = torch.Generator(device=self.dev).manual_seed(c)
+        x = torch.randn((n, c), generator=gen, dtype=w.dtype,
+                        device=self.dev)
+        spread = lambda: win.window_spread(x, base, w, padded_size=pad,
+                                           tiles=tiles)
+        self.sync()
+        t0 = time.perf_counter()
+        index = win.spread_cell_index(tiles, pad)
+        self.sync()
+        index_ms = (time.perf_counter() - t0) * 1e3
+        with self.durable.deterministic():
+            outs = [spread() for _ in range(DET_REPEATS)]
+            det_ms = self.time_ms(spread, reps=reps, warmup=1)
+        same = all(torch.equal(outs[0], o) for o in outs[1:])
+        p_out = win.window_spread_plain(x, base, w, padded_size=pad)
+        err = float((outs[0] - p_out).abs().max())
+        rel = err / float(p_out.abs().max())
+        atomic_ms = self.time_ms(spread, reps=reps, warmup=1)
+        plain_ms = self.time_ms(
+            lambda: win.window_spread_plain(x, base, w, padded_size=pad),
+            reps=1, warmup=1)
+        bound_ms, by, flops, nbytes = self.bound(n, d, taps, c, pad, dname)
+        del outs, p_out
+        return {"n": n, "d": d, "taps": taps, "c": c, "dtype": dname,
+                "padded": pad, "tiles": tiles.n_tiles,
+                "box_cells": index.total, "touched_cells": index.n_cells,
+                "scratch_mb": win.window_spread_deterministic.scratch_bytes
+                / 1e6, "index_ms": index_ms, "repeats_equal": same,
+                "max_abs_err": err, "rel_err": rel,
+                "tol": TOL[("spread", dname)], "ms": det_ms,
+                "atomic_ms": atomic_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": by, "flops": flops,
+                "bytes": nbytes, "library_ms": None}
+
+    def durable_spread_checks(self):
+        card = self.record["device"]["nvidia_smi"]
+        log(f"[durable] deterministic window_spread (two phases, tile order) "
+            f"vs plain, {DET_REPEATS} repeats; CUDA events; {card}")
+        rows, plans = [], []
+        for label, plan, base, w, tiles, chans in self.det_cases():
+            plans.append(tiles)
+            for c in chans:
+                r = self.det_reading(plan, base, w, tiles, c,
+                                     reps=3 if plan.taps > 16 else 10)
+                r["geometry"] = label
+                rows.append(r)
+                log(f"[durable] spread_det {label} C={c} {r['dtype']}: "
+                    f"{r['ms']:.4f} ms (atomic {r['atomic_ms']:.4f} ms, "
+                    f"{r['ms'] / r['atomic_ms']:.2f}x)  bound "
+                    f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
+                    f"{100 * r['bound_ms'] / r['ms']:.2f}% of bound)  plain "
+                    f"{r['plain_ms']:.3f} ms; scratch {r['scratch_mb']:.1f} "
+                    f"MB ({r['box_cells']} box cells, {r['touched_cells']} "
+                    f"grid cells, index {r['index_ms']:.1f} ms); rel "
+                    f"{r['rel_err']:.3e} (tol {r['tol']:g}); repeats "
+                    f"bitwise equal: {r['repeats_equal']}")
+                check(r["repeats_equal"],
+                      f"deterministic spread {label} C={c} {r['dtype']}: "
+                      "repeats differ")
+                check(r["rel_err"] <= r["tol"],
+                      f"deterministic spread {label} C={c} {r['dtype']}: rel "
+                      f"{r['rel_err']:.3e}")
+        for tiles in plans:  # the m=9 pieces' index alone holds 5.5 GB
+            tiles.cell_index.clear()
+        self.record["durable_spread"] = rows
+
+    def det_path_record(self, path, geometry, plan, geom, c):
+        """The deterministic spread at one path's shape (float64): a
+        kernels-JSON record with that path's launches."""
+        launches = self.path_launches[path]["window_spread_deterministic"]
+        check(launches > 0, f"{path}: the deterministic spread never "
+              "launched")
+        r = self.det_reading(plan, geom.base, geom.weights, geom.tiles, c,
+                             reps=10)
+        check(r["repeats_equal"] and r["rel_err"] <= r["tol"],
+              f"deterministic spread at the {path} path's shape: "
+              f"{r['rel_err']:.3e}, repeats equal {r['repeats_equal']}")
+        r.update(path=path, geometry=geometry, launches=launches)
+        self.det_records.append(r)
+        self.record["times"].append(dict(r, kernel="spread_deterministic"))
+        log(f"[times] spread_det {path} path ({geometry}) n={r['n']} "
+            f"d={r['d']} C={c} float64: {r['ms']:.4f} ms (atomic "
+            f"{r['atomic_ms']:.4f})  bound {r['bound_ms']:.4f} ms "
+            f"({100 * r['bound_ms'] / r['ms']:.2f}% of bound)  plain "
+            f"{r['plain_ms']:.3f} ms; scratch {r['scratch_mb']:.1f} MB; "
+            f"{launches} launches on the path")
+
+    def report_line(self, rep):
+        hidden = max(rep.snapshot_write_s - rep.snapshot_wait_s, 0.0)
+        return (f"{rep.snapshots} snapshots, {rep.segments} segments, "
+                f"{rep.restarts} restarts, resumed from {rep.resumed_from}; "
+                f"snapshot copies {rep.snapshot_copy_s * 1e3:.1f} ms on the "
+                f"driver, writes {rep.snapshot_write_s * 1e3:.1f} ms in the "
+                f"writer threads, of which the driver waited "
+                f"{rep.snapshot_wait_s * 1e3:.1f} ms (hidden "
+                f"{hidden * 1e3:.1f} ms)")
+
+    def timed(self, fn):
+        self.sync()
+        t0 = time.perf_counter()
+        out = fn()
+        self.sync()
+        return out, time.perf_counter() - t0
+
+    def median_s(self, fn, reps=3):
+        """Median host seconds of ``reps`` calls of ``fn`` (each ending
+        in a sync), after one untimed call."""
+        fn()
+        return float(np.median([self.timed(fn)[1] for _ in range(reps)]))
+
+    def durable_eigsh(self):
+        """resumable_eigsh on the main path: the spiral at n = 10^5, k =
+        K_EIG, DUR_ITERS single-vector steps, snapshots every DUR_EVERY,
+        killed at DUR_KILL."""
+        torch, D = self.torch, self.durable
+        F = self.faults
+        pts, _ = self.spiral(N_MAIN, seed=0)
+        pts = torch.as_tensor(pts, device=self.dev)
+        policy = D.DurablePolicy(snapshot_every=DUR_EVERY)
+        row = {}
+        for name in ("SETUP_2", "SETUP_3"):
+            op = self.fs.make_normalized_adjacency(self.kernel, pts,
+                                                   self.setup(name),
+                                                   device=self.dev)
+
+            def kw(**more):  # a freshly seeded generator for every call
+                return dict(num_iters=DUR_ITERS, device=self.dev,
+                            generator=self.torch.Generator(
+                                device=self.dev).manual_seed(DUR_SEED),
+                            **more)
+
+            plain = self.lan.eigsh(op.matvec, op.n, K_EIG, **kw())
+            with D.deterministic():
+                ref = self.lan.eigsh(op.matvec, op.n, K_EIG, **kw())
+            self.reset_launches()
+            whole, rep_w = D.resumable_eigsh(
+                op.matvec, op.n, K_EIG, ckpt_dir=self.ckpt_dir("eig"),
+                policy=policy, **kw())
+            launches = self.read_launches(f"durable_eigsh_{name}")
+            t_plain = self.median_s(lambda: self.lan.eigsh(
+                op.matvec, op.n, K_EIG, **kw()))
+            with D.deterministic():
+                t_det = self.median_s(lambda: self.lan.eigsh(
+                    op.matvec, op.n, K_EIG, **kw()))
+            t_dur = self.median_s(lambda: D.resumable_eigsh(
+                op.matvec, op.n, K_EIG, ckpt_dir=self.ckpt_dir("eigt"),
+                policy=policy, **kw()))
+            check(launches["window_spread_deterministic"] == DUR_ITERS
+                  and launches["window_spread"] == 0,
+                  f"durable eigsh {name}: {launches} for {DUR_ITERS} steps")
+            (killed, rep_k), _ = self.timed(lambda: D.resumable_eigsh(
+                op.matvec, op.n, K_EIG, ckpt_dir=self.ckpt_dir("eigk"),
+                policy=policy, fault_hook=F.KillPoint(DUR_KILL), **kw()))
+            cross = self.ckpt_dir("eigx")
+            died = False
+            try:
+                D.resumable_eigsh(
+                    op.matvec, op.n, K_EIG, ckpt_dir=cross,
+                    policy=D.DurablePolicy(snapshot_every=DUR_EVERY,
+                                           max_restarts=0),
+                    fault_hook=F.KillPoint(DUR_KILL), **kw())
+            except F.Preemption:
+                died = True
+            again, rep_x = D.resumable_eigsh(op.matvec, op.n, K_EIG,
+                                             ckpt_dir=cross, policy=policy,
+                                             **kw())
+            for what, res in (("killed at 37", killed),
+                              ("cross-process", again),
+                              ("plain eigsh under the switch", ref)):
+                same = (torch.equal(res.eigenvalues, whole.eigenvalues)
+                        and torch.equal(res.eigenvectors, whole.eigenvectors))
+                log(f"[durable] eigsh {name} {what} vs uninterrupted "
+                    f"durable: eigenvalues and eigenvectors bitwise equal: "
+                    f"{same}")
+                check(same, f"durable eigsh {name}: {what} differs")
+            check(rep_k.restarts == 1 and rep_k.resumed_from is None
+                  and died and rep_x.resumed_from == -(-DUR_KILL
+                                                       // DUR_EVERY)
+                  * DUR_EVERY,
+                  f"durable eigsh {name}: killed {rep_k}, died {died}, "
+                  f"cross-process {rep_x}")
+            check(bool(torch.isfinite(whole.residual_bounds).all()),
+                  f"durable eigsh {name}: non-finite residual bounds")
+            gap = float((whole.eigenvalues - plain.eigenvalues).abs().max())
+            check(gap <= TIERS[name], f"durable eigsh {name}: eigenvalues "
+                  f"{gap:.3e} from the atomic run's")
+            # informative: the same kill-and-resume with the switch off
+            real = D.deterministic
+            D.deterministic = __import__("contextlib").nullcontext
+            try:
+                off_w, _ = D.resumable_eigsh(
+                    op.matvec, op.n, K_EIG, ckpt_dir=self.ckpt_dir("eigo"),
+                    policy=policy, **kw())
+                off_k, _ = D.resumable_eigsh(
+                    op.matvec, op.n, K_EIG, ckpt_dir=self.ckpt_dir("eigok"),
+                    policy=policy, fault_hook=F.KillPoint(DUR_KILL), **kw())
+            finally:
+                D.deterministic = real
+            drift = float((off_k.eigenvalues - off_w.eigenvalues).abs().max())
+            vdrift = float((off_k.eigenvectors.abs()
+                            - off_w.eigenvectors.abs()).abs().max())
+            row[name] = {"plain_s": t_plain, "plain_det_s": t_det,
+                         "durable_s": t_dur, "ratio": t_dur / t_plain,
+                         "report": dataclasses.asdict(rep_w),
+                         "killed_report": dataclasses.asdict(rep_k),
+                         "switch_off_eig_drift": drift,
+                         "switch_off_vec_drift": vdrift,
+                         "launches": launches}
+            log(f"[durable] eigsh {name} n={N_MAIN} k={K_EIG} {DUR_ITERS} "
+                f"steps: plain {t_plain:.4f}s (atomic), plain under the "
+                f"switch {t_det:.4f}s, durable {t_dur:.4f}s = "
+                f"{t_dur / t_plain:.2f}x plain (host clock, ends in "
+                f"synchronize, median of 3; BENCH_resume.json, CPU n=3000: "
+                f"{1 + BENCH_RESUME_OVERHEAD['eigsh'] / 100:.2f}x); "
+                + self.report_line(rep_w))
+            log(f"[durable] eigsh {name} killed at {DUR_KILL}: "
+                + self.report_line(rep_k))
+            log(f"[durable] informative, switch off: killed-and-resumed vs "
+                f"uninterrupted max |d eigenvalue| {drift:.3e}, max "
+                f"|d |eigenvector|| {vdrift:.3e}")
+            geom = op.fastsum.src_window
+            self.det_path_record(f"durable_eigsh_{name}", f"spiral {name}",
+                                 op.fastsum.plan, geom, 1)
+            del op
+        self.record["durable_eigsh"] = row
+
+    def durable_krr(self):
+        """resumable_solve on [krr]'s Gaussian Gram (n = 10^4, N=256 m=5,
+        K~ + beta I), tol DUR_KRR_TOL, killed at DUR_KRR_KILLS."""
+        torch, D, F = self.torch, self.durable, self.faults
+        points, labels = self.crescent(N_KRR + N_KRR_TEST, seed=5)
+        xtr = torch.as_tensor(points[:N_KRR], device=self.dev)
+        ytr = torch.as_tensor(2.0 * labels[:N_KRR] - 1.0, device=self.dev)
+        params = self.fs.FastsumParams(n_bandwidth=256, m=5, eps_b=None)
+        gram = self.fs.make_fastsum(self.make_kernel("gaussian", sigma=2.0),
+                                    xtr, params, device=self.dev)
+        mv = lambda x: gram.matvec_tilde(x) + KRR_BETA * x
+        kw = dict(tol=DUR_KRR_TOL, maxiter=KRR_MAXITER)
+        policy = D.DurablePolicy(snapshot_every=DUR_KRR_EVERY)
+        plain, t_plain = self.timed(lambda: self.solvers.cg(mv, ytr, **kw))
+        with D.deterministic():
+            ref, t_det = self.timed(lambda: self.solvers.cg(mv, ytr, **kw))
+        self.reset_launches()
+        (whole, rep_w), t_dur = self.timed(lambda: D.resumable_solve(
+            mv, ytr, ckpt_dir=self.ckpt_dir("krr"), policy=policy, **kw))
+        launches = self.read_launches("durable_krr")
+        killed, rep_k = D.resumable_solve(
+            mv, ytr, ckpt_dir=self.ckpt_dir("krrk"), policy=policy,
+            fault_hook=F.KillSchedule(DUR_KRR_KILLS), **kw)
+        iters = int(whole.num_iters)
+        for what, res in (("killed twice", killed),
+                          ("plain cg under the switch", ref)):
+            same = (torch.equal(res.x, whole.x)
+                    and int(res.num_iters) == iters)
+            log(f"[durable] krr CG {what} vs uninterrupted durable: x "
+                f"bitwise equal, same iterations: {same}")
+            check(same, f"durable krr CG: {what} differs")
+        check(rep_k.restarts == len(DUR_KRR_KILLS),
+              f"durable krr: {rep_k.restarts} restarts")
+        check(bool(whole.converged) and int(plain.num_iters) > 0,
+              f"durable krr: converged={bool(whole.converged)}")
+        check(launches["window_spread_deterministic"] == iters + 1
+              and launches["window_spread"] == 0,
+              f"durable krr: {launches} for {iters} iterations (+1 for the "
+              "true residual)")
+        self.record["durable_krr"] = {
+            "plain_s": t_plain, "plain_det_s": t_det, "durable_s": t_dur,
+            "ratio": t_dur / t_plain, "iters": iters,
+            "plain_iters": int(plain.num_iters),
+            "report": dataclasses.asdict(rep_w),
+            "killed_report": dataclasses.asdict(rep_k),
+            "launches": launches}
+        log(f"[durable] krr CG n={N_KRR} tol {DUR_KRR_TOL:g}: {iters} iters "
+            f"(plain {int(plain.num_iters)}), plain {t_plain:.3f}s, plain "
+            f"under the switch {t_det:.3f}s, durable {t_dur:.3f}s = "
+            f"{t_dur / t_plain:.2f}x plain (host clock; "
+            f"BENCH_resume.json, CPU n=3000: "
+            f"{1 + BENCH_RESUME_OVERHEAD['cg'] / 100:.2f}x); "
+            + self.report_line(rep_w))
+        log(f"[durable] krr CG killed at {DUR_KRR_KILLS}: "
+            + self.report_line(rep_k))
+        self.det_path_record("durable_krr", "crescent N=256 m=5",
+                             gram.plan, gram.src_window, 1)
+
+    def durable_bank(self):
+        """resumable_solve(bank=True) on [bank]'s four Gaussians at n =
+        10^5 (SETUP_2), lockstep (S, n, BANK_C), DUR_BANK_SHIFT I +
+        W~_s / n."""
+        torch, D, F, fs = self.torch, self.durable, self.faults, self.fs
+        pts, _ = self.spiral(N_MAIN, seed=0)
+        pts = torch.as_tensor(pts, device=self.dev)
+        kernels = [self.make_kernel("gaussian", sigma=s) for s in BANK_SIGMAS]
+        bank = fs.make_fastsum_bank(kernels, pts, fs.SETUP_2, device=self.dev)
+        mv = lambda xb: DUR_BANK_SHIFT * xb + bank.matvec_tilde(xb) / N_MAIN
+        b = torch.randn((len(kernels), N_MAIN, BANK_C), dtype=torch.float64,
+                        device=self.dev, generator=torch.Generator(
+                            device=self.dev).manual_seed(12))
+        kw = dict(tol=DUR_BANK_TOL, maxiter=DUR_BANK_MAXITER)
+        policy = D.DurablePolicy(snapshot_every=DUR_BANK_EVERY)
+        with D.deterministic():
+            ref = self.solvers.cg_bank(mv, b, **kw)
+        self.reset_launches()
+        whole, rep_w = D.resumable_solve(mv, b, ckpt_dir=self.ckpt_dir("bank"),
+                                         bank=True, policy=policy, **kw)
+        launches = self.read_launches("durable_bank")
+        killed, rep_k = D.resumable_solve(
+            mv, b, ckpt_dir=self.ckpt_dir("bankk"), bank=True, policy=policy,
+            fault_hook=F.KillSchedule(DUR_BANK_KILLS), **kw)
+        for what, res in (("killed twice", killed),
+                          ("plain cg_bank under the switch", ref)):
+            same = (torch.equal(res.x, whole.x)
+                    and torch.equal(res.num_iters, whole.num_iters))
+            log(f"[durable] bank CG {what} vs uninterrupted durable: x "
+                f"bitwise equal: {same}")
+            check(same, f"durable bank CG: {what} differs")
+        check(rep_k.restarts == len(DUR_BANK_KILLS)
+              and bool(whole.converged.all()),
+              f"durable bank: {rep_k.restarts} restarts, converged "
+              f"{whole.converged.tolist()}")
+        check(launches["window_spread_deterministic"] > 0
+              and launches["window_spread"] == 0,
+              f"durable bank: {launches}")
+        self.record["durable_bank"] = {
+            "iters": whole.num_iters.tolist(),
+            "report": dataclasses.asdict(rep_w),
+            "killed_report": dataclasses.asdict(rep_k), "launches": launches}
+        log(f"[durable] bank CG S={len(kernels)} n={N_MAIN} C={BANK_C}: "
+            f"{int(whole.num_iters.max())} iters; " + self.report_line(rep_w))
+        self.det_path_record("durable_bank", "spiral SETUP_2, lockstep",
+                             bank.plan, bank.src_window,
+                             len(kernels) * BANK_C)
+
+    def serve_burst(self, registry, burst, chaos=None):
+        G = self.graph
+        engine = G.GraphServeEngine(registry, slots=GS_SLOTS, chunk=GS_CHUNK,
+                                    chaos=chaos)
+        reqs = [G.PredictRequest(uid=i, model_id=mid, query_points=q)
+                for i, (mid, q) in enumerate(burst)]
+        for r in reqs:
+            engine.submit(r)
+        engine.run_until_drained()
+        self.sync()
+        check(all(r.done and r.error is None for r in reqs),
+              f"serve: {[r.error for r in reqs if r.error]}")
+        return reqs, engine
+
+    def durable_journal_and_chaos(self, work):
+        """A journaled registry of [graph_serve]'s two uniform tenants,
+        dropped and rebuilt by recover_registry; then dropped ticks."""
+        torch, D, J, F = self.torch, self.durable, self.journal, self.faults
+        models = self.gs_tenants
+        jpath = str(work / "registry.journal")
+        registry = self.graph.GraphModelRegistry(
+            journal=J.RegistryJournal(jpath))
+        for mid, model in models.items():
+            registry.register(mid, model)
+        registry._journal.close()
+        burst = graph_serve_burst(np.random.default_rng(GS_SEED + 7), None,
+                                  "uniform")
+        with D.deterministic():
+            before, _ = self.serve_burst(registry, burst)
+        del registry
+        self.sync()
+        t0 = time.perf_counter()
+        recovered, report = J.recover_registry(jpath)
+        self.sync()
+        t_rec = time.perf_counter() - t0
+        check(report.clean and report.tenants == {
+            mid: "recovered" for mid in models}, report.summary())
+        self.reset_launches()
+        with D.deterministic():
+            after, engine = self.serve_burst(recovered, burst)
+        launches = self.read_launches("durable_journal")
+        gap = max(float(np.abs(a.output - b.output).max())
+                  for a, b in zip(after, before))
+        same = all(np.array_equal(a.output, b.output)
+                   for a, b in zip(after, before))
+        stats = recovered.stats()
+        log(f"[durable] journal: {report.summary()} in {t_rec:.3f}s; "
+            f"{len(after)} requests served again: max |after - before| "
+            f"{gap:.3e} (limit 1e-12), bitwise equal under the switch: "
+            f"{same}; replans {engine.counters['replans']}, plan builds "
+            f"{stats['plan_builds']}; launches {launches}")
+        check(same and gap <= 1e-12, f"journal warm restart: {gap:.3e}")
+        check(engine.counters["replans"] == 0 and stats["plan_builds"] == 1,
+              f"journal warm restart: {engine.counters}, {stats}")
+        # dropped ticks on the recovered registry
+        self.reset_launches()
+        chaos = F.TickChaos(drop_ticks=frozenset({0, 2}))
+        reqs, engine = self.serve_burst(recovered, burst, chaos)
+        self.read_launches("durable_chaos")
+        dropped = engine.counters["dropped_ticks"]
+        log(f"[durable] chaos: drop_ticks {{0, 2}} -> dropped_ticks "
+            f"{dropped}, {sum(t.dropped for t in engine.tick_log)} ticks "
+            f"marked dropped, {engine.counters['ticks']} ticks")
+        check(dropped == 2 and sum(t.dropped for t in engine.tick_log) == 2,
+              f"chaos: {dropped} dropped ticks")
+        self.graph_serve_check(reqs, models, recovered, "[durable] chaos")
+        sched = F.chaos_schedule(5, ticks=200, p_drop=0.1, p_slow=0.1)
+        same = (tuple(sorted(sched.drop_ticks)) == JAX_CHAOS_DROPS
+                and tuple(sorted(sched.slow_ticks)) == JAX_CHAOS_SLOWS
+                and set(sched.slow_ticks.values()) == {0.002})
+        log(f"[durable] chaos_schedule(5, ticks=200, p_drop=0.1, p_slow=0.1)"
+            f" equals the JAX package's: {same}")
+        check(same, "chaos_schedule differs from the JAX package's")
+        self.record["durable_journal"] = {
+            "recover_s": t_rec, "gap": gap, "bitwise": same,
+            "plan_builds": stats["plan_builds"],
+            "replans": engine.counters["replans"],
+            "dropped_ticks": dropped, "launches": launches}
+        self.det_path_record(
+            "durable_journal", f"uniform N={GS_N_BANDWIDTH} m={GS_M} n={GS_N_TRAIN}",
+            recovered.group_of("tenant0").pred.plan,
+            recovered.group_of("tenant0").pred.src_window, min(GS_SLOTS, 8))
 
     def serve_prompts(self, cfg):
         """SERVE_REQUESTS seeded prompts, lengths in 512..2048 with one of
@@ -3284,6 +3837,19 @@ class Smoke:
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": None})
+        # the deterministic spread: one record per [durable] path and shape
+        for t in self.det_records:
+            out.append({
+                "name": "window_spread_deterministic", "route": "cuda",
+                "source": CU_SOURCE,
+                "replaces": "src/repro/kernels/nfft_window.py:51",
+                "path": t["path"], "shape": {k: t[k] for k in (
+                    "geometry", "n", "d", "taps", "c", "dtype")},
+                "launches": t["launches"], "max_abs_err": t["max_abs_err"],
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": None, "atomic_ms": t["atomic_ms"],
+                "scratch_mb": t["scratch_mb"]})
         # flash_attention: the serve path's launches; error and times at
         # the longest prompt (bf16, causal, granite heads, s = 2048)
         s = FLASH_LENGTHS[-1]

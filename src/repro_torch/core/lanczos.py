@@ -7,6 +7,15 @@ reorthogonalization (two-pass classical Gram-Schmidt per step);
 :func:`eigsh` extracts the ``k`` algebraically largest (or smallest) Ritz
 pairs.  A plain Python loop takes the place of ``fori_loop``.
 
+Both factorizations are resumable machines (:func:`lanczos_machine`,
+:func:`block_lanczos_machine`): ``body(i, carry)`` is a deterministic
+function of the step index and the carry, so running steps ``[0, k)`` in
+any segmentation gives the same trajectory; :func:`lanczos` and
+:func:`block_lanczos` run it in one go, and
+:func:`repro_torch.runtime.durable.resumable_eigsh` in snapshotted
+segments.  The body writes the basis and T's entries in place, so a
+driver copies the initial state before it runs it.
+
 The breakdown guard stays on the device: a step whose recurrence goes
 non-finite truncates the factorization (nothing at or after it is written),
 and :func:`_sentinel_mask` pushes the dead tail of T out of the Ritz window,
@@ -67,18 +76,31 @@ class EigshSetup(NamedTuple):
     v0: torch.Tensor
 
 
-def lanczos(matvec: Matvec, v0: torch.Tensor,
-            num_iters: int) -> LanczosResult:
-    """Run ``num_iters`` Lanczos steps from start vector ``v0`` (n,)."""
+class LanczosLoopState(NamedTuple):
+    """Checkpointable Lanczos state: the loop's carry and the next step."""
+
+    basis: torch.Tensor      # (num_iters, n)
+    alphas: torch.Tensor     # (num_iters,)
+    betas: torch.Tensor      # (num_iters,)
+    beta_next: torch.Tensor  # 0-d: coupling into the next step
+    breakdown: torch.Tensor  # 0-d: first non-finite step, num_iters if none
+    i: torch.Tensor          # 0-d int32: next step index
+
+
+def lanczos_machine(matvec: Matvec, v0: torch.Tensor, num_iters: int):
+    """Lanczos in resumable form: ``(state0, body, finish)``.
+
+    ``body(i, carry)`` runs step ``i`` on the 5-tuple carry ``state[:-1]``
+    (updating it in place) and returns it; ``finish(state)`` gives the
+    :class:`LanczosResult`.
+    """
     n, dtype, dev = v0.shape[0], v0.dtype, v0.device
     basis = torch.zeros((num_iters, n), dtype=dtype, device=dev)
     basis[0] = v0 / torch.linalg.vector_norm(v0)
-    alphas = torch.zeros((num_iters,), dtype=dtype, device=dev)
-    betas = torch.zeros((num_iters,), dtype=dtype, device=dev)
-    beta_next = torch.zeros((), dtype=dtype, device=dev)
-    breakdown = torch.tensor(num_iters, device=dev)
     tiny = torch.finfo(dtype).tiny
-    for i in range(num_iters):
+
+    def body(i: int, carry):
+        basis, alphas, betas, beta_next, breakdown = carry
         alive = i < breakdown
         qi = basis[i]
         w = matvec(qi)
@@ -99,27 +121,61 @@ def lanczos(matvec: Matvec, v0: torch.Tensor,
             q_next = torch.where(beta > 0, w / torch.clamp(beta, min=tiny), 0.0)
             basis[i + 1] = torch.where(ok, q_next, basis[i + 1])
             betas[i + 1] = torch.where(ok, beta, betas[i + 1])
-        beta_next = torch.where(ok, beta, 0.0)
-    return LanczosResult(alphas=alphas, betas=betas, basis=basis,
-                         residual_beta=beta_next, breakdown_iter=breakdown)
+        return basis, alphas, betas, torch.where(ok, beta, 0.0), breakdown
+
+    state0 = LanczosLoopState(
+        basis=basis,
+        alphas=torch.zeros((num_iters,), dtype=dtype, device=dev),
+        betas=torch.zeros((num_iters,), dtype=dtype, device=dev),
+        beta_next=torch.zeros((), dtype=dtype, device=dev),
+        breakdown=torch.tensor(num_iters, device=dev),
+        i=torch.zeros((), dtype=torch.int32, device=dev))
+
+    def finish(state: LanczosLoopState) -> LanczosResult:
+        return LanczosResult(alphas=state.alphas, betas=state.betas,
+                             basis=state.basis,
+                             residual_beta=state.beta_next,
+                             breakdown_iter=state.breakdown)
+
+    return state0, body, finish
 
 
-def block_lanczos(matvec: Matvec, v0: torch.Tensor,
-                  num_blocks: int) -> BlockLanczosResult:
-    """Block Lanczos with block size ``b = v0.shape[1]`` (paper Section 4).
+def run_steps(body, carry: tuple, i0: int, i1: int) -> tuple:
+    """Steps ``[i0, i1)`` of a (block) Lanczos machine's ``body``."""
+    for i in range(i0, i1):
+        carry = body(i, carry)
+    return carry
 
-    Builds ``A Q = Q T + Q_next B_next E_last^T`` with T block-tridiagonal
-    (diagonal blocks A_j, off-diagonal B_j^T / B_j).
-    """
+
+def lanczos(matvec: Matvec, v0: torch.Tensor,
+            num_iters: int) -> LanczosResult:
+    """Run ``num_iters`` Lanczos steps from start vector ``v0`` (n,)."""
+    state0, body, finish = lanczos_machine(matvec, v0, num_iters)
+    carry = run_steps(body, tuple(state0)[:-1], 0, num_iters)
+    return finish(LanczosLoopState(*carry, i=state0.i + num_iters))
+
+
+class BlockLanczosLoopState(NamedTuple):
+    """Checkpointable block-Lanczos state (see :class:`LanczosLoopState`)."""
+
+    basis: torch.Tensor     # (num_blocks, n, b)
+    a_blocks: torch.Tensor  # (num_blocks, b, b)
+    b_blocks: torch.Tensor  # (num_blocks, b, b)
+    resid: torch.Tensor     # (b, b)
+    breakdown: torch.Tensor
+    i: torch.Tensor
+
+
+def block_lanczos_machine(matvec: Matvec, v0: torch.Tensor,
+                          num_blocks: int):
+    """Block Lanczos in resumable ``(state0, body, finish)`` form."""
     n, b = v0.shape
     dtype, dev = v0.dtype, v0.device
     basis = torch.zeros((num_blocks, n, b), dtype=dtype, device=dev)
     basis[0] = torch.linalg.qr(v0).Q
-    a_blocks = torch.zeros((num_blocks, b, b), dtype=dtype, device=dev)
-    b_blocks = torch.zeros((num_blocks, b, b), dtype=dtype, device=dev)
-    resid = torch.zeros((b, b), dtype=dtype, device=dev)
-    breakdown = torch.tensor(num_blocks, device=dev)
-    for j in range(num_blocks):
+
+    def body(j: int, carry):
+        basis, a_blocks, b_blocks, resid, breakdown = carry
         qj = basis[j]
         w = matvec(qj)  # (n, b): one batched operator application
         a = qj.T @ w
@@ -140,21 +196,48 @@ def block_lanczos(matvec: Matvec, v0: torch.Tensor,
             basis[j + 1] = torch.where(ok, q_next, basis[j + 1])
             b_blocks[j + 1] = torch.where(ok, r_next, b_blocks[j + 1])
         a_blocks[j] = torch.where(ok, a, 0.0)
-        resid = torch.where(ok, r_next, 0.0)
+        return (basis, a_blocks, b_blocks, torch.where(ok, r_next, 0.0),
+                breakdown)
 
-    s = num_blocks * b
-    t = torch.zeros((s, s), dtype=dtype, device=dev)
-    for j in range(num_blocks):
-        t[j * b:(j + 1) * b, j * b:(j + 1) * b] = a_blocks[j]
-        if j > 0:
-            # A Q_{j-1} = ... + Q_j R_j: lower block (j, j-1) is R_j; the
-            # coupling into the first dead block is zeroed so the masked
-            # tail stays decoupled from the valid head
-            bj = torch.where(j < breakdown, b_blocks[j], 0.0)
-            t[(j - 1) * b:j * b, j * b:(j + 1) * b] = bj.T
-            t[j * b:(j + 1) * b, (j - 1) * b:j * b] = bj
-    return BlockLanczosResult(t_matrix=t, basis=basis, residual_block=resid,
-                              breakdown_iter=breakdown)
+    state0 = BlockLanczosLoopState(
+        basis=basis,
+        a_blocks=torch.zeros((num_blocks, b, b), dtype=dtype, device=dev),
+        b_blocks=torch.zeros((num_blocks, b, b), dtype=dtype, device=dev),
+        resid=torch.zeros((b, b), dtype=dtype, device=dev),
+        breakdown=torch.tensor(num_blocks, device=dev),
+        i=torch.zeros((), dtype=torch.int32, device=dev))
+
+    def finish(state: BlockLanczosLoopState) -> BlockLanczosResult:
+        a_blocks, b_blocks = state.a_blocks, state.b_blocks
+        breakdown = state.breakdown
+        s = num_blocks * b
+        t = torch.zeros((s, s), dtype=dtype, device=dev)
+        for j in range(num_blocks):
+            t[j * b:(j + 1) * b, j * b:(j + 1) * b] = a_blocks[j]
+            if j > 0:
+                # A Q_{j-1} = ... + Q_j R_j: lower block (j, j-1) is R_j;
+                # the coupling into the first dead block is zeroed so the
+                # masked tail stays decoupled from the valid head
+                bj = torch.where(j < breakdown, b_blocks[j], 0.0)
+                t[(j - 1) * b:j * b, j * b:(j + 1) * b] = bj.T
+                t[j * b:(j + 1) * b, (j - 1) * b:j * b] = bj
+        return BlockLanczosResult(t_matrix=t, basis=state.basis,
+                                  residual_block=state.resid,
+                                  breakdown_iter=breakdown)
+
+    return state0, body, finish
+
+
+def block_lanczos(matvec: Matvec, v0: torch.Tensor,
+                  num_blocks: int) -> BlockLanczosResult:
+    """Block Lanczos with block size ``b = v0.shape[1]`` (paper Section 4).
+
+    Builds ``A Q = Q T + Q_next B_next E_last^T`` with T block-tridiagonal
+    (diagonal blocks A_j, off-diagonal B_j^T / B_j).
+    """
+    state0, body, finish = block_lanczos_machine(matvec, v0, num_blocks)
+    carry = run_steps(body, tuple(state0)[:-1], 0, num_blocks)
+    return finish(BlockLanczosLoopState(*carry, i=state0.i + num_blocks))
 
 
 def _sentinel_mask(t: torch.Tensor, valid: torch.Tensor,
@@ -177,7 +260,10 @@ def eigsh_setup(n: int, k: int, *, num_iters: int | None = None,
     The start vector is the caller's ``v0`` (numpy or tensor, moved to
     ``device``) or standard normal draws from ``generator`` (default: a
     generator on ``device`` seeded with 0).  ``device`` defaults to v0's
-    device when v0 is a tensor, else to ``cuda``.
+    device when v0 is a tensor, else to ``cuda``.  A generator advances
+    with every draw, so a caller that wants the same start vector from two
+    calls (a durable run resumed by calling it again) passes a generator
+    freshly seeded for each call.
     """
     if which not in ("LA", "SA"):
         raise ValueError(which)

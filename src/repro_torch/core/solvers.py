@@ -21,8 +21,15 @@ stagnated.  Every solve recomputes the true residual ``||b - A x||`` per
 column at exit, so ``residual_norm`` / ``converged`` describe the returned
 iterate.
 
-A plain Python loop takes the place of ``lax.while_loop``; its "any column
-still active" test reads one boolean from the device per iteration.
+Both solvers are resumable machines (:func:`cg_machine`,
+:func:`minres_machine`): the complete loop state is a NamedTuple of tensors
+(:class:`CGLoopState`, :class:`MinresLoopState`), and ``while
+cond(s): s = body(s)`` then ``finish(s)`` is the solver.  :func:`cg` and
+:func:`minres` run exactly that; the durable drivers
+(:mod:`repro_torch.runtime.durable`) run the same body in bounded segments
+with snapshots in between.  A plain Python loop takes the place of
+``lax.while_loop``; ``cond`` reads one boolean from the device per
+iteration.
 
 :func:`cg` is differentiable by the implicit function theorem
 (``implicit_diff=True``, the default): the loop runs without a graph, and
@@ -135,41 +142,6 @@ def _finish(matvec: Matvec, b: torch.Tensor, x: torch.Tensor,
                        health=SolveHealth(*(f[0] for f in health)))
 
 
-class _Guard:
-    """Per-column freeze state shared by both solvers: non-finite revert
-    and stagnation over ``stall_window`` iterations."""
-
-    def __init__(self, resn0: torch.Tensor, stall_window: int):
-        dev = resn0.device
-        self.best = resn0
-        self.stall = torch.zeros(resn0.shape, dtype=torch.int32, device=dev)
-        self.poisoned = torch.zeros(resn0.shape, dtype=torch.bool, device=dev)
-        self.stalled = torch.zeros(resn0.shape, dtype=torch.bool, device=dev)
-        self.bad = torch.full(resn0.shape, -1, dtype=torch.int32, device=dev)
-        self.iters = torch.zeros(resn0.shape, dtype=torch.int32, device=dev)
-        self.window = stall_window
-
-    def trip(self, active: torch.Tensor, ok: torch.Tensor,
-             i: int) -> torch.Tensor:
-        """Columns that take this step: active and finite.  Active columns
-        whose step went non-finite are poisoned and keep their state."""
-        trip = active & ~ok
-        self.poisoned = self.poisoned | trip
-        self.bad = torch.where(trip & (self.bad < 0), i, self.bad)
-        self.iters = self.iters + active.to(torch.int32)
-        return active & ok
-
-    def record(self, resn: torch.Tensor, upd: torch.Tensor) -> None:
-        improved = resn < self.best * (1.0 - _STALL_RTOL)
-        self.best = torch.minimum(self.best, resn)
-        self.stall = torch.where(upd & ~improved, self.stall + 1, 0)
-        if self.window:
-            self.stalled = self.stalled | (self.stall >= self.window)
-
-    def frozen(self) -> torch.Tensor:
-        return self.poisoned | self.stalled
-
-
 class _ImplicitSolve(torch.autograd.Function):
     """``S(r)``: zero forward, so ``x* + S(b - A x*)`` is the solve's own
     iterate, bit for bit.  Backward: ``w = A^{-1} x̄`` by ``solve``, with
@@ -219,35 +191,143 @@ def cg(matvec: Matvec, b: torch.Tensor, *, x0: torch.Tensor | None = None,
     rhs_bad, b, x0 = _validate_rhs(b, x0)
     loop = torch.no_grad() if implicit_diff else contextlib.nullcontext()
     with loop:
-        x, tol_abs, guard = _cg_loop(matvec, b, x0, tol, maxiter,
-                                     preconditioner, stall_window)
+        s = run_machine(_cg_columns(matvec, b, x0, rhs_bad, batched, tol,
+                                    maxiter, preconditioner, stall_window))
 
     def adjoint_solve(rhs):  # A w = rhs, as the forward solve
         with torch.no_grad():
-            w, _, _ = _cg_loop(matvec, rhs, None, tol, maxiter,
-                               preconditioner, stall_window)
-        return w
+            rhs_ok = torch.zeros(rhs.shape[1:], dtype=torch.bool,
+                                 device=rhs.device)
+            return run_machine(_cg_columns(
+                matvec, rhs, None, rhs_ok, True, tol, maxiter,
+                preconditioner, stall_window)).x
 
-    return _finish(matvec, b, x, tol_abs, guard.iters, rhs_bad,
-                   guard.poisoned, guard.stalled, guard.bad, batched,
+    # b keeps its graph here (the loop's state holds it detached)
+    return _finish(matvec, b, s.x, s.tol_abs, s.iters, rhs_bad, s.poisoned,
+                   s.stalled, s.bad, batched,
                    adjoint_solve if implicit_diff else None)
 
 
-def _cg_loop(matvec, b, x0, tol, maxiter, preconditioner, stall_window):
-    """The CG recurrence on (n, C) columns: ``(x, tol_abs, guard)``."""
+class CGLoopState(NamedTuple):
+    """The complete CG loop state: a checkpointable tuple of tensors.
+
+    The loop body is a function of this state alone (the matvec is supplied
+    again on a restart), so snapshotting it mid-solve and resuming gives
+    the trajectory of an uninterrupted run.  ``b`` / ``tol_abs`` /
+    ``rhs_bad`` ride along so the exit needs only the state and the
+    matvec.
+    """
+
+    x: torch.Tensor
+    r: torch.Tensor
+    z: torch.Tensor
+    p: torch.Tensor
+    rz: torch.Tensor
+    iters: torch.Tensor
+    best: torch.Tensor      # best residual so far (stagnation reference)
+    stall: torch.Tensor     # consecutive non-improving iterations
+    poisoned: torch.Tensor  # SolveHealth.nonfinite accumulator
+    stalled: torch.Tensor   # SolveHealth.stagnated accumulator
+    bad: torch.Tensor       # SolveHealth.breakdown_iter accumulator
+    i: torch.Tensor         # global iteration counter (0-d int32)
+    b: torch.Tensor         # validated right-hand side
+    tol_abs: torch.Tensor
+    rhs_bad: torch.Tensor
+
+
+class KrylovMachine(NamedTuple):
+    """A Krylov solve in resumable form: ``state`` and ``cond`` / ``body``
+    / ``finish``.
+
+    ``while cond(s): s = body(s)`` followed by ``finish(s)`` is the solver
+    (:func:`run_machine`; :func:`cg` and :func:`minres` run exactly this).
+    ``cond`` returns a 0-d bool tensor.  A driver may run the loop in
+    bounded segments and snapshot the state between them
+    (:mod:`repro_torch.runtime.durable`); the trajectory is the same.
+    """
+
+    state: NamedTuple
+    cond: Callable
+    body: Callable
+    finish: Callable
+
+
+def run_machine(machine: KrylovMachine):
+    """Run ``machine`` from its initial state until its condition fails;
+    returns the final state (one host read an iteration)."""
+    s = machine.state
+    while bool(machine.cond(s)):
+        s = machine.body(s)
+    return s
+
+
+def _guard_state(resn0: torch.Tensor) -> dict:
+    """The per-column guard fields of a fresh loop state."""
+    dev = resn0.device
+    return dict(
+        iters=torch.zeros(resn0.shape, dtype=torch.int32, device=dev),
+        best=resn0,
+        stall=torch.zeros(resn0.shape, dtype=torch.int32, device=dev),
+        poisoned=torch.zeros(resn0.shape, dtype=torch.bool, device=dev),
+        stalled=torch.zeros(resn0.shape, dtype=torch.bool, device=dev),
+        bad=torch.full(resn0.shape, -1, dtype=torch.int32, device=dev),
+        i=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def _guard_step(s, active: torch.Tensor, ok: torch.Tensor,
+                resn_of, stall_window: int) -> tuple:
+    """Non-finite revert and stagnation, shared by both solvers.
+
+    Returns ``(upd, guard fields of the next state)``; ``resn_of(upd)`` is
+    the residual measure after the step (stagnation watches it)."""
+    trip = active & ~ok
+    poisoned = s.poisoned | trip
+    bad = torch.where(trip & (s.bad < 0), s.i, s.bad)
+    upd = active & ok
+    resn = resn_of(upd)
+    improved = resn < s.best * (1.0 - _STALL_RTOL)
+    best = torch.minimum(s.best, resn)
+    stall = torch.where(upd & ~improved, s.stall + 1, 0).to(torch.int32)
+    stalled = s.stalled
+    if stall_window:
+        stalled = stalled | (stall >= stall_window)
+    return upd, dict(iters=s.iters + active.to(torch.int32), best=best,
+                     stall=stall, poisoned=poisoned, stalled=stalled,
+                     bad=bad, i=s.i + 1)
+
+
+def cg_machine(matvec: Matvec, b: torch.Tensor, *,
+               x0: torch.Tensor | None = None, tol: float = 1e-8,
+               maxiter: int = 1000, preconditioner: Matvec | None = None,
+               stall_window: int = 250) -> KrylovMachine:
+    """CG as a resumable machine (state: :class:`CGLoopState`)."""
+    matvec, b, x0, preconditioner, batched = _as_columns(
+        matvec, b, x0, preconditioner)
+    rhs_bad, b, x0 = _validate_rhs(b, x0)
+    return _cg_columns(matvec, b, x0, rhs_bad, batched, tol, maxiter,
+                       preconditioner, stall_window)
+
+
+def _cg_columns(matvec, b, x0, rhs_bad, batched, tol, maxiter,
+                preconditioner, stall_window) -> KrylovMachine:
+    """The CG machine on validated (n, C) columns."""
     if x0 is None:
         x, r = torch.zeros_like(b), b  # r0 = b - A·0: no matvec
     else:
         x, r = x0, b - matvec(x0)
     z = preconditioner(r) if preconditioner is not None else r
-    p = z
-    rz = _col_dot(r, z)
-    tol_abs = tol * torch.clamp(_col_norms(b), min=1.0)
-    guard = _Guard(_col_norms(r), stall_window)
-    for i in range(maxiter):
-        active = (_col_norms(r) > tol_abs) & ~guard.frozen()
-        if not bool(active.any()):
-            break
+    state0 = CGLoopState(
+        x=x, r=r, z=z, p=z, rz=_col_dot(r, z),
+        **_guard_state(_col_norms(r)), b=b,
+        tol_abs=tol * torch.clamp(_col_norms(b), min=1.0), rhs_bad=rhs_bad)
+
+    def cond(s: CGLoopState) -> torch.Tensor:
+        alive = (_col_norms(s.r) > s.tol_abs) & ~s.poisoned & ~s.stalled
+        return (s.i < maxiter) & alive.any()
+
+    def body(s: CGLoopState) -> CGLoopState:
+        x, r, z, p, rz = s.x, s.r, s.z, s.p, s.rz
+        active = (_col_norms(r) > s.tol_abs) & ~s.poisoned & ~s.stalled
         ap = matvec(p)
         denom = _col_dot(p, ap)
         alpha = rz / torch.where(denom != 0, denom, 1.0)
@@ -258,28 +338,59 @@ def _cg_loop(matvec, b, x0, tol, maxiter, preconditioner, stall_window):
         rz_new = _col_dot(r_new, z_new)
         beta = torch.where(active, rz_new / torch.where(rz != 0, rz, 1.0), 0.0)
         p_new = z_new + beta * p
+        # quarantine: a column whose update went non-finite keeps its last
+        # finite state and leaves the active set for good
         ok = (torch.isfinite(x_new).all(dim=0)
               & torch.isfinite(r_new).all(dim=0)
               & torch.isfinite(p_new).all(dim=0))
-        upd = guard.trip(active, ok, i)
+        upd, guard = _guard_step(
+            s, active, ok,
+            lambda u: _col_norms(torch.where(u[None, :], r_new, r)),
+            stall_window)
         sel = lambda new, old: torch.where(upd[None, :], new, old)
-        x, r, z, p = sel(x_new, x), sel(r_new, r), sel(z_new, z), \
-            sel(p_new, p)
-        rz = torch.where(upd, rz_new, rz)
-        guard.record(_col_norms(r), upd)
-    return x, tol_abs, guard
+        return CGLoopState(
+            x=sel(x_new, x), r=sel(r_new, r), z=sel(z_new, z),
+            p=sel(p_new, p), rz=torch.where(upd, rz_new, rz), **guard,
+            b=s.b, tol_abs=s.tol_abs, rhs_bad=s.rhs_bad)
+
+    def finish(s: CGLoopState) -> SolveResult:
+        return _finish(matvec, s.b, s.x, s.tol_abs, s.iters, s.rhs_bad,
+                       s.poisoned, s.stalled, s.bad, batched)
+
+    return KrylovMachine(state=state0, cond=cond, body=body, finish=finish)
 
 
-def minres(matvec: Matvec, b: torch.Tensor, *,
-           x0: torch.Tensor | None = None, tol: float = 1e-8,
-           maxiter: int = 1000, stall_window: int = 250) -> SolveResult:
-    """MINRES for symmetric (possibly indefinite) operators.
+class MinresLoopState(NamedTuple):
+    """The complete MINRES loop state (see :class:`CGLoopState`)."""
 
-    Batched ``b`` (n, C) runs per-column Lanczos + Givens recurrences in
-    lockstep; a frozen column (converged, poisoned or stagnated) stops
-    updating its whole recurrence.  Guard flags land in ``result.health``;
-    ``stall_window=0`` disables stagnation detection.
-    """
+    x: torch.Tensor
+    v: torch.Tensor
+    v_prev: torch.Tensor
+    w: torch.Tensor
+    w_prev: torch.Tensor
+    phi_bar: torch.Tensor
+    delta1: torch.Tensor
+    eps_k: torch.Tensor
+    cs: torch.Tensor
+    sn: torch.Tensor
+    beta: torch.Tensor
+    iters: torch.Tensor
+    best: torch.Tensor
+    stall: torch.Tensor
+    poisoned: torch.Tensor
+    stalled: torch.Tensor
+    bad: torch.Tensor
+    i: torch.Tensor
+    b: torch.Tensor
+    tol_abs: torch.Tensor
+    rhs_bad: torch.Tensor
+
+
+def minres_machine(matvec: Matvec, b: torch.Tensor, *,
+                   x0: torch.Tensor | None = None, tol: float = 1e-8,
+                   maxiter: int = 1000,
+                   stall_window: int = 250) -> KrylovMachine:
+    """MINRES as a resumable machine (state: :class:`MinresLoopState`)."""
     matvec, b, x0, _, batched = _as_columns(matvec, b, x0, None)
     rhs_bad, b, x0 = _validate_rhs(b, x0)
     if x0 is None:
@@ -287,22 +398,27 @@ def minres(matvec: Matvec, b: torch.Tensor, *,
     else:
         x, r = x0, b - matvec(x0)
     beta1 = _col_norms(r)
-    tol_abs = tol * torch.clamp(_col_norms(b), min=1.0)
     dtype = b.dtype
     eps = torch.finfo(dtype).tiny
-    v = r / torch.clamp(beta1, min=eps)
-    v_prev, w, w_prev = (torch.zeros_like(b) for _ in range(3))
-    phi_bar = beta1
-    delta1 = torch.zeros_like(beta1)
-    eps_k = torch.zeros_like(beta1)
-    cs = -torch.ones_like(beta1)
-    sn = torch.zeros_like(beta1)
-    beta = beta1
-    guard = _Guard(beta1, stall_window)  # stagnation on |phi_bar|
-    for i in range(maxiter):
-        active = (phi_bar.abs() > tol_abs) & ~guard.frozen()
-        if not bool(active.any()):
-            break
+    # Lanczos + Givens QR recurrences, one per column
+    state0 = MinresLoopState(
+        x=x, v=r / torch.clamp(beta1, min=eps), v_prev=torch.zeros_like(b),
+        w=torch.zeros_like(b), w_prev=torch.zeros_like(b), phi_bar=beta1,
+        delta1=torch.zeros_like(beta1), eps_k=torch.zeros_like(beta1),
+        cs=-torch.ones_like(beta1), sn=torch.zeros_like(beta1), beta=beta1,
+        **_guard_state(beta1),  # stagnation watches |phi_bar|
+        b=b, tol_abs=tol * torch.clamp(_col_norms(b), min=1.0),
+        rhs_bad=rhs_bad)
+
+    def cond(s: MinresLoopState) -> torch.Tensor:
+        alive = (s.phi_bar.abs() > s.tol_abs) & ~s.poisoned & ~s.stalled
+        return (s.i < maxiter) & alive.any()
+
+    def body(s: MinresLoopState) -> MinresLoopState:
+        x, v, v_prev, w, w_prev = s.x, s.v, s.v_prev, s.w, s.w_prev
+        phi_bar, delta1, eps_k, cs, sn, beta = (
+            s.phi_bar, s.delta1, s.eps_k, s.cs, s.sn, s.beta)
+        active = (phi_bar.abs() > s.tol_abs) & ~s.poisoned & ~s.stalled
         av = matvec(v)
         alpha = _col_dot(v, av).to(dtype)
         av = av - alpha * v - beta * v_prev
@@ -322,21 +438,46 @@ def minres(matvec: Matvec, b: torch.Tensor, *,
         phi_bar_new = sn_new * phi_bar
         w_new = (v - delta2 * w - eps_k * w_prev) / gamma2
         x_new = x + tau * w_new
+        # a column takes the step only when active and finite; every other
+        # column keeps its whole recurrence state
         ok = (torch.isfinite(x_new).all(dim=0)
               & torch.isfinite(v_new).all(dim=0)
               & torch.isfinite(phi_bar_new))
-        upd = guard.trip(active, ok, i)
+        upd, guard = _guard_step(
+            s, active, ok,
+            lambda u: torch.where(u, phi_bar_new, phi_bar).abs(),
+            stall_window)
         seln = lambda new, old: torch.where(upd[None, :], new, old)
         selc = lambda new, old: torch.where(upd, new, old)
-        x, v, v_prev = seln(x_new, x), seln(v_new, v), seln(v, v_prev)
-        w, w_prev = seln(w_new, w), seln(w, w_prev)
-        phi_bar = selc(phi_bar_new, phi_bar)
-        delta1, eps_k = selc(delta1_next, delta1), selc(eps_next, eps_k)
-        cs, sn = selc(cs_new, cs), selc(sn_new, sn)
-        beta = selc(beta_new, beta)
-        guard.record(phi_bar.abs(), upd)
-    return _finish(matvec, b, x, tol_abs, guard.iters, rhs_bad,
-                   guard.poisoned, guard.stalled, guard.bad, batched)
+        return MinresLoopState(
+            x=seln(x_new, x), v=seln(v_new, v), v_prev=seln(v, v_prev),
+            w=seln(w_new, w), w_prev=seln(w, w_prev),
+            phi_bar=selc(phi_bar_new, phi_bar),
+            delta1=selc(delta1_next, delta1), eps_k=selc(eps_next, eps_k),
+            cs=selc(cs_new, cs), sn=selc(sn_new, sn),
+            beta=selc(beta_new, beta), **guard, b=s.b, tol_abs=s.tol_abs,
+            rhs_bad=s.rhs_bad)
+
+    def finish(s: MinresLoopState) -> SolveResult:
+        return _finish(matvec, s.b, s.x, s.tol_abs, s.iters, s.rhs_bad,
+                       s.poisoned, s.stalled, s.bad, batched)
+
+    return KrylovMachine(state=state0, cond=cond, body=body, finish=finish)
+
+
+def minres(matvec: Matvec, b: torch.Tensor, *,
+           x0: torch.Tensor | None = None, tol: float = 1e-8,
+           maxiter: int = 1000, stall_window: int = 250) -> SolveResult:
+    """MINRES for symmetric (possibly indefinite) operators.
+
+    Batched ``b`` (n, C) runs per-column Lanczos + Givens recurrences in
+    lockstep; a frozen column (converged, poisoned or stagnated) stops
+    updating its whole recurrence.  Guard flags land in ``result.health``;
+    ``stall_window=0`` disables stagnation detection.
+    """
+    m = minres_machine(matvec, b, x0=x0, tol=tol, maxiter=maxiter,
+                       stall_window=stall_window)
+    return m.finish(run_machine(m))
 
 
 # ---------------------------------------------------------------------------

@@ -43,27 +43,31 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _PTR = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
-# source -> (argtypes shared by its entry points, entry points)
+# (x|grid, base, weights, grid|out, tiles, n_tiles, d, taps, c, P, chunk,
+#  max_cells, max_rows, pieces, stream)
+_WINDOW_ARGS = [_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I32, _I32, _I32, _I64,
+                _I32, _I32, _I32, _I32, _PTR]
+# source -> ((argtypes, the entry points that share them), ...)
 ENTRY_POINTS = {
-    # (x|grid, base, weights, grid|out, tiles, n_tiles, d, taps, c, P,
-    #  chunk, max_cells, max_rows, pieces, stream)
     "nfft_window.cu": (
-        [_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I32, _I32, _I32, _I64, _I32,
-         _I32, _I32, _I32, _PTR],
-        ("repro_window_spread_f64", "repro_window_spread_f32",
-         "repro_window_gather_f64", "repro_window_gather_f32")),
+        (_WINDOW_ARGS,
+         ("repro_window_spread_f64", "repro_window_spread_f32",
+          "repro_window_gather_f64", "repro_window_gather_f32")),
+        # ... + scratch, box_off, entries, starts, cells, n_cells
+        (_WINDOW_ARGS + [_PTR, _PTR, _PTR, _PTR, _PTR, _I64],
+         ("repro_window_spread_det_f64", "repro_window_spread_det_f32"))),
     # (a, b, x, y, partial, n_out, n_in, d, c, profile, param,
     #  zero_diagonal, splits, split_len, stream)
     "kernel_matvec.cu": (
-        [_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I64, _I32, _I32, _I32,
-         ctypes.c_double, _I32, _I32, _I64, _PTR],
-        ("repro_kernel_matvec_f64", "repro_kernel_matvec_f32")),
+        ([_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I64, _I32, _I32, _I32,
+          ctypes.c_double, _I32, _I32, _I64, _PTR],
+         ("repro_kernel_matvec_f64", "repro_kernel_matvec_f32")),),
     # (q, k, v, o, b, hq, hkv, sq, sk, dh, scale, causal, stream)
     "flash_attention.cu": (
-        [_PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _I32, _I32,
-         ctypes.c_double, _I32, _PTR],
-        ("repro_flash_attention_f32", "repro_flash_attention_bf16",
-         "repro_flash_attention_f16")),
+        ([_PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _I32, _I32,
+          ctypes.c_double, _I32, _PTR],
+         ("repro_flash_attention_f32", "repro_flash_attention_bf16",
+          "repro_flash_attention_f16")),),
 }
 
 
@@ -133,10 +137,10 @@ def build() -> dict:
 def load_library(source: str) -> ctypes.CDLL:
     """The built library of ``source``, with every entry point's signature
     set."""
-    argtypes, names = ENTRY_POINTS[source]
     lib = ctypes.CDLL(str(build()[source]["path"]))
-    for name in names:
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    for argtypes, names in ENTRY_POINTS[source]:
+        for name in names:
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib

@@ -33,15 +33,27 @@
 //   one column of the box (its first axis) at one cell of the box's other
 //   axes, and sums the tile's nodes into registers in row order: one
 //   window test and plane weight per node, then w0 * (w1 * w2) * x per
-//   column cell inside the window.  Each cell then goes to the grid with
-//   one atomicAdd per channel, coalesced along the last axis (neighbouring
-//   tiles' boxes overlap): ~n * box / 64 global atomics, ~50x fewer, at
-//   the price of box / taps^d window tests (1.0-1.2 on the main path).  By
-//   the data-sheet roofline it is operation-bound; in practice instruction
-//   issue and latency bound it.  The sum within a tile has a fixed order;
-//   the atomics make the order across tiles, and the result's last bits,
-//   vary from run to run.  A deterministic mode would write each tile's
-//   box to scratch and add the boxes in tile order in a second pass.
+//   column cell inside the window.  The sum within a tile has a fixed
+//   order.  How the boxes reach the grid is the kernel's one mode switch:
+//   * atomic (repro_window_spread_*): each cell goes to the grid with one
+//     atomicAdd per channel, coalesced along the last axis (neighbouring
+//     tiles' boxes overlap): ~n * box / 64 global atomics, ~50x fewer than
+//     one per node, at the price of box / taps^d window tests (1.0-1.2 on
+//     the main path).  By the data-sheet roofline it is operation-bound;
+//     in practice instruction issue and latency bound it.  The order in
+//     which tiles land, and so the result's last bits, vary from run to
+//     run.
+//   * deterministic (repro_window_spread_det_*): phase A is the same
+//     kernel, but each tile stores its whole box, zeros included, with
+//     plain stores into a scratch buffer at the tile's own offset (C
+//     order, the pass's channels innermost); phase B (reduce_kernel) gives
+//     one thread to each grid cell that some box touches and adds the
+//     boxes that cover it in ascending tile order, walking a CSR cell
+//     index built once per tile plan (nfft_window.py: spread_cell_index).
+//     One pass of up to 4 channels at a time, so the scratch holds the sum
+//     of the boxes' cells times at most 4 channels.  Two runs give the
+//     same bits.  The Python wrapper picks this mode when
+//     torch.are_deterministic_algorithms_enabled() is true.
 //
 // window_gather replaces src/repro/kernels/nfft_window.py:_gather_kernel.
 //   A block stages its tile's box in shared memory once, coalesced along
@@ -119,12 +131,17 @@ __device__ inline void stage_nodes(const Tile& tile, const int* __restrict__ bas
 // row order, a thread tests its plane cell against the node's window once,
 // forms the plane weight, and then adds w0 * (w_plane * x) to each of its
 // column cells inside the window.  CC channels ride along in registers.
-template <typename T, int D, int CC>
+// Channels [c_lo, c_hi) are spread, `chunk` at a time.  kDet: each pass's
+// box is stored at scratch[(box_off[tile] + cell) * cc + q] (cell in C order
+// over the box, cc the pass's channels) instead of added to the grid.
+template <typename T, int D, int CC, bool kDet>
 __global__ void __launch_bounds__(kThreads)
 spread_kernel(const T* __restrict__ x, const int* __restrict__ base,
               const T* __restrict__ w, T* __restrict__ grid,
               const int* __restrict__ tiles, int taps, int c, long long P,
-              int chunk, int max_rows) {
+              int chunk, int max_rows, int c_lo, int c_hi,
+              T* __restrict__ scratch,
+              const long long* __restrict__ box_off) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Tile tile = load_tile(tiles, blockIdx.x);
   T* sw = reinterpret_cast<T*>(smem);           // max_rows * D * taps
@@ -141,8 +158,8 @@ spread_kernel(const T* __restrict__ x, const int* __restrict__ base,
   const int items = plane * segs;
   const long long row0 = tile.start;
 
-  for (int c0 = 0; c0 < c; c0 += chunk) {
-    const int cc = min(chunk, c - c0);
+  for (int c0 = c_lo; c0 < c_hi; c0 += chunk) {
+    const int cc = min(chunk, c_hi - c0);
     __syncthreads();  // the last chunk's readers are done
     for (int i = threadIdx.x; i < tile.count * cc; i += blockDim.x) {
       const int r = i / cc, q = i - r * cc;
@@ -194,6 +211,18 @@ spread_kernel(const T* __restrict__ x, const int* __restrict__ base,
           }
         }
       }
+      if constexpr (kDet) {
+        // the box's cell (k0 + k, pc) in C order: the column axis first
+        T* sc = scratch + (box_off[blockIdx.x] + (long long)k0 * plane + pc) * cc;
+#pragma unroll
+        for (int k = 0; k < kCol; ++k) {
+          if (k >= nk) break;
+#pragma unroll
+          for (int q = 0; q < CC; ++q)
+            if (q < cc) sc[(long long)k * plane * cc + q] = acc[k][q];
+        }
+        continue;
+      }
       // one add per owned cell and channel; neighbouring tiles overlap
       long long cell = 0;
       if constexpr (D == 1) {
@@ -213,6 +242,37 @@ spread_kernel(const T* __restrict__ x, const int* __restrict__ base,
           if (q < cc && acc[k][q] != T(0)) atomicAdd(g + q, acc[k][q]);
       }
     }
+  }
+}
+
+// Deterministic spread, phase B: grid cell cells[u] gets, for each of the
+// pass's cc channels, the sum of scratch[entries[j] * cc + q] over
+// j in [starts[u], starts[u + 1]), in that (ascending tile) order.  Every
+// cell some box touches has exactly one thread, so no atomics.
+template <typename T, int CC>
+__global__ void __launch_bounds__(kThreads)
+reduce_kernel(const T* __restrict__ scratch,
+              const long long* __restrict__ entries,
+              const long long* __restrict__ starts,
+              const long long* __restrict__ cells, T* __restrict__ grid,
+              long long n_cells, int c, int c0, int cc) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       u < n_cells; u += stride) {
+    T acc[CC];
+#pragma unroll
+    for (int q = 0; q < CC; ++q) acc[q] = T(0);
+    const long long j1 = starts[u + 1];
+    for (long long j = starts[u]; j < j1; ++j) {
+      const T* v = scratch + entries[j] * cc;
+#pragma unroll
+      for (int q = 0; q < CC; ++q)
+        if (q < cc) acc[q] += v[q];
+    }
+    T* g = grid + cells[u] * c + c0;
+#pragma unroll
+    for (int q = 0; q < CC; ++q)
+      if (q < cc) g[q] = acc[q];
   }
 }
 
@@ -531,34 +591,84 @@ int allow_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, int D, int CC>
+// What the deterministic mode adds to a spread: the scratch and the plan's
+// cell index (all null / 0 for the atomic mode).
+template <typename T>
+struct DetArgs {
+  T* scratch;
+  const long long* box_off;
+  const long long* entries;
+  const long long* starts;
+  const long long* cells;
+  long long n_cells;
+};
+
+template <typename T, int D, int CC, bool kDet>
 int spread_cc(const T* x, const int* base, const T* w, T* grid,
               const int* tiles, long long n_tiles, int taps, int c,
-              long long P, int chunk, int max_rows, cudaStream_t s) {
+              long long P, int chunk, int max_rows, int c_lo, int c_hi,
+              const DetArgs<T>& det, cudaStream_t s) {
   const size_t bytes = (size_t)max_rows * (D * taps + chunk) * sizeof(T) +
                        (size_t)max_rows * D * sizeof(int);
-  auto kernel = spread_kernel<T, D, CC>;
+  auto kernel = spread_kernel<T, D, CC, kDet>;
   int rc = allow_smem(kernel, bytes);
   if (rc) return rc;
-  kernel<<<(unsigned)n_tiles, kThreads, bytes, s>>>(x, base, w, grid, tiles,
-                                                     taps, c, P, chunk,
-                                                     max_rows);
+  kernel<<<(unsigned)n_tiles, kThreads, bytes, s>>>(
+      x, base, w, grid, tiles, taps, c, P, chunk, max_rows, c_lo, c_hi,
+      det.scratch, det.box_off);
   return (int)cudaGetLastError();
 }
 
 // registers for exactly the chunk's channels: 1, 2 or 4
-template <typename T, int D>
+template <typename T, int D, bool kDet>
 int spread_d(const T* x, const int* base, const T* w, T* grid,
              const int* tiles, long long n_tiles, int taps, int c,
-             long long P, int chunk, int max_rows, cudaStream_t s) {
+             long long P, int chunk, int max_rows, int c_lo, int c_hi,
+             const DetArgs<T>& det, cudaStream_t s) {
   if (chunk == 1)
-    return spread_cc<T, D, 1>(x, base, w, grid, tiles, n_tiles, taps, c, P,
-                              chunk, max_rows, s);
+    return spread_cc<T, D, 1, kDet>(x, base, w, grid, tiles, n_tiles, taps,
+                                    c, P, chunk, max_rows, c_lo, c_hi, det,
+                                    s);
   if (chunk == 2)
-    return spread_cc<T, D, 2>(x, base, w, grid, tiles, n_tiles, taps, c, P,
-                              chunk, max_rows, s);
-  return spread_cc<T, D, kSpreadChunk>(x, base, w, grid, tiles, n_tiles,
-                                       taps, c, P, chunk, max_rows, s);
+    return spread_cc<T, D, 2, kDet>(x, base, w, grid, tiles, n_tiles, taps,
+                                    c, P, chunk, max_rows, c_lo, c_hi, det,
+                                    s);
+  return spread_cc<T, D, kSpreadChunk, kDet>(x, base, w, grid, tiles,
+                                             n_tiles, taps, c, P, chunk,
+                                             max_rows, c_lo, c_hi, det, s);
+}
+
+template <typename T, bool kDet>
+int spread_any_d(int d, const T* x, const int* base, const T* w, T* grid,
+                 const int* tiles, long long n_tiles, int taps, int c,
+                 long long P, int chunk, int max_rows, int c_lo, int c_hi,
+                 const DetArgs<T>& det, cudaStream_t s) {
+  switch (d) {
+    case 1: return spread_d<T, 1, kDet>(x, base, w, grid, tiles, n_tiles, taps, c, P, chunk, max_rows, c_lo, c_hi, det, s);
+    case 2: return spread_d<T, 2, kDet>(x, base, w, grid, tiles, n_tiles, taps, c, P, chunk, max_rows, c_lo, c_hi, det, s);
+    default: return spread_d<T, 3, kDet>(x, base, w, grid, tiles, n_tiles, taps, c, P, chunk, max_rows, c_lo, c_hi, det, s);
+  }
+}
+
+template <typename T>
+int reduce_cc(const DetArgs<T>& det, T* grid, int c, int c0, int cc,
+              cudaStream_t s) {
+  if (det.n_cells == 0) return 0;
+  long long blocks = (det.n_cells + kThreads - 1) / kThreads;
+  if (blocks > 65535LL * 8) blocks = 65535LL * 8;
+  if (cc == 1)
+    reduce_kernel<T, 1><<<(unsigned)blocks, kThreads, 0, s>>>(
+        det.scratch, det.entries, det.starts, det.cells, grid, det.n_cells,
+        c, c0, cc);
+  else if (cc == 2)
+    reduce_kernel<T, 2><<<(unsigned)blocks, kThreads, 0, s>>>(
+        det.scratch, det.entries, det.starts, det.cells, grid, det.n_cells,
+        c, c0, cc);
+  else
+    reduce_kernel<T, kSpreadChunk><<<(unsigned)blocks, kThreads, 0, s>>>(
+        det.scratch, det.entries, det.starts, det.cells, grid, det.n_cells,
+        c, c0, cc);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
@@ -603,17 +713,45 @@ int launch_spread(const void* x, const void* base, const void* w, void* grid,
                   void* stream) {
   if (bad_args(n_tiles, d, chunk, kSpreadChunk, max_rows, pieces))
     return (int)cudaErrorInvalidValue;
+  const DetArgs<T> none{nullptr, nullptr, nullptr, nullptr, nullptr, 0};
+  return spread_any_d<T, false>(
+      d, static_cast<const T*>(x), static_cast<const int*>(base),
+      static_cast<const T*>(w), static_cast<T*>(grid),
+      static_cast<const int*>(tiles), n_tiles, taps, c, P, chunk, max_rows,
+      0, c, none, static_cast<cudaStream_t>(stream));
+}
+
+// Both phases of the deterministic spread, one pass of `chunk` channels at
+// a time; the scratch holds one pass.
+template <typename T>
+int launch_spread_det(const void* x, const void* base, const void* w,
+                      void* grid, const void* tiles, long long n_tiles, int d,
+                      int taps, int c, long long P, int chunk, int max_rows,
+                      int pieces, void* stream, void* scratch,
+                      const void* box_off, const void* entries,
+                      const void* starts, const void* cells,
+                      long long n_cells) {
+  if (bad_args(n_tiles, d, chunk, kSpreadChunk, max_rows, pieces) ||
+      n_cells < 0 || !scratch || !box_off || !entries || !starts || !cells)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T* xp = static_cast<const T*>(x);
-  const int* bp = static_cast<const int*>(base);
-  const T* wp = static_cast<const T*>(w);
   T* gp = static_cast<T*>(grid);
-  const int* tp = static_cast<const int*>(tiles);
-  switch (d) {
-    case 1: return spread_d<T, 1>(xp, bp, wp, gp, tp, n_tiles, taps, c, P, chunk, max_rows, s);
-    case 2: return spread_d<T, 2>(xp, bp, wp, gp, tp, n_tiles, taps, c, P, chunk, max_rows, s);
-    default: return spread_d<T, 3>(xp, bp, wp, gp, tp, n_tiles, taps, c, P, chunk, max_rows, s);
+  const DetArgs<T> det{static_cast<T*>(scratch),
+                       static_cast<const long long*>(box_off),
+                       static_cast<const long long*>(entries),
+                       static_cast<const long long*>(starts),
+                       static_cast<const long long*>(cells), n_cells};
+  for (int c0 = 0; c0 < c; c0 += chunk) {
+    const int cc = c - c0 < chunk ? c - c0 : chunk;
+    int rc = spread_any_d<T, true>(
+        d, static_cast<const T*>(x), static_cast<const int*>(base),
+        static_cast<const T*>(w), gp, static_cast<const int*>(tiles), n_tiles,
+        taps, c, P, cc, max_rows, c0, c0 + cc, det, s);
+    if (rc) return rc;
+    rc = reduce_cc<T>(det, gp, c, c0, cc, s);
+    if (rc) return rc;
   }
+  return 0;
 }
 
 template <typename T>
@@ -666,6 +804,41 @@ int repro_window_spread_f32(const void* x, const void* base, const void* w,
   (void)max_cells;
   return launch_spread<float>(x, base, w, grid, tiles, n_tiles, d, taps, c,
                               P, chunk, max_rows, pieces, stream);
+}
+
+// The deterministic spread: as repro_window_spread_*, plus the scratch
+// (the plan's box cells times `chunk` elements) and the plan's cell index
+// (box_off: a tile's first cell in the scratch, n_tiles; entries: scratch
+// cells by grid cell, tile order kept, one per box cell; starts: n_cells +
+// 1 CSR offsets into entries; cells: the touched grid cells, ascending).
+int repro_window_spread_det_f64(const void* x, const void* base,
+                                const void* w, void* grid, const void* tiles,
+                                long long n_tiles, int d, int taps, int c,
+                                long long P, int chunk, int max_cells,
+                                int max_rows, int pieces, void* stream,
+                                void* scratch, const void* box_off,
+                                const void* entries, const void* starts,
+                                const void* cells, long long n_cells) {
+  (void)max_cells;
+  return launch_spread_det<double>(x, base, w, grid, tiles, n_tiles, d, taps,
+                                   c, P, chunk, max_rows, pieces, stream,
+                                   scratch, box_off, entries, starts, cells,
+                                   n_cells);
+}
+
+int repro_window_spread_det_f32(const void* x, const void* base,
+                                const void* w, void* grid, const void* tiles,
+                                long long n_tiles, int d, int taps, int c,
+                                long long P, int chunk, int max_cells,
+                                int max_rows, int pieces, void* stream,
+                                void* scratch, const void* box_off,
+                                const void* entries, const void* starts,
+                                const void* cells, long long n_cells) {
+  (void)max_cells;
+  return launch_spread_det<float>(x, base, w, grid, tiles, n_tiles, d, taps,
+                                  c, P, chunk, max_rows, pieces, stream,
+                                  scratch, box_off, entries, starts, cells,
+                                  n_cells);
 }
 
 int repro_window_gather_f64(const void* grid, const void* base, const void* w,

@@ -21,14 +21,27 @@ A tensor on the CPU takes the plain PyTorch version (same semantics as
 
 Both kernels walk a :class:`TilePlan` (:func:`build_tile_plan`): the rows
 cut into contiguous tiles, each with the bounding box of its windows.  The
-CUDA spread sums a tile's windows in registers, in row order, and adds the
-box onto the grid once with atomics; neighbouring tiles' boxes overlap, so
-the order in which tiles land, and the result's last bits, vary from run
-to run.  The gather stages a tile's box in shared memory and is
-deterministic.  A window larger than the box budget is cut into pieces
-along its leading axes, one tile each (:func:`piece_lengths`): the spread
-adds each piece's cells, and one gather block sums a node's pieces in
-table order.  Only tensors on the card use the plan.
+CUDA spread sums a tile's windows in registers, in row order, and then has
+two modes, picked by PyTorch's own switch,
+``torch.are_deterministic_algorithms_enabled()``, as ``index_add_`` and
+``scatter_add_`` pick theirs:
+
+* atomic (the switch off): each box goes onto the grid with atomics;
+  neighbouring tiles' boxes overlap, so the order in which tiles land, and
+  the result's last bits, vary from run to run.
+* deterministic (:func:`window_spread_deterministic`, the switch on): each
+  tile stores its box in a scratch buffer, and a second kernel adds, for
+  every grid cell, the boxes that cover it in ascending tile order,
+  through the plan's cell index (:func:`spread_cell_index`, built once per
+  plan on the card).  Two runs give the same bits.  It has no fallback: a
+  cell index, scratch or launch that fails raises.
+
+The gather stages a tile's box in shared memory and is deterministic.  A
+window larger than the box budget is cut into pieces along its leading
+axes, one tile each (:func:`piece_lengths`): the spread adds each piece's
+cells (in the deterministic mode, a piece is a tile like any other), and
+one gather block sums a node's pieces in table order.  Only tensors on the
+card use the plan.
 """
 
 from __future__ import annotations
@@ -102,6 +115,8 @@ class TilePlan:
     max_rows: the most rows of one tile.
     pieces: tiles per row where windows are cut into pieces (every row has
       that many, consecutive); 1 for tiles of whole windows.
+    cell_index: the deterministic spread's :class:`SpreadCellIndex` by
+      padded grid size, built the first time that mode needs it.
     """
 
     table: torch.Tensor
@@ -111,6 +126,8 @@ class TilePlan:
     max_cells: int
     max_rows: int
     pieces: int = 1
+    cell_index: dict = dataclasses.field(default_factory=dict, compare=False,
+                                         hash=False, repr=False)
 
     @property
     def n_tiles(self) -> int:
@@ -256,6 +273,67 @@ def _check_plan(tiles: TilePlan, n: int, d: int, taps: int,
                          f"rows for {n} rows of {taps}^{d}-cell windows")
 
 
+@dataclasses.dataclass(frozen=True)
+class SpreadCellIndex:
+    """Where the deterministic spread's boxes land, on the plan's device.
+
+    The scratch holds every tile's box in tile order, each in C order:
+    ``box_off`` (n_tiles,) int64 is a tile's first scratch cell, and
+    ``total`` the scratch's cells.  ``cells`` (n_cells,) int64 are the flat
+    padded-grid cells some box covers, ascending; grid cell ``cells[u]`` is
+    the sum of the scratch cells ``entries[starts[u]:starts[u + 1]]``
+    (int64), which run in ascending tile order.
+    """
+
+    box_off: torch.Tensor
+    entries: torch.Tensor
+    starts: torch.Tensor
+    cells: torch.Tensor
+    total: int
+
+    @property
+    def n_cells(self) -> int:
+        return self.cells.shape[0]
+
+
+def spread_cell_index(tiles: TilePlan, padded_size: int) -> SpreadCellIndex:
+    """The plan's cell index for a padded grid of ``padded_size`` cells a
+    side (cached on the plan; built on its device with one stable sort and
+    two sizes read back).  Counts its builds in
+    ``spread_cell_index.builds``."""
+    cached = tiles.cell_index.get(padded_size)
+    if cached is not None:
+        return cached
+    spread_cell_index.builds += 1
+    table = tiles.table.to(torch.long)
+    dev, d = table.device, tiles.d
+    ext = table[:, 5:8]
+    sizes = ext.prod(dim=1)
+    box_off = torch.cumsum(sizes, 0) - sizes
+    total = int(sizes.sum()) if tiles.n_tiles else 0
+    tile = torch.repeat_interleave(torch.arange(tiles.n_tiles, device=dev),
+                                   sizes, output_size=total)
+    local = torch.arange(total, device=dev) - box_off[tile]
+    e1, e2 = ext[tile, 1], ext[tile, 2]
+    at = (local // (e1 * e2), (local // e2) % e1, local % e2)
+    flat = torch.zeros_like(local)
+    for a in range(d):
+        flat = flat * padded_size + table[tile, 2 + a] + at[a]
+    del tile, local, e1, e2, at
+    keys, entries = torch.sort(flat, stable=True)
+    del flat
+    cells, counts = torch.unique_consecutive(keys, return_counts=True)
+    starts = torch.zeros(cells.shape[0] + 1, dtype=torch.long, device=dev)
+    torch.cumsum(counts, 0, out=starts[1:])
+    index = SpreadCellIndex(box_off.contiguous(), entries.contiguous(),
+                            starts, cells.contiguous(), total)
+    tiles.cell_index[padded_size] = index
+    return index
+
+
+spread_cell_index.builds = 0
+
+
 def gather_chunk(c: int) -> int:
     """Most channels of one gather pass: min(C, KERNEL_CHUNK) rounded up to
     a power of two (channels past C are zero)."""
@@ -313,6 +391,9 @@ def window_spread(x: torch.Tensor, base: torch.Tensor, weights: torch.Tensor,
         return grid
     if tiles is None:
         tiles = build_tile_plan(base, taps)
+    if torch.are_deterministic_algorithms_enabled():
+        window_spread_deterministic(x, base, weights, grid, tiles)
+        return grid
     _launch(f"repro_window_spread_{_suffix(x.dtype)}",
             (x, base, weights, grid), tiles,
             (d, taps, c, padded_size, min(c, SPREAD_CHUNK)),
@@ -322,6 +403,51 @@ def window_spread(x: torch.Tensor, base: torch.Tensor, weights: torch.Tensor,
 
 
 window_spread.launches = 0
+
+
+def window_spread_deterministic(x: torch.Tensor, base: torch.Tensor,
+                                weights: torch.Tensor, grid: torch.Tensor,
+                                tiles: TilePlan) -> torch.Tensor:
+    """The deterministic spread of :func:`window_spread` (CUDA tensors
+    only) into the zeroed ``grid``: every tile's box stored in scratch, then
+    the boxes that cover each grid cell added in tile order, one pass of up
+    to :data:`SPREAD_CHUNK` channels at a time.  Its scratch is the plan's
+    box cells times the pass's channels.  Raises where the cell index,
+    the scratch or a launch fails; there is no fallback.  Counts its calls
+    (two kernel launches a pass) in ``launches``; records its last scratch,
+    in bytes, in ``scratch_bytes``."""
+    if x.device.type != "cuda":
+        raise ValueError(f"the deterministic spread runs on the card, got "
+                         f"{x.device}")
+    n, c = x.shape
+    d, taps = tiles.d, tiles.taps
+    padded_size = grid.shape[0]
+    index = spread_cell_index(tiles, padded_size)
+    chunk = min(c, SPREAD_CHUNK)
+    scratch = torch.empty(index.total * chunk, dtype=x.dtype, device=x.device)
+    window_spread_deterministic.scratch_bytes = (scratch.numel()
+                                                 * scratch.element_size())
+    for t in (x, base, weights, grid):
+        if not t.is_contiguous():
+            raise ValueError("the CUDA window kernels need contiguous tensors")
+    fn = getattr(_build.load_library("nfft_window.cu"),
+                 f"repro_window_spread_det_{_suffix(x.dtype)}")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = fn(x.data_ptr(), base.data_ptr(), weights.data_ptr(),
+            grid.data_ptr(), tiles.table.data_ptr(), tiles.n_tiles, d, taps,
+            c, padded_size, chunk, tiles.max_cells, tiles.max_rows,
+            tiles.pieces, stream, scratch.data_ptr(),
+            index.box_off.data_ptr(), index.entries.data_ptr(),
+            index.starts.data_ptr(), index.cells.data_ptr(), index.n_cells)
+    if rc != 0:
+        raise RuntimeError(f"the deterministic window_spread failed to "
+                           f"launch: CUDA error {rc}")
+    window_spread_deterministic.launches += 1
+    return grid
+
+
+window_spread_deterministic.launches = 0
+window_spread_deterministic.scratch_bytes = 0
 
 
 def window_gather(grid: torch.Tensor, base: torch.Tensor,

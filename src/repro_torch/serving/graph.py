@@ -35,15 +35,21 @@ Guarded execution (``guards=True``): per-request deadlines with slot
 eviction, bounded-queue backpressure, out-of-domain queries rejected or
 served through the exact :func:`~repro_torch.graph.krr.krr_predict` replan,
 a non-finite output guard, plan validation with group rebuild, and a
-per-tenant circuit breaker that drops the tenant's cached grids.  The JAX
-package's ``journal=`` (registry durability) and ``chaos=`` (fault
-injection) wait for ROADMAP queue 1 item 10 and raise
-``NotImplementedError``; its ``backend=`` has no counterpart, since the
-port's window step is chosen by the tensors' device.
+per-tenant circuit breaker that drops the tenant's cached grids.
+Durability: ``GraphModelRegistry(journal=...)`` appends one checksummed
+record per registration or eviction
+(:class:`~repro_torch.serving.journal.RegistryJournal`), from which
+:func:`~repro_torch.serving.journal.recover_registry` warm-restarts the
+registry.  Fault injection: ``GraphServeEngine(chaos=...)`` takes a
+per-tick schedule (:class:`~repro_torch.runtime.faultinject.TickChaos`)
+whose dropped ticks are counted.  The JAX package's ``backend=`` has no
+counterpart, since the port's window step is chosen by the tensors'
+device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import queue
 import threading
@@ -61,7 +67,6 @@ from repro_torch.core.fastsum import (
 from repro_torch.graph.krr import KRRModel, krr_predict, points_fingerprint
 
 _ALPHA = "alpha"  # column id of a request served with the model's own dual
-_ITEM_10 = "not ported yet (ROADMAP queue 1 item 10)"
 
 
 @dataclasses.dataclass
@@ -106,7 +111,7 @@ class TickStats:
     out_of_domain: int = 0  # inadmissible queries rejected or re-planned
     nonfinite: int = 0  # requests failed by the non-finite output guard
     rebuilds: int = 0  # corrupted-plan group rebuilds triggered
-    dropped: bool = False  # tick dropped by fault injection (item 10)
+    dropped: bool = False  # tick dropped by fault injection
 
 
 @dataclasses.dataclass
@@ -155,12 +160,16 @@ class GraphModelRegistry:
     """
 
     def __init__(self, *, grid_cache_slots: int = 32, journal=None):
-        if journal is not None:
-            raise NotImplementedError(f"GraphModelRegistry(journal=...) is "
-                                      f"{_ITEM_10}")
+        """``journal``: an optional
+        :class:`~repro_torch.serving.journal.RegistryJournal`; every
+        registration and eviction then appends one checksummed record, and
+        :func:`~repro_torch.serving.journal.recover_registry` rebuilds the
+        registry from them."""
         self._groups: dict[tuple, _TenantGroup] = {}
         self._model_group: dict[str, _TenantGroup] = {}
         self._lock = threading.Lock()
+        self._journal = journal
+        self._journal_local = threading.local()
         self.grid_cache_slots = grid_cache_slots
         self.counters = {
             "plan_builds": 0,        # PredictionPlan constructions
@@ -172,14 +181,41 @@ class GraphModelRegistry:
             "group_rebuilds": 0,     # corrupted-plan group rebuilds
         }
 
+    # -- journal plumbing ----------------------------------------------------
+    def attach_journal(self, journal) -> None:
+        """Journal later registrations and evictions (recovery attaches
+        the journal only after its replay, so replay appends nothing)."""
+        self._journal = journal
+
+    @contextlib.contextmanager
+    def _suppress_journal(self):
+        """Internal re-registrations (group rebuilds, an eviction's
+        siblings) append no records: theirs are in the journal already."""
+        prev = getattr(self._journal_local, "suppress", False)
+        self._journal_local.suppress = True
+        try:
+            yield
+        finally:
+            self._journal_local.suppress = prev
+
+    def _journal_append(self, make_record) -> None:
+        if (self._journal is not None
+                and not getattr(self._journal_local, "suppress", False)):
+            self._journal.append(make_record())
+
     def register(self, model_id: str, model: KRRModel, *,
                  domain_points=None, margin: float = 0.5) -> None:
         """Add (or replace) a servable model.
 
         Models fitted on the same training points (same content, params and
         declared domain) join one tenant group and share its prediction
-        plan; only the model's spectral multiplier is built.
+        plan; only the model's spectral multiplier is built.  With a
+        journal attached, the registration is durable before it is
+        servable.
         """
+        from repro_torch.serving import journal as journal_mod
+        self._journal_append(lambda: journal_mod.register_record(
+            model_id, model, domain_points=domain_points, margin=margin))
         with self._lock:
             gkey = (points_fingerprint(model.train_points), model.params,
                     None if domain_points is None
@@ -214,19 +250,25 @@ class GraphModelRegistry:
         return items, group.domain_args
 
     def _reregister(self, items, domain_args) -> None:
+        """Register ``items`` again (a rebuild, not new registrations:
+        the journal already holds their records)."""
         domain_points, margin = domain_args
-        for mid, entry in items:  # register() takes the lock itself
-            self.register(mid, entry.model, domain_points=domain_points,
-                          margin=margin)
+        with self._suppress_journal():
+            for mid, entry in items:  # register() takes the lock itself
+                self.register(mid, entry.model, domain_points=domain_points,
+                              margin=margin)
 
     def unregister(self, model_id: str) -> bool:
-        """Evict a model from serving.  The multiplier stack and the grid
-        cache are group-shared, so the group is rebuilt from its remaining
-        models (sibling grids re-derive lazily).  False when unknown."""
+        """Evict a model from serving (journaled as an eviction record).
+        The multiplier stack and the grid cache are group-shared, so the
+        group is rebuilt from its remaining models (sibling grids re-derive
+        lazily).  False when unknown."""
         with self._lock:
             dissolved = self._dissolve(model_id)
         if dissolved is None:
             return False
+        from repro_torch.serving import journal as journal_mod
+        self._journal_append(lambda: journal_mod.unregister_record(model_id))
         items, domain_args = dissolved
         self._reregister([(mid, e) for mid, e in items if mid != model_id],
                          domain_args)
@@ -349,10 +391,9 @@ class GraphServeEngine:
         """``max_queue`` bounds admission (submit rejects with backpressure
         when full); ``guards=False`` disables the runtime guards;
         ``out_of_domain`` is ``"reject"`` or ``"replan"`` (the exact slow
-        path).  ``chaos`` (fault injection) is not ported yet."""
-        if chaos is not None:
-            raise NotImplementedError(f"GraphServeEngine(chaos=...) is "
-                                      f"{_ITEM_10}")
+        path); ``chaos`` is an optional fault schedule with an
+        ``apply(engine, tick) -> drop`` method
+        (:class:`~repro_torch.runtime.faultinject.TickChaos`)."""
         if out_of_domain not in ("reject", "replan"):
             raise ValueError(f"out_of_domain must be 'reject' or 'replan', "
                              f"got {out_of_domain!r}")
@@ -363,6 +404,7 @@ class GraphServeEngine:
         self.out_of_domain = out_of_domain
         self.breaker_threshold = breaker_threshold
         self.breaker_cooldown = breaker_cooldown
+        self.chaos = chaos
         self.queue: "queue.Queue[PredictRequest]" = \
             queue.Queue(maxsize=max_queue or 0)
         self.active: list[Optional[PredictRequest]] = [None] * slots
@@ -404,30 +446,37 @@ class GraphServeEngine:
         t0 = time.perf_counter()
         self._tick_guard = {"evicted": 0, "out_of_domain": 0,
                             "nonfinite": 0, "rebuilds": 0}
+        dropped = bool(self.chaos is not None
+                       and self.chaos.apply(self, self.counters["ticks"]))
         rows = builds = hits = finished = 0
-        if self.guards:
-            self._evict_expired()
-        self._admit()
         by_group: dict[int, list[int]] = {}
-        groups: dict[int, _TenantGroup] = {}
-        for slot, req in enumerate(self.active):
-            if req is None:
-                continue
-            g = self._group[slot]
-            by_group.setdefault(id(g), []).append(slot)
-            groups[id(g)] = g
-        for gid, slot_ids in by_group.items():
-            r, b, h, f = self._tick_group(groups[gid], slot_ids)
-            rows += r
-            builds += b
-            hits += h
-            finished += f
+        if dropped:  # requests wait for a later tick
+            self.counters["dropped_ticks"] += 1
+            occupancy = sum(1 for r in self.active if r is not None)
+        else:
+            if self.guards:
+                self._evict_expired()
+            self._admit()
+            groups: dict[int, _TenantGroup] = {}
+            for slot, req in enumerate(self.active):
+                if req is None:
+                    continue
+                g = self._group[slot]
+                by_group.setdefault(id(g), []).append(slot)
+                groups[id(g)] = g
+            occupancy = sum(len(s) for s in by_group.values())
+            for gid, slot_ids in by_group.items():
+                r, b, h, f = self._tick_group(groups[gid], slot_ids)
+                rows += r
+                builds += b
+                hits += h
+                finished += f
         stats = TickStats(
-            queue_depth=self.queue.qsize(),
-            occupancy=sum(len(s) for s in by_group.values()),
+            queue_depth=self.queue.qsize(), occupancy=occupancy,
             groups=len(by_group), rows=rows, grid_builds=builds,
             grid_hits=hits, finished=finished,
-            seconds=time.perf_counter() - t0, **self._tick_guard)
+            seconds=time.perf_counter() - t0, **self._tick_guard,
+            dropped=dropped)
         self.tick_log.append(stats)
         self.counters["ticks"] += 1
         self.counters["rows"] += rows

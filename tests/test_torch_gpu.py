@@ -7,7 +7,8 @@ is present.  Run on a machine with an H100:
 
 Tolerances, relative to the largest output entry: spread 1e-12 (f64) /
 1e-4 (f32), since its tiles' boxes land on the grid with atomics in a
-varying order; gather 1e-13 / 1e-5 (another order of the window's sum);
+varying order (its deterministic mode adds them in tile order, and is
+held to the same tolerance and to bitwise repeats); gather 1e-13 / 1e-5 (another order of the window's sum);
 kernel_matvec 1e-12 / 1e-4 (its sums run in another order than the plain
 version's matrix product, and float32 exp/sqrt differ by an ulp or two).
 flash_attention, elementwise |k - p| <= atol + rtol |p|: float32 2e-5
@@ -236,6 +237,84 @@ def test_fastsum_with_wide_windows_on_card_matches_cpu(cuda, m):
     want = tfs.make_fastsum(kern, pts, params, device="cpu").matvec(
         torch.as_tensor(x))
     assert _rel(got, want) <= 1e-12
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("c", [1, 5, 16])
+@pytest.mark.parametrize("setup,d,m", [("SETUP_2", 3, None),
+                                       ("SETUP_3", 3, None),
+                                       ("SETUP_3", 2, None),
+                                       ("SETUP_3", 1, None),
+                                       ("SETUP_2", 3, 9)])
+def test_deterministic_spread_repeats_bitwise_and_matches_plain(
+        cuda, setup, d, m, c, dtype):
+    """Under torch.use_deterministic_algorithms, window_spread takes the
+    two-phase kernel: five runs are bitwise equal, within the spread's
+    tolerance of plain, and counted apart from the atomic launches."""
+    params = getattr(tfs, setup) if m is None else tfs.FastsumParams(
+        n_bandwidth=32, m=m, eps_b=0.0)
+    plan, base, w = _geometry(params, d, 3000, dtype, cuda)
+    pad = padded_grid_size(plan)
+    tiles = twin.build_tile_plan(base, plan.taps)
+    x = torch.randn((base.shape[0], c), dtype=dtype, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(c))
+    atomic, det = (twin.window_spread.launches,
+                   twin.window_spread_deterministic.launches)
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        outs = [twin.window_spread(x, base, w, padded_size=pad, tiles=tiles)
+                for _ in range(5)]
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert twin.window_spread.launches == atomic
+    assert twin.window_spread_deterministic.launches == det + 5
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    want = twin.window_spread_plain(x, base, w, padded_size=pad)
+    assert _rel(outs[0], want) <= TOL[("spread", dtype)]
+    index = twin.spread_cell_index(tiles, pad)
+    assert (twin.window_spread_deterministic.scratch_bytes
+            == index.total * min(c, twin.SPREAD_CHUNK) * x.element_size())
+
+
+def test_deterministic_spread_raises_instead_of_falling_back(cuda):
+    """A cell index with no cells leaves no scratch: the kernel refuses
+    the call, and the wrapper raises."""
+    plan, base, w = _geometry(tfs.SETUP_2, 3, 500, torch.float64, cuda)
+    pad = padded_grid_size(plan)
+    x = torch.randn((500, 1), dtype=torch.float64, device=cuda)
+    tiles = twin.build_tile_plan(base, plan.taps)
+    index = twin.spread_cell_index(tiles, pad)
+    tiles.cell_index[pad] = twin.SpreadCellIndex(
+        index.box_off, index.entries[:0], index.starts[:1], index.cells[:0],
+        0)
+    grid = torch.zeros((pad,) * 3 + (1,), dtype=torch.float64, device=cuda)
+    with pytest.raises(RuntimeError, match="deterministic window_spread"):
+        twin.window_spread_deterministic(x, base, w, grid, tiles)
+
+
+def test_durable_cg_on_card_resumes_bitwise(cuda, tmp_path):
+    """A resumable CG over a fastsum operator on the card, killed twice,
+    equals the uninterrupted run and plain cg under the switch."""
+    from repro_torch.core import solvers as tsol
+    from repro_torch.runtime import (
+        DurablePolicy, KillSchedule, durable, resumable_solve)
+    pts, _ = spiral(4000, seed=0)
+    op = tfs.make_normalized_adjacency(make_kernel("gaussian", sigma=3.5),
+                                       pts, tfs.SETUP_2, device=cuda)
+    mv = lambda v: 2.0 * v - op.matvec(v)
+    b = torch.randn((4000, 2), dtype=torch.float64, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(0))
+    with durable.deterministic():
+        ref = tsol.cg(mv, b, tol=1e-10, maxiter=200).x
+    det = twin.window_spread_deterministic.launches
+    sol, rep = resumable_solve(mv, b, ckpt_dir=str(tmp_path), tol=1e-10,
+                               maxiter=200,
+                               policy=DurablePolicy(snapshot_every=4),
+                               fault_hook=KillSchedule((5, 11)))
+    assert rep.restarts == 2
+    assert twin.window_spread_deterministic.launches > det
+    assert torch.equal(sol.x, ref)
 
 
 def test_gather_is_deterministic_and_wrappers_build_a_plan(cuda):

@@ -25,7 +25,9 @@ MODULES = ("core.kernels", "core.regularization", "core.nfft",
            "figures.fig3_eigenvalues", "figures.fig5_segmentation",
            "figures.fig6_phasefield", "figures.fig7_kernel_ssl",
            "figures.fig8_kernel_ssl_laplacian", "figures.fig9_krr",
-           "figures.run")
+           "figures.run", "runtime.durable", "runtime.faultinject",
+           "training", "training.checkpoint", "training.fault_tolerance",
+           "serving.journal")
 
 
 def _imported_roots(path: Path) -> set:

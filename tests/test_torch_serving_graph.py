@@ -9,10 +9,13 @@ models' dual vectors, so both engines serve the same functions: their
 outputs agree within 1e-10 of the largest output, their registry and
 engine counters are equal, and the port's outputs are held against the
 dense oracle within tests/test_serving_graph.py's 1e-3 (the NFFT error at
-n=300, d=2, N=64 is ~1e-4).
+n=300, d=2, N=64 is ~1e-4).  The durability and fault-injection seams
+follow: each package's ``TickChaos`` (dropped ticks, poisoned grids, a
+corrupted plan) through its own engine, and the journal's records.
 """
 
 import dataclasses
+import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,10 +25,12 @@ import torch
 from repro.core import FastsumParams as JParams
 from repro.core import make_kernel as jmake_kernel
 from repro.graph import krr_fit as jkrr_fit
+from repro.runtime import faultinject as jfi
 from repro.serving import graph as jgraph
 from repro_torch.core import FastsumParams as TParams
 from repro_torch.core import make_kernel as tmake_kernel
 from repro_torch.graph import krr as tkrr
+from repro_torch.runtime import faultinject as tfi
 from repro_torch.serving import graph as tgraph
 
 TOL = 1e-3  # NFFT prediction error at these settings is ~1e-4
@@ -439,11 +444,88 @@ def test_unregister_rebuilds_the_group(models):
     assert reg.stats()["plan_builds"] == 3
 
 
-def test_durability_and_fault_injection_wait_for_item_10(models):
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tgraph.GraphModelRegistry(journal=object())
+FAULTS = {"jax": jfi, "torch": tfi}
+
+
+def test_dropped_ticks_delay_but_never_corrupt(models):
+    """tests/test_chaos.py's dropped ticks, through each package's
+    TickChaos: the drops stall their ticks only, are counted, and every
+    request completes with the oracle's output."""
+    def scenario(pkg, models):
+        rng = np.random.default_rng(23)
+        reg = _registry(pkg, models, ids=("a",))
+        chaos = FAULTS[pkg].TickChaos(drop_ticks=frozenset({0, 2}))
+        engine = PKGS[pkg].GraphServeEngine(reg, slots=2, chunk=4,
+                                            chaos=chaos)
+        reqs = [_submit(pkg, engine, i, "a", rng.uniform(-2, 2, (10, 2)))
+                for i in range(3)]
+        engine.run_until_drained()
+        return reqs, engine, reg
+
+    reqs, engine, _ = _twin(scenario, models)
+    assert engine.counters["dropped_ticks"] == 2
+    assert [t.dropped for t in engine.tick_log][:3] == [True, False, True]
+    for req in reqs:
+        assert req.done and req.error is None
+        np.testing.assert_allclose(req.output,
+                                   _oracle(models, "a", req.query_points),
+                                   atol=TOL)
+
+
+def test_tick_chaos_poisons_grids_and_corrupts_plans(models):
+    """A TickChaos schedule fires each package's own injectors: grids
+    poisoned at tick 1 fail requests by the non-finite guard and trip the
+    breaker; a plan corrupted at tick 6 is detected, the group rebuilt and
+    served.  Both engines count the same."""
+    def scenario(pkg, models):
+        rng = np.random.default_rng(26)
+        reg = _registry(pkg, models, ids=("a", "b"))
+        chaos = FAULTS[pkg].TickChaos(poison_grids={1: "a"},
+                                      corrupt_plans={6: "b"}, seed=3)
+        engine = PKGS[pkg].GraphServeEngine(reg, slots=2, chunk=8,
+                                            breaker_threshold=1,
+                                            breaker_cooldown=1,
+                                            chaos=chaos)
+        reqs = [_submit(pkg, engine, 0, "a", rng.uniform(-2, 2, (8, 2)))]
+        engine.step()  # tick 0 builds the (a, alpha) grid
+        reqs.append(_submit(pkg, engine, 1, "a",
+                            rng.uniform(-2, 2, (8, 2))))
+        engine.step()  # tick 1 poisons it: non-finite, breaker trips
+        for _ in range(4):
+            engine.step()
+        reqs += [_submit(pkg, engine, 2 + i, mid, rng.uniform(-2, 2, (8, 2)))
+                 for i, mid in enumerate(("a", "b"))]
+        engine.run_until_drained()
+        return reqs, engine, reg
+
+    reqs, engine, reg = _twin(scenario, models)
+    assert reqs[0].error is None and "non-finite" in reqs[1].error
+    assert engine.counters["breaker_trips"] == 1
+    assert engine.counters["plan_rebuilds"] == 1
+    for req in reqs[2:]:
+        assert req.error is None, req.error
+        np.testing.assert_allclose(
+            req.output, _oracle(models, req.model_id, req.query_points),
+            atol=TOL)
+
+
+def test_journal_seam_appends_registrations_only(models, tmp_path):
+    """GraphModelRegistry(journal=): a registration or an eviction appends
+    one record; a group rebuild and an eviction's siblings append none."""
+    from repro_torch.serving import journal as tjournal
+    jpath = tmp_path / "j.journal"
+    reg = tgraph.GraphModelRegistry(
+        journal=tjournal.RegistryJournal(str(jpath)))
+    for mid in ("a", "b", "c"):
+        reg.register(mid, models["torch"][mid])
+    assert reg.rebuild_group("a")
+    assert reg.unregister("b")
+    ops = [json.loads(line)["op"] for line in jpath.read_text().splitlines()]
+    assert ops == ["register"] * 3 + ["unregister"]
+    assert sorted(reg.model_ids()) == ["a", "c"]
+
+
+def test_out_of_domain_mode_is_checked(models):
     reg = _registry("torch", models, ids=("a",))
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tgraph.GraphServeEngine(reg, chaos=object())
     with pytest.raises(ValueError, match="out_of_domain"):
         tgraph.GraphServeEngine(reg, out_of_domain="ignore")

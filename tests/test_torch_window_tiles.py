@@ -8,8 +8,9 @@ invariants are checked on the geometries the paths build, and both kernels'
 arithmetic is emulated tile by tile in PyTorch through the plan and held
 against the plain versions, ``repro.kernels.ref`` and the JAX package's
 Pallas kernels in interpret mode (as ``tests/test_kernels_pallas.py`` runs
-them).  Tolerances: 1e-12 relative to the largest output entry in float64
-(only the order of the sums differs), 1e-5 in float32.
+them); the deterministic spread's two phases likewise, through the
+plan's cell index.  Tolerances: 1e-12 relative to the largest output entry
+in float64 (only the order of the sums differs), 1e-5 in float32.
 """
 
 import hashlib
@@ -192,6 +193,42 @@ def _emulate_gather(grid, base, weights, tiles, chunk=None):
                         dims=([a], [0]))
                 out[r, c0:c0 + cc] += acc
     return out
+
+
+def _emulate_deterministic_spread(x, base, weights, padded_size, tiles):
+    """The deterministic spread's arithmetic: phase A stores each tile's
+    box (summed in row order) in a scratch at the tile's offset, C order,
+    one pass of SPREAD_CHUNK channels at a time; phase B gives each touched
+    grid cell the sum of the boxes that cover it, in the cell index's order
+    (ascending tile), vectorized across cells but sequential along each
+    cell's list."""
+    n, d, taps = weights.shape
+    c = x.shape[1]
+    index = twin.spread_cell_index(tiles, padded_size)
+    sizes = index.starts[1:] - index.starts[:-1]
+    flat = torch.zeros((padded_size ** d, c), dtype=x.dtype)
+    cube = twin._weight_cube(weights)
+    for c0 in range(0, c, twin.SPREAD_CHUNK):
+        cc = min(twin.SPREAD_CHUNK, c - c0)
+        scratch = torch.full((index.total, cc), float("nan"), dtype=x.dtype)
+        for t, (start, count, *rest) in enumerate(tiles.table.tolist()):
+            corner, ext, first, span = _covered(rest, d, taps)
+            taps_at = tuple(slice(f, f + s) for f, s in zip(first, span))
+            box = torch.zeros(ext + [cc], dtype=x.dtype)
+            for r in range(start, start + count):
+                lo = [int(base[r, a]) + first[a] - corner[a]
+                      for a in range(d)]
+                patch = tuple(slice(v, v + s) for v, s in zip(lo, span))
+                box[patch] += (cube[r].reshape((taps,) * d)[taps_at][..., None]
+                               * x[r, c0:c0 + cc])
+            off = int(index.box_off[t])
+            scratch[off:off + box[..., 0].numel()] = box.reshape(-1, cc)
+        acc = torch.zeros((index.n_cells, cc), dtype=x.dtype)
+        for k in range(int(sizes.max())):
+            live = sizes > k
+            acc[live] += scratch[index.entries[index.starts[:-1][live] + k]]
+        flat[index.cells, c0:c0 + cc] = acc
+    return flat.reshape((padded_size,) * d + (c,))
 
 
 def _close(got, want, dtype):
@@ -409,6 +446,87 @@ def test_tile_emulation_in_channel_chunks(dtype):
                dtype)
         _close(_emulate_gather(g, base, w, tiles, gather_chunk), want_g,
                dtype)
+
+
+DETERMINISTIC_CASES = [("spiral", "SETUP_2", 3, 5), ("spiral", "SETUP_3", 1, 1),
+                       ("uniform", "SETUP_3", 2, 2), ("unsorted", "SETUP_2", 3, 1),
+                       ("ssl", None, 2, 1)]
+
+
+@pytest.mark.parametrize("kind,setup_name,d,c", DETERMINISTIC_CASES)
+def test_deterministic_spread_emulation_matches_plain(kind, setup_name, d,
+                                                      c):
+    """float64: within 1e-13 of the plain spread (relative to its largest
+    entry), and two runs bitwise equal."""
+    plan, geom = _geometry(kind, setup_name, d, 300)
+    pad = padded_grid_size(plan)
+    x = torch.as_tensor(np.random.default_rng(c).normal(size=(300, c)))
+    got = _emulate_deterministic_spread(x, geom.base, geom.weights, pad,
+                                        geom.tiles)
+    want = twin.window_spread_plain(x, geom.base, geom.weights,
+                                    padded_size=pad)
+    assert float((got - want).abs().max()) <= 1e-13 * float(want.abs().max())
+    again = _emulate_deterministic_spread(x, geom.base, geom.weights, pad,
+                                          geom.tiles)
+    assert torch.equal(got, again)
+
+
+def test_deterministic_spread_emulation_on_piece_plans():
+    """d=3, m=9: pieces are tiles like any other; rows overlap across
+    tiles, so cells are summed from several boxes."""
+    plan = NfftPlan(d=3, n_bandwidth=8, m=9)
+    pad = padded_grid_size(plan)
+    base = _random_base(12, 3, plan.taps, pad, 4)
+    w = torch.as_tensor(np.random.default_rng(5).normal(
+        size=(12, 3, plan.taps)))
+    tiles = twin.build_tile_plan(base, plan.taps)
+    assert tiles.pieces > 1
+    x = torch.as_tensor(np.random.default_rng(6).normal(size=(12, 2)))
+    got = _emulate_deterministic_spread(x, base, w, pad, tiles)
+    want = twin.window_spread_plain(x, base, w, padded_size=pad)
+    assert float((got - want).abs().max()) <= 1e-13 * float(want.abs().max())
+    index = twin.spread_cell_index(tiles, pad)
+    assert index.n_cells < index.total  # windows overlap
+    assert twin.spread_cell_index(tiles, pad) is index  # cached on the plan
+
+
+def test_deterministic_mode_on_the_cpu_is_the_plain_spread():
+    """On a CPU tensor the switch changes nothing (the plain spread is
+    deterministic); the two-phase kernel itself needs the card."""
+    plan, geom = _geometry("spiral", "SETUP_2", 3, 200)
+    pad = padded_grid_size(plan)
+    x = torch.as_tensor(np.random.default_rng(2).normal(size=(200, 2)))
+    want = twin.window_spread_plain(x, geom.base, geom.weights,
+                                    padded_size=pad)
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        got = twin.window_spread(x, geom.base, geom.weights, padded_size=pad,
+                                 tiles=geom.tiles)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="on the card"):
+        twin.window_spread_deterministic(x, geom.base, geom.weights,
+                                         torch.zeros_like(want), geom.tiles)
+
+
+def test_cell_index_lists_every_box_cell_once_in_tile_order():
+    plan, geom = _geometry("spiral", "SETUP_3", 3, 300)
+    pad = padded_grid_size(plan)
+    tiles = geom.tiles
+    index = twin.spread_cell_index(tiles, pad)
+    sizes = tiles.table[:, 5:8].to(torch.long).prod(dim=1)
+    assert index.total == int(sizes.sum())
+    assert torch.equal(torch.sort(index.entries).values,
+                       torch.arange(index.total))
+    tile_of = torch.repeat_interleave(torch.arange(tiles.n_tiles), sizes)
+    run = tile_of[index.entries]
+    same_cell = torch.repeat_interleave(
+        torch.arange(index.n_cells), index.starts[1:] - index.starts[:-1])
+    step = same_cell[1:] == same_cell[:-1]
+    assert bool((run[1:][step] > run[:-1][step]).all())  # ascending tiles
+    assert bool((index.cells[1:] > index.cells[:-1]).all())
 
 
 @pytest.mark.parametrize("kind,setup_name,d", [("spiral", "SETUP_2", 3),

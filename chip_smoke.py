@@ -61,7 +61,15 @@ alignment), and granite-3-2b at full
 width and depth (40 layers, bf16, seeded random weights) served by
 ``ServeEngine``: every prefill must launch the flash kernel once per
 layer, every logit must be finite, and in float32 the engine's tokens must
-equal a manual prefill+decode loop's.  Each path starts with every launch
+equal a manual prefill+decode loop's.  Then granite-3-2b-nfft, the
+paper's NFFT kernel attention in every layer, the same way
+([nfft_serve]): no kernel of the package may launch (its transforms are
+cuBLAS phase matmuls), its constant-size (S, z) cache is printed beside
+granite-3-2b's KV cache, one 32,768-token prefill and eight decode steps
+run on one slot, and one mixer layer is held against the exact Gaussian
+attention in float64.  ``kernel_matvec``'s x-gradient (a second launch
+on the swapped point sets) is held against the plain version's autograd
+in [kernels].  Each path starts with every launch
 count at 0 and must launch its kernels.  Last it times the kernels beside
 their roofline bounds (and flash attention beside PyTorch's SDPA), the
 window kernels' tile plan, the fused matvec at n = 10^5 and 10^6, the
@@ -85,6 +93,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
 import json
 import re
 import subprocess
@@ -287,6 +296,24 @@ SERVE_MARGIN = 1e-3
 # order of the sums differs.
 SERVE_FLASH_VS_EINSUM = {"bfloat16": 5e-2, "float32": 1e-4}
 TICKS_TIMED = 32
+# [nfft_serve]: granite-3-2b-nfft (the paper's NFFT kernel attention in
+# every layer, (S, z) as the whole cache) at full width and depth through
+# the same engine; prompts are whole 128-token chunks in 512..2048 (one of
+# exactly 2048), since the chunked forward pads nothing
+NFFT_ARCH = "granite-3-2b-nfft"
+NFFT_CHUNK = 128
+NFFT_LONG = 32768  # PREFILL_32K's length, one slot
+NFFT_LONG_DECODE = 8
+NFFT_EXACT_S = 2048
+# one mixer layer against the exact row-normalized Gaussian attention in
+# float64: tests/jax_nfft_attention_reference.py prints the JAX package's
+# error at the reduced width (largest of three seeds, s = 2048); the card
+# is held to NFFT_EXACT_FACTOR times it
+JAX_NFFT_EXACT_REL = 1.730278e-07
+NFFT_EXACT_FACTOR = 10
+# the x-gradient of kernel_matvec on the card (a second launch, point sets
+# swapped) against autograd through the plain version
+KM_GRAD_SHAPE = (3000, 7000, 2)
 
 # [bank]: the main path's spiral at n = 10^5, d = 3, SETUP_2, four Gaussian
 # members; bank vs the S single operators, relative to the largest output
@@ -474,7 +501,9 @@ def main(argv=None) -> int:
 
 class Smoke:
     def __init__(self, torch):
-        from repro_torch.core import fastsum, fastsum_exec, lanczos, solvers
+        from repro_torch.core import fastsum, fastsum_exec, solvers
+        # the module: repro_torch.core re-exports the function under its name
+        lanczos = importlib.import_module("repro_torch.core.lanczos")
         from repro_torch.core.kernels import (
             KERNEL_PARAM_NAME, kernel_from_param, make_kernel,
         )
@@ -773,6 +802,7 @@ class Smoke:
         self.phase_graph_serve()
         self.phase_durable()
         self.phase_serve()
+        self.phase_nfft_serve()
         self.phase_times()
 
     def phase_device(self):
@@ -1026,6 +1056,43 @@ class Smoke:
                         f"{KM_TOL[dname]:g}) {'ok' if ok else 'FAIL'}")
                     check(ok, f"kernel_matvec {kname} {n_out}x{n_in} d={d} "
                           f"C={c} {dname}: rel {rel:.3e}")
+        self.check_kernel_matvec_x_grad()
+
+    def check_kernel_matvec_x_grad(self):
+        """d<w, K x>/dx of the CUDA direct sum (its backward is a second
+        launch with the point sets swapped) against autograd through the
+        plain version, on a rectangular pair, float64."""
+        torch, km = self.torch, self.km
+        n_out, n_in, d = KM_GRAD_SHAPE
+        a, b, x = self.km_inputs(n_out, n_in, d, 1, torch.float64)
+        w = torch.randn((n_out, 1), dtype=torch.float64, device=self.dev,
+                        generator=torch.Generator(device=self.dev)
+                        .manual_seed(1))
+        for kname, param in KM_PROFILES:
+            for zd in (True, False):
+                kw = dict(kernel_name=kname, param=param, zero_diagonal=zd)
+                grads = []
+                for fn in (km.kernel_matvec, km.kernel_matvec_plain):
+                    xg = x.clone().requires_grad_(True)
+                    (g,) = torch.autograd.grad((fn(a, b, xg, **kw) * w).sum(),
+                                               xg)
+                    grads.append(g)
+                self.sync()
+                err = float((grads[0] - grads[1]).abs().max())
+                rel = err / float(grads[1].abs().max())
+                ok = rel <= KM_TOL["float64"]
+                self.record["checks"].append({
+                    "kernel": "kernel_matvec_x_grad", "profile": kname,
+                    "n_out": n_out, "n_in": n_in, "d": d, "c": 1,
+                    "dtype": "float64", "zero_diagonal": zd,
+                    "max_abs_err": err, "rel_err": rel,
+                    "tol": KM_TOL["float64"], "ok": ok})
+                log(f"[kernels] kernel_matvec x-gradient {kname:20s} "
+                    f"{n_out}x{n_in} d={d} float64 zero_diag={zd} (backward "
+                    f"= launch on the swapped point sets) vs the plain "
+                    f"version's autograd: rel {rel:.3e} (tol "
+                    f"{KM_TOL['float64']:g}) {'ok' if ok else 'FAIL'}")
+                check(ok, f"kernel_matvec x-gradient {kname}: rel {rel:.3e}")
 
     def flash_reading(self, shape, causal, dname, seed):
         """(max |k - p|, largest |k - p| / (atol + rtol |p|), all finite)
@@ -3428,6 +3495,253 @@ class Smoke:
             f"{SERVE_MARGIN:g} of the top logit); launches {launches32}")
         check(launches32["flash_attention"] == cfg.num_layers * len(prompts),
               "serve f32: flash launches")
+
+    def nfft_prompts(self, cfg):
+        """SERVE_REQUESTS seeded prompts whose lengths are whole chunks in
+        512..2048, one of exactly 2048."""
+        rng = np.random.default_rng(SERVE_SEED + 1)
+        lengths = [2048] + (NFFT_CHUNK * rng.integers(
+            512 // NFFT_CHUNK, 2048 // NFFT_CHUNK + 1,
+            SERVE_REQUESTS - 1)).tolist()
+        return [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+
+    @staticmethod
+    def cache_bytes(caches) -> int:
+        return sum(t.numel() * t.element_size() for c in caches for t in c)
+
+    def check_no_kernel_launches(self, launches, what):
+        check(not any(launches.values()),
+              f"{what}: the NFFT model launched {launches}")
+
+    def phase_nfft_serve(self):
+        """granite-3-2b-nfft at full width and depth (bf16) through
+        ServeEngine: finite logits and no kernel of the package launched
+        (its transforms are cuBLAS phase matmuls); the constant-size (S, z)
+        cache against granite-3-2b's KV cache; in float32 (TF32 off) the
+        engine against a manual greedy loop; one 32,768-token prefill and
+        decode steps on one slot; one mixer layer against the exact
+        Gaussian attention in float64."""
+        torch, lm = self.torch, self.lm
+        card = self.record["device"]["nvidia_smi"]
+        cfg = self.get_config(NFFT_ARCH)
+        nc = cfg.nfft_attention
+        t0 = time.perf_counter()
+        model = lm.init_params(cfg, SERVE_SEED, device=self.dev)
+        self.sync()
+        t_init = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        prompts = self.nfft_prompts(cfg)
+        seen = self.watch_logits(model)
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        self.sync()
+        self.reset_launches()
+        engine = self.ServeEngine(cfg, model, slots=SERVE_SLOTS,
+                                  max_seq=SERVE_MAX_SEQ, device=self.dev)
+        reqs = [self.Request(uid=i, tokens=p, max_new_tokens=SERVE_NEW)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            check(engine.submit(r), f"nfft request {r.uid} refused")
+        t0 = time.perf_counter()
+        engine.run_until_drained()
+        self.sync()
+        wall = time.perf_counter() - t0
+        launches = self.read_launches("nfft_serve")
+        self.unwatch(model)
+        check(all(r.done and r.error is None and len(r.output) == SERVE_NEW
+                  for r in reqs), "nfft serve: a request did not finish")
+        bad = int(seen["bad"])
+        peak_gb = torch.cuda.max_memory_allocated(self.dev) / 1e9
+        new_tokens = sum(len(r.output) for r in reqs)
+        slot_bytes = self.cache_bytes(engine.caches) / SERVE_SLOTS
+        del engine
+        # granite-3-2b's KV cache for one slot, as init_caches allocates it
+        dense_cfg = self.get_config(SERVE_ARCH)
+        kv = {}
+        for seq in (SERVE_MAX_SEQ, NFFT_LONG):
+            caches = lm.init_caches(dense_cfg, 1, seq, device=self.dev)
+            kv[seq] = self.cache_bytes(caches)
+            del caches
+        per_token = kv[SERVE_MAX_SEQ] / SERVE_MAX_SEQ
+        self.record["nfft_serve"] = {
+            "arch": cfg.name, "layers": cfg.num_layers,
+            "dtype": cfg.activation_dtype, "params": n_params,
+            "feature_dim": nc.feature_dim, "bandwidth": nc.bandwidth,
+            "sigma": nc.sigma, "init_s": t_init,
+            "prompt_lengths": [len(p) for p in prompts], "wall_s": wall,
+            "new_tokens": new_tokens, "tokens_per_s": new_tokens / wall,
+            "nonfinite_logits": bad, "logits_checked": seen["n"],
+            "peak_memory_gb": peak_gb, "launches": launches,
+            "cache_bytes_per_slot": slot_bytes,
+            "dense_kv_bytes_per_slot": {str(k): v for k, v in kv.items()},
+            "dense_kv_bytes_per_token": per_token,
+            "equal_size_tokens": slot_bytes / per_token, "card": card}
+        log(f"[nfft_serve] {cfg.name} {cfg.num_layers} layers d={cfg.d_model}"
+            f" heads={cfg.num_heads} hd={cfg.head_dim_eff} feature_dim="
+            f"{nc.feature_dim} N={nc.bandwidth} (N^d = "
+            f"{nc.bandwidth ** nc.feature_dim}) sigma={nc.sigma} "
+            f"{cfg.activation_dtype}: {n_params / 1e9:.3f}e9 params (seed "
+            f"{SERVE_SEED}, init {t_init:.2f}s); ServeEngine slots="
+            f"{SERVE_SLOTS} max_seq={SERVE_MAX_SEQ}, {len(prompts)} requests,"
+            f" prompts {[len(p) for p in prompts]}, {SERVE_NEW} new tokens "
+            "each")
+        log(f"[nfft_serve] {card}: {wall:.3f}s wall (ends in synchronize), "
+            f"{new_tokens} tokens, {new_tokens / wall:.1f} tok/s; peak "
+            f"memory {peak_gb:.2f} GB; {seen['n']} logits, {bad} non-finite;"
+            f" launches {launches}")
+        log(f"[nfft_serve] cache per slot (allocated tensors): NFFT (S, z) "
+            f"{slot_bytes / 1e6:.1f} MB at any context length; "
+            f"{dense_cfg.name}'s KV cache {kv[SERVE_MAX_SEQ] / 1e6:.1f} MB at "
+            f"{SERVE_MAX_SEQ} tokens, {kv[NFFT_LONG] / 1e9:.3f} GB at "
+            f"{NFFT_LONG} ({per_token / 1e3:.1f} KB a token): the same size "
+            f"at {slot_bytes / per_token:,.0f} tokens")
+        check(bad == 0, f"nfft serve: {bad} non-finite logits")
+        self.check_no_kernel_launches(launches, "nfft serve")
+        check(slot_bytes == cfg.num_layers * 2 * cfg.num_heads
+              * nc.bandwidth ** nc.feature_dim * (cfg.head_dim_eff + 1) * 4,
+              f"nfft cache bytes per slot {slot_bytes}")
+
+        self.nfft_long_prefill(cfg, model)
+        self.nfft_layer_vs_exact(cfg, model)
+        del model
+        self.nfft_f32_engine_vs_manual(cfg, prompts)
+
+    def nfft_long_prefill(self, cfg, model):
+        """One PREFILL_32K-length prefill on one slot, then decode steps:
+        ms, peak memory, and the cache's bytes before and after."""
+        torch, lm = self.torch, self.lm
+        card = self.record["device"]["nvidia_smi"]
+        rng = np.random.default_rng(SERVE_SEED + 2)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                            (1, NFFT_LONG)), device=self.dev)
+        caches = lm.init_caches(cfg, 1, NFFT_LONG + NFFT_LONG_DECODE,
+                                device=self.dev)
+        before = self.cache_bytes(caches)
+        ptrs = [t.data_ptr() for c in caches for t in c]
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        self.reset_launches()
+        self.sync()
+        t0 = time.perf_counter()
+        logits, caches = model.forward_prefill({"tokens": toks}, caches)
+        self.sync()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        finite = bool(torch.isfinite(logits).all())
+        tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
+        decode_ms = []
+        for step in range(NFFT_LONG_DECODE):
+            t0 = time.perf_counter()
+            logits, caches = model.forward_decode(
+                tok, torch.as_tensor([NFFT_LONG + step], device=self.dev),
+                caches)
+            tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
+            self.sync()
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+            finite = finite and bool(torch.isfinite(logits).all())
+        launches = self.read_launches("nfft_long_prefill")
+        peak_gb = torch.cuda.max_memory_allocated(self.dev) / 1e9
+        after = self.cache_bytes(caches)
+        same_tensors = ptrs == [t.data_ptr() for c in caches for t in c]
+        self.record["nfft_serve"]["long"] = {
+            "tokens": NFFT_LONG, "prefill_ms": prefill_ms,
+            "decode_ms": decode_ms, "peak_memory_gb": peak_gb,
+            "cache_bytes_before": before, "cache_bytes_after": after,
+            "launches": launches}
+        log(f"[nfft_serve] {card}: one prefill of {NFFT_LONG} tokens (b=1, "
+            f"host clock ending in synchronize) {prefill_ms:.1f} ms, then "
+            f"{NFFT_LONG_DECODE} decode steps {np.median(decode_ms):.2f} ms "
+            f"each (median); peak memory {peak_gb:.2f} GB; cache "
+            f"{before / 1e6:.1f} MB before and {after / 1e6:.1f} MB after, "
+            f"the same tensors: {same_tensors}; logits finite: {finite}; "
+            f"launches {launches}")
+        check(finite, "nfft long prefill: non-finite logits")
+        check(before == after and same_tensors,
+              "nfft long prefill: the cache changed size")
+        self.check_no_kernel_launches(launches, "nfft long prefill")
+        del caches
+
+    def nfft_layer_vs_exact(self, cfg, model):
+        """Layer 0's mixer on seeded inputs of NFFT_EXACT_S tokens against
+        the exact row-normalized Gaussian attention in float64 on the same
+        features (K_RF against K), with TF32 switched on around the call
+        to show that the phase matmuls keep it off."""
+        torch = self.torch
+        card = self.record["device"]["nvidia_smi"]
+        layer = model.blocks[0].nfft
+        s, h = NFFT_EXACT_S, cfg.num_heads
+        gen = torch.Generator(device=self.dev).manual_seed(SERVE_SEED + 3)
+        x = torch.randn((1, s, cfg.d_model), generator=gen,
+                        device=self.dev).to(cfg.dtype)
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            self.reset_launches()
+            out = layer.attend(x)[0].double()  # (s, h, hd)
+            launches = self.read_launches("nfft_layer")
+            tf32_after = torch.backends.cuda.matmul.allow_tf32
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+        qf, kf, v = (t[0].double() for t in layer.features(x))
+        mask = torch.ones((s, s), dtype=torch.bool,
+                          device=self.dev).tril_()
+        exact = torch.empty_like(out)
+        for head in range(h):
+            diff = qf[:, None, head] - kf[None, :, head]
+            w = torch.exp(-(diff * diff).sum(-1) / cfg.nfft_attention.sigma
+                          ** 2) * mask
+            exact[:, head] = (w @ v[:, head]) / w.sum(dim=1, keepdim=True)
+        rel = float((out - exact).abs().max() / exact.abs().max())
+        limit = NFFT_EXACT_FACTOR * JAX_NFFT_EXACT_REL
+        self.record["nfft_serve"]["layer_vs_exact"] = {
+            "s": s, "rel": rel, "limit": limit, "launches": launches}
+        log(f"[nfft_serve] {card}: layer 0's mixer, {s} tokens, {h} heads, "
+            f"{cfg.activation_dtype} inputs, against the exact Gaussian "
+            f"attention in float64 on the same features: max|out - exact| "
+            f"/ max|exact| = {rel:.3e} (limit {NFFT_EXACT_FACTOR} x the JAX "
+            f"package's {JAX_NFFT_EXACT_REL:.3e} at the reduced width); "
+            f"allow_tf32 set around the call, restored after: "
+            f"{tf32_after}; launches {launches}")
+        check(rel <= limit, f"nfft layer vs exact: {rel:.3e} > {limit:.3e}")
+        check(tf32_after, "nfft layer: the caller's TF32 setting was lost")
+        self.check_no_kernel_launches(launches, "nfft layer")
+
+    def nfft_f32_engine_vs_manual(self, cfg, prompts):
+        """float32 (TF32 off): the engine's tokens against an unbatched
+        prefill + decode loop, up to each request's first near tie."""
+        torch, lm = self.torch, self.lm
+        prev = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                        activation_dtype="float32")
+            model32 = lm.init_params(cfg32, SERVE_SEED, device=self.dev)
+            self.reset_launches()
+            reqs32, wall32 = self.serve(cfg32, model32, prompts)
+            launches32 = self.read_launches("nfft_serve_f32")
+            compared, stops = 0, []
+            for r in reqs32:
+                want, margins = self.manual_greedy(cfg32, model32, r.tokens)
+                n = next((i for i, m in enumerate(margins)
+                          if m < SERVE_MARGIN), len(margins))
+                stops.append(n)
+                compared += n
+                check(r.output[:n] == want[:n],
+                      f"nfft f32 engine vs manual, request {r.uid}: "
+                      f"{r.output[:n]} != {want[:n]}")
+            del model32
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev[0]
+            torch.backends.cudnn.allow_tf32 = prev[1]
+        self.record["nfft_serve"]["f32"] = {
+            "wall_s": wall32, "steps_compared": stops,
+            "launches": launches32}
+        log(f"[nfft_serve] float32 (TF32 off): engine {wall32:.3f}s; engine "
+            f"vs manual prefill+decode tokens equal on {compared} of "
+            f"{SERVE_NEW * len(reqs32)} steps (per request {stops}; a "
+            f"request's comparison stops at its first top-2 margin under "
+            f"{SERVE_MARGIN:g} of the top logit); launches {launches32}")
+        check(compared > 0, "nfft f32: no step compared")
+        self.check_no_kernel_launches(launches32, "nfft serve f32")
 
     def phase_times(self):
         torch, win = self.torch, self.win

@@ -12,3 +12,7 @@ SSL, kernel ridge regression), ``runtime`` (accuracy guards), ``data``
 line).  Entry points run on the CUDA card unless the caller asks for
 ``device="cpu"``.
 """
+
+from repro_torch.device import init_cpu_math as _init_cpu_math
+
+_init_cpu_math()

@@ -1,7 +1,8 @@
 """Core paper contribution: NFFT fast summation + Krylov methods, in PyTorch."""
 
 from repro_torch.core.kernels import (  # noqa: F401
-    ALL_KERNELS, KERNEL_PARAM_NAME, Kernel, kernel_from_param, make_kernel,
+    ALL_KERNELS, GAUSSIAN, INVERSE_MULTIQUADRIC, KERNEL_PARAM_NAME,
+    LAPLACIAN_RBF, MULTIQUADRIC, Kernel, kernel_from_param, make_kernel,
 )
 from repro_torch.core.fastsum import (  # noqa: F401
     SETUP_1, SETUP_2, SETUP_3, FastsumOperator, FastsumOperatorBank,
@@ -24,7 +25,8 @@ from repro_torch.core.nfft import (  # noqa: F401
     nfft_forward,
 )
 from repro_torch.core.lanczos import (  # noqa: F401
-    EigshResult, eigsh, eigsh_smallest_laplacian,
+    BlockLanczosResult, EigshResult, block_lanczos, eigsh,
+    eigsh_smallest_laplacian, lanczos,
 )
 from repro_torch.core.solvers import (  # noqa: F401
     SolveHealth, SolveResult, cg, cg_bank, minres, minres_bank,

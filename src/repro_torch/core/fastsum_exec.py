@@ -184,12 +184,27 @@ def _spectral_mid(plan: NfftPlan, multiplier_half: torch.Tensor,
 
 def fused_pipeline(plan: NfftPlan, multiplier_half: torch.Tensor,
                    src: WindowGeometry, tgt: WindowGeometry,
-                   x: torch.Tensor) -> torch.Tensor:
-    """spread -> rfftn -> multiply -> irfftn -> gather; x (n,) or (n, C)."""
+                   x: torch.Tensor, grid_hook=None) -> torch.Tensor:
+    """spread -> rfftn -> multiply -> irfftn -> gather; x (n,) or (n, C).
+
+    ``grid_hook``, when given, maps the spread grid ``(M,)*d + (C,)`` to a
+    grid of the same shape before the spectral section: the deterministic
+    fault-injection seam (:mod:`repro_torch.runtime.faultinject` poisons
+    it to model grid memory corruption); production callers leave it
+    ``None``.  A hooked call is forward-only, as in the JAX package: it
+    runs on detached values and its output carries no graph.
+    """
     batched = x.ndim == 2
     xb = x if batched else x[:, None]
-    y = _spectral_mid(plan, multiplier_half, window_spread(plan, src, xb))
-    out = window_gather(plan, tgt, y)
+    if grid_hook is None:
+        y = _spectral_mid(plan, multiplier_half,
+                          window_spread(plan, src, xb))
+        out = window_gather(plan, tgt, y)
+    else:
+        with torch.no_grad():
+            g = grid_hook(_spread(plan, src, xb.detach()))
+            out = _gather(plan, tgt,
+                          _spectral_mid(plan, multiplier_half.detach(), g))
     return out if batched else out[:, 0]
 
 

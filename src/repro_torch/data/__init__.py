@@ -1,1 +1,5 @@
 """Synthetic point sets (numpy only)."""
+
+from repro_torch.data.synthetic import (  # noqa: F401
+    crescent_fullmoon, gaussian_blobs, spiral, synthetic_image,
+)

@@ -170,10 +170,43 @@ def kernel_matvec(points_out: torch.Tensor, points_in: torch.Tensor,
         raise ValueError(f"no kernel_matvec kernel for device {x.device}")
     if torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad
-            for t in (points_out, points_in, x, param)):
-        raise ValueError("the CUDA kernel_matvec has no backward: detach "
-                         "its inputs (it is the direct-sum oracle, never "
-                         "differentiated) or run it under torch.no_grad()")
+            for t in (points_out, points_in, param)):
+        raise ValueError("the CUDA kernel_matvec has a gradient in x only; "
+                         "one in the points or the kernel parameter is not "
+                         "ported (ROADMAP queue 3 item 4): detach them or "
+                         "run on the CPU")
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _KernelMatvecX.apply(points_out, points_in, x, kernel_name,
+                                    param, zero_diagonal)
+    return _launch(points_out, points_in, x, kernel_name, param,
+                   zero_diagonal)
+
+
+class _KernelMatvecX(torch.autograd.Function):
+    """The CUDA direct sum, differentiable in x: the backward is a second
+    launch with the two point sets swapped.  For a radial kernel
+    K(a_j, b_i) = K(b_i, a_j), and the masked entries row == col are the
+    same after the swap, so that launch applies the exact transpose."""
+
+    @staticmethod
+    def forward(ctx, points_out, points_in, x, kernel_name, param,
+                zero_diagonal):
+        ctx.save_for_backward(points_out, points_in)
+        ctx.kw = dict(kernel_name=kernel_name, param=param,
+                      zero_diagonal=zero_diagonal)
+        return _launch(points_out, points_in, x, kernel_name, param,
+                       zero_diagonal)
+
+    @staticmethod
+    def backward(ctx, y_bar):
+        points_out, points_in = ctx.saved_tensors
+        x_bar = kernel_matvec(points_in, points_out, y_bar, **ctx.kw)
+        return None, None, x_bar, None, None, None
+
+
+def _launch(points_out, points_in, x, kernel_name, param,
+            zero_diagonal) -> torch.Tensor:
+    """One launch of the CUDA kernel (and its split-order sum)."""
     n_out, d = points_out.shape
     if d > MAX_D:
         raise ValueError(f"the CUDA kernel takes d <= {MAX_D}, got {d}")

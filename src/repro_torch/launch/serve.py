@@ -1,6 +1,7 @@
 """Serving from the command line:
 
     python -m repro_torch.launch.serve --arch granite-3-2b [--device cpu]
+    python -m repro_torch.launch.serve --arch granite-3-2b-nfft --device cpu
 
 Spins up the continuous-batching engine on a reduced config and runs a
 batch of synthetic prompts through it, on the CUDA card unless
@@ -60,7 +61,7 @@ def main(argv=None) -> None:
         raise SystemExit("engine stopped with requests still running")
     print(f"served {len(reqs)} requests / {total_new} tokens in {dt:.2f}s "
           f"({total_new / dt:.1f} tok/s, slots={args.slots}, "
-          f"device={engine.device})")
+          f"device={engine.device}, arch={cfg.name})")
     for r in reqs[:3]:
         print(f"  req {r.uid}: prompt_len={len(r.tokens)} -> {r.output[:8]}…")
 

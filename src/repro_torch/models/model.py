@@ -1,16 +1,19 @@
 """The LM as pre-norm residual blocks, and its serving forwards.
 
-The port of ``repro.models.model`` for the blocks it has so far: signature
-``("attn", "dense")`` (GQA softmax attention, then a SwiGLU/GeGLU/GELU
-MLP), token inputs, a tied or separate LM head.  The other mixers (MLA,
-Mamba, NFFT attention), mixture of experts, the modality frontends and
-the training forward wait (ROADMAP queue 1 item 13) and raise
-``NotImplementedError``.
+The port of ``repro.models.model`` for the blocks it has so far:
+signatures ``("attn", "dense")`` (GQA softmax attention, then a
+SwiGLU/GeGLU/GELU MLP) and ``("nfft", "dense")`` (the paper's NFFT kernel
+attention, :mod:`repro_torch.models.nfft_attention`, then the MLP), token
+inputs, a tied or separate LM head.  The other mixers (MLA, Mamba),
+mixture of experts, the modality frontends and the training forward wait
+(ROADMAP queue 1 item 13) and raise ``NotImplementedError``.
 
 The JAX package runs its layer plan's periodic part under ``lax.scan`` over
 period-stacked parameters; here the blocks are a plain list in layer order
 (:func:`params_from_arrays` unstacks a JAX tree onto it).  Caches are one
-:class:`~repro_torch.models.attention.KVCache` per layer, updated in place.
+per layer, updated in place: a :class:`~repro_torch.models.attention.
+KVCache` for an attention layer, an :class:`~repro_torch.models.
+nfft_attention.NFFTCache` for an NFFT layer.
 
     forward_prefill (tokens, caches)     -> (logits_last, caches)
     forward_decode  (token, pos, caches) -> (logits, caches)   # 1 token
@@ -27,13 +30,14 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import Attention, KVCache, init_kv_cache
+from repro_torch.models.attention import Attention, init_kv_cache
 from repro_torch.models.common import (
     dense_init, embed_init, init_rms_norm, rms_norm,
 )
 from repro_torch.models.mlp import MLP
+from repro_torch.models.nfft_attention import NFFTAttention, init_nfft_cache
 
-_PORTED = ("attn", "dense")
+_PORTED = (("attn", "dense"), ("nfft", "dense"))
 _TODO = "not ported yet (ROADMAP queue 1 item 13)"
 
 
@@ -99,10 +103,11 @@ def _check_supported(cfg: ArchConfig) -> None:
             f"{cfg.name}: the {cfg.frontend} frontend is {_TODO}")
     for i in range(cfg.num_layers):
         sig = layer_signature(cfg, i)
-        if tuple(sig) != _PORTED:
+        if tuple(sig) not in _PORTED:
             raise NotImplementedError(
                 f"{cfg.name}: layer {i} is {tuple(sig)}; only "
-                f"{_PORTED} blocks are ported, the rest is {_TODO}")
+                f"{' and '.join(map(str, _PORTED))} blocks are ported, the "
+                f"rest is {_TODO}")
 
 
 # ---------------------------------------------------------------------------
@@ -110,34 +115,42 @@ def _check_supported(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """One ("attn", "dense") residual block: x + attn(norm(x)), then
-    x + mlp(norm(x))."""
+    """One residual block: x + mixer(norm(x)), then x + mlp(norm(x)).  The
+    mixer is ``attn`` (GQA) or ``nfft`` (NFFT kernel attention, which
+    ignores positions, the prefix length and ``use_flash``, as the JAX
+    package's does)."""
 
-    def __init__(self, cfg: ArchConfig, *, generator, device):
+    def __init__(self, cfg: ArchConfig, mixer: str, *, generator, device):
         super().__init__()
         self.cfg = cfg
         self.norm_mixer = init_rms_norm(cfg.d_model, cfg.pdtype, device)
-        self.attn = Attention(cfg, generator=generator, device=device)
+        if mixer == "nfft":
+            self.nfft = NFFTAttention(cfg, generator=generator,
+                                      device=device)
+        else:
+            self.attn = Attention(cfg, generator=generator, device=device)
         self.norm_ffn = init_rms_norm(cfg.d_model, cfg.pdtype, device)
         self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.activation, cfg.pdtype,
                        generator=generator, device=device)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
-                mode: str, cache: Optional[KVCache] = None,
-                use_flash: bool = False,
+                mode: str, cache=None, use_flash: bool = False,
                 prefix_len: int = 0) -> torch.Tensor:
         """mode 'train' (whole sequence, no cache), 'prefill' or 'decode'."""
         h = rms_norm(x, self.norm_mixer, self.cfg.norm_eps)
-        if mode == "train":
+        if mode not in ("train", "prefill", "decode"):
+            raise ValueError(f"unknown mode {mode!r}")
+        if hasattr(self, "nfft"):
+            mix = (self.nfft(h) if mode == "train" else
+                   getattr(self.nfft, mode)(h, cache))
+        elif mode == "train":
             mix = self.attn(h, positions, use_flash=use_flash,
                             prefix_len=prefix_len)
         elif mode == "prefill":
             mix = self.attn.prefill(h, positions, cache, use_flash=use_flash,
                                     prefix_len=prefix_len)
-        elif mode == "decode":
-            mix = self.attn.decode(h, positions, cache)
         else:
-            raise ValueError(f"unknown mode {mode!r}")
+            mix = self.attn.decode(h, positions, cache)
         x = x + mix
         return x + self.mlp(rms_norm(x, self.norm_ffn, self.cfg.norm_eps))
 
@@ -154,8 +167,9 @@ class Model(nn.Module):
         kw = dict(generator=generator, device=device)
         self.embed = embed_init((cfg.vocab_size, cfg.d_model), cfg.pdtype,
                                 **kw)
-        self.blocks = nn.ModuleList(Block(cfg, **kw)
-                                    for _ in range(cfg.num_layers))
+        self.blocks = nn.ModuleList(
+            Block(cfg, layer_signature(cfg, i).mixer, **kw)
+            for i in range(cfg.num_layers))
         self.final_norm = init_rms_norm(cfg.d_model, cfg.pdtype, device)
         self.lm_head = None
         if not cfg.tie_embeddings:
@@ -233,9 +247,13 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
 
 def init_caches(cfg: ArchConfig, batch: int, max_seq: int, *,
                 device: str | torch.device | None = None) -> list:
+    """One cache per layer: a KV cache of ``max_seq`` rows for an attention
+    layer, the constant-size (S, z) for an NFFT layer."""
     dev = resolve_device(device)
-    return [init_kv_cache(cfg, batch, max_seq, device=dev)
-            for _ in range(cfg.num_layers)]
+    return [init_nfft_cache(cfg, batch, device=dev)
+            if layer_signature(cfg, i).mixer == "nfft"
+            else init_kv_cache(cfg, batch, max_seq, device=dev)
+            for i in range(cfg.num_layers)]
 
 
 def _tensor(a) -> torch.Tensor:

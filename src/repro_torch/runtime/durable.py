@@ -38,11 +38,12 @@ under the same switch runs the same bits.  The gather, ``kernel_matvec``,
 cuFFT and the cuBLAS products repeat bit for bit in one stream.
 
 Start vectors: :func:`resumable_eigsh` resolves them through
-:func:`~repro_torch.core.lanczos.eigsh_setup`, as ``eigsh`` does.  A torch
-generator advances with every draw, so a caller's ``generator`` must be
-freshly seeded for each call (the default, a generator seeded with 0, is);
-an already used one draws another start vector, and the resumed run would
-not be the run that was killed.
+:func:`~repro_torch.core.lanczos.eigsh_setup`, as ``eigsh`` does, but
+draws from a copy of the caller's ``generator``: the call leaves the
+generator's state as it found it.  A torch generator advances with every
+draw, where the JAX package's key is a value; drawing from a copy keeps the
+reference's contract that a resume is calling the same function again with
+the same arguments, also for a run killed before its first snapshot.
 """
 
 from __future__ import annotations
@@ -288,15 +289,21 @@ def resumable_eigsh(matvec, n: int, k: int, *, ckpt_dir: str,
     The (block) Lanczos factorization runs in snapshot-bounded segments
     under :func:`deterministic`; the Ritz extraction runs once, at the end.
     The start vector comes from :func:`~repro_torch.core.lanczos.eigsh_setup`
-    as in ``eigsh``: a caller's ``generator`` must be freshly seeded for
-    each call (see the module docstring).  Returns
+    as in ``eigsh``, drawn from a copy of ``generator``'s state: the
+    caller's generator is left as it was, so calling again with the same
+    arguments resumes the same run (see the module docstring).  Returns
     ``(EigshResult, DurableReport)``.
     """
     policy = policy or DurablePolicy()
     with deterministic(), torch.no_grad():
-        setup = eigsh_setup(n, k, num_iters=num_iters, which=which,
-                            generator=generator, dtype=dtype, v0=v0,
-                            block_size=block_size, device=device)
+        state = None if generator is None else generator.get_state()
+        try:
+            setup = eigsh_setup(n, k, num_iters=num_iters, which=which,
+                                generator=generator, dtype=dtype, v0=v0,
+                                block_size=block_size, device=device)
+        finally:
+            if state is not None:
+                generator.set_state(state)
         if setup.num_blocks:
             state0, body, finish = block_lanczos_machine(
                 matvec, setup.v0, setup.num_blocks)

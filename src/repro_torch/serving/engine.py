@@ -10,7 +10,8 @@ mix requests at very different progress.
 The port of ``repro.serving.engine``: the same admission, backpressure,
 recycling and greedy sampling.  PyTorch runs eagerly, so there is no
 per-length compile cache; a slot's caches are views into the batch's, and
-prefill fills them in place.
+prefill fills them in place (a KV cache's rows, or an NFFT layer's
+constant-size (S, z), which prefill adds into).
 """
 
 from __future__ import annotations
@@ -25,7 +26,6 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
-from repro_torch.models.attention import KVCache
 
 
 @dataclasses.dataclass
@@ -68,9 +68,9 @@ class ServeEngine:
 
     # -- internals ----------------------------------------------------------
     def _slot_caches(self, slot: int) -> list:
-        """One slot's caches as batch-1 views (writes land in the batch)."""
-        return [KVCache(c.k[slot:slot + 1], c.v[slot:slot + 1])
-                for c in self.caches]
+        """One slot's caches as batch-1 views of every tensor field, of any
+        cache type (writes land in the batch)."""
+        return [type(c)(*(t[slot:slot + 1] for t in c)) for c in self.caches]
 
     def _admit(self) -> None:
         for slot in range(self.slots):
@@ -85,8 +85,8 @@ class ServeEngine:
             # zero the slot's cache, then prefill into it
             sub = self._slot_caches(slot)
             for c in sub:
-                c.k.zero_()
-                c.v.zero_()
+                for t in c:
+                    t.zero_()
             logits, _ = self.model.forward_prefill({"tokens": prompt}, sub)
             nxt = self._sample(logits[:, -1, :])
             self.active[slot] = req

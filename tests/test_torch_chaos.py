@@ -11,6 +11,7 @@ both engines in tests/test_torch_serving_graph.py.
 """
 
 import dataclasses
+import importlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,10 +19,13 @@ import pytest
 import torch
 
 from repro.runtime import faultinject as jfi
-from repro_torch.core import lanczos as tlan
 from repro_torch.core import solvers as tsol
 from repro_torch.runtime import faultinject as tfi
 from repro_torch.training.fault_tolerance import InjectedFault
+
+# the module: ``repro_torch.core`` re-exports the function ``lanczos``
+# under its name, as ``repro.core`` does
+tlan = importlib.import_module("repro_torch.core.lanczos")
 
 pytestmark = pytest.mark.chaos
 
@@ -132,3 +136,34 @@ def test_slow_matvec_counts_and_delays():
     slow.delay_s = 0.01
     slow(x)
     assert slow.calls == 2
+
+
+def test_grid_hook_is_the_fault_seam():
+    """``fused_pipeline(grid_hook=...)`` (tests/test_chaos.py's case on the
+    port): the hook sees the spread grid (M,)*d + (C,); the identity hook
+    changes nothing, bit for bit; a poisoning hook propagates NaN to every
+    output; a hooked call is forward-only."""
+    from repro_torch.core import fastsum_exec
+    from repro_torch.core.fastsum import FastsumParams, make_fastsum
+    from repro_torch.core.kernels import make_kernel
+
+    rng = np.random.default_rng(8)
+    pts = torch.as_tensor(rng.normal(size=(100, 2)))
+    fs = make_fastsum(make_kernel("gaussian", sigma=3.5), pts,
+                      FastsumParams(n_bandwidth=16, m=4), device="cpu")
+    mult = fastsum_exec.fused_spectral_multiplier(fs.plan, fs.b_hat)
+    x = torch.as_tensor(rng.normal(size=(100,)))
+    args = (fs.plan, mult, fs.src_window, fs.src_window)
+    base = fastsum_exec.fused_pipeline(*args, x)
+    shapes = []
+    same = fastsum_exec.fused_pipeline(
+        *args, x, grid_hook=lambda g: shapes.append(tuple(g.shape)) or g)
+    assert shapes == [(fs.plan.grid_size,) * 2 + (1,)]
+    assert torch.equal(base, same)
+    bad = fastsum_exec.fused_pipeline(
+        *args, x, grid_hook=lambda g: torch.full_like(g, float("nan")))
+    assert not bool(torch.isfinite(bad).any())
+    xg = x.clone().requires_grad_(True)
+    assert fastsum_exec.fused_pipeline(*args, xg).requires_grad
+    assert not fastsum_exec.fused_pipeline(*args, xg,
+                                           grid_hook=lambda g: g).requires_grad

@@ -28,13 +28,16 @@ from repro.core import kernels as jkern
 from repro.core import solvers as jsol
 from repro_torch.core import fastsum as tfs
 from repro_torch.core import kernels as tkern
-from repro_torch.core import lanczos as tlan
 from repro_torch.core import solvers as tsol
 from repro_torch.data import synthetic as tsyn
 from repro_torch.runtime import (
     DurablePolicy, KillPoint, KillSchedule, Preemption, durable,
     resumable_eigsh, resumable_solve,
 )
+
+# the module: ``repro_torch.core`` re-exports the function ``lanczos``
+# under its name, as ``repro.core`` does
+tlan = importlib.import_module("repro_torch.core.lanczos")
 
 jlan = importlib.import_module("repro.core.lanczos")
 
@@ -297,9 +300,11 @@ def test_eigsh_cross_process_resume(tmp_path, spd):
 @pytest.mark.parametrize("fresh", [True, False])
 def test_eigsh_resume_needs_a_freshly_seeded_generator(tmp_path, spd, fresh):
     """Killed before its first snapshot, a run starts again from its start
-    vector: a freshly seeded generator draws the same one, but the
-    generator object the killed call already drew from draws another, so
-    the second call is not the run that was killed."""
+    vector.  resumable_eigsh draws it from a copy of the generator's
+    state, so a freshly seeded generator and the very generator object the
+    killed call was given draw the same one: either way the second call is
+    the run that was killed (the JAX package's contract, a key being a
+    value)."""
     a = torch.as_tensor(spd[0])
     n = a.shape[0]
     ref = tlan.eigsh(_mv(a), n, 3, generator=_gen(6), num_iters=30,
@@ -316,8 +321,38 @@ def test_eigsh_resume_needs_a_freshly_seeded_generator(tmp_path, spd, fresh):
         generator=_gen(6) if fresh else used, num_iters=30, device="cpu",
         policy=DurablePolicy(snapshot_every=6))
     assert rep.resumed_from is None
-    same = torch.equal(res.eigenvectors, ref.eigenvectors)
-    assert same is fresh
+    _equal(res.eigenvalues, ref.eigenvalues)
+    _equal(res.eigenvectors, ref.eigenvectors)
+
+
+def test_eigsh_leaves_the_callers_generator_as_it_found_it(tmp_path, spd):
+    """Kill before the first snapshot, resume with the same, already used
+    generator: the resumed run is the plain eigsh's bit for bit, and after
+    both calls the generator draws what a fresh one of its seed draws."""
+    a = torch.as_tensor(spd[0])
+    n = a.shape[0]
+    ref = tlan.eigsh(_mv(a), n, 3, generator=_gen(9), num_iters=30,
+                     device="cpu")
+    used = _gen(9)
+    torch.rand(5, generator=used)  # a generator already drawn from
+    state = used.get_state()
+    with pytest.raises(Preemption):
+        resumable_eigsh(
+            _mv(a), n, 3, ckpt_dir=str(tmp_path), generator=used,
+            num_iters=30, device="cpu",
+            policy=DurablePolicy(snapshot_every=6, max_restarts=0),
+            fault_hook=KillPoint(at_iteration=0))
+    assert torch.equal(used.get_state(), state)
+    res, rep = resumable_eigsh(
+        _mv(a), n, 3, ckpt_dir=str(tmp_path), generator=used,
+        num_iters=30, device="cpu", policy=DurablePolicy(snapshot_every=6))
+    assert rep.resumed_from is None
+    assert torch.equal(used.get_state(), state)
+    want = tlan.eigsh(_mv(a), n, 3, generator=used, num_iters=30,
+                      device="cpu")
+    _equal(res.eigenvalues, want.eigenvalues)
+    _equal(res.eigenvectors, want.eigenvectors)
+    assert not torch.equal(want.eigenvectors, ref.eigenvectors)
 
 
 def test_stale_foreign_snapshot_is_rejected(tmp_path, spd):

@@ -19,9 +19,12 @@ from repro.data import synthetic as jsyn
 from repro_torch import quickstart
 from repro_torch.core import fastsum as tfs
 from repro_torch.core import kernels as tkern
-from repro_torch.core import lanczos as tlan
 from repro_torch.data import synthetic as tsyn
 from repro_torch.graph import spectral as tspec
+
+# the module: ``repro_torch.core`` re-exports the function ``lanczos``
+# under its name, as ``repro.core`` does
+tlan = importlib.import_module("repro_torch.core.lanczos")
 
 # repro.core re-exports a function named `lanczos` over the module name
 jlan = importlib.import_module("repro.core.lanczos")

@@ -7,6 +7,8 @@ packages plan and execute, 1e-13 where the port executes the JAX
 package's own planned arrays (``fastsum_from_arrays``).
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,10 +20,13 @@ from repro.core import kernels as jkern
 from repro_torch.core import fastsum as tfs
 from repro_torch.core import fastsum_exec as texec
 from repro_torch.core import kernels as tkern
-from repro_torch.core import lanczos as tlan
 from repro_torch.data.synthetic import spiral
 from repro_torch.device import resolve_device
 from repro_torch.kernels import nfft_window as twin
+
+# the module: ``repro_torch.core`` re-exports the function ``lanczos``
+# under its name, as ``repro.core`` does
+tlan = importlib.import_module("repro_torch.core.lanczos")
 
 KERNELS = [("gaussian", {"sigma": 1.5}), ("laplacian_rbf", {"sigma": 1.0}),
            ("multiquadric", {"c": 1.0}), ("inverse_multiquadric", {"c": 1.0})]

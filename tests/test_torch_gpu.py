@@ -707,6 +707,66 @@ def test_reduced_serve_on_card_matches_cpu(cuda):
     assert outputs["cuda"] == outputs["cpu"]
 
 
+def test_reduced_nfft_model_on_card_matches_cpu(cuda):
+    """Reduced granite-3-2b-nfft (float32, TF32 off) on the card: prefill
+    logits, four decode steps and both (S, z) tensors of every layer
+    against the same weights on the CPU, within 5e-5 (float32 phase
+    features at 34 rad); no kernel of the package launches."""
+    cfg = reduced_config(get_config("granite-3-2b-nfft"))
+    on_card = tmodel.init_params(cfg, 5, device=cuda)
+    on_cpu = tmodel.init_params(cfg, 5, device="cpu")
+    on_cpu.load_state_dict({k: v.cpu()
+                            for k, v in on_card.state_dict().items()})
+    toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (2, 256))
+    steps = np.random.default_rng(8).integers(0, cfg.vocab_size, (4, 2, 1))
+    out = {}
+    launches = (tfa.flash_attention.launches, tkm.kernel_matvec.launches,
+                twin.window_spread.launches, twin.window_gather.launches)
+    for dev, model in ((cuda, on_card), (torch.device("cpu"), on_cpu)):
+        caches = tmodel.init_caches(cfg, 2, 512, device=dev)
+        logits, _ = model.forward_prefill(
+            {"tokens": torch.as_tensor(toks, device=dev)}, caches)
+        seq = [logits]
+        for i, tok in enumerate(steps):
+            logits, _ = model.forward_decode(
+                torch.as_tensor(tok, device=dev),
+                torch.full((2,), 256 + i, device=dev), caches)
+            seq.append(logits)
+        out[dev.type] = ([t.cpu() for t in seq],
+                         [t.cpu() for c in caches for t in c])
+    assert launches == (tfa.flash_attention.launches,
+                        tkm.kernel_matvec.launches,
+                        twin.window_spread.launches,
+                        twin.window_gather.launches)
+    for got, want in zip(out["cuda"][0] + out["cuda"][1],
+                         out["cpu"][0] + out["cpu"][1]):
+        assert _rel(got, want) <= 5e-5
+
+
+def test_nfft_phase_matmuls_keep_tf32_off(cuda):
+    """The chunked kernel attention gives the same bits whether the caller
+    has TF32 on or off, and the caller's setting comes back."""
+    from repro_torch.models import nfft_attention as tnf
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    qf, kf = (0.17 * torch.tanh(torch.randn((1, 4, 512, 2), device=cuda,
+                                            generator=gen))
+              for _ in range(2))
+    v = torch.randn((1, 4, 512, 16), device=cuda, generator=gen)
+    freqs, bhat = tnf._on_device(32, 2, 0.15, torch.device(cuda))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    got = {}
+    try:
+        for flag in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            with tnf._full_fp32(torch.device(cuda)):
+                got[flag] = tnf.causal_kernel_attention(qf, kf, v, freqs,
+                                                        bhat, 0.15)
+            assert torch.backends.cuda.matmul.allow_tf32 is flag
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert torch.equal(got[True], got[False])
+
+
 def test_flash_prefill_matches_einsum_on_card(cuda):
     cfg = reduced_config(get_config("llama3-405b"))
     model = tmodel.init_params(cfg, 2, device=cuda)
@@ -931,15 +991,48 @@ def test_krr_validation_loss_grads_on_card_match_cpu(cuda):
 
 
 def test_kernel_matvec_refuses_grad_on_card(cuda):
-    """The CUDA direct sum has no backward: a parameter or input that
-    requires grad raises instead of dropping the gradient."""
+    """The CUDA direct sum is differentiable in x only: a kernel parameter
+    or points that require grad raise (naming the ROADMAP item) instead of
+    dropping the gradient."""
     pts = torch.randn((50, 2), dtype=torch.float64, device=cuda)
     x = torch.randn(50, dtype=torch.float64, device=cuda)
     sigma = torch.tensor(1.0, dtype=torch.float64, device=cuda,
                          requires_grad=True)
-    with pytest.raises(ValueError, match="no backward"):
+    with pytest.raises(ValueError, match="queue 3 item 4"):
         tkm.kernel_matvec(pts, pts, x, param=sigma)
-    with pytest.raises(ValueError, match="no backward"):
-        tkm.kernel_matvec(pts, pts, x.requires_grad_(True), param=1.0)
+    with pytest.raises(ValueError, match="queue 3 item 4"):
+        tkm.kernel_matvec(pts.clone().requires_grad_(True), pts, x)
+    assert tkm.kernel_matvec(pts, pts, x.requires_grad_(True),
+                             param=1.0).requires_grad
     with torch.no_grad():
         tkm.kernel_matvec(pts, pts, x, param=sigma)
+
+
+@pytest.mark.parametrize("zero_diagonal", [True, False])
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("kname,param", [("gaussian", 0.7),
+                                         ("inverse_multiquadric", 0.5)])
+def test_kernel_matvec_x_gradient_matches_plain_autograd(
+        cuda, kname, param, c, zero_diagonal):
+    """x̄ of the CUDA direct sum (a second launch, point sets swapped)
+    against autograd through the plain version, on a rectangular pair so
+    that the swap matters: within 1e-12 of the largest entry."""
+    gen = torch.Generator(device=cuda).manual_seed(c)
+    a = torch.randn((300, 2), dtype=torch.float64, device=cuda, generator=gen)
+    b = torch.randn((700, 2), dtype=torch.float64, device=cuda, generator=gen)
+    shape = (700,) if c == 1 else (700, c)
+    x = torch.randn(shape, dtype=torch.float64, device=cuda, generator=gen)
+    w = torch.randn((300,) + shape[1:], dtype=torch.float64, device=cuda,
+                    generator=gen)
+    kw = dict(kernel_name=kname, param=param, zero_diagonal=zero_diagonal)
+    grads = []
+    for fn in (tkm.kernel_matvec, tkm.kernel_matvec_plain):
+        xg = x.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad((fn(a, b, xg, **kw) * w).sum(), xg)
+        grads.append(g)
+    before = tkm.kernel_matvec.launches
+    xg = x.clone().requires_grad_(True)
+    (tkm.kernel_matvec(a, b, xg, **kw) * w).sum().backward()
+    assert tkm.kernel_matvec.launches - before == 2
+    scale = float(grads[1].abs().max())
+    assert float((grads[0] - grads[1]).abs().max()) <= 1e-12 * scale

@@ -1,10 +1,13 @@
 """The PyTorch port stands alone: it never imports JAX or the JAX package."""
 
 import ast
+import importlib
 import os
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -27,7 +30,7 @@ MODULES = ("core.kernels", "core.regularization", "core.nfft",
            "figures.fig8_kernel_ssl_laplacian", "figures.fig9_krr",
            "figures.run", "runtime.durable", "runtime.faultinject",
            "training", "training.checkpoint", "training.fault_tolerance",
-           "serving.journal")
+           "serving.journal", "models.nfft_attention")
 
 
 def _imported_roots(path: Path) -> set:
@@ -67,3 +70,28 @@ def test_no_source_file_names_jax_or_the_reference():
     for path in files:
         bad = _imported_roots(path) & set(FORBIDDEN)
         assert not bad, (path, bad)
+
+
+def _reexported(init: Path) -> list:
+    """The names a package's ``__init__.py`` imports from its modules:
+    its public surface, whatever else other code has imported since."""
+    names = []
+    for node in ast.parse(init.read_text()).body:
+        if isinstance(node, ast.ImportFrom) and node.module != "__future__":
+            names += [a.asname or a.name for a in node.names]
+    return sorted(n for n in names if not n.startswith("_"))
+
+
+@pytest.mark.parametrize("package", ["core", "data"])
+def test_reference_surface_names_import_from_the_port(package):
+    """Every name that ``repro.core`` / ``repro.data`` re-exports
+    (functions, classes and constants) imports from the port's package of
+    the same name, so code written against the reference's imports runs
+    on the port."""
+    names = _reexported(ROOT / "src" / "repro" / package / "__init__.py")
+    assert len(names) > 3
+    port = importlib.import_module(f"repro_torch.{package}")
+    missing = [n for n in names if not hasattr(port, n)]
+    assert not missing, missing
+    for name in names:
+        exec(f"from repro_torch.{package} import {name}", {})

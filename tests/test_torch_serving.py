@@ -2,7 +2,7 @@
 backpressure, and token-for-token agreement with the JAX engine.
 
 Mirrors ``tests/test_serving.py`` on the port (reduced granite-3-2b,
-float32, on the CPU), and runs the JAX ``ServeEngine`` and the port's on
+float32, on the CPU; reduced granite-3-2b-nfft for the NFFT twins), and runs the JAX ``ServeEngine`` and the port's on
 the same carried weights and seeded prompts: their tokens must be equal.
 """
 
@@ -21,9 +21,30 @@ from repro_torch.models import model as M
 from repro_torch.serving.engine import Request, ServeEngine
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The module's tensors are small, and under pytest-xdist's parallel
+    workers torch's OpenMP threads oversubscribe the cores, so its many
+    small parallel operations stall.  One thread here; the caller's count
+    back after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     cfg = reduced_config(get_config("granite-3-2b"))
+    return cfg, M.init_params(cfg, 3, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def nfft_setup():
+    """Reduced granite-3-2b-nfft: every layer an NFFT kernel attention
+    block, whose (S, z) caches prefill fills by adding into the engine's
+    slot views."""
+    cfg = reduced_config(get_config("granite-3-2b-nfft"))
     return cfg, M.init_params(cfg, 3, device="cpu")
 
 
@@ -46,7 +67,17 @@ def _engine(cfg, model, **kw):
 
 
 def test_engine_matches_manual_decode(setup):
-    cfg, model = setup
+    _engine_matches_manual_decode(*setup)
+
+
+def test_nfft_engine_matches_manual_decode(nfft_setup):
+    """The NFFT twin: a prefill that rebound its cache instead of adding
+    into the slot's views would be lost, and decode would start from an
+    empty (S, z)."""
+    _engine_matches_manual_decode(*nfft_setup)
+
+
+def _engine_matches_manual_decode(cfg, model):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(3, 9))).tolist()
                for _ in range(3)]
@@ -93,7 +124,16 @@ def test_recycled_slot_has_no_stale_cache(setup):
     """A short request admitted into a slot that held a longer one must not
     read the earlier tenant's KV rows: slots recycled at shrinking lengths
     agree exactly with unbatched decoding."""
-    cfg, model = setup
+    _recycled_slot_has_no_stale_cache(*setup)
+
+
+def test_nfft_recycled_slot_has_no_stale_cache(nfft_setup):
+    """The NFFT twin: the earlier tenant's (S, z) sums, which have no
+    positions to mask, must be zeroed at admission."""
+    _recycled_slot_has_no_stale_cache(*nfft_setup)
+
+
+def _recycled_slot_has_no_stale_cache(cfg, model):
     rng = np.random.default_rng(4)
     specs = [(14, 10), (3, 4), (12, 8), (2, 3), (5, 6), (2, 8)]
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n, _ in specs]
@@ -140,8 +180,18 @@ def test_port_engine_matches_jax_engine():
     """The JAX engine and the port's, on the same weights (carried by
     params_from_arrays) and the same seeded prompts, emit the same
     tokens, with slots recycled."""
-    jcfg = jconfigs.reduced_config(jconfigs.get_config("granite-3-2b"))
-    cfg = reduced_config(get_config("granite-3-2b"))
+    _port_engine_matches_jax_engine("granite-3-2b")
+
+
+def test_port_engine_matches_jax_engine_nfft():
+    """The same on granite-3-2b-nfft: the JAX engine writes each prefill's
+    new NFFTCache back into the slot, the port's adds into its views."""
+    _port_engine_matches_jax_engine("granite-3-2b-nfft")
+
+
+def _port_engine_matches_jax_engine(arch):
+    jcfg = jconfigs.reduced_config(jconfigs.get_config(arch))
+    cfg = reduced_config(get_config(arch))
     params = JM.init_params(jax.random.PRNGKey(11), jcfg)
     model = M.params_from_arrays(jax.tree.map(np.asarray, params), cfg,
                                  device="cpu")
@@ -170,6 +220,14 @@ def test_serve_cli_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "served 3 requests / 12 tokens" in out
     assert "device=cpu" in out
+
+
+def test_serve_cli_serves_the_nfft_arch_on_cpu(capsys):
+    serve.main(["--arch", "granite-3-2b-nfft", "--device", "cpu",
+                "--requests", "3", "--max-new", "4"])
+    out = capsys.readouterr().out
+    assert "served 3 requests / 12 tokens" in out
+    assert "granite-3-2b-nfft-smoke" in out
 
 
 def test_trace_serve_on_cpu():

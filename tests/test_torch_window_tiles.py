@@ -14,6 +14,7 @@ in float64 (only the order of the sums differs), 1e-5 in float32.
 """
 
 import hashlib
+import importlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,13 +25,16 @@ from repro.kernels import nfft_window as jwin
 from repro.kernels import ref
 from repro_torch.core import fastsum as tfs
 from repro_torch.core import fastsum_exec as tex
-from repro_torch.core import lanczos as tlan
 from repro_torch.core.kernels import make_kernel
 from repro_torch.core.nfft import (
     NfftPlan, WindowGeometry, build_window_geometry, padded_grid_size,
 )
 from repro_torch.data.synthetic import crescent_fullmoon, spiral
 from repro_torch.kernels import nfft_window as twin
+
+# the module: ``repro_torch.core`` re-exports the function ``lanczos``
+# under its name, as ``repro.core`` does
+tlan = importlib.import_module("repro_torch.core.lanczos")
 
 
 def _tol(dtype):

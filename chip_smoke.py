@@ -70,12 +70,22 @@ run on one slot, and one mixer layer is held against the exact Gaussian
 attention in float64.  ``kernel_matvec``'s x-gradient (a second launch
 on the swapped point sets) is held against the plain version's autograd
 in [kernels].  Each path starts with every launch
-count at 0 and must launch its kernels.  Last it times the kernels beside
+count at 0 and must launch its kernels.  Then it times the kernels beside
 their roofline bounds (and flash attention beside PyTorch's SDPA), the
 window kernels' tile plan, the fused matvec at n = 10^5 and 10^6, the
-Nyström methods and the segmentation's eigsh, prefill and decode.  Any
-failed check raises, so the run exits non-zero and prints no result
-line.
+Nyström methods and the segmentation's eigsh, prefill and decode.  Last,
+LM training ([train]): granite-3-2b at full width and depth (bf16,
+AdamW) takes eight steps of 2 x 4,096 tokens through the port's train
+step, ``run_resilient`` and the Prefetcher (every parameter must move, the
+loss on step 0's batch must fall; median step time, tokens/s, the
+model-FLOPs share and peak memory are printed); at full width with 2
+layers a kill-and-resume under the deterministic switch must equal the
+uninterrupted run bit for bit, a compressed step's outputs must lie on
+their blocks' int8 grids and its residuals within half a quantization
+step, and granite-3-2b-nfft's learn_sigma step
+must move log_sigma; no kernel of the package may launch on these paths
+(the einsum attention and cuBLAS).  Any failed check raises, so the run
+exits non-zero and prints no result line.
 
     python3 chip_smoke.py [--json PATH]
 
@@ -95,6 +105,7 @@ import argparse
 import dataclasses
 import importlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -314,6 +325,25 @@ NFFT_EXACT_FACTOR = 10
 # the x-gradient of kernel_matvec on the card (a second launch, point sets
 # swapped) against autograd through the plain version
 KM_GRAD_SHAPE = (3000, 7000, 2)
+# [train]: granite-3-2b at full width and depth through the port's train
+# step (AdamW, TrainConfig.for_arch) at TRAIN_4K's 4,096-token sequences,
+# the global batch cut from 256 to 2 sequences (2 microbatches of 1), at
+# launch/train.py's defaults (peak lr 3e-4, warmup max(steps // 20, 5)).
+# Kill-and-resume, the compressed step and the NFFT learn_sigma step run
+# at full width with 2 layers (a 40-layer train state is ~35 GB on disk).
+TRAIN_ARCH = "granite-3-2b"
+TRAIN_SEED = 0
+TRAIN_STEPS = 8
+TRAIN_BATCH, TRAIN_MICRO = 2, 2
+TRAIN_LR = 3e-4
+TRAIN_SHORT_LAYERS = 2
+TRAIN_RESUME_STEPS, TRAIN_RESUME_EVERY, TRAIN_FAULT_STEP = 6, 2, 4
+# a residual's bound max|block|/254, plus the rounding of q * scale (a few
+# ulps of the block's largest value, under 2^-16 of the bound)
+EF_BOUND_SLACK = 2.0 ** -16
+# out / (max|block| / 127) is an integer q with |q| <= 127 up to the
+# rounding of q * scale and of the division (~2 ulps of 127, 1.5e-5)
+EF_GRID_SLACK = 1e-3
 
 # [bank]: the main path's spiral at n = 10^5, d = 3, SETUP_2, four Gaussian
 # members; bank vs the S single operators, relative to the largest output
@@ -469,6 +499,13 @@ def log(msg: str = "") -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def gc_collect(torch) -> None:
+    """Drop the phase's tensors from the allocator's cache."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -804,6 +841,7 @@ class Smoke:
         self.phase_serve()
         self.phase_nfft_serve()
         self.phase_times()
+        self.phase_train()
 
     def phase_device(self):
         torch = self.torch
@@ -3511,7 +3549,7 @@ class Smoke:
 
     def check_no_kernel_launches(self, launches, what):
         check(not any(launches.values()),
-              f"{what}: the NFFT model launched {launches}")
+              f"{what}: a kernel of the package launched {launches}")
 
     def phase_nfft_serve(self):
         """granite-3-2b-nfft at full width and depth (bf16) through
@@ -3742,6 +3780,369 @@ class Smoke:
             f"{SERVE_MARGIN:g} of the top logit); launches {launches32}")
         check(compared > 0, "nfft f32: no step compared")
         self.check_no_kernel_launches(launches32, "nfft serve f32")
+
+    # -- [train] -------------------------------------------------------------
+    def phase_train(self):
+        """[train]: granite-3-2b at full width and depth for TRAIN_STEPS
+        steps through run_resilient; kill-and-resume, the compressed step
+        and the NFFT learn_sigma step at full width with 2 layers.  No
+        kernel of the package may launch: training runs the einsum
+        attention (the flash kernel has no backward) and cuBLAS products."""
+        from repro_torch.data import pipeline
+        from repro_torch.dist import compression
+        from repro_torch.launch.train import batch_on
+        from repro_torch.training import fault_tolerance, train_loop
+        from repro_torch.training.optimizer import OptimizerConfig
+        from repro_torch import tree
+        torch = self.torch
+        self.pipe, self.comp, self.tl = pipeline, compression, train_loop
+        self.ft, self.tree, self.batch_on = fault_tolerance, tree, batch_on
+        self.OptimizerConfig = OptimizerConfig
+        # [serve]'s model stayed for [times], the window geometries for
+        # [times]' kernels; release them
+        self.serve_model = None
+        self.geometries.clear()
+        gc_collect(torch)
+        self.sync()
+        log(f"[train] memory at the phase's start: "
+            f"{torch.cuda.memory_allocated(self.dev) / 1e9:.2f} GB allocated,"
+            f" {torch.cuda.memory_reserved(self.dev) / 1e9:.2f} GB reserved")
+        t0 = time.perf_counter()
+        self.record["train"] = {}
+        self.train_full()
+        self.train_resume()
+        self.train_compressed()
+        self.train_nfft_learn_sigma()
+        self.record["train"]["phase_s"] = time.perf_counter() - t0
+        log(f"[train] phase {self.record['train']['phase_s']:.1f}s wall")
+
+    def train_config(self, cfg, steps, **kw):
+        """launch/train.py's settings: the optimizer TrainConfig.for_arch
+        picks, peak lr TRAIN_LR, warmup max(steps // 20, 5)."""
+        name = self.tl.TrainConfig.for_arch(cfg).optimizer.name
+        opt = self.OptimizerConfig(name=name, peak_lr=TRAIN_LR,
+                                   total_steps=steps,
+                                   warmup_steps=max(steps // 20, 5))
+        return self.tl.TrainConfig(optimizer=opt, **kw)
+
+    def train_shape(self, cfg, batch):
+        shape = next(s for s in cfg.shapes if s.name == "train_4k")
+        return dataclasses.replace(shape, global_batch=batch)
+
+    def train_flops(self, cfg, n_params, tokens, seq):
+        """Model FLOPs of one step: 6 P per token (forward and backward
+        of every parameter's multiply-add) plus the attention's 12 L h hd
+        s per token (QK^T and PV, forward and backward; the causal square
+        counted whole, as the einsum computes it)."""
+        attn = 12 * cfg.num_layers * cfg.num_heads * cfg.head_dim_eff * seq
+        return (6 * n_params + attn) * tokens
+
+    def train_full(self):
+        """(a) granite-3-2b, 40 layers, bf16, AdamW, TRAIN_STEPS steps of
+        TRAIN_BATCH x 4,096 tokens through run_resilient (no checkpoint:
+        the state is ~35 GB) and the Prefetcher."""
+        torch, lm = self.torch, self.lm
+        card = self.record["device"]["nvidia_smi"]
+        cfg = self.get_config(TRAIN_ARCH)
+        shape = self.train_shape(cfg, TRAIN_BATCH)
+        tc = self.train_config(cfg, TRAIN_STEPS,
+                               num_microbatches=TRAIN_MICRO)
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        t0 = time.perf_counter()
+        state = self.tl.init_train_state(cfg, tc, TRAIN_SEED,
+                                         device=self.dev)
+        self.sync()
+        t_init = time.perf_counter() - t0
+        model = state.params
+        n_params = sum(p.numel() for p in model.parameters())
+        state_gb = torch.cuda.memory_allocated(self.dev) / 1e9
+        step_fn = self.tl.make_train_step(cfg, tc)
+        batch0 = self.batch_on(self.pipe.batch_for_step(cfg, shape, 0,
+                                                        seed=TRAIN_SEED),
+                               self.dev)
+        with torch.no_grad():
+            loss_before = float(model.forward_train(batch0)[0])
+        names = [n for n, _ in model.named_parameters()]
+        before = [p.detach().to("cpu", copy=True)
+                  for p in model.parameters()]
+        times, metrics = [], []
+        moved = {}
+
+        def timed_step(st, batch):
+            self.sync()
+            t = time.perf_counter()
+            st, m = step_fn(st, batch)
+            self.sync()
+            times.append(time.perf_counter() - t)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if len(times) == 1:
+                for name, p, old in zip(names, model.parameters(), before):
+                    moved[name] = not torch.equal(p.detach(),
+                                                  old.to(self.dev))
+            return st, m
+
+        self.reset_launches()
+        pf = self.pipe.Prefetcher(cfg, shape, seed=TRAIN_SEED)
+        try:
+            t0 = time.perf_counter()
+            state, info = self.ft.run_resilient(
+                timed_step, state,
+                lambda s: self.batch_on(pf.get(s), self.dev),
+                total_steps=TRAIN_STEPS, ckpt_dir=None, log_every=10 ** 9)
+            wall = time.perf_counter() - t0
+        finally:
+            pf.close()
+        launches = self.read_launches("train")
+        del before
+        with torch.no_grad():
+            loss_after = float(model.forward_train(batch0)[0])
+        peak_gb = torch.cuda.max_memory_allocated(self.dev) / 1e9
+        median = float(np.median(times))
+        tokens = TRAIN_BATCH * shape.seq_len
+        flops = self.train_flops(cfg, n_params, tokens, shape.seq_len)
+        share = flops / (median * PEAK_BF16_TENSOR)
+        self.record["train"]["full"] = {
+            "arch": cfg.name, "layers": cfg.num_layers,
+            "dtype": cfg.param_dtype, "params": n_params,
+            "optimizer": tc.optimizer.name, "batch": TRAIN_BATCH,
+            "microbatches": TRAIN_MICRO, "seq": shape.seq_len,
+            "init_s": t_init, "state_gb": state_gb, "step_s": times,
+            "median_step_s": median, "tokens_per_s": tokens / median,
+            "model_flops_per_step": flops, "model_flops_share": share,
+            "metrics": metrics, "loss_step0_batch": [loss_before,
+                                                     loss_after],
+            "peak_memory_gb": peak_gb, "launches": launches,
+            "wall_s": wall, "card": card}
+        log(f"[train] {cfg.name} {cfg.num_layers} layers d={cfg.d_model} "
+            f"hq={cfg.num_heads} hkv={cfg.num_kv_heads} d_ff={cfg.d_ff} "
+            f"V={cfg.vocab_size} {cfg.param_dtype}: {n_params / 1e9:.3f}e9 "
+            f"params (seed {TRAIN_SEED}), {tc.optimizer.name}, state "
+            f"{state_gb:.2f} GB after init ({t_init:.2f}s); "
+            f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {shape.seq_len} tokens "
+            f"({TRAIN_MICRO} microbatches; TRAIN_4K's batch 256 cut to "
+            f"{TRAIN_BATCH}) through run_resilient + Prefetcher")
+        for i, m in enumerate(metrics):
+            log(f"[train] step {i}: loss {m['loss']:.5f} grad_norm "
+                f"{m['grad_norm']:.5f} lr {m['lr']:.3e} {times[i]:.3f}s")
+        log(f"[train] {card}: median step {median:.4f}s (host clock, ends in "
+            f"synchronize; first {times[0]:.3f}s), {tokens / median:.1f} "
+            f"tok/s; model FLOPs (6 P + 12 L h hd s) x tokens = "
+            f"{flops / 1e12:.1f} TFLOP a step, {100 * share:.2f}% of the "
+            f"{PEAK_BF16_TENSOR / 1e12:.0f} TFLOP/s bf16 dense peak; peak "
+            f"memory {peak_gb:.2f} GB; launches {launches}")
+        log(f"[train] loss on step 0's batch: {loss_before:.5f} before, "
+            f"{loss_after:.5f} after {TRAIN_STEPS} steps; parameters moved "
+            f"by step 1: {sum(moved.values())} of {len(moved)}")
+        check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                  for m in metrics), "train: a non-finite loss or grad_norm")
+        check(info["steps"] == TRAIN_STEPS and info["restarts"] == 0,
+              f"train: {info['steps']} steps, {info['restarts']} restarts")
+        check(all(moved.values()), "train: parameters that did not move in "
+              f"step 1: {[n for n, v in moved.items() if not v][:8]}")
+        check(loss_after < loss_before,
+              f"train: loss on step 0's batch {loss_before} -> {loss_after}")
+        self.check_no_kernel_launches(launches, "train")
+        del state, model, step_fn, batch0
+        gc_collect(torch)
+
+    def train_short_cfg(self, name, **nfft):
+        cfg = dataclasses.replace(self.get_config(name),
+                                  num_layers=TRAIN_SHORT_LAYERS)
+        if nfft:
+            cfg = dataclasses.replace(cfg, nfft_attention=dataclasses.replace(
+                cfg.nfft_attention, **nfft))
+        return cfg
+
+    def train_resume(self):
+        """(b) full width, 2 layers: TRAIN_RESUME_STEPS steps with a
+        checkpoint every TRAIN_RESUME_EVERY and an InjectedFault at
+        TRAIN_FAULT_STEP, under the deterministic switch; the final loss
+        and every leaf of the state equal the uninterrupted run's, bit
+        for bit."""
+        import shutil
+        torch = self.torch
+        cfg = self.train_short_cfg(TRAIN_ARCH)
+        shape = self.train_shape(cfg, TRAIN_BATCH)
+        tc = self.train_config(cfg, TRAIN_RESUME_STEPS,
+                               num_microbatches=TRAIN_MICRO)
+        batch_fn = lambda s: self.batch_on(self.pipe.batch_for_step(
+            cfg, shape, s, seed=TRAIN_SEED), self.dev)
+        fired = {"done": False}
+
+        def fault_hook(s):
+            if s == TRAIN_FAULT_STEP and not fired["done"]:
+                fired["done"] = True
+                raise self.ft.InjectedFault("simulated node failure")
+
+        runs, walls, ckpt_bytes = [], [], 0
+        with self.durable.deterministic():
+            for name, hook in (("ref", None), ("ft", fault_hook)):
+                directory = self.ckpt_dir(f"train_{name}")
+                try:
+                    t0 = time.perf_counter()
+                    runs.append(self.ft.run_resilient(
+                        self.tl.make_train_step(cfg, tc),
+                        self.tl.init_train_state(cfg, tc, TRAIN_SEED,
+                                                 device=self.dev),
+                        batch_fn, total_steps=TRAIN_RESUME_STEPS,
+                        ckpt_dir=directory, ckpt_every=TRAIN_RESUME_EVERY,
+                        fault_hook=hook, log_every=10 ** 9))
+                    walls.append(time.perf_counter() - t0)
+                    ckpt_bytes = sum(f.stat().st_size for f in
+                                     Path(directory).glob("step_*/*.npy"))
+                finally:
+                    shutil.rmtree(directory, ignore_errors=True)
+        (ref, ref_info), (got, info) = runs
+        ref_leaves = self.tree.tree_leaves(ref)
+        got_leaves = self.tree.tree_leaves(got)
+        unequal = sum(not torch.equal(a, b)
+                      for a, b in zip(got_leaves, ref_leaves))
+        loss, ref_loss = (float(info["final_metrics"]["loss"]),
+                          float(ref_info["final_metrics"]["loss"]))
+        self.record["train"]["resume"] = {
+            "layers": cfg.num_layers, "steps": TRAIN_RESUME_STEPS,
+            "ckpt_every": TRAIN_RESUME_EVERY, "fault_step": TRAIN_FAULT_STEP,
+            "restarts": info["restarts"], "wall_s": walls,
+            "checkpoint_bytes_on_disk": ckpt_bytes, "leaves":
+            len(ref_leaves), "unequal_leaves": unequal,
+            "final_loss": [ref_loss, loss]}
+        log(f"[train] kill-and-resume, {cfg.name} at full width with "
+            f"{cfg.num_layers} layers, {TRAIN_RESUME_STEPS} steps, a "
+            f"checkpoint every {TRAIN_RESUME_EVERY}, a fault at step "
+            f"{TRAIN_FAULT_STEP}, deterministic switch on: uninterrupted "
+            f"{walls[0]:.2f}s, resumed {walls[1]:.2f}s ({info['restarts']} "
+            f"restart; {ckpt_bytes / 1e9:.2f} GB of checkpoints on disk); "
+            f"final loss {ref_loss!r} / {loss!r}; {unequal} of "
+            f"{len(ref_leaves)} state leaves differ")
+        check(info["restarts"] == 1, "train resume: no restart")
+        check(torch.equal(info["final_metrics"]["loss"],
+                          ref_info["final_metrics"]["loss"]) and unequal == 0,
+              f"train resume: {unequal} leaves differ, loss {loss} vs "
+              f"{ref_loss}")
+        del runs, ref, got, ref_leaves, got_leaves
+        gc_collect(torch)
+
+    def train_compressed(self):
+        """(c) --compress-grads at full width, 2 layers, one step: the
+        loss finite; each output on its block's int8 grid (an integer
+        multiple q of max|block| / 127, |q| <= 127, so at most 255 values a
+        block); each residual within half a quantization step of its block
+        (max|block| / 254)."""
+        torch, comp = self.torch, self.comp
+        cfg = self.train_short_cfg(TRAIN_ARCH)
+        shape = self.train_shape(cfg, TRAIN_BATCH)
+        tc = self.train_config(cfg, 1, num_microbatches=TRAIN_MICRO,
+                               compress_grads=True)
+        state = self.tl.init_train_state(cfg, tc, TRAIN_SEED,
+                                         device=self.dev)
+        step = self.tl.make_train_step(cfg, tc)
+        batch = self.batch_on(self.pipe.batch_for_step(
+            cfg, shape, 0, seed=TRAIN_SEED), self.dev)
+        self.reset_launches()
+        _, _, grads = step.gradients(state.params, batch)
+        totals = [g + r for g, r in zip(self.tree.tree_leaves(grads),
+                                        self.tree.tree_leaves(
+                                            state.ef_state.residuals))]
+        out, ef = comp.apply_error_feedback(grads, state.ef_state)
+        worst_bound, worst_grid, worst_q, n = 0.0, 0.0, 0.0, 0
+        tiny = torch.finfo(torch.float32).tiny
+
+        def blocked(x):
+            pad = (-x.numel()) % comp.BLOCK
+            return torch.nn.functional.pad(x.reshape(-1), (0, pad)).view(
+                -1, comp.BLOCK)
+
+        for o, r, t in zip(self.tree.tree_leaves(out),
+                           self.tree.tree_leaves(ef.residuals), totals):
+            top = blocked(t).abs().amax(dim=1, keepdim=True)
+            q = blocked(o) / (top / 127.0).clamp(min=tiny)
+            worst_grid = max(worst_grid, float((q - q.round()).abs().max()))
+            worst_q = max(worst_q, float(q.round().abs().max()))
+            ratio = blocked(r).abs() / (top / 254.0).clamp(min=tiny)
+            worst_bound = max(worst_bound, float(ratio.max()))
+            n += t.numel()
+        del totals, out, grads
+        state, metrics = step(state, batch)
+        launches = self.read_launches("train_compressed")
+        loss = float(metrics["loss"])
+        self.record["train"]["compressed"] = {
+            "layers": cfg.num_layers, "elements": n, "loss": loss,
+            "grad_norm": float(metrics["grad_norm"]),
+            "worst_residual_over_bound": worst_bound,
+            "worst_off_grid": worst_grid, "largest_q": worst_q,
+            "launches": launches}
+        log(f"[train] --compress-grads, full width, {cfg.num_layers} layers,"
+            f" one step: loss {loss:.5f}, grad_norm "
+            f"{float(metrics['grad_norm']):.5f}; over {n} gradient elements "
+            f"the largest |residual| is {worst_bound:.6f} of its block's "
+            f"max|block|/254; out / (max|block|/127) is at most "
+            f"{worst_grid:.3g} from an integer, the largest |q| "
+            f"{worst_q:.0f}; launches {launches}")
+        check(math.isfinite(loss), "train compressed: non-finite loss")
+        check(worst_bound <= 1.0 + EF_BOUND_SLACK,
+              f"train compressed: a residual {worst_bound} of its bound")
+        check(worst_grid <= EF_GRID_SLACK and worst_q <= 127,
+              f"train compressed: an output off its block's int8 grid "
+              f"(by {worst_grid}, largest |q| {worst_q})")
+        self.check_no_kernel_launches(launches, "train compressed")
+        del state, step
+        gc_collect(torch)
+
+    def train_nfft_learn_sigma(self):
+        """(d) granite-3-2b-nfft with learn_sigma at full width, 2 layers,
+        one step of 1 x 4,096 tokens (32 whole 128-token chunks): every
+        gradient finite, log_sigma's nonzero, log_sigma moved, no kernel
+        launched."""
+        torch = self.torch
+        cfg = self.train_short_cfg(NFFT_ARCH, learn_sigma=True)
+        shape = self.train_shape(cfg, 1)
+        tc = self.train_config(cfg, 1)
+        state = self.tl.init_train_state(cfg, tc, TRAIN_SEED,
+                                         device=self.dev)
+        step = self.tl.make_train_step(cfg, tc)
+        batch = self.batch_on(self.pipe.batch_for_step(
+            cfg, shape, 0, seed=TRAIN_SEED), self.dev)
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        self.reset_launches()
+        self.sync()
+        t0 = time.perf_counter()
+        _, _, grads = step.gradients(state.params, batch)
+        self.sync()
+        t_grad = time.perf_counter() - t0
+        flat = self.tree.tree_flatten_with_path(grads)
+        bad = [p for p, g in flat if not bool(torch.isfinite(g).all())]
+        g_sigma = grads["stack"][0]["nfft"]["log_sigma"]
+        leaf = state.params.leaf_tree["stack"][0]["nfft"]["log_sigma"]
+        before = leaf.detach().clone()
+        del grads, flat
+        state, metrics = step(state, batch)
+        self.sync()
+        launches = self.read_launches("train_nfft")
+        peak_gb = torch.cuda.max_memory_allocated(self.dev) / 1e9
+        self.record["train"]["nfft_learn_sigma"] = {
+            "arch": cfg.name, "layers": cfg.num_layers, "seq": shape.seq_len,
+            "loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"]),
+            "log_sigma_grad": g_sigma.tolist(),
+            "log_sigma": [before.tolist(), leaf.tolist()],
+            "gradients_s": t_grad, "peak_memory_gb": peak_gb,
+            "nonfinite_leaves": bad, "launches": launches}
+        log(f"[train] {cfg.name} learn_sigma, full width, {cfg.num_layers} "
+            f"layers, 1 x {shape.seq_len} tokens: gradients {t_grad:.3f}s "
+            f"(host clock, ends in synchronize), loss "
+            f"{float(metrics['loss']):.5f}, d loss / d log_sigma "
+            f"{g_sigma.tolist()}, log_sigma {before.tolist()} -> "
+            f"{leaf.tolist()}; peak memory {peak_gb:.2f} GB; non-finite "
+            f"gradient leaves {bad}; launches {launches}")
+        check(not bad, f"train nfft: non-finite gradients in {bad}")
+        check(bool((g_sigma != 0).all()), "train nfft: a zero log_sigma "
+              "gradient")
+        check(bool((leaf != before).all()), "train nfft: log_sigma did not "
+              "move")
+        check(math.isfinite(float(metrics["loss"])), "train nfft: loss")
+        self.check_no_kernel_launches(launches, "train nfft")
+        del state, step
+        gc_collect(torch)
 
     def phase_times(self):
         torch, win = self.torch, self.win

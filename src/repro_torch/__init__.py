@@ -6,10 +6,12 @@ fastsum operators and the exact direct sum, Lanczos, CG/MINRES, the
 Lemma 3.1 error bound), ``kernels`` (hand-written CUDA kernels for Hopper
 and their plain PyTorch versions), ``graph`` (spectral clustering, kernel
 SSL, kernel ridge regression), ``runtime`` (accuracy guards), ``data``
-(synthetic point sets), and the LM framework's serving path: ``configs``
-(architectures), ``models`` (dense GQA blocks, prefill and decode),
-``serving`` (the continuous-batching engine) and ``launch`` (its command
-line).  Entry points run on the CUDA card unless the caller asks for
+(synthetic point sets and the LM data pipeline), and the LM framework:
+``configs`` (architectures), ``models`` (dense GQA and NFFT attention
+blocks: training forward, prefill and decode), ``serving`` (the
+continuous-batching engine), ``training`` (optimizers, the train step,
+checkpoints, the fault-tolerant loop), ``dist`` (error-feedback gradient
+compression) and ``launch`` (the command lines).  Entry points run on the CUDA card unless the caller asks for
 ``device="cpu"``.
 """
 

@@ -171,10 +171,11 @@ def kernel_matvec(points_out: torch.Tensor, points_in: torch.Tensor,
     if torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad
             for t in (points_out, points_in, param)):
-        raise ValueError("the CUDA kernel_matvec has a gradient in x only; "
-                         "one in the points or the kernel parameter is not "
-                         "ported (ROADMAP queue 3 item 4): detach them or "
-                         "run on the CPU")
+        raise ValueError("the CUDA kernel_matvec has a gradient in x only: "
+                         "the reference has no such gradient in the points "
+                         "(NaN from sqrt at r = 0) or the kernel parameter "
+                         "(a static argument); detach them or run on the "
+                         "CPU")
     if torch.is_grad_enabled() and x.requires_grad:
         return _KernelMatvecX.apply(points_out, points_in, x, kernel_name,
                                     param, zero_diagonal)

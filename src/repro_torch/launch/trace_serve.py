@@ -64,9 +64,10 @@ def _union_us(intervals) -> float:
     return total
 
 
-def trace(fn, device: torch.device, layers: int, reps: int):
+def trace(fn, device: torch.device, layers: int, reps: int,
+          top: int = TOP):
     """Wall (unprofiled, after one warm-up call), then one profiled call of
-    ``fn``: a dict of what the module docstring lists."""
+    ``fn``: a dict of what the module docstring lists (``top`` kernels)."""
     fn()
     wall_ms = _wall_ms(fn, device, reps)
     activities = [ProfilerActivity.CPU]
@@ -89,7 +90,7 @@ def trace(fn, device: torch.device, layers: int, reps: int):
         n = by_name.setdefault(e.name, [0, 0.0])
         n[0] += 1
         n[1] += (e.time_range.end - e.time_range.start) / 1e3
-    kernels = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:TOP]
+    kernels = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
     return {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": (None if busy_ms is None

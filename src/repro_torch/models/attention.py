@@ -6,7 +6,7 @@ flash kernel (:mod:`repro_torch.kernels.flash_attention`, hand-written CUDA
 on the card); decode attends over the whole cache with position masking.
 The cache holds RoPE'd keys in the JAX layout (b, s_max, hkv, hd) and is
 updated in place.  MLA (DeepSeek latent attention) is not ported yet
-(ROADMAP queue 1 item 13).
+(ROADMAP queue 1 item 13c).
 """
 
 from __future__ import annotations
@@ -95,6 +95,11 @@ class Attention(nn.Module):
                        cfg.rope_theta)
         v = v.transpose(1, 2)
         if use_flash and prefix_len == 0:
+            if torch.is_grad_enabled() and q.requires_grad:
+                raise RuntimeError(
+                    "the flash attention kernel has no backward (nor has "
+                    "the JAX package's); train through the einsum "
+                    "(use_flash=False)")
             ctx = flash_attention(q, k, v, causal=cfg.causal)
         else:
             mask = None
@@ -112,7 +117,8 @@ class Attention(nn.Module):
                 prefix_len: int = 0) -> torch.Tensor:
         """``attention_forward``: x (b, s, d), positions (b, s).
         ``prefix_len > 0`` lets every query see the keys before it
-        (prefix-LM); the flash kernel is used only without such a prefix."""
+        (prefix-LM); the flash kernel is used only without such a prefix,
+        and never where a gradient is wanted: it has no backward."""
         q, k, v = self.project_qkv(x)
         return self._attend_sequence(q, k, v, positions, use_flash=use_flash,
                                      prefix_len=prefix_len)

@@ -1,7 +1,7 @@
 """Feed-forward layers: the gated MLPs (SwiGLU/GeGLU) and the plain GELU MLP.
 
 The port of the dense part of ``repro.models.mlp``.  Mixture of experts
-(``init_moe``/``moe_forward``) is not ported yet (ROADMAP queue 1 item 13).
+(``init_moe``/``moe_forward``) is not ported yet (ROADMAP queue 1 item 13c).
 """
 
 from __future__ import annotations

@@ -5,8 +5,8 @@ signatures ``("attn", "dense")`` (GQA softmax attention, then a
 SwiGLU/GeGLU/GELU MLP) and ``("nfft", "dense")`` (the paper's NFFT kernel
 attention, :mod:`repro_torch.models.nfft_attention`, then the MLP), token
 inputs, a tied or separate LM head.  The other mixers (MLA, Mamba),
-mixture of experts, the modality frontends and the training forward wait
-(ROADMAP queue 1 item 13) and raise ``NotImplementedError``.
+mixture of experts, multi-token prediction and the modality frontends wait
+(ROADMAP queue 1 item 13c) and raise ``NotImplementedError``.
 
 The JAX package runs its layer plan's periodic part under ``lax.scan`` over
 period-stacked parameters; here the blocks are a plain list in layer order
@@ -27,6 +27,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -36,9 +37,10 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.mlp import MLP
 from repro_torch.models.nfft_attention import NFFTAttention, init_nfft_cache
+from repro_torch.tree import tree_leaves
 
 _PORTED = (("attn", "dense"), ("nfft", "dense"))
-_TODO = "not ported yet (ROADMAP queue 1 item 13)"
+_TODO = "not ported yet (ROADMAP queue 1 item 13c)"
 
 
 # ---------------------------------------------------------------------------
@@ -175,6 +177,8 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = dense_init((cfg.d_model, cfg.vocab_size),
                                       cfg.pdtype, **kw)
+        self.leaf_tree = None  # set by stack_for_training
+        self.leaf_members = None
 
     @property
     def device(self) -> torch.device:
@@ -213,6 +217,7 @@ class Model(nn.Module):
                       use_flash=use_flash, prefix_len=prefix_len)
         return x
 
+    @torch.no_grad()
     def forward_prefill(self, batch: dict, caches: list, *,
                         use_flash: Optional[bool] = None):
         """Process the full prompt; returns (last-position logits (b, 1, V),
@@ -225,6 +230,7 @@ class Model(nn.Module):
                               use_flash=use_flash, prefix_len=prefix_len)
         return self.lm_logits(h[:, -1:, :]), caches
 
+    @torch.no_grad()
     def forward_decode(self, token: torch.Tensor, pos: torch.Tensor,
                        caches: list):
         """One decode step.  token (b, 1) integers; pos (b,) current
@@ -232,6 +238,116 @@ class Model(nn.Module):
         x = self.embed_tokens(token)
         h = self.run_backbone(x, pos, mode="decode", caches=caches)
         return self.lm_logits(h), caches
+
+    # -- training ----------------------------------------------------------
+    def _loss(self, h: torch.Tensor, batch: dict) -> torch.Tensor:
+        """The next-token loss of the token path: labels[t] = tokens[t+1],
+        ``loss_mask`` (default all ones) selecting the counted
+        positions."""
+        labels = batch["labels"]
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones(labels.shape, dtype=torch.float32,
+                              device=labels.device)
+        return cross_entropy(self.lm_logits(h), labels, mask)
+
+    def forward_train(self, batch: dict, *, remat: bool = True):
+        """``forward_train``: tokens and labels (b, s), optional
+        ``loss_mask`` -> (loss, metrics ``ce_loss``, ``aux_loss``,
+        ``loss``).  With ``remat`` and a gradient wanted, each block is
+        recomputed in the backward (``torch.utils.checkpoint``, one
+        boundary per block where the JAX package has one per period).
+        Attention is the einsum: the flash kernel has no backward."""
+        if self.cfg.mtp_depth > 0:
+            raise NotImplementedError(
+                f"{self.cfg.name}: multi-token prediction chains an MLA/MoE "
+                f"block, which is {_TODO}")
+        x, positions, prefix_len = self.embed_inputs(batch)
+        for block in self.blocks:
+            if remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, positions, mode="train",
+                               prefix_len=prefix_len, use_reentrant=False)
+            else:
+                x = block(x, positions, mode="train", prefix_len=prefix_len)
+        loss = self._loss(x, batch)
+        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+        return loss, {"ce_loss": loss, "aux_loss": aux, "loss": loss}
+
+    def forward_train_reference(self, batch: dict):
+        """``forward_train_reference``: the plain layer loop, no remat."""
+        x, positions, prefix_len = self.embed_inputs(batch)
+        for block in self.blocks:
+            x = block(x, positions, mode="train", prefix_len=prefix_len)
+        loss = self._loss(x, batch)
+        return loss, {"loss": loss}
+
+    def stack_for_training(self) -> dict:
+        """Make every parameter trainable and return the JAX package's
+        parameter tree over the model's storage (``init_params``'
+        structure; the first call builds it).
+
+        The layers of each ``stack[slot]`` leaf go into one tensor of shape
+        (n_periods, ...), of which each layer's parameter becomes a view,
+        so an update of the stacked tensor is an update of the layers.
+        ``leaf_members`` lists, leaf by leaf in the tree's order, the
+        parameters each leaf holds: the layers of a stacked leaf in period
+        order, or the one parameter that is the leaf."""
+        if self.leaf_tree is not None:
+            return self.leaf_tree
+        plan = make_layer_plan(self.cfg)
+        self.requires_grad_(True)
+        tree = {"embed": self.embed, "final_norm": self.final_norm}
+        if self.lm_head is not None:
+            tree["lm_head"] = self.lm_head
+        if plan.prefix:
+            tree["prefix"] = [_nest(self.blocks[i].named_parameters())
+                              for i in range(len(plan.prefix))]
+        members = {}
+        if plan.n_periods:
+            tree["stack"] = []
+            for slot in range(len(plan.period)):
+                layers = [self.blocks[len(plan.prefix)
+                                      + p * len(plan.period) + slot]
+                          for p in range(plan.n_periods)]
+                stacked = {}
+                for name, _ in list(layers[0].named_parameters()):
+                    leaf = torch.stack([blk.get_parameter(name).detach()
+                                        for blk in layers])
+                    views = []
+                    for blk, view in zip(layers, leaf):
+                        owner, _, attr = name.rpartition(".")
+                        views.append(nn.Parameter(view))
+                        setattr(blk.get_submodule(owner), attr, views[-1])
+                    members[id(leaf)] = tuple(views)
+                    stacked[name] = leaf
+                tree["stack"].append(_nest(stacked.items()))
+        self.leaf_tree = tree
+        self.leaf_members = [members.get(id(leaf), (leaf,))
+                             for leaf in tree_leaves(tree)]
+        return tree
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """Stable cross entropy in float32: the mean negative log-likelihood
+    over the positions ``mask`` selects."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _nest(named) -> dict:
+    """{"a.b": x} -> {"a": {"b": x}}."""
+    tree: dict = {}
+    for name, leaf in named:
+        *path, last = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+    return tree
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, *,

@@ -9,11 +9,12 @@ Format (``<dir>/step_<n>/``, n as eight digits):
                     step, the writers' process count
     leaf_<i>.npy    one array per leaf, on the host
 
-A tree is dicts (keys in sorted order), lists, tuples and NamedTuples
-around leaves (tensors, numpy arrays, Python numbers); ``None`` holds no
-leaf.  Leaf paths are spelled as JAX's ``keystr`` spells them: ``['key']``
-for a dict entry, ``.field`` for a NamedTuple field, ``[0]`` for a list or
-tuple item.
+A tree is what :mod:`repro_torch.tree` walks: dicts, lists, tuples and
+NamedTuples around leaves, with an ``nn.Module`` standing for the dict of
+its parameters by name; leaf paths are spelled as JAX's ``keystr`` spells
+them.  Restore copies a module's leaves into its parameters in place and
+returns the module itself, so that a restored train state keeps the
+model's storage.
 
 * atomic: written to ``step_<n>.tmp`` and renamed; a crash mid-write never
   damages the latest step, and ``.tmp`` directories left by a killed
@@ -48,6 +49,10 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.tree import (  # noqa: F401  (the checkpoint's tree walk)
+    tree_flatten_with_path, tree_leaves, tree_unflatten,
+)
+
 _SENTINEL = "manifest.json"
 _SHARD_MANIFEST = "manifest_shard_{p}.json"
 
@@ -65,60 +70,31 @@ class CheckpointCorruptionError(CheckpointError):
 
 
 # ---------------------------------------------------------------------------
-# Trees
+# Leaves
 # ---------------------------------------------------------------------------
 
-def _is_namedtuple(x) -> bool:
-    return isinstance(x, tuple) and hasattr(type(x), "_fields")
-
-
-def tree_flatten_with_path(tree, prefix: str = "") -> list:
-    """``[(path, leaf), ...]`` in the reference's leaf order."""
-    if tree is None:
-        return []
-    if isinstance(tree, dict):
-        return [item for k in sorted(tree)
-                for item in tree_flatten_with_path(tree[k],
-                                                   f"{prefix}[{k!r}]")]
-    if _is_namedtuple(tree):
-        return [item for f, v in zip(tree._fields, tree)
-                for item in tree_flatten_with_path(v, f"{prefix}.{f}")]
-    if isinstance(tree, (list, tuple)):
-        return [item for i, v in enumerate(tree)
-                for item in tree_flatten_with_path(v, f"{prefix}[{i}]")]
-    return [(prefix, tree)]
-
-
-def tree_leaves(tree) -> list:
-    return [leaf for _, leaf in tree_flatten_with_path(tree)]
-
-
-def tree_unflatten(like, leaves) -> Any:
-    """``like``'s structure with its leaves replaced, in order."""
-    it = iter(leaves)
-
-    def build(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            built = {k: build(node[k]) for k in sorted(node)}
-            return {k: built[k] for k in node}
-        if _is_namedtuple(node):
-            return type(node)(*[build(v) for v in node])
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v) for v in node)
-        return next(it)
-
-    return build(like)
+#: A bfloat16 leaf on disk: numpy has no bfloat16, and the JAX package's
+#: ``np.save`` of an ml_dtypes bfloat16 array writes raw 2-byte voids; the
+#: port writes the same array bytes (its header spells the void "|V2",
+#: ml_dtypes "<V2") and names the dtype "bfloat16" in the manifest, as the
+#: JAX package does.
+_BF16 = np.dtype("V2")
 
 
 def _np_dtype(x) -> np.dtype:
     """A leaf's numpy dtype without a device transfer (tensors, arrays,
-    anything with a ``dtype``, Python numbers)."""
+    anything with a ``dtype``, Python numbers); bfloat16 is ``_BF16``."""
     dt = getattr(x, "dtype", None)
+    if dt == torch.bfloat16:
+        return _BF16
     if isinstance(dt, torch.dtype):
         return torch.empty((), dtype=dt).numpy().dtype
     return np.dtype(dt) if dt is not None else np.asarray(x).dtype
+
+
+def _dtype_name(x) -> str:
+    dt = _np_dtype(x)
+    return "bfloat16" if dt == _BF16 else str(dt)
 
 
 def _to_host(x) -> np.ndarray:
@@ -126,6 +102,8 @@ def _to_host(x) -> np.ndarray:
     memory (several times the bandwidth of a pageable copy)."""
     if isinstance(x, torch.Tensor):
         x = x.detach()
+        if x.dtype == torch.bfloat16:
+            return _to_host(x.view(torch.int16)).view(_BF16)
         if x.is_cuda:
             host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
             return host.copy_(x).numpy()
@@ -216,7 +194,7 @@ def save_checkpoint(directory: str, step: int, tree: Any, *,
     host = {i: _to_host(leaves[i]) for i in owned}
     shapes = [list(np.shape(x)) if not isinstance(x, torch.Tensor)
               else list(x.shape) for x in leaves]
-    dtypes = [str(_np_dtype(x)) for x in leaves]
+    dtypes = [_dtype_name(x) for x in leaves]
 
     def write():
         final = os.path.join(directory, f"step_{step:08d}")
@@ -395,15 +373,38 @@ def restore_checkpoint(directory: str, step: int, like: Any, *,
     a violation raises :class:`CheckpointError` /
     :class:`CheckpointCorruptionError` naming the leaf.  ``device``: where
     the tensors go; by default each goes to its ``like`` leaf's device
-    (CPU for a leaf that is not a tensor).
+    (CPU for a leaf that is not a tensor).  A module of ``like`` is
+    restored into its own parameters, in place.
     """
     arrs = _restore_arrays(directory, step, like)
     out = []
     for arr, ref in zip(arrs, tree_leaves(like)):
         dev = device if device is not None else (
             ref.device if isinstance(ref, torch.Tensor) else "cpu")
-        out.append(torch.from_numpy(arr).to(dev))
-    return tree_unflatten(like, out)
+        if arr.dtype == _BF16:
+            t = torch.from_numpy(arr.view(np.int16).copy()).view(
+                torch.bfloat16)
+        else:
+            t = torch.from_numpy(arr)
+        out.append(t.to(dev))
+    return _into_modules(like, tree_unflatten(like, out))
+
+
+def _into_modules(like: Any, built: Any) -> Any:
+    """``built`` with each module of ``like`` put back in its place, its
+    parameters overwritten in place by the dict ``built`` holds there."""
+    if isinstance(like, torch.nn.Module):
+        with torch.no_grad():
+            for name, param in like.named_parameters():
+                param.copy_(built[name])
+        return like
+    if isinstance(like, dict):
+        return {k: _into_modules(like[k], built[k]) for k in like}
+    if isinstance(like, tuple) and hasattr(type(like), "_fields"):
+        return type(like)(*[_into_modules(a, b) for a, b in zip(like, built)])
+    if isinstance(like, (list, tuple)):
+        return type(like)(_into_modules(a, b) for a, b in zip(like, built))
+    return built
 
 
 def restore_latest_valid(directory: str, like: Any, *,

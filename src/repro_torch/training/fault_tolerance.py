@@ -75,7 +75,7 @@ def run_resilient(
     batch_fn: Callable[[int], Any],
     *,
     total_steps: int,
-    ckpt_dir: str,
+    ckpt_dir: Optional[str],
     ckpt_every: int = 50,
     max_restarts: int = 10,
     fault_hook: Optional[Callable[[int], None]] = None,
@@ -87,12 +87,18 @@ def run_resilient(
 
     ``batch_fn(step)`` must be a deterministic function of the step index
     so that restarts replay identical batches.  ``device``: where restored
-    state goes (default: each leaf's own device).  Returns
+    state goes (default: each leaf's own device).  ``ckpt_dir=None``
+    writes no checkpoint (a state too large to snapshot in the run's
+    time): a fault then replays from the initial state.  A step that
+    updates its state in place (the LM train step) leaves no initial
+    state to replay from: a fault before the first checkpoint has landed
+    then ends the run with the step's
+    :class:`~repro_torch.training.train_loop.SpentStateError`.  Returns
     ``(final_state, info dict)``.
     """
     initial_state = state  # the restart target before the first checkpoint
-    start, restored = ckpt.restore_latest_valid(ckpt_dir, state,
-                                                device=device)
+    start, restored = (None, None) if ckpt_dir is None else \
+        ckpt.restore_latest_valid(ckpt_dir, state, device=device)
     if start is not None:
         state = restored
         log.info("resumed from checkpoint step %d", start)
@@ -116,7 +122,8 @@ def run_resilient(
             if step % log_every == 0:
                 loss = float(metrics.get("loss", 0.0))
                 log.info("step %d loss %.4f (%.3fs)", step, loss, dt)
-            if step % ckpt_every == 0 or step == total_steps:
+            if ckpt_dir is not None and (step % ckpt_every == 0
+                                         or step == total_steps):
                 pending = ckpt.save_checkpoint(ckpt_dir, step, state,
                                                blocking=False)
         except InjectedFault as e:
@@ -127,8 +134,8 @@ def run_resilient(
                         step, e)
             if pending is not None:
                 pending.join()  # let any in-flight write land
-            last, restored = ckpt.restore_latest_valid(ckpt_dir, state,
-                                                       device=device)
+            last, restored = (None, None) if ckpt_dir is None else \
+                ckpt.restore_latest_valid(ckpt_dir, state, device=device)
             if last is None:
                 # a fault before the first checkpoint landed: restart from
                 # the caller's initial state (replay from step 0 is

@@ -5,8 +5,8 @@ dict tree the other wrote, and the manifests are equal key for key.  The
 cases of tests/test_checkpoint.py follow (round trip, GC, ``.tmp`` dirs,
 async save, the straggler timer, leaf checks, corruption and its fallback,
 the orphan sweep, the multi-process layout), with ``run_resilient`` driving
-a toy torch step where that file drives the JAX LM train loop (which waits
-for ROADMAP queue 1 item 13).
+a toy torch step, and the port's LM train step as that file drives the
+JAX one: a kill-and-resume bitwise equal to the uninterrupted run.
 """
 
 import json
@@ -20,7 +20,12 @@ import pytest
 import torch
 
 from repro.training import checkpoint as jckpt
+from repro_torch.configs import get_config, reduced_config
+from repro_torch.data.pipeline import batch_for_step
 from repro_torch.training import checkpoint as ckpt
+from repro_torch.training.train_loop import (
+    SpentStateError, TrainConfig, init_train_state, make_train_step)
+from repro_torch.tree import tree_map
 from repro_torch.training.fault_tolerance import (
     InjectedFault, StepTimer, run_resilient)
 
@@ -72,6 +77,35 @@ def test_each_package_restores_what_the_other_wrote(tmp_path):
                                   f"leaf_{i}.npy").read_bytes())
 
 
+def test_bfloat16_leaves_on_disk_as_the_jax_package_writes_them(tmp_path):
+    """numpy has no bfloat16: the JAX package's np.save of an ml_dtypes
+    array writes 2-byte voids and its manifest says "bfloat16".  The port
+    writes the same array bytes and manifest, and restores both packages'
+    files into bfloat16 tensors bit for bit (the JAX package's own
+    restore rejects them: it expects the dtype bfloat16 and loads a
+    void)."""
+    vals = torch.tensor([[1.0, -2.5, 3.0e-3], [7.0, 0.0, -1e4]])
+    ckpt.save_checkpoint(str(tmp_path / "t"), 1,
+                         {"w": vals.to(torch.bfloat16)})
+    jckpt.save_checkpoint(str(tmp_path / "j"), 1,
+                          {"w": jnp.asarray(vals.numpy(), jnp.bfloat16)})
+    manifests = [json.load(open(tmp_path / k / "step_00000001" /
+                                "manifest.json")) for k in ("t", "j")]
+    assert manifests[0] == manifests[1]
+    assert manifests[0]["dtypes"] == ["bfloat16"]
+    # the same bytes; the header spells the void "|V2" where ml_dtypes
+    # spells it "<V2", and both load as 2-byte voids
+    files = [np.load(tmp_path / k / "step_00000001" / "leaf_0.npy")
+             for k in ("t", "j")]
+    assert files[0].dtype == files[1].dtype == np.dtype("V2")
+    assert files[0].tobytes() == files[1].tobytes()
+    like = {"w": torch.zeros((2, 3), dtype=torch.bfloat16)}
+    for k in ("t", "j"):
+        got = ckpt.restore_checkpoint(str(tmp_path / k), 1, like)["w"]
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, vals.to(torch.bfloat16))
+
+
 def test_paths_spell_namedtuples_lists_and_none_as_jax_does():
     from repro_torch.core.solvers import SolveHealth
     tree = {"h": SolveHealth(*(torch.zeros(2),) * 4), "l": [1, (2.0, None)],
@@ -86,6 +120,27 @@ def test_paths_spell_namedtuples_lists_and_none_as_jax_does():
     assert type(back["h"]) is SolveHealth and back["l"][1][1] is None
 
 
+def test_tree_helpers_never_write_into_a_module(tmp_path):
+    """A module flattens as its parameters by name; tree_map builds a
+    dict of new leaves and leaves the module as it was, and only the
+    checkpoint's restore writes into a module, in place."""
+    lin = torch.nn.Linear(3, 2)
+    before = {k: v.detach().clone() for k, v in lin.named_parameters()}
+    zeroed = tree_map(torch.zeros_like, {"m": lin, "s": torch.ones(())})
+    assert sorted(zeroed["m"]) == ["bias", "weight"]
+    assert all(torch.equal(t, torch.zeros_like(t))
+               for t in zeroed["m"].values())
+    for k, v in lin.named_parameters():
+        assert torch.equal(v.detach(), before[k])
+    ckpt.save_checkpoint(str(tmp_path), 1, zeroed)
+    weight = lin.weight
+    back = ckpt.restore_checkpoint(str(tmp_path), 1,
+                                   {"m": lin, "s": torch.ones(())})
+    assert back["m"] is lin and lin.weight is weight
+    assert float(lin.weight.detach().abs().sum()
+                 + lin.bias.detach().abs().sum()) == 0.0
+
+
 def test_restored_tensors_land_on_the_like_leaves_device(tmp_path):
     ckpt.save_checkpoint(str(tmp_path), 1, _tiny_state())
     got = ckpt.restore_checkpoint(str(tmp_path), 1,
@@ -97,7 +152,7 @@ def test_restored_tensors_land_on_the_like_leaves_device(tmp_path):
     _leaves_equal(got, _tiny_state())
 
 
-# -- tests/test_checkpoint.py ---------------------------------------------------
+# -- tests/test_checkpoint.py -------------------------------------------------
 
 def test_save_restore_roundtrip(tmp_path):
     state = _tiny_state()
@@ -341,6 +396,30 @@ def test_fault_before_first_checkpoint_restarts_from_initial(tmp_path):
                       log_every=100)
 
 
+def test_run_without_checkpoints_replays_from_the_initial_state(tmp_path):
+    """``ckpt_dir=None``: nothing is written, and a fault replays from the
+    caller's initial state."""
+    state0 = {"x": torch.zeros(4, dtype=torch.float32)}
+
+    def train_step(state, batch):
+        return {"x": state["x"] + batch}, {"loss": batch.sum()}
+
+    fired = {"n": 0}
+
+    def fault_hook(s):
+        if s == 3 and fired["n"] == 0:
+            fired["n"] += 1
+            raise InjectedFault("fault without checkpoints")
+
+    state, info = run_resilient(
+        train_step, state0, lambda s: torch.full((4,), float(s)),
+        total_steps=5, ckpt_dir=None, ckpt_every=1, fault_hook=fault_hook,
+        log_every=100)
+    assert info["restarts"] == 1 and info["steps"] == 5
+    np.testing.assert_allclose(state["x"].numpy(), np.full((4,), 10.0))
+    assert list(tmp_path.iterdir()) == []
+
+
 def test_straggler_detection_across_restore_and_replay(tmp_path):
     state0 = {"x": torch.zeros(4, dtype=torch.float32),
               "step": torch.tensor(0, dtype=torch.int32)}
@@ -372,3 +451,94 @@ def test_straggler_detection_across_restore_and_replay(tmp_path):
     assert int(state["step"]) == 8
     np.testing.assert_allclose(state["x"].numpy(),
                                np.full((4,), float(sum(range(8)))))
+
+
+def _lm_state_and_step(cfg, tc):
+    """A fresh seeded train state (the step updates its state in place, so
+    each run starts from its own) and the step."""
+    return (init_train_state(cfg, tc, 0, device="cpu"),
+            make_train_step(cfg, tc))
+
+
+def test_lm_resilient_resume_bit_identical(tmp_path):
+    """The LM twin of tests/test_checkpoint.py::
+    test_resilient_resume_bit_identical: reduced granite-3-2b, a fault at
+    step 4 after the checkpoint at 2; the final loss and every parameter,
+    optimizer leaf and the step equal the uninterrupted run's, bit for
+    bit."""
+    cfg = reduced_config(get_config("granite-3-2b"))
+    tc = TrainConfig(num_microbatches=1)
+    batch_fn = lambda s: {k: torch.from_numpy(v) for k, v in
+                          batch_for_step(cfg, cfg.shapes[0], s).items()}
+    state0, step = _lm_state_and_step(cfg, tc)
+    ref_state, ref_info = run_resilient(
+        step, state0, batch_fn, total_steps=6,
+        ckpt_dir=str(tmp_path / "ref"), ckpt_every=2, log_every=100)
+    fired = {"done": False}
+
+    def fault_hook(s):
+        if s == 4 and not fired["done"]:
+            fired["done"] = True
+            raise InjectedFault("simulated node failure")
+
+    state1, step = _lm_state_and_step(cfg, tc)
+    state, info = run_resilient(
+        step, state1, batch_fn, total_steps=6,
+        ckpt_dir=str(tmp_path / "ft"), ckpt_every=2, fault_hook=fault_hook,
+        log_every=100)
+    assert info["restarts"] == 1 and info["steps"] == 6
+    assert torch.equal(info["final_metrics"]["loss"],
+                       ref_info["final_metrics"]["loss"])
+    assert state.params is state1.params  # restored into the model
+    paths = [p for p, _ in ckpt.tree_flatten_with_path(state)]
+    assert ".params['blocks.0.attn.wq']" in paths
+    assert ".opt_state.master['stack'][0]['attn']['wq']" in paths
+    for a, b in zip(ckpt.tree_leaves(state), ckpt.tree_leaves(ref_state)):
+        assert torch.equal(a, b)
+    assert int(state.step) == 6
+
+
+@pytest.mark.parametrize("with_dir", [True, False],
+                         ids=["before_first_checkpoint", "no_checkpoints"])
+def test_lm_fault_without_a_checkpoint_raises_instead_of_replaying(
+        tmp_path, with_dir):
+    """The LM twin of tests/test_checkpoint.py::
+    test_fault_before_first_checkpoint_restarts_from_initial.  The step
+    updates its state in place, so once it has run the caller's initial
+    state is gone: a fault with no checkpoint to restore ends the run with
+    SpentStateError instead of replaying steps on the advanced model."""
+    cfg = reduced_config(get_config("granite-3-2b"))
+    tc = TrainConfig(num_microbatches=1)
+    batch_fn = lambda s: {k: torch.from_numpy(v) for k, v in
+                          batch_for_step(cfg, cfg.shapes[0], s).items()}
+    fired = {"n": 0}
+
+    def fault_hook(s):
+        if s == 1 and fired["n"] == 0:  # ckpt_every=5: no checkpoint yet
+            fired["n"] += 1
+            raise InjectedFault("fault before first checkpoint")
+
+    state0, step = _lm_state_and_step(cfg, tc)
+    with pytest.raises(SpentStateError, match="already advanced"):
+        run_resilient(step, state0, batch_fn, total_steps=3,
+                      ckpt_dir=str(tmp_path) if with_dir else None,
+                      ckpt_every=5, fault_hook=fault_hook, log_every=100)
+    assert fired["n"] == 1
+
+
+def test_lm_step_refuses_a_spent_state_and_takes_a_restored_one(tmp_path):
+    """Stepping the state a step was already given raises; a state
+    restored from a checkpoint into the same model steps on."""
+    cfg = reduced_config(get_config("granite-3-2b"))
+    tc = TrainConfig(num_microbatches=1)
+    batch = {k: torch.from_numpy(v) for k, v in
+             batch_for_step(cfg, cfg.shapes[0], 0).items()}
+    state0, step = _lm_state_and_step(cfg, tc)
+    ckpt.save_checkpoint(str(tmp_path), 0, state0)
+    state1, _ = step(state0, batch)
+    with pytest.raises(SpentStateError):
+        step(state0, batch)
+    restored = ckpt.restore_checkpoint(str(tmp_path), 0, state1)
+    assert restored.params is state0.params and int(restored.step) == 0
+    state2, _ = step(restored, batch)
+    assert int(state2.step) == 1

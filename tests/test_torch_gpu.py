@@ -992,15 +992,16 @@ def test_krr_validation_loss_grads_on_card_match_cpu(cuda):
 
 def test_kernel_matvec_refuses_grad_on_card(cuda):
     """The CUDA direct sum is differentiable in x only: a kernel parameter
-    or points that require grad raise (naming the ROADMAP item) instead of
-    dropping the gradient."""
+    or points that require grad raise instead of dropping the gradient
+    (the reference has none there: test_torch_kernel_matvec.py::
+    test_reference_direct_sum_has_no_points_or_parameter_gradient)."""
     pts = torch.randn((50, 2), dtype=torch.float64, device=cuda)
     x = torch.randn(50, dtype=torch.float64, device=cuda)
     sigma = torch.tensor(1.0, dtype=torch.float64, device=cuda,
                          requires_grad=True)
-    with pytest.raises(ValueError, match="queue 3 item 4"):
+    with pytest.raises(ValueError, match="reference has no such gradient"):
         tkm.kernel_matvec(pts, pts, x, param=sigma)
-    with pytest.raises(ValueError, match="queue 3 item 4"):
+    with pytest.raises(ValueError, match="reference has no such gradient"):
         tkm.kernel_matvec(pts.clone().requires_grad_(True), pts, x)
     assert tkm.kernel_matvec(pts, pts, x.requires_grad_(True),
                              param=1.0).requires_grad
@@ -1036,3 +1037,99 @@ def test_kernel_matvec_x_gradient_matches_plain_autograd(
     assert tkm.kernel_matvec.launches - before == 2
     scale = float(grads[1].abs().max())
     assert float((grads[0] - grads[1]).abs().max()) <= 1e-12 * scale
+
+
+def _train_state_arrays(state):
+    """A port train state as the numpy tree ``train_state_from_arrays``
+    takes (the port keeps the JAX package's layout)."""
+    from repro_torch.dist.compression import CompressionState
+    from repro_torch.tree import tree_map
+    host = lambda t: t.detach().cpu().numpy()
+    return type(state)(
+        step=host(state.step), params=tree_map(host, state.params.leaf_tree),
+        opt_state=type(state.opt_state)(*[tree_map(host, t)
+                                          for t in state.opt_state]),
+        ef_state=None if state.ef_state is None else CompressionState(
+            tree_map(host, state.ef_state.residuals)))
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """The reduced granite-3-2b train step (float32, two microbatches,
+    compressed gradients) on the card against the CPU from one state: two
+    steps' loss and grad_norm within 1e-4 relative, every parameter within
+    1e-4 of its leaf's largest entry; no kernel of the package launches."""
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.training.train_loop import (
+        TrainConfig, init_train_state, make_train_step,
+        train_state_from_arrays)
+    from repro_torch.tree import tree_leaves
+    cfg = reduced_config(get_config("granite-3-2b"))
+    tc = TrainConfig(num_microbatches=2, compress_grads=True)
+    cpu = init_train_state(cfg, tc, 0, device="cpu")
+    card = train_state_from_arrays(_train_state_arrays(cpu), cfg, tc,
+                                   device=cuda)
+    step = make_train_step(cfg, tc)
+    before = (tfa.flash_attention.launches, tkm.kernel_matvec.launches,
+              twin.window_spread.launches, twin.window_gather.launches)
+    for s in range(2):
+        batch = batch_for_step(cfg, cfg.shapes[0], s)
+        cpu, want = step(cpu, {k: torch.as_tensor(v) for k, v in
+                               batch.items()})
+        card, got = step(card, {k: torch.as_tensor(v, device=cuda)
+                                for k, v in batch.items()})
+        for k in ("loss", "grad_norm"):
+            assert abs(float(got[k]) - float(want[k])) <= 1e-4 * abs(
+                float(want[k]))
+    for a, b in zip(tree_leaves(card.params.leaf_tree),
+                    tree_leaves(cpu.params.leaf_tree)):
+        assert _rel(a.detach().cpu(), b.detach()) <= 1e-4
+    assert before == (tfa.flash_attention.launches,
+                      tkm.kernel_matvec.launches, twin.window_spread.launches,
+                      twin.window_gather.launches)
+
+
+def test_lm_resume_on_card_bitwise(cuda, tmp_path):
+    """The LM train step through run_resilient on the card, under the
+    deterministic switch, killed at step 4 after the checkpoint at 2:
+    the final loss and every leaf of the state equal the uninterrupted
+    run's, bit for bit."""
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.runtime import durable
+    from repro_torch.training.fault_tolerance import (
+        InjectedFault, run_resilient)
+    from repro_torch.training.train_loop import (
+        TrainConfig, init_train_state, make_train_step)
+    from repro_torch.tree import tree_leaves
+    cfg = reduced_config(get_config("granite-3-2b"))
+    tc = TrainConfig(num_microbatches=1)
+    batch_fn = lambda s: {k: torch.as_tensor(v, device=cuda) for k, v in
+                          batch_for_step(cfg, cfg.shapes[0], s).items()}
+    fired = {"done": False}
+
+    def fault_hook(s):
+        if s == 4 and not fired["done"]:
+            fired["done"] = True
+            raise InjectedFault("simulated node failure")
+
+    runs = []
+    with durable.deterministic():
+        for name, hook in (("ref", None), ("ft", fault_hook)):
+            runs.append(run_resilient(
+                make_train_step(cfg, tc), init_train_state(cfg, tc, 0,
+                                                           device=cuda),
+                batch_fn, total_steps=6, ckpt_dir=str(tmp_path / name),
+                ckpt_every=2, fault_hook=hook, log_every=100))
+    (ref, ref_info), (state, info) = runs
+    assert info["restarts"] == 1
+    assert torch.equal(info["final_metrics"]["loss"],
+                       ref_info["final_metrics"]["loss"])
+    for a, b in zip(tree_leaves(state), tree_leaves(ref)):
+        assert torch.equal(a, b)
+
+
+def test_trace_train_sees_the_device_timeline(cuda):
+    from repro_torch.launch import trace_train
+    out = trace_train.main(["--reduced", "--seq-len", "64", "--reps", "1"])
+    r = out["step"]
+    assert 0 < r["device_busy_ms"] and r["device_events"] > 0
+    assert r["device_idle_share"] < 1

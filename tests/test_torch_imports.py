@@ -30,7 +30,10 @@ MODULES = ("core.kernels", "core.regularization", "core.nfft",
            "figures.fig8_kernel_ssl_laplacian", "figures.fig9_krr",
            "figures.run", "runtime.durable", "runtime.faultinject",
            "training", "training.checkpoint", "training.fault_tolerance",
-           "serving.journal", "models.nfft_attention")
+           "serving.journal", "models.nfft_attention", "tree",
+           "training.optimizer", "training.train_loop", "data.pipeline",
+           "dist", "dist.compression", "launch.train", "train_lm",
+           "launch.trace_train")
 
 
 def _imported_roots(path: Path) -> set:
@@ -82,7 +85,7 @@ def _reexported(init: Path) -> list:
     return sorted(n for n in names if not n.startswith("_"))
 
 
-@pytest.mark.parametrize("package", ["core", "data"])
+@pytest.mark.parametrize("package", ["core", "data", "training"])
 def test_reference_surface_names_import_from_the_port(package):
     """Every name that ``repro.core`` / ``repro.data`` re-exports
     (functions, classes and constants) imports from the port's package of
@@ -95,3 +98,18 @@ def test_reference_surface_names_import_from_the_port(package):
     assert not missing, missing
     for name in names:
         exec(f"from repro_torch.{package} import {name}", {})
+
+
+def test_dist_exports_the_reference_compression_names():
+    """``repro.dist`` re-exports its compression module's names; the
+    port's ``dist`` package exports the same (``compress_psum`` raises
+    until the distribution layer is ported)."""
+    tree = ast.parse((ROOT / "src" / "repro" / "dist" / "__init__.py")
+                     .read_text())
+    names = [a.asname or a.name for node in tree.body
+             if isinstance(node, ast.ImportFrom)
+             and node.module == "repro.dist.compression"
+             for a in node.names]
+    assert len(names) == 6
+    port = importlib.import_module("repro_torch.dist")
+    assert [n for n in names if not hasattr(port, n)] == []

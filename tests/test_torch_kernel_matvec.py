@@ -10,6 +10,7 @@ the sums run in another order; ``direct_matvec_tiled`` 1e-12, since the
 port evaluates the profile on r^2 and the JAX function on r.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -273,3 +274,25 @@ def test_kernel_matvec_rejects_what_it_does_not_take():
         tkm.kernel_matvec(meta, meta, torch.zeros(4, dtype=torch.float64,
                                                   device="meta"))
     assert tkm.kernel_matvec.launches == launches
+
+
+@pytest.mark.parametrize("kname,param", KERNELS)
+def test_reference_direct_sum_has_no_points_or_parameter_gradient(kname,
+                                                                  param):
+    """Pins the reference's behaviour, which the port's CUDA direct sum
+    follows by raising (test_torch_gpu.py::
+    test_kernel_matvec_refuses_grad_on_card): ``jax.grad`` of
+    <w, direct_matvec_tiled(k, p, x)> in the points is NaN in every entry
+    (the diagonal is masked after sqrt(max(r^2, 0)), whose derivative at
+    r^2 = 0 is inf, times a zero cotangent), and the kernel is a static
+    argument, so a traced kernel parameter cannot go in at all."""
+    rng = np.random.default_rng(0)
+    p, x, w = (jnp.asarray(rng.normal(size=s)) for s in ((50, 2), 50, 50))
+    key = "sigma" if kname in ("gaussian", "laplacian_rbf") else "c"
+    kern = jkern.make_kernel(kname, **{key: param})
+    g = jax.grad(lambda q: w @ jfs.direct_matvec_tiled(kern, q, x,
+                                                        tile=16))(p)
+    assert bool(jnp.isnan(g).all())
+    with pytest.raises(ValueError, match="Non-hashable static arguments"):
+        jax.grad(lambda s: w @ jfs.direct_matvec_tiled(
+            jkern.make_kernel(kname, **{key: s}), p, x, tile=16))(param)

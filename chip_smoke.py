@@ -84,8 +84,26 @@ uninterrupted run bit for bit, a compressed step's outputs must lie on
 their blocks' int8 grids and its residuals within half a quantization
 step, and granite-3-2b-nfft's learn_sigma step
 must move log_sigma; no kernel of the package may launch on these paths
-(the einsum attention and cuBLAS).  Any failed check raises, so the run
-exits non-zero and prints no result line.
+(the einsum attention and cuBLAS).  Then the other mixers and the
+frontends, each path with its launch counts from 0: olmoe-1b-7b (MoE, 64
+experts, top-8) at full width and depth through ``ServeEngine``
+([moe_serve]: the flash kernel once per layer and prefill, head dim 128;
+in float32 the engine against a manual loop); mamba2-1.3b (Mamba2 SSD) at
+full width and depth ([ssm_serve]: no kernel launches; its constant state
+a slot beside granite-3-2b's KV cache; in float32 with 4 layers,
+teacher-forced recurrent decode steps against the chunked forward);
+deepseek-v3-671b (MLA, 256 experts) at full width with the depth cut 61 ->
+4 and MTP cut 1 -> 0 ([mla_serve]: no kernel launches; the MLA cache a
+token beside the expanded K/V; in float32 with 1 layer, absorbed decode
+steps against the expanded forward); jamba-1.5-large at its reduced config
+([hybrid_serve]: card against the same weights on the CPU); and
+[frontends]: hubert-xlarge at full width and depth prefilling 4,096 frames
+through the flash kernel at head dim 80 (non-causal, 48 launches),
+paligemma-3b at full width and depth (image prefix + tokens through the
+einsum, then decode steps), and gemma-7b at full width with 2 layers
+prefilling 2,048 tokens through the flash kernel at head dim 256, each
+flash prefill against the einsum prefill in bf16 and float32.  Any failed
+check raises, so the run exits non-zero and prints no result line.
 
     python3 chip_smoke.py [--json PATH]
 
@@ -94,7 +112,8 @@ The last line of standard output is
 the line before it is the kernels' JSON record (the window kernels once
 per path of WINDOW_RECORDS and once per shape of the gradient, bank,
 sweep, multilayer and graph-serve paths, the deterministic spread once per
-[durable] path, ``kernel_matvec`` once per path that launches it, each with
+[durable] path, ``kernel_matvec`` once per path that launches it, flash
+attention once for [serve] and once per FAMILY_FLASH path, each with
 that path's launches and shape).  Needs one card and the repository
 checkout around this file; imports nothing of JAX.
 """
@@ -102,6 +121,7 @@ checkout around this file; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -322,6 +342,52 @@ NFFT_EXACT_S = 2048
 # is held to NFFT_EXACT_FACTOR times it
 JAX_NFFT_EXACT_REL = 1.730278e-07
 NFFT_EXACT_FACTOR = 10
+# [moe_serve], [ssm_serve], [mla_serve], [hybrid_serve]: the same engine
+# (SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_REQUESTS x SERVE_NEW) over prompts of
+# FAMILY_MIN_PROMPT..FAMILY_MAX_PROMPT tokens (whole chunks for a Mamba
+# layer, and one
+# shorter than a chunk): olmoe-1b-7b at full width and depth (bf16; float32
+# engine vs manual); mamba2-1.3b at full width and depth (bf16; float32
+# with SSM_F32_LAYERS layers: a prefill and teacher-forced recurrent decode
+# steps vs one chunked forward, within SSM_F32_TOL of max |logit|);
+# deepseek-v3-671b at full width, depth cut 61 -> MLA_LAYERS (3 dense + 1
+# MoE) and mtp_depth 1 -> 0 (bf16; float32 with 1 layer: absorbed decode
+# steps vs the expanded forward within MLA_F32_TOL); jamba-1.5-large at its
+# reduced config (one full-width MoE layer's experts are 19.3 GB in bf16,
+# four a period), card vs the same weights on the CPU within HYBRID_TOL.
+# The float32 limits: both sides float32 with TF32 off, the sums in another
+# order (chunked scan vs recurrence; absorbed vs expanded products; card vs
+# CPU), ~1e-6 measured on the CPU's reduced configs, 100x room.
+FAMILY_MIN_PROMPT, FAMILY_MAX_PROMPT = 512, 2048
+MOE_ARCH = "olmoe-1b-7b"
+SSM_ARCH = "mamba2-1.3b"
+SSM_F32_LAYERS, SSM_F32_PREFILL, SSM_F32_DECODE = 4, 256, 128
+SSM_F32_TOL = 1e-4
+MLA_ARCH = "deepseek-v3-671b"
+MLA_LAYERS = 4
+MLA_F32_PREFILL, MLA_F32_DECODE = 512, 64
+MLA_F32_TOL = 1e-4
+HYBRID_ARCH = "jamba-1.5-large-398b"
+HYBRID_PROMPT_CAP = 256
+HYBRID_TOL = 1e-4
+# [frontends]: hubert-xlarge (48 layers, head dim 80, non-causal) over one
+# sequence of HUBERT_FRAMES frame embeddings; paligemma-3b (head dim 256,
+# MQA) over its 256 image embeddings + VLM_TEXT tokens, then VLM_DECODE
+# steps; gemma-7b with the depth cut 28 -> GEMMA_LAYERS over GEMMA_TOKENS
+# tokens (head dim 256).  Flash vs einsum limits: SERVE_FLASH_VS_EINSUM
+HUBERT_ARCH, HUBERT_FRAMES = "hubert-xlarge", 4096
+VLM_ARCH, VLM_TEXT, VLM_DECODE = "paligemma-3b", 32, 8
+GEMMA_ARCH, GEMMA_LAYERS, GEMMA_TOKENS = "gemma-7b", 2, 2048
+# the flash kernel on each new path that launches it: (path, label, (b,
+# hq, hkv, sq, sk, dh), causal, dtype), checked against its plain version
+# in [flash] (float32 and bf16) and timed in [times] at the path's shape
+FAMILY_FLASH = (
+    ("moe_serve", "olmoe", (1, 16, 16, 2048, 2048, 128), True, "bfloat16"),
+    ("hybrid_serve", "jamba", (1, 4, 1, 256, 256, 16), True, "float32"),
+    ("frontends_hubert", "hubert", (1, 16, 16, 4096, 4096, 80), False,
+     "bfloat16"),
+    ("frontends_gemma", "gemma", (1, 16, 16, 2048, 2048, 256), True,
+     "bfloat16"))
 # the x-gradient of kernel_matvec on the card (a second launch, point sets
 # swapped) against autograd through the plain version
 KM_GRAD_SHAPE = (3000, 7000, 2)
@@ -748,6 +814,9 @@ class Smoke:
             yield "decode", (1, 32, 8, 1, FLASH_DECODE_SK, 64), True, dname
         yield ("layer", (1, 32, 8, FLASH_LAYER_S, FLASH_LAYER_S, 64), True,
                "bfloat16")
+        for _, label, shape, causal, _ in FAMILY_FLASH:
+            for dname in ("float32", "bfloat16"):
+                yield label, shape, causal, dname
 
     def window_geometry(self, setup_name, d, n, kind="spiral"):
         """(NFFT plan, window geometry), built once per argument set.
@@ -842,6 +911,11 @@ class Smoke:
         self.phase_nfft_serve()
         self.phase_times()
         self.phase_train()
+        self.phase_moe_serve()
+        self.phase_ssm_serve()
+        self.phase_mla_serve()
+        self.phase_hybrid_serve()
+        self.phase_frontends()
 
     def phase_device(self):
         torch = self.torch
@@ -3497,11 +3571,7 @@ class Smoke:
         self.serve_prompt_list = prompts
 
         # float32: engine vs manual greedy, TF32 off
-        prev = (torch.backends.cuda.matmul.allow_tf32,
-                torch.backends.cudnn.allow_tf32)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        try:
+        with self.tf32_off():
             cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                         activation_dtype="float32")
             model32 = lm.init_params(cfg32, SERVE_SEED, device=self.dev)
@@ -3520,9 +3590,6 @@ class Smoke:
                       f"f32 engine vs manual, request {r.uid}: "
                       f"{r.output[:n]} != {want[:n]}")
             del model32
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = prev[0]
-            torch.backends.cudnn.allow_tf32 = prev[1]
         self.record["serve"]["f32"] = {
             "wall_s": wall32, "steps_compared": stops,
             "launches": launches32}
@@ -3743,42 +3810,8 @@ class Smoke:
 
     def nfft_f32_engine_vs_manual(self, cfg, prompts):
         """float32 (TF32 off): the engine's tokens against an unbatched
-        prefill + decode loop, up to each request's first near tie."""
-        torch, lm = self.torch, self.lm
-        prev = (torch.backends.cuda.matmul.allow_tf32,
-                torch.backends.cudnn.allow_tf32)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        try:
-            cfg32 = dataclasses.replace(cfg, param_dtype="float32",
-                                        activation_dtype="float32")
-            model32 = lm.init_params(cfg32, SERVE_SEED, device=self.dev)
-            self.reset_launches()
-            reqs32, wall32 = self.serve(cfg32, model32, prompts)
-            launches32 = self.read_launches("nfft_serve_f32")
-            compared, stops = 0, []
-            for r in reqs32:
-                want, margins = self.manual_greedy(cfg32, model32, r.tokens)
-                n = next((i for i, m in enumerate(margins)
-                          if m < SERVE_MARGIN), len(margins))
-                stops.append(n)
-                compared += n
-                check(r.output[:n] == want[:n],
-                      f"nfft f32 engine vs manual, request {r.uid}: "
-                      f"{r.output[:n]} != {want[:n]}")
-            del model32
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = prev[0]
-            torch.backends.cudnn.allow_tf32 = prev[1]
-        self.record["nfft_serve"]["f32"] = {
-            "wall_s": wall32, "steps_compared": stops,
-            "launches": launches32}
-        log(f"[nfft_serve] float32 (TF32 off): engine {wall32:.3f}s; engine "
-            f"vs manual prefill+decode tokens equal on {compared} of "
-            f"{SERVE_NEW * len(reqs32)} steps (per request {stops}; a "
-            f"request's comparison stops at its first top-2 margin under "
-            f"{SERVE_MARGIN:g} of the top logit); launches {launches32}")
-        check(compared > 0, "nfft f32: no step compared")
+        prefill + decode loop; no kernel may launch."""
+        launches32 = self.f32_engine_vs_manual("nfft_serve", cfg, prompts)
         self.check_no_kernel_launches(launches32, "nfft serve f32")
 
     # -- [train] -------------------------------------------------------------
@@ -4308,6 +4341,44 @@ class Smoke:
                 f"ms  SDPA {lib_ms:.4f} ms, {row['library_tflops']:.1f} "
                 f"TFLOP/s (kernel {ms / lib_ms:.2f}x SDPA)")
             del q, k, v
+        # the shapes of the other paths that launch it (FAMILY_FLASH)
+        for path, label, shape, causal, dname in FAMILY_FLASH:
+            dtype = getattr(torch, dname)
+            q, k, v = self.flash_inputs(*shape, dtype, shape[3])
+            ms = self.time_ms(
+                lambda: fa.flash_attention(q, k, v, causal=causal),
+                reps=10, warmup=1)
+            plain_ms = self.time_ms(
+                lambda: fa.flash_attention_plain(q, k, v, causal=causal),
+                reps=3, warmup=1)
+            # the math backend too: no fused one takes float32 with GQA
+            # (jamba's heads), and these scores fit (at most 1 GB)
+            with sdpa_kernel(fused + [SDPBackend.MATH]):
+                lib_ms = self.time_ms(
+                    lambda: sdpa(q, k, v, is_causal=causal,
+                                 enable_gqa=shape[1] != shape[2]),
+                    reps=10, warmup=1)
+            bound_ms, by, flops, nbytes = self.flash_bound(
+                *shape, causal, dtype.itemsize)
+            design = ("wgmma" if shape[5] in fa.WGMMA_HEAD_DIMS
+                      and dname != "float32" else "cuda cores")
+            b, hq, hkv, s, _, dh = shape
+            row = {"kernel": "flash_attention", "path": path, "label": label,
+                   "b": b, "hq": hq, "hkv": hkv, "sq": s, "sk": s, "dh": dh,
+                   "causal": causal, "dtype": dname, "design": design,
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": by, "flops": flops, "bytes": nbytes,
+                   "tflops": flops / ms / 1e9, "library_ms": lib_ms,
+                   "kernel_over_library": ms / lib_ms}
+            self.record["times"].append(row)
+            self.kernel_times[("flash_attention", label)] = row
+            log(f"[times] flash_attention {label} b={b} hq={hq} hkv={hkv} "
+                f"s={s} dh={dh} causal={causal} {dname} ({design}): "
+                f"{ms:.4f} ms, {row['tflops']:.1f} TFLOP/s  bound "
+                f"{bound_ms:.4f} ms ({by}, {100 * bound_ms / ms:.2f}% of "
+                f"bound)  plain {plain_ms:.3f} ms  SDPA {lib_ms:.4f} ms "
+                f"(kernel {ms / lib_ms:.2f}x SDPA)")
+            del q, k, v
         # the float32 kernel (CUDA cores) at the longest serve prompt
         s = FLASH_LENGTHS[-1]
         shape = (1, 32, 8, s, s, 64)
@@ -4491,6 +4562,514 @@ class Smoke:
             f"{row['matvec_ms_c4']:.3f} ms; plan {row['plan_s']:.3f}s; eigsh "
             f"k={K_EIG} {row['eigsh_s']:.3f}s ({res.num_matvecs} matvecs)")
 
+    # -- [moe_serve], [ssm_serve], [mla_serve], [hybrid_serve] ---------------
+    def family_prompts(self, cfg, chunk=None):
+        """SERVE_REQUESTS seeded prompts, lengths in FAMILY_MIN_PROMPT..
+        FAMILY_MAX_PROMPT with one of exactly FAMILY_MAX_PROMPT; with
+        ``chunk`` (a Mamba
+        layer's chunked SSD pads nothing) whole chunks, and one prompt of
+        fewer tokens than a chunk."""
+        rng = np.random.default_rng(SERVE_SEED + 3)
+        top = FAMILY_MAX_PROMPT
+        if chunk is None:
+            lengths = [top] + rng.integers(FAMILY_MIN_PROMPT, top + 1,
+                                           SERVE_REQUESTS - 1).tolist()
+        else:
+            lengths = [top, chunk * 25 // 32] + (chunk * rng.integers(
+                1, top // chunk + 1, SERVE_REQUESTS - 2)).tolist()
+        return [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+
+    def family_init(self, phase, cfg):
+        """Seeded random weights on the card; (model, params, init s)."""
+        gc_collect(self.torch)
+        t0 = time.perf_counter()
+        model = self.lm.init_params(cfg, SERVE_SEED, device=self.dev)
+        self.sync()
+        took = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"[{phase}] {cfg.name} {cfg.num_layers} layers d={cfg.d_model} "
+            f"{cfg.activation_dtype}: {n_params / 1e9:.3f}e9 params, "
+            f"{sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f} GB "
+            f"(seed {SERVE_SEED}, init {took:.2f}s)")
+        return model, n_params, took
+
+    def family_serve(self, phase, cfg, model, prompts):
+        """The prompts through ServeEngine (launch counts from 0), then
+        TICKS_TIMED engine ticks with SERVE_SLOTS active slots; the
+        record's numbers, finite logits checked."""
+        torch = self.torch
+        card = self.record["device"]["nvidia_smi"]
+        seen = self.watch_logits(model)
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        self.sync()
+        self.reset_launches()
+        reqs, wall = self.serve(cfg, model, prompts)
+        launches = self.read_launches(phase)
+        self.unwatch(model)
+        bad = int(seen["bad"])
+        peak_gb = torch.cuda.max_memory_allocated(self.dev) / 1e9
+        engine = self.ServeEngine(cfg, model, slots=SERVE_SLOTS,
+                                  max_seq=SERVE_MAX_SEQ, device=self.dev)
+        for i in range(SERVE_SLOTS):
+            engine.submit(self.Request(uid=i, tokens=prompts[i],
+                                       max_new_tokens=10 ** 6))
+        engine.step()  # admits every slot, and one decode step
+        engine.step()
+        check(all(r is not None for r in engine.active),
+              f"{phase} tick: idle slot")
+        self.sync()
+        t0 = time.perf_counter()
+        for _ in range(TICKS_TIMED):
+            engine.step()
+        tick_ms = (time.perf_counter() - t0) / TICKS_TIMED * 1e3
+        slot_bytes = self.cache_bytes(engine.caches) / SERVE_SLOTS
+        del engine
+        new_tokens = sum(len(r.output) for r in reqs)
+        rec = {"arch": cfg.name, "layers": cfg.num_layers,
+               "d_model": cfg.d_model, "dtype": cfg.activation_dtype,
+               "prompt_lengths": [len(p) for p in prompts], "wall_s": wall,
+               "new_tokens": new_tokens, "tokens_per_s": new_tokens / wall,
+               "tick_ms": tick_ms, "tick_tokens_per_s":
+                   SERVE_SLOTS * 1e3 / tick_ms,
+               "nonfinite_logits": bad, "logits_checked": seen["n"],
+               "peak_memory_gb": peak_gb, "launches": launches,
+               "cache_bytes_per_slot": slot_bytes, "card": card}
+        log(f"[{phase}] ServeEngine slots={SERVE_SLOTS} max_seq="
+            f"{SERVE_MAX_SEQ}, {len(prompts)} requests, prompts "
+            f"{[len(p) for p in prompts]}, {SERVE_NEW} new tokens each")
+        log(f"[{phase}] {card}: {wall:.3f}s wall (ends in synchronize), "
+            f"{new_tokens} tokens, {new_tokens / wall:.1f} tok/s; tick "
+            f"{tick_ms:.3f} ms with {SERVE_SLOTS} active slots (host clock "
+            f"over {TICKS_TIMED} ticks, {rec['tick_tokens_per_s']:.1f} "
+            f"tok/s); peak memory {peak_gb:.2f} GB; cache "
+            f"{slot_bytes / 1e6:.1f} MB a slot; {seen['n']} logits, {bad} "
+            f"non-finite; launches {launches}")
+        check(bad == 0, f"{phase}: {bad} non-finite logits")
+        return rec, reqs
+
+    def f32_engine_vs_manual(self, phase, cfg, prompts):
+        """float32 (TF32 off): the engine's tokens against an unbatched
+        prefill + decode loop, up to each request's first near tie."""
+        torch, lm = self.torch, self.lm
+        gc_collect(torch)
+        with self.tf32_off():
+            cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                        activation_dtype="float32")
+            model32 = lm.init_params(cfg32, SERVE_SEED, device=self.dev)
+            self.reset_launches()
+            reqs32, wall32 = self.serve(cfg32, model32, prompts)
+            launches32 = self.read_launches(f"{phase}_f32")
+            compared, stops = 0, []
+            for r in reqs32:
+                want, margins = self.manual_greedy(cfg32, model32, r.tokens)
+                n = next((i for i, m in enumerate(margins)
+                          if m < SERVE_MARGIN), len(margins))
+                stops.append(n)
+                compared += n
+                check(r.output[:n] == want[:n],
+                      f"{phase} f32 engine vs manual, request {r.uid}: "
+                      f"{r.output[:n]} != {want[:n]}")
+            del model32
+        self.record[phase]["f32"] = {"wall_s": wall32,
+                                     "steps_compared": stops,
+                                     "launches": launches32}
+        log(f"[{phase}] float32 (TF32 off): engine {wall32:.3f}s; engine vs "
+            f"manual prefill+decode tokens equal on {compared} of "
+            f"{SERVE_NEW * len(reqs32)} steps (per request {stops}; a "
+            f"request's comparison stops at its first top-2 margin under "
+            f"{SERVE_MARGIN:g} of the top logit); launches {launches32}")
+        check(compared > 0, f"{phase} f32: no step compared")
+        return launches32
+
+    @contextlib.contextmanager
+    def tf32_off(self):
+        """TF32 off for matmuls and cuDNN; the caller's settings back
+        after."""
+        torch = self.torch
+        prev = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev[0]
+            torch.backends.cudnn.allow_tf32 = prev[1]
+
+    def teacher_forced_vs_full(self, cfg, model, n_prefill, n_decode, seed):
+        """max |decode - full| / max |full| over the logits of a prefill of
+        n_prefill tokens and n_decode teacher-forced decode steps, against
+        one whole-sequence forward of n_prefill + n_decode tokens at the
+        same positions."""
+        torch, lm = self.torch, self.lm
+        s = n_prefill + n_decode
+        toks = torch.as_tensor(np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (1, s)), device=self.dev)
+        with torch.no_grad():
+            x, positions, _ = model.embed_inputs({"tokens": toks})
+            full = model.lm_logits(model.run_backbone(
+                x, positions, mode="train"))[0, n_prefill - 1:].float()
+        caches = lm.init_caches(cfg, 1, s, device=self.dev)
+        logits, _ = model.forward_prefill({"tokens": toks[:, :n_prefill]},
+                                          caches)
+        got = [logits[0, -1]]
+        for p in range(n_prefill, s):
+            logits, _ = model.forward_decode(
+                toks[:, p:p + 1], torch.tensor([p], device=self.dev), caches)
+            got.append(logits[0, 0])
+        got = torch.stack(got).float()
+        return float((got - full).abs().max() / full.abs().max())
+
+    def phase_moe_serve(self):
+        """[moe_serve]: olmoe-1b-7b at full width and depth (bf16; 64
+        experts, top-8) through ServeEngine: every prefill launches the
+        flash kernel once per layer (head dim 128), every logit finite;
+        in float32 (TF32 off) the engine against a manual loop."""
+        t0 = time.perf_counter()
+        cfg = self.get_config(MOE_ARCH)
+        model, n_params, t_init = self.family_init("moe_serve", cfg)
+        prompts = self.family_prompts(cfg)
+        rec, _ = self.family_serve("moe_serve", cfg, model, prompts)
+        rec.update(params=n_params, init_s=t_init,
+                   experts=cfg.moe.num_experts, top_k=cfg.moe.top_k)
+        self.record["moe_serve"] = rec
+        flash = rec["launches"]["flash_attention"]
+        check(flash == cfg.num_layers * len(prompts),
+              f"moe serve: {flash} flash launches for {len(prompts)} "
+              f"prefills of {cfg.num_layers} layers")
+        check(sum(rec["launches"].values()) == flash,
+              f"moe serve: another kernel launched {rec['launches']}")
+        del model
+        launches32 = self.f32_engine_vs_manual("moe_serve", cfg, prompts)
+        check(launches32["flash_attention"] == cfg.num_layers * len(prompts),
+              "moe serve f32: flash launches")
+        rec["phase_s"] = time.perf_counter() - t0
+        log(f"[moe_serve] phase {rec['phase_s']:.1f}s wall")
+
+    def phase_ssm_serve(self):
+        """[ssm_serve]: mamba2-1.3b at full width and depth (bf16, 48 pure
+        SSM blocks) through ServeEngine, prompts of whole 128-token chunks
+        or shorter than one: no kernel of the package launches, every
+        logit finite; the constant state a slot beside granite-3-2b's KV
+        cache; in float32 with 4 layers, decode after a prefill against
+        the whole sequence's chunked forward."""
+        torch, lm = self.torch, self.lm
+        t0 = time.perf_counter()
+        cfg = self.get_config(SSM_ARCH)
+        model, n_params, t_init = self.family_init("ssm_serve", cfg)
+        prompts = self.family_prompts(cfg, chunk=cfg.mamba.chunk_size)
+        rec, _ = self.family_serve("ssm_serve", cfg, model, prompts)
+        rec.update(params=n_params, init_s=t_init)
+        self.record["ssm_serve"] = rec
+        self.check_no_kernel_launches(rec["launches"], "ssm serve")
+        del model
+        mc = cfg.mamba
+        d_in = mc.expand * cfg.d_model
+        want = cfg.num_layers * 4 * (
+            d_in // mc.head_dim * mc.d_state * mc.head_dim
+            + (mc.d_conv - 1) * (d_in + 2 * mc.n_groups * mc.d_state))
+        caches = lm.init_caches(self.get_config(SERVE_ARCH), 1,
+                                SERVE_MAX_SEQ, device=self.dev)
+        kv = self.cache_bytes(caches)
+        del caches
+        rec["dense_kv_bytes_per_slot"] = kv
+        log(f"[ssm_serve] state a slot (allocated tensors): "
+            f"{rec['cache_bytes_per_slot'] / 1e6:.1f} MB float32 at any "
+            f"length (48 x (h n p + 3 (d_in + 2 n)) x 4 B); {SERVE_ARCH}'s "
+            f"KV cache {kv / 1e6:.1f} MB at {SERVE_MAX_SEQ} tokens")
+        check(rec["cache_bytes_per_slot"] == want,
+              f"ssm state bytes a slot {rec['cache_bytes_per_slot']} != "
+              f"{want}")
+        gc_collect(torch)
+        with self.tf32_off():
+            cfg32 = dataclasses.replace(cfg, num_layers=SSM_F32_LAYERS,
+                                        param_dtype="float32",
+                                        activation_dtype="float32")
+            model32 = lm.init_params(cfg32, SERVE_SEED, device=self.dev)
+            self.reset_launches()
+            rel = self.teacher_forced_vs_full(
+                cfg32, model32, SSM_F32_PREFILL, SSM_F32_DECODE, 11)
+            launches = self.read_launches("ssm_serve_consistency")
+            del model32
+        rec["decode_vs_forward_rel"] = rel
+        log(f"[ssm_serve] float32 (TF32 off), {SSM_F32_LAYERS} layers: "
+            f"prefill of {SSM_F32_PREFILL} tokens and {SSM_F32_DECODE} "
+            f"recurrent decode steps vs one chunked forward of "
+            f"{SSM_F32_PREFILL + SSM_F32_DECODE} tokens: rel "
+            f"{rel:.3e} of max |logit| (limit {SSM_F32_TOL:g})")
+        check(rel <= SSM_F32_TOL, f"ssm decode vs forward: {rel}")
+        self.check_no_kernel_launches(launches, "ssm consistency")
+        rec["phase_s"] = time.perf_counter() - t0
+        log(f"[ssm_serve] phase {rec['phase_s']:.1f}s wall")
+
+    def phase_mla_serve(self):
+        """[mla_serve]: deepseek-v3-671b at full width (bf16: d 7168, 128
+        heads, 256 experts, top-8, a shared expert) with the depth cut
+        61 -> 4 (3 dense + 1 MoE layer) and MTP cut 1 -> 0, through
+        ServeEngine: no kernel of the package launches (MLA is an einsum),
+        every logit finite; the MLA cache a token beside the expanded K/V;
+        in float32 with 1 layer, the absorbed decode against the expanded
+        forward."""
+        torch, lm = self.torch, self.lm
+        t0 = time.perf_counter()
+        full = self.get_config(MLA_ARCH)
+        cfg = dataclasses.replace(full, num_layers=MLA_LAYERS, mtp_depth=0)
+        model, n_params, t_init = self.family_init("mla_serve", cfg)
+        log(f"[mla_serve] cuts: depth {full.num_layers} -> {MLA_LAYERS} "
+            f"({cfg.moe.first_dense_layers} dense + "
+            f"{MLA_LAYERS - cfg.moe.first_dense_layers} MoE), mtp_depth "
+            f"{full.mtp_depth} -> 0 (serving never reads it); every width "
+            "kept")
+        prompts = self.family_prompts(cfg)
+        rec, _ = self.family_serve("mla_serve", cfg, model, prompts)
+        m = cfg.mla
+        size = torch.finfo(cfg.dtype).bits // 8
+        latent = (m.kv_lora_rank + m.qk_rope_head_dim) * size
+        expanded = cfg.num_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim
+                                    + m.v_head_dim) * size
+        rec.update(params=n_params, init_s=t_init,
+                   cuts={"num_layers": [full.num_layers, MLA_LAYERS],
+                         "mtp_depth": [full.mtp_depth, 0]},
+                   mla_bytes_per_token_layer=latent,
+                   expanded_kv_bytes_per_token_layer=expanded)
+        self.record["mla_serve"] = rec
+        log(f"[mla_serve] MLA cache a token and layer: ({m.kv_lora_rank} + "
+            f"{m.qk_rope_head_dim}) x {size} B = {latent} B; the expanded "
+            f"K/V it replaces: {cfg.num_heads} x ({m.qk_nope_head_dim} + "
+            f"{m.qk_rope_head_dim} + {m.v_head_dim}) x {size} B = "
+            f"{expanded} B ({expanded / latent:.0f}x)")
+        check(rec["cache_bytes_per_slot"]
+              == cfg.num_layers * SERVE_MAX_SEQ * latent,
+              f"mla cache bytes a slot {rec['cache_bytes_per_slot']}")
+        self.check_no_kernel_launches(rec["launches"], "mla serve")
+        del model
+        gc_collect(torch)
+        with self.tf32_off():
+            cfg32 = dataclasses.replace(cfg, num_layers=1,
+                                        param_dtype="float32",
+                                        activation_dtype="float32")
+            model32 = lm.init_params(cfg32, SERVE_SEED, device=self.dev)
+            self.reset_launches()
+            rel = self.teacher_forced_vs_full(
+                cfg32, model32, MLA_F32_PREFILL, MLA_F32_DECODE, 12)
+            launches = self.read_launches("mla_serve_consistency")
+            del model32
+        rec["absorbed_vs_expanded_rel"] = rel
+        log(f"[mla_serve] float32 (TF32 off), 1 layer (MLA + dense): "
+            f"prefill of {MLA_F32_PREFILL} tokens and {MLA_F32_DECODE} "
+            f"absorbed decode steps vs one expanded forward: rel {rel:.3e} "
+            f"of max |logit| (limit {MLA_F32_TOL:g})")
+        check(rel <= MLA_F32_TOL, f"mla absorbed vs expanded: {rel}")
+        self.check_no_kernel_launches(launches, "mla consistency")
+        rec["phase_s"] = time.perf_counter() - t0
+        log(f"[mla_serve] phase {rec['phase_s']:.1f}s wall")
+
+    def phase_hybrid_serve(self):
+        """[hybrid_serve]: jamba-1.5-large-398b at its reduced config (16
+        layers, the 1:7 attention/Mamba pattern, MoE every other layer,
+        d 64, float32) through ServeEngine on the card: the prefills
+        launch flash once per attention layer; the tokens equal the same
+        weights' engine run on the CPU, and one prefill + decode steps'
+        logits agree with the CPU's."""
+        from repro_torch.configs import reduced_config
+        torch, lm = self.torch, self.lm
+        t0 = time.perf_counter()
+        full = self.get_config(HYBRID_ARCH)
+        cfg = reduced_config(full)
+        log(f"[hybrid_serve] cut: {full.name} at its reduced config "
+            f"({cfg.num_layers} layers, d {full.d_model} -> {cfg.d_model}, "
+            f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}); at full "
+            f"width one MoE layer's experts are "
+            f"{full.moe.num_experts * 3 * full.d_model * full.moe.d_ff_expert * 2 / 1e9:.1f} GB "
+            "in bf16 and a period holds four: more than one card")
+        model, n_params, t_init = self.family_init("hybrid_serve", cfg)
+        on_cpu = lm.init_params(cfg, SERVE_SEED, device="cpu")
+        on_cpu.load_state_dict({k: v.cpu()
+                                for k, v in model.state_dict().items()})
+        prompts = self.family_prompts(cfg, chunk=cfg.mamba.chunk_size)
+        prompts = [p[:HYBRID_PROMPT_CAP] for p in prompts]
+        with self.tf32_off():
+            rec, card_reqs = self.family_serve("hybrid_serve", cfg, model,
+                                               prompts)
+            engine = self.ServeEngine(cfg, on_cpu, slots=SERVE_SLOTS,
+                                      max_seq=SERVE_MAX_SEQ, device="cpu")
+            reqs = [self.Request(uid=i, tokens=p, max_new_tokens=SERVE_NEW)
+                    for i, p in enumerate(prompts)]
+            for r in reqs:
+                engine.submit(r)
+            engine.run_until_drained()
+            del engine
+            same = [a.output == b.output for a, b in zip(card_reqs, reqs)]
+            rels = []
+            toks = prompts[0]
+            for dev, mdl in ((self.dev, model), (torch.device("cpu"),
+                                                 on_cpu)):
+                caches = lm.init_caches(cfg, 1, len(toks) + 8, device=dev)
+                logits, _ = mdl.forward_prefill(
+                    {"tokens": torch.as_tensor([toks], device=dev)}, caches)
+                seq = [logits[0, -1].cpu()]
+                for i in range(8):
+                    logits, _ = mdl.forward_decode(
+                        torch.as_tensor([[toks[i]]], device=dev),
+                        torch.as_tensor([len(toks) + i], device=dev), caches)
+                    seq.append(logits[0, 0].cpu())
+                rels.append(torch.stack(seq).float())
+            rel = float((rels[0] - rels[1]).abs().max()
+                        / rels[1].abs().max())
+        n_attn = sum(lm.layer_signature(cfg, i).mixer == "attn"
+                     for i in range(cfg.num_layers))
+        rec.update(params=n_params, init_s=t_init, card_vs_cpu_rel=rel,
+                   tokens_equal_cpu=same, attention_layers=n_attn,
+                   cut={"d_model": [full.d_model, cfg.d_model],
+                        "num_layers": [full.num_layers, cfg.num_layers]})
+        self.record["hybrid_serve"] = rec
+        log(f"[hybrid_serve] card vs CPU, same weights, float32 (TF32 off):"
+            f" engine tokens equal on {sum(same)} of {len(same)} requests; "
+            f"a prefill of {len(toks)} tokens + 8 decode steps: rel "
+            f"{rel:.3e} of max |logit| (limit {HYBRID_TOL:g})")
+        check(all(same), f"hybrid: card tokens != CPU tokens {same}")
+        check(rel <= HYBRID_TOL, f"hybrid card vs cpu: {rel}")
+        flash = rec["launches"]["flash_attention"]
+        check(flash == n_attn * len(prompts),
+              f"hybrid serve: {flash} flash launches for {len(prompts)} "
+              f"prefills of {n_attn} attention layers")
+        del model, on_cpu
+        rec["phase_s"] = time.perf_counter() - t0
+        log(f"[hybrid_serve] phase {rec['phase_s']:.1f}s wall")
+
+    # -- [frontends] ---------------------------------------------------------
+    def phase_frontends(self):
+        """[frontends]: hubert-xlarge at full width and depth (48 layers,
+        head dim 80, non-causal) prefills 1 x HUBERT_FRAMES frames through
+        the flash kernel, 48 launches, against the einsum prefill;
+        paligemma-3b at full width and depth (18 layers, head dim 256, MQA)
+        prefills 256 image embeddings + 32 tokens (prefix-LM: the einsum,
+        no launch) and decodes 8 steps; gemma-7b at full width with the
+        depth cut 28 -> 2 prefills GEMMA_TOKENS tokens through the flash
+        kernel at head dim 256, against the einsum prefill."""
+        t0 = time.perf_counter()
+        self.record["frontends"] = {}
+        self.frontend_flash_vs_einsum(
+            "hubert", self.get_config(HUBERT_ARCH), HUBERT_FRAMES,
+            lambda cfg, rng: {"embeds": self.torch.as_tensor(
+                rng.standard_normal((1, HUBERT_FRAMES, cfg.frontend_dim)),
+                dtype=self.torch.float32, device=self.dev)})
+        self.frontend_paligemma()
+        gemma = self.get_config(GEMMA_ARCH)
+        log(f"[frontends] cut: {gemma.name} depth {gemma.num_layers} -> "
+            f"{GEMMA_LAYERS}, every width kept")
+        self.frontend_flash_vs_einsum(
+            "gemma", dataclasses.replace(gemma, num_layers=GEMMA_LAYERS),
+            GEMMA_TOKENS,
+            lambda cfg, rng: {"tokens": self.torch.as_tensor(
+                rng.integers(0, cfg.vocab_size, (1, GEMMA_TOKENS)),
+                device=self.dev)})
+        self.record["frontends"]["phase_s"] = time.perf_counter() - t0
+        log(f"[frontends] phase {self.record['frontends']['phase_s']:.1f}s "
+            "wall")
+
+    def frontend_flash_vs_einsum(self, label, cfg, s, make_batch):
+        """bf16 and float32 (TF32 off): one prefill of ``s`` positions
+        through flash (its launches counted: one per layer) and through
+        the einsum; the last logits and the last layer's keys compared."""
+        torch, lm = self.torch, self.lm
+        card = self.record["device"]["nvidia_smi"]
+        rec = {"arch": cfg.name, "layers": cfg.num_layers,
+               "head_dim": cfg.head_dim_eff, "causal": cfg.causal,
+               "positions": s}
+        for dname in ("bfloat16", "float32"):
+            gc_collect(torch)
+            c = dataclasses.replace(cfg, param_dtype=dname,
+                                    activation_dtype=dname)
+            with self.tf32_off():
+                model, n_params, t_init = self.family_init("frontends", c)
+                batch = make_batch(c, np.random.default_rng(SERVE_SEED + 5))
+                out = {}
+                for flag in (True, False):
+                    caches = lm.init_caches(c, 1, s, device=self.dev)
+                    self.reset_launches()
+                    self.sync()
+                    t0 = time.perf_counter()
+                    logits, _ = model.forward_prefill(batch, caches,
+                                                      use_flash=flag)
+                    self.sync()
+                    ms = (time.perf_counter() - t0) * 1e3
+                    launches = self.read_launches(
+                        f"frontends_{label}"
+                        + ("" if dname == "bfloat16" else "_f32")
+                        + ("" if flag else "_einsum"))
+                    out[flag] = (logits.float(), caches[-1].k.float(), ms,
+                                 launches)
+                    del caches
+                del model
+            rel = max(float((out[True][i] - out[False][i]).abs().max()
+                            / out[False][i].abs().max()) for i in (0, 1))
+            finite = bool(torch.isfinite(out[True][0]).all())
+            limit = SERVE_FLASH_VS_EINSUM[dname]
+            rec[dname] = {"params": n_params, "flash_ms": out[True][2],
+                          "einsum_ms": out[False][2], "rel": rel,
+                          "launches": out[True][3]}
+            log(f"[frontends] {card}: {cfg.name} {cfg.num_layers} layers "
+                f"d={cfg.d_model} hd={cfg.head_dim_eff} causal={cfg.causal}"
+                f" {dname}: prefill of {s} positions, flash {out[True][2]:.1f}"
+                f" ms (host clock, ends in synchronize), einsum "
+                f"{out[False][2]:.1f} ms; flash vs einsum: rel {rel:.3e} of "
+                f"the largest last logit / last layer key (limit {limit:g});"
+                f" launches {out[True][3]}")
+            check(finite, f"{label} {dname}: non-finite logits")
+            check(rel <= limit, f"{label} {dname} flash vs einsum: {rel}")
+            check(out[True][3]["flash_attention"] == cfg.num_layers,
+                  f"{label} {dname}: {out[True][3]} flash launches for "
+                  f"{cfg.num_layers} layers")
+            check(not any(out[False][3].values()),
+                  f"{label} {dname} einsum: a kernel launched")
+        self.record["frontends"][label] = rec
+
+    def frontend_paligemma(self):
+        torch, lm = self.torch, self.lm
+        card = self.record["device"]["nvidia_smi"]
+        cfg = self.get_config(VLM_ARCH)
+        model, n_params, t_init = self.family_init("frontends", cfg)
+        rng = np.random.default_rng(SERVE_SEED + 6)
+        batch = {"image_embeds": torch.as_tensor(
+                     rng.standard_normal((1, cfg.num_prefix_embeds,
+                                          cfg.frontend_dim)),
+                     dtype=torch.float32, device=self.dev),
+                 "tokens": torch.as_tensor(
+                     rng.integers(0, cfg.vocab_size, (1, VLM_TEXT)),
+                     device=self.dev)}
+        n = cfg.num_prefix_embeds + VLM_TEXT
+        caches = lm.init_caches(cfg, 1, n + VLM_DECODE, device=self.dev)
+        self.reset_launches()
+        self.sync()
+        t0 = time.perf_counter()
+        logits, _ = model.forward_prefill(batch, caches)
+        seq = [logits]
+        for i in range(VLM_DECODE):
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            logits, _ = model.forward_decode(
+                tok, torch.tensor([n + i], device=self.dev), caches)
+            seq.append(logits)
+        self.sync()
+        wall = time.perf_counter() - t0
+        launches = self.read_launches("frontends_paligemma")
+        finite = all(bool(torch.isfinite(t).all()) for t in seq)
+        self.record["frontends"]["paligemma"] = {
+            "arch": cfg.name, "params": n_params, "init_s": t_init,
+            "image_embeds": cfg.num_prefix_embeds, "text_tokens": VLM_TEXT,
+            "decode_steps": VLM_DECODE, "wall_s": wall,
+            "launches": launches, "finite": finite}
+        log(f"[frontends] {card}: {cfg.name} {cfg.num_layers} layers "
+            f"d={cfg.d_model} hq={cfg.num_heads} hkv={cfg.num_kv_heads} "
+            f"hd={cfg.head_dim_eff} {cfg.activation_dtype}: "
+            f"{cfg.num_prefix_embeds} image "
+            f"embeds + {VLM_TEXT} tokens (prefix-LM: the einsum) and "
+            f"{VLM_DECODE} greedy decode steps in {wall:.3f}s; every logit "
+            f"finite: {finite}; launches {launches}")
+        check(finite, "paligemma: non-finite logits")
+        self.check_no_kernel_launches(launches, "paligemma")
+        del model, caches
+
     def kernel_records(self):
         out = []
         # window kernels: one record per WINDOW_RECORDS path, with that
@@ -4581,6 +5160,24 @@ class Smoke:
             "max_abs_err": check_row["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        # ... and on the other paths that launch it, at each path's shape
+        for path, label, shape, causal, dname in FAMILY_FLASH:
+            check_row = next(r for r in self.record["checks"]
+                             if r["kernel"] == "flash_attention"
+                             and r["label"] == label and r["dtype"] == dname)
+            t = self.kernel_times[("flash_attention", label)]
+            b, hq, hkv, s, _, dh = shape
+            out.append({
+                "name": "flash_attention", "route": "cuda",
+                "source": FA_SOURCE, "design": t["design"],
+                "replaces": "src/repro/kernels/flash_attention.py:34",
+                "path": path, "shape": {"b": b, "hq": hq, "hkv": hkv,
+                                        "sq": s, "sk": s, "dh": dh,
+                                        "causal": causal, "dtype": dname},
+                "launches": self.path_launches[path]["flash_attention"],
+                "max_abs_err": check_row["max_abs_err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
         return out
 
 

@@ -47,15 +47,24 @@
 //   CUDA cores; three blocks share an SM (at dh = 64), so one block's
 //   softmax overlaps another's products.
 //
-// float32: flash_fwd_kernel, on the CUDA cores.  TF32 tensor cores would
-//   miss the float32 limit (2e-5 absolute), so float32, the path of the
-//   parity checks, keeps a query row per thread (two threads for dh = 128,
-//   each with half the dims, joined by one shuffle per key), with the row's
-//   q, its float32 accumulator and its running max and normaliser in
-//   registers.  K and V tiles are staged through shared memory as float32,
-//   and every thread of a warp reads the same key at the same time
-//   (broadcast, 16 bytes per load).  Keys are scored kChunk at a time, so
-//   the accumulator is rescaled once per chunk and not once per key.
+// float32, and every type at dh = 80 and 256: flash_fwd_kernel, on the
+//   CUDA cores.  TF32 tensor cores would miss the float32 limit (2e-5
+//   absolute), so float32, the path of the parity checks, keeps a query row
+//   per thread, or per two or four threads that each hold a part of the
+//   dims and are joined by shuffles per key (two for dh = 80 and 128, four
+//   for dh = 256), with the row's q, its float32 accumulator and its
+//   running max and normaliser in registers.  K and V tiles are staged
+//   through shared memory as float32 (converted from bf16 / fp16 on the
+//   way in), and every thread of a warp reads the same key at the same
+//   time (broadcast, 16 bytes per load).  Keys are scored kChunk at a time,
+//   so the accumulator is rescaled once per chunk and not once per key.
+//   A stage holds 64 keys up to dh = 64, 32 up to dh = 128 and 16 at
+//   dh = 256, so that K and V stay under the 48 KB of static shared
+//   memory.  The wgmma kernel takes dh in {16, 32, 64, 128} only (its
+//   swizzled tiles want 32, 64 or 128 bytes a row or whole 64-column
+//   regions); bf16 and fp16 at dh = 80 (hubert) and 256 (gemma,
+//   paligemma) take this kernel, a simple one that is not yet
+//   redesigned for the tensor cores.
 //   What bounds it: operations, 2 dh multiply-adds per visible pair on the
 //   FP32 cores (67 TFLOP/s), each needing a quarter of a shared-memory load.
 
@@ -82,23 +91,45 @@ template <typename T>
 __device__ __forceinline__ float to_float(T x);
 template <>
 __device__ __forceinline__ float to_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <>
+__device__ __forceinline__ float to_float<__half>(__half x) {
+  return __half2float(x);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
+}
 
 template <int DH>
 struct Shape {
-  static constexpr int kDpt = DH < 64 ? DH : 64;    // dims per thread
+  // dims per thread: a divisor of DH and a multiple of 4 (float4 reads)
+  static constexpr int kDpt = DH == 80 ? 40 : (DH < 64 ? DH : 64);
   static constexpr int kTpr = DH / kDpt;            // threads per query row
   static constexpr int kThreads = kRows * kTpr;
-  static constexpr int kKeys = DH <= 64 ? 64 : 32;  // keys per staged tile
+  // keys per staged tile: K and V stay under 48 KB of static shared memory
+  static constexpr int kKeys = DH <= 64 ? 64 : (DH <= 128 ? 32 : 16);
   // floats per staged row part; the pad of 4 puts the parts of one key on
-  // different banks, so the two threads of a row do not conflict
+  // different banks, so the threads of a row do not conflict
   static constexpr int kPart = kDpt + 4;
   static constexpr int kStride = kTpr * kPart;      // floats per staged key
-  static_assert(kDpt % 4 == 0 && kTpr <= 2, "unsupported head dim");
+  static_assert(DH % kDpt == 0 && kDpt % 4 == 0 &&
+                    (kTpr == 1 || kTpr == 2 || kTpr == 4),
+                "unsupported head dim");
+  static_assert(2 * kKeys * kStride * 4 <= 48 * 1024,
+                "K and V stages over the static shared-memory limit");
 };
 
 template <typename T, int DH>
@@ -170,7 +201,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             dot = fmaf(qr[4 * d4 + 3], kk.w, dot);
           }
         }
-        if (S::kTpr == 2) dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+        // the row's parts sit on neighbouring lanes
+        if (S::kTpr >= 2) dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+        if (S::kTpr >= 4) dot += __shfl_xor_sync(0xffffffffu, dot, 2);
         s[c] = (j < tn && k0 + j < row_end) ? dot * scale_log2 : -INFINITY;
         m_chunk = fmaxf(m_chunk, s[c]);
       }
@@ -852,20 +885,28 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
     else                                                                  \
       return launch_tc<T, DH>(q, k, v, o, b, hq, hkv, sq, sk, scale_log2, \
                               causal, s);
+  // dh = 80 and 256: the CUDA-core kernel in every type
+#define REPRO_FLASH_DH_CORES(DH)                                        \
+  case DH:                                                              \
+    return launch_dh<T, DH>(q, k, v, o, b, hq, hkv, sq, sk, scale_log2, \
+                            causal, s);
   switch (dh) {
     REPRO_FLASH_DH(16)
     REPRO_FLASH_DH(32)
     REPRO_FLASH_DH(64)
+    REPRO_FLASH_DH_CORES(80)
     REPRO_FLASH_DH(128)
+    REPRO_FLASH_DH_CORES(256)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef REPRO_FLASH_DH
+#undef REPRO_FLASH_DH_CORES
 }
 
 }  // namespace
 
 // Each entry point launches on `stream` without synchronising and returns
-// cudaGetLastError() (0 on success).  dh is 16, 32, 64 or 128.
+// cudaGetLastError() (0 on success).  dh is 16, 32, 64, 80, 128 or 256.
 extern "C" {
 
 int repro_flash_attention_f32(const void* q, const void* k, const void* v,

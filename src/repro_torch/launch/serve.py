@@ -1,12 +1,15 @@
 """Serving from the command line:
 
     python -m repro_torch.launch.serve --arch granite-3-2b [--device cpu]
-    python -m repro_torch.launch.serve --arch granite-3-2b-nfft --device cpu
+    python -m repro_torch.launch.serve --arch mamba2-1.3b --device cpu
 
 Spins up the continuous-batching engine on a reduced config and runs a
 batch of synthetic prompts through it, on the CUDA card unless
-``--device cpu`` is given.  As in the JAX package's command line,
-``--reduced`` is always on (a store_true flag whose default is True).
+``--device cpu`` is given.  Every token architecture is served (dense,
+MoE, MLA, Mamba, hybrid and NFFT stacks); the frontend and encoder-only
+architectures (hubert-xlarge, paligemma-3b) are refused, as the JAX
+package's command line refuses them.  As there, ``--reduced`` is always
+on (a store_true flag whose default is True).
 """
 
 from __future__ import annotations

@@ -1,12 +1,17 @@
-"""GQA/MQA/MHA softmax attention with a static-shape KV cache.
+"""Attention layers: GQA/MQA/MHA softmax attention and DeepSeek-style MLA,
+each with a static-shape cache.
 
-The port of the GQA part of ``repro.models.attention``.  Full-sequence
-attention is an einsum, or with ``use_flash`` (and no prefix-LM prefix) the
-flash kernel (:mod:`repro_torch.kernels.flash_attention`, hand-written CUDA
-on the card); decode attends over the whole cache with position masking.
-The cache holds RoPE'd keys in the JAX layout (b, s_max, hkv, hd) and is
-updated in place.  MLA (DeepSeek latent attention) is not ported yet
-(ROADMAP queue 1 item 13c).
+The port of ``repro.models.attention``.  Full-sequence GQA attention is
+an einsum, or with ``use_flash`` (and no prefix-LM prefix) the flash kernel
+(:mod:`repro_torch.kernels.flash_attention`, hand-written CUDA on the
+card); decode attends over the whole cache with position masking.  The KV
+cache holds RoPE'd keys in the JAX layout (b, s_max, hkv, hd) and is
+updated in place.
+
+MLA (multi-head latent attention): training and prefill use the expanded
+form; decode uses the *absorbed* form on the compressed (c_kv, k_rope)
+cache, which holds kv_lora_rank + rope_dim values a position.  MLA is an
+einsum everywhere, as in the JAX package: it never uses the flash kernel.
 """
 
 from __future__ import annotations
@@ -18,7 +23,9 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.common import apply_rope, dense_init
+from repro_torch.models.common import (
+    apply_rope, dense_init, init_rms_norm, rms_norm,
+)
 
 
 class KVCache(NamedTuple):
@@ -158,3 +165,141 @@ class Attention(nn.Module):
                               cache.v.transpose(1, 2),
                               valid[:, None, None, None, :])
         return ctx.transpose(1, 2).reshape(b, 1, -1) @ self.wo
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor  # (b, s_max, kv_lora_rank), normed latents
+    k_rope: torch.Tensor  # (b, s_max, rope_dim), RoPE'd shared keys
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
+                   device) -> MLACache:
+    m = cfg.mla
+    return MLACache(
+        c_kv=torch.zeros((batch, max_seq, m.kv_lora_rank), dtype=cfg.dtype,
+                         device=device),
+        k_rope=torch.zeros((batch, max_seq, m.qk_rope_head_dim),
+                           dtype=cfg.dtype, device=device))
+
+
+class MLA(nn.Module):
+    """``init_mla``: wq_a (d, q_lora), q_norm, wq_b (q_lora, h·(nope +
+    rope)), wkv_a (d, kv_lora + rope), kv_norm, wkv_b (kv_lora, h·(nope +
+    v)), wo (h·v, d)."""
+
+    def __init__(self, cfg: ArchConfig, *, generator: torch.Generator,
+                 device):
+        super().__init__()
+        self.cfg = cfg
+        m = cfg.mla
+        d, h = cfg.d_model, cfg.num_heads
+        qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+        kw = dict(generator=generator, device=device)
+        self.wq_a = dense_init((d, m.q_lora_rank), cfg.pdtype, **kw)
+        self.q_norm = init_rms_norm(m.q_lora_rank, cfg.pdtype, device)
+        self.wq_b = dense_init((m.q_lora_rank, h * qk), cfg.pdtype, **kw)
+        self.wkv_a = dense_init((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                                cfg.pdtype, **kw)
+        self.kv_norm = init_rms_norm(m.kv_lora_rank, cfg.pdtype, device)
+        self.wkv_b = dense_init(
+            (m.kv_lora_rank, h * (m.qk_nope_head_dim + m.v_head_dim)),
+            cfg.pdtype, **kw)
+        self.wo = dense_init((h * m.v_head_dim, d), cfg.pdtype, **kw)
+
+    @property
+    def scale(self) -> float:
+        m = self.cfg.mla
+        return 1.0 / (m.qk_nope_head_dim + m.qk_rope_head_dim) ** 0.5
+
+    def project_q(self, x: torch.Tensor, positions: torch.Tensor):
+        """``_mla_q``: x (b, s, d) -> q_nope (b, s, h, nope), q_rope
+        (b, s, h, rope) RoPE'd."""
+        cfg, m = self.cfg, self.cfg.mla
+        b, s, _ = x.shape
+        q_c = rms_norm(x @ self.wq_a, self.q_norm, cfg.norm_eps)
+        q = (q_c @ self.wq_b).reshape(
+            b, s, cfg.num_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+        q_rope = apply_rope(q[..., m.qk_nope_head_dim:].transpose(1, 2),
+                            positions[:, None, :], cfg.rope_theta)
+        return q[..., :m.qk_nope_head_dim], q_rope.transpose(1, 2)
+
+    def kv_latent(self, x: torch.Tensor, positions: torch.Tensor):
+        """``_mla_kv_latent``: x (b, s, d) -> c_kv (b, s, kv_lora) normed,
+        k_rope (b, s, rope) RoPE'd, one for all heads."""
+        cfg, m = self.cfg, self.cfg.mla
+        kv_all = x @ self.wkv_a
+        c_kv = rms_norm(kv_all[..., :m.kv_lora_rank], self.kv_norm,
+                        cfg.norm_eps)
+        k_rope = apply_rope(kv_all[..., m.kv_lora_rank:][:, None],
+                            positions[:, None, :], cfg.rope_theta)[:, 0]
+        return c_kv, k_rope
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor
+                ) -> torch.Tensor:
+        """``mla_forward``, the expanded form (train and prefill): every
+        head's keys and values from the latents, logits of the nope and
+        rope parts summed and scaled by 1/sqrt(nope + rope), softmax in
+        float32."""
+        cfg, m = self.cfg, self.cfg.mla
+        b, s, _ = x.shape
+        h = cfg.num_heads
+        q_nope, q_rope = self.project_q(x, positions)
+        c_kv, k_rope = self.kv_latent(x, positions)
+        kv = (c_kv @ self.wkv_b).reshape(
+            b, s, h, m.qk_nope_head_dim + m.v_head_dim)
+        k_nope, v = kv[..., :m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
+        logits = (torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope)
+                  + torch.einsum("bqhd,bkd->bhqk", q_rope, k_rope)) \
+            * self.scale
+        logits = logits.float()
+        if cfg.causal:
+            mask = positions[:, None, None, :] <= positions[:, None, :, None]
+            logits = logits.masked_fill(~mask, -1e30)
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+        ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+        return ctx.reshape(b, s, h * m.v_head_dim) @ self.wo
+
+    def prefill(self, x: torch.Tensor, positions: torch.Tensor,
+                cache: MLACache) -> torch.Tensor:
+        """``mla_prefill``: :meth:`forward`, and the latents of [0, s)
+        written into ``cache`` in place."""
+        s = x.shape[1]
+        c_kv, k_rope = self.kv_latent(x, positions)
+        cache.c_kv[:, :s] = c_kv.to(cache.c_kv.dtype)
+        cache.k_rope[:, :s] = k_rope.to(cache.k_rope.dtype)
+        return self.forward(x, positions)
+
+    def decode(self, x: torch.Tensor, pos: torch.Tensor,
+               cache: MLACache) -> torch.Tensor:
+        """``mla_decode``, the absorbed form: one token per row, x (b, 1, d),
+        pos (b,).  Writes the token's latents at ``pos`` in place, folds
+        W_UK into q, attends over the cached latents (every row at or
+        before ``pos``) and applies W_UV after."""
+        cfg, m = self.cfg, self.cfg.mla
+        b = x.shape[0]
+        h = cfg.num_heads
+        q_nope, q_rope = self.project_q(x, pos[:, None])
+        c_new, kr_new = self.kv_latent(x, pos[:, None])
+        rows = torch.arange(b, device=x.device)
+        cache.c_kv[rows, pos] = c_new[:, 0].to(cache.c_kv.dtype)
+        cache.k_rope[rows, pos] = kr_new[:, 0].to(cache.k_rope.dtype)
+        wkv_b = self.wkv_b.reshape(m.kv_lora_rank, h,
+                                   m.qk_nope_head_dim + m.v_head_dim)
+        w_uk = wkv_b[..., :m.qk_nope_head_dim]
+        w_uv = wkv_b[..., m.qk_nope_head_dim:]
+        q_lat = torch.einsum("bqhn,chn->bqhc", q_nope, w_uk)
+        logits = (torch.einsum("bqhc,bsc->bhqs", q_lat, cache.c_kv)
+                  + torch.einsum("bqhd,bsd->bhqs", q_rope, cache.k_rope)) \
+            * self.scale
+        logits = logits.float()
+        s_max = cache.c_kv.shape[1]
+        valid = torch.arange(s_max, device=x.device)[None, :] <= pos[:, None]
+        logits = logits.masked_fill(~valid[:, None, None, :], -1e30)
+        probs = torch.softmax(logits, dim=-1).to(cache.c_kv.dtype)
+        ctx_lat = torch.einsum("bhqs,bsc->bqhc", probs, cache.c_kv)
+        ctx = torch.einsum("bqhc,chv->bqhv", ctx_lat, w_uv)
+        return ctx.reshape(b, 1, h * m.v_head_dim) @ self.wo

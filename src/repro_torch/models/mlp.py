@@ -1,14 +1,22 @@
-"""Feed-forward layers: the gated MLPs (SwiGLU/GeGLU) and the plain GELU MLP.
+"""Feed-forward layers: the gated MLPs (SwiGLU/GeGLU), the plain GELU MLP,
+and the capacity-routed mixture of experts.
 
-The port of the dense part of ``repro.models.mlp``.  Mixture of experts
-(``init_moe``/``moe_forward``) is not ported yet (ROADMAP queue 1 item 13c).
+The port of ``repro.models.mlp``.  The JAX package computes every product
+here with ``jnp`` einsums outside any Pallas kernel, so the port does too:
+the experts' products are batched matrix products over the expert axis.
+There is no mesh, so MoE routing uses the config's ``token_groups`` (the
+JAX package's choice when no mesh is active).
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import activation_fn, dense_init
 
 
@@ -35,3 +43,122 @@ class MLP(nn.Module):
         else:
             h = act(up)
         return h @ self.w_down
+
+
+class Routing(NamedTuple):
+    """One MoE call's routing of t tokens into ``groups`` groups of tg."""
+    top_p: torch.Tensor  # (t, k) gates, renormalised over the k choices
+    top_idx: torch.Tensor  # (t, k) experts, in descending probability
+    aux: torch.Tensor  # the Switch load-balancing loss, float32
+    capacity: int  # choices an expert takes per group
+    pos: torch.Tensor  # (groups, tg·k) each choice's place in its queue
+    within: torch.Tensor  # (groups, tg·k) pos < capacity: the choice kept
+    slot: torch.Tensor  # (groups, tg·k) its buffer row; the sink if dropped
+
+
+def moe_groups(t: int, token_groups: int) -> int:
+    """The routing's token groups: ``token_groups`` halved until it divides
+    the t tokens."""
+    groups = token_groups
+    while t % groups != 0:
+        groups //= 2
+    return groups
+
+
+class MoE(nn.Module):
+    """``init_moe``: a float32 router (d, e), experts w_up and w_gate
+    (e, d, f) and w_down (e, f, d), and an MLP ``shared`` of
+    ``num_shared_experts * f`` hidden units when there is one.  (Each
+    expert matrix is drawn as ``dense_init`` draws it: with the fan-in of
+    its first axis, as the JAX package does.)"""
+
+    def __init__(self, cfg: ArchConfig, *, generator: torch.Generator,
+                 device):
+        super().__init__()
+        self.cfg = cfg
+        moe = cfg.moe
+        d, e, f = cfg.d_model, moe.num_experts, moe.d_ff_expert
+        kw = dict(generator=generator, device=device)
+        self.router = dense_init((d, e), torch.float32, **kw)
+        self.w_up = dense_init((e, d, f), cfg.pdtype, **kw)
+        self.w_down = dense_init((e, f, d), cfg.pdtype, **kw)
+        if cfg.activation in ("silu", "geglu"):
+            self.w_gate = dense_init((e, d, f), cfg.pdtype, **kw)
+        if moe.num_shared_experts > 0:
+            self.shared = MLP(d, moe.num_shared_experts * f, cfg.activation,
+                              cfg.pdtype, **kw)
+
+    def route(self, xt: torch.Tensor) -> Routing:
+        """The routing of t tokens xt (t, d).
+
+        The router runs in float32.  Per group of tg tokens, each expert
+        takes ``max(1, int(capacity_factor · tg · k / e))`` choices, in
+        token-major (token, choice) order: the exclusive cumulative count
+        of the expert's earlier choices in the group is the choice's
+        place; a place at or past the capacity drops the choice.  A kept
+        choice's slot is ``expert · capacity + place``; a dropped one's is
+        the sink, ``e · capacity``."""
+        moe = self.cfg.moe
+        e, k = moe.num_experts, moe.top_k
+        t = xt.shape[0]
+        logits = xt.float() @ self.router
+        probs = torch.softmax(logits, dim=-1)
+        top_p, top_idx = torch.topk(probs, k, dim=-1, sorted=True)
+        top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+        me = probs.mean(dim=0)
+        ce = F.one_hot(top_idx, e).sum(1).float().mean(dim=0) / k
+        aux = e * (me * ce).sum()
+        groups = moe_groups(t, moe.token_groups)
+        tg = t // groups
+        capacity = max(1, int(moe.capacity_factor * tg * k / e))
+        flat = top_idx.reshape(groups, tg * k)
+        one_hot = F.one_hot(flat, e)  # (g, tg·k, e)
+        before = one_hot.cumsum(dim=1) - one_hot  # exclusive, per group
+        pos = torch.gather(before, 2, flat[..., None])[..., 0]
+        within = pos < capacity
+        slot = torch.where(within, flat * capacity + pos,
+                           torch.full_like(flat, e * capacity))
+        return Routing(top_p, top_idx, aux, capacity, pos, within, slot)
+
+    def forward(self, x: torch.Tensor):
+        """``moe_forward``: x (b, s, d) -> (output (b, s, d) in x's dtype,
+        the float32 aux loss).
+
+        Each kept choice's token row goes to slot ``expert · capacity +
+        place`` of its group's (e · capacity + 1, d) buffer; the last row
+        is a sink that every dropped choice writes to and that no expert
+        reads (an indexed write to one row from many sources is undefined,
+        and only the sink takes more than one).  The experts' products are
+        batched over the expert axis; each choice reads its slot back (a
+        dropped one a zero row) and is weighted by its gate, zero when
+        dropped.  Both indexings carry gradients."""
+        cfg, moe = self.cfg, self.cfg.moe
+        b, s, d = x.shape
+        e, k = moe.num_experts, moe.top_k
+        t = b * s
+        xt = x.reshape(t, d)
+        r = self.route(xt)
+        groups, tg = r.slot.shape[0], t // r.slot.shape[0]
+        capacity, slot, sink = r.capacity, r.slot, e * r.capacity
+        gi = torch.arange(groups, device=x.device)[:, None]
+        src = xt.reshape(groups, tg, d).repeat_interleave(k, dim=1)
+        buf = x.new_zeros((groups, sink + 1, d)).index_put((gi, slot), src)
+        expert_in = (buf[:, :sink].reshape(groups, e, capacity, d)
+                     .transpose(0, 1).reshape(e, groups * capacity, d))
+        up = torch.bmm(expert_in, self.w_up)
+        if cfg.activation in ("silu", "geglu"):
+            h = activation_fn(cfg.activation)(
+                torch.bmm(expert_in, self.w_gate)) * up
+        else:
+            h = activation_fn("gelu")(up)
+        expert_out = torch.bmm(h, self.w_down)
+        back = (expert_out.reshape(e, groups, capacity, d).transpose(0, 1)
+                .reshape(groups, sink, d))
+        back = torch.cat([back, back.new_zeros((groups, 1, d))], dim=1)
+        rows = back[gi, slot].reshape(groups, tg, k, d)
+        gate_w = (r.top_p.reshape(groups, tg, k)
+                  * r.within.reshape(groups, tg, k)).to(rows.dtype)
+        out = torch.einsum("gtkd,gtk->gtd", rows, gate_w).reshape(t, d)
+        if moe.num_shared_experts > 0:
+            out = out + self.shared(xt)
+        return out.reshape(b, s, d).to(x.dtype), r.aux.float()

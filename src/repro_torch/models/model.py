@@ -1,22 +1,26 @@
-"""The LM as pre-norm residual blocks, and its serving forwards.
+"""The LM as pre-norm residual blocks: its training loss and its serving
+forwards, for every registered architecture.
 
-The port of ``repro.models.model`` for the blocks it has so far:
-signatures ``("attn", "dense")`` (GQA softmax attention, then a
-SwiGLU/GeGLU/GELU MLP) and ``("nfft", "dense")`` (the paper's NFFT kernel
-attention, :mod:`repro_torch.models.nfft_attention`, then the MLP), token
-inputs, a tied or separate LM head.  The other mixers (MLA, Mamba),
-mixture of experts, multi-token prediction and the modality frontends wait
-(ROADMAP queue 1 item 13c) and raise ``NotImplementedError``.
+The port of ``repro.models.model``.  A block has a mixer, ``attn`` (GQA
+softmax attention), ``mla`` (DeepSeek latent attention), ``mamba`` (Mamba2
+SSD) or ``nfft`` (the paper's NFFT kernel attention), and an ffn,
+``dense`` (SwiGLU/GeGLU/GELU), ``moe`` or none (pure-SSM blocks).  Inputs
+are tokens, or for the modality stubs precomputed embeddings through one
+linear projection: hubert's audio frames, paligemma's image patches in
+front of its tokens (a bidirectional prefix).  DeepSeek's multi-token
+prediction chains one extra block per depth in the training loss.
 
 The JAX package runs its layer plan's periodic part under ``lax.scan`` over
 period-stacked parameters; here the blocks are a plain list in layer order
 (:func:`params_from_arrays` unstacks a JAX tree onto it).  Caches are one
 per layer, updated in place: a :class:`~repro_torch.models.attention.
-KVCache` for an attention layer, an :class:`~repro_torch.models.
-nfft_attention.NFFTCache` for an NFFT layer.
+KVCache` for an attention layer, an :class:`~repro_torch.models.attention.
+MLACache` for MLA, a :class:`~repro_torch.models.mamba.MambaCache` for
+Mamba, an :class:`~repro_torch.models.nfft_attention.NFFTCache` for NFFT.
 
-    forward_prefill (tokens, caches)     -> (logits_last, caches)
-    forward_decode  (token, pos, caches) -> (logits, caches)   # 1 token
+    forward_train   (tokens/embeds, labels)  -> (loss, metrics)
+    forward_prefill (tokens/embeds, caches)  -> (logits_last, caches)
+    forward_decode  (token, pos, caches)     -> (logits, caches)   # 1 token
 """
 
 from __future__ import annotations
@@ -31,16 +35,16 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import Attention, init_kv_cache
+from repro_torch.models.attention import (
+    MLA, Attention, init_kv_cache, init_mla_cache,
+)
 from repro_torch.models.common import (
     dense_init, embed_init, init_rms_norm, rms_norm,
 )
-from repro_torch.models.mlp import MLP
+from repro_torch.models.mamba import Mamba, init_mamba_cache
+from repro_torch.models.mlp import MLP, MoE
 from repro_torch.models.nfft_attention import NFFTAttention, init_nfft_cache
 from repro_torch.tree import tree_leaves
-
-_PORTED = (("attn", "dense"), ("nfft", "dense"))
-_TODO = "not ported yet (ROADMAP queue 1 item 13c)"
 
 
 # ---------------------------------------------------------------------------
@@ -99,90 +103,125 @@ def make_layer_plan(cfg: ArchConfig, max_period: int = 16) -> LayerPlan:
     return LayerPlan(prefix=sigs, period=(), n_periods=0)  # pragma: no cover
 
 
-def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend is {_TODO}")
-    for i in range(cfg.num_layers):
-        sig = layer_signature(cfg, i)
-        if tuple(sig) not in _PORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: layer {i} is {tuple(sig)}; only "
-                f"{' and '.join(map(str, _PORTED))} blocks are ported, the "
-                f"rest is {_TODO}")
-
-
 # ---------------------------------------------------------------------------
 # Blocks and the model
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """One residual block: x + mixer(norm(x)), then x + mlp(norm(x)).  The
-    mixer is ``attn`` (GQA) or ``nfft`` (NFFT kernel attention, which
-    ignores positions, the prefix length and ``use_flash``, as the JAX
-    package's does)."""
+    """``_init_block`` / ``_apply_block``: x + mixer(norm(x)), then, unless
+    the block is a pure-SSM one (``ffn`` None, no ``norm_ffn``),
+    x + ffn(norm(x)).  The mixer is ``attn`` (GQA), ``mla`` (DeepSeek
+    latent attention), ``mamba`` (Mamba2 SSD) or ``nfft`` (NFFT kernel
+    attention); the ffn ``mlp`` (dense) or ``moe``.  Only ``attn`` reads
+    ``use_flash`` and the prefix length; ``mamba`` and ``nfft`` ignore the
+    positions, as the JAX package's do."""
 
-    def __init__(self, cfg: ArchConfig, mixer: str, *, generator, device):
+    def __init__(self, cfg: ArchConfig, sig: LayerSig, *, generator,
+                 device):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.sig = cfg, sig
+        kw = dict(generator=generator, device=device)
         self.norm_mixer = init_rms_norm(cfg.d_model, cfg.pdtype, device)
-        if mixer == "nfft":
-            self.nfft = NFFTAttention(cfg, generator=generator,
-                                      device=device)
-        else:
-            self.attn = Attention(cfg, generator=generator, device=device)
-        self.norm_ffn = init_rms_norm(cfg.d_model, cfg.pdtype, device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.activation, cfg.pdtype,
-                       generator=generator, device=device)
+        mixers = {"attn": Attention, "mla": MLA, "mamba": Mamba,
+                  "nfft": NFFTAttention}
+        setattr(self, sig.mixer, mixers[sig.mixer](cfg, **kw))
+        if sig.ffn is not None:
+            self.norm_ffn = init_rms_norm(cfg.d_model, cfg.pdtype, device)
+            if sig.ffn == "moe":
+                self.moe = MoE(cfg, **kw)
+            else:
+                self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.activation,
+                               cfg.pdtype, **kw)
+
+    def _mix(self, h, positions, mode, cache, use_flash, prefix_len):
+        mixer = getattr(self, self.sig.mixer)
+        if self.sig.mixer == "attn":
+            if mode == "train":
+                return mixer(h, positions, use_flash=use_flash,
+                             prefix_len=prefix_len)
+            if mode == "prefill":
+                return mixer.prefill(h, positions, cache,
+                                     use_flash=use_flash,
+                                     prefix_len=prefix_len)
+            return mixer.decode(h, positions, cache)
+        if self.sig.mixer == "mla":
+            if mode == "train":
+                return mixer(h, positions)
+            return getattr(mixer, mode)(h, positions, cache)
+        # mamba and nfft: no positions
+        return mixer(h) if mode == "train" else getattr(mixer, mode)(h, cache)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
                 mode: str, cache=None, use_flash: bool = False,
-                prefix_len: int = 0) -> torch.Tensor:
-        """mode 'train' (whole sequence, no cache), 'prefill' or 'decode'."""
-        h = rms_norm(x, self.norm_mixer, self.cfg.norm_eps)
+                prefix_len: int = 0):
+        """mode 'train' (whole sequence, no cache), 'prefill' or 'decode'
+        (the cache updated in place).  Returns (x, the block's float32 aux
+        loss: the MoE's, else 0)."""
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
-        if hasattr(self, "nfft"):
-            mix = (self.nfft(h) if mode == "train" else
-                   getattr(self.nfft, mode)(h, cache))
-        elif mode == "train":
-            mix = self.attn(h, positions, use_flash=use_flash,
-                            prefix_len=prefix_len)
-        elif mode == "prefill":
-            mix = self.attn.prefill(h, positions, cache, use_flash=use_flash,
-                                    prefix_len=prefix_len)
+        h = rms_norm(x, self.norm_mixer, self.cfg.norm_eps)
+        x = x + self._mix(h, positions, mode, cache, use_flash, prefix_len)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if self.sig.ffn is None:
+            return x, aux
+        h = rms_norm(x, self.norm_ffn, self.cfg.norm_eps)
+        if self.sig.ffn == "moe":
+            out, aux = self.moe(h)
         else:
-            mix = self.attn.decode(h, positions, cache)
-        x = x + mix
-        return x + self.mlp(rms_norm(x, self.norm_ffn, self.cfg.norm_eps))
+            out = self.mlp(h)
+        return x + out, aux
 
 
-class Model(nn.Module):
-    """``init_params``' tree as a module: ``embed`` (V, d), ``blocks`` in
-    layer order, ``final_norm``, and ``lm_head`` (d, V) unless the head is
-    tied to the embedding."""
+class MTPLayer(nn.Module):
+    """One multi-token-prediction depth of ``init_params``: ``combine``
+    (2d, d), ``norm_h``, ``norm_e`` and a ``block`` of the last layer's
+    signature."""
 
     def __init__(self, cfg: ArchConfig, *, generator, device):
         super().__init__()
-        _check_supported(cfg)
+        kw = dict(generator=generator, device=device)
+        self.combine = dense_init((2 * cfg.d_model, cfg.d_model), cfg.pdtype,
+                                  **kw)
+        self.norm_h = init_rms_norm(cfg.d_model, cfg.pdtype, device)
+        self.norm_e = init_rms_norm(cfg.d_model, cfg.pdtype, device)
+        self.block = Block(cfg, layer_signature(cfg, cfg.num_layers - 1),
+                           **kw)
+
+
+class Model(nn.Module):
+    """``init_params``' tree as a module: ``embed`` (V, d) unless the
+    frontend is the audio stub, ``frontend_proj`` (frontend_dim, d) with a
+    frontend, ``blocks`` in layer order, ``final_norm``, ``lm_head`` (d, V)
+    when the head is untied or the frontend is audio, and ``mtp``, one
+    :class:`MTPLayer` per multi-token-prediction depth."""
+
+    def __init__(self, cfg: ArchConfig, *, generator, device):
+        super().__init__()
         self.cfg = cfg
         kw = dict(generator=generator, device=device)
-        self.embed = embed_init((cfg.vocab_size, cfg.d_model), cfg.pdtype,
-                                **kw)
+        self.embed = None
+        if cfg.frontend in ("none", "vision_stub"):
+            self.embed = embed_init((cfg.vocab_size, cfg.d_model),
+                                    cfg.pdtype, **kw)
+        if cfg.frontend != "none":
+            self.frontend_proj = dense_init((cfg.frontend_dim, cfg.d_model),
+                                            cfg.pdtype, **kw)
         self.blocks = nn.ModuleList(
-            Block(cfg, layer_signature(cfg, i).mixer, **kw)
+            Block(cfg, layer_signature(cfg, i), **kw)
             for i in range(cfg.num_layers))
         self.final_norm = init_rms_norm(cfg.d_model, cfg.pdtype, device)
         self.lm_head = None
-        if not cfg.tie_embeddings:
+        if not cfg.tie_embeddings or cfg.frontend == "audio_stub":
             self.lm_head = dense_init((cfg.d_model, cfg.vocab_size),
                                       cfg.pdtype, **kw)
+        self.mtp = nn.ModuleList(MTPLayer(cfg, **kw)
+                                 for _ in range(cfg.mtp_depth))
         self.leaf_tree = None  # set by stack_for_training
         self.leaf_members = None
 
     @property
     def device(self) -> torch.device:
-        return self.embed.device
+        return self.final_norm.device
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         x = self.embed[tokens]
@@ -192,12 +231,24 @@ class Model(nn.Module):
         return x.to(self.cfg.dtype)
 
     def embed_inputs(self, batch: dict):
-        """Token path of ``embed_inputs``: (x (b, s, d), positions (b, s),
-        prefix_len)."""
-        x = self.embed_tokens(batch["tokens"])
+        """``embed_inputs``: (x (b, s, d), positions (b, s), prefix_len).
+        Tokens; the audio stub's frame embeddings ``embeds`` through
+        ``frontend_proj``; or the vision stub's ``image_embeds`` through
+        it, followed by the (scaled) token embeddings, with the image as
+        a bidirectional prefix of ``num_prefix_embeds`` positions."""
+        cfg = self.cfg
+        prefix_len = 0
+        if cfg.frontend == "audio_stub":
+            x = batch["embeds"].to(cfg.dtype) @ self.frontend_proj
+        elif cfg.frontend == "vision_stub":
+            img = batch["image_embeds"].to(cfg.dtype) @ self.frontend_proj
+            x = torch.cat([img, self.embed_tokens(batch["tokens"])], dim=1)
+            prefix_len = cfg.num_prefix_embeds
+        else:
+            x = self.embed_tokens(batch["tokens"])
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
-        return x, positions, 0
+        return x.to(cfg.dtype), positions, prefix_len
 
     def lm_logits(self, h: torch.Tensor) -> torch.Tensor:
         h = rms_norm(h, self.final_norm, self.cfg.norm_eps)
@@ -212,17 +263,20 @@ class Model(nn.Module):
                      use_flash: bool = False,
                      prefix_len: int = 0) -> torch.Tensor:
         for i, block in enumerate(self.blocks):
-            x = block(x, positions, mode=mode,
-                      cache=None if caches is None else caches[i],
-                      use_flash=use_flash, prefix_len=prefix_len)
+            x, _ = block(x, positions, mode=mode,
+                         cache=None if caches is None else caches[i],
+                         use_flash=use_flash, prefix_len=prefix_len)
         return x
 
     @torch.no_grad()
     def forward_prefill(self, batch: dict, caches: list, *,
                         use_flash: Optional[bool] = None):
-        """Process the full prompt; returns (last-position logits (b, 1, V),
-        caches), the caches filled in place.  ``use_flash=None`` means the
-        flash kernel on a CUDA card and the einsum on the CPU."""
+        """Process the full prompt (``tokens``; ``embeds`` for the audio
+        stub; ``image_embeds`` and ``tokens`` for the vision stub); returns
+        (last-position logits (b, 1, V), caches), the caches filled in
+        place.  ``use_flash=None`` means the flash kernel on a CUDA card and
+        the einsum on the CPU (a prefix-LM prefix always takes the
+        einsum)."""
         x, positions, prefix_len = self.embed_inputs(batch)
         if use_flash is None:
             use_flash = x.device.type == "cuda"
@@ -241,9 +295,11 @@ class Model(nn.Module):
 
     # -- training ----------------------------------------------------------
     def _loss(self, h: torch.Tensor, batch: dict) -> torch.Tensor:
-        """The next-token loss of the token path: labels[t] = tokens[t+1],
-        ``loss_mask`` (default all ones) selecting the counted
-        positions."""
+        """The cross entropy of ``forward_train``: labels (b, s) against
+        the logits of h, over the text segment for the vision stub;
+        ``loss_mask`` (default all ones) selects the counted positions."""
+        if self.cfg.frontend == "vision_stub":
+            h = h[:, self.cfg.num_prefix_embeds:]
         labels = batch["labels"]
         mask = batch.get("loss_mask")
         if mask is None:
@@ -251,34 +307,74 @@ class Model(nn.Module):
                               device=labels.device)
         return cross_entropy(self.lm_logits(h), labels, mask)
 
+    def _total(self, h, aux, batch, positions):
+        """(loss, metrics) from the backbone's output and summed aux loss:
+        the cross entropy, plus ``router_aux_weight · aux`` with MoE, plus
+        0.3 of the multi-token-prediction loss with MTP."""
+        cfg = self.cfg
+        loss = self._loss(h, batch)
+        metrics = {"ce_loss": loss, "aux_loss": aux}
+        if cfg.moe is not None:
+            loss = loss + cfg.moe.router_aux_weight * aux
+        if cfg.mtp_depth > 0 and not cfg.encoder_only:
+            mtp_loss = self._mtp_loss(h, batch, positions)
+            metrics["mtp_loss"] = mtp_loss
+            loss = loss + 0.3 * mtp_loss
+        metrics["loss"] = loss
+        return loss, metrics
+
+    def _mtp_loss(self, h, batch, positions) -> torch.Tensor:
+        """``_mtp_loss``: depth t predicts token i + t + 1 from (h_i,
+        embed(token i + t)), chaining one block per depth; ``labels``
+        (tokens shifted by one) is the future-token stream."""
+        cfg = self.cfg
+        labels = batch["labels"]
+        b, s = labels.shape
+        loss = torch.zeros((), dtype=torch.float32, device=h.device)
+        cur = h
+        for t, mtp in enumerate(self.mtp):
+            shift = t + 1
+            fut_e = self.embed[torch.roll(labels, -t, dims=1)]
+            merged = torch.cat([
+                rms_norm(cur, mtp.norm_h, cfg.norm_eps),
+                rms_norm(fut_e.to(cur.dtype), mtp.norm_e, cfg.norm_eps),
+            ], dim=-1) @ mtp.combine
+            cur, _ = mtp.block(merged, positions, mode="train")
+            mask = (torch.arange(s, device=h.device)[None, :] < s - shift
+                    ).float().expand(b, s)
+            loss = loss + cross_entropy(self.lm_logits(cur),
+                                        torch.roll(labels, -shift, dims=1),
+                                        mask)
+        return loss / max(cfg.mtp_depth, 1)
+
     def forward_train(self, batch: dict, *, remat: bool = True):
-        """``forward_train``: tokens and labels (b, s), optional
-        ``loss_mask`` -> (loss, metrics ``ce_loss``, ``aux_loss``,
-        ``loss``).  With ``remat`` and a gradient wanted, each block is
-        recomputed in the backward (``torch.utils.checkpoint``, one
-        boundary per block where the JAX package has one per period).
-        Attention is the einsum: the flash kernel has no backward."""
-        if self.cfg.mtp_depth > 0:
-            raise NotImplementedError(
-                f"{self.cfg.name}: multi-token prediction chains an MLA/MoE "
-                f"block, which is {_TODO}")
+        """``forward_train``: tokens (or the frontends' embeddings) and
+        labels (b, s), optional ``loss_mask`` -> (loss, metrics
+        ``ce_loss``, ``aux_loss``, ``loss``, and ``mtp_loss`` with MTP).
+        With ``remat`` and a gradient wanted, each block is recomputed in
+        the backward (``torch.utils.checkpoint``, one boundary per block
+        where the JAX package has one per period).  Attention is the
+        einsum: the flash kernel has no backward."""
         x, positions, prefix_len = self.embed_inputs(batch)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for block in self.blocks:
             if remat and torch.is_grad_enabled():
-                x = checkpoint(block, x, positions, mode="train",
-                               prefix_len=prefix_len, use_reentrant=False)
+                x, a = checkpoint(block, x, positions, mode="train",
+                                  prefix_len=prefix_len, use_reentrant=False)
             else:
-                x = block(x, positions, mode="train", prefix_len=prefix_len)
-        loss = self._loss(x, batch)
-        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
-        return loss, {"ce_loss": loss, "aux_loss": aux, "loss": loss}
+                x, a = block(x, positions, mode="train",
+                             prefix_len=prefix_len)
+            aux = aux + a
+        return self._total(x, aux, batch, positions)
 
     def forward_train_reference(self, batch: dict):
         """``forward_train_reference``: the plain layer loop, no remat."""
         x, positions, prefix_len = self.embed_inputs(batch)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for block in self.blocks:
-            x = block(x, positions, mode="train", prefix_len=prefix_len)
-        loss = self._loss(x, batch)
+            x, a = block(x, positions, mode="train", prefix_len=prefix_len)
+            aux = aux + a
+        loss, _ = self._total(x, aux, batch, positions)
         return loss, {"loss": loss}
 
     def stack_for_training(self) -> dict:
@@ -296,12 +392,15 @@ class Model(nn.Module):
             return self.leaf_tree
         plan = make_layer_plan(self.cfg)
         self.requires_grad_(True)
-        tree = {"embed": self.embed, "final_norm": self.final_norm}
-        if self.lm_head is not None:
-            tree["lm_head"] = self.lm_head
+        tree = {"final_norm": self.final_norm}
+        for name in ("embed", "frontend_proj", "lm_head"):
+            if getattr(self, name, None) is not None:
+                tree[name] = getattr(self, name)
         if plan.prefix:
             tree["prefix"] = [_nest(self.blocks[i].named_parameters())
                               for i in range(len(plan.prefix))]
+        if len(self.mtp):
+            tree["mtp"] = [_nest(m.named_parameters()) for m in self.mtp]
         members = {}
         if plan.n_periods:
             tree["stack"] = []
@@ -363,12 +462,16 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
 
 def init_caches(cfg: ArchConfig, batch: int, max_seq: int, *,
                 device: str | torch.device | None = None) -> list:
-    """One cache per layer: a KV cache of ``max_seq`` rows for an attention
-    layer, the constant-size (S, z) for an NFFT layer."""
+    """One cache per layer (``_init_block_cache``): a KV cache of
+    ``max_seq`` rows for an attention layer, the (c_kv, k_rope) latents of
+    ``max_seq`` rows for MLA, and the constant-size conv buffers and state
+    for Mamba and (S, z) for NFFT."""
     dev = resolve_device(device)
-    return [init_nfft_cache(cfg, batch, device=dev)
-            if layer_signature(cfg, i).mixer == "nfft"
-            else init_kv_cache(cfg, batch, max_seq, device=dev)
+    make = {"attn": lambda: init_kv_cache(cfg, batch, max_seq, device=dev),
+            "mla": lambda: init_mla_cache(cfg, batch, max_seq, device=dev),
+            "mamba": lambda: init_mamba_cache(cfg, batch, device=dev),
+            "nfft": lambda: init_nfft_cache(cfg, batch, device=dev)}
+    return [make[layer_signature(cfg, i).mixer]()
             for i in range(cfg.num_layers)]
 
 
@@ -395,19 +498,24 @@ def params_from_arrays(tree: dict, cfg: ArchConfig, *,
 
     ``prefix[i]`` becomes layer i; a ``stack[slot]`` leaf of shape
     (n_periods, ...) is unstacked onto layers
-    ``len(prefix) + p * len(period) + slot``.
+    ``len(prefix) + p * len(period) + slot``; ``mtp[t]`` becomes
+    ``mtp[t]``.  Every leaf keeps its dtype (the MoE router and the SSM's
+    ``a_log``, ``dt_bias`` and ``d_skip`` are float32 in a bf16 model).
     """
     dev = resolve_device(device)
     plan = make_layer_plan(cfg)
     with torch.device("meta"):
         model = Model(cfg, generator=None, device="meta")
     model = model.to_empty(device=dev)
-    state = {"embed": tree["embed"], "final_norm": tree["final_norm"]}
-    if "lm_head" in tree:
-        state["lm_head"] = tree["lm_head"]
+    state = {name: tree[name] for name in
+             ("embed", "frontend_proj", "final_norm", "lm_head")
+             if name in tree}
     for i, block in enumerate(tree.get("prefix", [])):
         for name, leaf in _flatten(block):
             state[f"blocks.{i}.{name}"] = leaf
+    for t, mtp in enumerate(tree.get("mtp", [])):
+        for name, leaf in _flatten(mtp):
+            state[f"mtp.{t}.{name}"] = leaf
     for slot, stacked in enumerate(tree.get("stack", [])):
         for name, leaf in _flatten(stacked):
             leaf = np.asarray(leaf)

@@ -10,8 +10,12 @@ mix requests at very different progress.
 The port of ``repro.serving.engine``: the same admission, backpressure,
 recycling and greedy sampling.  PyTorch runs eagerly, so there is no
 per-length compile cache; a slot's caches are views into the batch's, and
-prefill fills them in place (a KV cache's rows, or an NFFT layer's
-constant-size (S, z), which prefill adds into).
+prefill fills them in place: a KV cache's or an MLA cache's rows, a Mamba
+layer's conv buffers and state, or an NFFT layer's constant-size (S, z),
+which prefill adds into.  Every token architecture is served: dense, MoE,
+MLA, Mamba, hybrid and NFFT stacks.  A Mamba layer takes prompts of at
+most ``chunk_size`` tokens or whole multiples of it, an NFFT layer
+prompts of at most 128 tokens or whole multiples of 128.
 """
 
 from __future__ import annotations
@@ -48,8 +52,8 @@ class ServeEngine:
     def __init__(self, cfg: ArchConfig, model: M.Model, *, slots: int = 4,
                  max_seq: int = 256, max_queue: Optional[int] = None,
                  device: str | torch.device | None = None):
-        if cfg.frontend != "none":
-            raise ValueError("the engine serves token-only archs")
+        if cfg.frontend != "none" or cfg.encoder_only:
+            raise ValueError("the engine serves token-only decoder archs")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model on {model.device}, engine on "

@@ -675,8 +675,64 @@ def test_flash_rows_without_keys_are_zero_on_card(cuda):
 
 def test_flash_rejects_unsupported_head_dim(cuda):
     q, k, v = _qkv((1, 2, 8, 48), (1, 2, 8, 48), torch.float32, cuda, 0)
-    with pytest.raises(ValueError, match="16, 32, 64, 128"):
+    with pytest.raises(ValueError, match="16, 32, 64, 80, 128, 256"):
         tfa.flash_attention(q, k, v)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk", [(1, 300), (63, 63), (200, 200),
+                                   (100, 40), (1000, 1000)])
+@pytest.mark.parametrize("dh", [80, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_cuda_core_head_dims_match_plain(cuda, dtype, dh, sq, sk,
+                                               causal):
+    """dh = 80 (hubert) and 256 (gemma, paligemma) take the CUDA-core
+    kernel in every type; GQA, ragged tiles, cross lengths, rows without
+    keys."""
+    _flash_tc_case(cuda, dtype, (1, 4, sq, dh), (1, 2, sk, dh), sq + dh,
+                   causal=causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_hubert_and_gemma_heads_match_plain(cuda, dtype):
+    """The heads the frontends and gemma prefill with: hubert's 16 x 80
+    non-causal and gemma-7b's 16 x 256 causal, at 1024 tokens."""
+    _flash_tc_case(cuda, dtype, (1, 16, 1024, 80), (1, 16, 1024, 80), 80)
+    _flash_tc_case(cuda, dtype, (1, 16, 1024, 256), (1, 16, 1024, 256),
+                   256, causal=True)
+
+
+@pytest.mark.parametrize("name", ["olmoe-1b-7b", "deepseek-v3-671b",
+                                  "mamba2-1.3b", "jamba-1.5-large-398b"])
+def test_reduced_mixers_serve_on_card_matches_cpu(cuda, name):
+    """Reduced MoE, MLA, Mamba and hybrid models (float32) served on the
+    card give the CPU's greedy tokens; prefill launches the flash kernel
+    once per GQA attention layer (MLA and Mamba never)."""
+    cfg = reduced_config(get_config(name))
+    on_card = tmodel.init_params(cfg, 5, device=cuda)
+    on_cpu = tmodel.init_params(cfg, 5, device="cpu")
+    on_cpu.load_state_dict({k: v.cpu()
+                            for k, v in on_card.state_dict().items()})
+    n_attn = sum(tmodel.layer_signature(cfg, i).mixer == "attn"
+                 for i in range(cfg.num_layers))
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in (3, 16, 9, 16)]
+    outputs = {}
+    for dev, model in ((cuda, on_card), (torch.device("cpu"), on_cpu)):
+        engine = ServeEngine(cfg, model, slots=2, max_seq=64, device=dev)
+        reqs = [Request(uid=i, tokens=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            engine.submit(r)
+        launches = tfa.flash_attention.launches
+        engine.run_until_drained()
+        if dev.type == "cuda":
+            assert tfa.flash_attention.launches - launches \
+                == n_attn * len(prompts)
+        outputs[dev.type] = [r.output for r in reqs]
+    assert outputs["cuda"] == outputs["cpu"]
 
 
 def test_reduced_serve_on_card_matches_cpu(cuda):

@@ -21,6 +21,7 @@ MODULES = ("core.kernels", "core.regularization", "core.nfft",
            "data.synthetic", "device", "quickstart", "ssl_crescent",
            "configs", "configs.base", "configs.archs", "models.common",
            "models.mlp", "models.attention", "models.model",
+           "models.mamba",
            "serving.engine", "serving.graph", "launch.serve",
            "launch.trace_serve",
            "launch.time_window", "launch.time_kernel_matvec",

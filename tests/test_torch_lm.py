@@ -1,13 +1,23 @@
 """The port's LM configs and serving forwards against the JAX package.
 
 Configs and layer plans must equal the JAX package's for every registered
-architecture.  For the reduced dense token architectures (granite-3-2b:
-GQA and a tied head; gemma-7b: GeGLU, embedding scale; qwen1.5-32b: MHA
-with QKV biases; llama3-405b: GQA, an untied head), the JAX model's
-weights are carried onto the port by ``params_from_arrays`` and both run
-the same numpy-seeded tokens in float32.  Logits must agree within 1e-5 of
-the largest |logit|, and KV caches within 1e-5 of their largest entry
-(sums run in another order).
+architecture, and the port's ``init_params`` builds every one of them with
+the JAX package's parameter count.  For the reduced dense token
+architectures (granite-3-2b: GQA and a tied head; gemma-7b: GeGLU,
+embedding scale; qwen1.5-32b: MHA with QKV biases; llama3-405b: GQA, an
+untied head), the JAX model's weights are carried onto the port by
+``params_from_arrays``; for the other token architectures (deepseek-v3:
+MLA, MoE with a shared expert, 1 dense layer first; olmoe: MoE; mamba2:
+pure SSM blocks; jamba: the 1:7 attention/Mamba hybrid with MoE every
+other layer) the port's weights are carried the other way
+(tests/_torch_lm_cases.py).  Both run the same numpy-seeded tokens in
+float32.  Logits must agree within 1e-5 of the largest |logit|, and
+caches (KV, MLA latents, Mamba conv buffers and state) within 1e-5 of
+their largest entry (sums run in another order).  MoE routing is the same
+discrete choice in both packages; a near tie between two experts' router
+probabilities could flip between the two packages' float32 matmuls, and
+then the outputs would differ by far more than the tolerance: none occurs
+at these seeds, and tests/test_torch_moe.py checks the routing itself.
 
 The NFFT kernel attention blocks (granite-3-2b-nfft) run the same prefill
 and decode checks: prefill logits within 1e-5, decode logits and the
@@ -22,6 +32,7 @@ test_attention_on_the_jax_features_matches_tightly).
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -29,17 +40,25 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_lm_cases as cases
 from repro import configs as jconfigs
 from repro.models import model as JM
 from repro_torch import configs as tconfigs
+from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.models import model as TM
 
 DENSE = ["granite-3-2b", "gemma-7b", "qwen1.5-32b", "llama3-405b"]
-NOT_PORTED = ["deepseek-v3-671b", "olmoe-1b-7b", "mamba2-1.3b",
-              "jamba-1.5-large-398b", "hubert-xlarge", "paligemma-3b"]
+# MLA, MoE, Mamba and the hybrid: weights drawn by the port
+MIXERS = ["deepseek-v3-671b", "olmoe-1b-7b", "mamba2-1.3b",
+          "jamba-1.5-large-398b"]
 # the NFFT kernel attention blocks: prefill and decode against the JAX
 # package as the dense ones are (it has no flash path)
-PARITY = DENSE + ["granite-3-2b-nfft"]
+PARITY = DENSE + MIXERS + ["granite-3-2b-nfft"]
+# the architectures whose layers include GQA softmax attention, which
+# takes the flash kernel on the card
+FLASH_ARCHS = [n for n in tconfigs.list_archs() if any(
+    TM.layer_signature(tconfigs.get_config(n), i).mixer == "attn"
+    for i in range(tconfigs.get_config(n).num_layers))]
 TOL = 1e-5
 NFFT_TOL = 5e-5
 
@@ -91,16 +110,33 @@ def test_layer_plan_matches_jax(name):
         assert tplan.num_layers == jplan.num_layers == tcfg.num_layers
 
 
-@pytest.mark.parametrize("name", NOT_PORTED)
-def test_unported_blocks_raise(name):
-    cfg = tconfigs.reduced_config(tconfigs.get_config(name))
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        TM.init_params(cfg, 0, device="cpu")
+@pytest.mark.parametrize("name", jconfigs.list_archs())
+def test_init_params_builds_every_arch(name):
+    """Every registered architecture builds at its reduced config, with
+    the JAX package's tree (paths, shapes, dtypes) and parameter count."""
+    jcfg, tcfg = cases.configs(name)
+    model = TM.init_params(tcfg, 0, device="cpu")
+    cases.assert_tree_is_jax_init(cases.port_tree(model), jcfg)
+    want = jax.eval_shape(lambda k: JM.init_params(k, jcfg),
+                          jax.random.PRNGKey(0))
+    assert sum(p.numel() for p in model.parameters()) == \
+        sum(int(np.prod(a.shape)) for a in jax.tree.leaves(want))
+
+
+@pytest.mark.parametrize("name", FLASH_ARCHS)
+def test_attention_head_dims_have_a_flash_kernel(name):
+    """Each config whose layers include GQA attention has a head dim the
+    CUDA flash kernel is built for (gemma-7b and paligemma-3b 256,
+    hubert-xlarge 80): a prefill on the card launches it."""
+    assert tconfigs.get_config(name).head_dim_eff in HEAD_DIMS
 
 
 def _carry(name, seed=1):
     """(JAX cfg, JAX params, port cfg, port model) on the same weights;
-    QKV biases (zeros at init) are made nonzero so that they count."""
+    QKV biases (zeros at init) are made nonzero so that they count.  The
+    MIXERS' weights come from the port (``cases.carried``)."""
+    if name in MIXERS:
+        return cases.carried(name, seed)
     jcfg = jconfigs.reduced_config(jconfigs.get_config(name))
     tcfg = tconfigs.reduced_config(tconfigs.get_config(name))
     params = JM.init_params(jax.random.PRNGKey(seed), jcfg)
@@ -117,8 +153,9 @@ def _carry(name, seed=1):
 
 
 def _jax_cache_layers(caches, cfg):
-    """Per-layer JAX caches (a KVCache's (k, v), an NFFTCache's (s_cos,
-    s_sin)) with numpy leaves."""
+    """Per-layer JAX caches (a KVCache's (k, v), an MLACache's (c_kv,
+    k_rope), a MambaCache's (conv_x, conv_bc, ssm), an NFFTCache's
+    (s_cos, s_sin)) with numpy leaves."""
     plan = JM.make_layer_plan(cfg)
     out = [None] * cfg.num_layers
     for i, c in caches.get("prefix", {}).items():
@@ -136,8 +173,8 @@ def _tol(cfg):
 
 
 def _assert_caches_match(tcaches, jcaches, cfg):
-    """Field by field: k and v of a KV cache, s_cos and s_sin of an
-    NFFT cache (the port's cache type has the JAX package's fields)."""
+    """Field by field (the port's cache types have the JAX package's
+    fields)."""
     for i, jc in enumerate(_jax_cache_layers(jcaches, cfg)):
         assert tcaches[i]._fields == jc._fields, i
         for name in jc._fields:
@@ -145,13 +182,23 @@ def _assert_caches_match(tcaches, jcaches, cfg):
             assert _rel(got, getattr(jc, name)) <= _tol(cfg), (name, i)
 
 
+def _jax(name, jcfg):
+    """The JAX package's prefill and decode: jitted for the MIXERS, whose
+    eager forwards take seconds each."""
+    if name in MIXERS:
+        return cases.jax_fns(name)
+    return SimpleNamespace(
+        prefill=lambda p, b, c: JM.forward_prefill(p, jcfg, b, c),
+        decode=lambda p, t, pos, c: JM.forward_decode(p, jcfg, t, pos, c))
+
+
 @pytest.mark.parametrize("name", PARITY)
 def test_prefill_matches_jax(name):
     jcfg, params, tcfg, model = _carry(name)
     toks = np.random.default_rng(0).integers(0, tcfg.vocab_size, (2, 12))
-    jl, jc = JM.forward_prefill(params, jcfg,
-                                {"tokens": jnp.asarray(toks, jnp.int32)},
-                                JM.init_caches(jcfg, 2, 24))
+    jl, jc = _jax(name, jcfg).prefill(
+        params, {"tokens": jnp.asarray(toks, jnp.int32)},
+        JM.init_caches(jcfg, 2, 24))
     tl, tc = model.forward_prefill({"tokens": torch.as_tensor(toks)},
                                    TM.init_caches(tcfg, 2, 24, device="cpu"))
     assert tl.shape == jl.shape == (2, 1, tcfg.vocab_size)
@@ -167,16 +214,16 @@ def test_decode_steps_match_jax(name):
     jcfg, params, tcfg, model = _carry(name, seed=2)
     rng = np.random.default_rng(5)
     toks = rng.integers(0, tcfg.vocab_size, (2, 10))
-    _, jc = JM.forward_prefill(params, jcfg,
-                               {"tokens": jnp.asarray(toks, jnp.int32)},
-                               JM.init_caches(jcfg, 2, 24))
+    fns = _jax(name, jcfg)
+    _, jc = fns.prefill(params, {"tokens": jnp.asarray(toks, jnp.int32)},
+                        JM.init_caches(jcfg, 2, 24))
     _, tc = model.forward_prefill({"tokens": torch.as_tensor(toks)},
                                   TM.init_caches(tcfg, 2, 24, device="cpu"))
     pos = np.array([10, 6])
     for step in range(4):
         tok = rng.integers(0, tcfg.vocab_size, (2, 1))
-        jl, jc = JM.forward_decode(params, jcfg, jnp.asarray(tok, jnp.int32),
-                                   jnp.asarray(pos + step, jnp.int32), jc)
+        jl, jc = fns.decode(params, jnp.asarray(tok, jnp.int32),
+                            jnp.asarray(pos + step, jnp.int32), jc)
         tl, tc = model.forward_decode(torch.as_tensor(tok),
                                       torch.as_tensor(pos + step), tc)
         assert tl.shape == (2, 1, tcfg.vocab_size)
@@ -203,11 +250,20 @@ def test_flash_and_einsum_prefill_agree(name):
     assert _rel(out[True][0].numpy(), jl) <= TOL
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + MIXERS)
 def test_prefill_decode_consistency(name):
     """Prefill s-1 tokens then decode token s-1 equals the whole-sequence
-    forward at position s-1 (as tests/test_arch_smoke.py does for JAX)."""
+    forward at position s-1 (as tests/test_arch_smoke.py does for JAX).
+    MoE routing drops the choices past an expert's capacity in each token
+    group, and the groups of a 2 x 16-token forward, a 2 x 15-token
+    prefill and a 2-token decode differ, so the three agree only where no
+    choice is dropped (in the JAX package too): for the MoE architectures
+    the capacity factor is e / k, which makes every capacity the group's
+    size."""
     cfg = tconfigs.reduced_config(tconfigs.get_config(name))
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
     model = TM.init_params(cfg, 1, device="cpu")
     b, s = 2, 16
     toks = torch.as_tensor(
@@ -219,6 +275,33 @@ def test_prefill_decode_consistency(name):
     dec, _ = model.forward_decode(toks[:, s - 1:], torch.full((b,), s - 1),
                                   caches)
     assert _rel(dec[:, 0].numpy(), full[:, -1].numpy()) <= TOL
+
+
+@pytest.mark.parametrize("name", MIXERS)
+def test_future_tokens_dont_affect_past(name):
+    """The twin of tests/test_causality.py's for the port's MLA, MoE,
+    Mamba and hybrid stacks (MoE with every choice kept: a dropped choice
+    depends on the other tokens of its group, later ones too, in both
+    packages)."""
+    cfg = tconfigs.reduced_config(tconfigs.get_config(name))
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    model = TM.init_params(cfg, 0, device="cpu")
+    b, s, cut = 2, 32, 17
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab_size, (b, s))
+    toks2 = toks.copy()
+    toks2[:, cut:] = rng.integers(0, cfg.vocab_size, (b, s - cut))
+
+    def logits(t):
+        x, positions, _ = model.embed_inputs({"tokens": torch.as_tensor(t)})
+        return model.lm_logits(model.run_backbone(x, positions,
+                                                  mode="train"))
+
+    la, lb = logits(toks), logits(toks2)
+    assert float((la[:, :cut] - lb[:, :cut]).abs().max()) < 1e-4
+    assert float((la[:, cut:] - lb[:, cut:]).abs().max()) > 1e-4
 
 
 def test_params_from_arrays_carries_bf16_leaves():

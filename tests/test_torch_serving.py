@@ -2,7 +2,9 @@
 backpressure, and token-for-token agreement with the JAX engine.
 
 Mirrors ``tests/test_serving.py`` on the port (reduced granite-3-2b,
-float32, on the CPU; reduced granite-3-2b-nfft for the NFFT twins), and runs the JAX ``ServeEngine`` and the port's on
+float32, on the CPU; reduced granite-3-2b-nfft for the NFFT twins; the
+reduced MLA, MoE, Mamba and hybrid models against the manual loop), and
+runs the JAX ``ServeEngine`` and the port's on
 the same carried weights and seeded prompts: their tokens must be equal.
 """
 
@@ -90,6 +92,21 @@ def _engine_matches_manual_decode(cfg, model):
     engine.run_until_drained()
     for r, p in zip(reqs, prompts):
         assert r.output == _manual_greedy(cfg, model, p, n_new, 64), r.uid
+
+
+MIXERS = ["deepseek-v3-671b", "olmoe-1b-7b", "mamba2-1.3b",
+          "jamba-1.5-large-398b"]
+
+
+@pytest.mark.parametrize("name", MIXERS)
+def test_mixer_engines_match_manual_decode(name):
+    """MLA caches, Mamba conv buffers and states and the MoE blocks through
+    the engine's slot views: prefill fills them in place, and recycled
+    slots (zeroed at admission) keep nothing of their earlier tenant."""
+    cfg = reduced_config(get_config(name))
+    model = M.init_params(cfg, 3, device="cpu")
+    _engine_matches_manual_decode(cfg, model)
+    _recycled_slot_has_no_stale_cache(cfg, model)
 
 
 def test_continuous_batching_recycles_slots(setup):

@@ -41,6 +41,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_lm_cases as cases
 from repro import configs as jconfigs
 from repro.data import pipeline as jpipe
 from repro.dist import compression as jcomp
@@ -365,9 +366,11 @@ def test_forward_train_matches_jax_and_the_reference_loop():
 
 def test_training_refuses_flash_mtp_and_serving_builds_no_graph():
     """The flash kernel has no backward: a forward that wants a gradient
-    through it raises.  Multi-token prediction waits for item 13c.  The
-    serving forwards of a trainable model build no graph."""
-    _, tcfg = _cfgs()
+    through it raises.  Multi-token prediction (granite-3-2b with
+    ``mtp_depth=1``, one chained attention block) gives the JAX package's
+    loss and ``mtp_loss`` within STEP_TOL.  The serving forwards of a
+    trainable model build no graph."""
+    jcfg, tcfg = _cfgs()
     model = TM.init_params(tcfg, 0, device="cpu")
     model.stack_for_training()
     x = torch.randn((1, 8, tcfg.d_model))
@@ -376,10 +379,20 @@ def test_training_refuses_flash_mtp_and_serving_builds_no_graph():
         model.blocks[0].attn(x, pos, use_flash=True)
     with torch.no_grad():
         model.blocks[0].attn(x, pos, use_flash=True)
-    mtp = TM.init_params(dataclasses.replace(tcfg, mtp_depth=1), 0,
-                         device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13c"):
-        mtp.forward_train(_torch_batch(_batch(tcfg, 0)))
+    jmtp = dataclasses.replace(jcfg, mtp_depth=1)
+    tmtp = dataclasses.replace(tcfg, mtp_depth=1)
+    tree = cases.port_tree(TM.init_params(tmtp, 0, device="cpu"))
+    cases.assert_tree_is_jax_init(tree, jmtp)
+    mtp = TM.params_from_arrays(tree, tmtp, device="cpu")
+    batch = _batch(jmtp, 0)
+    want, wm = jax.jit(lambda p, b: JM.forward_train(p, jmtp, b))(
+        jax.tree.map(jnp.asarray, tree), jax.tree.map(jnp.asarray, batch))
+    with torch.no_grad():
+        got, gm = mtp.forward_train(_torch_batch(batch))
+    assert sorted(gm) == sorted(wm)
+    for key in ("loss", "mtp_loss"):
+        assert abs(float(gm[key]) - float(wm[key])) \
+            <= STEP_TOL * float(wm[key]), key
     caches = TM.init_caches(tcfg, 1, 16, device="cpu")
     tokens = torch.zeros((1, 8), dtype=torch.long)
     logits, _ = model.forward_prefill({"tokens": tokens}, caches)
@@ -387,6 +400,56 @@ def test_training_refuses_flash_mtp_and_serving_builds_no_graph():
     logits, _ = model.forward_decode(torch.zeros((1, 1), dtype=torch.long),
                                      torch.tensor([8]), caches)
     assert not logits.requires_grad
+
+
+# -- the other mixers and the frontends -------------------------------------
+
+# MLA + MoE + MTP, MoE, pure SSM, the hybrid, the audio and vision stubs
+FAMILIES = ["deepseek-v3-671b", "olmoe-1b-7b", "mamba2-1.3b",
+            "jamba-1.5-large-398b", "hubert-xlarge", "paligemma-3b"]
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_forward_train_of_every_family_matches_jax(name):
+    """Reduced configs, the reference's step-0 batch (tokens, or frame /
+    image embeddings): every metric (cross entropy, the MoE aux loss, the
+    MTP loss, the total) within STEP_TOL of the JAX package's; the plain
+    layer loop gives the same loss exactly."""
+    jcfg, params, _, model = cases.carried(name)
+    batch = _batch(jcfg, 0)
+    want, wm = cases.jax_fns(name).train(params, jax.tree.map(jnp.asarray,
+                                                              batch))
+    with torch.no_grad():
+        got, gm = model.forward_train(_torch_batch(batch))
+        ref, _ = model.forward_train_reference(_torch_batch(batch))
+    assert sorted(gm) == sorted(wm)
+    for key, val in wm.items():
+        assert abs(float(gm[key]) - float(val)) <= STEP_TOL * abs(
+            float(val)), key
+    assert float(ref) == float(got)
+    if jcfg.moe is not None:
+        assert float(gm["aux_loss"]) > 0.0
+
+
+def test_value_and_grad_of_deepseek_matches_jax():
+    """Reduced deepseek-v3-671b (a dense MLA layer, then MLA + MoE layers
+    with a shared expert and capacity drops, and one MTP depth): the loss
+    within STEP_TOL and every gradient leaf within GRAD_TOL of its largest
+    entry against ``jax.value_and_grad`` of the JAX package's
+    ``forward_train``, through the port's remat train-step gradients."""
+    jcfg, params, tcfg, _ = cases.carried("deepseek-v3-671b")
+    batch = _batch(jcfg, 0)
+    want_loss, want = jax.jit(jax.value_and_grad(
+        lambda p, b: JM.forward_train(p, jcfg, b)[0]))(
+            params, jax.tree.map(jnp.asarray, batch))
+    model = TM.params_from_arrays(_np_tree(params), tcfg, device="cpu")
+    step = ttl.make_train_step(tcfg, ttl.TrainConfig(num_microbatches=1))
+    loss, _, grads = step.gradients(model, _torch_batch(batch))
+    assert abs(float(loss) - float(want_loss)) <= STEP_TOL * float(want_loss)
+    _assert_tree_close(grads, _np_tree(want), GRAD_TOL)
+    moe = grads["stack"][1]["moe"]  # the plan: one period of 5 layers
+    assert float(moe["router"].abs().max()) > 0.0
+    assert float(grads["mtp"][0]["combine"].abs().max()) > 0.0
 
 
 # -- learn_sigma: tests/test_differentiable.py's train step -------------------

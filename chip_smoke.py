@@ -143,6 +143,8 @@ FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 # NVIDIA H100 SXM data sheet: HBM3 rate and the peaks outside the tensor
 # cores (the window kernels issue plain FP64/FP32 FMAs).
 HBM_BYTES_PER_S = 3.35e12
+# shared memory a block can use on the H100 (227 KB)
+SMEM_PER_BLOCK = 232448
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
 # ... and the bf16 dense tensor-core peak: the bound of attention, whatever
 # units a kernel uses
@@ -380,7 +382,8 @@ VLM_ARCH, VLM_TEXT, VLM_DECODE = "paligemma-3b", 32, 8
 GEMMA_ARCH, GEMMA_LAYERS, GEMMA_TOKENS = "gemma-7b", 2, 2048
 # the flash kernel on each new path that launches it: (path, label, (b,
 # hq, hkv, sq, sk, dh), causal, dtype), checked against its plain version
-# in [flash] (float32 and bf16) and timed in [times] at the path's shape
+# in [flash] (float32 and bf16; f16 too at dh 80 and 256) and timed in
+# [times] at the path's shape
 FAMILY_FLASH = (
     ("moe_serve", "olmoe", (1, 16, 16, 2048, 2048, 128), True, "bfloat16"),
     ("hybrid_serve", "jamba", (1, 4, 1, 256, 256, 16), True, "float32"),
@@ -817,6 +820,8 @@ class Smoke:
         for _, label, shape, causal, _ in FAMILY_FLASH:
             for dname in ("float32", "bfloat16"):
                 yield label, shape, causal, dname
+            if shape[5] in (80, 256):  # hubert's and gemma's heads
+                yield label, shape, causal, "float16"
 
     def window_geometry(self, setup_name, d, n, kind="spiral"):
         """(NFFT plan, window geometry), built once per argument set.
@@ -1041,19 +1046,29 @@ class Smoke:
             m = re.search(r"(\d+) bytes smem", line)
             if m:
                 rows[name]["smem"] = int(m.group(1))
-        check(len(rows) == 8, f"flash: {len(rows)} tensor-core kernel "
-              "instances in the ptxas report, expected 8 (2 dtypes x 4 dh)")
+        want = {(dname, dh) for dname in ("bfloat16", "float16")
+                for dh in self.fa.WGMMA_HEAD_DIMS}
+        check(set(rows) == want, f"flash: tensor-core kernel instances "
+              f"{sorted(rows)} in the ptxas report, expected {sorted(want)}")
         self.record["flash_build"] = []
         for (dname, dh), r in sorted(rows.items()):
-            # dynamic: two stages of K and V tiles (64 x dh), 1024 bytes of
-            # alignment slack, three barriers per stage
-            dyn = 2 * 2 * 64 * dh * 2 + 1024 + 2 * 24
+            # dynamic (TcTile::kSmem): two stages of K and V tiles
+            # (64 x dh), q's tile and its barrier where q is staged
+            # (dh = 256), 1024 bytes of alignment slack, three barriers
+            # per stage
+            tile = 64 * dh * 2
+            dyn = 2 * 2 * tile + (tile + 8 if dh == 256 else 0) + 1024 + 48
             self.record["flash_build"].append(
                 {"dtype": dname, "dh": dh, **r, "dynamic_smem": dyn})
             log(f"[build]   flash_fwd_wgmma {dname} dh={dh}: "
                 f"{r.get('registers')} registers, {r['smem'] + dyn} bytes "
                 f"shared memory per block ({dyn} dynamic), "
                 f"{r.get('spill_bytes')} bytes spilled")
+            check(r.get("spill_bytes") == 0,
+                  f"flash_fwd_wgmma {dname} dh={dh} spills: {r}")
+            check(r["smem"] + dyn <= SMEM_PER_BLOCK,
+                  f"flash_fwd_wgmma {dname} dh={dh}: {r['smem'] + dyn} "
+                  f"bytes of shared memory, over {SMEM_PER_BLOCK}")
 
     def window_cases(self):
         """(kind, setup, d, channels, dtypes) of every window check."""

@@ -22,17 +22,32 @@
 //   A block is one consumer warpgroup, owning 64 query rows of one (batch,
 //   q head), and one producer warp.  The producer keeps a two-stage ring of
 //   K and V tiles (64 keys, in T) full with TMA copies, each tile swizzled
-//   as wgmma reads it (128-, 64- or 32-byte swizzle, the widest a row of dh
-//   allows; dh = 128 is two 64-column regions), against mbarriers: tile
-//   j + 1 loads while tile j is multiplied.  The warpgroup keeps its q rows
-//   in registers as wgmma A fragments and computes S = Q K^T (K-major B from
-//   shared memory, float32 accumulator).  The online softmax runs in
-//   float32 on the accumulator fragments: row max and sum over the 4
-//   threads of a quad, p = exp2((s - m) c) with c = |scale| log2(e), the
-//   difference taken on the raw scores (exact for the keys that carry the
-//   weight, so large logits lose no bits to the scaling; a negative scale
-//   flips q's sign bits once).  P is then split into hi = T(p) and
-//   lo = T(p - hi), straight from the S fragments in registers, and
+//   as wgmma reads it, against mbarriers: tile j + 1 loads while tile j is
+//   multiplied.  A tile is column regions of 64 rows x 128 bytes in
+//   128-byte swizzle (one for dh = 64, two for 128, four for 256), or one
+//   region a whole row wide below dh = 64 (32- and 64-byte swizzle).  A
+//   160-byte row (dh = 80) fits no single swizzle: its tile is one 64-column
+//   region in 128-byte swizzle and a tail of the last 16 columns in 32-byte
+//   swizzle, each with a tensor map of its own; QK's last 16-deep step reads
+//   the tail, and PV is a 64-wide product on the region plus a 16-wide one
+//   on the tail.  No column is padded, so no work is added.  On the H100
+//   (700 W, time_flash.py at hubert's heads) this beat five 16-column
+//   regions in 32-byte swizzle (five TMA boxes a tile) by ~15 % and three
+//   32-column regions in 64-byte swizzle padded to 96 columns (PV at
+//   n = 96) by ~7 %.  The warpgroup keeps its q rows in registers as wgmma
+//   A fragments and computes S = Q K^T (K-major B from shared memory,
+//   float32 accumulator).  At dh = 256 the accumulator of O alone takes 128
+//   registers a thread and q's fragments would take 64 more, so that block
+//   stages its 64 rows of q in shared memory once (a third TMA copy, laid
+//   out like K) and QK reads A through a descriptor too: ~160 KB of shared
+//   memory (K and V stages 128 KB, q 32 KB), one block an SM.  The online
+//   softmax runs in float32 on the accumulator fragments: row max and sum
+//   over the 4 threads of a quad, p = exp2((s - m) c) with
+//   c = |scale| log2(e), the difference taken on the raw scores (exact for
+//   the keys that carry the weight, so large logits lose no bits to the
+//   scaling; a negative scale flips q's sign bits once, or the scores'
+//   signs where q is staged, both exact).  P is then split into hi = T(p)
+//   and lo = T(p - hi), straight from the S fragments in registers, and
 //   O += P_hi V + P_lo V: two wgmma products with A from registers and V as
 //   a transposed (MN-major) B.  One rounding of P to T (what the TPU kernel
 //   and the usual tensor-core flash kernels do) leaves outputs near zero
@@ -44,27 +59,28 @@
 //   bf16/fp16 on the H100 SXM; q, k, v are read once from device memory
 //   (K/V again per q head, from L2) and o written once.  Beside the tensor
 //   work, each score costs ~10 float32 operations and one exp2 on the
-//   CUDA cores; three blocks share an SM (at dh = 64), so one block's
-//   softmax overlaps another's products.
+//   CUDA cores, and each key tile rescales the accumulator (dh / 2 float32
+//   multiplies a thread); where several blocks share an SM, one block's
+//   softmax overlaps another's products.  Registers set how many
+//   (ptxas for sm_90a, bf16 / fp16, no spill): three at dh = 64 and at
+//   dh = 80 (130 registers, 42,032 bytes of shared memory), two at 128,
+//   and one at dh = 256 (207 / 205 registers, 164,920 bytes), whose
+//   softmax and products take turns.  Every block also reads its head's
+//   K and V whole (from L2), 64 rows of q at a time.
 //
-// float32, and every type at dh = 80 and 256: flash_fwd_kernel, on the
-//   CUDA cores.  TF32 tensor cores would miss the float32 limit (2e-5
-//   absolute), so float32, the path of the parity checks, keeps a query row
+// float32: flash_fwd_kernel, on the CUDA cores.  TF32 tensor cores would
+//   miss the float32 limit (2e-5 absolute), so float32, the path of the
+//   parity checks, keeps a query row
 //   per thread, or per two or four threads that each hold a part of the
 //   dims and are joined by shuffles per key (two for dh = 80 and 128, four
 //   for dh = 256), with the row's q, its float32 accumulator and its
 //   running max and normaliser in registers.  K and V tiles are staged
-//   through shared memory as float32 (converted from bf16 / fp16 on the
-//   way in), and every thread of a warp reads the same key at the same
-//   time (broadcast, 16 bytes per load).  Keys are scored kChunk at a time,
-//   so the accumulator is rescaled once per chunk and not once per key.
-//   A stage holds 64 keys up to dh = 64, 32 up to dh = 128 and 16 at
-//   dh = 256, so that K and V stay under the 48 KB of static shared
-//   memory.  The wgmma kernel takes dh in {16, 32, 64, 128} only (its
-//   swizzled tiles want 32, 64 or 128 bytes a row or whole 64-column
-//   regions); bf16 and fp16 at dh = 80 (hubert) and 256 (gemma,
-//   paligemma) take this kernel, a simple one that is not yet
-//   redesigned for the tensor cores.
+//   through shared memory as float32, and every thread of a warp reads the
+//   same key at the same time (broadcast, 16 bytes per load).  Keys are
+//   scored kChunk at a time, so the accumulator is rescaled once per chunk
+//   and not once per key.  A stage holds 64 keys up to dh = 64, 32 up to
+//   dh = 128 and 16 at dh = 256, so that K and V stay under the 48 KB of
+//   static shared memory.
 //   What bounds it: operations, 2 dh multiply-adds per visible pair on the
 //   FP32 cores (67 TFLOP/s), each needing a quarter of a shared-memory load.
 
@@ -87,31 +103,16 @@ namespace {
 constexpr int kRows = 64;   // query rows per block
 constexpr int kChunk = 16;  // keys scored per online-softmax update
 
+// the kernel runs float32 only (bf16 and fp16 take the tensor cores)
 template <typename T>
 __device__ __forceinline__ float to_float(T x);
 template <>
 __device__ __forceinline__ float to_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <>
-__device__ __forceinline__ float to_float<__half>(__half x) {
-  return __half2float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <>
-__device__ __forceinline__ __half from_float<__half>(float x) {
-  return __float2half_rn(x);
-}
 
 template <int DH>
 struct Shape {
@@ -264,20 +265,38 @@ constexpr int kTcKeys = 64;      // keys per K/V tile
 constexpr int kTcStages = 2;     // K/V tiles in flight
 constexpr int kTcThreads = 160;  // warps 0-3 consume, warp 4 loads
 
-// One 64-row tile of dh elements in shared memory, as TMA writes it with
-// the widest swizzle a row allows and as wgmma reads it: kRegions column
-// regions of 64 rows x kSw bytes.
+// One 64-row tile of dh elements in shared memory, as TMA writes it and as
+// wgmma reads it: kRegions column regions of 64 rows x kSw bytes, swizzled
+// kSw bytes wide (128, or a whole row below dh = 64), then, at dh = 80, a
+// tail region of the last 16 columns, 64 rows x 32 bytes in 32-byte swizzle.
 template <int DH>
 struct TcTile {
-  static_assert(DH == 16 || DH == 32 || DH == 64 || DH == 128,
+  static_assert(DH == 16 || DH == 32 || DH == 64 || DH == 80 || DH == 128 ||
+                    DH == 256,
                 "unsupported head dim");
-  static constexpr int kSw = DH * 2 >= 128 ? 128 : DH * 2;  // swizzle bytes
-  static constexpr int kBoxCols = kSw / 2;                   // elements
+  static constexpr int kSw = DH >= 64 ? 128 : DH * 2;  // swizzle bytes
+  static constexpr int kBoxCols = kSw / 2;              // elements
   static constexpr int kRegions = DH / kBoxCols;
+  static constexpr int kMain = kRegions * kBoxCols;     // columns
+  static constexpr int kTail = DH - kMain;              // columns
+  static_assert(kTail == 0 || kTail == 16, "unsupported head dim");
   static constexpr int kRegionBytes = 64 * kSw;
+  static constexpr int kTailAt = kRegions * kRegionBytes;  // byte offset
   static constexpr int kBytes = 64 * DH * 2;
   // wgmma descriptor layout: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte swizzle
   static constexpr uint64_t kLayout = kSw == 128 ? 1 : (kSw == 64 ? 2 : 3);
+  static constexpr int kTailSw = 2 * kTail;  // bytes: a tail row, swizzled
+  static constexpr uint64_t kTailLayout = 3;
+  // q as A fragments (DH / 4 registers) would not fit beside a 128-register
+  // accumulator at dh = 256: its block stages q in shared memory instead,
+  // and the QK product reads A through a descriptor
+  static constexpr bool kQShared = DH == 256;
+  // dynamic shared memory: kTcStages stages of K and V, q's tile where it
+  // is staged, 1024 bytes of alignment slack, 3 barriers a stage (+ q's)
+  static constexpr int kSmem = 2 * kTcStages * kBytes +
+                               (kQShared ? kBytes + 8 : 0) + 1024 +
+                               24 * kTcStages;
+  static_assert(kSmem <= 232448, "over the 227 KB of shared memory a block");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -325,21 +344,30 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-// rows [row, row + 64) of one head through `map`, all column regions, into
-// a tile at dst; rows past the head's end arrive as zeros
+// rows [row, row + 64) of one head, columns from col on, through `map`
+// (whose box is one column region) into dst; rows past the head's end
+// arrive as zeros
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
+                                        uint32_t bar, int col, int row,
+                                        int head) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
+      "r"(head)
+      : "memory");
+}
+// ... a whole tile: every region through `map`, the tail through `tail`
 template <int DH>
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         const CUtensorMap* tail,
                                          uint32_t bar, int row, int head) {
   using L = TcTile<DH>;
 #pragma unroll
   for (int r = 0; r < L::kRegions; ++r)
-    asm volatile(
-        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
-        "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
-            dst + r * L::kRegionBytes),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(r * L::kBoxCols),
-        "r"(row), "r"(head)
-        : "memory");
+    tma_box(dst + r * L::kRegionBytes, map, bar, r * L::kBoxCols, row, head);
+  if constexpr (L::kTail > 0)
+    tma_box(dst + L::kTailAt, tail, bar, L::kMain, row, head);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -410,7 +438,12 @@ template <typename T>
 __device__ __forceinline__ void wgmma_qk(float (&d)[8][4],
                                          const uint32_t (&a)[4], uint64_t b,
                                          int accumulate);
-// O += P V: m64nDHk16, V as a transposed (MN-major) B.
+// The same with A (q) from shared memory through a descriptor too.
+template <typename T>
+__device__ __forceinline__ void wgmma_qk_ss(float (&d)[8][4], uint64_t a,
+                                            uint64_t b, int accumulate);
+// O += P V: m64nNk16, V as a transposed (MN-major) B; N = dh, or at
+// dh = 80 N = 64 on the region and N = 16 on the tail.
 template <typename T, int N>
 __device__ __forceinline__ void wgmma_pv(float (&d)[N / 8][4],
                                          const uint32_t (&a)[4], uint64_t b);
@@ -473,6 +506,21 @@ __device__ __forceinline__ void wgmma_pv<__nv_bfloat16, 64>(
 }
 
 template <>
+__device__ __forceinline__ void wgmma_qk_ss<__nv_bfloat16>(
+    float (&d)[8][4], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : REPRO_ACC(0), REPRO_ACC(1), REPRO_ACC(2), REPRO_ACC(3), REPRO_ACC(4),
+        REPRO_ACC(5), REPRO_ACC(6), REPRO_ACC(7)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_pv<__nv_bfloat16, 128>(
     float (&d)[16][4], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
@@ -488,6 +536,35 @@ __device__ __forceinline__ void wgmma_pv<__nv_bfloat16, 128>(
         REPRO_ACC(5), REPRO_ACC(6), REPRO_ACC(7), REPRO_ACC(8), REPRO_ACC(9),
         REPRO_ACC(10), REPRO_ACC(11), REPRO_ACC(12), REPRO_ACC(13),
         REPRO_ACC(14), REPRO_ACC(15)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv<__nv_bfloat16, 256>(
+    float (&d)[32][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : REPRO_ACC(0), REPRO_ACC(1), REPRO_ACC(2), REPRO_ACC(3), REPRO_ACC(4),
+        REPRO_ACC(5), REPRO_ACC(6), REPRO_ACC(7), REPRO_ACC(8), REPRO_ACC(9),
+        REPRO_ACC(10), REPRO_ACC(11), REPRO_ACC(12), REPRO_ACC(13),
+        REPRO_ACC(14), REPRO_ACC(15), REPRO_ACC(16), REPRO_ACC(17),
+        REPRO_ACC(18), REPRO_ACC(19), REPRO_ACC(20), REPRO_ACC(21),
+        REPRO_ACC(22), REPRO_ACC(23), REPRO_ACC(24), REPRO_ACC(25),
+        REPRO_ACC(26), REPRO_ACC(27), REPRO_ACC(28), REPRO_ACC(29),
+        REPRO_ACC(30), REPRO_ACC(31)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -546,6 +623,21 @@ __device__ __forceinline__ void wgmma_pv<__half, 64>(
 }
 
 template <>
+__device__ __forceinline__ void wgmma_qk_ss<__half>(
+    float (&d)[8][4], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : REPRO_ACC(0), REPRO_ACC(1), REPRO_ACC(2), REPRO_ACC(3), REPRO_ACC(4),
+        REPRO_ACC(5), REPRO_ACC(6), REPRO_ACC(7)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_pv<__half, 128>(
     float (&d)[16][4], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
@@ -564,24 +656,59 @@ __device__ __forceinline__ void wgmma_pv<__half, 128>(
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_pv<__half, 256>(
+    float (&d)[32][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : REPRO_ACC(0), REPRO_ACC(1), REPRO_ACC(2), REPRO_ACC(3), REPRO_ACC(4),
+        REPRO_ACC(5), REPRO_ACC(6), REPRO_ACC(7), REPRO_ACC(8), REPRO_ACC(9),
+        REPRO_ACC(10), REPRO_ACC(11), REPRO_ACC(12), REPRO_ACC(13),
+        REPRO_ACC(14), REPRO_ACC(15), REPRO_ACC(16), REPRO_ACC(17),
+        REPRO_ACC(18), REPRO_ACC(19), REPRO_ACC(20), REPRO_ACC(21),
+        REPRO_ACC(22), REPRO_ACC(23), REPRO_ACC(24), REPRO_ACC(25),
+        REPRO_ACC(26), REPRO_ACC(27), REPRO_ACC(28), REPRO_ACC(29),
+        REPRO_ACC(30), REPRO_ACC(31)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 #undef REPRO_ACC
 
 template <typename T, int DH>
 __global__ void __launch_bounds__(kTcThreads)
 flash_fwd_wgmma(const T* __restrict__ q,
+                const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
-                const __grid_constant__ CUtensorMap tm_v, T* __restrict__ o,
-                int hq, int hkv, int sq, int sk, float scale_log2,
-                int causal) {
+                const __grid_constant__ CUtensorMap tm_v,
+                const __grid_constant__ CUtensorMap tm_k_tail,
+                const __grid_constant__ CUtensorMap tm_v_tail,
+                T* __restrict__ o, int hq, int hkv, int sq, int sk,
+                float scale_log2, int causal) {
   using L = TcTile<DH>;
   constexpr int kD8 = DH / 8;  // 8-wide column blocks of O
   extern __shared__ unsigned char tc_smem[];
-  // 1024-byte aligned stages of K, then of V; then the barriers
+  // 1024-byte aligned stages of K, then of V, then q's tile where it is
+  // staged; then the barriers
   const uint32_t base = (smem_u32(tc_smem) + 1023u) & ~1023u;
   const uint32_t k_s = base, v_s = base + kTcStages * L::kBytes;
-  const uint32_t bars = base + 2 * kTcStages * L::kBytes;
+  const uint32_t q_s = base + 2 * kTcStages * L::kBytes;
+  const uint32_t bars = q_s + (L::kQShared ? L::kBytes : 0);
   const uint32_t k_full = bars, v_full = bars + 8 * kTcStages,
-                 empty = bars + 16 * kTcStages;  // + stage * 8
+                 empty = bars + 16 * kTcStages,  // + stage * 8
+                 q_full = bars + 24 * kTcStages;
 
   const int bh = blockIdx.x;
   const int tile = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
@@ -605,22 +732,27 @@ flash_fwd_wgmma(const T* __restrict__ q,
       mbar_init(v_full + 8 * st, 1);
       mbar_init(empty + 8 * st, 128);  // every consumer thread arrives
     }
+    if (L::kQShared) mbar_init(q_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (warp == 4) {  // producer: one thread issues every copy
     if (lane == 0) {
+      if (L::kQShared && n_tiles > 0) {  // the block's 64 rows of q, once
+        mbar_expect_tx(q_full, L::kBytes);
+        tma_tile<DH>(q_s, &tm_q, nullptr, q_full, r0, bh);
+      }
       for (int j = 0; j < n_tiles; ++j) {
         const int st = j % kTcStages;
         if (j >= kTcStages)  // the stage's previous tile is consumed
           mbar_wait(empty + 8 * st, (j / kTcStages - 1) & 1);
         mbar_expect_tx(k_full + 8 * st, L::kBytes);
-        tma_tile<DH>(k_s + st * L::kBytes, &tm_k, k_full + 8 * st,
-                     j * kTcKeys, kvh);
+        tma_tile<DH>(k_s + st * L::kBytes, &tm_k, &tm_k_tail,
+                     k_full + 8 * st, j * kTcKeys, kvh);
         mbar_expect_tx(v_full + 8 * st, L::kBytes);
-        tma_tile<DH>(v_s + st * L::kBytes, &tm_v, v_full + 8 * st,
-                     j * kTcKeys, kvh);
+        tma_tile<DH>(v_s + st * L::kBytes, &tm_v, &tm_v_tail,
+                     v_full + 8 * st, j * kTcKeys, kvh);
       }
     }
     return;
@@ -635,9 +767,12 @@ flash_fwd_wgmma(const T* __restrict__ q,
   const float cexp = fabsf(scale_log2);
 
   // the rows' q as A fragments, straight from device memory; a negative
-  // scale flips their sign bits (exact), for cexp = |scale_log2|
-  uint32_t qf[DH / 16][4];
-  {
+  // scale flips their sign bits (exact), for cexp = |scale_log2|.  Where q
+  // is staged in shared memory, the scores' signs flip instead (exact too).
+  uint32_t qf[L::kQShared ? 1 : DH / 16][4];
+  if constexpr (L::kQShared) {
+    if (n_tiles > 0) mbar_wait(q_full, 0);
+  } else {
     const uint32_t flip = scale_log2 < 0.0f ? 0x80008000u : 0u;
     const T* q0 = q + ((long long)bh * sq + wr) * DH + t4 * 2;
     const bool live0 = wr < sq, live1 = wr + 8 < sq;
@@ -667,7 +802,8 @@ flash_fwd_wgmma(const T* __restrict__ q,
     const uint32_t kt = k_s + st * L::kBytes, vt = v_s + st * L::kBytes;
 
     // S = Q K^T, 64 rows x 64 keys; a 16-deep k step moves 32 bytes along
-    // a swizzled row, or to the next column region
+    // a swizzled row, or to the next column region or the tail (of K, and
+    // of a staged q laid out the same way)
     float s[8][4];
 #pragma unroll
     for (int n = 0; n < 8; ++n)
@@ -677,13 +813,28 @@ flash_fwd_wgmma(const T* __restrict__ q,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) {
-      const uint32_t off = (kk * 16 / L::kBoxCols) * L::kRegionBytes +
-                           (kk * 16 % L::kBoxCols) * 2;
-      wgmma_qk<T>(s, qf[kk], wg_desc(kt + off, 16, 8 * L::kSw, L::kLayout),
-                  kk > 0);
+      const bool tail = kk * 16 >= L::kMain;
+      const uint32_t off = tail ? L::kTailAt
+                                : (kk * 16 / L::kBoxCols) * L::kRegionBytes +
+                                      (kk * 16 % L::kBoxCols) * 2;
+      const uint32_t sbo = 8 * (tail ? L::kTailSw : L::kSw);
+      const uint64_t lay = tail ? L::kTailLayout : L::kLayout;
+      const uint64_t kd = wg_desc(kt + off, 16, sbo, lay);
+      if constexpr (L::kQShared)
+        wgmma_qk_ss<T>(s, wg_desc(q_s + off, 16, sbo, lay), kd, kk > 0);
+      else
+        wgmma_qk<T>(s, qf[kk], kd, kk > 0);
     }
     wg_commit_wait();
     wg_pin(s);
+    if constexpr (L::kQShared) {
+      if (scale_log2 < 0.0f) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] = -s[n][e];
+      }
+    }
 
     // only a ragged or diagonal tile is masked
     const bool masked =
@@ -748,7 +899,8 @@ flash_fwd_wgmma(const T* __restrict__ q,
 
     // O += P_hi V + P_lo V.  The S fragments of 8-key blocks 2 kk and
     // 2 kk + 1 are the A fragment of 16-key step kk; a step is two 8-row
-    // swizzle groups further on in V.
+    // swizzle groups further on in V.  At dh = 80 the regions give O's first
+    // 64 columns and the tail, in a product of its own, the last 16.
     uint32_t p_hi[4][4], p_lo[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
@@ -766,8 +918,18 @@ flash_fwd_wgmma(const T* __restrict__ q,
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t vd = wg_desc(vt + kk * 16 * L::kSw, L::kRegionBytes,
                                   8 * L::kSw, L::kLayout);
-      wgmma_pv<T, DH>(acc, p_hi[kk], vd);
-      wgmma_pv<T, DH>(acc, p_lo[kk], vd);
+      auto& am = reinterpret_cast<float(&)[L::kMain / 8][4]>(acc[0]);
+      wgmma_pv<T, L::kMain>(am, p_hi[kk], vd);
+      wgmma_pv<T, L::kMain>(am, p_lo[kk], vd);
+      if constexpr (L::kTail > 0) {
+        const uint64_t td =
+            wg_desc(vt + L::kTailAt + kk * 16 * L::kTailSw, 64 * L::kTailSw,
+                    8 * L::kTailSw, L::kTailLayout);
+        auto& at = reinterpret_cast<float(&)[L::kTail / 8][4]>(
+            acc[L::kMain / 8]);
+        wgmma_pv<T, L::kTail>(at, p_hi[kk], td);
+        wgmma_pv<T, L::kTail>(at, p_lo[kk], td);
+      }
     }
     wg_commit_wait();
     wg_pin(acc);
@@ -814,22 +976,23 @@ PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// K or V as (heads, rows, dh), in boxes of 64 rows x one column region
+// q, K or V as (heads, rows, dh), in boxes of 64 rows x box_cols columns
+// (one region, or the tail) in sw-byte swizzle
 template <typename T, int DH>
-bool make_tensor_map(CUtensorMap* map, const void* ptr, int rows, int heads) {
-  using L = TcTile<DH>;
+bool make_tensor_map(CUtensorMap* map, const void* ptr, int rows, int heads,
+                     int box_cols, int sw) {
   const auto encode = tensor_map_encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)DH, (cuuint64_t)rows,
                               (cuuint64_t)heads};
   const cuuint64_t strides[2] = {(cuuint64_t)DH * sizeof(T),
                                  (cuuint64_t)rows * DH * sizeof(T)};
-  const cuuint32_t box[3] = {(cuuint32_t)L::kBoxCols, 64, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, 64, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUtensorMapSwizzle swizzle =
-      L::kSw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                    : (L::kSw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                    : CU_TENSOR_MAP_SWIZZLE_32B);
+      sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                : (sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                            : CU_TENSOR_MAP_SWIZZLE_32B);
   return encode(map,
                 std::is_same<T, __half>::value
                     ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
@@ -849,21 +1012,25 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int b,
   if (sk == 0)  // no row sees a key
     return (int)cudaMemsetAsync(o, 0, (size_t)b * hq * sq * DH * sizeof(T),
                                 stream);
-  CUtensorMap tk, tv;
-  if (!make_tensor_map<T, DH>(&tk, k, sk, b * hkv) ||
-      !make_tensor_map<T, DH>(&tv, v, sk, b * hkv))
+  using L = TcTile<DH>;
+  // q's map is read only where q is staged, the tails' only at dh = 80
+  CUtensorMap tq = {}, tk, tv, tk_tail = {}, tv_tail = {};
+  const int bc = L::kBoxCols, sw = L::kSw, tc = L::kTail, tsw = L::kTailSw;
+  if ((L::kQShared && !make_tensor_map<T, DH>(&tq, q, sq, b * hq, bc, sw)) ||
+      !make_tensor_map<T, DH>(&tk, k, sk, b * hkv, bc, sw) ||
+      !make_tensor_map<T, DH>(&tv, v, sk, b * hkv, bc, sw) ||
+      (tc > 0 && (!make_tensor_map<T, DH>(&tk_tail, k, sk, b * hkv, tc, tsw) ||
+                  !make_tensor_map<T, DH>(&tv_tail, v, sk, b * hkv, tc, tsw))))
     return (int)cudaErrorInvalidValue;
-  // K and V stages, 1024 bytes of alignment slack, 3 barriers per stage
-  constexpr int smem = 2 * kTcStages * TcTile<DH>::kBytes + 1024 +
-                       24 * kTcStages;
+  constexpr int smem = L::kSmem;
   const cudaError_t set = cudaFuncSetAttribute(
       flash_fwd_wgmma<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (set != cudaSuccess) return (int)set;
   const dim3 grid((unsigned)(b * hq), (unsigned)tiles);
   flash_fwd_wgmma<T, DH><<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const T*>(q), tk, tv, static_cast<T*>(o), hq, hkv, sq, sk,
-      scale_log2, causal);
+      static_cast<const T*>(q), tq, tk, tv, tk_tail, tv_tail,
+      static_cast<T*>(o), hq, hkv, sq, sk, scale_log2, causal);
   return (int)cudaGetLastError();
 }
 
@@ -885,22 +1052,16 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
     else                                                                  \
       return launch_tc<T, DH>(q, k, v, o, b, hq, hkv, sq, sk, scale_log2, \
                               causal, s);
-  // dh = 80 and 256: the CUDA-core kernel in every type
-#define REPRO_FLASH_DH_CORES(DH)                                        \
-  case DH:                                                              \
-    return launch_dh<T, DH>(q, k, v, o, b, hq, hkv, sq, sk, scale_log2, \
-                            causal, s);
   switch (dh) {
     REPRO_FLASH_DH(16)
     REPRO_FLASH_DH(32)
     REPRO_FLASH_DH(64)
-    REPRO_FLASH_DH_CORES(80)
+    REPRO_FLASH_DH(80)
     REPRO_FLASH_DH(128)
-    REPRO_FLASH_DH_CORES(256)
+    REPRO_FLASH_DH(256)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef REPRO_FLASH_DH
-#undef REPRO_FLASH_DH_CORES
 }
 
 }  // namespace

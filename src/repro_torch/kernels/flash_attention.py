@@ -16,10 +16,11 @@ tensor on the CPU takes :func:`flash_attention_plain`; a CUDA tensor
 launches a hand-written kernel in ``csrc/flash_attention.cu`` or raises:
 bfloat16 and float16 the tensor-core kernel (wgmma, K/V tiles copied by
 TMA, P split into hi + lo in the input dtype for the PV product, so the
-result stays within two ulps of the float32 attention) at head dims 16,
-32, 64 and 128, float32 and the head dims 80 (hubert) and 256 (gemma,
-paligemma) in every type the CUDA-core kernel.  The wrapper counts its
-launches in ``flash_attention.launches``.
+result stays within two ulps of the float32 attention) at every head dim
+(dh 80, hubert's, as a 64-column region in 128-byte swizzle and a
+16-column tail in 32-byte swizzle; dh 256, gemma's and paligemma's, with
+q staged in shared memory), float32 the CUDA-core kernel.  The wrapper
+counts its launches in ``flash_attention.launches``.
 """
 
 from __future__ import annotations
@@ -31,8 +32,8 @@ from repro_torch.kernels import _build
 # head dims the CUDA kernels are built for (a template parameter): every
 # registered config's attention head dim is one of them
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
-# ... of which the tensor-core kernel takes bf16 / fp16 at these
-WGMMA_HEAD_DIMS = (16, 32, 64, 128)
+# ... of which the tensor-core kernel takes bf16 / fp16 at these: all
+WGMMA_HEAD_DIMS = HEAD_DIMS
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 # bounds the plain version's (b, hq, rows, sk) logits tile, in elements
 _PLAIN_TILE_ELEMS = 1 << 25

@@ -12,8 +12,9 @@ The card runs bfloat16 and float16 on a tensor-core kernel that no CPU can
 run; ``_tile_emulation`` repeats its arithmetic tile by tile in plain
 PyTorch (64-row x 64-key tiles, float32 running max and normaliser, the
 causal stop at a block's last row, P split into hi + lo in the input
-dtype for the PV product, 0 for rows with no visible key), and the tests
-below hold it against the JAX kernel and the plain version.  The limit is
+dtype for the PV product, 0 for rows with no visible key; the same rows
+and keys at every head dim, 80 and 256 included), and the tests below hold
+it against the JAX kernel and the plain version.  The limit is
 two ulps of the output dtype, elementwise: |e - p| <= 2e-5 + r |p| with r
 = 2^-6 (bfloat16) or 2^-9 (float16), as on the card
 (tests/test_torch_gpu.py).
@@ -37,10 +38,21 @@ UNIT = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
 JNP = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}
 
 
-def _inputs(b, hq, hkv, sq, sk, dh):
-    return (RNG.normal(size=(b, hq, sq, dh)).astype(np.float32),
-            RNG.normal(size=(b, hkv, sk, dh)).astype(np.float32),
-            RNG.normal(size=(b, hkv, sk, dh)).astype(np.float32))
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Under pytest-xdist's parallel workers torch's OpenMP threads
+    oversubscribe the cores, and the s = 2048 emulation below stalls.  One
+    thread here; the caller's count back after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _inputs(b, hq, hkv, sq, sk, dh, rng=RNG):
+    return (rng.normal(size=(b, hq, sq, dh)).astype(np.float32),
+            rng.normal(size=(b, hkv, sk, dh)).astype(np.float32),
+            rng.normal(size=(b, hkv, sk, dh)).astype(np.float32))
 
 
 def _port(q, k, v, dtype=torch.float32, **kw):
@@ -133,7 +145,9 @@ def _tile_emulation(q, k, v, *, causal, scale=None, split=True, rows=64,
     """The tensor-core kernel's arithmetic (csrc/flash_attention.cu,
     flash_fwd_wgmma) in plain PyTorch, one 64-row block and one 64-key tile
     at a time.  ``split=False`` rounds P to the input dtype once instead, as
-    the TPU kernel does."""
+    the TPU kernel does.  A negative scale flips q here; the kernel flips
+    q at dh <= 128 and the float32 scores at dh = 256 (q staged in shared
+    memory), both exact, so the scores are the same."""
     dtype = q.dtype
     b, hq, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -188,6 +202,27 @@ def _limit_share(got, want, atol, rtol, extra=0.0):
                  .max())
 
 
+def _emulation_vs_jax_and_plain(dtype, b, hq, hkv, sq, sk, dh, causal,
+                                rng=RNG):
+    q, k, v = (torch.as_tensor(a).to(dtype)
+               for a in _inputs(b, hq, hkv, sq, sk, dh, rng))
+    got = _tile_emulation(q, k, v, causal=causal)
+    plain = tfa.flash_attention_plain(q, k, v, causal=causal)
+    atol, rtol = TWO_ULPS[dtype]
+    assert _limit_share(got, plain, atol, rtol) <= 1.0
+    jq, jk, jv = (jnp.asarray(t.float().numpy(), JNP[dtype])
+                  for t in (q, k, v))
+    pallas = torch.as_tensor(np.asarray(ops.flash_attention(
+        jq, jk, jv, causal=causal, block_q=64, block_k=64, interpret=True),
+        np.float32))
+    # the Pallas kernel's rows with keys
+    seen = sq - max(0, sq - sk) if causal else sq
+    assert _limit_share(got[:, :, sq - seen:], pallas[:, :, sq - seen:],
+                        atol, rtol,
+                        extra=UNIT[dtype] * float(v.float().abs().max())) \
+        <= 1.0
+
+
 @pytest.mark.parametrize("b,hq,hkv,sq,sk,dh", [
     (1, 32, 8, 128, 128, 64),   # granite-3-2b heads
     (1, 32, 8, 100, 100, 64),   # granite, ragged 64-row block
@@ -202,22 +237,26 @@ def test_tile_emulation_matches_jax_and_plain(dtype, b, hq, hkv, sq, sk, dh):
     against the Pallas kernel (interpret mode) within two ulps plus the
     Pallas kernel's own error: it rounds P to the input dtype once, which
     moves an output by at most u max|v| (u the unit roundoff)."""
-    q, k, v = (torch.as_tensor(a).to(dtype)
-               for a in _inputs(b, hq, hkv, sq, sk, dh))
-    got = _tile_emulation(q, k, v, causal=True)
-    plain = tfa.flash_attention_plain(q, k, v, causal=True)
-    atol, rtol = TWO_ULPS[dtype]
-    assert _limit_share(got, plain, atol, rtol) <= 1.0
-    jq, jk, jv = (jnp.asarray(t.float().numpy(), JNP[dtype])
-                  for t in (q, k, v))
-    pallas = torch.as_tensor(np.asarray(ops.flash_attention(
-        jq, jk, jv, causal=True, block_q=64, block_k=64, interpret=True),
-        np.float32))
-    seen = sq - max(0, sq - sk)  # the Pallas kernel's rows with keys
-    assert _limit_share(got[:, :, sq - seen:], pallas[:, :, sq - seen:],
-                        atol, rtol,
-                        extra=UNIT[dtype] * float(v.float().abs().max())) \
-        <= 1.0
+    _emulation_vs_jax_and_plain(dtype, b, hq, hkv, sq, sk, dh, True)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,dh", [
+    (1, 4, 4, 130, 130, 80),    # hubert's heads (MHA), ragged 64-row block
+    (1, 4, 2, 65, 200, 80),     # GQA group 2, ragged, sk > sq
+    (1, 8, 1, 100, 100, 256),   # paligemma-3b's 8:1, ragged
+    (2, 4, 2, 70, 40, 256),     # sk < sq: causal rows without keys
+])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_tile_emulation_head_dims_80_and_256_match_jax_and_plain(
+        dtype, causal, b, hq, hkv, sq, sk, dh):
+    """dh 80 (hubert-xlarge) and 256 (gemma-7b, paligemma-3b) on the
+    tensor cores: the same 64 rows and 64 keys a tile, causal and not,
+    against the plain version and the Pallas kernel, with the limits of
+    test_tile_emulation_matches_jax_and_plain.  Its own generator: the
+    module's draws for the tests after it stay as they were."""
+    _emulation_vs_jax_and_plain(dtype, b, hq, hkv, sq, sk, dh, causal,
+                                np.random.default_rng(sq + sk + dh))
 
 
 @pytest.mark.parametrize("scale", [0.05, -0.2, 0.0])
@@ -246,3 +285,20 @@ def test_one_rounding_of_p_fails_the_two_ulp_limit(dtype):
     split = _tile_emulation(q, k, v, causal=True)
     assert _limit_share(once, want, atol, rtol) > 2.0
     assert _limit_share(split, want, atol, rtol) <= 1.0
+
+
+def test_time_flash_bounds_and_needs_a_card():
+    """The timing script's bounds: operations at every path's heads
+    (hubert's 16 x 4096 x dh 80 non-causal 85.9 GFLOP, 0.0869 ms at 989
+    TFLOP/s; gemma's causal 16 x 2048 x dh 256 34.4 GFLOP, 0.0348 ms), and
+    it refuses to run without a card."""
+    from repro_torch.launch import time_flash
+    ms, by, flops = time_flash.bound(*time_flash.SHAPES["hubert"])
+    assert (by, flops) == ("operations", 4 * 16 * 80 * 4096 * 4096)
+    assert abs(ms - 0.0869) < 5e-5
+    ms, by, flops = time_flash.bound(*time_flash.SHAPES["gemma"])
+    assert (by, flops) == ("operations", 4 * 16 * 256 * 2048 * 2049 // 2)
+    assert abs(ms - 0.0348) < 5e-5
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="needs a CUDA card"):
+            time_flash.main([])

@@ -581,7 +581,7 @@ def _flash_tc_case(cuda, dtype, shape_q, shape_kv, seed, q_gain=1.0,
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("sq", [1, 63, 64, 65, 1000, 2048])
-@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("dh", [16, 32, 64, 80, 128, 256])
 @pytest.mark.parametrize("dtype", HALF)
 def test_flash_tensor_cores_match_plain(cuda, dtype, dh, sq, causal):
     """Every head dim over full, partial (sq = 1, 63, 65, 1000) and
@@ -593,28 +593,41 @@ def test_flash_tensor_cores_match_plain(cuda, dtype, dh, sq, causal):
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("sq,sk", [(65, 40), (200, 130), (1, 4096),
                                    (100, 300), (1000, 1500), (63, 2048)])
+@pytest.mark.parametrize("dh", [64, 80, 256])
 @pytest.mark.parametrize("dtype", HALF)
-def test_flash_tensor_cores_cross_lengths(cuda, dtype, sq, sk, causal):
+def test_flash_tensor_cores_cross_lengths(cuda, dtype, dh, sq, sk, causal):
     """sk < sq (causal: the first sq - sk rows see no key) and sk > sq
     (decode alignment: row t sees keys <= t + sk - sq)."""
-    _flash_tc_case(cuda, dtype, (1, 4, sq, 64), (1, 4, sk, 64), sq + sk,
+    _flash_tc_case(cuda, dtype, (1, 4, sq, dh), (1, 4, sk, dh), sq + sk,
                    causal=causal)
 
 
 @pytest.mark.parametrize("b", [1, 3])
 @pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("dh", [64, 80, 256])
 @pytest.mark.parametrize("dtype", HALF)
-def test_flash_tensor_cores_gqa_and_batch(cuda, dtype, group, b):
-    _flash_tc_case(cuda, dtype, (b, 2 * group, 300, 64), (b, 2, 300, 64),
+def test_flash_tensor_cores_gqa_and_batch(cuda, dtype, dh, group, b):
+    _flash_tc_case(cuda, dtype, (b, 2 * group, 300, dh), (b, 2, 300, dh),
                    group + b, causal=True)
 
 
-@pytest.mark.parametrize("scale", [0.05, -0.2, 0.0])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b", [1, 3])
 @pytest.mark.parametrize("dtype", HALF)
-def test_flash_tensor_cores_explicit_scale(cuda, dtype, scale):
-    """A given scale; negative (the kernel flips q's sign) and 0 (every
-    visible key weighs the same) too."""
-    _flash_tc_case(cuda, dtype, (1, 8, 257, 128), (1, 2, 257, 128), 5,
+def test_flash_tensor_cores_mqa_at_256(cuda, dtype, b, causal):
+    """paligemma-3b's heads: 8 q heads on 1 KV head at dh = 256."""
+    _flash_tc_case(cuda, dtype, (b, 8, 300, 256), (b, 1, 300, 256), 8 + b,
+                   causal=causal)
+
+
+@pytest.mark.parametrize("scale", [0.05, -0.2, 0.0])
+@pytest.mark.parametrize("dh", [128, 256])
+@pytest.mark.parametrize("dtype", HALF)
+def test_flash_tensor_cores_explicit_scale(cuda, dtype, dh, scale):
+    """A given scale; negative (the kernel flips q's sign, or at dh = 256,
+    where q is staged in shared memory, the scores') and 0 (every visible
+    key weighs the same) too."""
+    _flash_tc_case(cuda, dtype, (1, 8, 257, dh), (1, 2, 257, dh), 5,
                    causal=True, scale=scale)
 
 
@@ -631,18 +644,20 @@ def test_flash_tensor_cores_underflowing_probabilities(cuda, dtype, causal):
                    q_gain=30.0, grid=4, causal=causal)
 
 
+@pytest.mark.parametrize("dh", [32, 80, 256])
 @pytest.mark.parametrize("dtype", HALF)
-def test_flash_tensor_cores_rows_without_keys_are_zero(cuda, dtype):
-    got = _flash_tc_case(cuda, dtype, (2, 4, 100, 32), (2, 2, 30, 32), 4,
+def test_flash_tensor_cores_rows_without_keys_are_zero(cuda, dtype, dh):
+    got = _flash_tc_case(cuda, dtype, (2, 4, 100, dh), (2, 2, 30, dh), 4,
                          causal=True)
     assert bool((got[:, :, :70] == 0).all())
 
 
+@pytest.mark.parametrize("dh", [64, 80, 256])
 @pytest.mark.parametrize("dtype", HALF)
-def test_flash_tensor_cores_take_unaligned_views(cuda, dtype):
+def test_flash_tensor_cores_take_unaligned_views(cuda, dtype, dh):
     """Tensors whose data starts off a 16-byte boundary (the kernel copies
     rows in 16-byte pieces) are copied first: same result."""
-    q, k, v = _qkv((1, 4, 70, 64), (1, 2, 70, 64), dtype, cuda, 8)
+    q, k, v = _qkv((1, 4, 70, dh), (1, 2, 70, dh), dtype, cuda, 8)
 
     def shifted(t):
         view = torch.empty(t.numel() + 1, dtype=dtype,
@@ -687,14 +702,15 @@ def test_flash_rejects_unsupported_head_dim(cuda):
                                    torch.float16])
 def test_flash_cuda_core_head_dims_match_plain(cuda, dtype, dh, sq, sk,
                                                causal):
-    """dh = 80 (hubert) and 256 (gemma, paligemma) take the CUDA-core
-    kernel in every type; GQA, ragged tiles, cross lengths, rows without
-    keys."""
+    """dh = 80 (hubert) and 256 (gemma, paligemma): float32 on the CUDA
+    cores, bf16 and fp16 on the tensor cores; GQA, ragged tiles, cross
+    lengths, rows without keys."""
     _flash_tc_case(cuda, dtype, (1, 4, sq, dh), (1, 2, sk, dh), sq + dh,
                    causal=causal)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_flash_hubert_and_gemma_heads_match_plain(cuda, dtype):
     """The heads the frontends and gemma prefill with: hubert's 16 x 80
     non-causal and gemma-7b's 16 x 256 causal, at 1024 tokens."""

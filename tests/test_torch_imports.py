@@ -25,6 +25,7 @@ MODULES = ("core.kernels", "core.regularization", "core.nfft",
            "serving.engine", "serving.graph", "launch.serve",
            "launch.trace_serve",
            "launch.time_window", "launch.time_kernel_matvec",
+           "launch.time_flash",
            "core.nystrom", "image_segmentation", "figures", "figures.common",
            "figures.fig3_eigenvalues", "figures.fig5_segmentation",
            "figures.fig6_phasefield", "figures.fig7_kernel_ssl",

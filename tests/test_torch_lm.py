@@ -44,7 +44,7 @@ import _torch_lm_cases as cases
 from repro import configs as jconfigs
 from repro.models import model as JM
 from repro_torch import configs as tconfigs
-from repro_torch.kernels.flash_attention import HEAD_DIMS
+from repro_torch.kernels.flash_attention import HEAD_DIMS, WGMMA_HEAD_DIMS
 from repro_torch.models import model as TM
 
 DENSE = ["granite-3-2b", "gemma-7b", "qwen1.5-32b", "llama3-405b"]
@@ -129,6 +129,13 @@ def test_attention_head_dims_have_a_flash_kernel(name):
     CUDA flash kernel is built for (gemma-7b and paligemma-3b 256,
     hubert-xlarge 80): a prefill on the card launches it."""
     assert tconfigs.get_config(name).head_dim_eff in HEAD_DIMS
+
+
+@pytest.mark.parametrize("name", FLASH_ARCHS)
+def test_attention_head_dims_have_a_tensor_core_flash_kernel(name):
+    """... and that bf16 / fp16 there take the tensor-core kernel (wgmma),
+    hubert-xlarge's dh 80 and gemma-7b's and paligemma-3b's 256 too."""
+    assert tconfigs.get_config(name).head_dim_eff in WGMMA_HEAD_DIMS
 
 
 def _carry(name, seed=1):

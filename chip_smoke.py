@@ -52,7 +52,17 @@ switch (and, for information only, the drift of a resumed run with the
 switch off); the registry journal of [graph_serve]'s two uniform tenants
 recovered into a registry that serves the same bits with no replan; two
 dropped ticks counted and every output against the oracle; the fault
-schedule against the JAX package's.  Then the LM serving
+schedule against the JAX package's.  Then the distributed matvec
+([dist]): four ranks spawned on the one card over gloo (NCCL refuses two
+ranks on one device; gloo stages CUDA tensors through the host), each
+spreading and gathering its block of the Morton-sorted rows: psum and
+pencil modes at n = 10^5 (SETUP_2, SETUP_3) on meshes (4,) and (2, 2)
+(also the row x col split), n = 10^6, [bank]'s four Gaussians broadcast
+and lockstep, eigsh (k = 10, 80 steps) and compress_psum on (4, 10^6)
+float32 gradients, each against the single-device result on the card,
+y bitwise equal on every rank, the shard kernels against their plain
+versions on every rank's geometry, each rank's collective payload a
+matvec; then one NCCL rank (world size 1, psum).  Then the LM serving
 path: the flash attention kernels against their plain version (float32
 on the CUDA cores, bf16 and f16 on the tensor cores: the JAX kernel
 tests' shapes in float32 and bf16, granite-3-2b's heads in all three up
@@ -111,7 +121,8 @@ The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it is the kernels' JSON record (the window kernels once
 per path of WINDOW_RECORDS and once per shape of the gradient, bank,
-sweep, multilayer and graph-serve paths, the deterministic spread once per
+sweep, multilayer, graph-serve and [dist] paths (the last on rank 0's
+shard, with the launches of every rank), the deterministic spread once per
 [durable] path, ``kernel_matvec`` once per path that launches it, flash
 attention once for [serve] and once per FAMILY_FLASH path, each with
 that path's launches and shape).  Needs one card and the repository
@@ -495,6 +506,24 @@ JAX_CHAOS_DROPS = (4, 7, 8, 19, 23, 29, 31, 48, 50, 88, 99, 111, 112, 129,
 JAX_CHAOS_SLOWS = (38, 64, 69, 79, 95, 97, 102, 107, 113, 131, 172, 183, 187,
                    198)
 
+# [dist]: the distributed matvec (node dimension sharded) on DIST_WORLD
+# ranks that share the one card over gloo (NCCL refuses two ranks on one
+# device), then one NCCL rank.  Every distributed result against the
+# single-device one on the card: matvecs DIST_TOL relative to the largest
+# entry, eigsh's eigenvalues DIST_EIG_TOL.  Runs: (mode, mesh, pencil_axes).
+DIST_WORLD = 4
+DIST_TOL = 1e-12
+DIST_EIG_TOL = 1e-10
+DIST_COLUMNS = (1, 4)
+DIST_RUNS = (("psum", (4,), None), ("psum", (2, 2), None),
+             ("pencil", (4,), None), ("pencil", (2, 2), None),
+             ("pencil", (2, 2), (("data",), ("model",))))
+DIST_BIG_RUNS = (("psum", (4,), None), ("pencil", (4,), None))
+DIST_BANK_C = 4
+DIST_EIG_RUNS = (("psum", (4,), None), ("pencil", (2, 2), None))
+DIST_EIG_SEED = 7
+DIST_COMPRESS_SHAPE = (DIST_WORLD, 1_000_000)
+
 
 def sweep_sigmas(d: int) -> tuple:
     return tuple(float(s) for s in SWEEP_CONFIGS[d][2]
@@ -552,6 +581,267 @@ def graph_serve_burst(rng, sweep_points, kind="mixed"):
                    rng.uniform(lo, hi, (GS_M_QUERY, 2)))
                   for i in range(n_cells * GS_SWEEP_PER_CELL)]
     return burst
+
+
+# ---------------------------------------------------------------------------
+# [dist]'s rank side: module-level functions that
+# repro_torch.launch.ranks.RankPool runs on every rank (fn(ctx, *args)); a
+# rank imports this file as its main module, which runs nothing at import.
+# ---------------------------------------------------------------------------
+
+DIST_AXES = {1: ("data",), 2: ("data", "model")}
+
+
+def dist_mesh(ctx, shape):
+    from repro_torch.launch.mesh import make_mesh
+    key = ("mesh", tuple(shape))
+    if key not in ctx.cache:
+        ctx.cache[key] = make_mesh(shape, DIST_AXES[len(shape)])
+    return ctx.cache[key]
+
+
+def dist_operator(ctx, kind, n, setup_name):
+    """This rank's operator on the main path's spiral, built once: "op"
+    (the Gaussian, SIGMA), "bank" ([bank]'s four Gaussians) or
+    "adjacency" (the normalized adjacency)."""
+    key = (kind, n, setup_name)
+    if key not in ctx.cache:
+        import torch
+        from repro_torch.core import fastsum as fs
+        from repro_torch.core.kernels import make_kernel
+        from repro_torch.data.synthetic import spiral
+        pts = torch.as_tensor(spiral(n, seed=0)[0], device=ctx.device)
+        params = getattr(fs, setup_name)
+        if kind == "bank":
+            ctx.cache[key] = fs.make_fastsum_bank(
+                [make_kernel("gaussian", sigma=s) for s in BANK_SIGMAS], pts,
+                params, device=ctx.device)
+        elif kind == "adjacency":
+            ctx.cache[key] = fs.make_normalized_adjacency(
+                make_kernel("gaussian", sigma=SIGMA), pts, params,
+                device=ctx.device)
+        else:
+            ctx.cache[key] = fs.make_fastsum(
+                make_kernel("gaussian", sigma=SIGMA), pts, params,
+                device=ctx.device)
+    return ctx.cache[key]
+
+
+def dist_matvec_fn(ctx, kind, n, setup_name, mode, mesh_shape, pencil_axes):
+    """(distributed matvec, single-device matvec, plan), kept per run."""
+    from repro_torch.dist import fastsum_dist
+    key = ("mv", kind, n, setup_name, mode, mesh_shape, pencil_axes)
+    if key not in ctx.cache:
+        obj = dist_operator(ctx, kind, n, setup_name)
+        m = dist_mesh(ctx, mesh_shape)
+        make = (fastsum_dist.distributed_matvec_bank_fn if kind == "bank"
+                else fastsum_dist.distributed_matvec_fn)
+        fs_obj = obj.fastsum if kind == "adjacency" else obj
+        ctx.cache[key] = (make(fs_obj, m, m.axis_names, spectral_mode=mode,
+                               pencil_axes=pencil_axes), fs_obj.matvec,
+                          fs_obj.plan)
+    return ctx.cache[key]
+
+
+def dist_launches():
+    from repro_torch.kernels import nfft_window as win
+    return {"window_spread": win.window_spread.launches,
+            "window_gather": win.window_gather.launches}
+
+
+def dist_reset_launches():
+    from repro_torch.kernels import nfft_window as win
+    win.window_spread.launches = 0
+    win.window_spread_deterministic.launches = 0
+    win.window_gather.launches = 0
+
+
+def dist_digest(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def dist_alone_ms(ctx, fn, reps):
+    """Host ms a call of ``fn`` on rank 0 alone (every other rank waits in
+    a barrier), ending in a sync; None on the other ranks."""
+    import torch
+    import torch.distributed as dist
+    dist.barrier()
+    ms = None
+    if ctx.rank == 0:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / reps * 1e3
+    dist.barrier()
+    return ms
+
+
+def dist_matvec_case(ctx, kind, n, setup_name, mode, mesh_shape,
+                     pencil_axes, x_shape, reps):
+    """One distributed matvec on every rank, against the single-device one
+    on the card: launch counts of the distributed call alone (set to 0
+    just before it), rel error, y's digest, this rank's collective traffic;
+    then ms a call with every rank running (host clock, ends in a sync)
+    and the single-device ms on rank 0 alone."""
+    import torch
+    import torch.distributed as dist
+    mv, single, _ = dist_matvec_fn(ctx, kind, n, setup_name, mode,
+                                   mesh_shape, pencil_axes)
+    mesh = dist_mesh(ctx, mesh_shape)
+    gen = torch.Generator(device=ctx.device).manual_seed(sum(x_shape))
+    x = torch.randn(x_shape, generator=gen, dtype=torch.float64,
+                    device=ctx.device)
+    want = single(x)
+    torch.cuda.synchronize()
+    dist_reset_launches()
+    mesh.traffic.clear()
+    t0 = time.perf_counter()
+    y = mv(x)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = dist_launches()
+    traffic = dict(mesh.traffic)
+    rel = float((y - want).abs().max() / want.abs().max())
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        mv(x)
+    torch.cuda.synchronize()
+    dist_ms = (time.perf_counter() - t0) / reps * 1e3
+    return {"rank": ctx.rank, "rel": rel, "digest": dist_digest(y),
+            "launches": launches, "traffic": traffic, "first_ms": first_ms,
+            "ms": dist_ms, "single_ms": dist_alone_ms(
+                ctx, lambda: single(x), reps),
+            "spec": None if mv.spec is None else
+            (mv.spec.row_axes, mv.spec.col_axes, mv.spec.extra_axes),
+            "rows": mv.rows.rows, "pad": mv.rows.pad}
+
+
+def dist_shard_kernels(ctx, kind, n, setup_name, mode, mesh_shape,
+                       pencil_axes, columns):
+    """The window kernels on this rank's shard geometry against their plain
+    versions (each rank), at ``columns``; on rank 0 alone, their ms (CUDA
+    events) and plain ms, and the ms of one fresh tile-plan build of the
+    shard."""
+    import torch
+    from repro_torch.core.nfft import padded_grid_size
+    from repro_torch.kernels import nfft_window as win
+    mv, _, plan = dist_matvec_fn(ctx, kind, n, setup_name, mode, mesh_shape,
+                                 pencil_axes)
+    geom = mv.geometry()
+    rows, d, taps = geom.weights.shape
+    pad = padded_grid_size(plan)
+    out = {"rank": ctx.rank, "rows": rows, "d": d, "taps": taps, "pad": pad,
+           "tiles": geom.tiles.n_tiles, "c": {}}
+    for c in columns:
+        gen = torch.Generator(device=ctx.device).manual_seed(c)
+        x = torch.randn((rows, c), generator=gen, dtype=torch.float64,
+                        device=ctx.device)
+        g = torch.randn((pad,) * d + (c,), generator=gen,
+                        dtype=torch.float64, device=ctx.device)
+        fns = {"spread": (lambda: win.window_spread(
+                   x, geom.base, geom.weights, padded_size=pad,
+                   tiles=geom.tiles),
+                   lambda: win.window_spread_plain(
+                       x, geom.base, geom.weights, padded_size=pad)),
+               "gather": (lambda: win.window_gather(
+                   g, geom.base, geom.weights, tiles=geom.tiles),
+                   lambda: win.window_gather_plain(g, geom.base,
+                                                   geom.weights))}
+        row = {}
+        for kname, (kfn, pfn) in fns.items():
+            p_out = pfn()
+            err = float((kfn() - p_out).abs().max())
+            row[kname] = {"max_abs_err": err,
+                          "rel": err / float(p_out.abs().max()),
+                          "ms": dist_event_ms(ctx, kfn, 20),
+                          "plain_ms": dist_event_ms(ctx, pfn, 2)}
+        out["c"][c] = row
+    out["tile_plan_ms"] = dist_alone_ms(
+        ctx, lambda: win.build_tile_plan(geom.base, taps), 3)
+    return out
+
+
+def dist_event_ms(ctx, fn, reps):
+    """CUDA-event ms a call of ``fn`` on rank 0 alone; None elsewhere."""
+    import torch
+    import torch.distributed as dist
+    dist.barrier()
+    ms = None
+    if ctx.rank == 0:
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / reps
+    dist.barrier()
+    return ms
+
+
+def dist_eigsh_case(ctx, n, setup_name, mode, mesh_shape, pencil_axes):
+    """eigsh (k = K_EIG, DUR_ITERS steps) of the normalized adjacency
+    through the distributed matvec on every rank, from a start vector
+    seeded alike on every rank, against the single-device eigsh on the
+    card with the same seed.  The degrees come from the distributed matvec
+    too: a rank's own single-device degrees (an atomic spread) may differ
+    from another rank's in the last bits, and the ranks' iterations with
+    them."""
+    import torch
+    from repro_torch.core.lanczos import eigsh
+    adj = dist_operator(ctx, "adjacency", n, setup_name)
+    mv_w, _, _ = dist_matvec_fn(ctx, "adjacency", n, setup_name, mode,
+                                mesh_shape, pencil_axes)
+
+    def kw():
+        return dict(num_iters=DUR_ITERS, device=ctx.device,
+                    generator=torch.Generator(device=ctx.device).manual_seed(
+                        DIST_EIG_SEED))
+
+    single = eigsh(adj.matvec, adj.n, K_EIG, **kw())
+    torch.cuda.synchronize()
+    dist_reset_launches()
+    t0 = time.perf_counter()
+    deg = mv_w(torch.ones(adj.n, dtype=torch.float64, device=ctx.device))
+    inv = 1.0 / torch.sqrt(torch.clamp(deg, min=torch.finfo(deg.dtype).tiny))
+    res = eigsh(lambda v: inv * mv_w(inv * v), adj.n, K_EIG, **kw())
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    return {"rank": ctx.rank, "launches": dist_launches(), "s": took,
+            "gap": float((res.eigenvalues - single.eigenvalues).abs().max()),
+            "digest": dist_digest(res.eigenvalues),
+            "top": res.eigenvalues[:3].tolist(),
+            "single_s": dist_alone_ms(ctx, lambda: eigsh(
+                adj.matvec, adj.n, K_EIG, **kw()), 1)}
+
+
+def dist_compress_case(ctx):
+    """compress_psum over every rank: rank r holds row r of seeded float32
+    gradients DIST_COMPRESS_SHAPE; the mean against the exact mean, the
+    residual against compress_decompress bit for bit."""
+    import torch
+    from repro_torch.dist import compression
+    mesh = dist_mesh(ctx, (ctx.world,))
+    gen = torch.Generator(device=ctx.device).manual_seed(5)
+    g_all = torch.randn(DIST_COMPRESS_SHAPE, generator=gen,
+                        dtype=torch.float32, device=ctx.device)
+    g, zero = g_all[ctx.rank], torch.zeros_like(g_all[ctx.rank])
+    mesh.traffic.clear()
+    mean, resid = compression.compress_psum(g, "data", zero, mesh)
+    _, want = compression.compress_decompress(g, zero)
+    return {"rank": ctx.rank,
+            "err": float((mean - g_all.mean(dim=0)).abs().max()),
+            "bound": float(g_all.abs().max()) / 127.0 * 1.01,
+            "resid_equal": bool(torch.equal(resid, want)),
+            "digest": dist_digest(mean), "traffic": dict(mesh.traffic)}
 
 
 def richardson(f, x0: float, h: float) -> float:
@@ -912,6 +1202,7 @@ class Smoke:
         self.phase_multilayer()
         self.phase_graph_serve()
         self.phase_durable()
+        self.phase_dist()
         self.phase_serve()
         self.phase_nfft_serve()
         self.phase_times()
@@ -3359,6 +3650,192 @@ class Smoke:
         self.det_path_record("durable_bank", "spiral SETUP_2, lockstep",
                              bank.plan, bank.src_window,
                              len(kernels) * BANK_C)
+
+    # -- [dist] --------------------------------------------------------------
+    def phase_dist(self):
+        """[dist]: the distributed matvec on DIST_WORLD gloo ranks sharing
+        the card (each rank spreads and gathers its block of the
+        Morton-sorted rows), then on one NCCL rank: psum and pencil modes
+        at n = 10^5 (SETUP_2, SETUP_3) on meshes (4,) and (2, 2), n = 10^6,
+        [bank]'s four Gaussians, eigsh, compress_psum.  Each path's counts
+        are set to 0 in every rank just before its distributed calls and
+        read just after; the shard kernels are held against their plain
+        versions on every rank's geometry."""
+        from repro_torch.launch.ranks import RankPool
+        card = self.record["device"]["nvidia_smi"]
+        t0 = time.perf_counter()
+        self.dist_rows, self.dist_kernel_rows = [], []
+        self.record["dist"] = {"cases": self.dist_rows}
+        with RankPool(DIST_WORLD, "gloo", "cuda:0") as pool:
+            log(f"[dist] {DIST_WORLD} gloo ranks on cuda:0 ({card}): times "
+                "below are four processes time-sharing one card, with the "
+                "collectives staged through the host by gloo; not scaling "
+                "numbers")
+            for setup_name in ("SETUP_2", "SETUP_3"):
+                path = f"dist_{setup_name}"
+                for mode, mesh, axes in DIST_RUNS:
+                    for c in DIST_COLUMNS:
+                        shape = (N_MAIN,) if c == 1 else (N_MAIN, c)
+                        self.dist_case(pool, path, "op", N_MAIN, setup_name,
+                                       mode, mesh, axes, shape)
+                self.dist_shards(pool, path, "op", N_MAIN, setup_name,
+                                 DIST_COLUMNS)
+            for mode, mesh, axes in DIST_BIG_RUNS:
+                self.dist_case(pool, "dist_1e6", "op", N_BIG, "SETUP_2",
+                               mode, mesh, axes, (N_BIG,), reps=3)
+            self.dist_shards(pool, "dist_1e6", "op", N_BIG, "SETUP_2", (1,))
+            s_n = len(BANK_SIGMAS)
+            for mode, mesh, axes in DIST_BIG_RUNS:
+                for shape in ((N_MAIN, DIST_BANK_C),
+                              (s_n, N_MAIN, DIST_BANK_C)):
+                    self.dist_case(pool, "dist_bank", "bank", N_MAIN,
+                                   "SETUP_2", mode, mesh, axes, shape)
+            self.dist_shards(pool, "dist_bank", "bank", N_MAIN, "SETUP_2",
+                             (DIST_BANK_C, s_n * DIST_BANK_C))
+            for mode, mesh, axes in DIST_EIG_RUNS:
+                self.dist_eigsh(pool, mode, mesh, axes)
+            self.dist_shards(pool, "dist_eigsh", "adjacency", N_MAIN,
+                             "SETUP_3", (1,), mode="psum", mesh=(4,))
+            self.dist_compress(pool)
+        with RankPool(1, "nccl", "cuda:0") as pool:
+            log("[dist] one NCCL rank on cuda:0: the psum path's collectives "
+                "through NCCL (world size 1)")
+            for c in DIST_COLUMNS:
+                shape = (N_MAIN,) if c == 1 else (N_MAIN, c)
+                self.dist_case(pool, "dist_nccl", "op", N_MAIN, "SETUP_2",
+                               "psum", (1,), None, shape)
+            self.dist_shards(pool, "dist_nccl", "op", N_MAIN, "SETUP_2", (1,),
+                             mesh=(1,))
+        self.record["dist"]["s"] = time.perf_counter() - t0
+        log(f"[dist] phase {self.record['dist']['s']:.1f}s wall (two spawns "
+            "of ranks included)")
+
+    def dist_add_launches(self, path, outs):
+        counts = self.path_launches.setdefault(path, {
+            "window_spread": 0, "window_spread_deterministic": 0,
+            "window_gather": 0, "kernel_matvec": 0, "flash_attention": 0,
+            "per_rank": [0] * len(outs)})
+        for o in outs:
+            for kname, v in o["launches"].items():
+                counts[kname] += v
+            counts["per_rank"][o["rank"]] += o["launches"]["window_spread"]
+        for kname in ("window_spread", "window_gather"):
+            check(all(o["launches"][kname] > 0 for o in outs),
+                  f"{path}: {kname} not launched on every rank")
+
+    def dist_case(self, pool, path, kind, n, setup_name, mode, mesh, axes,
+                  shape, reps=5):
+        outs = pool.run(dist_matvec_case, kind, n, setup_name, mode, mesh,
+                        axes, shape, reps if mode == "psum" else 3)
+        self.dist_add_launches(path, outs)
+        rel = max(o["rel"] for o in outs)
+        same = len({o["digest"] for o in outs}) == 1
+        o = outs[0]
+        what = (f"{kind} n={n} {setup_name} {mode} mesh {mesh}"
+                + (f" split {axes}" if axes else "") + f" x {shape}")
+        check(rel <= DIST_TOL, f"[dist] {what}: rel {rel:.3e}")
+        check(same, f"[dist] {what}: y differs between ranks")
+        check((o["spec"] is not None) == (mode == "pencil"),
+              f"[dist] {what}: ran spec {o['spec']}")
+        traffic = {k: v for k, v in sorted(o["traffic"].items())}
+        row = {"path": path, "kind": kind, "n": n, "setup": setup_name,
+               "mode": mode, "mesh": list(mesh), "split": axes,
+               "shape": list(shape), "rel": rel, "bitwise_equal": same,
+               "spec": o["spec"], "traffic_rank0": traffic,
+               "traffic_per_rank": [x["traffic"] for x in outs],
+               "ms_per_rank": [x["ms"] for x in outs],
+               "first_ms_per_rank": [x["first_ms"] for x in outs],
+               "single_ms": o["single_ms"], "rows": o["rows"],
+               "ghost_rows": o["pad"]}
+        self.dist_rows.append(row)
+        kinds = {k: v for k, v in traffic.items() if k != "wire"}
+        log(f"[dist] {what}: rel {rel:.3e} (limit {DIST_TOL:g}), y bitwise "
+            f"equal on {len(outs)} ranks; payload a rank a matvec "
+            f"{sum(kinds.values()):,} B operands ("
+            + ", ".join(f"{k} {v:,}" for k, v in kinds.items())
+            + f"), {traffic.get('wire', 0):,} B sent (ring model); "
+            f"{max(x['ms'] for x in outs):.2f} ms a matvec, slowest rank "
+            f"(first call {max(x['first_ms'] for x in outs):.1f} ms) vs "
+            f"single-device {o['single_ms']:.3f} ms (host clock, ends in a "
+            "sync)")
+
+    def dist_shards(self, pool, path, kind, n, setup_name, columns,
+                    mode="psum", mesh=(DIST_WORLD,)):
+        outs = pool.run(dist_shard_kernels, kind, n, setup_name, mode, mesh,
+                        None, columns)
+        o = outs[0]
+        for c in columns:
+            for kname in ("spread", "gather"):
+                worst = max(x["c"][c][kname]["rel"] for x in outs)
+                tol = TOL[(kname, "float64")]
+                check(worst <= tol, f"[dist] {path}: shard {kname} C={c} "
+                      f"rel {worst:.3e}")
+                t = o["c"][c][kname]
+                bound_ms, by, flops, nbytes = self.bound(
+                    o["rows"], o["d"], o["taps"], c, o["pad"], "float64")
+                launches = self.path_launches[path][f"window_{kname}"]
+                row = {"kernel": kname, "path": path,
+                       "geometry": f"spiral {setup_name}, shard 0 of "
+                                   f"{len(outs)}",
+                       "n": o["rows"], "d": o["d"], "taps": o["taps"],
+                       "c": c, "dtype": "float64", "padded": o["pad"],
+                       "tiles": o["tiles"], "max_abs_err": max(
+                           x["c"][c][kname]["max_abs_err"] for x in outs),
+                       "rel_err": worst, "ms": t["ms"],
+                       "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+                       "bound_by": by, "flops": flops, "bytes": nbytes,
+                       "launches": launches,
+                       "launches_per_rank": self.path_launches[path][
+                           "per_rank"], "library_ms": None}
+                self.record["times"].append(row)
+                self.slice_records.append(row)
+                log(f"[dist] {kname:6s} {path} shard 0 of {len(outs)} "
+                    f"({o['rows']} rows, d={o['d']}, C={c}): {t['ms']:.4f} "
+                    f"ms  bound {bound_ms:.4f} ms ({by}, "
+                    f"{100 * bound_ms / t['ms']:.2f}% of bound)  plain "
+                    f"{t['plain_ms']:.3f} ms; rel vs plain on every rank's "
+                    f"shard <= {worst:.2e} (tol {tol:g}); {launches} "
+                    f"launches on the path (all ranks)")
+        self.record["dist"].setdefault("tile_plan_ms", {})[path] = \
+            o["tile_plan_ms"]
+        log(f"[dist] {path}: tile plan of shard 0 ({o['rows']} rows, "
+            f"{o['tiles']} tiles) {o['tile_plan_ms']:.3f} ms (host clock, "
+            "rank 0 alone)")
+
+    def dist_eigsh(self, pool, mode, mesh, axes):
+        outs = pool.run(dist_eigsh_case, N_MAIN, "SETUP_3", mode, mesh, axes)
+        self.dist_add_launches("dist_eigsh", outs)
+        gap = max(o["gap"] for o in outs)
+        same = len({o["digest"] for o in outs}) == 1
+        check(gap <= DIST_EIG_TOL, f"[dist] eigsh {mode} {mesh}: eigenvalues "
+              f"{gap:.3e} from the single-device eigsh")
+        check(same, f"[dist] eigsh {mode} {mesh}: ranks differ")
+        self.record["dist"].setdefault("eigsh", []).append(
+            {"mode": mode, "mesh": list(mesh), "gap": gap, "same": same,
+             "s_per_rank": [o["s"] for o in outs],
+             "single_s": outs[0]["single_s"] / 1e3})
+        log(f"[dist] eigsh k={K_EIG} {DUR_ITERS} steps, n={N_MAIN} SETUP_3, "
+            f"{mode} mesh {mesh}: max |eigenvalue - single-device| "
+            f"{gap:.3e} (limit {DIST_EIG_TOL:g}), bitwise equal on "
+            f"{len(outs)} ranks; {max(o['s'] for o in outs):.3f} s vs "
+            f"single-device {outs[0]['single_s'] / 1e3:.3f} s; top "
+            f"{[round(v, 6) for v in outs[0]['top']]}")
+
+    def dist_compress(self, pool):
+        outs = pool.run(dist_compress_case)
+        worst = max(o["err"] / o["bound"] for o in outs)
+        check(worst <= 1.0, f"[dist] compress_psum: {worst:.3f} of its bound")
+        check(all(o["resid_equal"] for o in outs),
+              "[dist] compress_psum: a residual differs from "
+              "compress_decompress")
+        check(len({o["digest"] for o in outs}) == 1,
+              "[dist] compress_psum: the means differ between ranks")
+        self.record["dist"]["compress"] = {"err_over_bound": worst,
+                                           "traffic": outs[0]["traffic"]}
+        log(f"[dist] compress_psum {DIST_COMPRESS_SHAPE} float32 over "
+            f"{len(outs)} ranks: max |mean - exact| = {worst:.3f} of "
+            "max|g|/127*1.01, residuals equal compress_decompress's, means "
+            f"bitwise equal; payload {outs[0]['traffic']}")
 
     def serve_burst(self, registry, burst, chaos=None):
         G = self.graph

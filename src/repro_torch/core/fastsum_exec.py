@@ -1,7 +1,9 @@
 """Fused fast-summation execution: spread -> rfftn -> multiply -> irfftn -> gather.
 
-PyTorch counterpart of the hook-free part of ``repro.core.fastsum_exec``:
-single operators and multiplier banks.  One precomputed spectral multiplier on the
+PyTorch counterpart of ``repro.core.fastsum_exec``: single operators and
+multiplier banks, with the hooks the distributed matvec
+(:mod:`repro_torch.dist.fastsum_dist`) runs its cross-shard spectral sum
+through.  One precomputed spectral multiplier on the
 oversampled half-spectrum,
 
     C[k] = b_hat[k] / (M^d * phi_hat[k]^2)   for k in I_N^d, zero-padded
@@ -173,38 +175,84 @@ def _gather(plan: NfftPlan, geometry: WindowGeometry,
 
 
 def _spectral_mid(plan: NfftPlan, multiplier_half: torch.Tensor,
-                  g: torch.Tensor) -> torch.Tensor:
-    """rfftn -> multiply -> irfftn on the spread grid (M,)*d + (C,)."""
+                  g: torch.Tensor, spectral_reduce=None) -> torch.Tensor:
+    """rfftn -> multiply -> irfftn on the spread grid (M,)*d + (C,);
+    ``spectral_reduce``, when given, maps the product's support block
+    (:func:`_reduce_support`) before the inverse transform."""
     dims = tuple(range(plan.d))
     g_hat = torch.fft.rfftn(g, dim=dims)
     g_hat = g_hat * multiplier_half.to(g_hat.dtype)[..., None]
+    if spectral_reduce is not None:
+        g_hat = _reduce_support(plan, g_hat, spectral_reduce)
     y = torch.fft.irfftn(g_hat, s=(plan.grid_size,) * plan.d, dim=dims)
     return y.to(g.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _support_index(plan: NfftPlan, device: torch.device) -> tuple:
+    """:func:`spectral_support` as an advanced index on ``device``, built
+    once per plan and device."""
+    return tuple(torch.meshgrid(*[torch.as_tensor(i, device=device)
+                                  for i in spectral_support(plan)],
+                                indexing="ij"))
+
+
+def _reduce_support(plan: NfftPlan, g_hat: torch.Tensor,
+                    spectral_reduce) -> torch.Tensor:
+    """Apply ``spectral_reduce`` to the support block of a multiplied
+    half-spectrum ``(M,)*(d-1) + (M//2+1,) + (C,)`` and write its result
+    back there, in place.  ``g_hat`` is the caller's fresh product, zero
+    off the support because the multiplier is, so the result is the
+    reduced block and zeros elsewhere.  The block goes to the hook as a
+    contiguous copy (indexing copies)."""
+    index = _support_index(plan, g_hat.device)
+    g_hat[index] = spectral_reduce(g_hat[index])
+    return g_hat
+
+
 def fused_pipeline(plan: NfftPlan, multiplier_half: torch.Tensor,
                    src: WindowGeometry, tgt: WindowGeometry,
-                   x: torch.Tensor, grid_hook=None) -> torch.Tensor:
+                   x: torch.Tensor, grid_hook=None, spectral_reduce=None,
+                   spectral_op=None) -> torch.Tensor:
     """spread -> rfftn -> multiply -> irfftn -> gather; x (n,) or (n, C).
 
-    ``grid_hook``, when given, maps the spread grid ``(M,)*d + (C,)`` to a
-    grid of the same shape before the spectral section: the deterministic
-    fault-injection seam (:mod:`repro_torch.runtime.faultinject` poisons
-    it to model grid memory corruption); production callers leave it
-    ``None``.  A hooked call is forward-only, as in the JAX package: it
-    runs on detached values and its output carries no graph.
+    Three hooks, as in the JAX package, let the distributed matvec and
+    fault injection reuse this one implementation:
+
+    * ``grid_hook`` maps the spread grid ``(M,)*d + (C,)`` to a grid of
+      the same shape before the spectral section: the deterministic
+      fault-injection seam (:mod:`repro_torch.runtime.faultinject`
+      poisons it to model grid memory corruption).
+    * ``spectral_reduce`` maps the support block of the multiplied
+      half-spectrum (see :func:`spectral_support`): the psum spectral
+      mode's one cross-shard sum.
+    * ``spectral_op`` replaces the whole rfftn -> multiply -> irfftn
+      section: it maps the spread grid to the inverse-transformed grid of
+      the same shape (the pencil spectral mode's sharded transform, which
+      owns the multiply; ``multiplier_half`` and ``spectral_reduce`` are
+      then unused).
+
+    Production single-device callers leave all three ``None``.  A hooked
+    call is forward-only, as in the JAX package: it runs on detached
+    values and its output carries no graph.
     """
     batched = x.ndim == 2
     xb = x if batched else x[:, None]
-    if grid_hook is None:
+    if grid_hook is None and spectral_reduce is None and spectral_op is None:
         y = _spectral_mid(plan, multiplier_half,
                           window_spread(plan, src, xb))
         out = window_gather(plan, tgt, y)
     else:
         with torch.no_grad():
-            g = grid_hook(_spread(plan, src, xb.detach()))
-            out = _gather(plan, tgt,
-                          _spectral_mid(plan, multiplier_half.detach(), g))
+            g = _spread(plan, src, xb.detach())
+            if grid_hook is not None:
+                g = grid_hook(g)
+            if spectral_op is not None:
+                y = spectral_op(g).to(g.dtype)
+            else:
+                y = _spectral_mid(plan, multiplier_half.detach(), g,
+                                  spectral_reduce)
+            out = _gather(plan, tgt, y)
     return out if batched else out[:, 0]
 
 
@@ -214,9 +262,8 @@ fused_matvec_tilde = fused_pipeline
 
 # ---------------------------------------------------------------------------
 # Multiplier banks: one spread and one forward rfftn shared by S operators,
-# differentiable as the single pipeline is.  The JAX package's
-# spectral_reduce / spectral_op hooks (distribution, ROADMAP queue 1 item
-# 12) are not here.
+# differentiable as the single pipeline is; the distributed matvec's
+# spectral_reduce / spectral_op hooks as in fused_pipeline.
 # ---------------------------------------------------------------------------
 
 def stack_multipliers(plan: NfftPlan, b_hats) -> torch.Tensor:
@@ -242,27 +289,42 @@ def _bank_multiply(plan: NfftPlan, multiplier_bank: torch.Tensor,
 
 def _bank_columns_transform(plan: NfftPlan, multiplier_bank: torch.Tensor,
                             src: WindowGeometry, xb: torch.Tensor, *,
-                            broadcast: bool) -> torch.Tensor:
+                            broadcast: bool, spectral_reduce=None,
+                            spectral_op=None) -> torch.Tensor:
     """spread -> rfftn -> bank multiply -> batched irfftn of ``xb`` (n, K):
     the gather-ready grid ``(M,)*d + (K*S,)`` (broadcast) or ``(K,)``
     (lockstep, K = S*C), real, FFT order.  It depends only on the source
-    side, so any number of target sets can be gathered from it."""
+    side, so any number of target sets can be gathered from it.  The hooks
+    are :func:`fused_pipeline`'s, with the bank stacked into the channel
+    axis (``spectral_op`` owns the bank multiply)."""
     dims = tuple(range(plan.d))
-    g_hat = torch.fft.rfftn(window_spread(plan, src, xb), dim=dims)
+    g = window_spread(plan, src, xb)
+    if spectral_op is not None:
+        return spectral_op(g).to(xb.dtype)
+    g_hat = torch.fft.rfftn(g, dim=dims)
     flat = _bank_multiply(plan, multiplier_bank, g_hat, broadcast)
+    if spectral_reduce is not None:
+        flat = _reduce_support(plan, flat, spectral_reduce)
     y = torch.fft.irfftn(flat, s=(plan.grid_size,) * plan.d, dim=dims)
     return y.to(xb.dtype)
 
 
 def fused_pipeline_bank(plan: NfftPlan, multiplier_bank: torch.Tensor,
                         src: WindowGeometry, tgt: WindowGeometry,
-                        x: torch.Tensor) -> torch.Tensor:
+                        x: torch.Tensor, spectral_reduce=None,
+                        spectral_op=None) -> torch.Tensor:
     """Bank matvec: one spread, one rfftn, one batched irfftn and one
     gather for all S members of ``multiplier_bank`` ((S,) + half-spectrum).
 
     Broadcast: ``x`` (n,) or (n, C), every member on the same columns ->
     (S, n) / (S, n, C).  Lockstep: ``x`` (S, n, C), member ``s`` on
     ``x[s]`` -> (S, n, C); its S*C columns ride the channel axis.
+
+    ``spectral_reduce`` / ``spectral_op`` are :func:`fused_pipeline`'s
+    distribution hooks: the reduce maps the support block of the
+    multiplied half-spectrum with the bank stacked into the channel axis;
+    the op maps the spread grid to the inverse-transformed grid with S*C
+    channels (it owns the bank multiply).  A hooked call is forward-only.
     """
     nb = multiplier_bank.shape[0]
     lockstep = x.ndim == 3
@@ -276,9 +338,17 @@ def fused_pipeline_bank(plan: NfftPlan, multiplier_bank: torch.Tensor,
         batched = x.ndim == 2
         xb = x if batched else x[:, None]
         c = xb.shape[-1]
-    y = _bank_columns_transform(plan, multiplier_bank, src, xb,
-                                broadcast=not lockstep)
-    out = window_gather(plan, tgt, y)
+    if spectral_reduce is None and spectral_op is None:
+        y = _bank_columns_transform(plan, multiplier_bank, src, xb,
+                                    broadcast=not lockstep)
+        out = window_gather(plan, tgt, y)
+    else:
+        with torch.no_grad():
+            y = _bank_columns_transform(
+                plan, multiplier_bank.detach(), src, xb.detach(),
+                broadcast=not lockstep, spectral_reduce=spectral_reduce,
+                spectral_op=spectral_op)
+            out = _gather(plan, tgt, y)
     out = out.reshape(out.shape[0], nb, c).permute(1, 0, 2)  # (S, n, C)
     if lockstep or batched:
         return out

@@ -1,6 +1,6 @@
 """Block-wise int8 gradient compression with error feedback.
 
-The single-device part of ``repro.dist.compression``.  Quantization:
+The port of ``repro.dist.compression``.  Quantization:
 gradients are flattened, padded, and cut into blocks of ``BLOCK``
 elements; each block is scaled by ``max|block| / 127`` and rounded (half
 to even, as ``jnp.round``) to int8, giving a per-element error of at most
@@ -12,8 +12,9 @@ the reference's: the outputs are bit-identical to the JAX package's.
 A block runs over the flattened *JAX leaf*, so a model's gradients go in
 as the period-stacked tree (:meth:`repro_torch.models.model.Model.
 stack_for_training`): a block of a stacked norm may span layers, as in
-the reference.  ``compress_psum``, the cross-replica mean, waits for the
-port's distribution layer (ROADMAP queue 1 item 12).
+the reference.  ``compress_psum`` is the cross-replica mean over a mesh
+axis: the values crossing the wire are int8-representable per block, but
+the collective itself still moves float32, as in the reference.
 """
 
 from __future__ import annotations
@@ -77,8 +78,18 @@ def apply_error_feedback(grads: Any, state: CompressionState):
     return out, CompressionState(residuals=resid)
 
 
-def compress_psum(g, axis_name, resid):
-    """The error-feedback-compressed mean over replicas: not ported."""
-    raise NotImplementedError(
-        "compress_psum is the cross-replica mean of the distribution layer, "
-        "not ported yet (ROADMAP queue 1 item 12)")
+def compress_psum(g: torch.Tensor, axis_name, resid: torch.Tensor, mesh):
+    """Error-feedback-compressed mean over the replicas of a mesh axis.
+
+    Each replica quantizes its local ``g + resid``; the dequantized values
+    are averaged over the group of ``axis_name`` (a name, or a tuple of
+    names, of ``mesh``: a :class:`repro_torch.launch.mesh.Mesh`), so every
+    replica holds the same approximate mean (``pmean`` in the JAX
+    package: the sum, then a division by the group size).  The mean's
+    per-element error is at most the mean of the replicas' quantization
+    errors, i.e. <= max|g| / 254 globally.  Returns ``(mean,
+    new_resid)``.
+    """
+    out, new_resid = compress_decompress(g, resid)
+    mean = mesh.psum(out, axis_name) / mesh.group_size(axis_name)
+    return mean, new_resid

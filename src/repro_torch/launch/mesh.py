@@ -1,0 +1,252 @@
+"""Device meshes over ``torch.distributed``, and the collectives that run
+over their named axes.
+
+The port of ``repro.launch.mesh``.  A :class:`Mesh` names the axes of a
+grid of ranks, as ``jax.sharding.Mesh`` names the axes of a grid of
+devices, and runs the collectives that ``jax.lax`` runs over axis names:
+:meth:`Mesh.psum`, :meth:`Mesh.psum_scatter`, :meth:`Mesh.all_gather` and
+:meth:`Mesh.all_to_all` (tiled).
+
+* ``make_production_mesh`` describes the reference's production meshes,
+  (16, 16) over ``("data", "model")`` and (2, 16, 16) over ``("pod",
+  "data", "model")``, by shape and axis names.  It starts no process and
+  touches no process group; its collectives raise.
+* ``make_local_mesh(model_parallel)`` lays a ``("data", "model")`` mesh
+  over the ranks of the initialised default process group, and
+  :func:`make_mesh` any shape.  The caller initialises the group and picks
+  its backend; nothing here does.
+
+Rank layout: global rank ``r`` sits at the coordinates of ``r`` in the
+row-major (first name major) linearisation of the mesh shape, the device
+order of ``jax.make_mesh``.  A collective over several axes, such as a row
+group ``("pod", "data")``, runs on one process group per coordinate of the
+other axes, made at its first use by every rank in the same order.  Its
+blocks go in :meth:`Mesh.group_index` order: this rank's first-name-major
+position over those axes, jax's linearisation for multi-name collectives.
+``torch.distributed`` orders a group's ranks by global rank, which is that
+order when the axes are named in mesh order, so a collective's axes must
+be named in mesh order.
+
+Every collective adds the bytes of the operand this rank hands it to
+:attr:`Mesh.traffic`, by kind, and the bytes it sends under a ring or
+pairwise schedule (all_reduce 2(G-1)/G of the operand, reduce_scatter
+and all_to_all (G-1)/G, all_gather G-1 times its block) to ``"wire"``.
+Complex tensors cross the wire as ``torch.view_as_real`` views.
+"""
+
+from __future__ import annotations
+
+import collections
+import itertools
+import math
+
+import torch
+import torch.distributed as dist
+
+# The tensor-in, tensor-out collectives; newer torch releases name them
+# *_single and deprecate the older names, which older releases have alone.
+_all_gather = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+
+
+class Mesh:
+    """Named axes over a grid of ranks; ``shape`` maps each axis name to
+    its size, in mesh order.  ``rank`` is this process's global rank, or
+    None for a mesh that is only described (no process group)."""
+
+    def __init__(self, shape: dict, rank: int | None = None):
+        self.shape = {str(a): int(s) for a, s in shape.items()}
+        self.axis_names = tuple(self.shape)
+        self.rank = rank
+        self._groups = {}
+        self.traffic = collections.Counter()
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, rank={self.rank})"
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def coords(self) -> dict:
+        """This rank's mesh coordinates."""
+        rank = self._live_rank()
+        out = {}
+        for name in reversed(self.axis_names):
+            rank, out[name] = divmod(rank, self.shape[name])
+        return {a: out[a] for a in self.axis_names}
+
+    def group_index(self, axes) -> int:
+        """This rank's position in the group of ``axes``, first name
+        major (``jax.lax.axis_index`` over several names)."""
+        coords = self.coords()
+        idx = 0
+        for a in self._axes(axes):
+            idx = idx * self.shape[a] + coords[a]
+        return idx
+
+    def group_size(self, axes) -> int:
+        return math.prod(self.shape[a] for a in self._axes(axes))
+
+    def group(self, axes):
+        """The process group of ``axes`` that holds this rank.  Made at the
+        first call for ``axes`` (one group per coordinate of the other
+        axes, every rank making all of them in one order), then kept."""
+        axes = self._axes(axes)
+        if axes not in self._groups:
+            self._live_rank()
+            if list(axes) != [a for a in self.axis_names if a in axes]:
+                raise ValueError(
+                    f"collective axes {axes} must be named in mesh order "
+                    f"{self.axis_names}: a process group orders its ranks "
+                    "by global rank")
+            others = [a for a in self.axis_names if a not in axes]
+            groups = []
+            for fixed in itertools.product(
+                    *[range(self.shape[a]) for a in others]):
+                pin = dict(zip(others, fixed))
+                groups.append([self._linear({**pin, **dict(zip(axes, sub))})
+                               for sub in itertools.product(
+                                   *[range(self.shape[a]) for a in axes])])
+            mine, _ = dist.new_subgroups_by_enumeration(groups)
+            if dist.get_rank(mine) != self.group_index(axes):
+                raise RuntimeError(
+                    f"group of {axes}: process-group rank "
+                    f"{dist.get_rank(mine)} is not the first-name-major "
+                    f"index {self.group_index(axes)}")
+            self._groups[axes] = mine
+        return self._groups[axes]
+
+    # -- collectives ---------------------------------------------------------
+    def psum(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """Sum of ``t`` over the group of ``axes`` (a new tensor; a group
+        of one rank still runs the all_reduce)."""
+        group, size = self.group(axes), self.group_size(axes)
+        buf = t.clone(memory_format=torch.contiguous_format)
+        self._count("all_reduce", buf, 2 * (size - 1) / size)
+        dist.all_reduce(_real(buf), group=group)
+        return buf
+
+    def psum_scatter(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """Sum over the group of ``axes``, scattered in equal blocks along
+        ``dim``: block ``i`` to group index ``i`` (``tiled=True``)."""
+        size = self.group_size(axes)
+        if size == 1:
+            return t
+        inp = t.movedim(dim, 0).contiguous()
+        out = inp.new_empty((inp.shape[0] // size,) + inp.shape[1:])
+        self._count("reduce_scatter", inp, (size - 1) / size)
+        _reduce_scatter(_real(out), _real(inp), group=self.group(axes))
+        return out.movedim(0, dim)
+
+    def all_gather(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """Blocks of the group of ``axes`` concatenated along ``dim`` in
+        group-index order (``tiled=True``)."""
+        size = self.group_size(axes)
+        if size == 1:
+            return t
+        inp = t.movedim(dim, 0).contiguous()
+        out = inp.new_empty((inp.shape[0] * size,) + inp.shape[1:])
+        self._count("all_gather", inp, size - 1)
+        _all_gather(_real(out), _real(inp), group=self.group(axes))
+        return out.movedim(0, dim)
+
+    def all_to_all(self, t: torch.Tensor, axes, split_axis: int,
+                   concat_axis: int) -> torch.Tensor:
+        """``jax.lax.all_to_all(..., tiled=True)``: ``t`` cut in equal
+        blocks along ``split_axis``, block ``j`` sent to group index ``j``;
+        the blocks received concatenated along ``concat_axis`` in
+        group-index order."""
+        size = self.group_size(axes)
+        if size == 1:
+            return t
+        moved = t.movedim(split_axis, 0)
+        rest = moved.shape[1:]
+        inp = moved.reshape((size, moved.shape[0] // size) + rest)
+        inp = inp.contiguous()
+        out = torch.empty_like(inp)
+        self._count("all_to_all", inp, (size - 1) / size)
+        dist.all_to_all_single(_real(out), _real(inp),
+                               group=self.group(axes))
+        # out[j] is this rank's block of rank j's tensor: put the block's
+        # axis back, then merge the rank axis into concat_axis, rank major
+        out = out.movedim(1, split_axis + 1).movedim(0, concat_axis)
+        shape = list(out.shape)
+        shape[concat_axis: concat_axis + 2] = [shape[concat_axis]
+                                               * shape[concat_axis + 1]]
+        return out.reshape(shape)
+
+    # -- helpers -------------------------------------------------------------
+    def _axes(self, axes) -> tuple:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        unknown = [a for a in axes if a not in self.shape]
+        if unknown or len(set(axes)) != len(axes):
+            raise ValueError(f"axes {axes} are not distinct axes of "
+                             f"{self.axis_names}")
+        return axes
+
+    def _live_rank(self) -> int:
+        if self.rank is None:
+            raise RuntimeError(
+                f"{self!r} is a described mesh with no process group; use "
+                "make_mesh / make_local_mesh after init_process_group")
+        return self.rank
+
+    def _linear(self, coords: dict) -> int:
+        rank = 0
+        for a in self.axis_names:
+            rank = rank * self.shape[a] + coords[a]
+        return rank
+
+    def _count(self, kind: str, operand: torch.Tensor, wire: float) -> None:
+        nbytes = operand.numel() * operand.element_size()
+        self.traffic[kind] += nbytes
+        self.traffic["wire"] += int(round(wire * nbytes))
+
+
+def _real(t: torch.Tensor) -> torch.Tensor:
+    """A real view of ``t`` for the wire (complex as (re, im) pairs)."""
+    return torch.view_as_real(t) if t.is_complex() else t
+
+
+def make_mesh(shape, axis_names) -> Mesh:
+    """A mesh of ``shape`` over the ranks of the initialised default
+    process group (``jax.make_mesh`` over processes)."""
+    shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
+    if len(shape) != len(axis_names):
+        raise ValueError(f"shape {shape} and axes {axis_names} differ in rank")
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs torch.distributed."
+                           "init_process_group first; the caller picks the "
+                           "backend")
+    world = dist.get_world_size()
+    if math.prod(shape) != world:
+        raise ValueError(f"mesh {shape} needs {math.prod(shape)} ranks, the "
+                         f"process group has {world}")
+    return Mesh(dict(zip(axis_names, shape)), rank=dist.get_rank())
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh, described: (16, 16) over
+    ``("data", "model")``, or (2, 16, 16) over ``("pod", "data",
+    "model")``.  ``"data"`` (and ``"pod"``) carry batch and FSDP sharding,
+    ``"model"`` tensor, expert and sequence parallelism."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(dict(zip(axes, shape)))
+
+
+def make_local_mesh(model_parallel: int = 1) -> Mesh:
+    """``("data", "model")`` over every rank of the process group."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world % model_parallel:
+        raise ValueError(f"{world} ranks do not split into model_parallel="
+                         f"{model_parallel}")
+    return make_mesh((world // model_parallel, model_parallel),
+                     ("data", "model"))
+
+
+def mesh_chip_count(mesh: Mesh) -> int:
+    return mesh.size

@@ -5,7 +5,8 @@
         --batch 2 --microbatches 2
 
 The port of ``repro.launch.train`` for one card (the reference's mesh and
-``--model-parallel`` wait for ROADMAP queue 1 item 12): the flags are the
+``--model-parallel`` apply its sharding rules, which come with the port's
+sharded train step, ROADMAP queue 1 item 12's LM half): the flags are the
 reference's, ``--reduced`` (off by default) swaps in the same-family
 CPU-scale config, and ``--device`` picks the device (default: the CUDA
 card).  Fault tolerance is on: a checkpoint every ``--ckpt-every`` steps,

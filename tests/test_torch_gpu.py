@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_dist_cases as dist_cases
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core import fastsum as tfs
 from repro_torch.core import fastsum_exec as texec
@@ -35,6 +36,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import nfft_window as twin
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import trace_serve as ttrace
+from repro_torch.launch.ranks import RankPool
 from repro_torch.models import model as tmodel
 from repro_torch.runtime import guards as tguards
 from repro_torch.serving import graph as tgraph
@@ -1205,3 +1207,61 @@ def test_trace_train_sees_the_device_timeline(cuda):
     r = out["step"]
     assert 0 < r["device_busy_ms"] and r["device_events"] > 0
     assert r["device_idle_share"] < 1
+
+
+# ---------------------------------------------------------------------------
+# The distributed matvec on the card: NCCL at world size 1, and two gloo
+# ranks sharing cuda:0 (NCCL refuses two ranks on one device), against the
+# single-device matvec on the card within 1e-12
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def card_pools():
+    """One NCCL rank and two gloo ranks on cuda:0, started on first use
+    and stopped at the module's end."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on the H100)")
+    pools = {}
+
+    def get(world, backend):
+        if (world, backend) not in pools:
+            pools[world, backend] = RankPool(world, backend, "cuda:0")
+        return pools[world, backend]
+
+    yield get
+    for pool in pools.values():
+        pool.close()
+
+
+@pytest.mark.parametrize("mode", ["psum", "pencil"])
+@pytest.mark.parametrize("world, backend", [(1, "nccl"), (2, "gloo")])
+def test_distributed_matvec_on_card_matches_single_device(
+        card_pools, world, backend, mode):
+    """At world size 1 the pencil mode degenerates to psum (one warning);
+    at two ranks it pencils grid axis 0.  y is bitwise the same on every
+    rank."""
+    pool = card_pools(world, backend)
+    x = dist_cases.rhs((4099, 3), 7)
+    for xs in (x, x[:, 0]):
+        for d, setup in ((3, "SETUP_1"), (2, "SETUP_2")):
+            outs = pool.run(dist_cases.matvec, d, setup, 4099, mode,
+                            (world,), None, xs)
+            assert all(o["y"].tobytes() == outs[0]["y"].tobytes()
+                       for o in outs)
+            assert (outs[0]["spec"] is not None) == (mode == "pencil"
+                                                     and world > 1)
+            for o in outs:
+                assert _rel(torch.as_tensor(o["y"]),
+                            torch.as_tensor(o["single"])) <= 1e-12
+
+
+@pytest.mark.parametrize("mode", ["psum", "pencil"])
+def test_distributed_bank_matvec_on_card_matches_single_device(
+        card_pools, mode):
+    pool = card_pools(2, "gloo")
+    for shape in ((4099, 2), (3, 4099, 2)):
+        outs = pool.run(dist_cases.bank_matvec, 3, "SETUP_1", 4099, mode,
+                        (2,), dist_cases.rhs(shape, 8))
+        for o in outs:
+            assert _rel(torch.as_tensor(o["y"]),
+                        torch.as_tensor(o["single"])) <= 1e-12

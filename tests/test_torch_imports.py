@@ -35,7 +35,8 @@ MODULES = ("core.kernels", "core.regularization", "core.nfft",
            "serving.journal", "models.nfft_attention", "tree",
            "training.optimizer", "training.train_loop", "data.pipeline",
            "dist", "dist.compression", "launch.train", "train_lm",
-           "launch.trace_train")
+           "launch.trace_train", "dist.fastsum_dist", "dist.pencil_fft",
+           "launch.mesh", "launch.ranks")
 
 
 def _imported_roots(path: Path) -> set:
@@ -104,8 +105,7 @@ def test_reference_surface_names_import_from_the_port(package):
 
 def test_dist_exports_the_reference_compression_names():
     """``repro.dist`` re-exports its compression module's names; the
-    port's ``dist`` package exports the same (``compress_psum`` raises
-    until the distribution layer is ported)."""
+    port's ``dist`` package exports the same."""
     tree = ast.parse((ROOT / "src" / "repro" / "dist" / "__init__.py")
                      .read_text())
     names = [a.asname or a.name for node in tree.body
@@ -115,3 +115,21 @@ def test_dist_exports_the_reference_compression_names():
     assert len(names) == 6
     port = importlib.import_module("repro_torch.dist")
     assert [n for n in names if not hasattr(port, n)] == []
+
+
+def test_dist_exports_the_reference_surface_but_sharding():
+    """The port's ``dist`` exports every name of ``repro.dist.__all__``
+    except ``shard_map`` (a jax version shim, no twin) and the sharding
+    rules, which come with the sharded train step."""
+    tree = ast.parse((ROOT / "src" / "repro" / "dist" / "__init__.py")
+                     .read_text())
+    names = next(ast.literal_eval(node.value) for node in tree.body
+                 if isinstance(node, ast.Assign)
+                 and node.targets[0].id == "__all__")
+    sharding = {a.asname or a.name for node in tree.body
+                if isinstance(node, ast.ImportFrom)
+                and node.module == "repro.dist.sharding" for a in node.names}
+    wanted = set(names) - sharding - {"shard_map"}
+    assert len(wanted) == 14
+    port = importlib.import_module("repro_torch.dist")
+    assert sorted(n for n in wanted if not hasattr(port, n)) == []

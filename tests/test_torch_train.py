@@ -51,6 +51,7 @@ from repro.training import train_loop as jtl
 from repro_torch import configs as tconfigs
 from repro_torch.dist import compression as tcomp
 from repro_torch.launch import train as tlaunch
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import model as TM
 from repro_torch.training import optimizer as topt
 from repro_torch.training import train_loop as ttl
@@ -524,8 +525,12 @@ def test_apply_error_feedback_bit_identical_to_jax():
 
 
 def test_compress_psum_waits_for_distribution():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tcomp.compress_psum(torch.zeros(3), "data", torch.zeros(3))
+    """compress_psum is the mean over the ranks of a mesh axis, so it needs
+    a mesh over an initialised process group (tests/test_torch_dist.py
+    runs it on four ranks); a mesh that is only described has none."""
+    with pytest.raises(RuntimeError, match="described mesh"):
+        tcomp.compress_psum(torch.zeros(3), "data", torch.zeros(3),
+                            Mesh({"data": 4}))
 
 
 @pytest.mark.parametrize("n,seed,scale", [(1, 0, 1e-6), (300, 1, 1.0),

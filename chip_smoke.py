@@ -94,7 +94,17 @@ uninterrupted run bit for bit, a compressed step's outputs must lie on
 their blocks' int8 grids and its residuals within half a quantization
 step, and granite-3-2b-nfft's learn_sigma step
 must move log_sigma; no kernel of the package may launch on these paths
-(the einsum attention and cuBLAS).  Then the other mixers and the
+(the einsum attention and cuBLAS); the run without a checkpoint directory
+keeps a host copy of the initial state (its bytes and seconds printed).
+Then the sharded train step ([shard_train]): four gloo ranks sharing the
+card hold their blocks of granite-3-2b's state at full width (4 layers,
+float32) on meshes (4, 1) and (2, 2), gather weights on use and
+reduce-scatter gradients; losses against the single-device step, unsplit
+leaves bitwise equal on the ranks, each rank's bytes of state and each
+step's collective bytes against the sharding rules' prediction; a sharded
+checkpoint restored onto (2, 2) and onto one device; then one NCCL rank
+at (1, 1) at full width and depth beside [train]'s step; no kernel may
+launch.  Then the other mixers and the
 frontends, each path with its launch counts from 0: olmoe-1b-7b (MoE, 64
 experts, top-8) at full width and depth through ``ServeEngine``
 ([moe_serve]: the flash kernel once per layer and prefill, head dim 128;
@@ -418,6 +428,28 @@ TRAIN_BATCH, TRAIN_MICRO = 2, 2
 TRAIN_LR = 3e-4
 TRAIN_SHORT_LAYERS = 2
 TRAIN_RESUME_STEPS, TRAIN_RESUME_EVERY, TRAIN_FAULT_STEP = 6, 2, 4
+# [shard_train]: the sharded train step (ZeRO-3 over torch.distributed)
+# on granite-3-2b at full width: SHARD_WORLD gloo ranks time-sharing the
+# card, float32, AdamW, depth cut 40 -> SHARD_LAYERS (gloo stages every
+# collective through the host, and the ranks share 80 GB), global batch
+# cut 256 -> SHARD_BATCH sequences of 4,096 tokens, SHARD_STEPS steps on
+# each mesh against the single-device step (loss within SHARD_TOL, the
+# reference's elastic-restore bound); a checkpoint after SHARD_SAVE_AT
+# steps at (4, 1) restored onto (2, 2) and onto one device; then one NCCL
+# rank at (1, 1) at full width and depth, bf16, [train]'s 2 x 4,096
+# tokens, SHARD_FULL_STEPS steps.  Each mesh runs SHARD_MICRO microbatches,
+# and so does the single-device step it is held against.
+SHARD_WORLD = 4
+SHARD_LAYERS = 4
+SHARD_BATCH = 4
+SHARD_STEPS = 2
+SHARD_MESHES = ((4, 1), (2, 2))
+# microbatches a step on each mesh: one 4,096-token row a rank and
+# microbatch (two rows on each of four ranks sharing 80 GB run out of it)
+SHARD_MICRO = {(4, 1): 1, (2, 2): 2}
+SHARD_SAVE_AT = 2
+SHARD_TOL = 1e-4
+SHARD_FULL_STEPS = 3
 # a residual's bound max|block|/254, plus the rounding of q * scale (a few
 # ulps of the block's largest value, under 2^-16 of the bound)
 EF_BOUND_SLACK = 2.0 ** -16
@@ -844,6 +876,301 @@ def dist_compress_case(ctx):
             "digest": dist_digest(mean), "traffic": dict(mesh.traffic)}
 
 
+# ---------------------------------------------------------------------------
+# [shard_train]'s rank side (run by repro_torch.launch.ranks.RankPool, as
+# [dist]'s): each rank builds its blocks of the same seeded state.
+# ---------------------------------------------------------------------------
+
+def shard_config(layers: int, dtype: str):
+    """SHARD's architecture (granite-3-2b) at full width, ``layers`` deep,
+    parameters and activations in ``dtype``."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(TRAIN_ARCH), num_layers=layers,
+                               param_dtype=dtype, activation_dtype=dtype)
+
+
+def shard_train_config(micro: int):
+    """launch/train.py's optimizer settings, as [train]'s (AdamW for
+    granite-3-2b, peak lr TRAIN_LR, warmup max(steps // 20, 5)), over
+    SHARD_STEPS + 1 steps."""
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.train_loop import TrainConfig
+    steps = SHARD_STEPS + 1
+    return TrainConfig(optimizer=OptimizerConfig(
+        name="adamw", peak_lr=TRAIN_LR, total_steps=steps,
+        warmup_steps=max(steps // 20, 5)), num_microbatches=micro)
+
+
+def shard_batch(cfg, rows: int, step: int, device):
+    """The pipeline's batch ``step`` of ``rows`` 4,096-token sequences."""
+    import torch
+    from repro_torch.data import pipeline
+    shape = dataclasses.replace(
+        next(s for s in cfg.shapes if s.name == "train_4k"),
+        global_batch=rows)
+    return {k: torch.as_tensor(v).to(device) for k, v in
+            pipeline.batch_for_step(cfg, shape, step, seed=TRAIN_SEED).items()}
+
+
+def shard_launches(reset: bool = False) -> dict:
+    """Every kernel wrapper's launch count in this process (set to 0 with
+    ``reset``)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import kernel_matvec as km
+    from repro_torch.kernels import nfft_window as win
+    fns = {"window_spread": win.window_spread,
+           "window_spread_deterministic": win.window_spread_deterministic,
+           "window_gather": win.window_gather,
+           "kernel_matvec": km.kernel_matvec,
+           "flash_attention": fa.flash_attention}
+    if reset:
+        for fn in fns.values():
+            fn.launches = 0
+    return {k: fn.launches for k, fn in fns.items()}
+
+
+def shard_state_bytes(state, step) -> dict:
+    """This rank's bytes of train state, the rules' blocks of it
+    (``_state_shardings`` over the meta state), the unsharded total."""
+    import torch
+    from repro_torch.training import train_loop as tl
+    from repro_torch.tree import tree_leaves
+    held = sum(t.numel() * t.element_size() for t in tree_leaves(state)
+               if isinstance(t, torch.Tensor))
+    pairs = list(zip(tree_leaves(tl.abstract_train_state(step.cfg, step.tc)),
+                     tree_leaves(step.state_shardings)))
+    return {"held": held,
+            "rules": sum(s.block_numel() * t.element_size()
+                         for t, s in pairs),
+            "full": sum(t.numel() * t.element_size() for t, _ in pairs)}
+
+
+def shard_unsplit_digests(state, step) -> dict:
+    """sha256 of each leaf that no mesh axis splits (the replicated ones)."""
+    import torch
+    from repro_torch.tree import tree_flatten_with_path, tree_leaves
+    return {path: dist_digest(t.detach()) for (path, t), s in zip(
+        tree_flatten_with_path(state), tree_leaves(step.state_shardings))
+        if isinstance(t, torch.Tensor) and not s.is_split}
+
+
+def shard_release(ctx) -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize(ctx.device)
+    torch.cuda.empty_cache()
+
+
+def shard_train_case(ctx, mesh_shape, save_dir=None):
+    """SHARD_STEPS (+ 1 with ``save_dir``) sharded steps of SHARD_LAYERS
+    layers, float32, SHARD_BATCH x 4,096 tokens in SHARD_MICRO
+    microbatches, on ``mesh_shape``,
+    through run_resilient (no checkpoint directory: each rank keeps a host
+    copy of its blocks); with ``save_dir``, a sharded checkpoint after
+    SHARD_SAVE_AT steps and one more step.  Launch counts set to 0 just
+    before the steps and read just after; metrics, host seconds a step
+    (every rank starting together, ending in a sync), each step's
+    collective traffic, bytes of state, digests of the unsplit leaves."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import fault_tolerance as ft
+    from repro_torch.training import train_loop as tl
+    mesh = dist_mesh(ctx, mesh_shape)
+    cfg = shard_config(SHARD_LAYERS, "float32")
+    tc = shard_train_config(SHARD_MICRO[mesh_shape])
+    torch.cuda.reset_peak_memory_stats(ctx.device)
+    t0 = time.perf_counter()
+    state = tl.init_train_state(cfg, tc, TRAIN_SEED, device=ctx.device,
+                                mesh=mesh)
+    step = tl.make_train_step(cfg, tc, mesh=mesh)
+    torch.cuda.synchronize(ctx.device)
+    init_s = time.perf_counter() - t0
+    steps = SHARD_STEPS + (1 if save_dir else 0)
+    batches = [shard_batch(cfg, SHARD_BATCH, s, ctx.device)
+               for s in range(steps)]
+    metrics, traffic, times, save_s = [], [], [], None
+
+    def timed(st, batch):
+        mesh.traffic.clear()
+        dist.barrier()
+        torch.cuda.synchronize(ctx.device)
+        t = time.perf_counter()
+        st, m = step(st, batch)
+        torch.cuda.synchronize(ctx.device)
+        times.append(time.perf_counter() - t)
+        traffic.append(dict(mesh.traffic))
+        metrics.append({k: float(v) for k, v in m.items()})
+        return st, m
+
+    shard_launches(reset=True)
+    if save_dir is None:
+        state, info = ft.run_resilient(
+            timed, state, lambda s: batches[s], total_steps=steps,
+            ckpt_dir=None, state_shardings=step.state_shardings,
+            log_every=10 ** 9)
+        copy = info["initial_copy"]
+    else:
+        copy = None
+        for s in range(steps):
+            state, _ = timed(state, batches[s])
+            if s + 1 == SHARD_SAVE_AT:
+                t = time.perf_counter()
+                ckpt.save_checkpoint(save_dir, s + 1, state,
+                                     shardings=step.state_shardings)
+                dist.barrier()
+                save_s = time.perf_counter() - t
+    launches = shard_launches()
+    out = {"rank": ctx.rank, "metrics": metrics, "step_s": times,
+           "traffic": traffic, "init_s": init_s, "save_s": save_s,
+           "host_copy": copy, "launches": launches,
+           "bytes": shard_state_bytes(state, step),
+           "digests": shard_unsplit_digests(state, step),
+           "peak_gb": torch.cuda.max_memory_allocated(ctx.device) / 1e9}
+    del state, step, batches
+    shard_release(ctx)
+    return out
+
+
+def shard_resume_case(ctx, mesh_shape, save_dir):
+    """SHARD_SAVE_AT's checkpoint restored onto ``mesh_shape`` (each rank
+    reads its blocks of every leaf), then the next step (in SHARD_MICRO
+    microbatches: the loss, taken before the update, is the batch's mean
+    either way): its metrics."""
+    import torch
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import train_loop as tl
+    mesh = dist_mesh(ctx, mesh_shape)
+    cfg = shard_config(SHARD_LAYERS, "float32")
+    tc = shard_train_config(SHARD_MICRO[mesh_shape])
+    step = tl.make_train_step(cfg, tc, mesh=mesh)
+    like = tl.init_train_state(cfg, tc, TRAIN_SEED + 1, device=ctx.device,
+                               mesh=mesh)
+    t0 = time.perf_counter()
+    state = ckpt.restore_checkpoint(save_dir, SHARD_SAVE_AT, like,
+                                    shardings=step.state_shardings)
+    torch.cuda.synchronize(ctx.device)
+    restore_s = time.perf_counter() - t0
+    at = int(state.step)
+    state, m = step(state, shard_batch(cfg, SHARD_BATCH, at, ctx.device))
+    out = {"rank": ctx.rank, "step": at, "restore_s": restore_s,
+           "metrics": {k: float(v) for k, v in m.items()}}
+    del state, like, step
+    shard_release(ctx)
+    return out
+
+
+def shard_full_case(ctx):
+    """One rank at (1, 1): granite-3-2b at full width and depth, bf16,
+    [train]'s TRAIN_BATCH x 4,096 tokens in TRAIN_MICRO microbatches,
+    SHARD_FULL_STEPS sharded steps (every gather and reduction trivial:
+    the sharded path's own cost); launches from 0 just before the steps."""
+    import torch
+    from repro_torch.training import train_loop as tl
+    from repro_torch.configs import get_config
+    mesh = dist_mesh(ctx, (1, 1))
+    cfg = get_config(TRAIN_ARCH)  # uncut: 40 layers, bf16
+    tc = shard_train_config(TRAIN_MICRO)
+    torch.cuda.reset_peak_memory_stats(ctx.device)
+    t0 = time.perf_counter()
+    state = tl.init_train_state(cfg, tc, TRAIN_SEED, device=ctx.device,
+                                mesh=mesh)
+    step = tl.make_train_step(cfg, tc, mesh=mesh)
+    torch.cuda.synchronize(ctx.device)
+    init_s = time.perf_counter() - t0
+    state_gb = torch.cuda.memory_allocated(ctx.device) / 1e9
+    batches = [shard_batch(cfg, TRAIN_BATCH, s, ctx.device)
+               for s in range(SHARD_FULL_STEPS)]
+    shard_launches(reset=True)
+    times, metrics = [], []
+    for b in batches:
+        torch.cuda.synchronize(ctx.device)
+        t = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize(ctx.device)
+        times.append(time.perf_counter() - t)
+        metrics.append({k: float(v) for k, v in m.items()})
+    out = {"layers": cfg.num_layers, "init_s": init_s, "state_gb": state_gb,
+           "step_s": times, "metrics": metrics, "launches": shard_launches(),
+           "traffic": dict(mesh.traffic),
+           "peak_gb": torch.cuda.max_memory_allocated(ctx.device) / 1e9}
+    del state, step, batches
+    shard_release(ctx)
+    return out
+
+
+def shard_prediction(mesh_shape, micro: int) -> dict:
+    """What one sharded step of SHARD_LAYERS float32 layers should hand
+    the collectives on ``mesh_shape`` (bytes of operands by kind, this
+    rank's; "wire" the ring model's bytes sent), and each rank's bytes of
+    state, counted from the rules on the meta state: every split weight
+    gathered once in the forward and again in its block's remat
+    recompute, its gradient sliced over "model", reduce-scattered over the
+    FSDP axes that split it and all-reduced over the others; the loss's
+    sum and count psummed forward (and the sum backward) when the batch
+    rows are split; one psum of squared norms per group of axes."""
+    import collections
+    from repro_torch.dist.sharding import FSDP_AXES, P, named
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import _state_shardings
+    from repro_torch.training import train_loop as tl
+    from repro_torch.tree import tree_leaves
+    mesh = Mesh(dict(zip(("data", "model"), mesh_shape)))
+    cfg = shard_config(SHARD_LAYERS, "float32")
+    tc = shard_train_config(micro)
+    abstract = tl.abstract_train_state(cfg, tc)
+    sh = _state_shardings(abstract, mesh)
+    params = dict(abstract.params.named_parameters())
+    fsdp = [a for a in FSDP_AXES if mesh.shape.get(a, 1) > 1]
+    out = collections.Counter()
+
+    def add(kind, nbytes, wire):
+        out[kind] += int(nbytes)
+        out["wire"] += int(round(wire * nbytes))
+
+    for name, s in sh.params.items():
+        elt = params[name].element_size()
+        gathers = micro * (2 if tc.remat and tl._in_block(name) else 1)
+        op = s.block_numel() * elt
+        for _, axes in s.dim_axes():
+            g = mesh.group_size(axes)
+            add("all_gather", gathers * op, g - 1)
+            op *= g
+        grad = params[name].numel() * elt
+        used = set()
+        for _, axes in s.dim_axes():
+            if not any(a in FSDP_AXES for a in axes):
+                grad //= mesh.group_size(axes)
+        for _, axes in s.dim_axes():
+            if any(a in FSDP_AXES for a in axes):
+                g = mesh.group_size(axes)
+                add("reduce_scatter", micro * grad, (g - 1) / g)
+                grad //= g
+                used.update(axes)
+        rest = [a for a in fsdp if a not in used]
+        if rest:
+            g = mesh.group_size(rest)
+            add("all_reduce", micro * grad, 2 * (g - 1) / g)
+    rows = named(mesh, P(FSDP_AXES), (SHARD_BATCH // micro,))
+    if rows.is_split:
+        g = mesh.group_size(rows.axes)
+        add("all_reduce", micro * 3 * 4, 2 * (g - 1) / g)
+    leaf_sh = tree_leaves(tl.ShardedTrainStep(cfg, tc, mesh).leaf_shardings)
+    if any(s.is_split for s in leaf_sh):
+        groups = collections.Counter(s.axes for s in leaf_sh)
+        for axes, n in groups.items():
+            if axes:
+                g = mesh.group_size(axes)
+                add("all_reduce", 4 * n, 2 * (g - 1) / g)
+    pairs = list(zip(tree_leaves(abstract), tree_leaves(sh)))
+    return {"traffic": dict(out),
+            "bytes": sum(s.block_numel() * t.element_size()
+                         for t, s in pairs),
+            "full_bytes": sum(t.numel() * t.element_size()
+                              for t, _ in pairs)}
+
+
 def richardson(f, x0: float, h: float) -> float:
     """Central differences at steps h and h/2, extrapolated: O(h^4)."""
     d1 = (f(x0 + h) - f(x0 - h)) / (2 * h)
@@ -1207,6 +1534,7 @@ class Smoke:
         self.phase_nfft_serve()
         self.phase_times()
         self.phase_train()
+        self.phase_shard_train()
         self.phase_moe_serve()
         self.phase_ssm_serve()
         self.phase_mla_serve()
@@ -4341,6 +4669,211 @@ class Smoke:
         self.record["train"]["phase_s"] = time.perf_counter() - t0
         log(f"[train] phase {self.record['train']['phase_s']:.1f}s wall")
 
+    def phase_shard_train(self):
+        """[shard_train]: the sharded train step over torch.distributed
+        (ZeRO-3: each rank holds its blocks of the state, gathers a block's
+        weights on use and reduce-scatters their gradients).  (a) SHARD_WORLD
+        gloo ranks on cuda:0, granite-3-2b at full width with SHARD_LAYERS
+        layers, float32, on meshes SHARD_MESHES against the single-device
+        step on the card: losses within SHARD_TOL, grad_norm within
+        SHARD_TOL relative, unsplit leaves bitwise equal on the ranks, each
+        rank's bytes of state equal to the rules' blocks, each step's
+        collective bytes beside shard_prediction's; (b) a checkpoint
+        written at (4, 1) restored onto (2, 2) and onto one device, the
+        next step's loss within SHARD_TOL of continuing at (4, 1); (c) one
+        NCCL rank at (1, 1), full width and depth, bf16, beside [train]'s
+        step.  No kernel of the package may launch on these paths."""
+        import shutil
+        import tempfile
+        from repro_torch.launch.ranks import RankPool
+        torch = self.torch
+        card = self.record["device"]["nvidia_smi"]
+        gc_collect(torch)
+        t0 = time.perf_counter()
+        rec = self.record["shard_train"] = {"card": card}
+        cfg = shard_config(SHARD_LAYERS, "float32")
+        tc = shard_train_config(1)
+        pred = {m: shard_prediction(m, SHARD_MICRO[m]) for m in SHARD_MESHES}
+        ref = {n: self.shard_single(cfg, shard_train_config(n))
+               for n in sorted(set(SHARD_MICRO.values()))}
+        (ROOT / "build").mkdir(exist_ok=True)
+        save_dir = tempfile.mkdtemp(prefix="shard_ckpt_", dir=ROOT / "build")
+        try:
+            with RankPool(SHARD_WORLD, "gloo", "cuda:0") as pool:
+                log(f"[shard_train] {SHARD_WORLD} gloo ranks on cuda:0 "
+                    f"({card}), {cfg.name} d={cfg.d_model} ff={cfg.d_ff} "
+                    f"V={cfg.vocab_size}, depth cut 40 -> {SHARD_LAYERS}, "
+                    f"float32, AdamW, {SHARD_BATCH} x 4,096 tokens (batch "
+                    "256 cut): times are four processes time-sharing the "
+                    "card with gloo staging every collective through the "
+                    "host; not scaling numbers")
+                runs = {}
+                for m in SHARD_MESHES:
+                    runs[m] = pool.run(shard_train_case, m,
+                                       save_dir if m == (4, 1) else None)
+                    self.shard_parity(m, runs[m], ref[SHARD_MICRO[m]],
+                                      pred[m])
+                moved = pool.run(shard_resume_case, (2, 2), save_dir)
+            one = self.shard_restore_single(cfg, tc, save_dir)
+        finally:
+            shutil.rmtree(save_dir, ignore_errors=True)
+        self.shard_elastic(runs[(4, 1)], moved, one)
+        with RankPool(1, "nccl", "cuda:0") as pool:
+            full = pool.run(shard_full_case)[0]
+        self.shard_full_report(full)
+        rec["s"] = time.perf_counter() - t0
+        log(f"[shard_train] phase {rec['s']:.1f}s wall ({card}; two spawns "
+            "of ranks included)")
+
+    def shard_single(self, cfg, tc):
+        """The single-device step on the card from the same seeded state
+        and batches, SHARD_STEPS steps; freed after."""
+        torch = self.torch
+        state = self.tl.init_train_state(cfg, tc, TRAIN_SEED, device=self.dev)
+        step = self.tl.make_train_step(cfg, tc)
+        metrics, times = [], []
+        for s in range(SHARD_STEPS):
+            batch = shard_batch(cfg, SHARD_BATCH, s, self.dev)
+            self.sync()
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            self.sync()
+            times.append(time.perf_counter() - t)
+            metrics.append({k: float(v) for k, v in m.items()})
+        del state, step
+        gc_collect(torch)
+        self.record["shard_train"][f"single_{tc.num_microbatches}"] = {
+            "metrics": metrics, "step_s": times}
+        log(f"[shard_train] single-device step on the card "
+            f"({self.record['device']['nvidia_smi']}, {tc.num_microbatches} "
+            f"microbatches): loss "
+            f"{[round(m['loss'], 6) for m in metrics]}, grad_norm "
+            f"{[round(m['grad_norm'], 6) for m in metrics]}, "
+            f"{[round(t, 3) for t in times]} s")
+        return metrics
+
+    def shard_parity(self, mesh, outs, ref, pred):
+        card = self.record["device"]["nvidia_smi"]
+        first = outs[0]
+        for s in range(SHARD_STEPS):
+            got, want = first["metrics"][s], ref[s]
+            check(all(o["metrics"][s] == got for o in outs),
+                  f"shard_train {mesh}: step {s}'s metrics differ by rank")
+            check(abs(got["loss"] - want["loss"]) <= SHARD_TOL,
+                  f"shard_train {mesh}: step {s} loss {got['loss']} vs "
+                  f"single-device {want['loss']}")
+            check(abs(got["grad_norm"] - want["grad_norm"])
+                  <= SHARD_TOL * want["grad_norm"],
+                  f"shard_train {mesh}: step {s} grad_norm "
+                  f"{got['grad_norm']} vs {want['grad_norm']}")
+        check(all(o["digests"] == first["digests"] for o in outs),
+              f"shard_train {mesh}: unsplit leaves differ between ranks")
+        check(all(o["bytes"]["held"] == o["bytes"]["rules"] == pred["bytes"]
+                  for o in outs),
+              f"shard_train {mesh}: bytes of state "
+              f"{[o['bytes'] for o in outs]} vs the rules' {pred['bytes']}")
+        check(all(t == first["traffic"][0] for o in outs
+                  for t in o["traffic"]),
+              f"shard_train {mesh}: traffic differs by step or rank")
+        for o in outs:
+            self.check_no_kernel_launches(o["launches"],
+                                          f"shard_train {mesh}")
+        errs = [abs(first["metrics"][s]["loss"] - ref[s]["loss"])
+                for s in range(SHARD_STEPS)]
+        self.record["shard_train"][str(mesh)] = {
+            "metrics": first["metrics"], "loss_err": errs,
+            "step_s": [o["step_s"] for o in outs],
+            "init_s": [o["init_s"] for o in outs],
+            "host_copy": first["host_copy"], "save_s": first["save_s"],
+            "bytes": first["bytes"], "traffic": first["traffic"][0],
+            "predicted": pred, "peak_gb": [o["peak_gb"] for o in outs],
+            "launches": first["launches"]}
+        log(f"[shard_train] mesh {mesh} ({card}), {SHARD_MICRO[mesh]} "
+            f"microbatches: loss "
+            f"{[round(m['loss'], 6) for m in first['metrics']]} (single-"
+            f"device within {max(errs):.2e}; bound {SHARD_TOL}), the same on "
+            f"every rank; unsplit leaves bitwise equal on the ranks "
+            f"({len(first['digests'])} leaves)")
+        held, full = first["bytes"]["held"], first["bytes"]["full"]
+        log(f"[shard_train] mesh {mesh} ({card}): state a rank {held} B = "
+            f"the rules' blocks {pred['bytes']} B; unsharded {full} B "
+            f"({full / held:.2f}x)")
+        same = first["traffic"][0] == pred["traffic"]
+        log(f"[shard_train] mesh {mesh} ({card}): traffic a step a rank "
+            f"(operand bytes by kind) {first['traffic'][0]}; predicted "
+            f"{pred['traffic']}: {'equal' if same else 'DIFFERENT'}")
+        times = [round(t, 3) for t in first["step_s"]]
+        copy = first["host_copy"]
+        peak = max(o["peak_gb"] for o in outs)
+        log(f"[shard_train] mesh {mesh} ({card}): step {times} s (rank 0, "
+            f"every rank starting together, host clock ending in a sync), "
+            f"init {first['init_s']:.1f}s, peak {peak:.2f} GB a rank"
+            + ("" if copy is None else
+               f"; run_resilient's host copy {copy['bytes']} B a rank in "
+               f"{copy['seconds']:.2f}s (MemAvailable "
+               f"{copy['mem_available']} B)")
+            + ("" if first["save_s"] is None else
+               f"; sharded save after step {SHARD_SAVE_AT} "
+               f"{first['save_s']:.1f}s"))
+
+    def shard_restore_single(self, cfg, tc, save_dir):
+        """The sharded checkpoint restored into the single-device state,
+        then the next step: its loss."""
+        from repro_torch.training import checkpoint
+        torch = self.torch
+        like = self.tl.init_train_state(cfg, tc, TRAIN_SEED + 1,
+                                        device=self.dev)
+        state = checkpoint.restore_checkpoint(save_dir, SHARD_SAVE_AT, like)
+        at = int(state.step)
+        check(at == SHARD_SAVE_AT, f"shard_train: restored step {at}")
+        _, m = self.tl.make_train_step(cfg, tc)(
+            state, shard_batch(cfg, SHARD_BATCH, at, self.dev))
+        loss = float(m["loss"])
+        del state, like, m
+        gc_collect(torch)
+        return loss
+
+    def shard_elastic(self, outs, moved, one):
+        card = self.record["device"]["nvidia_smi"]
+        cont = outs[0]["metrics"][SHARD_SAVE_AT]["loss"]
+        got = [o["metrics"]["loss"] for o in moved]
+        check(all(o["step"] == SHARD_SAVE_AT for o in moved),
+              "shard_train: restored step")
+        errs = [abs(g - cont) for g in got + [one]]
+        check(max(errs) <= SHARD_TOL,
+              f"shard_train: elastic restore losses {got} (2, 2), {one} one "
+              f"device vs {cont} continuing at (4, 1)")
+        self.record["shard_train"]["elastic"] = {
+            "continue": cont, "mesh_2x2": got, "one_device": one,
+            "restore_s": [o["restore_s"] for o in moved]}
+        log(f"[shard_train] elastic restore ({card}): step "
+            f"{SHARD_SAVE_AT + 1}'s loss {cont:.6f} continuing at (4, 1); "
+            f"restored onto (2, 2) {got[0]:.6f}, onto one device {one:.6f}: "
+            f"within {max(errs):.2e} (bound {SHARD_TOL}); each rank read its "
+            f"blocks in {max(o['restore_s'] for o in moved):.1f}s")
+
+    def shard_full_report(self, full):
+        card = self.record["device"]["nvidia_smi"]
+        self.check_no_kernel_launches(full["launches"], "shard_train (1, 1)")
+        check(all(math.isfinite(m["loss"]) for m in full["metrics"]),
+              "shard_train (1, 1): a non-finite loss")
+        check(full["traffic"] == {}, f"shard_train (1, 1): traffic "
+              f"{full['traffic']} on a mesh of one rank")
+        median = float(np.median(full["step_s"]))
+        tokens = TRAIN_BATCH * 4096
+        train = self.record.get("train", {}).get("full", {})
+        self.record["shard_train"]["full"] = dict(full, median_step_s=median,
+                                                  tokens_per_s=tokens / median)
+        log(f"[shard_train] (1, 1), one NCCL rank ({card}): {TRAIN_ARCH} "
+            f"{full['layers']} layers bf16, {TRAIN_BATCH} x 4,096 tokens in "
+            f"{TRAIN_MICRO} microbatches: steps {[round(t, 4) for t in full['step_s']]} s "
+            f"(median {median:.4f}s, {tokens / median:.1f} tok/s; [train]'s "
+            f"median {train.get('median_step_s', float('nan')):.4f}s), loss "
+            f"{[round(m['loss'], 5) for m in full['metrics']]}, state "
+            f"{full['state_gb']:.2f} GB after init ({full['init_s']:.1f}s), "
+            f"peak {full['peak_gb']:.2f} GB; no collective; launches "
+            f"{full['launches']}")
+
     def train_config(self, cfg, steps, **kw):
         """launch/train.py's settings: the optimizer TrainConfig.for_arch
         picks, peak lr TRAIN_LR, warmup max(steps // 20, 5)."""
@@ -4455,6 +4988,12 @@ class Smoke:
             f"{flops / 1e12:.1f} TFLOP a step, {100 * share:.2f}% of the "
             f"{PEAK_BF16_TENSOR / 1e12:.0f} TFLOP/s bf16 dense peak; peak "
             f"memory {peak_gb:.2f} GB; launches {launches}")
+        copy = info["initial_copy"]
+        self.record["train"]["full"]["host_copy"] = copy
+        log(f"[train] run_resilient's replay target (no checkpoint "
+            f"directory): a host copy of the initial state, {copy['bytes']} B "
+            f"in {copy['seconds']:.2f}s before the first step (outside the "
+            f"step times), MemAvailable {copy['mem_available']} B before it")
         log(f"[train] loss on step 0's batch: {loss_before:.5f} before, "
             f"{loss_after:.5f} after {TRAIN_STEPS} steps; parameters moved "
             f"by step 1: {sum(moved.values())} of {len(moved)}")

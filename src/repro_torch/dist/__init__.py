@@ -18,9 +18,13 @@ Modules
     over replicas (``compress_psum``) and per-step compression in the train
     loop (``apply_error_feedback``).
 
-The JAX package's ``compat`` (a ``shard_map`` version shim) needs no twin;
-its ``sharding`` rules come with the port's sharded train step, the next
-slice after this one (ROADMAP queue 1 item 12, LM half).
+``sharding``
+    The FSDP/TP placement rules (``param_specs``, ``batch_specs``,
+    ``cache_specs``, ``named``) over a :class:`repro_torch.launch.mesh.
+    Mesh`, each rank's block of a leaf and the differentiable gather of
+    the sharded train step (``gather_on_use``).
+
+The JAX package's ``compat`` (a ``shard_map`` version shim) needs no twin.
 """
 
 from repro_torch.dist.compression import (  # noqa: F401
@@ -33,4 +37,8 @@ from repro_torch.dist.fastsum_dist import (  # noqa: F401
 )
 from repro_torch.dist.pencil_fft import (  # noqa: F401
     PencilSpec, make_pencil_spec, pencil_irfftn, pencil_rfftn,
+)
+from repro_torch.dist.sharding import (  # noqa: F401
+    FSDP_AXES, MODEL_AXIS, NamedSharding, P, batch_specs, cache_specs,
+    gather_on_use, named, param_specs,
 )

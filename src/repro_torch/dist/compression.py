@@ -15,10 +15,18 @@ stack_for_training`): a block of a stacked norm may span layers, as in
 the reference.  ``compress_psum`` is the cross-replica mean over a mesh
 axis: the values crossing the wire are int8-representable per block, but
 the collective itself still moves float32, as in the reference.
+
+``apply_error_feedback(..., shardings=)`` compresses this rank's blocks of
+sharded leaves (the sharded train step): a 256-element block runs over
+the flattened *full* leaf and may straddle ranks, so its scale is the max
+over the ranks of their parts' maxima (``Mesh.pmax``); every element then
+takes the scale it takes unsharded, and the result is the unsharded
+compression's block, bit for bit.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple
 
 import torch
@@ -69,10 +77,47 @@ def init_compression_state(params: Any) -> CompressionState:
         params))
 
 
-def apply_error_feedback(grads: Any, state: CompressionState):
-    """Compress a gradient tree leaf-wise, carrying residuals in ``state``."""
-    pairs = [compress_decompress(g, r) for g, r in
-             zip(tree_leaves(grads), tree_leaves(state.residuals))]
+def _flat_index(sharding, device) -> torch.Tensor:
+    """The flat (row-major) index in the full leaf of each element of this
+    rank's block, flattened."""
+    full, nd = sharding.shape, len(sharding.shape)
+    strides = [math.prod(full[d + 1:]) for d in range(nd)]
+    idx = torch.zeros((), dtype=torch.int64, device=device)
+    for d, (sl, n) in enumerate(zip(sharding.block_slices(),
+                                    sharding.block_shape())):
+        start = sl.start or 0
+        ar = torch.arange(start, start + n, device=device) * strides[d]
+        idx = idx + ar.reshape([n if i == d else 1 for i in range(nd)])
+    return idx.reshape(-1)
+
+
+def compress_decompress_block(g: torch.Tensor, resid: torch.Tensor,
+                              sharding):
+    """:func:`compress_decompress` of the full leaf, on this rank's block
+    ``g`` (and ``resid``) of it under ``sharding``: the same output and
+    residual blocks, bit for bit."""
+    total = g.to(torch.float32) + resid.to(torch.float32)
+    flat = total.reshape(-1)
+    bid = _flat_index(sharding, g.device) // BLOCK
+    n_blocks = -(-math.prod(sharding.shape) // BLOCK)
+    part = flat.new_zeros(n_blocks).scatter_reduce_(
+        0, bid, flat.abs(), reduce="amax")
+    scale = sharding.mesh.pmax(part, sharding.axes) / 127.0
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.round(flat / safe[bid]).to(torch.int8)
+    out = (q.to(torch.float32) * scale[bid]).reshape(g.shape)
+    return out, total - out
+
+
+def apply_error_feedback(grads: Any, state: CompressionState,
+                         shardings: Any = None):
+    """Compress a gradient tree leaf-wise, carrying residuals in ``state``;
+    with ``shardings``, the leaves are this rank's blocks."""
+    sh = [None] * len(tree_leaves(grads)) if shardings is None \
+        else tree_leaves(shardings)
+    pairs = [compress_decompress(g, r) if s is None or not s.is_split
+             else compress_decompress_block(g, r, s) for g, r, s in
+             zip(tree_leaves(grads), tree_leaves(state.residuals), sh)]
     out = tree_unflatten(grads, [p[0] for p in pairs])
     resid = tree_unflatten(grads, [p[1] for p in pairs])
     return out, CompressionState(residuals=resid)

@@ -1,0 +1,393 @@
+"""FSDP/TP placement rules over a :class:`repro_torch.launch.mesh.Mesh`,
+and the blocks they give each rank.
+
+The port of ``repro.dist.sharding``.  Convention: the batch dimension and
+the fully-sharded (ZeRO-3 style) weight dimension live on the ``("pod",
+"data")`` axes; ``"model"`` shards a weight's last dimension.  All rules
+are *logical*: :func:`named` drops axis names missing from the mesh and
+axes whose size does not divide the array dimension, so the same rules
+serve the (16, 16) and (2, 16, 16) production meshes (described, with no
+process group) and a live mesh of a few ranks.
+
+A spec is a :class:`P` (a tuple of entries, as ``jax.sharding.
+PartitionSpec``: ``None``, an axis name, or a tuple of names), and
+:class:`NamedSharding` places it on a mesh.  On a live mesh a sharding
+knows this rank's block of a full array (:meth:`NamedSharding.shard`, the
+block at :meth:`Mesh.group_index` of each dimension's axes, first name
+major) and gathers the blocks back (:meth:`NamedSharding.gather`).
+:func:`gather_on_use` is the differentiable gather of the sharded train
+step: forward all_gathers a weight's blocks, backward hands this rank the
+block of the weight's gradient, summed over the FSDP axes (the ranks there
+hold different rows of the batch) and only sliced over ``"model"`` (the
+ranks there compute the same rows).
+
+Rules walk the port's trees (:mod:`repro_torch.tree`) by their path
+strings; a model's period-stacked tree (:meth:`repro_torch.models.model.
+Model.stack_for_training`) has the JAX package's paths, so
+``['stack'][0]['attn']['wq']`` meets the reference's ``stack`` rule.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.tree import tree_flatten_with_path, tree_unflatten
+
+# Batch + fully-sharded-parameter axes, widest first; "pod" only ever
+# carries batch/FSDP sharding, never TP.
+FSDP_AXES = ("pod", "data")
+MODEL_AXIS = "model"
+
+
+class P(tuple):
+    """A partition spec: one entry per leading array dimension (``None``,
+    an axis name, or a tuple of axis names); missing trailing entries
+    replicate."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return "P" + tuple.__repr__(self)
+
+
+def _entry_axes(entry) -> tuple:
+    """Spec entry (None | name | tuple of names) -> tuple of axis names."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _collapse(axes: tuple):
+    """Axis-name tuple -> canonical spec entry (None | name | tuple)."""
+    if not axes:
+        return None
+    return axes[0] if len(axes) == 1 else axes
+
+
+def _fit_entry(dim: int, entry, sizes: dict):
+    """Largest usable suffix of ``entry``'s axes for an array dim: axis
+    names not in ``sizes`` (the mesh) are dropped, then leading axes until
+    the combined size divides ``dim``."""
+    axes = tuple(a for a in _entry_axes(entry) if a in sizes)
+    while axes and dim % math.prod(sizes[a] for a in axes) != 0:
+        axes = axes[1:]
+    return _collapse(axes)
+
+
+class NamedSharding:
+    """``spec`` placed on ``mesh``; ``shape`` is the full array's shape
+    when it is known (``named`` with a shape)."""
+
+    def __init__(self, mesh, spec: P, shape: Optional[tuple] = None):
+        self.mesh, self.spec = mesh, P(*spec)
+        self.shape = None if shape is None else tuple(int(d) for d in shape)
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.spec!r}, shape={self.shape})"
+
+    # -- where the blocks lie ----------------------------------------------
+    def dim_axes(self) -> list:
+        """Per sharded dimension: (dim, its axes of size > 1)."""
+        out = []
+        for dim, entry in enumerate(self.spec):
+            axes = tuple(a for a in _entry_axes(entry)
+                         if self.mesh.shape[a] > 1)
+            if axes:
+                out.append((dim, axes))
+        return out
+
+    @property
+    def axes(self) -> tuple:
+        """Every axis (of size > 1) that shards the array, in mesh order."""
+        used = {a for _, axes in self.dim_axes() for a in axes}
+        return tuple(a for a in self.mesh.axis_names if a in used)
+
+    @property
+    def is_split(self) -> bool:
+        return bool(self.dim_axes())
+
+    def block_shape(self, shape: Optional[tuple] = None) -> tuple:
+        shape = list(self.shape if shape is None else shape)
+        for dim, axes in self.dim_axes():
+            shape[dim] //= self.mesh.group_size(axes)
+        return tuple(shape)
+
+    def block_numel(self) -> int:
+        return math.prod(self.block_shape())
+
+    def block_slices(self, shape: Optional[tuple] = None) -> tuple:
+        """This rank's block of a full array of ``shape`` as slices."""
+        shape = self.shape if shape is None else shape
+        out = [slice(None)] * len(shape)
+        for dim, axes in self.dim_axes():
+            n = shape[dim] // self.mesh.group_size(axes)
+            i = self.mesh.group_index(axes)
+            out[dim] = slice(i * n, (i + 1) * n)
+        return tuple(out)
+
+    def shard(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``full``: a copy of its own, or ``full``
+        itself when nothing splits it."""
+        if not self.is_split:
+            return full
+        return full[self.block_slices(tuple(full.shape))].clone()
+
+    @torch.no_grad()
+    def gather(self, block: torch.Tensor) -> torch.Tensor:
+        """The full array from every rank's block (all_gather over each
+        dimension's axes; every rank of a group gets the whole).  Not
+        differentiable: :func:`gather_on_use` is."""
+        for dim, axes in self.dim_axes():
+            block = self.mesh.all_gather(block, axes, dim)
+        return block
+
+    def take(self, full: torch.Tensor, dim: int, like_dim: int):
+        """The slice of ``full`` along ``dim`` that lines up with this
+        sharding's block along its dimension ``like_dim`` (Adafactor's
+        row and column moments for a block)."""
+        like_dim %= len(self.shape)
+        for d, axes in self.dim_axes():
+            if d == like_dim:
+                n = full.shape[dim] // self.mesh.group_size(axes)
+                return full.narrow(dim, self.mesh.group_index(axes) * n, n)
+        return full
+
+
+def fsdp_extent(mesh) -> int:
+    """The product of the mesh's FSDP axes (the reference's pod x data)."""
+    return math.prod(mesh.shape.get(a, 1) for a in FSDP_AXES)
+
+
+def named(mesh, spec: P, shape: Optional[tuple] = None) -> NamedSharding:
+    """``spec`` sanitized against ``mesh`` (and ``shape``).
+
+    Without ``shape``, only filters axis names absent from the mesh.  With
+    ``shape``, also truncates the spec to the array rank and replicates any
+    dimension the named axes cannot evenly divide.
+    """
+    sizes = dict(mesh.shape)
+    entries = tuple(spec)
+    if shape is None:
+        clean = [_collapse(tuple(a for a in _entry_axes(e) if a in sizes))
+                 for e in entries]
+        return NamedSharding(mesh, P(*clean))
+    entries = entries[: len(shape)]
+    clean = [_fit_entry(int(d), e, sizes) for d, e in zip(shape, entries)]
+    return NamedSharding(mesh, P(*clean), tuple(shape))
+
+
+_KEY = re.compile(r"\['((?:[^'\\]|\\.)*)'\]|\[(-?\d+)\]|\.(\w+)")
+
+
+def _path_names(path) -> tuple:
+    """A tree path (the port's path string, or a sequence of keys) as its
+    key names; a module's dotted parameter name counts as its parts."""
+    if isinstance(path, str):
+        keys = [next(g for g in m.groups() if g is not None)
+                for m in _KEY.finditer(path)]
+    else:
+        keys = [str(k) for k in path]
+    return tuple(part for k in keys for part in k.split("."))
+
+
+def _rule_for(path, leaf) -> P:
+    """Logical spec for one parameter (or optimizer-state) leaf.
+
+    Matrix-shaped leaves get FSDP on the second-to-last dim and TP on the
+    last dim; vectors/scalars (norm gains, biases, factored Adafactor rows)
+    are replicated.  Leaves under the period-stacked ``stack`` subtree
+    carry a leading ``n_periods`` dim which is never sharded; ``embed``
+    (read by token gathers) is replicated.
+    """
+    shape = tuple(leaf.shape)
+    ndim = len(shape)
+    if ndim == 0:
+        return P()
+    names = _path_names(path)
+    lead = 1 if ("stack" in names and ndim >= 2) else 0
+    if ndim - lead < 2:
+        return P()
+    if names and names[-1] == "embed":
+        return P()
+    return P(*((None,) * (ndim - 2)), FSDP_AXES, MODEL_AXIS)
+
+
+def _drop_fsdp(spec: P) -> P:
+    """Remove FSDP axes from a spec (serving keeps only TP sharding)."""
+    fsdp = set(FSDP_AXES)
+    return P(*(_collapse(tuple(a for a in _entry_axes(e) if a not in fsdp))
+               for e in tuple(spec)))
+
+
+def _map_with_path(fn, tree):
+    flat = tree_flatten_with_path(tree)
+    return tree_unflatten(tree, [fn(path, leaf) for path, leaf in flat])
+
+
+def param_specs(params: Any, mesh, *, serve_replicated: bool = False) -> Any:
+    """Tree of NamedShardings for a parameter tree (a model stands for the
+    dict of its parameters by name).  ``serve_replicated=True`` drops the
+    FSDP weight sharding (keeping TP): serving when bf16 weights fit the
+    per-device budget."""
+    def f(path, leaf):
+        spec = _rule_for(path, leaf)
+        if serve_replicated:
+            spec = _drop_fsdp(spec)
+        return named(mesh, spec, tuple(leaf.shape))
+
+    return _map_with_path(f, params)
+
+
+def tree_specs(tree: Any, mesh) -> Any:
+    """The parameter rules over any tree of leaves (optimizer state,
+    error-feedback residuals), each leaf by its own path and shape."""
+    return _map_with_path(
+        lambda path, leaf: named(mesh, _rule_for(path, leaf),
+                                 tuple(leaf.shape)), tree)
+
+
+def batch_specs(batch: Any, mesh) -> Any:
+    """Shard every batch leaf's leading (batch) dim over the FSDP axes."""
+    return _map_with_path(
+        lambda path, leaf: named(mesh, P(FSDP_AXES), tuple(leaf.shape)),
+        batch)
+
+
+def cache_specs(caches: Any, mesh) -> Any:
+    """KV/SSM cache shardings: batch dim over the FSDP axes; period-stacked
+    caches (under ``stack``) carry a leading ``n_periods`` dim, so their
+    batch is dim 1."""
+    def f(path, leaf):
+        shape = tuple(leaf.shape)
+        if "stack" in _path_names(path) and len(shape) >= 2:
+            return named(mesh, P(None, FSDP_AXES), shape)
+        return named(mesh, P(FSDP_AXES), shape)
+
+    return _map_with_path(f, caches)
+
+
+# ---------------------------------------------------------------------------
+# The sharded train step's gather
+# ---------------------------------------------------------------------------
+
+def _fsdp_split(axes: tuple) -> bool:
+    """Whether a dimension's axes are FSDP axes (the gradient is summed over
+    them) rather than "model" ones (sliced); both at once is refused."""
+    fsdp = [a in FSDP_AXES for a in axes]
+    if any(fsdp) and not all(fsdp):
+        raise ValueError(f"a dimension split over FSDP and model axes at "
+                         f"once: {axes}")
+    return all(fsdp)
+
+
+def _group_key(t: torch.Tensor, s: NamedSharding) -> tuple:
+    """Tensors that gather and reduce together: one dtype, one sequence of
+    splitting axes, one set of FSDP axes to all-reduce over."""
+    split = tuple(axes for _, axes in s.dim_axes())
+    summed = {a for axes in split if _fsdp_split(axes) for a in axes}
+    rest = tuple(a for a in FSDP_AXES if s.mesh.shape.get(a, 1) > 1
+                 and a not in summed)
+    return t.dtype, split, rest
+
+
+def _gather_step(mesh, tensors: list, dims: list, axes: tuple) -> list:
+    """Each tensor gathered along its own dim over ``axes``: one all_gather
+    of the concatenated blocks."""
+    g = mesh.group_size(axes)
+    moved = [t.movedim(d, 0) for t, d in zip(tensors, dims)]
+    flat = torch.cat([m.reshape(-1) for m in moved])
+    out = mesh.all_gather(flat, axes, 0).view(g, -1)
+    full, off = [], 0
+    for m, d in zip(moved, dims):
+        piece = out[:, off:off + m.numel()].reshape(g, *m.shape)
+        full.append(piece.reshape(g * m.shape[0], *m.shape[1:])
+                    .movedim(0, d))
+        off += m.numel()
+    return full
+
+
+def _scatter_step(mesh, grads: list, dims: list, axes: tuple) -> list:
+    """Each gradient summed over ``axes`` and cut to this rank's block
+    along its own dim: one reduce_scatter of the concatenated blocks."""
+    g = mesh.group_size(axes)
+    moved = [x.movedim(d, 0) for x, d in zip(grads, dims)]
+    buf = torch.cat([m.reshape(g, -1) for m in moved], dim=1)
+    red = mesh.psum_scatter(buf, axes, 0).reshape(-1)
+    out, off = [], 0
+    for m, d in zip(moved, dims):
+        n = m.numel() // g
+        out.append(red[off:off + n].reshape(m.shape[0] // g, *m.shape[1:])
+                   .movedim(0, d))
+        off += n
+    return out
+
+
+class _GatherOnUse(torch.autograd.Function):
+    """Forward: the group's full tensors (one all_gather a splitting axis
+    group); backward: each block's gradient (model dims sliced, one
+    reduce_scatter a splitting FSDP axis group, one all_reduce over the
+    other FSDP axes)."""
+
+    @staticmethod
+    def forward(ctx, shardings, *blocks):
+        ctx.shardings = shardings
+        mesh = shardings[0].mesh
+        full = list(blocks)
+        for j, axes in enumerate(_group_key(blocks[0], shardings[0])[1]):
+            dims = [s.dim_axes()[j][0] for s in shardings]
+            full = _gather_step(mesh, full, dims, axes)
+        return tuple(f.view_as(f) if f is b else f
+                     for f, b in zip(full, blocks))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        shardings = ctx.shardings  # grads: materialized, never None
+        mesh = shardings[0].mesh
+        grads = list(grads)
+        _, split, rest = _group_key(grads[0], shardings[0])
+        for j, axes in enumerate(split):
+            if not _fsdp_split(axes):
+                for k, s in enumerate(shardings):
+                    d = s.dim_axes()[j][0]
+                    n = grads[k].shape[d] // mesh.group_size(axes)
+                    grads[k] = grads[k].narrow(
+                        d, mesh.group_index(axes) * n, n)
+        for j, axes in enumerate(split):
+            if _fsdp_split(axes):
+                grads = _scatter_step(mesh, grads, [
+                    s.dim_axes()[j][0] for s in shardings], axes)
+        if rest:
+            red = mesh.psum(torch.cat([x.reshape(-1) for x in grads]), rest)
+            out, off = [], 0
+            for x in grads:
+                out.append(red[off:off + x.numel()].reshape(x.shape))
+                off += x.numel()
+            grads = out
+        return (None,) + tuple(x.contiguous() for x in grads)
+
+
+def gather_on_use(blocks: list, shardings: list) -> list:
+    """The full tensors of this rank's ``blocks`` under ``shardings``,
+    differentiably, coalesced: the blocks that split alike (and share a
+    dtype) gather in one all_gather an axis group, and their gradients
+    come back in one reduce_scatter or all_reduce, each block receiving
+    the summed gradient of its own rows over the FSDP axes (the ranks
+    there hold other rows of the batch) and its slice over "model" (whose
+    ranks compute the same rows).  A block that no axis splits and no
+    FSDP rank shares (a mesh of one rank) is returned as it is."""
+    out = list(blocks)
+    groups: dict = {}
+    for i, (b, s) in enumerate(zip(blocks, shardings)):
+        if s.is_split or fsdp_extent(s.mesh) > 1:
+            groups.setdefault(_group_key(b, s), []).append(i)
+    for idx in groups.values():
+        full = _GatherOnUse.apply(tuple(shardings[i] for i in idx),
+                                  *[blocks[i] for i in idx])
+        for i, f in zip(idx, full):
+            out[i] = f
+    return out

@@ -4,8 +4,8 @@ over their named axes.
 The port of ``repro.launch.mesh``.  A :class:`Mesh` names the axes of a
 grid of ranks, as ``jax.sharding.Mesh`` names the axes of a grid of
 devices, and runs the collectives that ``jax.lax`` runs over axis names:
-:meth:`Mesh.psum`, :meth:`Mesh.psum_scatter`, :meth:`Mesh.all_gather` and
-:meth:`Mesh.all_to_all` (tiled).
+:meth:`Mesh.psum`, :meth:`Mesh.pmax`, :meth:`Mesh.psum_scatter`,
+:meth:`Mesh.all_gather` and :meth:`Mesh.all_to_all` (tiled).
 
 * ``make_production_mesh`` describes the reference's production meshes,
   (16, 16) over ``("data", "model")`` and (2, 16, 16) over ``("pod",
@@ -29,7 +29,7 @@ be named in mesh order.
 
 Every collective adds the bytes of the operand this rank hands it to
 :attr:`Mesh.traffic`, by kind, and the bytes it sends under a ring or
-pairwise schedule (all_reduce 2(G-1)/G of the operand, reduce_scatter
+pairwise schedule (all_reduce and all_reduce_max 2(G-1)/G of the operand, reduce_scatter
 and all_to_all (G-1)/G, all_gather G-1 times its block) to ``"wire"``.
 Complex tensors cross the wire as ``torch.view_as_real`` views.
 """
@@ -127,6 +127,15 @@ class Mesh:
         buf = t.clone(memory_format=torch.contiguous_format)
         self._count("all_reduce", buf, 2 * (size - 1) / size)
         dist.all_reduce(_real(buf), group=group)
+        return buf
+
+    def pmax(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """Elementwise max of real ``t`` over the group of ``axes`` (a new
+        tensor; ``jax.lax.pmax``)."""
+        group, size = self.group(axes), self.group_size(axes)
+        buf = t.clone(memory_format=torch.contiguous_format)
+        self._count("all_reduce_max", buf, 2 * (size - 1) / size)
+        dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group)
         return buf
 
     def psum_scatter(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:

@@ -1,15 +1,86 @@
-"""Shared model components: norms, RoPE, initializers, activations.
+"""Shared model components: norms, RoPE, initializers, activations, and
+the active mesh.
 
-The port of ``repro.models.common`` for one device: the JAX package's
-sharding helpers (``shard``/``set_mesh``) are no-ops without a mesh and
-are dropped here.  Weights keep the JAX layout (``x @ w`` with ``w`` of
-shape (in, out)), so a JAX parameter tree maps onto the port's one to one.
+The port of ``repro.models.common``.  Weights keep the JAX layout (``x @
+w`` with ``w`` of shape (in, out)), so a JAX parameter tree maps onto the
+port's one to one.
+
+:func:`set_mesh` makes a :class:`repro_torch.launch.mesh.Mesh` active, as
+the reference's does; the reference's activation ``shard`` constraints,
+which ask GSPMD to split the heads, hidden units and experts over
+``"model"``, have no twin: the sharded train step splits only the storage
+over ``"model"`` and computes the same rows on every rank of that axis.
+Under a mesh, ``batch_axes`` names the axes over which the rows in hand
+are this rank's block of the batch: :func:`batch_sum` then sums a value
+over those ranks (differentiably), which is how the cross entropy and the
+MoE's load-balancing loss stay the reference's means over the whole batch.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# The active mesh
+# ---------------------------------------------------------------------------
+
+_STATE = threading.local()
+
+
+def current_mesh():
+    """The mesh :func:`set_mesh` made active on this thread, or None."""
+    return getattr(_STATE, "mesh", None)
+
+
+def current_batch_axes() -> tuple:
+    return getattr(_STATE, "batch_axes", ())
+
+
+@contextlib.contextmanager
+def set_mesh(mesh, batch_axes=()):
+    """Make ``mesh`` active on this thread (None: no mesh).  ``batch_axes``:
+    the mesh axes over which the batch rows in hand are this rank's block
+    (first name major); () when every rank holds the whole batch."""
+    prev = current_mesh(), current_batch_axes()
+    _STATE.mesh = mesh
+    _STATE.batch_axes = tuple(batch_axes) if mesh is not None else ()
+    try:
+        yield
+    finally:
+        _STATE.mesh, _STATE.batch_axes = prev
+
+
+def batch_block() -> tuple:
+    """(this rank's block index, the number of blocks) of the batch rows."""
+    mesh, axes = current_mesh(), current_batch_axes()
+    if mesh is None or not axes:
+        return 0, 1
+    return mesh.group_index(axes), mesh.group_size(axes)
+
+
+class _BatchSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return mesh.psum(t, axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.psum(grad, ctx.axes), None, None
+
+
+def batch_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the ranks that hold the other blocks of the batch
+    (a psum whose backward is a psum); ``t`` itself without such ranks."""
+    mesh, axes = current_mesh(), current_batch_axes()
+    if mesh is None or not axes or mesh.group_size(axes) == 1:
+        return t
+    return _BatchSum.apply(t, mesh, axes)
 
 
 # ---------------------------------------------------------------------------

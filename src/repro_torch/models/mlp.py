@@ -4,8 +4,11 @@ and the capacity-routed mixture of experts.
 The port of ``repro.models.mlp``.  The JAX package computes every product
 here with ``jnp`` einsums outside any Pallas kernel, so the port does too:
 the experts' products are batched matrix products over the expert axis.
-There is no mesh, so MoE routing uses the config's ``token_groups`` (the
-JAX package's choice when no mesh is active).
+Without a mesh, MoE routing uses the config's ``token_groups``; under one
+(:func:`repro_torch.models.common.set_mesh`) the group count is the mesh's
+pod x data extent, halved until it divides the batch's tokens, as the
+reference's, and a rank that holds a block of the batch routes its own
+whole groups (see :meth:`MoE.route`).
 """
 
 from __future__ import annotations
@@ -17,7 +20,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.common import activation_fn, dense_init
+from repro_torch.models.common import (
+    activation_fn, batch_block, batch_sum, current_mesh, dense_init,
+)
 
 
 class MLP(nn.Module):
@@ -97,7 +102,14 @@ class MoE(nn.Module):
         of the expert's earlier choices in the group is the choice's
         place; a place at or past the capacity drops the choice.  A kept
         choice's slot is ``expert · capacity + place``; a dropped one's is
-        the sink, ``e · capacity``."""
+        the sink, ``e · capacity``.
+
+        Under a mesh the groups are ``moe_groups`` of the whole batch's
+        tokens with the mesh's pod x data extent, and the aux loss's means
+        run over the whole batch (:func:`batch_sum` of the sums).  Each
+        rank's rows are whole groups of the batch (contiguous tokens), so
+        it routes them alone; a group that would span two ranks' rows
+        raises."""
         moe = self.cfg.moe
         e, k = moe.num_experts, moe.top_k
         t = xt.shape[0]
@@ -105,11 +117,27 @@ class MoE(nn.Module):
         probs = torch.softmax(logits, dim=-1)
         top_p, top_idx = torch.topk(probs, k, dim=-1, sorted=True)
         top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
-        me = probs.mean(dim=0)
-        ce = F.one_hot(top_idx, e).sum(1).float().mean(dim=0) / k
+        mesh = current_mesh()
+        if mesh is None:
+            me = probs.mean(dim=0)
+            ce = F.one_hot(top_idx, e).sum(1).float().mean(dim=0) / k
+            groups = moe_groups(t, moe.token_groups)
+            tg = t // groups
+        else:
+            t_all = t * batch_block()[1]
+            me = batch_sum(probs.sum(dim=0)) / t_all
+            ce = batch_sum(F.one_hot(top_idx, e).sum(1).float().sum(dim=0)
+                           ) / t_all / k
+            fsdp = mesh.shape.get("pod", 1) * mesh.shape.get("data", 1)
+            tg = t_all // moe_groups(t_all, fsdp)
+            if t % tg:
+                raise ValueError(
+                    f"MoE routing: a group of {tg} tokens spans this rank's "
+                    f"{t} tokens and another rank's (batch of {t_all} "
+                    f"tokens on mesh {mesh.shape}); route with a batch "
+                    "whose rows split into whole groups")
+            groups = t // tg
         aux = e * (me * ce).sum()
-        groups = moe_groups(t, moe.token_groups)
-        tg = t // groups
         capacity = max(1, int(moe.capacity_factor * tg * k / e))
         flat = top_idx.reshape(groups, tg * k)
         one_hot = F.one_hot(flat, e)  # (g, tg·k, e)

@@ -39,7 +39,7 @@ from repro_torch.models.attention import (
     MLA, Attention, init_kv_cache, init_mla_cache,
 )
 from repro_torch.models.common import (
-    dense_init, embed_init, init_rms_norm, rms_norm,
+    batch_sum, dense_init, embed_init, init_rms_norm, rms_norm,
 )
 from repro_torch.models.mamba import Mamba, init_mamba_cache
 from repro_torch.models.mlp import MLP, MoE
@@ -218,6 +218,10 @@ class Model(nn.Module):
                                  for _ in range(cfg.mtp_depth))
         self.leaf_tree = None  # set by stack_for_training
         self.leaf_members = None
+        # (block, x, positions, prefix_len, remat) -> (x, aux): how the
+        # training forward runs a block; None runs it on its own weights
+        # (the sharded train step gathers them on use)
+        self.block_call = None
 
     @property
     def device(self) -> torch.device:
@@ -339,7 +343,8 @@ class Model(nn.Module):
                 rms_norm(cur, mtp.norm_h, cfg.norm_eps),
                 rms_norm(fut_e.to(cur.dtype), mtp.norm_e, cfg.norm_eps),
             ], dim=-1) @ mtp.combine
-            cur, _ = mtp.block(merged, positions, mode="train")
+            cur, _ = self._train_block(mtp.block, merged, positions, 0,
+                                       remat=False)
             mask = (torch.arange(s, device=h.device)[None, :] < s - shift
                     ).float().expand(b, s)
             loss = loss + cross_entropy(self.lm_logits(cur),
@@ -358,14 +363,17 @@ class Model(nn.Module):
         x, positions, prefix_len = self.embed_inputs(batch)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for block in self.blocks:
-            if remat and torch.is_grad_enabled():
-                x, a = checkpoint(block, x, positions, mode="train",
-                                  prefix_len=prefix_len, use_reentrant=False)
-            else:
-                x, a = block(x, positions, mode="train",
-                             prefix_len=prefix_len)
+            x, a = self._train_block(block, x, positions, prefix_len, remat)
             aux = aux + a
         return self._total(x, aux, batch, positions)
+
+    def _train_block(self, block, x, positions, prefix_len, remat):
+        if self.block_call is not None:
+            return self.block_call(block, x, positions, prefix_len, remat)
+        if remat and torch.is_grad_enabled():
+            return checkpoint(block, x, positions, mode="train",
+                              prefix_len=prefix_len, use_reentrant=False)
+        return block(x, positions, mode="train", prefix_len=prefix_len)
 
     def forward_train_reference(self, batch: dict):
         """``forward_train_reference``: the plain layer loop, no remat."""
@@ -429,12 +437,15 @@ class Model(nn.Module):
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor) -> torch.Tensor:
     """Stable cross entropy in float32: the mean negative log-likelihood
-    over the positions ``mask`` selects."""
+    over the positions ``mask`` selects (over the whole batch: under a
+    mesh whose ranks hold blocks of it, the sum and the count are summed
+    over those ranks first)."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = (logz - gold) * mask
-    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return batch_sum(nll.sum()) / torch.clamp(batch_sum(mask.sum()),
+                                              min=1.0)
 
 
 def _nest(named) -> dict:

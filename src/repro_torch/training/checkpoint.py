@@ -34,6 +34,14 @@ model's storage.
 ``restore_checkpoint(..., device=)`` places the restored tensors on one
 device; by default each goes to its ``like`` leaf's device (CPU for a leaf
 that is not a tensor).
+
+Sharded (``shardings=``, a tree of :class:`repro_torch.dist.sharding.
+NamedSharding` beside the state, as the sharded train step holds it): a
+save gathers one leaf at a time from the ranks' blocks to global rank 0,
+which writes the same format (full leaves, manifest, CRCs); a restore
+reads each leaf memory-mapped, checks its CRC and full shape, and keeps
+this rank's block under the new sharding, so a step written on one mesh
+restores onto another, onto one device, and into the JAX package.
 """
 
 from __future__ import annotations
@@ -176,7 +184,8 @@ def save_checkpoint(directory: str, step: int, tree: Any, *,
                     blocking: bool = True, keep: int = 3,
                     process_index: int = 0, process_count: int = 1,
                     tmp_ttl_s: float = TMP_SWEEP_TTL_S,
-                    barrier_timeout_s: float = 300.0) -> CheckpointWriter:
+                    barrier_timeout_s: float = 300.0,
+                    shardings: Any = None) -> CheckpointWriter:
     """Snapshot ``tree`` at ``step``; returns the writer thread.
 
     Every process calls this with the same ``step`` and tree structure; a
@@ -184,17 +193,39 @@ def save_checkpoint(directory: str, step: int, tree: Any, *,
     (``i % process_count == process_index``).  Process 0 waits for every
     shard manifest, merges them, writes the final manifest and publishes
     the step with one rename.  ``keep`` > 0 keeps the newest ``keep``
-    steps.
+    steps.  With ``shardings`` (every rank of the mesh calls this), the
+    leaves are blocks: each is gathered whole, and global rank 0 writes
+    them all (the one-process layout); the other ranks' writers do
+    nothing.
     """
     p, np_procs = process_index, process_count
     flat = tree_flatten_with_path(tree)
     paths = [path for path, _ in flat]
     leaves = [leaf for _, leaf in flat]
-    owned = [i for i in range(len(leaves)) if i % np_procs == p]
-    host = {i: _to_host(leaves[i]) for i in owned}
     shapes = [list(np.shape(x)) if not isinstance(x, torch.Tensor)
               else list(x.shape) for x in leaves]
     dtypes = [_dtype_name(x) for x in leaves]
+    if shardings is not None:
+        # every rank gathers each leaf; rank 0 alone copies and writes
+        sh = tree_leaves(shardings)
+        writer = sh[0].mesh.rank == 0
+        host = {}
+        for i, (leaf, s) in enumerate(zip(leaves, sh)):
+            full = s.gather(leaf.detach()) if isinstance(
+                leaf, torch.Tensor) and s.is_split else leaf
+            shapes[i] = list(np.shape(full)) if not isinstance(
+                full, torch.Tensor) else list(full.shape)
+            if writer:
+                host[i] = _to_host(full)
+            del full
+        if not writer:
+            t = CheckpointWriter(lambda: None)
+            t.start()
+            t.join()
+            return t
+    else:
+        owned = [i for i in range(len(leaves)) if i % np_procs == p]
+        host = {i: _to_host(leaves[i]) for i in owned}
 
     def write():
         final = os.path.join(directory, f"step_{step:08d}")
@@ -310,8 +341,11 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def _restore_arrays(directory: str, step: int, like: Any) -> list:
-    """Load and check every leaf; raises CheckpointError subclasses."""
+def _restore_arrays(directory: str, step: int, like: Any,
+                    shardings: Any = None) -> list:
+    """Load and check every leaf; raises CheckpointError subclasses.  With
+    ``shardings``, a leaf is read memory-mapped, checked whole against its
+    full shape and CRC, and this rank's block is returned."""
     path = os.path.join(directory, f"step_{step:08d}")
     manifest = _load_manifest(directory, step)
     flat = tree_flatten_with_path(like)
@@ -330,18 +364,22 @@ def _restore_arrays(directory: str, step: int, like: Any) -> list:
                 f"{mp!r} but the target tree expects {lp!r} — the state "
                 f"definition drifted since this checkpoint was written")
     crcs = manifest.get("crc32")
+    sh = [None] * len(flat) if shardings is None else tree_leaves(shardings)
     arrs = []
-    for i, (name, ref) in enumerate(flat):
+    for i, ((name, ref), s) in enumerate(zip(flat, sh)):
         leaf_path = os.path.join(path, f"leaf_{i}.npy")
         name = name or f"leaf_{i}"
         try:
-            arr = np.load(leaf_path)
+            arr = np.load(leaf_path, mmap_mode=None if s is None else "r")
         except (OSError, ValueError) as e:
             raise CheckpointCorruptionError(
                 f"checkpoint step {step} leaf {name!r} ({leaf_path}) is "
                 f"missing or unreadable: {e}")
-        want_shape = tuple(ref.shape) if hasattr(ref, "shape") \
-            else np.shape(ref)
+        if s is not None and s.shape is not None:
+            want_shape = s.shape
+        else:
+            want_shape = tuple(ref.shape) if hasattr(ref, "shape") \
+                else np.shape(ref)
         if tuple(arr.shape) != tuple(want_shape):
             raise CheckpointError(
                 f"checkpoint step {step} leaf {name!r} has shape "
@@ -359,12 +397,16 @@ def _restore_arrays(directory: str, step: int, like: Any) -> list:
                     f"checkpoint step {step} leaf {name!r} failed its CRC32 "
                     f"check (stored {crcs[i]:#010x}, got {crc:#010x}) — "
                     f"the file was truncated or bit-flipped on disk")
+        if s is not None:
+            arr = np.array(arr[s.block_slices(arr.shape)] if s.is_split
+                           else arr)
         arrs.append(arr)
     return arrs
 
 
 def restore_checkpoint(directory: str, step: int, like: Any, *,
-                       device: str | torch.device | None = None) -> Any:
+                       device: str | torch.device | None = None,
+                       shardings: Any = None) -> Any:
     """Restore into the structure of ``like`` as tensors.
 
     ``like``'s leaves give the expected shape and dtype (tensors, arrays,
@@ -374,9 +416,12 @@ def restore_checkpoint(directory: str, step: int, like: Any, *,
     :class:`CheckpointCorruptionError` naming the leaf.  ``device``: where
     the tensors go; by default each goes to its ``like`` leaf's device
     (CPU for a leaf that is not a tensor).  A module of ``like`` is
-    restored into its own parameters, in place.
+    restored into its own parameters, in place.  ``shardings``: ``like``
+    holds this rank's blocks under these shardings (elastic restore: the
+    mesh may differ from the one that saved); each leaf is checked whole
+    and this rank keeps its block.
     """
-    arrs = _restore_arrays(directory, step, like)
+    arrs = _restore_arrays(directory, step, like, shardings)
     out = []
     for arr, ref in zip(arrs, tree_leaves(like)):
         dev = device if device is not None else (
@@ -408,7 +453,8 @@ def _into_modules(like: Any, built: Any) -> Any:
 
 
 def restore_latest_valid(directory: str, like: Any, *,
-                         device: str | torch.device | None = None
+                         device: str | torch.device | None = None,
+                         shardings: Any = None
                          ) -> tuple[Optional[int], Any]:
     """Restore the newest step that passes every check.
 
@@ -420,7 +466,8 @@ def restore_latest_valid(directory: str, like: Any, *,
     for step in sorted(all_steps(directory), reverse=True):
         try:
             return step, restore_checkpoint(directory, step, like,
-                                            device=device)
+                                            device=device,
+                                            shardings=shardings)
         except CheckpointError:
             continue
     return None, None

@@ -10,18 +10,27 @@ intact checkpoint and a replay.  Steps are deterministic functions of
 (state, batch) and ``batch_fn`` is a function of the step index, so
 replayed steps reproduce the originals.  :class:`StepTimer` keeps an EWMA
 of step latency and flags outliers (stragglers).
+
+The replay target before the first checkpoint is one that no step can
+spend, since the LM train step updates its state in place: a step-0
+checkpoint written before the first step, or, without a checkpoint
+directory, a host copy of the initial state that a replay copies back in
+place.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import logging
 import time
 from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.training import checkpoint as ckpt
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 log = logging.getLogger("repro_torch.fault_tolerance")
 
@@ -69,6 +78,68 @@ def _wait(tree) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _mem_available() -> Optional[int]:
+    """The host's MemAvailable in bytes (None where /proc/meminfo is not
+    there to read)."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return None
+
+
+def host_copy(state) -> tuple:
+    """A host copy of every leaf of ``state`` (the replay target without
+    checkpoints) and its record: bytes, the host's MemAvailable before,
+    seconds.  Raises MemoryError, before anything is copied, when the
+    copy would not fit in nine tenths of MemAvailable."""
+    leaves = tree_leaves(state)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves
+                 if isinstance(t, torch.Tensor))
+    avail = _mem_available()
+    if avail is not None and nbytes > 0.9 * avail:
+        raise MemoryError(
+            f"run_resilient without a checkpoint directory keeps a host copy "
+            f"of the initial state to replay from: {nbytes} bytes, but the "
+            f"host has {avail} bytes available; give ckpt_dir")
+    t0 = time.perf_counter()
+    # pageable: page-locked memory stays in torch's host cache after the
+    # run, tens of GB at full width
+    host = [t.detach().to("cpu", copy=True) if isinstance(t, torch.Tensor)
+            else copy.deepcopy(t) for t in leaves]
+    info = {"bytes": nbytes, "mem_available": avail,
+            "seconds": time.perf_counter() - t0}
+    log.info("host copy of the initial state: %d bytes in %.2fs "
+             "(MemAvailable %s bytes)", nbytes, info["seconds"], avail)
+    return host, info
+
+
+@torch.no_grad()
+def copy_back(state, host: list):
+    """``state`` with the values of ``host`` (a :func:`host_copy`), copied
+    into its tensors in place (a module's parameters too); 0-d tensors,
+    such as a train state's step, are made anew, so a step that marks the
+    states it spent takes the result."""
+    out = []
+    for live, saved in zip(tree_leaves(state), host):
+        if isinstance(live, torch.Tensor):
+            live.copy_(saved)
+            out.append(live.clone() if live.ndim == 0 else live)
+        else:
+            out.append(copy.deepcopy(saved))
+    return ckpt._into_modules(state, tree_unflatten(state, out))
+
+
+def _barrier(state_shardings) -> None:
+    """Every rank waits for the others (a sharded state: rank 0 writes the
+    checkpoints the others read)."""
+    if state_shardings is not None and dist.is_initialized():
+        dist.barrier()
+
+
 def run_resilient(
     train_step: Callable,
     state,
@@ -80,6 +151,7 @@ def run_resilient(
     max_restarts: int = 10,
     fault_hook: Optional[Callable[[int], None]] = None,
     on_straggler: Optional[Callable[[int, float], None]] = None,
+    state_shardings: Any = None,
     device: str | torch.device | None = None,
     log_every: int = 10,
 ):
@@ -87,18 +159,24 @@ def run_resilient(
 
     ``batch_fn(step)`` must be a deterministic function of the step index
     so that restarts replay identical batches.  ``device``: where restored
-    state goes (default: each leaf's own device).  ``ckpt_dir=None``
-    writes no checkpoint (a state too large to snapshot in the run's
-    time): a fault then replays from the initial state.  A step that
-    updates its state in place (the LM train step) leaves no initial
-    state to replay from: a fault before the first checkpoint has landed
-    then ends the run with the step's
-    :class:`~repro_torch.training.train_loop.SpentStateError`.  Returns
-    ``(final_state, info dict)``.
+    state goes (default: each leaf's own device).  ``state_shardings``:
+    ``state`` is this rank's blocks under these shardings (the sharded
+    train step's); every save and restore is sharded, and every rank of
+    the mesh runs this.
+
+    A fault before the first periodic checkpoint replays from the initial
+    state, which no step can spend (the LM train step updates its state in
+    place): with ``ckpt_dir``, a step-0 checkpoint written before the
+    first step (unless the run resumed from a checkpoint), restored in
+    place; with ``ckpt_dir=None`` (nothing is written: a state too large
+    to snapshot in the run's time), a host copy taken before the first
+    step (:func:`host_copy`; it raises before the first step when the host
+    cannot hold it) and copied back in place.  Returns ``(final_state,
+    info dict)``; ``info["initial_copy"]`` is the host copy's record.
     """
-    initial_state = state  # the restart target before the first checkpoint
     start, restored = (None, None) if ckpt_dir is None else \
-        ckpt.restore_latest_valid(ckpt_dir, state, device=device)
+        ckpt.restore_latest_valid(ckpt_dir, state, device=device,
+                                  shardings=state_shardings)
     if start is not None:
         state = restored
         log.info("resumed from checkpoint step %d", start)
@@ -108,6 +186,13 @@ def run_resilient(
     restarts = 0
     pending = None
     metrics = None
+    initial_state, initial_host, copy_info = state, None, None
+    if ckpt_dir is None:
+        initial_host, copy_info = host_copy(state)
+    elif start is None:
+        # written before the clock starts, so no step shares the host with
+        # the writer
+        ckpt.save_checkpoint(ckpt_dir, 0, state, shardings=state_shardings)
     while step < total_steps:
         try:
             if fault_hook is not None:
@@ -125,7 +210,8 @@ def run_resilient(
             if ckpt_dir is not None and (step % ckpt_every == 0
                                          or step == total_steps):
                 pending = ckpt.save_checkpoint(ckpt_dir, step, state,
-                                               blocking=False)
+                                               blocking=False,
+                                               shardings=state_shardings)
         except InjectedFault as e:
             restarts += 1
             if restarts > max_restarts:
@@ -134,23 +220,29 @@ def run_resilient(
                         step, e)
             if pending is not None:
                 pending.join()  # let any in-flight write land
-            last, restored = (None, None) if ckpt_dir is None else \
-                ckpt.restore_latest_valid(ckpt_dir, state, device=device)
+            _barrier(state_shardings)
+            if ckpt_dir is None:
+                # replay from step 0 is deterministic, still bounded by
+                # max_restarts
+                state, step = copy_back(state, initial_host), 0
+                continue
+            last, restored = ckpt.restore_latest_valid(
+                ckpt_dir, state, device=device, shardings=state_shardings)
             if last is None:
-                # a fault before the first checkpoint landed: restart from
-                # the caller's initial state (replay from step 0 is
-                # deterministic), still bounded by max_restarts
-                state = initial_state
-                step = 0
+                # even step 0's checkpoint is damaged: the caller's state
+                # (an in-place step refuses it as spent)
+                state, step = initial_state, 0
             else:
                 state = restored
                 step = int(last)
     if pending is not None:
         pending.join()
+    _barrier(state_shardings)
     return state, {
         "steps": step,
         "restarts": restarts,
         "stragglers": timer.stragglers,
         "mean_step_time": timer.mean,
         "final_metrics": metrics,
+        "initial_copy": copy_info,
     }

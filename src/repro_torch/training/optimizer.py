@@ -16,6 +16,16 @@ and the parameters are overwritten (and returned), so that a model at
 full width holds one copy of each.  ``grads`` are float32 and are only
 read.  ``lr`` and ``step`` are 0-d tensors (or numbers) on the leaves'
 device; nothing here reads them on the host.
+
+Sharded (``update(..., shardings=(param shardings, state shardings))``
+and ``clip_by_global_norm(..., shardings=)``, trees of
+:class:`repro_torch.dist.sharding.NamedSharding`): each leaf is this
+rank's block.  AdamW is elementwise and runs on the blocks as they are;
+Adafactor decides whether to factor by the full leaf's shape, sums the
+squared gradient's rows and columns over the axes that split them, keeps
+its moments as blocks under their own shardings, and takes the update's
+RMS over the whole leaf; the global norm sums each leaf's squares over
+the axes that split it (a replicated leaf counts once).
 """
 
 from __future__ import annotations
@@ -66,17 +76,32 @@ def make_schedule(cfg: OptimizerConfig) -> Callable:
     return schedule
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, shardings=None) -> torch.Tensor:
     """sqrt(sum of squares) over every leaf, in float32 (per-leaf norms:
-    no squared copy of a leaf)."""
+    no squared copy of a leaf).  With ``shardings``, the leaves are blocks
+    and each leaf's squares are summed over the axes that split it."""
     leaves = [x.float() for x in tree_leaves(tree)]
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(leaves)))
+    norms = torch._foreach_norm(leaves)
+    sh = None if shardings is None else tree_leaves(shardings)
+    if sh is None or not any(s.is_split for s in sh):
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sq = torch.stack(norms) ** 2
+    by_axes = {}
+    for i, s in enumerate(sh):
+        by_axes.setdefault(s.axes, []).append(i)
+    total = sq.new_zeros(())
+    for axes in sorted(by_axes):
+        part = sq[by_axes[axes]]
+        if axes:
+            part = sh[by_axes[axes][0]].mesh.psum(part, axes)
+        total = total + part.sum()
+    return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, shardings=None):
     """Scale float32 ``grads`` in place so that their global norm is at
     most ``max_norm``; returns (grads, norm before clipping)."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, shardings)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     torch._foreach_mul_(tree_leaves(grads), scale)
     return grads, norm
@@ -131,7 +156,11 @@ class AdafactorState(NamedTuple):
 
 
 def _factored(p, min_dim: int) -> bool:
-    return p.ndim >= 2 and p.shape[-1] >= min_dim and p.shape[-2] >= min_dim
+    return _factored_shape(tuple(p.shape), min_dim)
+
+
+def _factored_shape(shape: tuple, min_dim: int) -> bool:
+    return len(shape) >= 2 and shape[-1] >= min_dim and shape[-2] >= min_dim
 
 
 def _adafactor_init(params, cfg: OptimizerConfig) -> AdafactorState:
@@ -183,27 +212,90 @@ def _adafactor_update(cfg: OptimizerConfig, grads, state: AdafactorState,
     return params, state
 
 
+def _full_sum(x: torch.Tensor, sharding, dim: int) -> torch.Tensor:
+    """The sum over ``dim`` of the full array whose block is ``x``, whole
+    (replicated): summed over the axes that split ``dim``, gathered over
+    the axes that split the other dims."""
+    dim %= x.ndim
+    out = x.sum(dim=dim)
+    for d, axes in sharding.dim_axes():
+        if d == dim:
+            out = sharding.mesh.psum(out, axes)
+    for d, axes in sharding.dim_axes():
+        if d != dim:
+            out = sharding.mesh.all_gather(out, axes, d if d < dim else d - 1)
+    return out
+
+
+@torch.no_grad()
+def _adafactor_update_sharded(cfg: OptimizerConfig, grads,
+                              state: AdafactorState, params, lr, step,
+                              param_sh, state_sh: AdafactorState):
+    t = _f32(step) + 1.0
+    beta2 = 1.0 - t ** (-0.8)
+    for g, vr, vc, vf, p, psh, rsh, csh in zip(*map(tree_leaves, (
+            grads, state.v_row, state.v_col, state.v_full, params, param_sh,
+            state_sh.v_row, state_sh.v_col))):
+        full = psh.shape
+        g2 = (g * g).add_(cfg.decay_offset)
+        if _factored_shape(full, cfg.factored_min_dim):
+            row = _full_sum(g2, psh, -1) / full[-1]
+            col = _full_sum(g2, psh, -2) / full[-2]
+            del g2
+            vr_full = rsh.gather(vr).mul_(beta2).add_((1 - beta2) * row)
+            vc_full = csh.gather(vc).mul_(beta2).add_((1 - beta2) * col)
+            vr.copy_(rsh.shard(vr_full))
+            vc.copy_(csh.shard(vc_full))
+            r = vr_full / torch.clamp(vr_full.mean(dim=-1, keepdim=True),
+                                      min=1e-30)
+            r = psh.take(r, -1, -2)  # this block's rows
+            c = psh.take(vc_full, -1, -1)  # and its columns
+            u = g / (torch.sqrt(r)[..., None] * torch.sqrt(c)[..., None, :]
+                     + 1e-30)
+        else:
+            vf.mul_(beta2).add_((1 - beta2) * g2)
+            del g2
+            u = g / (torch.sqrt(vf) + 1e-30)
+        sq = (u * u).sum()
+        if psh.axes:
+            sq = psh.mesh.psum(sq, psh.axes)
+        rms = torch.sqrt(sq / math.prod(full) + 1e-30)
+        u.div_(torch.clamp(rms, min=1.0))
+        if p.ndim >= 2:
+            u.add_(p.float(), alpha=cfg.weight_decay)
+        p.copy_(p.float() - lr * u)
+    return params, state
+
+
 # ---------------------------------------------------------------------------
 # Facade
 # ---------------------------------------------------------------------------
 
 class Optimizer(NamedTuple):
     init: Any
-    update: Any  # (grads, state, params, lr, step) -> (params, state)
+    # (grads, state, params, lr, step, shardings=None) -> (params, state)
+    update: Any
     config: OptimizerConfig
+
+
+def _adafactor(cfg, g, s, p, lr, step, shardings=None):
+    if shardings is None:
+        return _adafactor_update(cfg, g, s, p, lr, step)
+    return _adafactor_update_sharded(cfg, g, s, p, lr, step, *shardings)
 
 
 def init_optimizer(cfg: OptimizerConfig) -> Optimizer:
     if cfg.name == "adamw":
+        # elementwise: a block updates as it is
         return Optimizer(
             init=_adamw_init,
-            update=lambda g, s, p, lr, step: _adamw_update(cfg, g, s, p, lr,
-                                                           step),
+            update=lambda g, s, p, lr, step, shardings=None: _adamw_update(
+                cfg, g, s, p, lr, step),
             config=cfg)
     if cfg.name == "adafactor":
         return Optimizer(
             init=lambda p: _adafactor_init(p, cfg),
-            update=lambda g, s, p, lr, step: _adafactor_update(cfg, g, s, p,
-                                                               lr, step),
+            update=lambda g, s, p, lr, step, shardings=None: _adafactor(
+                cfg, g, s, p, lr, step, shardings),
             config=cfg)
     raise ValueError(cfg.name)

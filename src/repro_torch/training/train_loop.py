@@ -1,10 +1,10 @@
 """Train-step factory: microbatched gradient accumulation, optional int8
 error-feedback gradient compression, clipping, the optimizer, metrics.
 
-The port of ``repro.training.train_loop`` for one device, in the
-reference's order: split the batch into microbatches, accumulate each
-microbatch's gradients in float32 and scale by 1/n, compress (with
-``compress_grads``), clip, ``lr = schedule(step)``, update, ``step + 1``.
+The port of ``repro.training.train_loop``, in the reference's order:
+split the batch into microbatches, accumulate each microbatch's gradients
+in float32 and scale by 1/n, compress (with ``compress_grads``), clip,
+``lr = schedule(step)``, update, ``step + 1``.
 
 The state's model is :class:`TrainState.params`: an ``nn.Module``, which
 the checkpoint stores as its parameters by name and restores into place
@@ -14,12 +14,19 @@ Model.stack_for_training`), so their per-leaf decisions are the
 reference's; the optimizer state and the residuals are trees in the JAX
 package's layout, the checkpoint paths included.
 
+``make_train_step(cfg, tc, mesh=mesh)`` is the same step over the ranks of
+a :class:`repro_torch.launch.mesh.Mesh` (:class:`ShardedTrainStep`): each
+rank holds only its block of every leaf of the model, the optimizer state
+and the residuals under ``launch.steps._state_shardings`` (ZeRO-3), gathers
+a block's weights on use and reduce-scatters their gradients; see its
+docstring for what runs where.
+
 A step updates its state in place (the reference donates nothing, but a
 2.5e9-parameter model holds one copy of its state on the card), so the
-state it was given is spent: stepping a spent state again (a replay from
-an initial state that is no longer initial) raises :class:`SpentStateError`
-instead of training on from the advanced model.  A caller that needs the
-state from before a step keeps its own copy, or restores a checkpoint.
+state it was given is spent: stepping a spent state again by hand raises
+:class:`SpentStateError` instead of training on from the advanced model.
+:func:`repro_torch.training.fault_tolerance.run_resilient` keeps a replay
+target the step cannot spend (a step-0 checkpoint, or a host copy).
 """
 
 from __future__ import annotations
@@ -30,12 +37,18 @@ from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.dist.compression import (
     CompressionState, apply_error_feedback, init_compression_state)
+from repro_torch.dist.sharding import (
+    FSDP_AXES, P, fsdp_extent, gather_on_use, named, param_specs)
 from repro_torch.models import model as model_mod
+from repro_torch.models.common import set_mesh
 from repro_torch.training.optimizer import (
     AdafactorState, AdamWState, OptimizerConfig, clip_by_global_norm,
     init_optimizer, make_schedule)
@@ -65,18 +78,70 @@ class TrainState(NamedTuple):
     ef_state: Optional[CompressionState]  # error-feedback residuals
 
 
-def init_train_state(cfg: ArchConfig, tc: TrainConfig, seed: int = 0, *,
-                     device: str | torch.device | None = None) -> TrainState:
-    """A seeded model (``init_params``) with every parameter trainable,
-    the optimizer's state and, with ``compress_grads``, zero residuals, on
-    ``device`` (default: the CUDA card)."""
-    dev = resolve_device(device)
-    model = model_mod.init_params(cfg, seed, device=dev)
+def _state_of(model, tc: TrainConfig, device) -> TrainState:
     leaves = model.stack_for_training()
     ef = init_compression_state(leaves) if tc.compress_grads else None
-    return TrainState(step=torch.zeros((), dtype=torch.int32, device=dev),
+    return TrainState(step=torch.zeros((), dtype=torch.int32, device=device),
                       params=model,
                       opt_state=init_optimizer(tc.optimizer).init(leaves),
+                      ef_state=ef)
+
+
+def init_train_state(cfg: ArchConfig, tc: TrainConfig, seed: int = 0, *,
+                     device: str | torch.device | None = None,
+                     mesh=None) -> TrainState:
+    """A seeded model (``init_params``) with every parameter trainable,
+    the optimizer's state and, with ``compress_grads``, zero residuals, on
+    ``device`` (default: the CUDA card).  With ``mesh``, this rank's blocks
+    of that state (:func:`shard_train_state`)."""
+    dev = resolve_device(device)
+    state = _state_of(model_mod.init_params(cfg, seed, device=dev), tc, dev)
+    return state if mesh is None else shard_train_state(state, mesh)
+
+
+def abstract_train_state(cfg: ArchConfig, tc: TrainConfig) -> TrainState:
+    """The full train state's shapes and dtypes, on the ``meta`` device
+    (no storage): what the sharding rules read."""
+    with torch.device("meta"):
+        model = model_mod.Model(cfg, generator=None, device="meta")
+    return _state_of(model, tc, "meta")
+
+
+def _tree_zip(fn, tree, other):
+    return tree_unflatten(tree, [fn(a, b) for a, b in
+                                 zip(tree_leaves(tree), tree_leaves(other))])
+
+
+def shard_train_state(state: TrainState, mesh) -> TrainState:
+    """This rank's blocks of a full train state under
+    ``launch.steps._state_shardings``: the model's parameters are replaced
+    by their blocks (and re-stacked), every optimizer and residual leaf by
+    its block; a leaf that nothing splits stays as it is."""
+    from repro_torch.launch.steps import _state_shardings
+    sh = _state_shardings(state, mesh)
+    model = state.params
+    named_params = list(model.named_parameters())
+    if any(sh.params[n].is_split for n, _ in named_params):
+        with torch.no_grad():
+            for name, p in named_params:
+                owner, _, attr = name.rpartition(".")
+                setattr(model.get_submodule(owner), attr,
+                        nn.Parameter(sh.params[name].shard(p.detach())))
+        model.leaf_tree = model.leaf_members = None
+        model.stack_for_training()
+
+    def blocks(tree, shardings):
+        return None if tree is None else _tree_zip(
+            lambda t, s: s.shard(t), tree, shardings)
+
+    ef = state.ef_state
+    if ef is not None:
+        ef = CompressionState(residuals=blocks(ef.residuals,
+                                               sh.ef_state.residuals))
+    return TrainState(step=state.step, params=model,
+                      opt_state=type(state.opt_state)(*[
+                          blocks(t, s) for t, s in zip(state.opt_state,
+                                                       sh.opt_state)]),
                       ef_state=ef)
 
 
@@ -125,6 +190,9 @@ class TrainStep:
     """``make_train_step``'s step: ``step(state, batch) -> (state,
     metrics)``, with the gradient pass on its own as :meth:`gradients`."""
 
+    # the sharded step's: the stacked leaves' and the state's shardings
+    leaf_shardings = state_shardings = None
+
     def __init__(self, cfg: ArchConfig, tc: TrainConfig):
         self.cfg, self.tc = cfg, tc
         self.opt = init_optimizer(tc.optimizer)
@@ -149,8 +217,8 @@ class TrainStep:
         loss_sum = None
         for mb in micro:
             with torch.enable_grad():
-                loss, metrics = model.forward_train(mb, remat=self.tc.remat)
-                grads = iter(torch.autograd.grad(loss, flat))
+                loss, metrics, grads = self._microbatch(model, mb, flat)
+                grads = iter(grads)
             with torch.no_grad():
                 for a, layers in zip(acc, stacked):
                     for row in (a if layers else (a,)):
@@ -166,18 +234,27 @@ class TrainStep:
             metrics = {k: v.detach() for k, v in metrics.items()}
         return loss, metrics, tree_unflatten(leaves, acc)
 
+    def _microbatch(self, model, mb: dict, flat: list):
+        """(loss, metrics, gradients of ``flat``) of one microbatch."""
+        loss, metrics = model.forward_train(mb, remat=self.tc.remat)
+        return loss, metrics, torch.autograd.grad(loss, flat)
+
     def __call__(self, state: TrainState, batch: dict):
         model = state.params
         loss, metrics, grads = self.gradients(model, batch)
         ef_state = state.ef_state
+        sh = self.leaf_shardings
         if self.tc.compress_grads:
-            grads, ef_state = apply_error_feedback(grads, ef_state)
-        grads, gnorm = clip_by_global_norm(grads, self.tc.optimizer.clip_norm)
+            grads, ef_state = apply_error_feedback(grads, ef_state,
+                                                   shardings=sh)
+        grads, gnorm = clip_by_global_norm(grads, self.tc.optimizer.clip_norm,
+                                           shardings=sh)
         lr = self.schedule(state.step)
         _spend(state)
-        _, opt_state = self.opt.update(grads, state.opt_state,
-                                       model.stack_for_training(), lr,
-                                       state.step)
+        _, opt_state = self.opt.update(
+            grads, state.opt_state, model.stack_for_training(), lr,
+            state.step, shardings=None if sh is None else (
+                sh, self.state_shardings.opt_state))
         metrics = dict(metrics)
         metrics.update(grad_norm=gnorm, lr=lr, loss=loss)
         return TrainState(step=state.step + 1, params=model,
@@ -200,5 +277,116 @@ def _spend(state: TrainState) -> None:
     spent.add(state.step)
 
 
-def make_train_step(cfg: ArchConfig, tc: TrainConfig) -> TrainStep:
-    return TrainStep(cfg, tc)
+class _TrainForward(nn.Module):
+    """``model.forward_train`` as a module's forward, so that
+    ``functional_call`` can run it on gathered top-level weights."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, batch, remat):
+        return self.model.forward_train(batch, remat=remat)
+
+
+def _in_block(name: str) -> bool:
+    """A parameter of a residual block (a layer's or an MTP depth's)."""
+    return name.startswith("blocks.") or ".block." in name
+
+
+class ShardedTrainStep(TrainStep):
+    """The train step over the ranks of ``mesh`` (``torch.distributed``),
+    with the single-device step's results up to the order of sums.
+
+    * **State.** Each rank holds its block of every leaf of the model, the
+      optimizer state and the residuals under ``_state_shardings``
+      (:func:`shard_train_state`): the last two dims of a matrix leaf over
+      (FSDP axes, ``"model"``), vectors, scalars and ``embed`` replicated.
+    * **Batch.** Split into microbatches first, then each microbatch's rows
+      over the FSDP axes (``batch_specs``; a row count they do not divide
+      replicates, as ``_fit_entry`` decides).
+    * **Forward and backward (ZeRO-3).** A block's weights are gathered on
+      use (:func:`repro_torch.dist.sharding.gather_on_use`: one collective
+      for the weights that split alike), inside the block's remat
+      boundary, so the recompute gathers them again and the full weights
+      live for one block.  Every rank computes the batch's
+      loss (its sums and counts summed over the ranks of the batch, as the
+      MoE's load-balancing means are) and back-propagates it divided by
+      the FSDP extent; a weight's gradient is reduce-scattered (summed)
+      over the FSDP axes and only sliced over ``"model"``, whose ranks
+      compute the same rows.  Replicated leaves' gradients are all-reduced,
+      so their updates are bitwise equal on every rank.
+    * **Update.** The global norm sums each leaf's squares over the axes
+      that split it; Adafactor factors by the full leaf's shape and
+      reduces its moments over the axes that split their dims; error
+      feedback takes each 256-element block's scale as the max over the
+      ranks that hold its parts (``Mesh.pmax``), so compression equals
+      the unsharded one.
+
+    ``"model"`` shards storage only: the attention heads, the MLP's hidden
+    units and the experts are computed whole on every rank of it.
+    """
+
+    def __init__(self, cfg: ArchConfig, tc: TrainConfig, mesh):
+        super().__init__(cfg, tc)
+        from repro_torch.launch.steps import _state_shardings
+        self.mesh = mesh
+        abstract = abstract_train_state(cfg, tc)
+        self.state_shardings = _state_shardings(abstract, mesh)
+        self.leaf_shardings = param_specs(
+            abstract.params.stack_for_training(), mesh)
+        self.fsdp = fsdp_extent(mesh)
+
+    def shard_batch(self, mb: dict):
+        """(this rank's rows of ``mb``, the axes that split them)."""
+        rows = next(iter(mb.values())).shape[0]
+        sh = named(self.mesh, P(FSDP_AXES), (rows,))
+        if not sh.is_split:
+            return mb, ()
+        rows_slice = sh.block_slices()[0]
+        return {k: v[rows_slice] for k, v in mb.items()}, sh.axes
+
+    def _microbatch(self, model, mb: dict, flat: list):
+        local, axes = self.shard_batch(mb)
+        shard_of = {id(p): self.state_shardings.params[name]
+                    for name, p in model.named_parameters()}
+        mesh = self.mesh
+
+        def block_call(block, x, positions, prefix_len, remat):
+            names, blocks = zip(*block.named_parameters())
+            shardings = [shard_of[id(b)] for b in blocks]
+
+            def run(x, positions, *blocks):
+                with set_mesh(mesh, axes):
+                    full = dict(zip(names, gather_on_use(blocks, shardings)))
+                    return functional_call(
+                        block, full, (x, positions),
+                        {"mode": "train", "prefix_len": prefix_len})
+
+            if remat and torch.is_grad_enabled():
+                return checkpoint(run, x, positions, *blocks,
+                                  use_reentrant=False)
+            return run(x, positions, *blocks)
+
+        names, tops = zip(*[(name, p) for name, p in
+                            model.named_parameters() if not _in_block(name)])
+        top = {"model." + name: full for name, full in zip(
+            names, gather_on_use(tops, [shard_of[id(p)] for p in tops]))}
+        model.block_call = block_call
+        try:
+            with set_mesh(mesh, axes):
+                loss, metrics = functional_call(_TrainForward(model), top,
+                                                (local, self.tc.remat))
+        finally:
+            model.block_call = None
+        scaled = loss / self.fsdp if self.fsdp > 1 else loss
+        return loss, metrics, torch.autograd.grad(scaled, flat)
+
+
+def make_train_step(cfg: ArchConfig, tc: TrainConfig, mesh=None
+                    ) -> TrainStep:
+    """The train step; with ``mesh``, the sharded step over its ranks
+    (:class:`ShardedTrainStep`), whose state comes from
+    ``init_train_state(..., mesh=mesh)`` or :func:`shard_train_state`."""
+    return TrainStep(cfg, tc) if mesh is None else ShardedTrainStep(
+        cfg, tc, mesh)

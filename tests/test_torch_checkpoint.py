@@ -9,6 +9,7 @@ a toy torch step, and the port's LM train step as that file drives the
 JAX one: a kill-and-resume bitwise equal to the uninterrupted run.
 """
 
+import functools
 import json
 import os
 import time
@@ -498,32 +499,68 @@ def test_lm_resilient_resume_bit_identical(tmp_path):
     assert int(state.step) == 6
 
 
-@pytest.mark.parametrize("with_dir", [True, False],
-                         ids=["before_first_checkpoint", "no_checkpoints"])
-def test_lm_fault_without_a_checkpoint_raises_instead_of_replaying(
-        tmp_path, with_dir):
-    """The LM twin of tests/test_checkpoint.py::
-    test_fault_before_first_checkpoint_restarts_from_initial.  The step
-    updates its state in place, so once it has run the caller's initial
-    state is gone: a fault with no checkpoint to restore ends the run with
-    SpentStateError instead of replaying steps on the advanced model."""
+def _lm_replay_setup():
     cfg = reduced_config(get_config("granite-3-2b"))
-    tc = TrainConfig(num_microbatches=1)
     batch_fn = lambda s: {k: torch.from_numpy(v) for k, v in
                           batch_for_step(cfg, cfg.shapes[0], s).items()}
+    return cfg, TrainConfig(num_microbatches=1), batch_fn
+
+
+@functools.lru_cache(maxsize=None)
+def _lm_uninterrupted(total_steps: int):
+    """The uninterrupted run the replay cases end equal to, run once."""
+    cfg, tc, batch_fn = _lm_replay_setup()
+    state0, step = _lm_state_and_step(cfg, tc)
+    state, info = run_resilient(step, state0, batch_fn,
+                                total_steps=total_steps, ckpt_dir=None,
+                                log_every=100)
+    assert info["restarts"] == 0
+    return state, info
+
+
+@pytest.mark.parametrize("with_dir, faults", [(True, 1), (False, 1),
+                                              (True, 2)],
+                         ids=["before_first_checkpoint", "no_checkpoints",
+                              "twice_before_first_checkpoint"])
+def test_lm_fault_before_first_checkpoint_replays_from_initial(
+        tmp_path, with_dir, faults):
+    """The LM twin of tests/test_checkpoint.py::
+    test_fault_before_first_checkpoint_restarts_from_initial.  The step
+    updates its state in place, so the replay target is a step-0
+    checkpoint (``ckpt_dir`` given) or a host copy of the initial state
+    (``ckpt_dir=None``): a fault (once, or twice) before the first
+    periodic checkpoint replays from step 0, and every leaf of the final
+    state equals the uninterrupted run's, bit for bit."""
+    cfg, tc, batch_fn = _lm_replay_setup()
+    ref_state, ref_info = _lm_uninterrupted(3)
     fired = {"n": 0}
 
     def fault_hook(s):
-        if s == 1 and fired["n"] == 0:  # ckpt_every=5: no checkpoint yet
+        if s == 2 and fired["n"] < faults:  # ckpt_every=5: none yet
             fired["n"] += 1
             raise InjectedFault("fault before first checkpoint")
 
-    state0, step = _lm_state_and_step(cfg, tc)
-    with pytest.raises(SpentStateError, match="already advanced"):
-        run_resilient(step, state0, batch_fn, total_steps=3,
-                      ckpt_dir=str(tmp_path) if with_dir else None,
-                      ckpt_every=5, fault_hook=fault_hook, log_every=100)
-    assert fired["n"] == 1
+    state1, step = _lm_state_and_step(cfg, tc)
+    state, info = run_resilient(
+        step, state1, batch_fn, total_steps=3,
+        ckpt_dir=str(tmp_path) if with_dir else None, ckpt_every=5,
+        fault_hook=fault_hook, log_every=100)
+    assert fired["n"] == faults and info["restarts"] == faults
+    assert info["steps"] == 3 and int(state.step) == 3
+    assert state.params is state1.params  # replayed into the same model
+    assert torch.equal(info["final_metrics"]["loss"],
+                       ref_info["final_metrics"]["loss"])
+    for a, b in zip(ckpt.tree_leaves(state), ckpt.tree_leaves(ref_state)):
+        assert torch.equal(a, b)
+    if with_dir:
+        assert ckpt.all_steps(str(tmp_path)) == [0, 3]
+        assert info["initial_copy"] is None
+    else:
+        assert list(tmp_path.iterdir()) == []
+        copied = info["initial_copy"]
+        assert copied["bytes"] == sum(t.numel() * t.element_size()
+                                      for t in ckpt.tree_leaves(state))
+        assert copied["seconds"] >= 0.0
 
 
 def test_lm_step_refuses_a_spent_state_and_takes_a_restored_one(tmp_path):

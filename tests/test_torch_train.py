@@ -581,7 +581,9 @@ def test_error_feedback_beats_no_feedback():
 
 def test_launch_train_reduced_on_cpu(tmp_path):
     """``python -m repro_torch.launch.train --arch granite-3-2b --reduced
-    --device cpu``: the reference's lines, a finite loss, a checkpoint."""
+    --device cpu``: the reference's lines, a finite loss, the checkpoints
+    (step 0's, written before the first step as ``run_resilient``'s replay
+    target, then every ``--ckpt-every`` steps and the last)."""
     out = io.StringIO()
     with redirect_stdout(out):
         tlaunch.main(["--arch", ARCH, "--reduced", "--device", "cpu",
@@ -594,7 +596,7 @@ def test_launch_train_reduced_on_cpu(tmp_path):
     assert lines[-1].startswith("done: 3 steps in ")
     assert math.isfinite(float(lines[-1].split("final loss ")[1].split()[0]))
     assert sorted(p.name for p in tmp_path.iterdir()) == [
-        "step_00000002", "step_00000003"]
+        "step_00000000", "step_00000002", "step_00000003"]
 
 
 def test_train_lm_tiny_loss_falls(tmp_path):

@@ -98,13 +98,15 @@ must move log_sigma; no kernel of the package may launch on these paths
 keeps a host copy of the initial state (its bytes and seconds printed).
 Then the sharded train step ([shard_train]): four gloo ranks sharing the
 card hold their blocks of granite-3-2b's state at full width (4 layers,
-float32) on meshes (4, 1) and (2, 2), gather weights on use and
-reduce-scatter gradients; losses against the single-device step, unsplit
-leaves bitwise equal on the ranks, each rank's bytes of state and each
-step's collective bytes against the sharding rules' prediction; a sharded
-checkpoint restored onto (2, 2) and onto one device; then one NCCL rank
-at (1, 1) at full width and depth beside [train]'s step; no kernel may
-launch.  Then the other mixers and the
+float32) on meshes (4, 1), (2, 2) and (1, 4), and of olmoe-1b-7b's (2
+layers) at (1, 4), gather weights on use and reduce-scatter gradients, the
+ranks of "model" computing their block of the heads, hidden units, experts
+and vocabulary; losses against the single-device step, unsplit leaves
+bitwise equal on the ranks, each rank's bytes of state, each step's
+collective bytes and each rank's forward matmul FLOPs against the
+predictions from the sharding rules; a sharded checkpoint restored onto
+(2, 2) and onto one device; then one NCCL rank at (1, 1) at full width and
+depth beside [train]'s step; no kernel may launch.  Then the other mixers and the
 frontends, each path with its launch counts from 0: olmoe-1b-7b (MoE, 64
 experts, top-8) at full width and depth through ``ServeEngine``
 ([moe_serve]: the flash kernel once per layer and prefill, head dim 128;
@@ -438,18 +440,35 @@ TRAIN_RESUME_STEPS, TRAIN_RESUME_EVERY, TRAIN_FAULT_STEP = 6, 2, 4
 # steps at (4, 1) restored onto (2, 2) and onto one device; then one NCCL
 # rank at (1, 1) at full width and depth, bf16, [train]'s 2 x 4,096
 # tokens, SHARD_FULL_STEPS steps.  Each mesh runs SHARD_MICRO microbatches,
-# and so does the single-device step it is held against.
+# and so does the single-device step it is held against.  On meshes whose
+# "model" axis has more than one rank, each rank computes its block of the
+# heads, hidden units, experts and vocabulary; olmoe-1b-7b (full width,
+# depth 16 -> SHARD_MOE_LAYERS, float32) runs at SHARD_MOE_MESH against the
+# single-device step with one token group (the mesh's FSDP extent).
 SHARD_WORLD = 4
 SHARD_LAYERS = 4
 SHARD_BATCH = 4
 SHARD_STEPS = 2
-SHARD_MESHES = ((4, 1), (2, 2))
-# microbatches a step on each mesh: one 4,096-token row a rank and
-# microbatch (two rows on each of four ranks sharing 80 GB run out of it)
-SHARD_MICRO = {(4, 1): 1, (2, 2): 2}
+SHARD_MESHES = ((4, 1), (2, 2), (1, 4))
+# microbatches a step on each mesh: at (4, 1) and (2, 2) one 4,096-token
+# row a rank and microbatch (two rows on each of four ranks sharing 80 GB
+# run out of it); at (1, 4) every rank holds the 4 rows and a quarter of
+# the heads, as many attention logits as (4, 1)'s one row of all of them
+SHARD_MICRO = {(4, 1): 1, (2, 2): 2, (1, 4): 1}
+SHARD_MOE_ARCH = "olmoe-1b-7b"
+SHARD_MOE_LAYERS = 2
+SHARD_MOE_MESH = (1, 4)
 SHARD_SAVE_AT = 2
 SHARD_TOL = 1e-4
 SHARD_FULL_STEPS = 3
+# (4, 1)'s operand bytes a step a rank, as the storage-only step counted
+# them (no collective may run over "model" there)
+SHARD_TRAFFIC_4x1 = {"all_gather": 486539264, "reduce_scatter": 973078528,
+                     "all_reduce": 402751528, "wire": 2793553980}
+# peak GB a rank predicted before the first run (the (4, 1) and (2, 2)
+# figures are the storage-only step's readings)
+SHARD_PEAK_PRED = {(4, 1): 12.92, (2, 2): 12.92, (1, 4): 13.5,
+                   SHARD_MOE_ARCH: 15.0}
 # a residual's bound max|block|/254, plus the rounding of q * scale (a few
 # ulps of the block's largest value, under 2^-16 of the bound)
 EF_BOUND_SLACK = 2.0 ** -16
@@ -881,12 +900,23 @@ def dist_compress_case(ctx):
 # [dist]'s): each rank builds its blocks of the same seeded state.
 # ---------------------------------------------------------------------------
 
-def shard_config(layers: int, dtype: str):
-    """SHARD's architecture (granite-3-2b) at full width, ``layers`` deep,
-    parameters and activations in ``dtype``."""
+def shard_config(layers: int, dtype: str, arch: str = TRAIN_ARCH):
+    """SHARD's architecture (granite-3-2b, or SHARD_MOE_ARCH with one token
+    group) at full width, ``layers`` deep, parameters and activations in
+    ``dtype``."""
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config(TRAIN_ARCH), num_layers=layers,
-                               param_dtype=dtype, activation_dtype=dtype)
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                              param_dtype=dtype, activation_dtype=dtype)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, token_groups=1))
+    return cfg
+
+
+def shard_case_config(arch: str = TRAIN_ARCH):
+    """[shard_train]'s float32 config of ``arch``."""
+    layers = SHARD_MOE_LAYERS if arch == SHARD_MOE_ARCH else SHARD_LAYERS
+    return shard_config(layers, "float32", arch)
 
 
 def shard_train_config(micro: int):
@@ -899,6 +929,11 @@ def shard_train_config(micro: int):
     return TrainConfig(optimizer=OptimizerConfig(
         name="adamw", peak_lr=TRAIN_LR, total_steps=steps,
         warmup_steps=max(steps // 20, 5)), num_microbatches=micro)
+
+
+def shard_seq(cfg) -> int:
+    """The tokens a row of [shard_train]'s batches: train_4k's 4,096."""
+    return next(s for s in cfg.shapes if s.name == "train_4k").seq_len
 
 
 def shard_batch(cfg, rows: int, step: int, device):
@@ -962,38 +997,49 @@ def shard_release(ctx) -> None:
     torch.cuda.empty_cache()
 
 
-def shard_train_case(ctx, mesh_shape, save_dir=None):
-    """SHARD_STEPS (+ 1 with ``save_dir``) sharded steps of SHARD_LAYERS
-    layers, float32, SHARD_BATCH x 4,096 tokens in SHARD_MICRO
+def shard_train_case(ctx, mesh_shape, save_dir=None, arch=TRAIN_ARCH):
+    """SHARD_STEPS (+ 1 with ``save_dir``) sharded steps of ``arch``
+    (shard_case_config), float32, SHARD_BATCH x 4,096 tokens in SHARD_MICRO
     microbatches, on ``mesh_shape``,
     through run_resilient (no checkpoint directory: each rank keeps a host
     copy of its blocks); with ``save_dir``, a sharded checkpoint after
     SHARD_SAVE_AT steps and one more step.  Launch counts set to 0 just
     before the steps and read just after; metrics, host seconds a step
     (every rank starting together, ending in a sync), each step's
-    collective traffic, bytes of state, digests of the unsplit leaves."""
+    collective traffic (by kind, and by kind and axes), bytes of state,
+    digests of the unsplit leaves, peak GB of the steps (the ranks build
+    their state one at a time, before the peak's reset); then the matmul
+    FLOPs of one microbatch's forward (FlopCounterMode, no gradient)."""
     import torch
     import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.training import checkpoint as ckpt
     from repro_torch.training import fault_tolerance as ft
     from repro_torch.training import train_loop as tl
     mesh = dist_mesh(ctx, mesh_shape)
-    cfg = shard_config(SHARD_LAYERS, "float32")
+    cfg = shard_case_config(arch)
     tc = shard_train_config(SHARD_MICRO[mesh_shape])
-    torch.cuda.reset_peak_memory_stats(ctx.device)
     t0 = time.perf_counter()
-    state = tl.init_train_state(cfg, tc, TRAIN_SEED, device=ctx.device,
-                                mesh=mesh)
+    # one rank at a time: a rank builds the whole seeded state on the card
+    # before it keeps its blocks (olmoe's 2 layers: ~19 GB)
+    for r in range(ctx.world):
+        if r == ctx.rank:
+            state = tl.init_train_state(cfg, tc, TRAIN_SEED,
+                                        device=ctx.device, mesh=mesh)
+            shard_release(ctx)
+        dist.barrier()
     step = tl.make_train_step(cfg, tc, mesh=mesh)
     torch.cuda.synchronize(ctx.device)
     init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(ctx.device)
     steps = SHARD_STEPS + (1 if save_dir else 0)
     batches = [shard_batch(cfg, SHARD_BATCH, s, ctx.device)
                for s in range(steps)]
-    metrics, traffic, times, save_s = [], [], [], None
+    metrics, traffic, by_axes, times, save_s = [], [], [], [], None
 
     def timed(st, batch):
         mesh.traffic.clear()
+        mesh.traffic_axes.clear()
         dist.barrier()
         torch.cuda.synchronize(ctx.device)
         t = time.perf_counter()
@@ -1001,6 +1047,8 @@ def shard_train_case(ctx, mesh_shape, save_dir=None):
         torch.cuda.synchronize(ctx.device)
         times.append(time.perf_counter() - t)
         traffic.append(dict(mesh.traffic))
+        by_axes.append({f"{k}@{'+'.join(a)}": v
+                        for (k, a), v in mesh.traffic_axes.items()})
         metrics.append({k: float(v) for k, v in m.items()})
         return st, m
 
@@ -1022,13 +1070,18 @@ def shard_train_case(ctx, mesh_shape, save_dir=None):
                 dist.barrier()
                 save_s = time.perf_counter() - t
     launches = shard_launches()
+    peak = torch.cuda.max_memory_allocated(ctx.device) / 1e9
+    micro = tl._split_microbatches(batches[0], tc.num_microbatches)[0]
+    with torch.no_grad(), FlopCounterMode(display=False) as flops:
+        step.forward(state.params, micro)
     out = {"rank": ctx.rank, "metrics": metrics, "step_s": times,
-           "traffic": traffic, "init_s": init_s, "save_s": save_s,
-           "host_copy": copy, "launches": launches,
+           "traffic": traffic, "traffic_axes": by_axes, "init_s": init_s,
+           "save_s": save_s, "host_copy": copy, "launches": launches,
            "bytes": shard_state_bytes(state, step),
            "digests": shard_unsplit_digests(state, step),
-           "peak_gb": torch.cuda.max_memory_allocated(ctx.device) / 1e9}
-    del state, step, batches
+           "peak_gb": peak, "flops": flops.get_total_flops(),
+           "model_index": mesh.coords()["model"]}
+    del state, step, batches, micro
     shard_release(ctx)
     return out
 
@@ -1042,7 +1095,7 @@ def shard_resume_case(ctx, mesh_shape, save_dir):
     from repro_torch.training import checkpoint as ckpt
     from repro_torch.training import train_loop as tl
     mesh = dist_mesh(ctx, mesh_shape)
-    cfg = shard_config(SHARD_LAYERS, "float32")
+    cfg = shard_case_config()
     tc = shard_train_config(SHARD_MICRO[mesh_shape])
     step = tl.make_train_step(cfg, tc, mesh=mesh)
     like = tl.init_train_state(cfg, tc, TRAIN_SEED + 1, device=ctx.device,
@@ -1100,75 +1153,196 @@ def shard_full_case(ctx):
     return out
 
 
-def shard_prediction(mesh_shape, micro: int) -> dict:
-    """What one sharded step of SHARD_LAYERS float32 layers should hand
-    the collectives on ``mesh_shape`` (bytes of operands by kind, this
-    rank's; "wire" the ring model's bytes sent), and each rank's bytes of
-    state, counted from the rules on the meta state: every split weight
-    gathered once in the forward and again in its block's remat
-    recompute, its gradient sliced over "model", reduce-scattered over the
-    FSDP axes that split it and all-reduced over the others; the loss's
-    sum and count psummed forward (and the sum backward) when the batch
-    rows are split; one psum of squared norms per group of axes."""
+def shard_prediction(mesh_shape, micro: int, arch: str = TRAIN_ARCH) -> dict:
+    """What one sharded step of ``arch`` (shard_case_config) should hand the
+    collectives on ``mesh_shape`` (bytes of operands by kind, this rank's;
+    "wire" the ring model's bytes sent), and each rank's bytes of state,
+    counted from the storage rules and the compute layout
+    (``compute_uses``) on the meta state, and from the activations' shapes:
+
+    * weights, each gathered once in the forward and again in its block's
+      remat recompute: over the FSDP axes, and over "model" unless the rank
+      keeps its stored block; a row-parallel weight's or an expert
+      matrix's all_to_all each way; a ceil block's all_gather backward;
+      the gradient sliced ("full"), reduce-scattered ("sum") or kept over
+      "model", reduce-scattered over the FSDP axes that split it and
+      all-reduced over the others;
+    * with a "model" axis of M > 1 ranks, each block's activations of T
+      tokens: an attention, MLP or MoE output's all-reduce of (T, d)
+      forward and in the recompute (the block's last output forward only:
+      the recompute stops before it), its input's all-reduce backward (the
+      MoE's gates (T, k) too), Mamba's squares (T,) both ways; the logits'
+      input (T, d) backward, the cross entropy's max, sum of exponentials
+      and target logit (T,) forward, the tied embedding's vocabulary block
+      all_gathered backward;
+    * the loss's sum and count psummed forward (and the sum backward) when
+      the batch rows are split, and the MoE's load-balancing sums; one
+      psum of squared norms per group of axes."""
     import collections
-    from repro_torch.dist.sharding import FSDP_AXES, P, named
+    from repro_torch.dist.sharding import (
+        FSDP_AXES, MODEL_AXIS, P, compute_uses, named)
     from repro_torch.launch.mesh import Mesh
     from repro_torch.launch.steps import _state_shardings
+    from repro_torch.models.model import layer_signature
     from repro_torch.training import train_loop as tl
     from repro_torch.tree import tree_leaves
     mesh = Mesh(dict(zip(("data", "model"), mesh_shape)))
-    cfg = shard_config(SHARD_LAYERS, "float32")
+    m = mesh.shape[MODEL_AXIS]
+    cfg = shard_case_config(arch)
     tc = shard_train_config(micro)
     abstract = tl.abstract_train_state(cfg, tc)
     sh = _state_shardings(abstract, mesh)
     params = dict(abstract.params.named_parameters())
-    fsdp = [a for a in FSDP_AXES if mesh.shape.get(a, 1) > 1]
+    uses = compute_uses(abstract.params, sh.params, cfg)
     out = collections.Counter()
+    ring = {"all_reduce": lambda g: 2 * (g - 1) / g,
+            "all_reduce_max": lambda g: 2 * (g - 1) / g,
+            "reduce_scatter": lambda g: (g - 1) / g,
+            "all_to_all": lambda g: (g - 1) / g,
+            "all_gather": lambda g: g - 1}
 
-    def add(kind, nbytes, wire):
+    def add(kind, nbytes, g):
         out[kind] += int(nbytes)
-        out["wire"] += int(round(wire * nbytes))
+        out["wire"] += int(round(ring[kind](g) * nbytes))
 
     for name, s in sh.params.items():
-        elt = params[name].element_size()
+        u = uses[name]
+        p = params[name]
+        elt = p.element_size()
         gathers = micro * (2 if tc.remat and tl._in_block(name) else 1)
-        op = s.block_numel() * elt
-        for _, axes in s.dim_axes():
+        split = s.dim_axes()
+        numel = s.block_numel()
+        for _, axes in split:
             g = mesh.group_size(axes)
-            add("all_gather", gathers * op, g - 1)
-            op *= g
-        grad = params[name].numel() * elt
+            if u.gather == "keep" and MODEL_AXIS in axes:
+                continue
+            add("all_gather", gathers * numel * elt, g)
+            numel *= g
+        if u.post and u.post[0] == "swap":
+            add("all_to_all", (gathers + micro) * numel * elt, m)
+        if u.post and u.post[0] == "block":
+            n = p.shape[u.post[1]]
+            add("all_gather", micro * -(-n // m) * (numel // n) * elt, m)
+        grad = numel
         used = set()
-        for _, axes in s.dim_axes():
-            if not any(a in FSDP_AXES for a in axes):
-                grad //= mesh.group_size(axes)
-        for _, axes in s.dim_axes():
-            if any(a in FSDP_AXES for a in axes):
+        for _, axes in split:
+            used.update(axes)
+            if MODEL_AXIS in axes and u.gather != "keep":
+                if u.gather == "sum":
+                    add("reduce_scatter", micro * grad * elt, m)
+                grad //= m
+        for _, axes in split:
+            if MODEL_AXIS not in axes:
                 g = mesh.group_size(axes)
-                add("reduce_scatter", micro * grad, (g - 1) / g)
+                add("reduce_scatter", micro * grad * elt, g)
                 grad //= g
-                used.update(axes)
-        rest = [a for a in fsdp if a not in used]
+        summed = set(FSDP_AXES) | ({MODEL_AXIS} if u.gather == "sum"
+                                   else set())
+        rest = [a for a in mesh.axis_names if a in summed
+                and mesh.shape[a] > 1 and a not in used]
         if rest:
-            g = mesh.group_size(rest)
-            add("all_reduce", micro * grad, 2 * (g - 1) / g)
+            add("all_reduce", micro * grad * elt, mesh.group_size(rest))
     rows = named(mesh, P(FSDP_AXES), (SHARD_BATCH // micro,))
+    local = SHARD_BATCH // micro // (mesh.group_size(rows.axes)
+                                     if rows.is_split else 1)
+    t = local * shard_seq(cfg)
+    act = cfg.dtype.itemsize
+    d = cfg.d_model
+    passes = 2 if tc.remat else 1  # a block's forward and its recompute
+    sigs = [layer_signature(cfg, i) for i in range(cfg.num_layers)]
+    if m > 1:
+        for sig in sigs:
+            for part in (sig.mixer, sig.ffn):
+                # the block's last output needs no recompute: the backward
+                # needs nothing after it, and a non-reentrant checkpoint
+                # stops recomputing there
+                last = part == (sig.ffn or sig.mixer)
+                if part in ("attn", "mamba", "dense", "moe"):
+                    add("all_reduce", micro * ((1 if last else passes) + 1)
+                        * t * d * act, m)
+            if sig.mixer == "mamba":
+                add("all_reduce", micro * (passes + 1) * t * 4, m)
+            if sig.ffn == "moe":
+                add("all_reduce", micro * t * cfg.moe.top_k * 4, m)
+        add("all_reduce", micro * t * d * act, m)
+        add("all_reduce", micro * 2 * t * 4, m)
+        add("all_reduce_max", micro * t * 4, m)
+        if "lm_head" not in params:
+            add("all_gather",
+                micro * -(-cfg.vocab_size // m) * d * params["embed"]
+                .element_size(), m)
     if rows.is_split:
         g = mesh.group_size(rows.axes)
-        add("all_reduce", micro * 3 * 4, 2 * (g - 1) / g)
+        add("all_reduce", micro * 3 * 4, g)
+        moe = sum(sig.ffn == "moe" for sig in sigs)
+        if moe:
+            add("all_reduce", micro * moe * (2 * passes + 1)
+                * cfg.moe.num_experts * 4, g)
     leaf_sh = tree_leaves(tl.ShardedTrainStep(cfg, tc, mesh).leaf_shardings)
     if any(s.is_split for s in leaf_sh):
         groups = collections.Counter(s.axes for s in leaf_sh)
         for axes, n in groups.items():
             if axes:
-                g = mesh.group_size(axes)
-                add("all_reduce", 4 * n, 2 * (g - 1) / g)
+                add("all_reduce", 4 * n, mesh.group_size(axes))
     pairs = list(zip(tree_leaves(abstract), tree_leaves(sh)))
     return {"traffic": dict(out),
             "bytes": sum(s.block_numel() * t.element_size()
                          for t, s in pairs),
             "full_bytes": sum(t.numel() * t.element_size()
                               for t, _ in pairs)}
+
+
+def shard_flops(cfg, rows: int, m: int, j: int) -> int:
+    """Matmul FLOPs of one forward of ``rows`` rows of ``shard_seq`` tokens
+    on block ``j`` of a "model" split of ``m`` (m = 1: single-device),
+    as FlopCounterMode counts them: per GQA layer the rank's h / m q heads
+    and the kv heads they read, their QK and PV products over the whole
+    causal square, ``wo``'s rows of them; per dense FFN d_ff / m hidden
+    units; per MoE layer the router and the combine (every rank weighs
+    every choice) whole, and its e / m experts on their capacity slots
+    (one token group); then the rank's ceil block of the vocabulary."""
+    from repro_torch.launch.mesh import block_range
+    from repro_torch.models.model import layer_signature
+    seq = shard_seq(cfg)
+    t = rows * seq
+    d = cfg.d_model
+    total = 0
+    for i in range(cfg.num_layers):
+        sig = layer_signature(cfg, i)
+        if sig.mixer != "attn":
+            raise ValueError(f"shard_flops: no formula for {sig.mixer}")
+        h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_eff
+        hl = h // m
+        kv = hkv // m if hkv % m == 0 else max(1, hl * hkv // h)
+        total += (2 * t * d * hl * hd + 2 * 2 * t * d * kv * hd
+                  + 2 * 2 * rows * hl * seq * seq * hd + 2 * t * hl * hd * d)
+        mats = 3 if cfg.activation in ("silu", "geglu") else 2
+        if sig.ffn == "dense":
+            total += mats * 2 * t * d * cfg.d_ff // m
+        elif sig.ffn == "moe":
+            moe = cfg.moe
+            e, k, f = moe.num_experts, moe.top_k, moe.d_ff_expert
+            capacity = max(1, int(moe.capacity_factor * t * k / e))
+            total += (2 * t * d * e + 2 * t * k * d
+                      + (e // m) * capacity * mats * 2 * d * f)
+    lo, hi = block_range(cfg.vocab_size, m, j)
+    return total + 2 * t * d * (hi - lo)
+
+
+def shard_single_flops(cfg, rows: int) -> int:
+    """FlopCounterMode's matmul FLOPs of the single-device forward of
+    ``rows`` rows of ``shard_seq`` tokens, on the meta device (no
+    storage)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.models import model as lm
+    with torch.device("meta"):
+        model = lm.Model(cfg, generator=None, device="meta")
+    zeros = torch.zeros((rows, shard_seq(cfg)), dtype=torch.long,
+                        device="meta")
+    with torch.no_grad(), FlopCounterMode(display=False) as flops:
+        model.forward_train({"tokens": zeros, "labels": zeros}, remat=False)
+    return flops.get_total_flops()
 
 
 def richardson(f, x0: float, h: float) -> float:
@@ -4672,17 +4846,23 @@ class Smoke:
     def phase_shard_train(self):
         """[shard_train]: the sharded train step over torch.distributed
         (ZeRO-3: each rank holds its blocks of the state, gathers a block's
-        weights on use and reduce-scatters their gradients).  (a) SHARD_WORLD
-        gloo ranks on cuda:0, granite-3-2b at full width with SHARD_LAYERS
-        layers, float32, on meshes SHARD_MESHES against the single-device
-        step on the card: losses within SHARD_TOL, grad_norm within
-        SHARD_TOL relative, unsplit leaves bitwise equal on the ranks, each
-        rank's bytes of state equal to the rules' blocks, each step's
-        collective bytes beside shard_prediction's; (b) a checkpoint
-        written at (4, 1) restored onto (2, 2) and onto one device, the
-        next step's loss within SHARD_TOL of continuing at (4, 1); (c) one
-        NCCL rank at (1, 1), full width and depth, bf16, beside [train]'s
-        step.  No kernel of the package may launch on these paths."""
+        weights on use and reduce-scatters their gradients; the ranks of
+        "model" each compute their block of the heads, hidden units,
+        experts and vocabulary).  (a) SHARD_WORLD gloo ranks on cuda:0,
+        granite-3-2b at full width with SHARD_LAYERS layers, float32, on
+        meshes SHARD_MESHES, and olmoe-1b-7b at full width with
+        SHARD_MOE_LAYERS layers at SHARD_MOE_MESH, against the
+        single-device step on the card: losses within SHARD_TOL, grad_norm
+        within SHARD_TOL relative, unsplit leaves bitwise equal on the
+        ranks, each rank's bytes of state equal to the rules' blocks, each
+        step's collective bytes beside shard_prediction's ((4, 1)'s equal
+        to the storage-only step's, none over "model"), each rank's
+        forward matmul FLOPs equal to shard_flops, peak GB beside
+        SHARD_PEAK_PRED; (b) a checkpoint written at (4, 1) restored onto
+        (2, 2) and onto one device, the next step's loss within SHARD_TOL
+        of continuing at (4, 1); (c) one NCCL rank at (1, 1), full width
+        and depth, bf16, beside [train]'s step.  No kernel of the package
+        may launch on these paths."""
         import shutil
         import tempfile
         from repro_torch.launch.ranks import RankPool
@@ -4691,11 +4871,16 @@ class Smoke:
         gc_collect(torch)
         t0 = time.perf_counter()
         rec = self.record["shard_train"] = {"card": card}
-        cfg = shard_config(SHARD_LAYERS, "float32")
+        cfg = shard_case_config()
+        moe_cfg = shard_case_config(SHARD_MOE_ARCH)
         tc = shard_train_config(1)
         pred = {m: shard_prediction(m, SHARD_MICRO[m]) for m in SHARD_MESHES}
+        pred[SHARD_MOE_ARCH] = shard_prediction(
+            SHARD_MOE_MESH, SHARD_MICRO[SHARD_MOE_MESH], SHARD_MOE_ARCH)
         ref = {n: self.shard_single(cfg, shard_train_config(n))
                for n in sorted(set(SHARD_MICRO.values()))}
+        ref_moe = self.shard_single(
+            moe_cfg, shard_train_config(SHARD_MICRO[SHARD_MOE_MESH]))
         (ROOT / "build").mkdir(exist_ok=True)
         save_dir = tempfile.mkdtemp(prefix="shard_ckpt_", dir=ROOT / "build")
         try:
@@ -4712,7 +4897,12 @@ class Smoke:
                     runs[m] = pool.run(shard_train_case, m,
                                        save_dir if m == (4, 1) else None)
                     self.shard_parity(m, runs[m], ref[SHARD_MICRO[m]],
-                                      pred[m])
+                                      pred[m], cfg)
+                moe = pool.run(shard_train_case, SHARD_MOE_MESH, None,
+                               SHARD_MOE_ARCH)
+                self.shard_parity(SHARD_MOE_MESH, moe, ref_moe,
+                                  pred[SHARD_MOE_ARCH], moe_cfg,
+                                  SHARD_MOE_ARCH)
                 moved = pool.run(shard_resume_case, (2, 2), save_dir)
             one = self.shard_restore_single(cfg, tc, save_dir)
         finally:
@@ -4742,72 +4932,107 @@ class Smoke:
             metrics.append({k: float(v) for k, v in m.items()})
         del state, step
         gc_collect(torch)
-        self.record["shard_train"][f"single_{tc.num_microbatches}"] = {
+        self.record["shard_train"][
+            f"single_{cfg.name}_{tc.num_microbatches}"] = {
             "metrics": metrics, "step_s": times}
         log(f"[shard_train] single-device step on the card "
-            f"({self.record['device']['nvidia_smi']}, {tc.num_microbatches} "
+            f"({self.record['device']['nvidia_smi']}, {cfg.name} "
+            f"{cfg.num_layers} layers, {tc.num_microbatches} "
             f"microbatches): loss "
             f"{[round(m['loss'], 6) for m in metrics]}, grad_norm "
             f"{[round(m['grad_norm'], 6) for m in metrics]}, "
             f"{[round(t, 3) for t in times]} s")
         return metrics
 
-    def shard_parity(self, mesh, outs, ref, pred):
+    def shard_parity(self, mesh, outs, ref, pred, cfg, arch=TRAIN_ARCH):
         card = self.record["device"]["nvidia_smi"]
+        name = f"{arch} {mesh}"
         first = outs[0]
         for s in range(SHARD_STEPS):
             got, want = first["metrics"][s], ref[s]
             check(all(o["metrics"][s] == got for o in outs),
-                  f"shard_train {mesh}: step {s}'s metrics differ by rank")
+                  f"shard_train {name}: step {s}'s metrics differ by rank")
             check(abs(got["loss"] - want["loss"]) <= SHARD_TOL,
-                  f"shard_train {mesh}: step {s} loss {got['loss']} vs "
+                  f"shard_train {name}: step {s} loss {got['loss']} vs "
                   f"single-device {want['loss']}")
             check(abs(got["grad_norm"] - want["grad_norm"])
                   <= SHARD_TOL * want["grad_norm"],
-                  f"shard_train {mesh}: step {s} grad_norm "
+                  f"shard_train {name}: step {s} grad_norm "
                   f"{got['grad_norm']} vs {want['grad_norm']}")
         check(all(o["digests"] == first["digests"] for o in outs),
-              f"shard_train {mesh}: unsplit leaves differ between ranks")
+              f"shard_train {name}: unsplit leaves differ between ranks")
         check(all(o["bytes"]["held"] == o["bytes"]["rules"] == pred["bytes"]
                   for o in outs),
-              f"shard_train {mesh}: bytes of state "
+              f"shard_train {name}: bytes of state "
               f"{[o['bytes'] for o in outs]} vs the rules' {pred['bytes']}")
         check(all(t == first["traffic"][0] for o in outs
                   for t in o["traffic"]),
-              f"shard_train {mesh}: traffic differs by step or rank")
+              f"shard_train {name}: traffic differs by step or rank")
+        over_model = sorted(k for k in first["traffic_axes"][0]
+                            if "model" in k.split("@")[1])
+        if mesh[1] == 1:
+            check(first["traffic"][0] == SHARD_TRAFFIC_4x1 and not over_model,
+                  f"shard_train {name}: traffic {first['traffic'][0]} "
+                  f"(over model: {over_model}) vs the storage-only step's "
+                  f"{SHARD_TRAFFIC_4x1}")
+        else:
+            check(bool(over_model), f"shard_train {name}: no collective "
+                  "over model")
+        check(first["traffic"][0] == pred["traffic"],
+              f"shard_train {name}: traffic a step a rank "
+              f"{first['traffic'][0]} vs shard_prediction's "
+              f"{pred['traffic']}")
         for o in outs:
-            self.check_no_kernel_launches(o["launches"],
-                                          f"shard_train {mesh}")
+            self.check_no_kernel_launches(o["launches"], f"shard_train {name}")
+        rows = SHARD_BATCH // SHARD_MICRO[mesh] // mesh[0]
+        single = shard_single_flops(cfg, rows)
+        check(single == shard_flops(cfg, rows, 1, 0),
+              f"shard_train {name}: single-device forward {single} FLOPs vs "
+              f"the formula's {shard_flops(cfg, rows, 1, 0)}")
+        want = [shard_flops(cfg, rows, mesh[1], o["model_index"])
+                for o in outs]
+        check([o["flops"] for o in outs] == want,
+              f"shard_train {name}: forward FLOPs a rank "
+              f"{[o['flops'] for o in outs]} vs the formula's {want}")
         errs = [abs(first["metrics"][s]["loss"] - ref[s]["loss"])
                 for s in range(SHARD_STEPS)]
-        self.record["shard_train"][str(mesh)] = {
+        peak = max(o["peak_gb"] for o in outs)
+        self.record["shard_train"][name] = {
             "metrics": first["metrics"], "loss_err": errs,
             "step_s": [o["step_s"] for o in outs],
             "init_s": [o["init_s"] for o in outs],
             "host_copy": first["host_copy"], "save_s": first["save_s"],
             "bytes": first["bytes"], "traffic": first["traffic"][0],
+            "traffic_axes": first["traffic_axes"][0],
             "predicted": pred, "peak_gb": [o["peak_gb"] for o in outs],
+            "peak_pred_gb": SHARD_PEAK_PRED[arch if arch != TRAIN_ARCH
+                                            else mesh],
+            "flops": [o["flops"] for o in outs], "flops_single": single,
             "launches": first["launches"]}
-        log(f"[shard_train] mesh {mesh} ({card}), {SHARD_MICRO[mesh]} "
+        log(f"[shard_train] {name} ({card}), {SHARD_MICRO[mesh]} "
             f"microbatches: loss "
             f"{[round(m['loss'], 6) for m in first['metrics']]} (single-"
             f"device within {max(errs):.2e}; bound {SHARD_TOL}), the same on "
             f"every rank; unsplit leaves bitwise equal on the ranks "
             f"({len(first['digests'])} leaves)")
         held, full = first["bytes"]["held"], first["bytes"]["full"]
-        log(f"[shard_train] mesh {mesh} ({card}): state a rank {held} B = "
+        log(f"[shard_train] {name} ({card}): state a rank {held} B = "
             f"the rules' blocks {pred['bytes']} B; unsharded {full} B "
             f"({full / held:.2f}x)")
-        same = first["traffic"][0] == pred["traffic"]
-        log(f"[shard_train] mesh {mesh} ({card}): traffic a step a rank "
-            f"(operand bytes by kind) {first['traffic'][0]}; predicted "
-            f"{pred['traffic']}: {'equal' if same else 'DIFFERENT'}")
+        log(f"[shard_train] {name} ({card}): traffic a step a rank "
+            f"(operand bytes by kind) {first['traffic'][0]} = predicted "
+            f"{pred['traffic']}; by kind@axes {first['traffic_axes'][0]}")
+        log(f"[shard_train] {name} ({card}): forward matmul FLOPs of one "
+            f"microbatch a rank {[o['flops'] for o in outs]} = shard_flops "
+            f"{want}; single-device on the same {rows} rows {single} "
+            f"({single / max(want):.3f}x a rank's)")
         times = [round(t, 3) for t in first["step_s"]]
         copy = first["host_copy"]
-        peak = max(o["peak_gb"] for o in outs)
-        log(f"[shard_train] mesh {mesh} ({card}): step {times} s (rank 0, "
+        log(f"[shard_train] {name} ({card}): step {times} s (rank 0, "
             f"every rank starting together, host clock ending in a sync), "
-            f"init {first['init_s']:.1f}s, peak {peak:.2f} GB a rank"
+            f"init {first['init_s']:.1f}s, peak {peak:.2f} GB a rank "
+            f"(predicted {self.record['shard_train'][name]['peak_pred_gb']}"
+            f" GB)"
             + ("" if copy is None else
                f"; run_resilient's host copy {copy['bytes']} B a rank in "
                f"{copy['seconds']:.2f}s (MemAvailable "

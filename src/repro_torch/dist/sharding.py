@@ -16,10 +16,23 @@ knows this rank's block of a full array (:meth:`NamedSharding.shard`, the
 block at :meth:`Mesh.group_index` of each dimension's axes, first name
 major) and gathers the blocks back (:meth:`NamedSharding.gather`).
 :func:`gather_on_use` is the differentiable gather of the sharded train
-step: forward all_gathers a weight's blocks, backward hands this rank the
-block of the weight's gradient, summed over the FSDP axes (the ranks there
-hold different rows of the batch) and only sliced over ``"model"`` (the
-ranks there compute the same rows).
+step.  Beside the storage layout, :func:`compute_use` gives each weight's
+compute layout over ``"model"`` (the reference's activation constraints,
+which split attention heads, MLP hidden units, experts, Mamba's inner
+channels and the vocabulary over that axis): the block a rank of
+``"model"`` computes with, and how it is made from the storage block.  A
+column-parallel weight (``wq``, ``w_up``, ...) computes with the block it
+stores, gathered over the FSDP axes only; a row-parallel one (``wo``,
+``w_down``, Mamba's ``w_out``) and every expert matrix trade their stored
+block for the compute block in one all_to_all over ``"model"``; a weight
+stored whole over ``"model"`` (a vector, the vocabulary of an untied head
+that ``"model"`` does not divide) is narrowed to its ceil block.  Backward
+runs each step in reverse: a rank's gradient of its compute block is its
+own product, reduce-scattered over the FSDP axes (whose ranks hold other
+rows of the batch).  A weight that every rank of ``"model"`` computes
+whole has either the same gradient on those ranks, which each slices to
+its block, or (``Use("sum")``: kv projections that ``"model"`` cannot
+split, Mamba's B/C projections) a part of it on each, which are summed.
 
 Rules walk the port's trees (:mod:`repro_torch.tree`) by their path
 strings; a model's period-stacked tree (:meth:`repro_torch.models.model.
@@ -31,10 +44,11 @@ from __future__ import annotations
 
 import math
 import re
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
+from repro_torch.launch.mesh import ceil_blocks, gather_blocks
 from repro_torch.tree import tree_flatten_with_path, tree_unflatten
 
 # Batch + fully-sharded-parameter axes, widest first; "pod" only ever
@@ -272,12 +286,102 @@ def cache_specs(caches: Any, mesh) -> Any:
 
 
 # ---------------------------------------------------------------------------
+# The compute layout over "model"
+# ---------------------------------------------------------------------------
+
+class Use(NamedTuple):
+    """How a rank makes the tensor it computes with from its storage block.
+
+    ``gather``: ``"full"`` (every splitting axis gathered; the gradient is
+    the same on every rank of "model", each keeping its slice), ``"sum"``
+    (every axis gathered; each rank of "model" holds a part of the
+    gradient, which is summed over it) or ``"keep"`` (the FSDP axes
+    gathered, the "model" block kept; the gradient is the rank's own).
+    ``post``: None; ``("swap", storage dim, compute dim)``, an all_to_all
+    over "model" that trades the block along the one dim for the block
+    along the other; or ``("block", dim)``, the rank's ceil block along
+    ``dim`` (:func:`repro_torch.launch.mesh.block_range`)."""
+    gather: str = "full"
+    post: Optional[tuple] = None
+
+
+# (owner module, leaf) -> the dim a rank of "model" computes its block of:
+# the reference's constraints on heads (attention.py), hidden units and
+# experts (mlp.py), Mamba's inner channels (mamba.py) and the vocabulary
+# (model.py's lm_logits)
+_COMPUTE_DIM = {
+    ("attn", "wq"): -1, ("attn", "bq"): 0, ("attn", "wo"): 0,
+    ("mlp", "w_gate"): -1, ("mlp", "w_up"): -1, ("mlp", "w_down"): 0,
+    ("shared", "w_gate"): -1, ("shared", "w_up"): -1, ("shared", "w_down"): 0,
+    ("moe", "w_gate"): 0, ("moe", "w_up"): 0, ("moe", "w_down"): 0,
+    ("mamba", "w_x"): -1, ("mamba", "w_z"): -1, ("mamba", "w_dt"): -1,
+    ("mamba", "conv_x_w"): -1, ("mamba", "conv_x_b"): 0,
+    ("mamba", "a_log"): 0, ("mamba", "dt_bias"): 0, ("mamba", "d_skip"): 0,
+    ("mamba", "out_norm"): 0, ("mamba", "w_out"): 0,
+    ("", "lm_head"): -1,
+}
+# the kv projections split with the kv heads when "model" divides them
+_KV_DIM = {"wk": -1, "wv": -1, "bk": 0, "bv": 0}
+# computed whole on every rank of "model", each rank's gradient a part
+_SUMMED = {("mamba", "w_bc"), ("mamba", "conv_bc_w"), ("mamba", "conv_bc_b")}
+
+
+def _check_split(cfg, owner: str, m: int) -> None:
+    """Heads, experts and Mamba heads must split evenly over "model"."""
+    counts = {"attn": ("attention heads", cfg.num_heads),
+              "moe": ("experts", cfg.moe and cfg.moe.num_experts),
+              "mamba": ("Mamba heads", cfg.mamba and (
+                  cfg.mamba.expand * cfg.d_model // cfg.mamba.head_dim))}
+    if owner in counts:
+        what, n = counts[owner]
+        if n % m:
+            raise ValueError(f"{n} {what} do not split over a 'model' axis "
+                             f"of {m}")
+
+
+def compute_use(path, shape: tuple, storage: NamedSharding, cfg) -> Use:
+    """The compute layout of one parameter of ``cfg``'s model, stored under
+    ``storage``: ``Use()`` (the whole weight) without a "model" axis of
+    more than one rank."""
+    m = storage.mesh.shape.get(MODEL_AXIS, 1)
+    names = _path_names(path)
+    key = (names[-2] if len(names) > 1 else "", names[-1])
+    if m == 1:
+        return Use()
+    if key[0] == "attn" and key[1] in _KV_DIM:
+        if cfg.num_kv_heads % m:
+            return Use("sum")
+        dim = _KV_DIM[key[1]]
+    elif key in _SUMMED:
+        return Use("sum")
+    elif key in _COMPUTE_DIM:
+        dim = _COMPUTE_DIM[key]
+    else:
+        return Use()
+    _check_split(cfg, key[0], m)
+    dim %= len(shape)
+    stored = [d for d, axes in storage.dim_axes() if MODEL_AXIS in axes]
+    if stored == [dim]:
+        return Use("keep")
+    if stored and shape[dim] % m == 0:
+        return Use("keep", ("swap", stored[0], dim))
+    return Use("full", ("block", dim))
+
+
+def compute_uses(model, shardings: dict, cfg) -> dict:
+    """{parameter name: its :class:`Use`} over a model's parameters (full
+    shapes, e.g. on the ``meta`` device) and their storage shardings."""
+    return {name: compute_use((name,), tuple(p.shape), shardings[name], cfg)
+            for name, p in model.named_parameters()}
+
+
+# ---------------------------------------------------------------------------
 # The sharded train step's gather
 # ---------------------------------------------------------------------------
 
 def _fsdp_split(axes: tuple) -> bool:
     """Whether a dimension's axes are FSDP axes (the gradient is summed over
-    them) rather than "model" ones (sliced); both at once is refused."""
+    them) rather than "model" ones; both at once is refused."""
     fsdp = [a in FSDP_AXES for a in axes]
     if any(fsdp) and not all(fsdp):
         raise ValueError(f"a dimension split over FSDP and model axes at "
@@ -285,30 +389,19 @@ def _fsdp_split(axes: tuple) -> bool:
     return all(fsdp)
 
 
-def _group_key(t: torch.Tensor, s: NamedSharding) -> tuple:
+def _group_key(t: torch.Tensor, s: NamedSharding, gather: str) -> tuple:
     """Tensors that gather and reduce together: one dtype, one sequence of
-    splitting axes, one set of FSDP axes to all-reduce over."""
+    splitting axes, one set of axes to all-reduce the gradient over (the
+    FSDP axes that split nothing; with "sum", "model" when it splits
+    nothing), one gather mode."""
     split = tuple(axes for _, axes in s.dim_axes())
-    summed = {a for axes in split if _fsdp_split(axes) for a in axes}
-    rest = tuple(a for a in FSDP_AXES if s.mesh.shape.get(a, 1) > 1
-                 and a not in summed)
-    return t.dtype, split, rest
-
-
-def _gather_step(mesh, tensors: list, dims: list, axes: tuple) -> list:
-    """Each tensor gathered along its own dim over ``axes``: one all_gather
-    of the concatenated blocks."""
-    g = mesh.group_size(axes)
-    moved = [t.movedim(d, 0) for t, d in zip(tensors, dims)]
-    flat = torch.cat([m.reshape(-1) for m in moved])
-    out = mesh.all_gather(flat, axes, 0).view(g, -1)
-    full, off = [], 0
-    for m, d in zip(moved, dims):
-        piece = out[:, off:off + m.numel()].reshape(g, *m.shape)
-        full.append(piece.reshape(g * m.shape[0], *m.shape[1:])
-                    .movedim(0, d))
-        off += m.numel()
-    return full
+    used = {a for axes in split for a in axes}
+    summed = set(FSDP_AXES)
+    if gather == "sum":
+        summed.add(MODEL_AXIS)
+    rest = tuple(a for a in s.mesh.axis_names if a in summed
+                 and s.mesh.shape[a] > 1 and a not in used)
+    return t.dtype, split, rest, gather
 
 
 def _scatter_step(mesh, grads: list, dims: list, axes: tuple) -> list:
@@ -327,36 +420,64 @@ def _scatter_step(mesh, grads: list, dims: list, axes: tuple) -> list:
     return out
 
 
+def _swap_step(mesh, tensors: list, split_dims: list, concat_dims: list,
+               axes) -> list:
+    """Each tensor cut in equal blocks along its split dim, block ``k`` to
+    group index ``k``; the blocks received concatenated along its concat
+    dim in group-index order: one all_to_all of the concatenated blocks."""
+    g = mesh.group_size(axes)
+    moved = [t.movedim(sd, 0) for t, sd in zip(tensors, split_dims)]
+    buf = torch.cat([m.reshape(g, -1) for m in moved], dim=1)
+    got = mesh.all_to_all(buf, axes, 0, 0)
+    out, off = [], 0
+    for m, sd, cd in zip(moved, split_dims, concat_dims):
+        n = m.numel() // g
+        piece = (m.shape[0] // g,) + m.shape[1:]
+        at = cd + 1 if cd < sd else cd  # the concat dim after movedim
+        out.append(torch.cat([got[k, off:off + n].reshape(piece)
+                              for k in range(g)], dim=at).movedim(0, sd))
+        off += n
+    return out
+
+
 class _GatherOnUse(torch.autograd.Function):
-    """Forward: the group's full tensors (one all_gather a splitting axis
-    group); backward: each block's gradient (model dims sliced, one
-    reduce_scatter a splitting FSDP axis group, one all_reduce over the
-    other FSDP axes)."""
+    """Forward: the group's tensors gathered over each splitting axis group
+    (one all_gather each; with ``"keep"``, over the FSDP axes only).
+    Backward: each block's gradient: over "model", sliced (``"full"``),
+    reduce-scattered (``"sum"``) or the rank's own (``"keep"``); one
+    reduce_scatter a splitting FSDP axis group; one all_reduce over the
+    group key's other axes."""
 
     @staticmethod
-    def forward(ctx, shardings, *blocks):
-        ctx.shardings = shardings
+    def forward(ctx, shardings, gather, *blocks):
+        ctx.shardings, ctx.gather = shardings, gather
         mesh = shardings[0].mesh
         full = list(blocks)
-        for j, axes in enumerate(_group_key(blocks[0], shardings[0])[1]):
+        for j, axes in enumerate(_group_key(blocks[0], shardings[0],
+                                            gather)[1]):
+            if gather == "keep" and not _fsdp_split(axes):
+                continue
             dims = [s.dim_axes()[j][0] for s in shardings]
-            full = _gather_step(mesh, full, dims, axes)
+            full = gather_blocks(mesh, full, dims, axes)
         return tuple(f.view_as(f) if f is b else f
                      for f, b in zip(full, blocks))
 
     @staticmethod
     def backward(ctx, *grads):
-        shardings = ctx.shardings  # grads: materialized, never None
+        shardings, gather = ctx.shardings, ctx.gather  # grads: never None
         mesh = shardings[0].mesh
         grads = list(grads)
-        _, split, rest = _group_key(grads[0], shardings[0])
+        _, split, rest, _ = _group_key(grads[0], shardings[0], gather)
         for j, axes in enumerate(split):
-            if not _fsdp_split(axes):
-                for k, s in enumerate(shardings):
-                    d = s.dim_axes()[j][0]
-                    n = grads[k].shape[d] // mesh.group_size(axes)
-                    grads[k] = grads[k].narrow(
-                        d, mesh.group_index(axes) * n, n)
+            if _fsdp_split(axes) or gather == "keep":
+                continue
+            dims = [s.dim_axes()[j][0] for s in shardings]
+            if gather == "sum":
+                grads = _scatter_step(mesh, grads, dims, axes)
+                continue
+            for k, d in enumerate(dims):
+                n = grads[k].shape[d] // mesh.group_size(axes)
+                grads[k] = grads[k].narrow(d, mesh.group_index(axes) * n, n)
         for j, axes in enumerate(split):
             if _fsdp_split(axes):
                 grads = _scatter_step(mesh, grads, [
@@ -368,26 +489,75 @@ class _GatherOnUse(torch.autograd.Function):
                 out.append(red[off:off + x.numel()].reshape(x.shape))
                 off += x.numel()
             grads = out
-        return (None,) + tuple(x.contiguous() for x in grads)
+        return (None, None) + tuple(x.contiguous() for x in grads)
 
 
-def gather_on_use(blocks: list, shardings: list) -> list:
-    """The full tensors of this rank's ``blocks`` under ``shardings``,
-    differentiably, coalesced: the blocks that split alike (and share a
-    dtype) gather in one all_gather an axis group, and their gradients
-    come back in one reduce_scatter or all_reduce, each block receiving
-    the summed gradient of its own rows over the FSDP axes (the ranks
-    there hold other rows of the batch) and its slice over "model" (whose
-    ranks compute the same rows).  A block that no axis splits and no
-    FSDP rank shares (a mesh of one rank) is returned as it is."""
+class _SwapBlocks(torch.autograd.Function):
+    """Forward: one all_to_all over ``axes`` from each tensor's block along
+    its storage dim to its block along its compute dim; backward: the
+    reverse all_to_all."""
+
+    @staticmethod
+    def forward(ctx, mesh, axes, stored, compute, *tensors):
+        ctx.mesh, ctx.axes, ctx.stored, ctx.compute = (mesh, axes, stored,
+                                                       compute)
+        return tuple(_swap_step(mesh, list(tensors), compute, stored, axes))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out = _swap_step(ctx.mesh, list(grads), ctx.stored, ctx.compute,
+                         ctx.axes)
+        return (None,) * 4 + tuple(out)
+
+
+def _by_dtype(tensors: list, idx: list) -> list:
+    groups: dict = {}
+    for i in idx:
+        groups.setdefault(tensors[i].dtype, []).append(i)
+    return list(groups.values())
+
+
+def gather_on_use(blocks: list, shardings: list, uses: list) -> list:
+    """The tensors this rank computes with, from its ``blocks`` under
+    ``shardings`` and their compute ``uses`` (:class:`Use`;
+    :func:`compute_uses`), differentiably, coalesced.
+
+    The blocks that split alike (and share a dtype and a gather mode)
+    gather in one all_gather an axis group, and their gradients come back
+    in one reduce_scatter or all_reduce, each block receiving the summed
+    gradient of its own rows over the FSDP axes (the ranks there hold
+    other rows of the batch); over "model", the gradient of a whole
+    tensor is sliced (its ranks computed the same gradient) or, with
+    ``"sum"``, summed, and a kept block's is the rank's own.  Then the
+    swaps of one dtype run in one all_to_all over "model", and the ceil
+    blocks in one narrow (one all_gather backward).  A block that no axis
+    splits, no FSDP rank shares and no sum over "model" reduces (a mesh of
+    one rank) is returned as it is."""
     out = list(blocks)
     groups: dict = {}
-    for i, (b, s) in enumerate(zip(blocks, shardings)):
-        if s.is_split or fsdp_extent(s.mesh) > 1:
-            groups.setdefault(_group_key(b, s), []).append(i)
-    for idx in groups.values():
-        full = _GatherOnUse.apply(tuple(shardings[i] for i in idx),
+    for i, (b, s, u) in enumerate(zip(blocks, shardings, uses)):
+        key = _group_key(b, s, u.gather)
+        if key[2] or any(u.gather != "keep" or _fsdp_split(axes)
+                         for axes in key[1]):
+            groups.setdefault(key, []).append(i)
+    for key, idx in groups.items():
+        full = _GatherOnUse.apply(tuple(shardings[i] for i in idx), key[3],
                                   *[blocks[i] for i in idx])
         for i, f in zip(idx, full):
             out[i] = f
+    swaps = [i for i, u in enumerate(uses) if u.post and u.post[0] == "swap"]
+    for idx in _by_dtype(out, swaps):
+        got = _SwapBlocks.apply(
+            shardings[idx[0]].mesh, MODEL_AXIS,
+            tuple(uses[i].post[1] for i in idx),
+            tuple(uses[i].post[2] for i in idx), *[out[i] for i in idx])
+        for i, t in zip(idx, got):
+            out[i] = t
+    cut = [i for i, u in enumerate(uses) if u.post and u.post[0] == "block"]
+    if cut:
+        got = ceil_blocks([out[i] for i in cut],
+                          [uses[i].post[1] for i in cut],
+                          shardings[cut[0]].mesh, MODEL_AXIS)
+        for i, t in zip(cut, got):
+            out[i] = t
     return out

@@ -30,8 +30,14 @@ be named in mesh order.
 Every collective adds the bytes of the operand this rank hands it to
 :attr:`Mesh.traffic`, by kind, and the bytes it sends under a ring or
 pairwise schedule (all_reduce and all_reduce_max 2(G-1)/G of the operand, reduce_scatter
-and all_to_all (G-1)/G, all_gather G-1 times its block) to ``"wire"``.
+and all_to_all (G-1)/G, all_gather G-1 times its block) to ``"wire"``;
+:attr:`Mesh.traffic_axes` holds the operand bytes by (kind, axes).
 Complex tensors cross the wire as ``torch.view_as_real`` views.
+
+:func:`ceil_blocks` narrows tensors to this rank's ceil block along a dim
+that the axes do not divide (:func:`block_range`: the last blocks shorter,
+as GSPMD pads), differentiably: the model's vocabulary split and the
+sharded train step's narrowed vectors.
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ class Mesh:
         self.rank = rank
         self._groups = {}
         self.traffic = collections.Counter()
+        self.traffic_axes = collections.Counter()
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank={self.rank})"
@@ -125,7 +132,7 @@ class Mesh:
         of one rank still runs the all_reduce)."""
         group, size = self.group(axes), self.group_size(axes)
         buf = t.clone(memory_format=torch.contiguous_format)
-        self._count("all_reduce", buf, 2 * (size - 1) / size)
+        self._count("all_reduce", buf, 2 * (size - 1) / size, axes)
         dist.all_reduce(_real(buf), group=group)
         return buf
 
@@ -134,7 +141,7 @@ class Mesh:
         tensor; ``jax.lax.pmax``)."""
         group, size = self.group(axes), self.group_size(axes)
         buf = t.clone(memory_format=torch.contiguous_format)
-        self._count("all_reduce_max", buf, 2 * (size - 1) / size)
+        self._count("all_reduce_max", buf, 2 * (size - 1) / size, axes)
         dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group)
         return buf
 
@@ -146,7 +153,7 @@ class Mesh:
             return t
         inp = t.movedim(dim, 0).contiguous()
         out = inp.new_empty((inp.shape[0] // size,) + inp.shape[1:])
-        self._count("reduce_scatter", inp, (size - 1) / size)
+        self._count("reduce_scatter", inp, (size - 1) / size, axes)
         _reduce_scatter(_real(out), _real(inp), group=self.group(axes))
         return out.movedim(0, dim)
 
@@ -158,7 +165,7 @@ class Mesh:
             return t
         inp = t.movedim(dim, 0).contiguous()
         out = inp.new_empty((inp.shape[0] * size,) + inp.shape[1:])
-        self._count("all_gather", inp, size - 1)
+        self._count("all_gather", inp, size - 1, axes)
         _all_gather(_real(out), _real(inp), group=self.group(axes))
         return out.movedim(0, dim)
 
@@ -176,7 +183,7 @@ class Mesh:
         inp = moved.reshape((size, moved.shape[0] // size) + rest)
         inp = inp.contiguous()
         out = torch.empty_like(inp)
-        self._count("all_to_all", inp, (size - 1) / size)
+        self._count("all_to_all", inp, (size - 1) / size, axes)
         dist.all_to_all_single(_real(out), _real(inp),
                                group=self.group(axes))
         # out[j] is this rank's block of rank j's tensor: put the block's
@@ -209,15 +216,92 @@ class Mesh:
             rank = rank * self.shape[a] + coords[a]
         return rank
 
-    def _count(self, kind: str, operand: torch.Tensor, wire: float) -> None:
+    def _count(self, kind: str, operand: torch.Tensor, wire: float,
+               axes) -> None:
         nbytes = operand.numel() * operand.element_size()
         self.traffic[kind] += nbytes
         self.traffic["wire"] += int(round(wire * nbytes))
+        self.traffic_axes[kind, self._axes(axes)] += nbytes
 
 
 def _real(t: torch.Tensor) -> torch.Tensor:
     """A real view of ``t`` for the wire (complex as (re, im) pairs)."""
     return torch.view_as_real(t) if t.is_complex() else t
+
+
+# ---------------------------------------------------------------------------
+# Ceil blocks: an axis that does not divide a dim splits it as GSPMD pads
+# ---------------------------------------------------------------------------
+
+def block_range(n: int, g: int, i: int) -> tuple:
+    """[lo, hi) of block ``i`` of ``n`` in ``g`` ceil blocks (the last
+    ones shorter when ``g`` does not divide ``n``, as GSPMD pads)."""
+    c = -(-n // g)
+    lo = min(i * c, n)
+    return lo, min(lo + c, n)
+
+
+def gather_blocks(mesh, tensors: list, dims: list, axes: tuple) -> list:
+    """Each tensor gathered along its own dim over ``axes`` of ``mesh``: one
+    all_gather of the concatenated blocks."""
+    g = mesh.group_size(axes)
+    moved = [t.movedim(d, 0) for t, d in zip(tensors, dims)]
+    flat = torch.cat([m.reshape(-1) for m in moved])
+    out = mesh.all_gather(flat, axes, 0).view(g, -1)
+    full, off = [], 0
+    for m, d in zip(moved, dims):
+        piece = out[:, off:off + m.numel()].reshape(g, *m.shape)
+        full.append(piece.reshape(g * m.shape[0], *m.shape[1:])
+                    .movedim(0, d))
+        off += m.numel()
+    return full
+
+
+class _CeilBlocks(torch.autograd.Function):
+    """Forward: each tensor's ceil block along its dim over ``axes``
+    (:func:`block_range`); backward: the blocks' gradients all_gathered
+    (each padded to the ceil block), so every rank holds the whole."""
+
+    @staticmethod
+    def forward(ctx, mesh, axes, dims, *tensors):
+        ctx.mesh, ctx.axes, ctx.dims = mesh, axes, dims
+        ctx.sizes = [t.shape[d] for t, d in zip(tensors, dims)]
+        g, i = mesh.group_size(axes), mesh.group_index(axes)
+        out = []
+        for t, d in zip(tensors, dims):
+            lo, hi = block_range(t.shape[d], g, i)
+            out.append(t.narrow(d, lo, hi - lo))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        g = ctx.mesh.group_size(ctx.axes)
+        padded = []
+        for x, d, n in zip(grads, ctx.dims, ctx.sizes):
+            c = -(-n // g)
+            pad = list(x.shape)
+            pad[d] = c - x.shape[d]
+            padded.append(torch.cat([x, x.new_zeros(pad)], dim=d)
+                          if pad[d] else x)
+        full = gather_blocks(ctx.mesh, padded, list(ctx.dims), ctx.axes)
+        return (None,) * 3 + tuple(f.narrow(d, 0, n).contiguous() for f, d, n
+                                   in zip(full, ctx.dims, ctx.sizes))
+
+
+def ceil_blocks(tensors: list, dims: list, mesh: Mesh, axes) -> list:
+    """This rank's ceil block of each tensor along its dim over ``axes``,
+    differentiably: the gradient of the whole is every rank's block's,
+    all_gathered (one all_gather for tensors of one dtype)."""
+    out = list(tensors)
+    by_dtype: dict = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        got = _CeilBlocks.apply(mesh, axes, tuple(dims[i] for i in idx),
+                                *[tensors[i] for i in idx])
+        for i, t in zip(idx, got):
+            out[i] = t
+    return out
 
 
 def make_mesh(shape, axis_names) -> Mesh:

@@ -15,8 +15,10 @@ resumes from the latest intact one in ``--ckpt-dir``.
 Under ``torchrun`` (``RANK`` and ``WORLD_SIZE`` set) every rank joins the
 process group and trains through the sharded step on
 ``make_local_mesh(--model-parallel)``, a ("data", "model") mesh over the
-ranks, each holding its blocks of the state; rank 0 writes the
-checkpoints and prints.  The backend is NCCL when every local rank has a
+ranks, each holding its blocks of the state; the ranks of "model" each
+compute their block of the attention heads, MLP hidden units, experts,
+Mamba heads and vocabulary, those of "data" their rows of the batch; rank
+0 writes the checkpoints and prints.  The backend is NCCL when every local rank has a
 card of its own, else gloo (ranks sharing a card, or the CPU).  Without
 ``torchrun`` it is one process on one device.
 """

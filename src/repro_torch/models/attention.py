@@ -12,6 +12,12 @@ MLA (multi-head latent attention): training and prefill use the expanded
 form; decode uses the *absorbed* form on the compressed (c_kv, k_rope)
 cache, which holds kv_lora_rank + rope_dim values a position.  MLA is an
 einsum everywhere, as in the JAX package: it never uses the flash kernel.
+
+Under a model split (:func:`repro_torch.models.common.model_split`, the
+sharded train step), GQA's training forward computes this rank's block of
+the q heads and the kv heads they read, and its product with ``wo``'s rows
+of those heads, summed over the split; MLA, which the reference does not
+split, computes whole.
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import (
-    apply_rope, dense_init, init_rms_norm, rms_norm,
+    apply_rope, dense_init, init_rms_norm, model_copy, model_split,
+    model_sum, rms_norm,
 )
 
 
@@ -126,9 +133,42 @@ class Attention(nn.Module):
         ``prefix_len > 0`` lets every query see the keys before it
         (prefix-LM); the flash kernel is used only without such a prefix,
         and never where a gradient is wanted: it has no backward."""
+        if model_split()[1] > 1:
+            return model_sum(self._attend_sequence(
+                *self._project_block(model_copy(x)), positions,
+                use_flash=use_flash, prefix_len=prefix_len))
         q, k, v = self.project_qkv(x)
         return self._attend_sequence(q, k, v, positions, use_flash=use_flash,
                                      prefix_len=prefix_len)
+
+    def _project_block(self, x: torch.Tensor):
+        """:meth:`project_qkv` of this rank's block of h / M q heads (``wq``
+        and ``bq`` hold its columns) and of the kv heads they read: the
+        block of ``wk``, ``wv`` when M divides the kv heads, else the
+        columns of the kv heads its q heads read, out of the whole
+        projections (whose gradient the ranks sum)."""
+        cfg = self.cfg
+        j, m = model_split()
+        h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_eff
+        hl = h // m
+        wk, wv = self.wk, self.wv
+        bk, bv = (self.bk, self.bv) if cfg.qkv_bias else (None, None)
+        if hkv % m:
+            group = h // hkv
+            if group % hl and hl % group:
+                raise ValueError(f"{hl} q heads a rank do not line up with "
+                                 f"kv groups of {group}")
+            lo, hi = j * hl // group, ((j + 1) * hl - 1) // group + 1
+            cols = slice(lo * hd, hi * hd)
+            wk, wv = wk[:, cols], wv[:, cols]
+            if cfg.qkv_bias:
+                bk, bv = bk[cols], bv[cols]
+        b, s, _ = x.shape
+        q, k, v = x @ self.wq, x @ wk, x @ wv
+        if cfg.qkv_bias:
+            q, k, v = q + self.bq, k + bk, v + bv
+        return (q.reshape(b, s, hl, hd), k.reshape(b, s, -1, hd),
+                v.reshape(b, s, -1, hd))
 
     def prefill(self, x: torch.Tensor, positions: torch.Tensor,
                 cache: KVCache, *, use_flash: bool = False,

@@ -6,14 +6,19 @@ w`` with ``w`` of shape (in, out)), so a JAX parameter tree maps onto the
 port's one to one.
 
 :func:`set_mesh` makes a :class:`repro_torch.launch.mesh.Mesh` active, as
-the reference's does; the reference's activation ``shard`` constraints,
-which ask GSPMD to split the heads, hidden units and experts over
-``"model"``, have no twin: the sharded train step splits only the storage
-over ``"model"`` and computes the same rows on every rank of that axis.
-Under a mesh, ``batch_axes`` names the axes over which the rows in hand
-are this rank's block of the batch: :func:`batch_sum` then sums a value
-over those ranks (differentiably), which is how the cross entropy and the
-MoE's load-balancing loss stay the reference's means over the whole batch.
+the reference's does.  Under a mesh, ``batch_axes`` names the axes over
+which the rows in hand are this rank's block of the batch: :func:`batch_sum`
+then sums a value over those ranks (differentiably), which is how the cross
+entropy and the MoE's load-balancing loss stay the reference's means over
+the whole batch.  ``model_axis`` names the axis whose ranks compute in
+blocks, the twin of the reference's activation ``shard`` constraints over
+``"model"``: every rank of it holds the same rows, and computes only its
+block of the attention heads, the MLP's hidden units, the experts, Mamba's
+inner channels and the vocabulary (:func:`model_split`).
+:func:`model_copy` (identity forward, all-reduce backward) marks a
+replicated input of such a block, :func:`model_sum` (all-reduce forward,
+identity backward) the sum of the blocks' partial outputs.  Without a
+``model_axis`` (serving, one device) every rank computes whole blocks.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ import threading
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.launch.mesh import ceil_blocks
 
 
 # ---------------------------------------------------------------------------
@@ -41,18 +48,25 @@ def current_batch_axes() -> tuple:
     return getattr(_STATE, "batch_axes", ())
 
 
+def current_model_axis():
+    return getattr(_STATE, "model_axis", None)
+
+
 @contextlib.contextmanager
-def set_mesh(mesh, batch_axes=()):
+def set_mesh(mesh, batch_axes=(), model_axis=None):
     """Make ``mesh`` active on this thread (None: no mesh).  ``batch_axes``:
     the mesh axes over which the batch rows in hand are this rank's block
-    (first name major); () when every rank holds the whole batch."""
-    prev = current_mesh(), current_batch_axes()
+    (first name major); () when every rank holds the whole batch.
+    ``model_axis``: the axis whose ranks compute in blocks (None: every
+    rank computes whole blocks)."""
+    prev = current_mesh(), current_batch_axes(), current_model_axis()
     _STATE.mesh = mesh
     _STATE.batch_axes = tuple(batch_axes) if mesh is not None else ()
+    _STATE.model_axis = model_axis if mesh is not None else None
     try:
         yield
     finally:
-        _STATE.mesh, _STATE.batch_axes = prev
+        _STATE.mesh, _STATE.batch_axes, _STATE.model_axis = prev
 
 
 def batch_block() -> tuple:
@@ -81,6 +95,68 @@ def batch_sum(t: torch.Tensor) -> torch.Tensor:
     if mesh is None or not axes or mesh.group_size(axes) == 1:
         return t
     return _BatchSum.apply(t, mesh, axes)
+
+
+def model_split() -> tuple:
+    """(this rank's block index, the number of blocks) over the axis that
+    computes in blocks; (0, 1) without one, or when it has one rank."""
+    mesh, axis = current_mesh(), current_model_axis()
+    if mesh is None or axis is None or mesh.shape.get(axis, 1) == 1:
+        return 0, 1
+    return mesh.group_index(axis), mesh.shape[axis]
+
+
+class _ModelCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.psum(grad, ctx.axis), None, None
+
+
+class _ModelSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        return mesh.psum(t, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def model_copy(t: torch.Tensor) -> torch.Tensor:
+    """``t``, an input that every rank of the model axis holds whole and
+    computes its own block from: the identity, whose backward sums the
+    blocks' gradients over that axis.  ``t`` itself without a split."""
+    if model_split()[1] == 1:
+        return t
+    return _ModelCopy.apply(t, current_mesh(), current_model_axis())
+
+
+def model_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum over the model axis of each rank's partial ``t`` (a psum),
+    whose gradient every rank already holds whole (identity backward).
+    ``t`` itself without a split."""
+    if model_split()[1] == 1:
+        return t
+    return _ModelSum.apply(t, current_mesh(), current_model_axis())
+
+
+def model_max(t: torch.Tensor) -> torch.Tensor:
+    """Under a model split, the elementwise max of ``t`` over the model
+    axis, outside autograd (a softmax's shift, which its gradient does not
+    see)."""
+    return current_mesh().pmax(t.detach(), current_model_axis())
+
+
+def model_block(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Under a model split, this rank's ceil block of ``t`` along ``dim``
+    (:func:`repro_torch.launch.mesh.block_range`), whose backward
+    all_gathers every rank's block gradient."""
+    return ceil_blocks([t], [dim], current_mesh(), current_model_axis())[0]
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,11 @@ float32 whatever the model's dtype.  A sequence must be at most
 
 Decode per token: h = exp(dt A) h + dt B x;  y = C . h + D x, with a
 rolling conv buffer of the last d_conv - 1 raw projections.
+
+Under a model split (the sharded train step), the training forward
+computes this rank's block of the heads, which are its block of the inner
+channels, from the whole B/C projections; the gated RMS norm sums its
+squares over the split, since it normalises the whole inner dim.
 """
 
 from __future__ import annotations
@@ -34,7 +39,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.common import dense_init, init_rms_norm, rms_norm
+from repro_torch.models.common import (
+    dense_init, init_rms_norm, model_copy, model_split, model_sum, rms_norm,
+)
 
 
 def _dims(cfg: ArchConfig):
@@ -165,6 +172,8 @@ class Mamba(nn.Module):
         """``mamba_forward``: u (b, s, d) -> (b, s, d) [, (conv_x, conv_bc,
         ssm): the last d_conv - 1 raw projections in float32 (fewer when
         s is shorter) and the final state]."""
+        if model_split()[1] > 1 and not return_state:
+            return self._forward_split(u)
         cfg = self.cfg
         mc, d_in, n_heads, _ = _dims(cfg)
         bsz, s, _ = u.shape
@@ -185,6 +194,42 @@ class Mamba(nn.Module):
         keep = mc.d_conv - 1
         return out, (x_raw[:, s - min(s, keep):].float(),
                      bc_raw[:, s - min(s, keep):].float(), state)
+
+    def _forward_split(self, u: torch.Tensor) -> torch.Tensor:
+        """:meth:`forward` of this rank's H / M heads under a model split of
+        M: ``w_x``, ``w_z``, ``w_dt``, the x conv, ``a_log``, ``dt_bias``,
+        ``d_skip``, ``out_norm`` and ``w_out``'s rows hold its block; the
+        B/C projection and conv are whole (each rank's gradient a part).
+        The gated RMS norm's sum of squares is summed over the split (a
+        psum both ways: every rank scales its own channels by it), and the
+        partial outputs of ``w_out`` too."""
+        cfg = self.cfg
+        mc, d_in, n_heads, _ = _dims(cfg)
+        j, m = model_split()
+        hl = n_heads // m
+        bsz, s, _ = u.shape
+        chunk = min(mc.chunk_size, s)
+        x_raw, z, bc_raw, dt = self._project(model_copy(u))
+        x = causal_conv(x_raw, self.conv_x_w, self.conv_x_b, mc.d_conv)
+        bc = causal_conv(bc_raw, self.conv_bc_w, self.conv_bc_b, mc.d_conv)
+        gn = mc.n_groups * mc.d_state
+        per = n_heads // mc.n_groups
+
+        def heads(t):  # (b, s, g·n) -> this rank's heads' (b, s, hl, n)
+            return (t.reshape(bsz, s, mc.n_groups, mc.d_state)
+                    .repeat_interleave(per, dim=2)[:, :, j * hl:(j + 1) * hl]
+                    .float())
+
+        y, _ = ssd_chunked(
+            x.reshape(bsz, s, hl, mc.head_dim).float(),
+            F.softplus(dt.float() + self.dt_bias), -torch.exp(self.a_log),
+            heads(bc[..., :gn]), heads(bc[..., gn:]), self.d_skip, chunk)
+        y = y.reshape(bsz, s, hl * mc.head_dim).to(u.dtype) * F.silu(z)
+        yf = y.float()
+        squares = model_sum(model_copy((yf * yf).sum(dim=-1, keepdim=True)))
+        y = yf * torch.rsqrt(squares / d_in + cfg.norm_eps)
+        y = (y * (1.0 + self.out_norm.float())).to(u.dtype)
+        return model_sum(y @ self.w_out)
 
     def prefill(self, u: torch.Tensor, cache: MambaCache) -> torch.Tensor:
         """:meth:`forward`, and the conv buffers and final state written

@@ -8,7 +8,9 @@ Without a mesh, MoE routing uses the config's ``token_groups``; under one
 (:func:`repro_torch.models.common.set_mesh`) the group count is the mesh's
 pod x data extent, halved until it divides the batch's tokens, as the
 reference's, and a rank that holds a block of the batch routes its own
-whole groups (see :meth:`MoE.route`).
+whole groups (see :meth:`MoE.route`).  Under a model split (the sharded
+train step) the MLP computes this rank's block of hidden units and the MoE
+its block of experts, each summing its partial output over the split.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import (
     activation_fn, batch_block, batch_sum, current_mesh, dense_init,
+    model_copy, model_split, model_sum,
 )
 
 
@@ -40,7 +43,15 @@ class MLP(nn.Module):
             self.w_gate = dense_init((d_model, d_ff), dtype, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """``mlp_forward``."""
+        """``mlp_forward``; under a model split, this rank's hidden units'
+        part, summed over the split."""
+        if model_split()[1] > 1:
+            return model_sum(self.partial(model_copy(x)))
+        return self.partial(x)
+
+    def partial(self, x: torch.Tensor) -> torch.Tensor:
+        """The output of the hidden units whose weights are in hand: the
+        whole MLP, or a rank's block of it under a model split."""
         act = activation_fn(self.activation)
         up = x @ self.w_up
         if self.activation in ("silu", "geglu"):
@@ -159,34 +170,67 @@ class MoE(nn.Module):
         and only the sink takes more than one).  The experts' products are
         batched over the expert axis; each choice reads its slot back (a
         dropped one a zero row) and is weighted by its gate, zero when
-        dropped.  Both indexings carry gradients."""
-        cfg, moe = self.cfg, self.cfg.moe
+        dropped.  Both indexings carry gradients.
+
+        Under a model split of M, every rank routes the same rows alike
+        (the routing, its aux loss and the slots are replicated), runs its
+        e / M experts (``w_up``, ``w_gate``, ``w_down`` hold theirs) on
+        their slots, combines the choices that landed on them (a choice
+        elsewhere reads the sink's zero row) and adds its block of the
+        shared expert; the partial outputs are summed over the split: one
+        all-reduce of (t, d), 2 (M - 1) / M t d elements on a ring, where
+        all-gathering the experts' outputs, as the reference's constraints
+        do, sends (M - 1) / M capacity_factor top_k t d.  The tokens and
+        the gates enter through :func:`model_copy`: each rank's gradient of
+        them is a part."""
+        moe = self.cfg.moe
         b, s, d = x.shape
-        e, k = moe.num_experts, moe.top_k
         t = b * s
         xt = x.reshape(t, d)
         r = self.route(xt)
-        groups, tg = r.slot.shape[0], t // r.slot.shape[0]
-        capacity, slot, sink = r.capacity, r.slot, e * r.capacity
-        gi = torch.arange(groups, device=x.device)[:, None]
+        j, m = model_split()
+        if m == 1:
+            out = self._dispatch(xt, r.slot, r.top_p, r, moe.num_experts)
+            if moe.num_shared_experts > 0:
+                out = out + self.shared(xt)
+            return out.reshape(b, s, d).to(x.dtype), r.aux.float()
+        el = moe.num_experts // m
+        flat = r.top_idx.reshape(r.slot.shape)
+        mine = r.within & (flat >= j * el) & (flat < (j + 1) * el)
+        slot = torch.where(mine, r.slot - j * el * r.capacity,
+                           torch.full_like(r.slot, el * r.capacity))
+        xin = model_copy(xt)
+        out = self._dispatch(xin, slot, model_copy(r.top_p), r, el)
+        if moe.num_shared_experts > 0:
+            out = out + self.shared.partial(xin)
+        return model_sum(out).reshape(b, s, d).to(x.dtype), r.aux.float()
+
+    def _dispatch(self, xt, slot, top_p, r: Routing, experts: int):
+        """The (t, d) output of the ``experts`` experts in hand: each
+        choice's token row to its ``slot`` of its group's buffer (the
+        sink, ``experts · capacity``, for a choice they do not take), the
+        experts' products, each choice's slot back, weighted by its gate
+        (zero when dropped) and summed over the k choices."""
+        k = self.cfg.moe.top_k
+        t, d = xt.shape
+        groups, tg = slot.shape[0], t // slot.shape[0]
+        capacity, sink = r.capacity, experts * r.capacity
+        gi = torch.arange(groups, device=xt.device)[:, None]
         src = xt.reshape(groups, tg, d).repeat_interleave(k, dim=1)
-        buf = x.new_zeros((groups, sink + 1, d)).index_put((gi, slot), src)
-        expert_in = (buf[:, :sink].reshape(groups, e, capacity, d)
-                     .transpose(0, 1).reshape(e, groups * capacity, d))
+        buf = xt.new_zeros((groups, sink + 1, d)).index_put((gi, slot), src)
+        expert_in = (buf[:, :sink].reshape(groups, experts, capacity, d)
+                     .transpose(0, 1).reshape(experts, groups * capacity, d))
+        act = self.cfg.activation
         up = torch.bmm(expert_in, self.w_up)
-        if cfg.activation in ("silu", "geglu"):
-            h = activation_fn(cfg.activation)(
-                torch.bmm(expert_in, self.w_gate)) * up
+        if act in ("silu", "geglu"):
+            h = activation_fn(act)(torch.bmm(expert_in, self.w_gate)) * up
         else:
             h = activation_fn("gelu")(up)
         expert_out = torch.bmm(h, self.w_down)
-        back = (expert_out.reshape(e, groups, capacity, d).transpose(0, 1)
-                .reshape(groups, sink, d))
+        back = (expert_out.reshape(experts, groups, capacity, d)
+                .transpose(0, 1).reshape(groups, sink, d))
         back = torch.cat([back, back.new_zeros((groups, 1, d))], dim=1)
         rows = back[gi, slot].reshape(groups, tg, k, d)
-        gate_w = (r.top_p.reshape(groups, tg, k)
+        gate_w = (top_p.reshape(groups, tg, k)
                   * r.within.reshape(groups, tg, k)).to(rows.dtype)
-        out = torch.einsum("gtkd,gtk->gtd", rows, gate_w).reshape(t, d)
-        if moe.num_shared_experts > 0:
-            out = out + self.shared(xt)
-        return out.reshape(b, s, d).to(x.dtype), r.aux.float()
+        return torch.einsum("gtkd,gtk->gtd", rows, gate_w).reshape(t, d)

@@ -35,11 +35,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import block_range
 from repro_torch.models.attention import (
     MLA, Attention, init_kv_cache, init_mla_cache,
 )
 from repro_torch.models.common import (
-    batch_sum, dense_init, embed_init, init_rms_norm, rms_norm,
+    batch_sum, dense_init, embed_init, init_rms_norm, model_block,
+    model_copy, model_max, model_split, model_sum, rms_norm,
 )
 from repro_torch.models.mamba import Mamba, init_mamba_cache
 from repro_torch.models.mlp import MLP, MoE
@@ -255,8 +257,18 @@ class Model(nn.Module):
         return x.to(cfg.dtype), positions, prefix_len
 
     def lm_logits(self, h: torch.Tensor) -> torch.Tensor:
+        """The logits of h; under a model split, of this rank's ceil block
+        of the vocabulary (``block_range``): the tied ``embed``'s rows of
+        it, or ``lm_head``, which the sharded step hands over as the block
+        of its columns."""
         h = rms_norm(h, self.final_norm, self.cfg.norm_eps)
-        logits = h @ (self.embed.T if self.lm_head is None else self.lm_head)
+        if model_split()[1] > 1:
+            w = model_block(self.embed, 0).T if self.lm_head is None \
+                else self.lm_head
+            logits = model_copy(h) @ w
+        else:
+            logits = h @ (self.embed.T if self.lm_head is None
+                          else self.lm_head)
         if self.cfg.logit_softcap:
             c = self.cfg.logit_softcap
             logits = c * torch.tanh(logits / c)
@@ -309,7 +321,8 @@ class Model(nn.Module):
         if mask is None:
             mask = torch.ones(labels.shape, dtype=torch.float32,
                               device=labels.device)
-        return cross_entropy(self.lm_logits(h), labels, mask)
+        return cross_entropy(self.lm_logits(h), labels, mask,
+                             self.cfg.vocab_size)
 
     def _total(self, h, aux, batch, positions):
         """(loss, metrics) from the backbone's output and summed aux loss:
@@ -349,7 +362,7 @@ class Model(nn.Module):
                     ).float().expand(b, s)
             loss = loss + cross_entropy(self.lm_logits(cur),
                                         torch.roll(labels, -shift, dims=1),
-                                        mask)
+                                        mask, cfg.vocab_size)
         return loss / max(cfg.mtp_depth, 1)
 
     def forward_train(self, batch: dict, *, remat: bool = True):
@@ -435,14 +448,33 @@ class Model(nn.Module):
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: torch.Tensor) -> torch.Tensor:
+                  mask: torch.Tensor,
+                  vocab_size: Optional[int] = None) -> torch.Tensor:
     """Stable cross entropy in float32: the mean negative log-likelihood
     over the positions ``mask`` selects (over the whole batch: under a
     mesh whose ranks hold blocks of it, the sum and the count are summed
-    over those ranks first)."""
+    over those ranks first).
+
+    Under a model split, ``logits`` is this rank's ceil block of a
+    ``vocab_size`` vocabulary (:meth:`Model.lm_logits`): the max, the sum
+    of exponentials and the target's logit are reduced over the split
+    (a max, and sums whose gradient every rank holds whole); the logits
+    are never gathered."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    j, m = model_split()
+    if m > 1:
+        lo, hi = block_range(vocab_size, m, j)
+        shift = model_max(logits.amax(dim=-1))
+        logz = shift + torch.log(model_sum(
+            torch.exp(logits - shift[..., None]).sum(dim=-1)))
+        labels = labels.long()
+        here = (labels >= lo) & (labels < hi)
+        local = torch.gather(logits, -1, (labels - lo).clamp(0, hi - lo - 1)
+                             [..., None])[..., 0]
+        gold = model_sum(torch.where(here, local, torch.zeros_like(local)))
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = (logz - gold) * mask
     return batch_sum(nll.sum()) / torch.clamp(batch_sum(mask.sum()),
                                               min=1.0)

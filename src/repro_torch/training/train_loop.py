@@ -18,8 +18,10 @@ package's layout, the checkpoint paths included.
 a :class:`repro_torch.launch.mesh.Mesh` (:class:`ShardedTrainStep`): each
 rank holds only its block of every leaf of the model, the optimizer state
 and the residuals under ``launch.steps._state_shardings`` (ZeRO-3), gathers
-a block's weights on use and reduce-scatters their gradients; see its
-docstring for what runs where.
+a block's weights on use and reduce-scatters their gradients, and the
+ranks of ``"model"`` each compute their block of the heads, hidden units,
+experts, Mamba channels and vocabulary; see its docstring for what runs
+where.
 
 A step updates its state in place (the reference donates nothing, but a
 2.5e9-parameter model holds one copy of its state on the card), so the
@@ -46,7 +48,8 @@ from repro_torch.device import resolve_device
 from repro_torch.dist.compression import (
     CompressionState, apply_error_feedback, init_compression_state)
 from repro_torch.dist.sharding import (
-    FSDP_AXES, P, fsdp_extent, gather_on_use, named, param_specs)
+    FSDP_AXES, MODEL_AXIS, P, compute_uses, fsdp_extent, gather_on_use,
+    named, param_specs)
 from repro_torch.models import model as model_mod
 from repro_torch.models.common import set_mesh
 from repro_torch.training.optimizer import (
@@ -306,25 +309,37 @@ class ShardedTrainStep(TrainStep):
       over the FSDP axes (``batch_specs``; a row count they do not divide
       replicates, as ``_fit_entry`` decides).
     * **Forward and backward (ZeRO-3).** A block's weights are gathered on
-      use (:func:`repro_torch.dist.sharding.gather_on_use`: one collective
-      for the weights that split alike), inside the block's remat
-      boundary, so the recompute gathers them again and the full weights
-      live for one block.  Every rank computes the batch's
-      loss (its sums and counts summed over the ranks of the batch, as the
-      MoE's load-balancing means are) and back-propagates it divided by
-      the FSDP extent; a weight's gradient is reduce-scattered (summed)
-      over the FSDP axes and only sliced over ``"model"``, whose ranks
-      compute the same rows.  Replicated leaves' gradients are all-reduced,
-      so their updates are bitwise equal on every rank.
+      use over the FSDP axes (:func:`repro_torch.dist.sharding.
+      gather_on_use`: one collective for the weights that split alike),
+      inside the block's remat boundary, so the recompute gathers them
+      again and the gathered weights live for one block.  Every rank
+      computes the batch's loss (its sums and counts summed over the ranks
+      of the batch, as the MoE's load-balancing means are) and
+      back-propagates it divided by the FSDP extent; a weight's gradient
+      is reduce-scattered (summed) over the FSDP axes.  Replicated leaves'
+      gradients are all-reduced, so their updates are bitwise equal on
+      every rank.
+    * **Compute over ``"model"``.** The ranks of ``"model"`` hold the same
+      rows, and each computes its block (``compute_uses``, the twin of the
+      reference's activation constraints): the attention's q heads and the
+      kv heads they read, the MLP's hidden units, the MoE's experts (the
+      routing replicated), Mamba's heads and inner channels, and the
+      vocabulary's logits and cross entropy.  A column-parallel weight
+      keeps its stored ``"model"`` block; a row-parallel weight and the
+      experts trade theirs for the compute block in one all_to_all; a
+      block's replicated input enters through ``model_copy`` (its
+      gradient all-reduced) and its partial output leaves through
+      ``model_sum`` (all-reduced).  The rest (norms, the router, MLA, the
+      embedding lookup) is computed whole on every rank, with the same
+      gradient, which each rank slices to its block.  On a ``"model"``
+      axis of one rank this is the storage-only step, operation for
+      operation.
     * **Update.** The global norm sums each leaf's squares over the axes
-      that split it; Adafactor factors by the full leaf's shape and
-      reduces its moments over the axes that split their dims; error
+      that split its storage; Adafactor factors by the full leaf's shape
+      and reduces its moments over the axes that split their dims; error
       feedback takes each 256-element block's scale as the max over the
       ranks that hold its parts (``Mesh.pmax``), so compression equals
       the unsharded one.
-
-    ``"model"`` shards storage only: the attention heads, the MLP's hidden
-    units and the experts are computed whole on every rank of it.
     """
 
     def __init__(self, cfg: ArchConfig, tc: TrainConfig, mesh):
@@ -335,6 +350,8 @@ class ShardedTrainStep(TrainStep):
         self.state_shardings = _state_shardings(abstract, mesh)
         self.leaf_shardings = param_specs(
             abstract.params.stack_for_training(), mesh)
+        self.uses = compute_uses(abstract.params, self.state_shardings.params,
+                                 cfg)
         self.fsdp = fsdp_extent(mesh)
 
     def shard_batch(self, mb: dict):
@@ -346,19 +363,28 @@ class ShardedTrainStep(TrainStep):
         rows_slice = sh.block_slices()[0]
         return {k: v[rows_slice] for k, v in mb.items()}, sh.axes
 
-    def _microbatch(self, model, mb: dict, flat: list):
+    def forward(self, model, mb: dict):
+        """(loss, metrics) of this rank's rows of microbatch ``mb``: the
+        batch's loss, every block run on the weights it computes with."""
         local, axes = self.shard_batch(mb)
-        shard_of = {id(p): self.state_shardings.params[name]
-                    for name, p in model.named_parameters()}
+        params = dict(model.named_parameters())
+        shard_of = {id(p): self.state_shardings.params[n]
+                    for n, p in params.items()}
+        use_of = {id(p): self.uses[n] for n, p in params.items()}
         mesh = self.mesh
+
+        def layouts(tensors):
+            return ([shard_of[id(t)] for t in tensors],
+                    [use_of[id(t)] for t in tensors])
 
         def block_call(block, x, positions, prefix_len, remat):
             names, blocks = zip(*block.named_parameters())
-            shardings = [shard_of[id(b)] for b in blocks]
+            shardings, uses = layouts(blocks)
 
             def run(x, positions, *blocks):
-                with set_mesh(mesh, axes):
-                    full = dict(zip(names, gather_on_use(blocks, shardings)))
+                with set_mesh(mesh, axes, MODEL_AXIS):
+                    full = dict(zip(names, gather_on_use(blocks, shardings,
+                                                         uses)))
                     return functional_call(
                         block, full, (x, positions),
                         {"mode": "train", "prefix_len": prefix_len})
@@ -368,17 +394,20 @@ class ShardedTrainStep(TrainStep):
                                   use_reentrant=False)
             return run(x, positions, *blocks)
 
-        names, tops = zip(*[(name, p) for name, p in
-                            model.named_parameters() if not _in_block(name)])
+        names, tops = zip(*[(name, p) for name, p in params.items()
+                            if not _in_block(name)])
         top = {"model." + name: full for name, full in zip(
-            names, gather_on_use(tops, [shard_of[id(p)] for p in tops]))}
+            names, gather_on_use(tops, *layouts(tops)))}
         model.block_call = block_call
         try:
-            with set_mesh(mesh, axes):
-                loss, metrics = functional_call(_TrainForward(model), top,
-                                                (local, self.tc.remat))
+            with set_mesh(mesh, axes, MODEL_AXIS):
+                return functional_call(_TrainForward(model), top,
+                                       (local, self.tc.remat))
         finally:
             model.block_call = None
+
+    def _microbatch(self, model, mb: dict, flat: list):
+        loss, metrics = self.forward(model, mb)
         scaled = loss / self.fsdp if self.fsdp > 1 else loss
         return loss, metrics, torch.autograd.grad(scaled, flat)
 

@@ -6,9 +6,10 @@ and the ``gpu`` test of tests/test_torch_gpu.py).  A case builds its
 state from a plain initial state (numpy trees and the step, no JAX
 classes), or from the port's seeded init, trains on the pipeline's
 batches and sends back numpy: the metrics of every step, the gathered
-full leaves, digests of what every rank must hold alike, and the bytes
-of state the rank holds.  No JAX here: the card's tests import this
-module too.
+full leaves, digests of what every rank must hold alike, the bytes of
+state the rank holds and each step's collective traffic; or the matmul
+FLOPs of one forward (``forward_flops``).  No JAX here: the card's tests
+import this module too.
 """
 
 from __future__ import annotations
@@ -30,11 +31,16 @@ from repro_torch.training.optimizer import (
 from repro_torch.tree import tree_flatten_with_path, tree_leaves, tree_map
 
 
-def config(arch: str, batch: int, token_groups: int | None = None):
+def config(arch: str, batch: int, token_groups: int | None = None,
+           vocab: int | None = None):
+    """The reduced config of ``arch`` for a global batch of ``batch`` rows;
+    ``token_groups`` replaces the MoE's, ``vocab`` the vocabulary size."""
     cfg = reduced_config(get_config(arch), global_batch=batch)
     if token_groups is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, token_groups=token_groups))
+    if vocab is not None:
+        cfg = dataclasses.replace(cfg, vocab_size=vocab)
     return cfg
 
 
@@ -127,28 +133,32 @@ def digests(state, step) -> dict:
 
 
 def train(ctx, arch, shape, opt, micro, compress, batch_rows, plain, steps,
-          token_groups=None, save_dir=None, save_at=None):
+          token_groups=None, save_dir=None, save_at=None, vocab=None):
     """``steps`` sharded steps on mesh ``shape`` from ``plain`` (or the
     seeded init); with ``save_dir``, a sharded checkpoint after
     ``save_at`` steps.  Returns metrics, the gathered state, digests of
-    the unsplit leaves, bytes of state, each step's collective traffic."""
+    the unsplit leaves, bytes of state, each step's collective traffic
+    (by kind, and by kind and axes)."""
     m = mesh(ctx, shape)
-    cfg = config(arch, batch_rows, token_groups)
+    cfg = config(arch, batch_rows, token_groups, vocab)
     tc = train_config(opt, micro, compress)
     state = state_for(ctx, cfg, tc, m, plain)
     step = ttl.make_train_step(cfg, tc, mesh=m)
-    metrics, traffic = [], []
+    metrics, traffic, by_axes = [], [], []
     for s in range(steps):
         m.traffic.clear()
+        m.traffic_axes.clear()
         state, mt = step(state, batch(ctx, cfg, s))
         traffic.append(dict(m.traffic))
+        by_axes.append(dict(m.traffic_axes))
         metrics.append({k: float(v) for k, v in mt.items()})
         if save_dir is not None and s + 1 == save_at:
             ckpt.save_checkpoint(save_dir, s + 1, state,
                                  shardings=step.state_shardings)
     return {"metrics": metrics, "full": gathered(state, step),
             "digests": digests(state, step),
-            "bytes": state_bytes(state, step), "traffic": traffic}
+            "bytes": state_bytes(state, step), "traffic": traffic,
+            "traffic_axes": by_axes}
 
 
 def resume(ctx, arch, shape, opt, batch_rows, directory, at, steps):
@@ -191,3 +201,25 @@ def route_positions(ctx, shape, t, seed):
 
 def param_tree(model) -> dict:
     return tree_map(_np, model.stack_for_training())
+
+
+def forward_flops(ctx, arch, shape, batch_rows, token_groups=None):
+    """Matmul FLOPs (``FlopCounterMode``) of the sharded step's forward of
+    one batch on mesh ``shape`` (seeded init, no gradient), and of the
+    single-device model's forward on this rank's rows of it."""
+    from torch.utils.flop_counter import FlopCounterMode
+    m = mesh(ctx, shape)
+    cfg = config(arch, batch_rows, token_groups)
+    tc = train_config("adamw", 1, False)
+    state = state_for(ctx, cfg, tc, m)
+    step = ttl.make_train_step(cfg, tc, mesh=m)
+    b = batch(ctx, cfg, 0)
+    with torch.no_grad():
+        with FlopCounterMode(display=False) as sharded:
+            step.forward(state.params, b)
+        local, _ = step.shard_batch(b)
+        whole = ttl.init_train_state(cfg, tc, 0, device=ctx.device).params
+        with FlopCounterMode(display=False) as single:
+            whole.forward_train(local, remat=False)
+    return {"rank": ctx.rank, "flops": sharded.get_total_flops(),
+            "single": single.get_total_flops()}

@@ -40,6 +40,19 @@ from repro_torch.graph import krr as tkrr
 from repro_torch.graph import spectral as tspec
 from repro_torch.graph import ssl as tssl
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The module's tensors are small, and under pytest-xdist's parallel
+    workers torch's OpenMP threads oversubscribe the cores, so its many
+    small parallel operations stall.  One thread here; the caller's count
+    back after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = Path(__file__).resolve().parents[1]
 KEY = jax.random.PRNGKey(0)
 
@@ -223,7 +236,8 @@ def test_ssl_crescent_entry_point_runs_on_cpu():
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.ssl_crescent", "--n", "2000",
          "--device", "cpu"], cwd=ROOT, capture_output=True, text=True,
-        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 OMP_NUM_THREADS="1"),
         timeout=300)
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.strip().splitlines()
@@ -275,7 +289,7 @@ def _run_module(args, tmp_path):
         [sys.executable, "-m", *args], cwd=ROOT, capture_output=True,
         text=True, timeout=300,
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-                 REPRO_BENCH_DIR=str(tmp_path)))
+                 REPRO_BENCH_DIR=str(tmp_path), OMP_NUM_THREADS="1"))
     assert proc.returncode == 0, proc.stderr
     return proc.stdout
 

@@ -29,6 +29,19 @@ from repro_torch.core import solvers as tsol
 from repro_torch.graph import krr as tkrr
 from repro_torch.graph import ssl as tssl
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The module's tensors are small, and under pytest-xdist's parallel
+    workers torch's OpenMP threads oversubscribe the cores, so its many
+    small parallel operations stall.  One thread here; the caller's count
+    back after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 KERNELS = [("gaussian", {"sigma": 3.5}), ("laplacian_rbf", {"sigma": 2.0}),
            ("multiquadric", {"c": 1.0}), ("inverse_multiquadric", {"c": 1.0})]
 SETUPS = {"SETUP_1": 16, "SETUP_2": 32}  # N; m = N // 8

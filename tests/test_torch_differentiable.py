@@ -45,6 +45,19 @@ from repro_torch.core.regularization import kernel_radial_derivatives
 from repro_torch.graph import krr as tkrr
 from repro_torch.kernels import nfft_window as twin
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The module's tensors are small, and under pytest-xdist's parallel
+    workers torch's OpenMP threads oversubscribe the cores, so its many
+    small parallel operations stall.  One thread here; the caller's count
+    back after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 KERNELS = [
     ("gaussian", 3.5),
     ("laplacian_rbf", 2.0),

@@ -22,6 +22,19 @@ from repro_torch.core import kernels as tkern
 from repro_torch.data import synthetic as tsyn
 from repro_torch.graph import spectral as tspec
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The module's tensors are small, and under pytest-xdist's parallel
+    workers torch's OpenMP threads oversubscribe the cores, so its many
+    small parallel operations stall.  One thread here; the caller's count
+    back after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # the module: ``repro_torch.core`` re-exports the function ``lanczos``
 # under its name, as ``repro.core`` does
 tlan = importlib.import_module("repro_torch.core.lanczos")

@@ -29,6 +29,19 @@ from repro_torch.core import make_normalized_adjacency as tmake_adj
 from repro_torch.core import nystrom as tny
 from repro_torch.data.synthetic import spiral
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The module's tensors are small, and under pytest-xdist's parallel
+    workers torch's OpenMP threads oversubscribe the cores, so its many
+    small parallel operations stall.  One thread here; the caller's count
+    back after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SIGMA = 3.5
 JITTER = 1e-6
 

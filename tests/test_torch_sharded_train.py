@@ -15,11 +15,22 @@ that test holds the reference, against the single-device step:
   package's initial state.  Loss, ``grad_norm`` and ``lr`` within
   ``STEP_TOL`` relative (tests/test_torch_train.py's 1e-5) of the JAX
   step's, every gathered parameter within ``STEP_TOL`` of its leaf's
-  largest entry, the residuals as test_torch_train holds them; every
+  largest entry from the JAX step's and from the port's single-device
+  step's (under a "model" split, the zero-initialised vector leaves
+  ``ZERO_INIT`` from the single-device step's alone: ``_check_params``),
+  the residuals as test_torch_train holds them; every
   leaf that no axis splits bitwise equal on the ranks; each rank's bytes
   of state exactly the blocks of ``_state_shardings``;
 * reduced olmoe-1b-7b at (2, 2) against the JAX step with ``token_groups``
   = 2: the reference's MoE routing under a (2, 2) mesh;
+* at (2, 2) and (1, 4) the ranks of "model" compute their blocks of the
+  heads, hidden units, experts, Mamba heads and vocabulary: reduced
+  olmoe-1b-7b (8 experts, 2 a rank), reduced mamba2-1.3b (the gated norm
+  over the whole inner dim) and reduced granite with a vocabulary of 130
+  (ceil blocks of 33, the last of 31) at (1, 4) against the JAX step; each
+  rank's forward matmul FLOPs (``FlopCounterMode``) held to the formula,
+  its block's share of the single-device forward's; at (4, 1) no
+  collective runs over "model";
 * elastic restore: a sharded checkpoint written at (4, 1) after 2 steps
   restores onto (2, 2) and onto one device, the third step's loss within
   1e-4 of continuing at (4, 1) (tests/test_distributed.py::
@@ -60,14 +71,23 @@ ARCH = "granite-3-2b"
 MOE_ARCH = "olmoe-1b-7b"
 STEP_TOL = 1e-5  # tests/test_torch_train.py's
 ELASTIC_TOL = 1e-4  # tests/test_distributed.py's
+MAMBA_ARCH = "mamba2-1.3b"
+# the zero-initialised vector leaves of the three families: the RMS norms'
+# gains (stored as weight - 1), Mamba's conv biases and dt_bias
+ZERO_INIT = ("final_norm", "norm_ffn", "norm_mixer", "out_norm", "conv_x_b",
+             "conv_bc_b", "dt_bias")
 STEPS = 3
 ROWS, ODD_ROWS = 8, 6
 MESHES = [(4, 1), (2, 2), (1, 4)]
 # (optimizer, microbatches, compress_grads)
 CASES = [("adamw", 1, False), ("adamw", 2, True), ("adafactor", 1, False)]
+# the families split over "model" at (1, 4): (arch, token_groups, vocab);
+# at (1, 4) the MoE routes the batch as one group (the FSDP extent)
+SPLIT_CASES = [(MOE_ARCH, 1, None), (MAMBA_ARCH, None, None),
+               (ARCH, None, 130)]
 
 
-def _jax_run(arch, case, rows, token_groups=None):
+def _jax_run(arch, case, rows, token_groups=None, vocab=None):
     """The JAX package's initial state (plain numpy, no JAX classes), and
     after STEPS jitted single-device steps its metrics, parameters and
     residuals."""
@@ -77,6 +97,8 @@ def _jax_run(arch, case, rows, token_groups=None):
     if token_groups is not None:
         jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(
             jcfg.moe, token_groups=token_groups))
+    if vocab is not None:
+        jcfg = dataclasses.replace(jcfg, vocab_size=vocab)
     kw = {"factored_min_dim": 16} if name == "adafactor" else {}
     tc = jtl.TrainConfig(optimizer=jopt.OptimizerConfig(name=name, **kw),
                          num_microbatches=micro, compress_grads=compress)
@@ -120,9 +142,12 @@ def jax_refs():
     """Every JAX reference, each built once, on threads side by side from
     the module's start (the tests that need none run first, meanwhile):
     ``jax_refs[key].result()``."""
-    with concurrent.futures.ThreadPoolExecutor(5) as ex:
+    with concurrent.futures.ThreadPoolExecutor(8) as ex:
         refs = {(MOE_ARCH, CASES[0], ROWS): ex.submit(
             _jax_run, MOE_ARCH, CASES[0], ROWS, 2)}  # the slowest first
+        for split in SPLIT_CASES:
+            refs[split] = ex.submit(_jax_run, split[0], CASES[0], ROWS,
+                                    *split[1:])
         for case in CASES:
             refs[ARCH, case, ROWS] = ex.submit(_jax_run, ARCH, case, ROWS)
         refs[ARCH, CASES[0], ODD_ROWS] = ex.submit(_jax_run, ARCH, CASES[0],
@@ -219,8 +244,67 @@ def _rel(got, want):
     return np.abs(got - want).max() / (scale if scale > 0 else 1.0)
 
 
-def _check_against_jax(outs, ref, compress, params=True):
-    """Every rank's metrics and gathered leaves against the JAX run."""
+_SINGLE = {}
+
+
+def _single_params(ref, arch, case, rows, groups=None, vocab=None) -> list:
+    """The port's single-device step's parameters after STEPS steps from the
+    JAX initial state of ``ref`` (numpy leaves, the JAX layout; each case
+    run once)."""
+    key = (arch, case, rows, groups, vocab)
+    if key not in _SINGLE:
+        cfg = C.config(arch, rows, groups, vocab)
+        tc = C.train_config(*case)
+        state = ttl.train_state_from_arrays(C._Plain(ref["plain"], case[0]),
+                                            cfg, tc, device="cpu")
+        step = ttl.make_train_step(cfg, tc)
+
+        class Ctx:
+            device = torch.device("cpu")
+
+        for s in range(STEPS):
+            state, _ = step(state, C.batch(Ctx, cfg, s))
+        _SINGLE[key] = tree_leaves(C.param_tree(state.params))
+    return _SINGLE[key]
+
+
+def _check_params(outs, ref, single, split):
+    """Every gathered parameter within STEP_TOL of its leaf's largest entry
+    from the JAX step's and from the port's single-device step's
+    (``single``).  Under a "model" split (``split``), the ZERO_INIT leaves
+    are held to the single-device step alone: within twice the farthest
+    that step is from the JAX step on any ZERO_INIT leaf, or STEP_TOL
+    where that is larger.
+
+    Such a leaf's values are the optimizer's normalised updates alone (each
+    element's gradient over its own size), so an element whose gradient is
+    small beside the leaf's largest moves by the float noise of its sums.
+    The split reorders them, as the JAX step's XLA program orders them
+    otherwise: the two float32 single-device steps already differ there by
+    up to ~8e-6 of the largest entry (granite), ~1.8e-5 (olmoe) and ~6.3e-5
+    (mamba2, whose chunked scan is the noisiest).  Every other leaf starts
+    at its init's scale, which that noise does not reach."""
+    got = tree_flatten_with_path(outs[0]["full"]["params"])
+    want = jax.tree_util.tree_flatten_with_path(ref["params"])[0]
+    init = jax.tree_util.tree_leaves(ref["plain"]["params"])
+    assert [p for p, _ in got] == [jax.tree_util.keystr(p) for p, _ in want]
+    zero = [split and path.split("'")[-2] in ZERO_INIT for path, _ in got]
+    noise = max([_rel(w, j) for z, w, (_, j) in zip(zero, single, want)
+                 if z], default=0.0)
+    for (path, g), (_, j), w, i, z in zip(got, want, single, init, zero):
+        assert g.shape == np.shape(j) == np.shape(w), path
+        if z:
+            assert not np.any(i), path  # zero-initialised
+            assert _rel(g, w) <= max(STEP_TOL, 2 * noise), (
+                path, _rel(g, w), noise)
+        else:
+            assert _rel(g, j) <= STEP_TOL, (path, _rel(g, j))
+            assert _rel(g, w) <= STEP_TOL, (path, _rel(g, w))
+
+
+def _check_against_jax(outs, ref, compress, single, split):
+    """Every rank's metrics and gathered leaves against the JAX run (the
+    parameters by ``_check_params``)."""
     first = outs[0]
     for o in outs:
         assert o["digests"] == first["digests"]  # unsplit leaves: bitwise
@@ -234,12 +318,7 @@ def _check_against_jax(outs, ref, compress, params=True):
         for k in ("loss", "grad_norm", "lr"):
             assert abs(got[k] - w[k]) <= STEP_TOL * abs(w[k]), (s, k,
                                                                got[k], w[k])
-    got = tree_flatten_with_path(first["full"]["params"])
-    want = jax.tree_util.tree_flatten_with_path(ref["params"])[0]
-    assert [p for p, _ in got] == [jax.tree_util.keystr(p) for p, _ in want]
-    for (path, g), (_, w) in zip(got, want):
-        assert g.shape == np.shape(w), path
-        assert not params or _rel(g, w) <= STEP_TOL, (path, _rel(g, w))
+    _check_params(outs, ref, single, split)
     if compress:
         # a residual is the gradient's rounding to the int8 lattice: as
         # test_torch_train holds it, within 1e-5 of the gradient's scale
@@ -259,13 +338,18 @@ def _check_against_jax(outs, ref, compress, params=True):
 def test_sharded_step_matches_jax_single_device(pool, jax_refs, shape, case):
     ref = jax_refs[ARCH, case, ROWS].result()
     outs = pool.run(C.train, ARCH, shape, *case, ROWS, ref["plain"], STEPS)
-    _check_against_jax(outs, ref, case[2])
+    _check_against_jax(outs, ref, case[2],
+                       _single_params(ref, ARCH, case, ROWS), shape[1] > 1)
     if shape != (1, 4):  # the FSDP axis splits the matrices' rows
         assert outs[0]["bytes"][0] < outs[0]["bytes"][2] / 2
-    traffic = outs[0]["traffic"][0]
+    traffic, by_axes = outs[0]["traffic"][0], outs[0]["traffic_axes"][0]
     assert traffic["all_gather"] > 0 and traffic["all_reduce"] > 0
-    assert ("reduce_scatter" in traffic) == (shape[0] > 1)
-    assert ("all_reduce_max" in traffic) == case[2]
+    assert (("reduce_scatter", ("data",)) in by_axes) == (shape[0] > 1)
+    # the vocabulary-parallel cross entropy's max over "model": 4 bytes a
+    # token of the rank's rows; compression's block maxima come on top
+    ce_max = 4 * 64 * ROWS // shape[0] if shape[1] > 1 else 0
+    assert traffic.get("all_reduce_max", 0) >= ce_max
+    assert (traffic.get("all_reduce_max", 0) > ce_max) == case[2]
 
 
 def test_batch_that_does_not_divide_is_replicated(pool, jax_refs):
@@ -274,38 +358,127 @@ def test_batch_that_does_not_divide_is_replicated(pool, jax_refs):
     ref = jax_refs[ARCH, CASES[0], ODD_ROWS].result()
     outs = pool.run(C.train, ARCH, (4, 1), *CASES[0], ODD_ROWS, ref["plain"],
                     STEPS)
-    _check_against_jax(outs, ref, False)
+    _check_against_jax(outs, ref, False,
+                       _single_params(ref, ARCH, CASES[0], ODD_ROWS), False)
 
 
 def test_moe_at_2x2_routes_as_the_reference_under_the_mesh(pool, jax_refs):
     """Reduced olmoe-1b-7b at (2, 2): two token groups (the mesh's data
     extent), each rank routing its own; the JAX single-device step with
     ``token_groups=2`` is the reference's routing under that mesh.  The
-    metrics are held to STEP_TOL.  So are the parameters, against the
-    port's single-device step on the same state; against the JAX step the
-    port's single-device MoE step itself differs by up to ~1.8e-5 of the
-    stacked norms' largest entry (~1.8e-5 after three AdamW steps: an
-    element whose gradient lies within float noise of Adam's eps moves by
-    an amount the noise decides), so there the sharded step may be at most
-    STEP_TOL farther from the JAX step than the single-device one is."""
+    metrics are held to STEP_TOL, the parameters by ``_check_params``: the
+    compute splits over "model" (2 of 8 experts a rank), and the port's
+    single-device MoE step itself is up to ~1.8e-5 of the stacked norms'
+    largest entry from the JAX step's."""
     ref = jax_refs[MOE_ARCH, CASES[0], ROWS].result()
     outs = pool.run(C.train, MOE_ARCH, (2, 2), *CASES[0], ROWS, ref["plain"],
                     STEPS, 2)
-    _check_against_jax(outs, ref, False, params=False)
+    _check_against_jax(outs, ref, False,
+                       _single_params(ref, MOE_ARCH, CASES[0], ROWS, 2), True)
     assert all(m["aux_loss"] > 0 for m in outs[0]["metrics"])
-    cfg, tc = C.config(MOE_ARCH, ROWS, 2), C.train_config(*CASES[0])
-    state = ttl.train_state_from_arrays(C._Plain(ref["plain"], "adamw"), cfg,
-                                        tc, device="cpu")
-    step = ttl.make_train_step(cfg, tc)
 
-    class Ctx:
-        device = torch.device("cpu")
 
-    for s in range(STEPS):
-        state, _ = step(state, C.batch(Ctx, cfg, s))
-    single = C.param_tree(state.params)
-    for (path, g), w, j in zip(
-            tree_flatten_with_path(outs[0]["full"]["params"]),
-            tree_leaves(single), jax.tree_util.tree_leaves(ref["params"])):
-        assert _rel(g, w) <= STEP_TOL, (path, _rel(g, w))
-        assert _rel(g, j) <= _rel(w, j) + STEP_TOL, (path, _rel(g, j))
+@pytest.mark.parametrize("split", SPLIT_CASES,
+                         ids=lambda c: f"{c[0]}-vocab{c[2] or 128}")
+def test_split_families_match_jax_single_device(pool, jax_refs, split):
+    """At (1, 4) every rank computes its block over "model": olmoe's 2 of 8
+    experts (one token group: the FSDP extent), mamba2's 2 of 8 heads with
+    the gated norm's squares summed over the whole inner dim, granite's
+    ceil block of a 130-token vocabulary (33, 33, 33, 31 rows of the tied
+    embedding); three steps against the JAX single-device step.  The
+    row-parallel weights and the experts arrive by all_to_all over
+    "model", and nothing runs over "data".  The metrics are held to the
+    JAX step at STEP_TOL, the parameters by ``_check_params``."""
+    arch, groups, vocab = split
+    ref = jax_refs[split].result()
+    outs = pool.run(C.train, arch, (1, 4), *CASES[0], ROWS, ref["plain"],
+                    STEPS, groups, None, None, vocab)
+    _check_against_jax(outs, ref, False, _single_params(
+        ref, arch, CASES[0], ROWS, groups, vocab), True)
+    by_axes = outs[0]["traffic_axes"][0]
+    assert by_axes[("all_to_all", ("model",))] > 0
+    assert by_axes[("all_reduce_max", ("model",))] == 4 * 64 * ROWS
+    assert all(axes == ("model",) for _, axes in by_axes)
+
+
+def test_no_collective_over_model_at_4x1(pool):
+    """At (4, 1) the split is off: every collective of a step runs over
+    "data" (the storage-only step's); at (1, 4), over "model" alone."""
+    for shape, axes in (((4, 1), ("data",)), ((1, 4), ("model",))):
+        outs = pool.run(C.train, ARCH, shape, *CASES[0], ROWS, None, 1)
+        for o in outs:
+            assert o["traffic_axes"][0]
+            assert {a for _, a in o["traffic_axes"][0]} == {axes}
+
+
+def _block_flops(cfg, tokens: int, seq: int, m: int, j: int) -> int:
+    """Matmul FLOPs of one rank's forward of reduced granite over ``tokens``
+    tokens of ``seq``-token rows, on block ``j`` of a "model" split of
+    ``m``: per layer its h / m q heads (and the kv heads they read), their
+    causal-square attention, ``wo``'s rows of them, d_ff / m hidden units;
+    then its ceil block of the vocabulary."""
+    from repro_torch.launch.mesh import block_range
+    d, h, hkv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                     cfg.head_dim_eff)
+    hl = h // m
+    kv = hkv // m if hkv % m == 0 else max(1, hl * hkv // h)
+    layer = (2 * tokens * d * hl * hd + 2 * 2 * tokens * d * kv * hd
+             + 2 * 2 * tokens * seq * hl * hd + 2 * tokens * hl * hd * d
+             + 3 * 2 * tokens * d * cfg.d_ff // m)
+    lo, hi = block_range(cfg.vocab_size, m, j)
+    return cfg.num_layers * layer + 2 * tokens * d * (hi - lo)
+
+
+def _replicated_flops(cfg, tokens: int, m: int) -> tuple:
+    """The matmul FLOPs every rank computes whole, (in the single-device
+    forward, on a rank of a split of ``m``): the kv projections "model"
+    cannot split (all kv heads; those a rank's q heads read), Mamba's B/C
+    projection, the MoE's router and its combine (each rank weighs every
+    choice)."""
+    d = cfg.d_model
+    single = rank = 0
+    for i in range(cfg.num_layers):
+        if cfg.is_attention_layer(i) and cfg.num_kv_heads % m:
+            hl = cfg.num_heads // m
+            kv = max(1, hl * cfg.num_kv_heads // cfg.num_heads)
+            per_head = 2 * 2 * tokens * d * cfg.head_dim_eff
+            single += per_head * cfg.num_kv_heads
+            rank += per_head * kv
+        both = 0
+        if not cfg.is_attention_layer(i):
+            both += 2 * tokens * d * 2 * cfg.mamba.n_groups * cfg.mamba.d_state
+        if cfg.is_moe_layer(i):
+            both += (2 * tokens * d * cfg.moe.num_experts
+                     + 2 * tokens * cfg.moe.top_k * d)
+        single += both
+        rank += both
+    return single, rank
+
+
+@pytest.mark.parametrize("arch,shape,groups", [
+    (ARCH, (2, 2), None), (ARCH, (1, 4), None), (MOE_ARCH, (1, 4), 1),
+    (MAMBA_ARCH, (1, 4), None)], ids=lambda v: str(v))
+def test_each_rank_computes_its_block_of_the_forward(pool, arch, shape,
+                                                     groups):
+    """Each rank's matmul FLOPs of one microbatch's forward
+    (``FlopCounterMode``) are its block's share of the single-device
+    forward on its rows: (F_single - R) / M + R, with R the replicated
+    products (``_replicated_flops``); for granite, exactly
+    ``_block_flops``.  A split that computed whole blocks would count
+    F_single."""
+    outs = pool.run(C.forward_flops, arch, shape, ROWS, groups)
+    cfg = C.config(arch, ROWS, groups)
+    m = shape[1]
+    tokens = ROWS // shape[0] * 64
+    single = outs[0]["single"]
+    assert all(o["single"] == single for o in outs)
+    if arch == ARCH:
+        assert single == _block_flops(cfg, tokens, 64, 1, 0)
+    whole, repl = _replicated_flops(cfg, tokens, m)
+    for o in outs:
+        j = o["rank"] % m
+        assert o["flops"] == (single - whole) // m + repl, (
+            o["flops"], single, whole, repl)
+        if arch == ARCH:
+            assert o["flops"] == _block_flops(cfg, tokens, 64, m, j)
+        assert o["flops"] < single

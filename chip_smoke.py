@@ -106,7 +106,19 @@ bitwise equal on the ranks, each rank's bytes of state, each step's
 collective bytes and each rank's forward matmul FLOPs against the
 predictions from the sharding rules; a sharded checkpoint restored onto
 (2, 2) and onto one device; then one NCCL rank at (1, 1) at full width and
-depth beside [train]'s step; no kernel may launch.  Then the other mixers and the
+depth beside [train]'s step; no kernel may launch.  [shard_serve] runs
+the sharded prefill and decode steps on four gloo ranks sharing the card
+(granite-3-2b, 4 of 40 layers, at (2, 2) and (1, 4); olmoe-1b-7b, 2 of
+16, at (1, 4); float32, full width): every rank's whole logits against the
+single-device steps and bitwise equal on the ranks, flash once a layer on
+every rank's heads.  [dryrun] then runs the dry run (the port's steps
+traced on meta as one rank of a described mesh) on four CPU ranks and
+holds it against the live runs: every rank's collective bytes, FLOPs and
+state bytes of [shard_train] and [shard_serve] to the byte, peak live
+bytes within 25 %, [dist]'s payloads, and the roofline terms (data-sheet
+peaks) of [train]'s step, [times]' prefill and tick and the fused matvec
+as shares of their measured times; it prints granite-3-2b's production
+cells and the graph cells at 8 to 512 ranks.  Then the other mixers and the
 frontends, each path with its launch counts from 0: olmoe-1b-7b (MoE, 64
 experts, top-8) at full width and depth through ``ServeEngine``
 ([moe_serve]: the flash kernel once per layer and prefill, head dim 128;
@@ -262,9 +274,6 @@ WINDOW_RECORDS = (("main", "spiral", "SETUP_3", 3, 1, "float64", N_MAIN),
 KM_TOL = {"float64": 1e-12, "float32": 1e-4}
 KM_PROFILES = (("gaussian", SIGMA), ("laplacian_rbf", SIGMA),
                ("multiquadric", 2.0), ("inverse_multiquadric", 2.0))
-# operations of each profile on r^2, each exp/sqrt/divide counted as one
-KM_PROFILE_OPS = {"gaussian": 2, "laplacian_rbf": 3, "multiquadric": 2,
-                  "inverse_multiquadric": 3}
 KM_SQUARE_N = (8000, N_MAIN)
 KM_RECT = (400, 10_000)  # the KRR path's test x training points
 # guard floor: spiral n=8000, SETUP_1 and a policy that can only end on the
@@ -469,6 +478,32 @@ SHARD_TRAFFIC_4x1 = {"all_gather": 486539264, "reduce_scatter": 973078528,
 # figures are the storage-only step's readings)
 SHARD_PEAK_PRED = {(4, 1): 12.92, (2, 2): 12.92, (1, 4): 13.5,
                    SHARD_MOE_ARCH: 15.0}
+# [shard_serve]: the sharded prefill and decode steps (launch.steps.
+# ShardedServeStep) on SHARD_WORLD gloo ranks sharing cuda:0, float32, full
+# width: (arch, layers, mesh); granite-3-2b's depth cut 40 -> 4, olmoe's 16
+# -> 2 (one token group, as [shard_train]'s).  A prefill of SERVE_SHARD_ROWS
+# x SERVE_SHARD_PROMPT tokens (PREFILL_32K's 32 x 32,768 cut) and
+# SERVE_SHARD_DECODES teacher-forced decode steps, every rank's whole
+# logits within SERVE_SHARD_TOL of the largest single-device logit (the
+# port's single-device steps on the card), bitwise equal on the ranks.
+SERVE_SHARD_CASES = ((TRAIN_ARCH, SHARD_LAYERS, (2, 2)),
+                     (TRAIN_ARCH, SHARD_LAYERS, (1, 4)),
+                     (SHARD_MOE_ARCH, SHARD_MOE_LAYERS, (1, 4)))
+SERVE_SHARD_ROWS = 4
+SERVE_SHARD_PROMPT = 2048
+SERVE_SHARD_DECODES = 8
+SERVE_SHARD_TOL = 1e-4
+# [dryrun]: the dry run's peak live bytes a rank within DRY_PEAK_TOL of
+# [shard_train]'s measured peak; no roofline term over DRY_SHARE_MAX of the
+# measured time it bounds; the production graph cells' rank counts (8 and
+# 32 on described (2, 4) and (8, 4) meshes, 256 and 512 the production
+# meshes), n = DRY_GRAPH_N, SETUP_2, d = 3, S = 1 and DRY_GRAPH_BANK
+DRY_PEAK_TOL = 0.25
+DRY_SHARE_MAX = 1.05
+DRY_GRAPH_MESHES = ((2, 4), (8, 4), (16, 16), (2, 16, 16))
+DRY_GRAPH_N = 2 ** 27
+DRY_GRAPH_BANK = 8
+DRY_LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 # a residual's bound max|block|/254, plus the rounding of q * scale (a few
 # ulps of the block's largest value, under 2^-16 of the bound)
 EF_BOUND_SLACK = 2.0 ** -16
@@ -1345,6 +1380,276 @@ def shard_single_flops(cfg, rows: int) -> int:
     return flops.get_total_flops()
 
 
+# ---------------------------------------------------------------------------
+# [shard_serve]'s and [dryrun]'s rank sides (RankPool, as [dist]'s)
+# ---------------------------------------------------------------------------
+
+def shard_serve_config(arch: str):
+    layers = SHARD_MOE_LAYERS if arch == SHARD_MOE_ARCH else SHARD_LAYERS
+    return shard_config(layers, "float32", arch)
+
+
+def shard_serve_tokens(cfg):
+    """(prompt (rows, SERVE_SHARD_PROMPT), decode tokens (rows,
+    SERVE_SHARD_DECODES)), seeded."""
+    rng = np.random.default_rng(SERVE_SEED)
+    return (rng.integers(0, cfg.vocab_size,
+                         (SERVE_SHARD_ROWS, SERVE_SHARD_PROMPT)),
+            rng.integers(0, cfg.vocab_size,
+                         (SERVE_SHARD_ROWS, SERVE_SHARD_DECODES)))
+
+
+def shard_serve_counts(mesh, flops) -> dict:
+    return {"traffic": dict(mesh.traffic),
+            "traffic_axes": {f"{k}@{'+'.join(a)}": v
+                             for (k, a), v in mesh.traffic_axes.items()},
+            "flops": flops}
+
+
+def shard_serve_case(ctx, arch, mesh_shape):
+    """The sharded prefill and SERVE_SHARD_DECODES decode steps of
+    ``arch`` (shard_serve_config) on ``mesh_shape``: each rank builds the
+    seeded model on the card one at a time and keeps its blocks.  The
+    first prefill is counted (launches from 0, the collectives' traffic,
+    FlopCounterMode), the second timed; each decode step counted and timed
+    (host clock, every rank starting together, ending in a sync).  The
+    whole logits of every step, as numpy."""
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch import steps
+    from repro_torch.models import model as lm
+    mesh = dist_mesh(ctx, mesh_shape)
+    cfg = shard_serve_config(arch)
+    prefill = steps.make_step_fn(cfg, "prefill", None, mesh=mesh)
+    decode = steps.make_step_fn(cfg, "decode", None, mesh=mesh)
+    serve = prefill.serve
+    for r in range(ctx.world):
+        if r == ctx.rank:
+            model = serve.shard(lm.init_params(cfg, SERVE_SEED,
+                                               device=ctx.device))
+            shard_release(ctx)
+        dist.barrier()
+    max_seq = SERVE_SHARD_PROMPT + SERVE_SHARD_DECODES
+    caches = serve.shard_caches(lm.init_caches(cfg, SERVE_SHARD_ROWS,
+                                               max_seq, device=ctx.device))
+    prompt, tokens = shard_serve_tokens(cfg)
+    batch = {"tokens": torch.as_tensor(prompt, device=ctx.device)}
+    torch.cuda.reset_peak_memory_stats(ctx.device)
+
+    def run(fn, count):
+        mesh.traffic.clear()
+        mesh.traffic_axes.clear()
+        dist.barrier()
+        torch.cuda.synchronize(ctx.device)
+        t = time.perf_counter()
+        if count:
+            with FlopCounterMode(display=False) as flops:
+                out = fn()
+        else:
+            out = fn()
+        torch.cuda.synchronize(ctx.device)
+        took = time.perf_counter() - t
+        return out, took, shard_serve_counts(
+            mesh, flops.get_total_flops() if count else None)
+
+    shard_launches(reset=True)
+    (logits, caches), _, pre = run(
+        lambda: prefill(model, batch, caches), True)
+    launches = shard_launches()
+    out = [logits.cpu().numpy()]
+    (logits, caches), prefill_s, _ = run(
+        lambda: prefill(model, batch, caches), False)
+    check(np.array_equal(logits.cpu().numpy(), out[0]),
+          f"shard_serve {arch} {mesh_shape}: a second prefill differs")
+    shard_launches(reset=True)
+    dec, decode_s = [], []
+    for i in range(SERVE_SHARD_DECODES):
+        pos = torch.full((SERVE_SHARD_ROWS,), SERVE_SHARD_PROMPT + i,
+                         dtype=torch.int32, device=ctx.device)
+        tok = torch.as_tensor(tokens[:, i:i + 1], device=ctx.device)
+        (logits, caches), took, counts = run(
+            lambda: decode(model, tok, pos, caches), True)
+        out.append(logits.cpu().numpy())
+        dec.append(counts)
+        decode_s.append(took)
+    res = {"rank": ctx.rank, "logits": np.stack(out), "prefill": pre,
+           "decode": dec, "prefill_s": prefill_s, "decode_s": decode_s,
+           "launches_prefill": launches,
+           "launches_decode": shard_launches(),
+           "replicated": serve.replicated,
+           "peak_gb": torch.cuda.max_memory_allocated(ctx.device) / 1e9,
+           "model_index": mesh.coords()["model"]}
+    del model, caches, logits
+    shard_release(ctx)
+    return res
+
+
+def dry_mesh(mesh_shape):
+    from repro_torch.launch.mesh import Mesh
+    return Mesh(dict(zip(DIST_AXES[len(mesh_shape)], mesh_shape)))
+
+
+def dry_counts(out) -> dict:
+    """A trace's counters as the card's records hold them."""
+    st = out["stats"]
+    return dict(shard_serve_counts(out["mesh"], st.matmul_flops),
+                kernels=st.kernels, memory=out["memory"],
+                stats=st.to_json())
+
+
+def dryrun_train_case(ctx, arch, mesh_shape):
+    """[shard_train]'s step of ``arch`` on ``mesh_shape``, traced as this
+    rank of the described mesh on meta: its counters, this rank's bytes of
+    state, and one microbatch forward's matmul FLOPs (the card's
+    FlopCounterMode reading)."""
+    import torch
+    from repro_torch.launch import specs, steps
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.training import train_loop as tl
+    cfg = shard_case_config(arch)
+    micro = SHARD_MICRO[mesh_shape]
+    tc = shard_train_config(micro)
+    shape = dataclasses.replace(
+        next(s for s in cfg.shapes if s.name == "train_4k"),
+        global_batch=SHARD_BATCH)
+    mesh = dry_mesh(mesh_shape)
+    out = dry_counts(steps.trace_cell(cfg, shape, mesh, rank=ctx.rank,
+                                      tc=tc))
+    rank_mesh = Mesh(mesh.shape, rank=ctx.rank, described=True)
+    step = tl.make_train_step(cfg, tc, mesh=rank_mesh)
+    state = tl.shard_train_state(specs.abstract_train_state(cfg, tc),
+                                 rank_mesh)
+    mb = tl._split_microbatches(specs.train_input_specs(cfg, shape),
+                                micro)[0]
+    with torch.no_grad():
+        fwd = steps.trace_call(rank_mesh, step.forward, state.params, mb)
+    out.update(forward_flops=fwd["stats"].matmul_flops,
+               state_bytes=steps._storage_bytes(state))
+    return out
+
+
+def dryrun_serve_case(ctx, arch, mesh_shape):
+    """[shard_serve]'s prefill and decode steps traced as this rank of the
+    described mesh on meta (the flash kernel counted by its work, as the
+    card launches it): their counters."""
+    import torch
+    from repro_torch.launch import specs, steps
+    from repro_torch.launch.mesh import Mesh
+    cfg = shard_serve_config(arch)
+    out = {}
+    for kind in ("prefill", "decode"):
+        rank_mesh = Mesh(dry_mesh(mesh_shape).shape, rank=ctx.rank,
+                         described=True)
+        step = steps.make_step_fn(cfg, kind, None, mesh=rank_mesh)
+        caches = specs.abstract_caches(cfg, SERVE_SHARD_ROWS,
+                                       SERVE_SHARD_PROMPT
+                                       + SERVE_SHARD_DECODES)
+        if kind == "prefill":
+            args = (specs.abstract_params(cfg), {"tokens": torch.empty(
+                (SERVE_SHARD_ROWS, SERVE_SHARD_PROMPT), dtype=torch.long,
+                device="meta")}, caches)
+        else:
+            args = (specs.abstract_params(cfg), torch.empty(
+                (SERVE_SHARD_ROWS, 1), dtype=torch.long, device="meta"),
+                torch.empty((SERVE_SHARD_ROWS,), dtype=torch.int32,
+                            device="meta"), caches)
+        args = steps.rank_args(kind, args, rank_mesh, step)
+        out[kind] = dry_counts(steps.trace_call(rank_mesh, step, *args))
+    return out
+
+
+def dryrun_job(job):
+    """One single-card or production dry-run job of [dryrun]: (name,
+    record)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, roofline, specs, steps
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model as lm
+    from repro_torch.training import train_loop as tl
+    kind, args = job[0], job[1:]
+    one = Mesh({"data": 1}, rank=0, described=True)
+    if kind == "lm":
+        arch, shape, multi = args
+        rec = dryrun.run_cell(arch, shape, multi)
+    elif kind == "graph":
+        mesh_shape, mode, bank = args
+        mesh = Mesh(dict(zip(("pod", "data", "model")[-len(mesh_shape):],
+                             mesh_shape)))
+        rec = dryrun.run_graph_cell(DRY_GRAPH_N, 3, False,
+                                    setup_name="setup2", spectral_mode=mode,
+                                    bank_size=bank, mesh=mesh)
+    elif kind == "train":
+        # [train]'s step: granite-3-2b full, bf16, TRAIN_BATCH x 4,096
+        # tokens in TRAIN_MICRO microbatches, the single-device step
+        cfg = get_config(TRAIN_ARCH)
+        tc = tl.TrainConfig(optimizer=tl.TrainConfig.for_arch(cfg).optimizer,
+                            num_microbatches=TRAIN_MICRO)
+        shape = dataclasses.replace(
+            next(s for s in cfg.shapes if s.name == "train_4k"),
+            global_batch=TRAIN_BATCH)
+        out = steps.trace_call(one, tl.make_train_step(cfg, tc),
+                               specs.abstract_train_state(cfg, tc),
+                               specs.train_input_specs(cfg, shape))
+        rec = {"stats": out["stats"], "kind": "train",
+               "active": cfg.active_param_count(), "batch": TRAIN_BATCH,
+               "seq": shape.seq_len, "dtype": cfg.activation_dtype}
+    elif kind in ("prefill", "tick"):
+        # [times]' granite-3-2b bf16 prefill of 2,048 tokens (one row, the
+        # flash kernel) and its engine's decode of SERVE_SLOTS rows
+        cfg = get_config(SERVE_ARCH)
+        model = specs.abstract_params(cfg)
+        if kind == "prefill":
+            s = max(FLASH_LENGTHS)
+            caches = lm.init_caches(cfg, 1, s, device="meta")
+            toks = torch.empty((1, s), dtype=torch.long, device="meta")
+            with torch.no_grad():
+                out = steps.trace_call(one, model.forward_prefill,
+                                       {"tokens": toks}, caches,
+                                       use_flash=True)
+            rows, seq = 1, s
+        else:
+            caches = lm.init_caches(cfg, SERVE_SLOTS, SERVE_MAX_SEQ,
+                                    device="meta")
+            tok = torch.empty((SERVE_SLOTS, 1), dtype=torch.long,
+                              device="meta")
+            pos = torch.empty((SERVE_SLOTS,), dtype=torch.long,
+                              device="meta")
+            with torch.no_grad():
+                out = steps.trace_call(one, model.forward_decode, tok, pos,
+                                       caches)
+            rows, seq = SERVE_SLOTS, 1
+        rec = {"stats": out["stats"], "kind": "prefill" if seq > 1
+               else "decode", "active": cfg.active_param_count(),
+               "batch": rows, "seq": seq, "dtype": cfg.activation_dtype}
+    else:  # the main path's fused matvec at n = N_MAIN, C = 1
+        setup_name = args[0]
+        op = dryrun.meta_fastsum(setup_name.lower().replace("_", ""),
+                                 N_MAIN, 3)
+        out = dryrun.trace_matvec(op, (N_MAIN,))
+        rec = {"stats": out["stats"], "kind": "prefill",
+               "active": float(N_MAIN), "batch": 1, "seq": 1,
+               "dtype": "float64"}
+    if "stats" in rec and not isinstance(rec["stats"], dict):
+        roof = roofline.roofline_from_stats(
+            rec["stats"], kind=rec["kind"], active_params=rec["active"],
+            batch=rec["batch"], seq=rec["seq"], chips=1, dtype=rec["dtype"])
+        rec = {"stats": rec["stats"].to_json(), "roofline": roof.to_json()}
+    return "/".join(str(a) for a in job), rec
+
+
+def dryrun_jobs(ctx, jobs_by_rank):
+    """This rank's share of [dryrun]'s jobs (``dryrun_job``), each with its
+    host seconds."""
+    out = []
+    for job in jobs_by_rank[ctx.rank]:
+        t = time.perf_counter()
+        name, rec = dryrun_job(job)
+        out.append((name, rec, time.perf_counter() - t))
+    return out
+
+
 def richardson(f, x0: float, h: float) -> float:
     """Central differences at steps h and h/2, extrapolated: O(h^4)."""
     d1 = (f(x0 + h) - f(x0 - h)) / (2 * h)
@@ -1417,6 +1722,7 @@ class Smoke:
         from repro_torch.kernels import _build, kernel_matvec, nfft_window
         from repro_torch.configs import get_config
         from repro_torch.kernels import flash_attention
+        from repro_torch.launch import roofline
         from repro_torch.models import model as lm
         from repro_torch.runtime import durable, faultinject, guards
         from repro_torch.serving import graph as graph_serving
@@ -1425,6 +1731,7 @@ class Smoke:
 
         self.torch = torch
         self.fa, self.lm, self.get_config = flash_attention, lm, get_config
+        self.rl = roofline
         self.Request, self.ServeEngine = Request, ServeEngine
         self.fs, self.lan, self.spec = fastsum, lanczos, spectral
         self.solvers = solvers
@@ -1448,6 +1755,7 @@ class Smoke:
         self.det_records = []  # the deterministic spread on [durable]'s paths
         self.path_launches = {}
         self.slice_records = []  # window kernels on the slice-8/9 paths
+        self.shard_serve_rows = []  # flash at [shard_serve]'s rank shapes
         self.alpha_hat = {}  # [graph_serve]'s NDFT of each model's alpha
         self.dev = torch.device("cuda", 0)
         self.kernel = make_kernel("gaussian", sigma=SIGMA)
@@ -1510,20 +1818,14 @@ class Smoke:
         self.path_launches[path] = counts
         return counts
 
-    @staticmethod
-    def km_bound(n_out, n_in, d, c, profile, dtype_name, zero_diagonal):
+    def km_bound(self, n_out, n_in, d, c, profile, dtype_name,
+                 zero_diagonal):
         """(ms, bound_by, flops, bytes) of the card's least time for one
-        direct sum: per pair d subtractions and d multiply-adds (3d), the
-        profile's operations, and 2C for the accumulation; each input read
-        once and each output written once."""
-        s = 8 if dtype_name == "float64" else 4
-        pairs = n_out * n_in - (min(n_out, n_in) if zero_diagonal else 0)
-        flops = pairs * (3 * d + KM_PROFILE_OPS[profile] + 2 * c)
-        nbytes = s * (n_out * d + n_in * (d + c) + n_out * c)
-        t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
-                else "bytes", flops, nbytes)
+        direct sum, its work counted by ``kernel_matvec.work``."""
+        flops, nbytes = self.km.work(n_out, n_in, d, c, profile, dtype_name,
+                                     zero_diagonal)
+        ms, by = self.rl.bound_ms(flops, nbytes, PEAK_FLOPS[dtype_name])
+        return ms, by, flops, nbytes
 
     def km_inputs(self, n_out, n_in, d, c, dtype, points=None):
         """(a, b, x).  "spiral" (the default when square): spiral nodes
@@ -1569,23 +1871,14 @@ class Smoke:
         yield KM_RECT[0], KM_RECT[1], 2, 1, False
         yield KM_RECT[0], KM_RECT[1], 2, 1, True
 
-    @staticmethod
-    def flash_bound(b, hq, hkv, sq, sk, dh, causal, itemsize):
+    def flash_bound(self, b, hq, hkv, sq, sk, dh, causal, itemsize):
         """(ms, bound_by, flops, bytes) of the card's least time for one
-        attention forward: 4 dh flops per visible (query, key) pair (QK^T
-        and PV), over the bf16 dense tensor-core peak; q, k, v read once and
-        o written once."""
-        if causal:  # row t sees keys [0, t + sk - sq], clipped to [0, sk)
-            rows = np.arange(sq)
-            pairs = int(np.clip(rows + (sk - sq) + 1, 0, sk).sum())
-        else:
-            pairs = sq * sk
-        flops = 4 * b * hq * dh * pairs
-        nbytes = itemsize * (2 * b * hq * sq * dh + 2 * b * hkv * sk * dh)
-        t_ops = flops / PEAK_BF16_TENSOR * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
-                else "bytes", flops, nbytes)
+        attention forward, its work counted by ``flash_attention.work``,
+        over the bf16 dense tensor-core peak."""
+        flops, nbytes = self.fa.work(b, hq, hkv, sq, sk, dh, causal,
+                                     itemsize)
+        ms, by = self.rl.bound_ms(flops, nbytes, PEAK_BF16_TENSOR)
+        return ms, by, flops, nbytes
 
     def flash_inputs(self, b, hq, hkv, sq, sk, dh, dtype, seed):
         torch = self.torch
@@ -1664,22 +1957,12 @@ class Smoke:
                                  device=self.dev)
         return plan, geom.base, w.to(dtype), geom.tiles
 
-    @staticmethod
-    def bound(n, d, taps, c, pad, dtype_name):
+    def bound(self, n, d, taps, c, pad, dtype_name):
         """(ms, bound_by, flops, bytes) of the card's least time for one
-        spread or gather: each input read once, each output written once.
-
-        Flops: one multiply-add per window cell and channel (2C per cell),
-        plus the leading weight products, one per (taps,)^(d-1) prefix
-        and axis beyond the first.  Scaling x by the prefix product (spread)
-        or contracting axis by axis (gather) needs no more than that."""
-        s = 8 if dtype_name == "float64" else 4
-        flops = n * (2 * c * taps ** d + (d - 1) * taps ** (d - 1))
-        nbytes = n * (4 * d + s * d * taps + s * c) + s * pad ** d * c
-        t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
-                else "bytes", flops, nbytes)
+        spread or gather, its work counted by ``nfft_window.work``."""
+        flops, nbytes = self.win.work(n, d, taps, c, pad, dtype_name)
+        ms, by = self.rl.bound_ms(flops, nbytes, PEAK_FLOPS[dtype_name])
+        return ms, by, flops, nbytes
 
     # -- phases ------------------------------------------------------------
     def run(self):
@@ -1709,6 +1992,8 @@ class Smoke:
         self.phase_times()
         self.phase_train()
         self.phase_shard_train()
+        self.phase_shard_serve()
+        self.phase_dryrun()
         self.phase_moe_serve()
         self.phase_ssm_serve()
         self.phase_mla_serve()
@@ -5008,6 +5293,8 @@ class Smoke:
             "peak_pred_gb": SHARD_PEAK_PRED[arch if arch != TRAIN_ARCH
                                             else mesh],
             "flops": [o["flops"] for o in outs], "flops_single": single,
+            "traffic_per_rank": [o["traffic"][0] for o in outs],
+            "traffic_axes_per_rank": [o["traffic_axes"][0] for o in outs],
             "launches": first["launches"]}
         log(f"[shard_train] {name} ({card}), {SHARD_MICRO[mesh]} "
             f"microbatches: loss "
@@ -5040,6 +5327,424 @@ class Smoke:
             + ("" if first["save_s"] is None else
                f"; sharded save after step {SHARD_SAVE_AT} "
                f"{first['save_s']:.1f}s"))
+
+    def phase_shard_serve(self):
+        """[shard_serve]: the sharded prefill and decode steps
+        (launch.steps.ShardedServeStep) on SHARD_WORLD gloo ranks sharing
+        cuda:0, SERVE_SHARD_CASES at full width, float32: each rank holds
+        its blocks of the weights (``param_specs(serve_replicated=...)``,
+        stored once in their compute layout over "model")
+        and its rows' caches, and computes its block of the heads (prefill:
+        the flash kernel on them; decode: its block of the cache
+        positions), hidden units and experts.  Every rank's whole logits of
+        the prefill and of SERVE_SHARD_DECODES decode steps within
+        SERVE_SHARD_TOL of the largest logit of the port's single-device
+        steps on the card, bitwise equal on the ranks; flash launched once a
+        layer on every rank in the prefill; the counters and step times
+        recorded for [dryrun].  The flash kernel is held against its plain
+        version and timed at each case's per-rank shape."""
+        from repro_torch.launch.ranks import RankPool
+        torch = self.torch
+        card = self.record["device"]["nvidia_smi"]
+        gc_collect(torch)
+        t0 = time.perf_counter()
+        self.record["shard_serve"] = {"card": card}
+        singles = {arch: self.shard_serve_single(arch)
+                   for arch in dict.fromkeys(a for a, _, _ in
+                                             SERVE_SHARD_CASES)}
+        with RankPool(SHARD_WORLD, "gloo", "cuda:0") as pool:
+            log(f"[shard_serve] {SHARD_WORLD} gloo ranks on cuda:0 ({card}), "
+                f"float32, full width, {SERVE_SHARD_ROWS} x "
+                f"{SERVE_SHARD_PROMPT}-token prefill (PREFILL_32K's 32 x "
+                f"32,768 cut) + {SERVE_SHARD_DECODES} decode steps: times "
+                "are four processes time-sharing the card with gloo staging "
+                "every collective through the host; not scaling numbers")
+            for arch, layers, mesh in SERVE_SHARD_CASES:
+                outs = pool.run(shard_serve_case, arch, mesh)
+                self.shard_serve_parity(arch, mesh, outs, singles[arch])
+        for arch, layers, mesh in SERVE_SHARD_CASES:
+            self.shard_serve_flash(arch, mesh)
+        self.record["shard_serve"]["s"] = time.perf_counter() - t0
+        log(f"[shard_serve] phase {self.record['shard_serve']['s']:.1f}s "
+            f"wall ({card}; a spawn of ranks included)")
+
+    def shard_serve_single(self, arch):
+        """The port's single-device prefill and decode steps of
+        shard_serve_config(arch) on the card, on [shard_serve]'s seeded
+        weights and tokens: the logits of every step, and its times."""
+        torch, lm = self.torch, self.lm
+        cfg = shard_serve_config(arch)
+        model = lm.init_params(cfg, SERVE_SEED, device=self.dev)
+        caches = lm.init_caches(cfg, SERVE_SHARD_ROWS, SERVE_SHARD_PROMPT
+                                + SERVE_SHARD_DECODES, device=self.dev)
+        prompt, tokens = shard_serve_tokens(cfg)
+        self.sync()
+        t = time.perf_counter()
+        logits, caches = model.forward_prefill(
+            {"tokens": torch.as_tensor(prompt, device=self.dev)}, caches)
+        self.sync()
+        times = [time.perf_counter() - t]
+        out = [logits.cpu().numpy()]
+        for i in range(SERVE_SHARD_DECODES):
+            pos = torch.full((SERVE_SHARD_ROWS,), SERVE_SHARD_PROMPT + i,
+                             dtype=torch.int32, device=self.dev)
+            t = time.perf_counter()
+            logits, caches = model.forward_decode(
+                torch.as_tensor(tokens[:, i:i + 1], device=self.dev), pos,
+                caches)
+            self.sync()
+            times.append(time.perf_counter() - t)
+            out.append(logits.cpu().numpy())
+        del model, caches, logits
+        gc_collect(torch)
+        return {"logits": np.stack(out), "step_s": times}
+
+    def shard_serve_parity(self, arch, mesh, outs, single):
+        card = self.record["device"]["nvidia_smi"]
+        cfg = shard_serve_config(arch)
+        name = f"{arch} {mesh}"
+        want = single["logits"]
+        scale = float(np.abs(want).max())
+        errs = [float(np.abs(o["logits"] - want).max()) / scale for o in outs]
+        check(all(np.all(np.isfinite(o["logits"])) for o in outs),
+              f"shard_serve {name}: non-finite logits")
+        check(max(errs) <= SERVE_SHARD_TOL, f"shard_serve {name}: logits "
+              f"{errs} of the largest from the single-device steps' (limit "
+              f"{SERVE_SHARD_TOL:g})")
+        check(all(np.array_equal(o["logits"], outs[0]["logits"])
+                  for o in outs), f"shard_serve {name}: ranks differ")
+        flash = [o["launches_prefill"]["flash_attention"] for o in outs]
+        check(flash == [cfg.num_layers] * len(outs),
+              f"shard_serve {name}: flash launches a rank {flash}, want "
+              f"{cfg.num_layers} (one a layer, on the rank's heads)")
+        others = [(k, v) for o in outs for k, v in
+                  list(o["launches_prefill"].items())
+                  + list(o["launches_decode"].items())
+                  if v and k != "flash_attention"]
+        check(not others and all(o["launches_decode"]["flash_attention"] == 0
+                                 for o in outs),
+              f"shard_serve {name}: other launches {others}")
+        for o in outs:
+            check(all(d["traffic"] == o["decode"][0]["traffic"]
+                      for d in o["decode"]),
+                  f"shard_serve {name}: decode traffic differs by step")
+        if mesh[1] > 1:
+            check(any(k.endswith("@model") for k in
+                      outs[0]["prefill"]["traffic_axes"]),
+                  f"shard_serve {name}: no collective over model")
+        path = f"shard_serve {name}"
+        self.path_launches[path] = {
+            "window_spread": 0, "window_spread_deterministic": 0,
+            "window_gather": 0, "kernel_matvec": 0,
+            "flash_attention": sum(flash), "per_rank": flash}
+        first = outs[0]
+        self.record["shard_serve"][name] = {
+            "layers": cfg.num_layers, "rel_err": errs,
+            "replicated": first["replicated"],
+            "prefill": [o["prefill"] for o in outs],
+            "decode": [o["decode"][0] for o in outs],
+            "prefill_s": [o["prefill_s"] for o in outs],
+            "decode_s": [o["decode_s"] for o in outs],
+            "single_s": single["step_s"], "launches_prefill": flash,
+            "peak_gb": [o["peak_gb"] for o in outs],
+            "model_index": [o["model_index"] for o in outs]}
+        dec = [round(t, 4) for t in first["decode_s"]]
+        split = "model only" if first["replicated"] else "FSDP and model"
+        log(f"[shard_serve] {name} ({card}), {cfg.num_layers} layers, "
+            f"weights split over {split}, in their compute layout: "
+            f"logits within {max(errs):.2e} of the largest single-device "
+            f"logit (limit {SERVE_SHARD_TOL:g}) on every rank, bitwise equal "
+            f"on the {len(outs)} ranks; flash launches a rank {flash}")
+        log(f"[shard_serve] {name} ({card}): prefill {first['prefill_s']:.3f}"
+            f" s, decode {dec} s (rank 0, host clock, every rank starting "
+            f"together, ending in a sync); single-device prefill "
+            f"{single['step_s'][0]:.3f} s, decode "
+            f"{[round(t, 4) for t in single['step_s'][1:]]} s; peak "
+            f"{max(o['peak_gb'] for o in outs):.2f} GB a rank")
+        log(f"[shard_serve] {name} ({card}): prefill traffic a rank "
+            f"{first['prefill']['traffic']} by kind@axes "
+            f"{first['prefill']['traffic_axes']}, matmul FLOPs a rank "
+            f"{[o['prefill']['flops'] for o in outs]}; decode step traffic "
+            f"{first['decode'][0]['traffic']}, matmul FLOPs "
+            f"{[o['decode'][0]['flops'] for o in outs]}")
+
+    def shard_serve_flash(self, arch, mesh):
+        """The flash kernel at [shard_serve]'s per-rank prefill shape (its
+        block of the heads, its rows), float32: against its plain version,
+        its time, plain time, bound and SDPA's time."""
+        torch, fa = self.torch, self.fa
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        cfg = shard_serve_config(arch)
+        m = mesh[1]
+        rows = SERVE_SHARD_ROWS // mesh[0]
+        hq = cfg.num_heads // m  # and the kv heads they read
+        hkv = cfg.num_kv_heads // m if cfg.num_kv_heads % m == 0 else max(
+            1, hq * cfg.num_kv_heads // cfg.num_heads)
+        shape = (rows, hq, hkv, SERVE_SHARD_PROMPT, SERVE_SHARD_PROMPT,
+                 cfg.head_dim_eff)
+        err, share, finite = self.flash_reading(shape, True, "float32",
+                                                sum(shape))
+        check(share <= 1.0 and finite, f"shard_serve flash {shape}: {err:.3e}"
+              f", {share:.3f} of the limit")
+        q, k, v = self.flash_inputs(*shape, torch.float32, sum(shape))
+        ms = self.time_ms(lambda: fa.flash_attention(q, k, v, causal=True),
+                          reps=10, warmup=1)
+        plain_ms = self.time_ms(
+            lambda: fa.flash_attention_plain(q, k, v, causal=True), reps=3,
+            warmup=1)
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH]):
+            lib_ms = self.time_ms(lambda: torch.nn.functional.
+                                  scaled_dot_product_attention(
+                                      q, k, v, is_causal=True,
+                                      enable_gqa=hq != hkv), reps=10,
+                                  warmup=1)
+        bound_ms, by, flops, nbytes = self.flash_bound(*shape, True, 4)
+        path = f"shard_serve {arch} {mesh}"
+        row = {"kernel": "flash_attention", "path": path, "b": rows,
+               "hq": hq, "hkv": hkv, "sq": shape[3], "sk": shape[4],
+               "dh": shape[5], "causal": True, "dtype": "float32",
+               "design": "cuda cores", "max_abs_err": err,
+               "limit_share": share, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": by, "flops": flops,
+               "bytes": nbytes, "library_ms": lib_ms,
+               "launches": self.path_launches[path]["flash_attention"]}
+        self.record["times"].append(row)
+        self.shard_serve_rows.append(row)
+        log(f"[shard_serve] flash_attention {path} b={rows} hq={hq} "
+            f"hkv={hkv} s={shape[3]} dh={shape[5]} causal float32 "
+            f"({self.record['device']['nvidia_smi']}): max_abs_err "
+            f"{err:.3e} ({share:.3f} of the limit); "
+            f"{ms:.4f} ms  bound {bound_ms:.4f} ms ({by}, "
+            f"{100 * bound_ms / ms:.2f}% of bound)  plain {plain_ms:.3f} ms  "
+            f"SDPA {lib_ms:.4f} ms (kernel {ms / lib_ms:.2f}x SDPA); "
+            f"{row['launches']} launches on the path (all ranks)")
+        del q, k, v
+
+    def phase_dryrun(self):
+        """[dryrun]: the dry run (launch.dryrun: the port's steps traced as
+        one rank of a described mesh on meta, no card, no process group)
+        against the counters and clocks of the live runs before it.  (a)
+        every rank of [shard_train]'s cells: operand bytes by kind, by
+        (kind, axes) and "wire" equal to the card's, forward matmul FLOPs
+        equal to the card's FlopCounterMode reading and to shard_flops,
+        bytes of state equal, peak live bytes within DRY_PEAK_TOL of the
+        card's peak; (b) every [dist] case: rank 0's traffic equal, its
+        payload by kind printed; (c) every rank of [shard_serve]'s cells:
+        the prefill's and a decode step's traffic and matmul FLOPs equal,
+        flash counted once a layer; (d) the roofline terms of the single-card
+        paths ([train]'s step, [times]' prefill and tick, the main path's
+        fused matvec) as shares of their measured times, none over
+        DRY_SHARE_MAX; (e) granite-3-2b's production cells and the graph
+        cells at 8 to 512 ranks, every one ok.  The traces run on
+        SHARD_WORLD CPU ranks side by side."""
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.ranks import RankPool
+        card = self.record["device"]["nvidia_smi"]
+        t0 = time.perf_counter()
+        rec = self.record["dryrun"] = {"card": card}
+        train_cells = [(TRAIN_ARCH, m) for m in SHARD_MESHES] + [
+            (SHARD_MOE_ARCH, SHARD_MOE_MESH)]
+        serve_cells = [(a, m) for a, _, m in SERVE_SHARD_CASES]
+        jobs = ([("train",), ("prefill",), ("tick",), ("matvec", "SETUP_2"),
+                 ("matvec", "SETUP_3")]
+                + [("lm", TRAIN_ARCH, s, multi) for s in DRY_LM_SHAPES
+                   for multi in (False, True)]
+                + [("graph", m, mode, bank) for m in DRY_GRAPH_MESHES
+                   for mode in ("psum", "pencil")
+                   for bank in (1, DRY_GRAPH_BANK)])
+        # the slow traces (a full-depth train step) spread first
+        cost = {"train": 12, "lm": 3, "prefill": 3, "tick": 3}
+        by_rank = [[] for _ in range(SHARD_WORLD)]
+        load = [0.0] * SHARD_WORLD
+        for job in sorted(jobs, key=lambda j: -(
+                12 if j[:3] == ("lm", TRAIN_ARCH, "train_4k")
+                else cost.get(j[0], 0.5))):
+            r = load.index(min(load))
+            by_rank[r].append(job)
+            load[r] += (12 if job[:3] == ("lm", TRAIN_ARCH, "train_4k")
+                        else cost.get(job[0], 0.5))
+        with RankPool(SHARD_WORLD, "gloo", "cpu", threads=1) as pool:
+            train = {c: pool.run(dryrun_train_case, *c) for c in train_cells}
+            serve = {c: pool.run(dryrun_serve_case, *c) for c in serve_cells}
+            ran = pool.run(dryrun_jobs, by_rank)
+        done = {name: (r, took) for outs in ran for name, r, took in outs}
+        rank_s = [sum(took for _, _, took in outs) for outs in ran]
+        self.dryrun_train(train)
+        self.dryrun_dist(dryrun)
+        self.dryrun_serve(serve)
+        self.dryrun_shares(done)
+        self.dryrun_production(done)
+        rec["s"] = time.perf_counter() - t0
+        log(f"[dryrun] phase {rec['s']:.1f}s wall ({SHARD_WORLD} CPU ranks "
+            f"tracing side by side, a spawn included; the ranks' jobs "
+            f"{[round(t, 1) for t in rank_s]} s)")
+
+    def dryrun_train(self, train):
+        card = self.record["device"]["nvidia_smi"]
+        rows_out = {}
+        for (arch, mesh), outs in train.items():
+            name = f"{arch} {mesh}"
+            got = self.record["shard_train"][name]
+            cfg = shard_case_config(arch)
+            rows = SHARD_BATCH // SHARD_MICRO[mesh] // mesh[0]
+            peaks = []
+            for r, o in enumerate(outs):
+                check(o["traffic"] == got["traffic_per_rank"][r],
+                      f"dryrun {name} rank {r}: traffic {o['traffic']} vs "
+                      f"the card's {got['traffic_per_rank'][r]}")
+                check(o["traffic_axes"] == got["traffic_axes_per_rank"][r],
+                      f"dryrun {name} rank {r}: traffic by axes "
+                      f"{o['traffic_axes']} vs the card's "
+                      f"{got['traffic_axes_per_rank'][r]}")
+                want = shard_flops(cfg, rows, mesh[1], r % mesh[1])
+                check(o["forward_flops"] == got["flops"][r] == want,
+                      f"dryrun {name} rank {r}: forward FLOPs "
+                      f"{o['forward_flops']} vs the card's {got['flops'][r]} "
+                      f"and shard_flops {want}")
+                check(o["state_bytes"] == got["bytes"]["held"],
+                      f"dryrun {name} rank {r}: state {o['state_bytes']} B vs "
+                      f"the card's {got['bytes']['held']} B")
+                peak = o["memory"]["peak_bytes"] / 1e9
+                peaks.append(peak)
+                check(abs(peak - got["peak_gb"][r])
+                      <= DRY_PEAK_TOL * got["peak_gb"][r],
+                      f"dryrun {name} rank {r}: peak {peak:.2f} GB vs the "
+                      f"card's {got['peak_gb'][r]:.2f} GB")
+            rows_out[name] = {"peak_gb": peaks, "card_peak_gb": got["peak_gb"],
+                              "stats": outs[0]["stats"],
+                              "memory": outs[0]["memory"]}
+            off = ", ".join(f"{100 * (p / c - 1):+.1f}%"
+                            for p, c in zip(peaks, got["peak_gb"]))
+            log(f"[dryrun] (a) {name}: every rank's traffic by kind, by "
+                f"kind@axes and wire, forward matmul FLOPs "
+                f"{[o['forward_flops'] for o in outs]} and state "
+                f"{outs[0]['state_bytes']} B equal the card's ({card}) to the "
+                f"byte; peak live bytes a rank "
+                f"{[round(p, 2) for p in peaks]} GB vs measured "
+                f"{[round(p, 2) for p in got['peak_gb']]} GB "
+                f"({off}; "
+                f"limit {DRY_PEAK_TOL:.0%}: meta storages hold no allocator "
+                "slack, no cuBLAS or gloo workspace)")
+        self.record["dryrun"]["train"] = rows_out
+
+    def dryrun_dist(self, dryrun):
+        card = self.record["device"]["nvidia_smi"]
+        ops = {}
+        rows = []
+        for c in self.record["dist"]["cases"]:
+            key = (c["kind"], c["n"], c["setup"])
+            if key not in ops:
+                ops[key] = dryrun.meta_fastsum(
+                    c["setup"].lower().replace("_", ""), c["n"], 3,
+                    bank_size=len(BANK_SIGMAS) if c["kind"] == "bank" else 1)
+            split = None if c["split"] is None else tuple(
+                tuple(a) for a in c["split"])
+            out = dryrun.trace_matvec(ops[key], tuple(c["shape"]),
+                                      dry_mesh(tuple(c["mesh"])), rank=0,
+                                      spectral_mode=c["mode"],
+                                      pencil_axes=split)
+            got = dict(out["mesh"].traffic)
+            what = (f"{c['kind']} n={c['n']} {c['setup']} {c['mode']} mesh "
+                    f"{tuple(c['mesh'])}"
+                    + (f" split {split}" if split else "")
+                    + f" x {tuple(c['shape'])}")
+            check(got == c["traffic_rank0"], f"dryrun (b) {what}: rank 0's "
+                  f"traffic {got} vs the card's {c['traffic_rank0']}")
+            by_kind = {}
+            for kind, operand, axes, g, _ in out["collectives"]:
+                by_kind[kind] = by_kind.get(kind, 0) + \
+                    self.rl.payload_bytes(kind, operand, g)
+            rows.append({"case": what, "traffic": got,
+                         "payload_by_kind": by_kind,
+                         "payload": out["stats"].collective_payload_bytes})
+        self.record["dryrun"]["dist"] = rows
+        log(f"[dryrun] (b) every one of [dist]'s {len(rows)} cases (n = 10^5 "
+            f"and 10^6, the bank, float64): rank 0's operand bytes by kind "
+            f"and wire equal the card's ({card}) to the byte; payload by "
+            "kind: " + "; ".join(f"{r['case']} {r['payload_by_kind']}"
+                                 for r in rows[:6]) + " ...")
+
+    def dryrun_serve(self, serve):
+        card = self.record["device"]["nvidia_smi"]
+        for (arch, mesh), outs in serve.items():
+            name = f"{arch} {mesh}"
+            got = self.record["shard_serve"][name]
+            cfg = shard_serve_config(arch)
+            for r, o in enumerate(outs):
+                for kind in ("prefill", "decode"):
+                    want = got[kind][r]
+                    for key in ("traffic", "traffic_axes", "flops"):
+                        check(o[kind][key] == want[key],
+                              f"dryrun (c) {name} rank {r} {kind}: {key} "
+                              f"{o[kind][key]} vs the card's {want[key]}")
+                fl = o["prefill"]["kernels"].get("flash_attention", {})
+                check(fl.get("launches") == cfg.num_layers
+                      == got["launches_prefill"][r],
+                      f"dryrun (c) {name} rank {r}: flash {fl} vs the card's "
+                      f"{got['launches_prefill'][r]} launches")
+            self.record["dryrun"][f"serve {name}"] = {
+                k: outs[0][k]["stats"] for k in ("prefill", "decode")}
+            log(f"[dryrun] (c) {name}: every rank's prefill and decode-step "
+                f"traffic by kind, by kind@axes and wire and matmul FLOPs "
+                f"equal the card's ({card}); flash {cfg.num_layers} launches "
+                f"a rank in both, its work {fl['flops']:.3e} FLOPs a rank "
+                "(data-sheet bound, not measured)")
+
+    def dryrun_shares(self, done):
+        """(d): each single-card path's roofline terms (data-sheet peaks)
+        as shares of its measured time."""
+        card = self.record["device"]["nvidia_smi"]
+        serve_row = next(r for r in self.record["times"] if "serve" in r
+                         and "tick_ms" in r)
+        measured = {
+            "train": self.record["train"]["full"]["median_step_s"],
+            "prefill": serve_row["prefill_ms"][max(FLASH_LENGTHS)] / 1e3,
+            "tick": serve_row["tick_ms"] / 1e3}
+        for setup_name in ("SETUP_2", "SETUP_3"):
+            row = next(r for r in self.record["times"]
+                       if r.get("setup") == setup_name
+                       and r.get("n") == N_MAIN and "matvec_ms_c1" in r)
+            measured[f"matvec/{setup_name}"] = row["matvec_ms_c1"] / 1e3
+        shares = {}
+        for name, t in measured.items():
+            roof = done[name][0]["roofline"]
+            sh = {term: roof[f"{term}_s"] / t
+                  for term in ("compute", "memory", "collective")}
+            shares[name] = {"measured_s": t, "roofline": roof, "shares": sh}
+            log(f"[dryrun] (d) {name}: measured {t * 1e3:.3f} ms ({card}); "
+                f"roofline (H100 SXM data-sheet peaks, not measured) compute "
+                f"{roof['compute_s'] * 1e3:.3f} ms = {100 * sh['compute']:.1f}%"
+                f", memory {roof['memory_s'] * 1e3:.3f} ms = "
+                f"{100 * sh['memory']:.1f}%, collective "
+                f"{roof['collective_s'] * 1e3:.3f} ms = "
+                f"{100 * sh['collective']:.1f}% of the measured time; "
+                f"{roof['flops']:.3e} FLOPs, {roof['bytes_accessed']:.3e} B")
+            check(max(sh.values()) <= DRY_SHARE_MAX,
+                  f"dryrun (d) {name}: a roofline term is "
+                  f"{100 * max(sh.values()):.1f}% of the measured time")
+        self.record["dryrun"]["shares"] = shares
+
+    def dryrun_production(self, done):
+        """(e): granite-3-2b's production cells and the graph cells."""
+        cells = {n: r for n, (r, _) in done.items()
+                 if n.startswith(("lm/", "graph/"))}
+        for name, r in cells.items():
+            check(r["status"] == "ok", f"dryrun (e) {name}: {r['status']} "
+                  f"{r.get('error', '')}")
+            st, roof = r["stats"], r["roofline"]
+            log(f"[dryrun] (e) {r['arch']} x {r['shape']} @ {r['mesh']} "
+                f"({r.get('spectral_mode_effective', r['kind'])}): a rank "
+                f"{st['flops']:.3e} FLOPs, {st['hbm_bytes']:.3e} B HBM, "
+                f"{st['collective_bytes']:.3e} B collective (payload "
+                f"{st['collective_payload_bytes']:.3e} B, DCI "
+                f"{st['dci_bytes']:.3e} B); roofline (data-sheet peaks) "
+                f"compute {roof['compute_s']:.3e} s, memory "
+                f"{roof['memory_s']:.3e} s, collective "
+                f"{roof['collective_s']:.3e} s: {roof['dominant']}; peak "
+                f"live {r['memory']['peak_bytes']:.3e} B a rank")
+        self.record["dryrun"]["production"] = cells
 
     def shard_restore_single(self, cfg, tc, save_dir):
         """The sharded checkpoint restored into the single-device state,
@@ -6416,6 +7121,18 @@ class Smoke:
             "max_abs_err": check_row["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        # ... on [shard_serve]'s paths, at each case's per-rank shape
+        for t in self.shard_serve_rows:
+            out.append({
+                "name": "flash_attention", "route": "cuda",
+                "source": FA_SOURCE, "design": t["design"],
+                "replaces": "src/repro/kernels/flash_attention.py:34",
+                "path": t["path"], "shape": {k: t[k] for k in (
+                    "b", "hq", "hkv", "sq", "sk", "dh", "causal", "dtype")},
+                "launches": t["launches"], "max_abs_err": t["max_abs_err"],
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"]})
         # ... and on the other paths that launch it, at each path's shape
         for path, label, shape, causal, dname in FAMILY_FLASH:
             check_row = next(r for r in self.record["checks"]

@@ -49,6 +49,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from repro_torch.launch.mesh import ceil_blocks, gather_blocks
+from repro_torch.models.common import splits_over_model
 from repro_torch.tree import tree_flatten_with_path, tree_unflatten
 
 # Batch + fully-sharded-parameter axes, widest first; "pod" only ever
@@ -326,27 +327,16 @@ _KV_DIM = {"wk": -1, "wv": -1, "bk": 0, "bv": 0}
 _SUMMED = {("mamba", "w_bc"), ("mamba", "conv_bc_w"), ("mamba", "conv_bc_b")}
 
 
-def _check_split(cfg, owner: str, m: int) -> None:
-    """Heads, experts and Mamba heads must split evenly over "model"."""
-    counts = {"attn": ("attention heads", cfg.num_heads),
-              "moe": ("experts", cfg.moe and cfg.moe.num_experts),
-              "mamba": ("Mamba heads", cfg.mamba and (
-                  cfg.mamba.expand * cfg.d_model // cfg.mamba.head_dim))}
-    if owner in counts:
-        what, n = counts[owner]
-        if n % m:
-            raise ValueError(f"{n} {what} do not split over a 'model' axis "
-                             f"of {m}")
-
-
 def compute_use(path, shape: tuple, storage: NamedSharding, cfg) -> Use:
     """The compute layout of one parameter of ``cfg``'s model, stored under
     ``storage``: ``Use()`` (the whole weight) without a "model" axis of
-    more than one rank."""
+    more than one rank, or for a part whose heads or experts that axis
+    does not divide (``models.common.splits_over_model``: the part
+    computes whole on every rank)."""
     m = storage.mesh.shape.get(MODEL_AXIS, 1)
     names = _path_names(path)
     key = (names[-2] if len(names) > 1 else "", names[-1])
-    if m == 1:
+    if m == 1 or not splits_over_model(cfg, key[0], m):
         return Use()
     if key[0] == "attn" and key[1] in _KV_DIM:
         if cfg.num_kv_heads % m:
@@ -358,7 +348,6 @@ def compute_use(path, shape: tuple, storage: NamedSharding, cfg) -> Use:
         dim = _COMPUTE_DIM[key]
     else:
         return Use()
-    _check_split(cfg, key[0], m)
     dim %= len(shape)
     stored = [d for d, axes in storage.dim_axes() if MODEL_AXIS in axes]
     if stored == [dim]:
@@ -366,6 +355,27 @@ def compute_use(path, shape: tuple, storage: NamedSharding, cfg) -> Use:
     if stored and shape[dim] % m == 0:
         return Use("keep", ("swap", stored[0], dim))
     return Use("full", ("block", dim))
+
+
+def compute_layout(model, shardings: dict, cfg) -> dict:
+    """Storage shardings that hold every parameter's "model" block where
+    its compute layout wants it, for weights that never change (serving):
+    a weight whose :class:`Use` swaps (an all_to_all over "model" on every
+    use) is stored with the entries of its two dims exchanged, so that its
+    use only gathers the FSDP axes.  Each rank stores as many bytes as
+    under ``shardings`` wherever the FSDP axes divide the other dim too (in
+    every configuration of the repo)."""
+    out = {}
+    for name, p in model.named_parameters():
+        s = shardings[name]
+        post = compute_use((name,), tuple(p.shape), s, cfg).post
+        if post is not None and post[0] == "swap":
+            spec = list(s.spec) + [None] * (p.ndim - len(s.spec))
+            a, b = post[1], post[2]
+            spec[a], spec[b] = spec[b], spec[a]
+            s = named(s.mesh, P(*spec), tuple(p.shape))
+        out[name] = s
+    return out
 
 
 def compute_uses(model, shardings: dict, cfg) -> dict:

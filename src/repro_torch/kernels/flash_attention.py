@@ -19,12 +19,15 @@ TMA, P split into hi + lo in the input dtype for the PV product, so the
 result stays within two ulps of the float32 attention) at every head dim
 (dh 80, hubert's, as a 64-column region in 128-byte swizzle and a
 16-column tail in 32-byte swizzle; dh 256, gemma's and paligemma's, with
-q staged in shared memory), float32 the CUDA-core kernel.  The wrapper
-counts its launches in ``flash_attention.launches``.
+q staged in shared memory), float32 the CUDA-core kernel.  A ``meta``
+tensor (the dry run) gets a ``meta`` result, and the kernel's :func:`work`
+goes to the active trace counter, which counts the launch.  The wrapper
+counts its launches on the card in ``flash_attention.launches``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -85,12 +88,33 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def work(b: int, hq: int, hkv: int, sq: int, sk: int, dh: int,
+         causal: bool, itemsize: int) -> tuple:
+    """(FLOPs, bytes) of one attention forward: 4 dh FLOPs per visible
+    (query, key) pair (QK^T and PV); q, k, v read once and o written
+    once."""
+    if causal:  # row t sees keys [0, t + sk - sq], clipped to [0, sk)
+        rows = np.arange(sq)
+        pairs = int(np.clip(rows + (sk - sq) + 1, 0, sk).sum())
+    else:
+        pairs = sq * sk
+    flops = 4 * b * hq * dh * pairs
+    nbytes = itemsize * (2 * b * hq * sq * dh + 2 * b * hkv * sk * dh)
+    return flops, nbytes
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False,
                     scale: float | None = None) -> torch.Tensor:
     """Flash attention forward.  q: (b, hq, sq, dh); k, v: (b, hkv, sk, dh),
     one float dtype on one device.  Returns (b, hq, sq, dh) in q's dtype."""
     _check(q, k, v)
+    if q.device.type == "meta":
+        from repro_torch.launch.roofline import add_kernel_work
+        b, hq, sq, dh = q.shape
+        add_kernel_work("flash_attention", *work(
+            b, hq, k.shape[1], sq, k.shape[2], dh, causal, q.element_size()))
+        return torch.empty(q.shape, dtype=q.dtype, device="meta")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cuda":

@@ -13,9 +13,11 @@ guard, and the rectangular oracle of kernel ridge regression.
 Replaces the TPU kernel ``src/repro/kernels/kernel_matvec.py:_matvec_kernel``
 (its oracle is ``src/repro/kernels/ref.py:kernel_matvec_ref``).  A tensor on
 the CPU takes :func:`kernel_matvec_plain`; a CUDA tensor launches the
-hand-written kernel in ``csrc/kernel_matvec.cu`` or raises.  The wrapper
-counts its launches in ``kernel_matvec.launches``.  The kernel adds in a
-fixed order, so its result is the same from run to run.
+hand-written kernel in ``csrc/kernel_matvec.cu`` or raises; a ``meta``
+tensor (the dry run) gets a ``meta`` result, and the kernel's :func:`work`
+goes to the active trace counter, which counts the launch.  The wrapper
+counts its launches on the card in ``kernel_matvec.launches``.  The
+kernel adds in a fixed order, so its result is the same from run to run.
 
 On the card the sources are cut into S contiguous splits
 (:func:`choose_splits`), each summed by its own blocks; S > 1 sums go to a
@@ -35,6 +37,9 @@ from repro_torch.kernels import _build
 # the order is the kernel's Profile enum (csrc/kernel_matvec.cu)
 PROFILES = ("gaussian", "laplacian_rbf", "multiquadric",
             "inverse_multiquadric")
+# operations a pair for each profile of the squared radius
+PROFILE_OPS = {"gaussian": 2, "laplacian_rbf": 3, "multiquadric": 2,
+               "inverse_multiquadric": 3}
 # largest d the CUDA kernel takes (kMaxD in csrc/kernel_matvec.cu)
 MAX_D = 8
 _FLOATS = (torch.float32, torch.float64)
@@ -129,6 +134,18 @@ def kernel_matvec_plain(points_out: torch.Tensor, points_in: torch.Tensor,
     return out[:, 0] if x.ndim == 1 else out
 
 
+def work(n_out: int, n_in: int, d: int, c: int, profile: str,
+         dtype_name: str, zero_diagonal: bool) -> tuple:
+    """(FLOPs, bytes) of one direct sum: per pair d subtractions and d
+    multiply-adds (3d), the profile's operations, and 2C for the
+    accumulation; each input read once and each output written once."""
+    s = 8 if dtype_name == "float64" else 4
+    pairs = n_out * n_in - (min(n_out, n_in) if zero_diagonal else 0)
+    flops = pairs * (3 * d + PROFILE_OPS[profile] + 2 * c)
+    nbytes = s * (n_out * d + n_in * (d + c) + n_out * c)
+    return flops, nbytes
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -162,6 +179,15 @@ def kernel_matvec(points_out: torch.Tensor, points_in: torch.Tensor,
     if points_out.device != x.device or points_in.device != x.device:
         raise ValueError(f"points on {points_out.device} and "
                          f"{points_in.device}, x on {x.device}")
+    if x.device.type == "meta":
+        from repro_torch.launch.roofline import add_kernel_work
+        n_out, d = points_out.shape
+        c = 1 if x.ndim == 1 else x.shape[1]
+        add_kernel_work("kernel_matvec", *work(
+            n_out, points_in.shape[0], d, c, kernel_name,
+            str(x.dtype).replace("torch.", ""), zero_diagonal))
+        return torch.empty((n_out,) + tuple(x.shape[1:]), dtype=x.dtype,
+                           device="meta")
     if x.device.type == "cpu":
         return kernel_matvec_plain(points_out, points_in, x,
                                    kernel_name=kernel_name, param=param,

@@ -16,8 +16,11 @@ the periodic pad is the caller's job.
 
 A tensor on the CPU takes the plain PyTorch version (same semantics as
 ``repro.kernels.ref``); a CUDA tensor launches the hand-written kernel in
-``csrc/nfft_window.cu`` or raises.  Each wrapper counts its launches in a
-``launches`` attribute.
+``csrc/nfft_window.cu`` or raises; a ``meta`` tensor (the dry run,
+:mod:`repro_torch.launch.dryrun`) gets a ``meta`` result of the kernel's
+shape, and the kernel's :func:`work` goes to the active trace counter,
+which counts the launch.  Each wrapper counts its launches on the card in
+a ``launches`` attribute.
 
 Both kernels walk a :class:`TilePlan` (:func:`build_tile_plan`): the rows
 cut into contiguous tiles, each with the bounding box of its windows.  The
@@ -361,6 +364,32 @@ def _suffix(dtype: torch.dtype) -> str:
     return "f64" if dtype == torch.float64 else "f32"
 
 
+def work(n: int, d: int, taps: int, c: int, pad: int,
+         dtype_name: str) -> tuple:
+    """(FLOPs, bytes) of one spread or gather of n nodes, C channels, on
+    the (pad,)^d grid: each input read once, each output written once.
+
+    FLOPs: one multiply-add per window cell and channel (2C per cell),
+    plus the leading weight products, one per (taps,)^(d-1) prefix and
+    axis beyond the first.  Scaling x by the prefix product (spread) or
+    contracting axis by axis (gather) needs no more than that.  Bytes: the
+    int32 corners, the weights and the node values, and the grid."""
+    s = 8 if dtype_name == "float64" else 4
+    flops = n * (2 * c * taps ** d + (d - 1) * taps ** (d - 1))
+    nbytes = n * (4 * d + s * d * taps + s * c) + s * pad ** d * c
+    return flops, nbytes
+
+
+def _meta_launch(name: str, n: int, d: int, taps: int, c: int, pad: int,
+                 dtype: torch.dtype) -> None:
+    """A kernel launch on ``meta`` tensors: its :func:`work` handed to the
+    active trace counter, which counts the launch; nothing runs, and the
+    wrapper's ``launches`` (the card's count) stays as it was."""
+    from repro_torch.launch.roofline import add_kernel_work
+    add_kernel_work(name, *work(n, d, taps, c, pad,
+                                str(dtype).replace("torch.", "")))
+
+
 def window_spread(x: torch.Tensor, base: torch.Tensor, weights: torch.Tensor,
                   *, padded_size: int,
                   tiles: TilePlan | None = None) -> torch.Tensor:
@@ -380,6 +409,14 @@ def window_spread(x: torch.Tensor, base: torch.Tensor, weights: torch.Tensor,
         raise ValueError(f"padded_size {padded_size} < taps {taps}")
     if tiles is not None:
         _check_plan(tiles, n, d, taps, x.device)
+    if x.device.type == "meta":
+        c = x.shape[1]
+        _meta_launch("window_spread_deterministic"
+                     if torch.are_deterministic_algorithms_enabled()
+                     else "window_spread", n, d, taps, c, padded_size,
+                     x.dtype)
+        return torch.empty((padded_size,) * d + (c,), dtype=x.dtype,
+                           device="meta")
     if x.device.type == "cpu":
         return window_spread_plain(x, base, weights, padded_size=padded_size)
     if x.device.type != "cuda":
@@ -415,7 +452,14 @@ def window_spread_deterministic(x: torch.Tensor, base: torch.Tensor,
     box cells times the pass's channels.  Raises where the cell index,
     the scratch or a launch fails; there is no fallback.  Counts its calls
     (two kernel launches a pass) in ``launches``; records its last scratch,
-    in bytes, in ``scratch_bytes``."""
+    in bytes, in ``scratch_bytes``.  On ``meta`` tensors (the dry run)
+    it hands its :func:`work` to the active trace counter and returns
+    ``grid``."""
+    if x.device.type == "meta":
+        n, d, taps = weights.shape
+        _meta_launch("window_spread_deterministic", n, d, taps, x.shape[1],
+                     grid.shape[0], x.dtype)
+        return grid
     if x.device.type != "cuda":
         raise ValueError(f"the deterministic spread runs on the card, got "
                          f"{x.device}")
@@ -467,6 +511,10 @@ def window_gather(grid: torch.Tensor, base: torch.Tensor,
         raise ValueError(f"padded grid {padded_size} < taps {taps}")
     if tiles is not None:
         _check_plan(tiles, n, d, taps, grid.device)
+    if grid.device.type == "meta":
+        _meta_launch("window_gather", n, d, taps, c, padded_size,
+                     grid.dtype)
+        return torch.empty((n, c), dtype=grid.dtype, device="meta")
     if grid.device.type == "cpu":
         return window_gather_plain(grid, base, weights)
     if grid.device.type != "cuda":

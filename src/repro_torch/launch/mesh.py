@@ -11,6 +11,11 @@ devices, and runs the collectives that ``jax.lax`` runs over axis names:
   (16, 16) over ``("data", "model")`` and (2, 16, 16) over ``("pod",
   "data", "model")``, by shape and axis names.  It starts no process and
   touches no process group; its collectives raise.
+* ``Mesh(shape, rank=r, described=True)`` is rank ``r`` of a described
+  mesh, the dry run's (:mod:`repro_torch.launch.dryrun`): no process group
+  either, and its collectives take ``meta`` tensors only, returning the
+  result a live rank would get, in shape and dtype, and counting the same
+  traffic.
 * ``make_local_mesh(model_parallel)`` lays a ``("data", "model")`` mesh
   over the ranks of the initialised default process group, and
   :func:`make_mesh` any shape.  The caller initialises the group and picks
@@ -60,18 +65,32 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
 class Mesh:
     """Named axes over a grid of ranks; ``shape`` maps each axis name to
     its size, in mesh order.  ``rank`` is this process's global rank, or
-    None for a mesh that is only described (no process group)."""
+    None for a mesh that is only described (no process group).  With
+    ``described``, ``rank`` is the rank this process stands for on a mesh
+    that has no process group: the collectives take ``meta`` tensors,
+    return the live rank's result's shape and dtype, and count its
+    traffic."""
 
-    def __init__(self, shape: dict, rank: int | None = None):
+    def __init__(self, shape: dict, rank: int | None = None, *,
+                 described: bool = False):
         self.shape = {str(a): int(s) for a, s in shape.items()}
         self.axis_names = tuple(self.shape)
+        if described and not (rank is not None and 0 <= rank < self.size):
+            raise ValueError(f"a described rank of {self.shape} needs a rank "
+                             f"in [0, {self.size}), got {rank}")
         self.rank = rank
+        self.described = described
+        # a list to record each collective in, or None: (kind, operand
+        # bytes, axes, group size, (lowest, highest) global rank of the
+        # group)
+        self.log = None
         self._groups = {}
         self.traffic = collections.Counter()
         self.traffic_axes = collections.Counter()
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, rank={self.rank})"
+        tag = ", described=True" if self.described else ""
+        return f"Mesh({self.shape}, rank={self.rank}{tag})"
 
     @property
     def size(self) -> int:
@@ -130,19 +149,22 @@ class Mesh:
     def psum(self, t: torch.Tensor, axes) -> torch.Tensor:
         """Sum of ``t`` over the group of ``axes`` (a new tensor; a group
         of one rank still runs the all_reduce)."""
-        group, size = self.group(axes), self.group_size(axes)
+        size = self.group_size(axes)
         buf = t.clone(memory_format=torch.contiguous_format)
         self._count("all_reduce", buf, 2 * (size - 1) / size, axes)
-        dist.all_reduce(_real(buf), group=group)
+        if not self.described:
+            dist.all_reduce(_real(buf), group=self.group(axes))
         return buf
 
     def pmax(self, t: torch.Tensor, axes) -> torch.Tensor:
         """Elementwise max of real ``t`` over the group of ``axes`` (a new
         tensor; ``jax.lax.pmax``)."""
-        group, size = self.group(axes), self.group_size(axes)
+        size = self.group_size(axes)
         buf = t.clone(memory_format=torch.contiguous_format)
         self._count("all_reduce_max", buf, 2 * (size - 1) / size, axes)
-        dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group)
+        if not self.described:
+            dist.all_reduce(buf, op=dist.ReduceOp.MAX,
+                            group=self.group(axes))
         return buf
 
     def psum_scatter(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
@@ -154,7 +176,8 @@ class Mesh:
         inp = t.movedim(dim, 0).contiguous()
         out = inp.new_empty((inp.shape[0] // size,) + inp.shape[1:])
         self._count("reduce_scatter", inp, (size - 1) / size, axes)
-        _reduce_scatter(_real(out), _real(inp), group=self.group(axes))
+        if not self.described:
+            _reduce_scatter(_real(out), _real(inp), group=self.group(axes))
         return out.movedim(0, dim)
 
     def all_gather(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
@@ -166,7 +189,8 @@ class Mesh:
         inp = t.movedim(dim, 0).contiguous()
         out = inp.new_empty((inp.shape[0] * size,) + inp.shape[1:])
         self._count("all_gather", inp, size - 1, axes)
-        _all_gather(_real(out), _real(inp), group=self.group(axes))
+        if not self.described:
+            _all_gather(_real(out), _real(inp), group=self.group(axes))
         return out.movedim(0, dim)
 
     def all_to_all(self, t: torch.Tensor, axes, split_axis: int,
@@ -184,8 +208,9 @@ class Mesh:
         inp = inp.contiguous()
         out = torch.empty_like(inp)
         self._count("all_to_all", inp, (size - 1) / size, axes)
-        dist.all_to_all_single(_real(out), _real(inp),
-                               group=self.group(axes))
+        if not self.described:
+            dist.all_to_all_single(_real(out), _real(inp),
+                                   group=self.group(axes))
         # out[j] is this rank's block of rank j's tensor: put the block's
         # axis back, then merge the rank axis into concat_axis, rank major
         out = out.movedim(1, split_axis + 1).movedim(0, concat_axis)
@@ -218,10 +243,22 @@ class Mesh:
 
     def _count(self, kind: str, operand: torch.Tensor, wire: float,
                axes) -> None:
+        if self.described and operand.device.type != "meta":
+            raise ValueError(f"{self!r} has no process group: its "
+                             f"collectives take meta tensors, got one on "
+                             f"{operand.device}")
         nbytes = operand.numel() * operand.element_size()
         self.traffic[kind] += nbytes
         self.traffic["wire"] += int(round(wire * nbytes))
         self.traffic_axes[kind, self._axes(axes)] += nbytes
+        if self.log is not None:
+            axes = self._axes(axes)
+            coords = self.coords()
+            span = tuple(self._linear({**coords, **{a: end(a) for a in axes}})
+                         for end in (lambda a: 0,
+                                     lambda a: self.shape[a] - 1))
+            self.log.append((kind, nbytes, axes, self.group_size(axes),
+                             span))
 
 
 def _real(t: torch.Tensor) -> torch.Tensor:

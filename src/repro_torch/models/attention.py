@@ -13,11 +13,17 @@ form; decode uses the *absorbed* form on the compressed (c_kv, k_rope)
 cache, which holds kv_lora_rank + rope_dim values a position.  MLA is an
 einsum everywhere, as in the JAX package: it never uses the flash kernel.
 
-Under a model split (:func:`repro_torch.models.common.model_split`, the
-sharded train step), GQA's training forward computes this rank's block of
-the q heads and the kv heads they read, and its product with ``wo``'s rows
-of those heads, summed over the split; MLA, which the reference does not
-split, computes whole.
+Under a model split (:func:`repro_torch.models.common.part_split`, the
+sharded train and serving steps), GQA's training forward and prefill
+compute this rank's block of the q heads and the kv heads they read, and
+its product with ``wo``'s rows of those heads, summed over the split; the
+prefill writes every kv head into the cache, which holds the whole batch
+rows of the rank (its own kv heads all-gathered over the split).  Decode
+splits the cache positions instead, as the reference's constraint does:
+each rank attends with every head over its ceil block of the positions
+(:func:`repro_torch.launch.mesh.block_range`), and the blocks combine
+through the max, the sum of exponentials and the sum of weighted values
+over the split.  MLA, which the reference does not split, computes whole.
 """
 
 from __future__ import annotations
@@ -29,9 +35,10 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.launch.mesh import block_range, gather_blocks
 from repro_torch.models.common import (
-    apply_rope, dense_init, init_rms_norm, model_copy, model_split,
-    model_sum, rms_norm,
+    apply_rope, current_mesh, current_model_axis, dense_init, init_rms_norm,
+    model_copy, model_max, model_sum, part_split, rms_norm,
 )
 
 
@@ -133,7 +140,7 @@ class Attention(nn.Module):
         ``prefix_len > 0`` lets every query see the keys before it
         (prefix-LM); the flash kernel is used only without such a prefix,
         and never where a gradient is wanted: it has no backward."""
-        if model_split()[1] > 1:
+        if part_split(self.cfg, "attn")[1] > 1:
             return model_sum(self._attend_sequence(
                 *self._project_block(model_copy(x)), positions,
                 use_flash=use_flash, prefix_len=prefix_len))
@@ -148,16 +155,13 @@ class Attention(nn.Module):
         columns of the kv heads its q heads read, out of the whole
         projections (whose gradient the ranks sum)."""
         cfg = self.cfg
-        j, m = model_split()
+        j, m = part_split(cfg, "attn")
         h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_eff
         hl = h // m
         wk, wv = self.wk, self.wv
         bk, bv = (self.bk, self.bv) if cfg.qkv_bias else (None, None)
         if hkv % m:
             group = h // hkv
-            if group % hl and hl % group:
-                raise ValueError(f"{hl} q heads a rank do not line up with "
-                                 f"kv groups of {group}")
             lo, hi = j * hl // group, ((j + 1) * hl - 1) // group + 1
             cols = slice(lo * hd, hi * hd)
             wk, wv = wk[:, cols], wv[:, cols]
@@ -170,34 +174,68 @@ class Attention(nn.Module):
         return (q.reshape(b, s, hl, hd), k.reshape(b, s, -1, hd),
                 v.reshape(b, s, -1, hd))
 
+    def _whole_kv(self, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+        """Under a model split, every kv head of x's k and v: this rank's
+        block ``k``, ``v`` all-gathered over the split when it divides the
+        kv heads, else the whole projections (which the rank holds)."""
+        cfg = self.cfg
+        m = part_split(cfg, "attn")[1]
+        if cfg.num_kv_heads % m == 0:
+            return gather_blocks(current_mesh(), [k, v], [2, 2],
+                                 current_model_axis())
+        b, s, _ = x.shape
+        k, v = x @ self.wk, x @ self.wv
+        if cfg.qkv_bias:
+            k, v = k + self.bk, v + self.bv
+        return (k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim_eff),
+                v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim_eff))
+
     def prefill(self, x: torch.Tensor, positions: torch.Tensor,
                 cache: KVCache, *, use_flash: bool = False,
                 prefix_len: int = 0) -> torch.Tensor:
         """``attention_prefill``: :meth:`forward`, and writes the RoPE'd keys
-        and the values of [0, s) into ``cache`` in place."""
+        and the values of [0, s) into ``cache`` in place (under a model
+        split, every kv head: :meth:`_whole_kv`)."""
         s = x.shape[1]
-        q, k, v = self.project_qkv(x)
-        k_rot = apply_rope(k.transpose(1, 2), positions[:, None, :],
+        split = part_split(self.cfg, "attn")[1] > 1
+        if split:
+            q, k, v = self._project_block(model_copy(x))
+            k_all, v_all = self._whole_kv(x, k, v)
+        else:
+            q, k, v = self.project_qkv(x)
+            k_all, v_all = k, v
+        k_rot = apply_rope(k_all.transpose(1, 2), positions[:, None, :],
                            self.cfg.rope_theta).transpose(1, 2)
         cache.k[:, :s] = k_rot.to(cache.k.dtype)
-        cache.v[:, :s] = v.to(cache.v.dtype)
-        return self._attend_sequence(q, k, v, positions, use_flash=use_flash,
-                                     prefix_len=prefix_len)
+        cache.v[:, :s] = v_all.to(cache.v.dtype)
+        out = self._attend_sequence(q, k, v, positions, use_flash=use_flash,
+                                    prefix_len=prefix_len)
+        return model_sum(out) if split else out
 
     def decode(self, x: torch.Tensor, pos: torch.Tensor,
                cache: KVCache) -> torch.Tensor:
         """``attention_decode``: one token per row.  x (b, 1, d), pos (b,)
         current positions.  Writes k/v at ``pos`` into ``cache`` in place
         (the JAX package's one-hot ``_scatter_seq``, as an indexed write),
-        then attends over every cache row at or before ``pos``."""
+        then attends over every cache row at or before ``pos``; under a
+        model split, over this rank's block of the rows
+        (:meth:`_decode_split`)."""
         cfg = self.cfg
         b = x.shape[0]
-        q, k, v = self.project_qkv(x)
+        j, m = part_split(cfg, "attn")
+        if m > 1:
+            q, k, v = self._project_block(x)
+            q, = gather_blocks(current_mesh(), [q], [2], current_model_axis())
+            k, v = self._whole_kv(x, k, v)
+        else:
+            q, k, v = self.project_qkv(x)
         q = apply_rope(q.transpose(1, 2), pos[:, None, None], cfg.rope_theta)
         k = apply_rope(k.transpose(1, 2), pos[:, None, None], cfg.rope_theta)
         rows = torch.arange(b, device=x.device)
         cache.k[rows, pos] = k[:, :, 0].to(cache.k.dtype)
         cache.v[rows, pos] = v[:, 0].to(cache.v.dtype)
+        if m > 1:
+            return self._decode_split(q, pos, cache, j, m)
         s_max = cache.k.shape[1]
         valid = (torch.arange(s_max, device=x.device)[None, :]
                  <= pos[:, None])
@@ -205,6 +243,33 @@ class Attention(nn.Module):
                               cache.v.transpose(1, 2),
                               valid[:, None, None, None, :])
         return ctx.transpose(1, 2).reshape(b, 1, -1) @ self.wo
+
+    def _decode_split(self, q: torch.Tensor, pos: torch.Tensor,
+                      cache: KVCache, j: int, m: int) -> torch.Tensor:
+        """Every head's RoPE'd query q (b, h, 1, hd) over rank j's ceil
+        block of the cache rows, combined over the split: the logits' max
+        (``model_max``), then the sums of the exponentials and of the
+        values they weigh (``model_sum``); then this rank's heads' product
+        with ``wo``'s rows of them, summed over the split."""
+        b, h, _, hd = q.shape
+        hkv = cache.k.shape[2]
+        lo, hi = block_range(cache.k.shape[1], m, j)
+        kk = cache.k[:, lo:hi].transpose(1, 2)
+        vv = cache.v[:, lo:hi].transpose(1, 2)
+        qg = q.reshape(b, hkv, h // hkv, 1, hd)
+        logits = (torch.einsum("bhgqd,bhkd->bhgqk", qg, kk)
+                  / (hd ** 0.5)).float()
+        valid = (torch.arange(lo, hi, device=q.device)[None, :]
+                 <= pos[:, None])
+        logits = logits.masked_fill(~valid[:, None, None, None, :], -1e30)
+        shift = model_max(logits.amax(dim=-1, keepdim=True))
+        p = torch.exp(logits - shift)
+        den = model_sum(p.sum(dim=-1, keepdim=True))
+        num = model_sum(torch.einsum("bhgqk,bhkd->bhgqd", p.to(vv.dtype), vv))
+        ctx = (num / den.to(num.dtype)).reshape(b, h, 1, hd)
+        hl = h // m
+        mine = ctx[:, j * hl:(j + 1) * hl].transpose(1, 2)
+        return model_sum(mine.reshape(b, 1, hl * hd) @ self.wo)
 
 
 # ---------------------------------------------------------------------------

@@ -106,6 +106,61 @@ def model_split() -> tuple:
     return mesh.group_index(axis), mesh.shape[axis]
 
 
+def splits_over_model(cfg, owner: str, m: int) -> bool:
+    """Whether ``owner``'s units split evenly over ``m`` > 1 ranks of the
+    model axis: ``"attn"`` its heads, in blocks that line up with the kv
+    groups when the axis does not divide the kv heads; ``"moe"`` its
+    experts; ``"mamba"`` its heads.  Every other part splits (hidden
+    units and the vocabulary in ceil blocks)."""
+    if m == 1:
+        return False
+    if owner == "attn":
+        h, hkv = cfg.num_heads, cfg.num_kv_heads
+        if h % m:
+            return False
+        hl, group = h // m, h // hkv
+        return hkv % m == 0 or group % hl == 0 or hl % group == 0
+    if owner == "moe":
+        return cfg.moe.num_experts % m == 0
+    if owner == "mamba":
+        mc = cfg.mamba
+        return (mc.expand * cfg.d_model // mc.head_dim) % m == 0
+    return True
+
+
+def whole_parts(cfg, m: int) -> list:
+    """The parts of ``cfg``'s model that compute whole on every rank of a
+    model axis of ``m`` > 1 ranks, one line each: those whose heads or
+    experts the axis does not divide (:func:`splits_over_model`; the
+    reference's GSPMD splits them unevenly), and MLA and NFFT attention,
+    which never split.  A dry run's per-rank counts overstate these parts'
+    work up to ``m``-fold."""
+    if m == 1:
+        return []
+    out = []
+    if any(cfg.is_attention_layer(i) for i in range(cfg.num_layers)):
+        if cfg.mla is not None:
+            out.append("attn: MLA")
+        elif cfg.nfft_attention is not None:
+            out.append("attn: NFFT attention")
+        elif not splits_over_model(cfg, "attn", m):
+            out.append(f"attn: {cfg.num_heads} heads, {cfg.num_kv_heads} "
+                       f"kv heads")
+    if cfg.moe is not None and not splits_over_model(cfg, "moe", m):
+        out.append(f"moe: {cfg.moe.num_experts} experts")
+    if cfg.mamba is not None and not splits_over_model(cfg, "mamba", m):
+        mc = cfg.mamba
+        out.append(f"mamba: {mc.expand * cfg.d_model // mc.head_dim} heads")
+    return out
+
+
+def part_split(cfg, owner: str) -> tuple:
+    """:func:`model_split` for ``owner``'s units: (0, 1), computing whole,
+    when the model axis does not divide them (:func:`splits_over_model`)."""
+    j, m = model_split()
+    return (j, m) if splits_over_model(cfg, owner, m) else (0, 1)
+
+
 class _ModelCopy(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, mesh, axis):
@@ -150,6 +205,20 @@ def model_max(t: torch.Tensor) -> torch.Tensor:
     axis, outside autograd (a softmax's shift, which its gradient does not
     see)."""
     return current_mesh().pmax(t.detach(), current_model_axis())
+
+
+def model_gather(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """Under a model split, the whole of ``n`` along ``dim`` from every
+    rank's ceil block ``t`` of it (each padded to the ceil block, one
+    all_gather), outside autograd: serving's logits."""
+    m = model_split()[1]
+    c = -(-n // m)
+    pad = list(t.shape)
+    pad[dim] = c - t.shape[dim]
+    if pad[dim]:
+        t = torch.cat([t, t.new_zeros(pad)], dim=dim)
+    whole = current_mesh().all_gather(t.detach(), current_model_axis(), dim)
+    return whole.narrow(dim, 0, n)
 
 
 def model_block(t: torch.Tensor, dim: int) -> torch.Tensor:

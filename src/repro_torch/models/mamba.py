@@ -23,10 +23,13 @@ float32 whatever the model's dtype.  A sequence must be at most
 Decode per token: h = exp(dt A) h + dt B x;  y = C . h + D x, with a
 rolling conv buffer of the last d_conv - 1 raw projections.
 
-Under a model split (the sharded train step), the training forward
+Under a model split (the sharded train and serving steps), the forward
 computes this rank's block of the heads, which are its block of the inner
 channels, from the whole B/C projections; the gated RMS norm sums its
-squares over the split, since it normalises the whole inner dim.
+squares over the split, since it normalises the whole inner dim.  Prefill
+and decode keep the cache's whole shape but a rank reads and writes only
+its heads' state and its channels' conv buffer (and the whole B/C conv
+buffer): no collective moves state.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import (
-    dense_init, init_rms_norm, model_copy, model_split, model_sum, rms_norm,
+    dense_init, init_rms_norm, model_copy, model_sum, part_split, rms_norm,
 )
 
 
@@ -171,9 +174,10 @@ class Mamba(nn.Module):
     def forward(self, u: torch.Tensor, *, return_state: bool = False):
         """``mamba_forward``: u (b, s, d) -> (b, s, d) [, (conv_x, conv_bc,
         ssm): the last d_conv - 1 raw projections in float32 (fewer when
-        s is shorter) and the final state]."""
-        if model_split()[1] > 1 and not return_state:
-            return self._forward_split(u)
+        s is shorter) and the final state; under a model split, of this
+        rank's channels and heads (:meth:`_forward_split`)]."""
+        if part_split(self.cfg, "mamba")[1] > 1:
+            return self._forward_split(u, return_state)
         cfg = self.cfg
         mc, d_in, n_heads, _ = _dims(cfg)
         bsz, s, _ = u.shape
@@ -191,21 +195,44 @@ class Mamba(nn.Module):
         out = self._out(y.reshape(bsz, s, d_in).to(u.dtype), z)
         if not return_state:
             return out
-        keep = mc.d_conv - 1
-        return out, (x_raw[:, s - min(s, keep):].float(),
-                     bc_raw[:, s - min(s, keep):].float(), state)
+        return out, self._tail(x_raw, bc_raw, state)
 
-    def _forward_split(self, u: torch.Tensor) -> torch.Tensor:
+    def _tail(self, x_raw, bc_raw, state):
+        """(conv_x, conv_bc, ssm) of :meth:`forward`'s ``return_state``."""
+        s, keep = x_raw.shape[1], self.cfg.mamba.d_conv - 1
+        return (x_raw[:, s - min(s, keep):].float(),
+                bc_raw[:, s - min(s, keep):].float(), state)
+
+    def _heads(self, t: torch.Tensor, j: int, hl: int) -> torch.Tensor:
+        """(..., g·n) B or C -> heads [j·hl, (j + 1)·hl)'s (..., hl, n)."""
+        mc = self.cfg.mamba
+        per = _dims(self.cfg)[2] // mc.n_groups
+        return (t.reshape(t.shape[:-1] + (mc.n_groups, mc.d_state))
+                .repeat_interleave(per, dim=-2)[..., j * hl:(j + 1) * hl, :])
+
+    def _out_split(self, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        """:meth:`_out` of this rank's channels: the gated RMS norm's sum of
+        squares summed over the split (a psum both ways: every rank scales
+        its own channels by it), and the partial outputs of ``w_out``'s
+        rows too."""
+        d_in = _dims(self.cfg)[1]
+        dtype = y.dtype
+        yf = (y * F.silu(z)).float()
+        squares = model_sum(model_copy((yf * yf).sum(dim=-1, keepdim=True)))
+        y = yf * torch.rsqrt(squares / d_in + self.cfg.norm_eps)
+        y = (y * (1.0 + self.out_norm.float())).to(dtype)
+        return model_sum(y @ self.w_out)
+
+    def _forward_split(self, u: torch.Tensor, return_state: bool = False):
         """:meth:`forward` of this rank's H / M heads under a model split of
         M: ``w_x``, ``w_z``, ``w_dt``, the x conv, ``a_log``, ``dt_bias``,
         ``d_skip``, ``out_norm`` and ``w_out``'s rows hold its block; the
         B/C projection and conv are whole (each rank's gradient a part).
-        The gated RMS norm's sum of squares is summed over the split (a
-        psum both ways: every rank scales its own channels by it), and the
-        partial outputs of ``w_out`` too."""
+        ``return_state``: its channels' conv buffer, the whole B/C one and
+        its heads' state."""
         cfg = self.cfg
         mc, d_in, n_heads, _ = _dims(cfg)
-        j, m = model_split()
+        j, m = part_split(cfg, "mamba")
         hl = n_heads // m
         bsz, s, _ = u.shape
         chunk = min(mc.chunk_size, s)
@@ -213,29 +240,36 @@ class Mamba(nn.Module):
         x = causal_conv(x_raw, self.conv_x_w, self.conv_x_b, mc.d_conv)
         bc = causal_conv(bc_raw, self.conv_bc_w, self.conv_bc_b, mc.d_conv)
         gn = mc.n_groups * mc.d_state
-        per = n_heads // mc.n_groups
-
-        def heads(t):  # (b, s, g·n) -> this rank's heads' (b, s, hl, n)
-            return (t.reshape(bsz, s, mc.n_groups, mc.d_state)
-                    .repeat_interleave(per, dim=2)[:, :, j * hl:(j + 1) * hl]
-                    .float())
-
-        y, _ = ssd_chunked(
+        y, state = ssd_chunked(
             x.reshape(bsz, s, hl, mc.head_dim).float(),
             F.softplus(dt.float() + self.dt_bias), -torch.exp(self.a_log),
-            heads(bc[..., :gn]), heads(bc[..., gn:]), self.d_skip, chunk)
-        y = y.reshape(bsz, s, hl * mc.head_dim).to(u.dtype) * F.silu(z)
-        yf = y.float()
-        squares = model_sum(model_copy((yf * yf).sum(dim=-1, keepdim=True)))
-        y = yf * torch.rsqrt(squares / d_in + cfg.norm_eps)
-        y = (y * (1.0 + self.out_norm.float())).to(u.dtype)
-        return model_sum(y @ self.w_out)
+            self._heads(bc[..., :gn], j, hl).float(),
+            self._heads(bc[..., gn:], j, hl).float(), self.d_skip, chunk)
+        out = self._out_split(y.reshape(bsz, s, hl * mc.head_dim)
+                              .to(u.dtype), z)
+        if not return_state:
+            return out
+        return out, self._tail(x_raw, bc_raw, state)
+
+    def _cache_block(self, cache: MambaCache) -> MambaCache:
+        """The views of ``cache`` this rank reads and writes: its channels'
+        conv buffer and its heads' state under a model split, the whole
+        B/C buffer; ``cache`` itself without one."""
+        j, m = part_split(self.cfg, "mamba")
+        if m == 1:
+            return cache
+        mc, d_in, n_heads, _ = _dims(self.cfg)
+        cl, hl = d_in // m, n_heads // m
+        return MambaCache(conv_x=cache.conv_x[..., j * cl:(j + 1) * cl],
+                          conv_bc=cache.conv_bc,
+                          ssm=cache.ssm[:, j * hl:(j + 1) * hl])
 
     def prefill(self, u: torch.Tensor, cache: MambaCache) -> torch.Tensor:
         """:meth:`forward`, and the conv buffers and final state written
         into ``cache`` in place; a prompt shorter than d_conv - 1 leaves
         zeros in front of its projections (the JAX package's left pad)."""
         out, (conv_x, conv_bc, ssm) = self.forward(u, return_state=True)
+        cache = self._cache_block(cache)
         pad = cache.conv_x.shape[1] - conv_x.shape[1]
         cache.conv_x[:, :pad] = 0.0
         cache.conv_x[:, pad:] = conv_x
@@ -246,11 +280,16 @@ class Mamba(nn.Module):
 
     def decode(self, u: torch.Tensor, cache: MambaCache) -> torch.Tensor:
         """``mamba_decode``: one token per row, u (b, 1, d); the conv
-        buffers and the state advance in place."""
+        buffers and the state advance in place (under a model split, this
+        rank's heads: :meth:`_cache_block`)."""
         cfg = self.cfg
         mc, d_in, n_heads, _ = _dims(cfg)
+        j, m = part_split(cfg, "mamba")
+        hl = n_heads // m
         bsz = u.shape[0]
-        x_raw, z, bc_raw, dt = (t[:, 0] for t in self._project(u))
+        cache = self._cache_block(cache)
+        x_raw, z, bc_raw, dt = (t[:, 0] for t in self._project(
+            model_copy(u) if m > 1 else u))
 
         def conv_step(buf, new_col, w, b):
             window = torch.cat([buf, new_col[:, None, :].float()], dim=1)
@@ -260,18 +299,17 @@ class Mamba(nn.Module):
 
         x = conv_step(cache.conv_x, x_raw, self.conv_x_w, self.conv_x_b)
         bc = conv_step(cache.conv_bc, bc_raw, self.conv_bc_w, self.conv_bc_b)
-        x = x.reshape(bsz, n_heads, mc.head_dim)
+        x = x.reshape(bsz, hl, mc.head_dim)
         gn = mc.n_groups * mc.d_state
-        per = n_heads // mc.n_groups
-        bh = bc[..., :gn].reshape(bsz, mc.n_groups, mc.d_state) \
-            .repeat_interleave(per, dim=1)  # (b, h, n)
-        ch = bc[..., gn:].reshape(bsz, mc.n_groups, mc.d_state) \
-            .repeat_interleave(per, dim=1)
-        dt_f = F.softplus(dt.float() + self.dt_bias)  # (b, h)
+        bh = self._heads(bc[..., :gn], j, hl)  # (b, hl, n)
+        ch = self._heads(bc[..., gn:], j, hl)
+        dt_f = F.softplus(dt.float() + self.dt_bias)  # (b, hl)
         decay = torch.exp(dt_f * -torch.exp(self.a_log)[None, :])
-        xdt = x * dt_f[..., None]  # (b, h, p)
+        xdt = x * dt_f[..., None]  # (b, hl, p)
         cache.ssm.mul_(decay[..., None, None]).add_(
             bh[..., None] * xdt[:, :, None, :])
         y = torch.einsum("bhn,bhnp->bhp", ch, cache.ssm)
         y = y + x * self.d_skip[None, :, None]
-        return self._out(y.reshape(bsz, d_in).to(u.dtype), z)[:, None, :]
+        y = y.reshape(bsz, hl * mc.head_dim).to(u.dtype)
+        out = self._out_split(y, z) if m > 1 else self._out(y, z)
+        return out[:, None, :]

@@ -9,8 +9,9 @@ Without a mesh, MoE routing uses the config's ``token_groups``; under one
 pod x data extent, halved until it divides the batch's tokens, as the
 reference's, and a rank that holds a block of the batch routes its own
 whole groups (see :meth:`MoE.route`).  Under a model split (the sharded
-train step) the MLP computes this rank's block of hidden units and the MoE
-its block of experts, each summing its partial output over the split.
+train and serving steps) the MLP computes this rank's block of hidden
+units and the MoE its block of experts (whole when the split does not
+divide them), each summing its partial output over the split.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import (
     activation_fn, batch_block, batch_sum, current_mesh, dense_init,
-    model_copy, model_split, model_sum,
+    model_copy, model_split, model_sum, part_split,
 )
 
 
@@ -188,7 +189,7 @@ class MoE(nn.Module):
         t = b * s
         xt = x.reshape(t, d)
         r = self.route(xt)
-        j, m = model_split()
+        j, m = part_split(self.cfg, "moe")
         if m == 1:
             out = self._dispatch(xt, r.slot, r.top_p, r, moe.num_experts)
             if moe.num_shared_experts > 0:

@@ -41,7 +41,7 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.common import (
     batch_sum, dense_init, embed_init, init_rms_norm, model_block,
-    model_copy, model_max, model_split, model_sum, rms_norm,
+    model_copy, model_gather, model_max, model_split, model_sum, rms_norm,
 )
 from repro_torch.models.mamba import Mamba, init_mamba_cache
 from repro_torch.models.mlp import MLP, MoE
@@ -220,9 +220,9 @@ class Model(nn.Module):
                                  for _ in range(cfg.mtp_depth))
         self.leaf_tree = None  # set by stack_for_training
         self.leaf_members = None
-        # (block, x, positions, prefix_len, remat) -> (x, aux): how the
-        # training forward runs a block; None runs it on its own weights
-        # (the sharded train step gathers them on use)
+        # (block, x, positions, remat=False, **Block.forward's keywords)
+        # -> (x, aux): how the forwards run a block; None runs it on its
+        # own weights (the sharded steps gather them on use)
         self.block_call = None
 
     @property
@@ -278,11 +278,20 @@ class Model(nn.Module):
                      mode: str, caches: Optional[list] = None,
                      use_flash: bool = False,
                      prefix_len: int = 0) -> torch.Tensor:
+        call = self.block_call or (lambda block, x, positions, **kw:
+                                   block(x, positions, **kw))
         for i, block in enumerate(self.blocks):
-            x, _ = block(x, positions, mode=mode,
-                         cache=None if caches is None else caches[i],
-                         use_flash=use_flash, prefix_len=prefix_len)
+            x, _ = call(block, x, positions, mode=mode,
+                        cache=None if caches is None else caches[i],
+                        use_flash=use_flash, prefix_len=prefix_len)
         return x
+
+    def _whole_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """Serving's logits over the whole vocabulary: under a model split,
+        every rank's ceil block of them gathered (``model_gather``)."""
+        if model_split()[1] == 1:
+            return logits
+        return model_gather(logits, -1, self.cfg.vocab_size)
 
     @torch.no_grad()
     def forward_prefill(self, batch: dict, caches: list, *,
@@ -298,7 +307,7 @@ class Model(nn.Module):
             use_flash = x.device.type == "cuda"
         h = self.run_backbone(x, positions, mode="prefill", caches=caches,
                               use_flash=use_flash, prefix_len=prefix_len)
-        return self.lm_logits(h[:, -1:, :]), caches
+        return self._whole_logits(self.lm_logits(h[:, -1:, :])), caches
 
     @torch.no_grad()
     def forward_decode(self, token: torch.Tensor, pos: torch.Tensor,
@@ -307,7 +316,7 @@ class Model(nn.Module):
         positions.  Returns (logits (b, 1, V), caches)."""
         x = self.embed_tokens(token)
         h = self.run_backbone(x, pos, mode="decode", caches=caches)
-        return self.lm_logits(h), caches
+        return self._whole_logits(self.lm_logits(h)), caches
 
     # -- training ----------------------------------------------------------
     def _loss(self, h: torch.Tensor, batch: dict) -> torch.Tensor:
@@ -382,7 +391,8 @@ class Model(nn.Module):
 
     def _train_block(self, block, x, positions, prefix_len, remat):
         if self.block_call is not None:
-            return self.block_call(block, x, positions, prefix_len, remat)
+            return self.block_call(block, x, positions, remat=remat,
+                                   mode="train", prefix_len=prefix_len)
         if remat and torch.is_grad_enabled():
             return checkpoint(block, x, positions, mode="train",
                               prefix_len=prefix_len, use_reentrant=False)

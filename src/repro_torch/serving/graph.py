@@ -64,6 +64,7 @@ from repro_torch.core import fastsum_exec
 from repro_torch.core.fastsum import (
     PredictionPlan, make_prediction_plan, prediction_multiplier,
 )
+from repro_torch.core.nfft import build_window_geometry
 from repro_torch.graph.krr import KRRModel, krr_predict, points_fingerprint
 
 _ALPHA = "alpha"  # column id of a request served with the model's own dual
@@ -372,6 +373,17 @@ class GraphModelRegistry:
                 out.append(group.grids[ckey])
             self.counters["grid_hits"] += len(columns) - len(missing)
             return out, len(missing)
+
+
+def tick_predict(plan, points: torch.Tensor, grid: torch.Tensor,
+                 col_index: torch.Tensor) -> torch.Tensor:
+    """The device part of one tick: the window geometry of the packed,
+    scaled query ``points`` (m, d) and the ragged gather in which row ``i``
+    reads channel ``col_index[i]`` of the tick grid ``grid`` ((P,)^d x
+    slots) -> (m,).  The engine's tick runs it, and the dry run's
+    graph-serve cell traces it (``launch.dryrun.run_graph_serve_cell``)."""
+    tgt = build_window_geometry(plan, points)
+    return fastsum_exec.fused_gather_columns(plan, tgt, grid, col_index)
 
 
 class GraphServeEngine:
@@ -719,10 +731,10 @@ class GraphServeEngine:
         packed, col_index, takes = self._pack(
             slot_ids, col_of_slot, src.shape[1],
             torch.empty((), dtype=src.dtype).numpy().dtype)
-        tgt = pred.target_window(packed)
+        points = torch.as_tensor(packed, dtype=src.dtype, device=src.device)
         self.counters["geometry_builds"] += 1
-        out = fastsum_exec.fused_gather_columns(
-            pred.plan, tgt, grid,
+        out = tick_predict(
+            pred.plan, points, grid,
             torch.as_tensor(col_index, device=grid.device)).cpu().numpy()
 
         finished = 0

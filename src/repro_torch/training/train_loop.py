@@ -123,13 +123,7 @@ def shard_train_state(state: TrainState, mesh) -> TrainState:
     from repro_torch.launch.steps import _state_shardings
     sh = _state_shardings(state, mesh)
     model = state.params
-    named_params = list(model.named_parameters())
-    if any(sh.params[n].is_split for n, _ in named_params):
-        with torch.no_grad():
-            for name, p in named_params:
-                owner, _, attr = name.rpartition(".")
-                setattr(model.get_submodule(owner), attr,
-                        nn.Parameter(sh.params[name].shard(p.detach())))
+    if shard_parameters(model, sh.params):
         model.leaf_tree = model.leaf_members = None
         model.stack_for_training()
 
@@ -146,6 +140,33 @@ def shard_train_state(state: TrainState, mesh) -> TrainState:
                           blocks(t, s) for t, s in zip(state.opt_state,
                                                        sh.opt_state)]),
                       ef_state=ef)
+
+
+def shard_parameters(model, shardings: dict) -> bool:
+    """Replace each of ``model``'s parameters by this rank's block of it
+    under ``shardings`` (by parameter name); whether any was split."""
+    named_params = list(model.named_parameters())
+    if not any(shardings[n].is_split for n, _ in named_params):
+        return False
+    with torch.no_grad():
+        for name, p in named_params:
+            owner, _, attr = name.rpartition(".")
+            setattr(model.get_submodule(owner), attr, nn.Parameter(
+                shardings[name].shard(p.detach()),
+                requires_grad=p.requires_grad))
+    return True
+
+
+def local_rows(mesh, batch: dict):
+    """(this rank's rows of ``batch`` over the FSDP axes, the axes that
+    split them); a row count they do not divide is replicated, as
+    ``named`` decides."""
+    rows = next(iter(batch.values())).shape[0]
+    sh = named(mesh, P(FSDP_AXES), (rows,))
+    if not sh.is_split:
+        return batch, ()
+    rows_slice = sh.block_slices()[0]
+    return {k: v[rows_slice] for k, v in batch.items()}, sh.axes
 
 
 def train_state_from_arrays(state, cfg: ArchConfig, tc: TrainConfig, *,
@@ -280,21 +301,67 @@ def _spend(state: TrainState) -> None:
     spent.add(state.step)
 
 
-class _TrainForward(nn.Module):
-    """``model.forward_train`` as a module's forward, so that
-    ``functional_call`` can run it on gathered top-level weights."""
+class _Call(nn.Module):
+    """A model's method as a module's forward, so that ``functional_call``
+    can run it on gathered top-level weights."""
 
-    def __init__(self, model):
+    def __init__(self, model, method: str):
         super().__init__()
         self.model = model
+        self.method = method
 
-    def forward(self, batch, remat):
-        return self.model.forward_train(batch, remat=remat)
+    def forward(self, *args, **kwargs):
+        return getattr(self.model, self.method)(*args, **kwargs)
 
 
 def _in_block(name: str) -> bool:
     """A parameter of a residual block (a layer's or an MTP depth's)."""
     return name.startswith("blocks.") or ".block." in name
+
+
+def sharded_call(model, mesh, batch_axes: tuple, shardings: dict,
+                 uses: dict, method: str, *args, **kwargs):
+    """``model.<method>(*args, **kwargs)`` on the weights this rank
+    computes with, under ``set_mesh(mesh, batch_axes, "model")``: the
+    model holds its storage blocks (``shardings``, by parameter name), and
+    each block's weights are gathered on use (:func:`repro_torch.dist.
+    sharding.gather_on_use`, their compute ``uses``) inside the block's
+    call (its remat boundary, when the method asks for one), the
+    top-level weights once around the call.  The one body of the sharded
+    train step's forward and of the sharded serving steps."""
+    params = dict(model.named_parameters())
+    shard_of = {id(p): shardings[n] for n, p in params.items()}
+    use_of = {id(p): uses[n] for n, p in params.items()}
+
+    def layouts(tensors):
+        return ([shard_of[id(t)] for t in tensors],
+                [use_of[id(t)] for t in tensors])
+
+    def block_call(block, x, positions, remat=False, **kw):
+        names, blocks = zip(*block.named_parameters())
+        block_shardings, block_uses = layouts(blocks)
+
+        def run(x, positions, *blocks):
+            with set_mesh(mesh, batch_axes, MODEL_AXIS):
+                full = dict(zip(names, gather_on_use(blocks, block_shardings,
+                                                     block_uses)))
+                return functional_call(block, full, (x, positions), kw)
+
+        if remat and torch.is_grad_enabled():
+            return checkpoint(run, x, positions, *blocks,
+                              use_reentrant=False)
+        return run(x, positions, *blocks)
+
+    names, tops = zip(*[(name, p) for name, p in params.items()
+                        if not _in_block(name)])
+    top = {"model." + name: full for name, full in zip(
+        names, gather_on_use(tops, *layouts(tops)))}
+    model.block_call = block_call
+    try:
+        with set_mesh(mesh, batch_axes, MODEL_AXIS):
+            return functional_call(_Call(model, method), top, args, kwargs)
+    finally:
+        model.block_call = None
 
 
 class ShardedTrainStep(TrainStep):
@@ -356,55 +423,15 @@ class ShardedTrainStep(TrainStep):
 
     def shard_batch(self, mb: dict):
         """(this rank's rows of ``mb``, the axes that split them)."""
-        rows = next(iter(mb.values())).shape[0]
-        sh = named(self.mesh, P(FSDP_AXES), (rows,))
-        if not sh.is_split:
-            return mb, ()
-        rows_slice = sh.block_slices()[0]
-        return {k: v[rows_slice] for k, v in mb.items()}, sh.axes
+        return local_rows(self.mesh, mb)
 
     def forward(self, model, mb: dict):
         """(loss, metrics) of this rank's rows of microbatch ``mb``: the
         batch's loss, every block run on the weights it computes with."""
         local, axes = self.shard_batch(mb)
-        params = dict(model.named_parameters())
-        shard_of = {id(p): self.state_shardings.params[n]
-                    for n, p in params.items()}
-        use_of = {id(p): self.uses[n] for n, p in params.items()}
-        mesh = self.mesh
-
-        def layouts(tensors):
-            return ([shard_of[id(t)] for t in tensors],
-                    [use_of[id(t)] for t in tensors])
-
-        def block_call(block, x, positions, prefix_len, remat):
-            names, blocks = zip(*block.named_parameters())
-            shardings, uses = layouts(blocks)
-
-            def run(x, positions, *blocks):
-                with set_mesh(mesh, axes, MODEL_AXIS):
-                    full = dict(zip(names, gather_on_use(blocks, shardings,
-                                                         uses)))
-                    return functional_call(
-                        block, full, (x, positions),
-                        {"mode": "train", "prefix_len": prefix_len})
-
-            if remat and torch.is_grad_enabled():
-                return checkpoint(run, x, positions, *blocks,
-                                  use_reentrant=False)
-            return run(x, positions, *blocks)
-
-        names, tops = zip(*[(name, p) for name, p in params.items()
-                            if not _in_block(name)])
-        top = {"model." + name: full for name, full in zip(
-            names, gather_on_use(tops, *layouts(tops)))}
-        model.block_call = block_call
-        try:
-            with set_mesh(mesh, axes, MODEL_AXIS):
-                return functional_call(_TrainForward(model), top,
-                                       (local, self.tc.remat))
-        finally:
-            model.block_call = None
+        return sharded_call(model, self.mesh, axes,
+                            self.state_shardings.params, self.uses,
+                            "forward_train", local, remat=self.tc.remat)
 
     def _microbatch(self, model, mb: dict, flat: list):
         loss, metrics = self.forward(model, mb)

@@ -36,7 +36,8 @@ MODULES = ("core.kernels", "core.regularization", "core.nfft",
            "training.optimizer", "training.train_loop", "data.pipeline",
            "dist", "dist.compression", "launch.train", "train_lm",
            "launch.trace_train", "dist.fastsum_dist", "dist.pencil_fft",
-           "launch.mesh", "launch.ranks", "dist.sharding", "launch.steps")
+           "launch.mesh", "launch.ranks", "dist.sharding", "launch.steps",
+           "launch.specs", "launch.roofline", "launch.dryrun")
 
 
 def _imported_roots(path: Path) -> set:

@@ -22,6 +22,7 @@ from repro.kernels import ops, ref
 from repro_torch.core import fastsum as tfs
 from repro_torch.core import kernels as tkern
 from repro_torch.kernels import kernel_matvec as tkm
+from repro_torch.launch.roofline import TraceCounter
 
 RNG = np.random.default_rng(11)
 KERNELS = [("gaussian", 2.0), ("laplacian_rbf", 0.7), ("multiquadric", 1.0),
@@ -267,12 +268,16 @@ def test_kernel_matvec_rejects_what_it_does_not_take():
         tkm.kernel_matvec(pts, pts, torch.zeros(4, dtype=torch.float32))
     with pytest.raises(ValueError, match="x must be"):
         tkm.kernel_matvec(pts, pts, torch.zeros(5, dtype=torch.float64))
-    # a device that is neither the CPU nor a card raises: no plain fallback
+    # meta (the dry run) takes no plain fallback: a meta result of the
+    # kernel's shape, nothing computed, the launch counted by the trace
+    # counter and not as one on the card
     meta = torch.zeros((4, 2), dtype=torch.float64, device="meta")
     launches = tkm.kernel_matvec.launches
-    with pytest.raises(ValueError, match="no kernel_matvec kernel"):
-        tkm.kernel_matvec(meta, meta, torch.zeros(4, dtype=torch.float64,
-                                                  device="meta"))
+    with TraceCounter() as counter:
+        y = tkm.kernel_matvec(meta, meta, torch.zeros(
+            4, dtype=torch.float64, device="meta"))
+    assert y.device.type == "meta" and tuple(y.shape) == (4,)
+    assert counter.kernels["kernel_matvec"]["launches"] == 1
     assert tkm.kernel_matvec.launches == launches
 
 

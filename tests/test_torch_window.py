@@ -14,6 +14,7 @@ import torch
 from repro.kernels import nfft_window as jwin
 from repro.kernels import ref
 from repro_torch.kernels import nfft_window as twin
+from repro_torch.launch.roofline import TraceCounter
 
 SHAPES = [(100, 1, 9, 512), (257, 2, 9, 64), (120, 3, 5, 40)]
 CHANNEL_SHAPES = [(100, 1, 9, 512, 3), (140, 2, 9, 64, 4), (90, 3, 5, 40, 2)]
@@ -148,6 +149,12 @@ def test_wrappers_reject_bad_inputs():
         twin.window_gather(torch.zeros((8,) * 4 + (1,), dtype=torch.float64),
                            torch.zeros((2, 4), dtype=torch.int32),
                            torch.zeros((2, 4, 3), dtype=torch.float64))
-    with pytest.raises(ValueError):  # neither CPU nor CUDA: no silent fallback
-        twin.window_spread(x.to("meta"), tb.to("meta"), tw.to("meta"),
-                           padded_size=16)
+    # meta (the dry run) takes no silent fallback either: the plain version
+    # does not run, the result is a meta grid of the kernel's shape, and
+    # the launch is the trace counter's (the card's count, which the
+    # fixture checks, stays 0)
+    with TraceCounter() as counter:
+        grid = twin.window_spread(x.to("meta"), tb.to("meta"),
+                                  tw.to("meta"), padded_size=16)
+    assert grid.device.type == "meta" and tuple(grid.shape) == (16, 16, 1)
+    assert counter.kernels["window_spread"]["launches"] == 1

@@ -96,8 +96,16 @@ step, and granite-3-2b-nfft's learn_sigma step
 must move log_sigma; no kernel of the package may launch on these paths
 (the einsum attention and cuBLAS); the run without a checkpoint directory
 keeps a host copy of the initial state (its bytes and seconds printed).
+Then the same single-card step trains the other families at full width
+([train_families], four steps each): olmoe-1b-7b (4 of 16 layers; the
+router, 64 experts at top-8 and the aux loss), mamba2-1.3b (all 48
+layers; the chunked SSD scan's backward) and deepseek-v3-671b (its 3
+dense MLA layers and its MTP depth, under Adafactor as the uncut config
+picks): every parameter must move, the loss on step 0's batch must fall,
+the aux and MTP losses must be finite and positive, no kernel may launch;
+step time, tokens/s, model-FLOPs share and peak memory are printed.
 Then the sharded train step ([shard_train]): four gloo ranks sharing the
-card hold their blocks of granite-3-2b's state at full width (4 layers,
+card hold their blocks of granite-3-2b's state at full width (2 layers,
 float32) on meshes (4, 1), (2, 2) and (1, 4), and of olmoe-1b-7b's (2
 layers) at (1, 4), gather weights on use and reduce-scatter gradients, the
 ranks of "model" computing their block of the heads, hidden units, experts
@@ -108,7 +116,7 @@ predictions from the sharding rules; a sharded checkpoint restored onto
 (2, 2) and onto one device; then one NCCL rank at (1, 1) at full width and
 depth beside [train]'s step; no kernel may launch.  [shard_serve] runs
 the sharded prefill and decode steps on four gloo ranks sharing the card
-(granite-3-2b, 4 of 40 layers, at (2, 2) and (1, 4); olmoe-1b-7b, 2 of
+(granite-3-2b, 2 of 40 layers, at (2, 2) and (1, 4); olmoe-1b-7b, 2 of
 16, at (1, 4); float32, full width): every rank's whole logits against the
 single-device steps and bitwise equal on the ranks, flash once a layer on
 every rank's heads.  [dryrun] then runs the dry run (the port's steps
@@ -118,7 +126,9 @@ state bytes of [shard_train] and [shard_serve] to the byte, peak live
 bytes within 25 %, [dist]'s payloads, and the roofline terms (data-sheet
 peaks) of [train]'s step, [times]' prefill and tick and the fused matvec
 as shares of their measured times; it prints granite-3-2b's production
-cells and the graph cells at 8 to 512 ranks.  Then the other mixers and the
+cells and the graph cells at 8 to 512 ranks, and holds the attention
+FLOPs of qwen1.5-32b's and paligemma-3b's train_4k cells on the 16 x 16
+mesh, rank by rank, to each rank's ceil block of the heads.  Then the other mixers and the
 frontends, each path with its launch counts from 0: olmoe-1b-7b (MoE, 64
 experts, top-8) at full width and depth through ``ServeEngine``
 ([moe_serve]: the flash kernel once per layer and prefill, head dim 128;
@@ -439,6 +449,20 @@ TRAIN_BATCH, TRAIN_MICRO = 2, 2
 TRAIN_LR = 3e-4
 TRAIN_SHORT_LAYERS = 2
 TRAIN_RESUME_STEPS, TRAIN_RESUME_EVERY, TRAIN_FAULT_STEP = 6, 2, 4
+# [train_families]: [train]'s single-card step (bf16, TRAIN_BATCH x 4,096
+# tokens in TRAIN_MICRO microbatches, launch/train.py's schedule through
+# run_resilient and the Prefetcher) on the families that no other phase
+# trains on the card, FAMILY_TRAIN_STEPS steps each, at full width:
+# (arch, depth; None keeps the full depth).  olmoe-1b-7b's 16 layers are
+# cut to 4 (~1.89e9 parameters x 18 B of bf16 weight, f32 master, moments
+# and gradient: ~34 GB before activations), deepseek-v3-671b's 61 to its 3
+# dense MLA layers (its MTP depth of 1 stays, a dense block too: ~4.29e9
+# parameters, one MoE layer's experts alone would be 11.3e9); mamba2-1.3b
+# keeps its 48.  The optimizer is TrainConfig.for_arch's of the uncut
+# config: AdamW, and Adafactor for deepseek-v3-671b (671e9 >= 100e9).
+FAMILY_TRAIN = (("olmoe-1b-7b", 4), ("mamba2-1.3b", None),
+                ("deepseek-v3-671b", 3))
+FAMILY_TRAIN_STEPS = 4
 # [shard_train]: the sharded train step (ZeRO-3 over torch.distributed)
 # on granite-3-2b at full width: SHARD_WORLD gloo ranks time-sharing the
 # card, float32, AdamW, depth cut 40 -> SHARD_LAYERS (gloo stages every
@@ -455,7 +479,7 @@ TRAIN_RESUME_STEPS, TRAIN_RESUME_EVERY, TRAIN_FAULT_STEP = 6, 2, 4
 # depth 16 -> SHARD_MOE_LAYERS, float32) runs at SHARD_MOE_MESH against the
 # single-device step with one token group (the mesh's FSDP extent).
 SHARD_WORLD = 4
-SHARD_LAYERS = 4
+SHARD_LAYERS = 2
 SHARD_BATCH = 4
 SHARD_STEPS = 2
 SHARD_MESHES = ((4, 1), (2, 2), (1, 4))
@@ -470,17 +494,20 @@ SHARD_MOE_MESH = (1, 4)
 SHARD_SAVE_AT = 2
 SHARD_TOL = 1e-4
 SHARD_FULL_STEPS = 3
-# (4, 1)'s operand bytes a step a rank, as the storage-only step counted
-# them (no collective may run over "model" there)
-SHARD_TRAFFIC_4x1 = {"all_gather": 486539264, "reduce_scatter": 973078528,
-                     "all_reduce": 402751528, "wire": 2793553980}
-# peak GB a rank predicted before the first run (the (4, 1) and (2, 2)
-# figures are the storage-only step's readings)
-SHARD_PEAK_PRED = {(4, 1): 12.92, (2, 2): 12.92, (1, 4): 13.5,
+# (4, 1)'s operand bytes a step a rank at SHARD_LAYERS = 2, from the
+# storage rules alone (shard_prediction((4, 1), 1); at 4 layers the same
+# count equalled the storage-only step's reading): no collective may run
+# over "model" there
+SHARD_TRAFFIC_4x1 = {"all_gather": 243269632, "reduce_scatter": 486539264,
+                     "all_reduce": 402718760, "wire": 1698791484}
+# peak GB a rank predicted before the first run at SHARD_LAYERS = 2: the
+# 4-layer readings less two layers' blocks of state (~0.5 GB a rank; the
+# one layer's attention activations that set the peak stay)
+SHARD_PEAK_PRED = {(4, 1): 12.4, (2, 2): 8.0, (1, 4): 12.9,
                    SHARD_MOE_ARCH: 15.0}
 # [shard_serve]: the sharded prefill and decode steps (launch.steps.
 # ShardedServeStep) on SHARD_WORLD gloo ranks sharing cuda:0, float32, full
-# width: (arch, layers, mesh); granite-3-2b's depth cut 40 -> 4, olmoe's 16
+# width: (arch, layers, mesh); granite-3-2b's depth cut 40 -> 2, olmoe's 16
 # -> 2 (one token group, as [shard_train]'s).  A prefill of SERVE_SHARD_ROWS
 # x SERVE_SHARD_PROMPT tokens (PREFILL_32K's 32 x 32,768 cut) and
 # SERVE_SHARD_DECODES teacher-forced decode steps, every rank's whole
@@ -504,6 +531,12 @@ DRY_GRAPH_MESHES = ((2, 4), (8, 4), (16, 16), (2, 16, 16))
 DRY_GRAPH_N = 2 ** 27
 DRY_GRAPH_BANK = 8
 DRY_LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+# production train_4k cells on the 16 x 16 mesh whose heads the 16-way
+# "model" axis does not divide, traced at these ranks: each counts its ceil
+# block of the heads (qwen1.5-32b's 40: 3 on ranks 0-12, 1 on rank 13, none
+# on 14-15; paligemma-3b's 8: 1 on ranks 0-7, none on 8-15); the last rank
+# named has none
+DRY_CEIL_CELLS = (("qwen1.5-32b", (0, 13, 15)), ("paligemma-3b", (0, 8)))
 # a residual's bound max|block|/254, plus the rounding of q * scale (a few
 # ulps of the block's largest value, under 2^-16 of the bound)
 EF_BOUND_SLACK = 2.0 ** -16
@@ -1256,8 +1289,9 @@ def shard_prediction(mesh_shape, micro: int, arch: str = TRAIN_ARCH) -> dict:
         if u.post and u.post[0] == "swap":
             add("all_to_all", (gathers + micro) * numel * elt, m)
         if u.post and u.post[0] == "block":
-            n = p.shape[u.post[1]]
-            add("all_gather", micro * -(-n // m) * (numel // n) * elt, m)
+            n, unit = p.shape[u.post[1]], u.post[2]
+            add("all_gather", micro * -(-(n // unit) // m) * unit
+                * (numel // n) * elt, m)
         grad = numel
         used = set()
         for _, axes in split:
@@ -1330,38 +1364,45 @@ def shard_prediction(mesh_shape, micro: int, arch: str = TRAIN_ARCH) -> dict:
 def shard_flops(cfg, rows: int, m: int, j: int) -> int:
     """Matmul FLOPs of one forward of ``rows`` rows of ``shard_seq`` tokens
     on block ``j`` of a "model" split of ``m`` (m = 1: single-device),
-    as FlopCounterMode counts them: per GQA layer the rank's h / m q heads
-    and the kv heads they read, their QK and PV products over the whole
-    causal square, ``wo``'s rows of them; per dense FFN d_ff / m hidden
-    units; per MoE layer the router and the combine (every rank weighs
-    every choice) whole, and its e / m experts on their capacity slots
-    (one token group); then the rank's ceil block of the vocabulary."""
+    as FlopCounterMode counts them: per GQA layer the rank's ceil block of
+    the q heads and the kv heads they read, their QK and PV products over
+    the whole causal square, ``wo``'s rows of them; per dense FFN its ceil
+    block of the hidden units; per MoE layer the router and the combine
+    (every rank weighs every choice) whole, and its ceil block of the
+    experts on their capacity slots (one token group); then the rank's
+    ceil block of the vocabulary."""
     from repro_torch.launch.mesh import block_range
     from repro_torch.models.model import layer_signature
     seq = shard_seq(cfg)
     t = rows * seq
     d = cfg.d_model
+
+    def ceil(n):
+        lo, hi = block_range(n, m, j)
+        return hi - lo
+
     total = 0
     for i in range(cfg.num_layers):
         sig = layer_signature(cfg, i)
         if sig.mixer != "attn":
             raise ValueError(f"shard_flops: no formula for {sig.mixer}")
         h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_eff
-        hl = h // m
-        kv = hkv // m if hkv % m == 0 else max(1, hl * hkv // h)
+        lo, hi = block_range(h, m, j)
+        hl, group = hi - lo, h // hkv
+        kv = (hkv // m if hkv % m == 0 else
+              (hi - 1) // group + 1 - lo // group if hl else 0)
         total += (2 * t * d * hl * hd + 2 * 2 * t * d * kv * hd
                   + 2 * 2 * rows * hl * seq * seq * hd + 2 * t * hl * hd * d)
         mats = 3 if cfg.activation in ("silu", "geglu") else 2
         if sig.ffn == "dense":
-            total += mats * 2 * t * d * cfg.d_ff // m
+            total += mats * 2 * t * d * ceil(cfg.d_ff)
         elif sig.ffn == "moe":
             moe = cfg.moe
             e, k, f = moe.num_experts, moe.top_k, moe.d_ff_expert
             capacity = max(1, int(moe.capacity_factor * t * k / e))
             total += (2 * t * d * e + 2 * t * k * d
-                      + (e // m) * capacity * mats * 2 * d * f)
-    lo, hi = block_range(cfg.vocab_size, m, j)
-    return total + 2 * t * d * (hi - lo)
+                      + ceil(e) * capacity * mats * 2 * d * f)
+    return total + 2 * t * d * ceil(cfg.vocab_size)
 
 
 def shard_single_flops(cfg, rows: int) -> int:
@@ -1573,6 +1614,9 @@ def dryrun_job(job):
     if kind == "lm":
         arch, shape, multi = args
         rec = dryrun.run_cell(arch, shape, multi)
+    elif kind == "ceil":
+        arch, rank = args
+        rec = dryrun.run_cell(arch, "train_4k", False, rank=rank)
     elif kind == "graph":
         mesh_shape, mode, bank = args
         mesh = Mesh(dict(zip(("pod", "data", "model")[-len(mesh_shape):],
@@ -1991,6 +2035,7 @@ class Smoke:
         self.phase_nfft_serve()
         self.phase_times()
         self.phase_train()
+        self.phase_train_families()
         self.phase_shard_train()
         self.phase_shard_serve()
         self.phase_dryrun()
@@ -5128,6 +5173,206 @@ class Smoke:
         self.record["train"]["phase_s"] = time.perf_counter() - t0
         log(f"[train] phase {self.record['train']['phase_s']:.1f}s wall")
 
+    def phase_train_families(self):
+        """[train_families]: olmoe-1b-7b (the router, 64 experts at top-8
+        and the aux loss), mamba2-1.3b (the chunked SSD scan's backward)
+        and deepseek-v3-671b (MLA's backward, the MTP loss and its
+        combiner, Adafactor's factored update) through [train]'s
+        single-card step at full width (FAMILY_TRAIN's cuts), each freed
+        before the next.  Every parameter leaf must move, the loss on step
+        0's batch must fall, the aux and MTP losses must be finite and
+        positive, and no kernel of the package may launch (the einsum
+        attention; the flash kernel has no backward)."""
+        torch = self.torch
+        gc_collect(torch)
+        self.sync()
+        log(f"[train_families] memory at the phase's start: "
+            f"{torch.cuda.memory_allocated(self.dev) / 1e9:.2f} GB allocated,"
+            f" {torch.cuda.memory_reserved(self.dev) / 1e9:.2f} GB reserved")
+        t0 = time.perf_counter()
+        self.record["train_families"] = {}
+        # deepseek-v3's step frees and takes its 8-GiB float32 attention
+        # logits (128 heads x 4,096^2) by turns: in fixed segments the
+        # freed blocks do not fit the next (16 GB reserved but unallocated
+        # at 55 GB allocated, then out of memory); expandable segments map
+        # the pages anew
+        torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+        try:
+            for arch, layers in FAMILY_TRAIN:
+                self.train_family(arch, layers)
+                gc_collect(torch)
+        finally:
+            torch.cuda.memory._set_allocator_settings(
+                "expandable_segments:False")
+        took = self.record["train_families"]["phase_s"] = \
+            time.perf_counter() - t0
+        log(f"[train_families] phase {took:.1f}s wall")
+
+    def family_flops(self, cfg, tokens, seq):
+        """Model FLOPs of one step of ``cfg``: 6 per active parameter that
+        multiplies a token (the top-k and shared experts of an MoE layer;
+        not an untied input embedding, which is a lookup; the MTP depths'
+        combiner, block and head again) plus the sequence mixers' own
+        products, forward and backward: 6 h (qk + v) s a token and
+        attention layer (the causal square counted whole, as the einsum
+        computes it), 6 H (Q n + Q p + 2 n p) a token and Mamba layer (the
+        chunked SSD's four products)."""
+        d, v = cfg.d_model, cfg.vocab_size
+        n = cfg.active_param_count()
+        if not cfg.tie_embeddings:
+            n -= v * d
+        layer = dataclasses.replace(cfg, num_layers=1, mtp_depth=0)
+        per_layer = layer.active_param_count() - v * d * (
+            1 if layer.tie_embeddings else 2)
+        n += cfg.mtp_depth * (per_layer + 2 * d * d + v * d)
+        mix = 0
+        for i in list(range(cfg.num_layers)) + [cfg.num_layers - 1] * \
+                cfg.mtp_depth:
+            if cfg.is_attention_layer(i):
+                if cfg.mla is not None:
+                    m = cfg.mla
+                    width = (m.qk_nope_head_dim + m.qk_rope_head_dim
+                             + m.v_head_dim)
+                else:
+                    width = 2 * cfg.head_dim_eff
+                mix += 6 * cfg.num_heads * width * seq
+            elif cfg.mamba is not None:
+                mc = cfg.mamba
+                q, heads = min(mc.chunk_size, seq), mc.expand * d // mc.head_dim
+                mix += 6 * heads * (q * mc.d_state + q * mc.head_dim
+                                    + 2 * mc.d_state * mc.head_dim)
+        return (6 * n + mix) * tokens
+
+    def train_family(self, arch, layers):
+        """One FAMILY_TRAIN family: FAMILY_TRAIN_STEPS steps of TRAIN_BATCH
+        x 4,096 tokens through run_resilient (no checkpoint) and the
+        Prefetcher, and its checks."""
+        torch = self.torch
+        card = self.record["device"]["nvidia_smi"]
+        uncut = self.get_config(arch)
+        cfg = uncut if layers is None else dataclasses.replace(
+            uncut, num_layers=layers)
+        shape = self.train_shape(cfg, TRAIN_BATCH)
+        tc = self.train_config(uncut, FAMILY_TRAIN_STEPS,
+                               num_microbatches=TRAIN_MICRO)
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        t0 = time.perf_counter()
+        state = self.tl.init_train_state(cfg, tc, TRAIN_SEED,
+                                         device=self.dev)
+        self.sync()
+        t_init = time.perf_counter() - t0
+        model = state.params
+        n_params = sum(p.numel() for p in model.parameters())
+        state_gb = torch.cuda.memory_allocated(self.dev) / 1e9
+        step_fn = self.tl.make_train_step(cfg, tc)
+        batch0 = self.batch_on(self.pipe.batch_for_step(cfg, shape, 0,
+                                                        seed=TRAIN_SEED),
+                               self.dev)
+        # the steps' metrics over two microbatches hold the loss alone: the
+        # aux and MTP losses come from the forward on step 0's batch
+        with torch.no_grad():
+            loss_before, fwd = model.forward_train(batch0)
+        fwd = [{k: float(v) for k, v in fwd.items()}]
+        loss_before = float(loss_before)
+        names = [n for n, _ in model.named_parameters()]
+        before = [p.detach().to("cpu", copy=True)
+                  for p in model.parameters()]
+        times, metrics = [], []
+
+        def timed_step(st, batch):
+            self.sync()
+            t = time.perf_counter()
+            st, m = step_fn(st, batch)
+            self.sync()
+            times.append(time.perf_counter() - t)
+            metrics.append({k: float(v) for k, v in m.items()})
+            return st, m
+
+        self.reset_launches()
+        pf = self.pipe.Prefetcher(cfg, shape, seed=TRAIN_SEED)
+        try:
+            state, info = self.ft.run_resilient(
+                timed_step, state,
+                lambda s: self.batch_on(pf.get(s), self.dev),
+                total_steps=FAMILY_TRAIN_STEPS, ckpt_dir=None,
+                log_every=10 ** 9)
+        finally:
+            pf.close()
+        launches = self.read_launches(f"train_families {arch}")
+        still = [n for n, p, old in zip(names, model.parameters(), before)
+                 if torch.equal(p.detach(), old.to(self.dev))]
+        del before
+        with torch.no_grad():
+            loss_after, after = model.forward_train(batch0)
+        fwd.append({k: float(v) for k, v in after.items()})
+        loss_after = float(loss_after)
+        peak_gb = torch.cuda.max_memory_allocated(self.dev) / 1e9
+        median = float(np.median(times))
+        tokens = TRAIN_BATCH * shape.seq_len
+        flops = self.family_flops(cfg, tokens, shape.seq_len)
+        share = flops / (median * PEAK_BF16_TENSOR)
+        self.record["train_families"][arch] = {
+            "layers": cfg.num_layers, "uncut_layers": uncut.num_layers,
+            "mtp_depth": cfg.mtp_depth, "dtype": cfg.param_dtype,
+            "params": n_params, "optimizer": tc.optimizer.name,
+            "batch": TRAIN_BATCH, "microbatches": TRAIN_MICRO,
+            "seq": shape.seq_len, "init_s": t_init, "state_gb": state_gb,
+            "step_s": times, "median_step_s": median,
+            "tokens_per_s": tokens / median, "model_flops_per_step": flops,
+            "model_flops_share": share, "metrics": metrics,
+            "loss_step0_batch": [loss_before, loss_after],
+            "step0_batch_metrics": fwd,
+            "peak_memory_gb": peak_gb, "launches": launches,
+            "host_copy": info["initial_copy"], "card": card}
+        cut = (f"depth {uncut.num_layers} -> {cfg.num_layers}"
+               if layers is not None else f"full depth {cfg.num_layers}")
+        log(f"[train_families] {arch} full width ({cut}"
+            + (f", MTP {cfg.mtp_depth}" if cfg.mtp_depth else "")
+            + f"), {cfg.param_dtype}: {n_params / 1e9:.3f}e9 params (seed "
+            f"{TRAIN_SEED}), {tc.optimizer.name} (TrainConfig.for_arch of "
+            f"the uncut config), state {state_gb:.2f} GB after init "
+            f"({t_init:.2f}s); {FAMILY_TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+            f"{shape.seq_len} tokens ({TRAIN_MICRO} microbatches) through "
+            "run_resilient + Prefetcher")
+        for i, m in enumerate(metrics):
+            log(f"[train_families] {arch} step {i}: loss {m['loss']:.5f} "
+                f"grad_norm {m['grad_norm']:.5f} lr {m['lr']:.3e} "
+                f"{times[i]:.3f}s")
+        log(f"[train_families] {arch} ({card}): median step {median:.4f}s "
+            f"(host clock, ends in synchronize; first {times[0]:.3f}s), "
+            f"{tokens / median:.1f} tok/s; model FLOPs {flops / 1e12:.1f} "
+            f"TFLOP a step (family_flops), {100 * share:.2f}% of the "
+            f"{PEAK_BF16_TENSOR / 1e12:.0f} TFLOP/s bf16 dense peak; peak "
+            f"memory {peak_gb:.2f} GB; launches {launches}")
+        wanted = {"aux_loss": any(cfg.is_moe_layer(i)
+                                  for i in range(cfg.num_layers)),
+                  "mtp_loss": cfg.mtp_depth > 0}
+        extra = "".join(
+            f"; {k} {fwd[0][k]:.5f} before, {fwd[1][k]:.5f} after"
+            for k in wanted if wanted[k])
+        log(f"[train_families] {arch}: loss on step 0's batch "
+            f"{loss_before:.5f} before, {loss_after:.5f} after "
+            f"{FAMILY_TRAIN_STEPS} steps{extra}; parameters that moved "
+            f"{len(names) - len(still)} of {len(names)}")
+        check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                  for m in metrics),
+              f"train_families {arch}: a non-finite loss or grad_norm")
+        check(info["steps"] == FAMILY_TRAIN_STEPS and info["restarts"] == 0,
+              f"train_families {arch}: {info['steps']} steps, "
+              f"{info['restarts']} restarts")
+        check(not still, f"train_families {arch}: parameters that did not "
+              f"move: {still[:8]}")
+        check(loss_after < loss_before, f"train_families {arch}: loss on "
+              f"step 0's batch {loss_before} -> {loss_after}")
+        for key in wanted:
+            if wanted[key]:
+                vals = [m[key] for m in fwd]
+                check(all(math.isfinite(x) and x > 0 for x in vals),
+                      f"train_families {arch}: {key} {vals}")
+        check(peak_gb < 80.0, f"train_families {arch}: peak {peak_gb} GB")
+        self.check_no_kernel_launches(launches, f"train_families {arch}")
+        del state, model, step_fn, batch0
+
     def phase_shard_train(self):
         """[shard_train]: the sharded train step over torch.distributed
         (ZeRO-3: each rank holds its blocks of the state, gathers a block's
@@ -5258,7 +5503,7 @@ class Smoke:
         if mesh[1] == 1:
             check(first["traffic"][0] == SHARD_TRAFFIC_4x1 and not over_model,
                   f"shard_train {name}: traffic {first['traffic'][0]} "
-                  f"(over model: {over_model}) vs the storage-only step's "
+                  f"(over model: {over_model}) vs the storage rules' "
                   f"{SHARD_TRAFFIC_4x1}")
         else:
             check(bool(over_model), f"shard_train {name}: no collective "
@@ -5553,9 +5798,11 @@ class Smoke:
                    for multi in (False, True)]
                 + [("graph", m, mode, bank) for m in DRY_GRAPH_MESHES
                    for mode in ("psum", "pencil")
-                   for bank in (1, DRY_GRAPH_BANK)])
+                   for bank in (1, DRY_GRAPH_BANK)]
+                + [("ceil", arch, r) for arch, ranks in DRY_CEIL_CELLS
+                   for r in ranks])
         # the slow traces (a full-depth train step) spread first
-        cost = {"train": 12, "lm": 3, "prefill": 3, "tick": 3}
+        cost = {"train": 12, "lm": 3, "prefill": 3, "tick": 3, "ceil": 8}
         by_rank = [[] for _ in range(SHARD_WORLD)]
         load = [0.0] * SHARD_WORLD
         for job in sorted(jobs, key=lambda j: -(
@@ -5576,6 +5823,7 @@ class Smoke:
         self.dryrun_serve(serve)
         self.dryrun_shares(done)
         self.dryrun_production(done)
+        self.dryrun_ceil(done)
         rec["s"] = time.perf_counter() - t0
         log(f"[dryrun] phase {rec['s']:.1f}s wall ({SHARD_WORLD} CPU ranks "
             f"tracing side by side, a spawn included; the ranks' jobs "
@@ -5745,6 +5993,50 @@ class Smoke:
                 f"{roof['collective_s']:.3e} s: {roof['dominant']}; peak "
                 f"live {r['memory']['peak_bytes']:.3e} B a rank")
         self.record["dryrun"]["production"] = cells
+
+    def dryrun_ceil(self, done):
+        """(f): DRY_CEIL_CELLS, each rank's attention FLOPs of its ceil
+        block of the heads.  The ranks of a cell differ only in attention
+        (16 divides the hidden units and the vocabulary), so a rank's
+        matmul FLOPs over those of the cell's last rank named (no heads)
+        must be its heads' by the formula: per head and layer q, k, v and
+        ``wo`` (one kv head a q head's block reads) and the causal-square
+        attention, in the forward, the remat recompute and the backward."""
+        from repro_torch.configs import get_config
+        from repro_torch.launch.mesh import block_range
+        from repro_torch.training.train_loop import TrainConfig
+        rows = {}
+        for arch, ranks in DRY_CEIL_CELLS:
+            cfg = get_config(arch)
+            shape = next(s for s in cfg.shapes if s.name == "train_4k")
+            tc = TrainConfig.for_arch(cfg)
+            t = shape.global_batch // 16 * shape.seq_len
+            d, hd = cfg.d_model, cfg.head_dim_eff
+            head = cfg.num_layers * (3 + tc.remat) * (
+                4 * 2 * t * d * hd + 2 * 2 * t * shape.seq_len * hd)
+            recs = {r: done[f"ceil/{arch}/{r}"][0] for r in ranks}
+            empty = recs[ranks[-1]]["stats"]["matmul_flops"]
+            for r, rec in recs.items():
+                check(rec["status"] == "ok" and rec["whole_parts"] == [],
+                      f"dryrun (f) {arch} rank {r}: {rec['status']} "
+                      f"{rec.get('whole_parts')} {rec.get('error', '')}")
+                lo, hi = block_range(cfg.num_heads, 16, r)
+                got = rec["stats"]["matmul_flops"] - empty
+                check(got == (hi - lo) * head,
+                      f"dryrun (f) {arch} rank {r}: attention FLOPs {got} vs "
+                      f"{hi - lo} heads' {(hi - lo) * head}")
+                rows[f"{arch} rank {r}"] = {
+                    "heads": hi - lo, "flops": rec["stats"]["flops"],
+                    "matmul_flops": rec["stats"]["matmul_flops"],
+                    "attention_flops": got,
+                    "peak_bytes": rec["memory"]["peak_bytes"]}
+                log(f"[dryrun] (f) {arch} x train_4k @ 16x16 rank {r}: "
+                    f"{hi - lo} of {cfg.num_heads} heads (ceil blocks), "
+                    f"{rec['stats']['flops']:.4e} FLOPs a rank, attention "
+                    f"{got:.4e} = {hi - lo} x {head:.4e} a head; peak live "
+                    f"{rec['memory']['peak_bytes']:.3e} B; computed whole: "
+                    "none")
+        self.record["dryrun"]["ceil"] = rows
 
     def shard_restore_single(self, cfg, tc, save_dir):
         """The sharded checkpoint restored into the single-device state,

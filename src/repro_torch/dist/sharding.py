@@ -26,7 +26,10 @@ stores, gathered over the FSDP axes only; a row-parallel one (``wo``,
 ``w_down``, Mamba's ``w_out``) and every expert matrix trade their stored
 block for the compute block in one all_to_all over ``"model"``; a weight
 stored whole over ``"model"`` (a vector, the vocabulary of an untied head
-that ``"model"`` does not divide) is narrowed to its ceil block.  Backward
+that ``"model"`` does not divide) is narrowed to its ceil block, and so is
+one whose heads or experts ``"model"`` does not divide, in whole heads,
+from the gathered whole (its even storage block does not line up with
+the ceil block).  Backward
 runs each step in reverse: a rank's gradient of its compute block is its
 own product, reduce-scattered over the FSDP axes (whose ranks hold other
 rows of the batch).  A weight that every rank of ``"model"`` computes
@@ -48,8 +51,9 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch.launch.mesh import ceil_blocks, gather_blocks
-from repro_torch.models.common import splits_over_model
+from repro_torch.launch.mesh import (
+    ceil_blocks, gather_blocks, gather_ceil_blocks, unit_block)
+from repro_torch.models.common import part_units
 from repro_torch.tree import tree_flatten_with_path, tree_unflatten
 
 # Batch + fully-sharded-parameter axes, widest first; "pod" only ever
@@ -96,14 +100,21 @@ def _fit_entry(dim: int, entry, sizes: dict):
 
 class NamedSharding:
     """``spec`` placed on ``mesh``; ``shape`` is the full array's shape
-    when it is known (``named`` with a shape)."""
+    when it is known (``named`` with a shape).  ``ceil``: {dim: unit} for
+    the dims that split in ceil blocks of whole units
+    (:func:`repro_torch.launch.mesh.unit_block`, as GSPMD pads) rather
+    than in equal blocks; serving stores a part's uneven compute block so
+    (:func:`compute_layout`)."""
 
-    def __init__(self, mesh, spec: P, shape: Optional[tuple] = None):
+    def __init__(self, mesh, spec: P, shape: Optional[tuple] = None,
+                 ceil: Optional[dict] = None):
         self.mesh, self.spec = mesh, P(*spec)
         self.shape = None if shape is None else tuple(int(d) for d in shape)
+        self.ceil = dict(ceil or {})
 
     def __repr__(self) -> str:
-        return f"NamedSharding({self.spec!r}, shape={self.shape})"
+        ceil = f", ceil={self.ceil}" if self.ceil else ""
+        return f"NamedSharding({self.spec!r}, shape={self.shape}{ceil})"
 
     # -- where the blocks lie ----------------------------------------------
     def dim_axes(self) -> list:
@@ -129,7 +140,13 @@ class NamedSharding:
     def block_shape(self, shape: Optional[tuple] = None) -> tuple:
         shape = list(self.shape if shape is None else shape)
         for dim, axes in self.dim_axes():
-            shape[dim] //= self.mesh.group_size(axes)
+            g = self.mesh.group_size(axes)
+            if dim in self.ceil:
+                lo, hi = unit_block(shape[dim], self.ceil[dim], g,
+                                    self.mesh.group_index(axes))
+                shape[dim] = hi - lo
+            else:
+                shape[dim] //= g
         return tuple(shape)
 
     def block_numel(self) -> int:
@@ -140,9 +157,13 @@ class NamedSharding:
         shape = self.shape if shape is None else shape
         out = [slice(None)] * len(shape)
         for dim, axes in self.dim_axes():
-            n = shape[dim] // self.mesh.group_size(axes)
-            i = self.mesh.group_index(axes)
-            out[dim] = slice(i * n, (i + 1) * n)
+            g, i = self.mesh.group_size(axes), self.mesh.group_index(axes)
+            if dim in self.ceil:
+                out[dim] = slice(*unit_block(shape[dim], self.ceil[dim], g,
+                                             i))
+            else:
+                n = shape[dim] // g
+                out[dim] = slice(i * n, (i + 1) * n)
         return tuple(out)
 
     def shard(self, full: torch.Tensor) -> torch.Tensor:
@@ -158,7 +179,12 @@ class NamedSharding:
         dimension's axes; every rank of a group gets the whole).  Not
         differentiable: :func:`gather_on_use` is."""
         for dim, axes in self.dim_axes():
-            block = self.mesh.all_gather(block, axes, dim)
+            if dim in self.ceil:
+                block, = gather_ceil_blocks(
+                    self.mesh, [block], [dim],
+                    [(self.ceil[dim], self.shape[dim])], axes)
+            else:
+                block = self.mesh.all_gather(block, axes, dim)
         return block
 
     def take(self, full: torch.Tensor, dim: int, like_dim: int):
@@ -300,8 +326,10 @@ class Use(NamedTuple):
     gathered, the "model" block kept; the gradient is the rank's own).
     ``post``: None; ``("swap", storage dim, compute dim)``, an all_to_all
     over "model" that trades the block along the one dim for the block
-    along the other; or ``("block", dim)``, the rank's ceil block along
-    ``dim`` (:func:`repro_torch.launch.mesh.block_range`)."""
+    along the other; or ``("block", dim, unit)``, the rank's ceil block
+    of whole ``unit``-element units (a head's channels; 1 for hidden
+    units, experts and the vocabulary) along ``dim``
+    (:func:`repro_torch.launch.mesh.unit_block`)."""
     gather: str = "full"
     post: Optional[tuple] = None
 
@@ -325,18 +353,27 @@ _COMPUTE_DIM = {
 _KV_DIM = {"wk": -1, "wv": -1, "bk": 0, "bv": 0}
 # computed whole on every rank of "model", each rank's gradient a part
 _SUMMED = {("mamba", "w_bc"), ("mamba", "conv_bc_w"), ("mamba", "conv_bc_b")}
+# compute dims of a head's channels (``models.common.part_units``): their
+# blocks are whole heads
+_PER_HEAD = {("attn", n) for n in ("wq", "bq", "wo", *_KV_DIM)} | {
+    ("mamba", n) for n in ("w_x", "w_z", "conv_x_w", "conv_x_b", "out_norm",
+                           "w_out")}
 
 
 def compute_use(path, shape: tuple, storage: NamedSharding, cfg) -> Use:
     """The compute layout of one parameter of ``cfg``'s model, stored under
     ``storage``: ``Use()`` (the whole weight) without a "model" axis of
-    more than one rank, or for a part whose heads or experts that axis
-    does not divide (``models.common.splits_over_model``: the part
-    computes whole on every rank)."""
+    more than one rank, or for a part that never splits (MLA, NFFT
+    attention, the router).  A part whose units (heads, experts) "model"
+    does not divide computes its ceil block of whole units: the storage
+    block, an even split of the elements, does not line up with it, so
+    the rank cuts it from the gathered whole, and its gradient returns to
+    the storage block; a weight stored in that block (``storage.ceil``,
+    serving's :func:`compute_layout`) keeps it."""
     m = storage.mesh.shape.get(MODEL_AXIS, 1)
     names = _path_names(path)
     key = (names[-2] if len(names) > 1 else "", names[-1])
-    if m == 1 or not splits_over_model(cfg, key[0], m):
+    if m == 1:
         return Use()
     if key[0] == "attn" and key[1] in _KV_DIM:
         if cfg.num_kv_heads % m:
@@ -349,22 +386,45 @@ def compute_use(path, shape: tuple, storage: NamedSharding, cfg) -> Use:
     else:
         return Use()
     dim %= len(shape)
+    unit = part_units(cfg, key[0])[1] if key in _PER_HEAD else 1
+    even = shape[dim] // unit % m == 0
     stored = [d for d, axes in storage.dim_axes() if MODEL_AXIS in axes]
-    if stored == [dim]:
+    if stored == [dim] and (even or storage.ceil.get(dim) == unit):
         return Use("keep")
-    if stored and shape[dim] % m == 0:
+    if stored and even:
         return Use("keep", ("swap", stored[0], dim))
-    return Use("full", ("block", dim))
+    return Use("full", ("block", dim, unit))
+
+
+def _ceil_storage(s: NamedSharding, shape: tuple, dim: int,
+                  unit: int) -> NamedSharding:
+    """``s`` with "model" moved to ``dim``, split in ceil blocks of
+    ``unit`` elements; the FSDP axes that stood on ``dim`` move to the dim
+    "model" left, where they still divide it."""
+    spec = list(s.spec) + [None] * (len(shape) - len(s.spec))
+    axes = [tuple(a for a in _entry_axes(e) if a != MODEL_AXIS)
+            for e in spec]
+    left = [d for d, e in enumerate(spec) if MODEL_AXIS in _entry_axes(e)]
+    if left and left[0] != dim:
+        axes[left[0]] += axes[dim]
+    axes[dim] = ()
+    sizes = dict(s.mesh.shape)
+    entries = [_fit_entry(n, _collapse(a), sizes)
+               for n, a in zip(shape, axes)]
+    entries[dim] = MODEL_AXIS
+    return NamedSharding(s.mesh, P(*entries), shape, ceil={dim: unit})
 
 
 def compute_layout(model, shardings: dict, cfg) -> dict:
     """Storage shardings that hold every parameter's "model" block where
     its compute layout wants it, for weights that never change (serving):
     a weight whose :class:`Use` swaps (an all_to_all over "model" on every
-    use) is stored with the entries of its two dims exchanged, so that its
-    use only gathers the FSDP axes.  Each rank stores as many bytes as
-    under ``shardings`` wherever the FSDP axes divide the other dim too (in
-    every configuration of the repo)."""
+    use) is stored with the entries of its two dims exchanged, and one
+    whose use cuts a ceil block of units from the whole stores that block
+    (``NamedSharding.ceil``), so that its use only gathers the FSDP axes.
+    Each rank stores as many bytes as under ``shardings`` wherever the
+    FSDP axes divide the other dim too (in every configuration of the
+    repo), and a ceil block's more or fewer."""
     out = {}
     for name, p in model.named_parameters():
         s = shardings[name]
@@ -374,6 +434,8 @@ def compute_layout(model, shardings: dict, cfg) -> dict:
             a, b = post[1], post[2]
             spec[a], spec[b] = spec[b], spec[a]
             s = named(s.mesh, P(*spec), tuple(p.shape))
+        elif post is not None:
+            s = _ceil_storage(s, tuple(p.shape), post[1], post[2])
         out[name] = s
     return out
 
@@ -567,7 +629,8 @@ def gather_on_use(blocks: list, shardings: list, uses: list) -> list:
     if cut:
         got = ceil_blocks([out[i] for i in cut],
                           [uses[i].post[1] for i in cut],
-                          shardings[cut[0]].mesh, MODEL_AXIS)
+                          shardings[cut[0]].mesh, MODEL_AXIS,
+                          [uses[i].post[2] for i in cut])
         for i, t in zip(cut, got):
             out[i] = t
     return out

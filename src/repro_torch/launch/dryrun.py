@@ -19,9 +19,11 @@ or NCCL workspaces), ``stats`` (FLOPs, HBM bytes, the collective bytes in
 the reference's "moved" and "payload" models, DCI bytes), the three
 roofline terms (``launch.roofline``, the H100 data sheet's peaks) and
 ``whole_parts``: the parts of the model that every rank computes whole
-(heads or experts the "model" axis does not divide, which the reference's
-GSPMD splits unevenly; MLA and NFFT attention), whose counts therefore
-overstate a split rank's work.
+(MLA and NFFT attention, which the reference does not split either), whose
+counts therefore overstate a split rank's work.  Heads and experts that
+the "model" axis does not divide split in ceil blocks, as the reference's
+GSPMD pads them: each rank counts its own block (qwen1.5-32b's 40 heads
+on 16 ranks: 3 on ranks 0-12, 1 on rank 13, none on ranks 14 and 15).
 
 The *paper-technique* cells (``graph-fastsum-*``) trace the distributed
 NFFT fast-summation matvec body at node counts up to 2^27 in both spectral

@@ -278,6 +278,13 @@ def block_range(n: int, g: int, i: int) -> tuple:
     return lo, min(lo + c, n)
 
 
+def unit_block(n: int, unit: int, g: int, i: int) -> tuple:
+    """[lo, hi) along a dim of ``n`` elements of block ``i`` of its
+    ``n / unit`` units (heads of ``unit`` channels) in ``g`` ceil blocks."""
+    lo, hi = block_range(n // unit, g, i)
+    return lo * unit, hi * unit
+
+
 def gather_blocks(mesh, tensors: list, dims: list, axes: tuple) -> list:
     """Each tensor gathered along its own dim over ``axes`` of ``mesh``: one
     all_gather of the concatenated blocks."""
@@ -294,47 +301,64 @@ def gather_blocks(mesh, tensors: list, dims: list, axes: tuple) -> list:
     return full
 
 
+def gather_ceil_blocks(mesh, tensors: list, dims: list, units: list,
+                       axes) -> list:
+    """The whole of each tensor from every rank's ceil block of it along
+    its dim (:func:`unit_block`); ``units`` gives each tensor's (unit,
+    whole length).  Each block is padded to the ceil block and gathered
+    in one all_gather; every block before the first short one is whole and
+    every one after it empty, so the whole is the gather's first ``length``
+    entries."""
+    g = mesh.group_size(axes)
+    padded = []
+    for t, d, (u, n) in zip(tensors, dims, units):
+        pad = list(t.shape)
+        pad[d] = -(-(n // u) // g) * u - t.shape[d]
+        padded.append(torch.cat([t, t.new_zeros(pad)], dim=d) if pad[d]
+                      else t)
+    full = gather_blocks(mesh, padded, list(dims), axes)
+    return [f.narrow(d, 0, n) for f, d, (_, n) in zip(full, dims, units)]
+
+
 class _CeilBlocks(torch.autograd.Function):
     """Forward: each tensor's ceil block along its dim over ``axes``
-    (:func:`block_range`); backward: the blocks' gradients all_gathered
-    (each padded to the ceil block), so every rank holds the whole."""
+    (:func:`unit_block`: whole units of its dim); backward: the blocks'
+    gradients all_gathered (each padded to the ceil block), so every rank
+    holds the whole."""
 
     @staticmethod
-    def forward(ctx, mesh, axes, dims, *tensors):
+    def forward(ctx, mesh, axes, dims, units, *tensors):
         ctx.mesh, ctx.axes, ctx.dims = mesh, axes, dims
-        ctx.sizes = [t.shape[d] for t, d in zip(tensors, dims)]
+        ctx.units = [(u, t.shape[d]) for t, d, u in zip(tensors, dims, units)]
         g, i = mesh.group_size(axes), mesh.group_index(axes)
         out = []
-        for t, d in zip(tensors, dims):
-            lo, hi = block_range(t.shape[d], g, i)
+        for t, d, u in zip(tensors, dims, units):
+            lo, hi = unit_block(t.shape[d], u, g, i)
             out.append(t.narrow(d, lo, hi - lo))
         return tuple(out)
 
     @staticmethod
     def backward(ctx, *grads):
-        g = ctx.mesh.group_size(ctx.axes)
-        padded = []
-        for x, d, n in zip(grads, ctx.dims, ctx.sizes):
-            c = -(-n // g)
-            pad = list(x.shape)
-            pad[d] = c - x.shape[d]
-            padded.append(torch.cat([x, x.new_zeros(pad)], dim=d)
-                          if pad[d] else x)
-        full = gather_blocks(ctx.mesh, padded, list(ctx.dims), ctx.axes)
-        return (None,) * 3 + tuple(f.narrow(d, 0, n).contiguous() for f, d, n
-                                   in zip(full, ctx.dims, ctx.sizes))
+        full = gather_ceil_blocks(ctx.mesh, list(grads), list(ctx.dims),
+                                  ctx.units, ctx.axes)
+        return (None,) * 4 + tuple(f.contiguous() for f in full)
 
 
-def ceil_blocks(tensors: list, dims: list, mesh: Mesh, axes) -> list:
+def ceil_blocks(tensors: list, dims: list, mesh: Mesh, axes,
+                units: list | None = None) -> list:
     """This rank's ceil block of each tensor along its dim over ``axes``,
-    differentiably: the gradient of the whole is every rank's block's,
-    all_gathered (one all_gather for tensors of one dtype)."""
+    in whole ``units`` (default 1: elements; a head's channels for a
+    projection's heads), differentiably: the gradient of the whole is every
+    rank's block's, all_gathered (one all_gather for tensors of one
+    dtype)."""
+    units = [1] * len(tensors) if units is None else list(units)
     out = list(tensors)
     by_dtype: dict = {}
     for i, t in enumerate(tensors):
         by_dtype.setdefault(t.dtype, []).append(i)
     for idx in by_dtype.values():
         got = _CeilBlocks.apply(mesh, axes, tuple(dims[i] for i in idx),
+                                tuple(units[i] for i in idx),
                                 *[tensors[i] for i in idx])
         for i, t in zip(idx, got):
             out[i] = t

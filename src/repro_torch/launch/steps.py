@@ -43,17 +43,19 @@ class ShardedServeStep:
       two dims' axes exchanged; :meth:`shard`).  A block's weights are
       gathered on use as the train step's are (``sharded_call``), over the
       FSDP axes, and over ``"model"`` only for a part that computes
-      whole.  These are not ``shardings_for``'s assignments, the
-      reference's, under which GSPMD would reshard the weights every
-      step.
+      whole.  A part whose heads or experts ``"model"`` does not divide
+      stores each rank's ceil block of them (``NamedSharding.ceil``).
+      These are not ``shardings_for``'s assignments, the reference's,
+      under which GSPMD would reshard the weights every step.
     * **Rows.** The batch's rows split over the FSDP axes (``batch_specs``,
       ``local_rows``); the caches are this rank's blocks under
       ``cache_specs``: its rows, every head and position.
     * **Compute over ``"model"``.** Prefill splits heads, hidden units,
-      experts and Mamba heads as the training forward does; each rank
-      writes every kv head into its cache.  Decode splits the attention's
-      cache positions (the reference's constraint) and otherwise the
-      training forward's blocks.  MLA and NFFT attention compute whole.
+      experts and Mamba heads in ceil blocks as the training forward
+      does; each rank writes every kv head into its cache.  Decode splits
+      the attention's cache positions (the reference's constraint) and
+      otherwise the training forward's blocks.  MLA and NFFT attention
+      compute whole.
     * **Results.** Every rank ends with the whole last-position logits of
       the whole batch (the vocabulary blocks and the row blocks
       all-gathered) and its own caches, updated in place.
@@ -242,8 +244,9 @@ def trace_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, *, rank: int = 0,
     described rank, with its ``traffic`` and ``traffic_axes``) and
     "kind", "trace_s", "replicated" (prefill and decode:
     ``_serve_replicated``), "whole_parts" (``models.common.whole_parts``:
-    the parts every rank computes whole, whose counts overstate a split's
-    work).
+    the parts every rank computes whole, MLA and NFFT attention, whose
+    counts overstate a split's work; every other part counts the rank's
+    ceil block).
     ``use_flash`` (prefill): None takes the flash kernel, as the card
     does."""
     from repro_torch.launch.specs import input_specs

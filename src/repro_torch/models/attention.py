@@ -15,10 +15,13 @@ einsum everywhere, as in the JAX package: it never uses the flash kernel.
 
 Under a model split (:func:`repro_torch.models.common.part_split`, the
 sharded train and serving steps), GQA's training forward and prefill
-compute this rank's block of the q heads and the kv heads they read, and
-its product with ``wo``'s rows of those heads, summed over the split; the
-prefill writes every kv head into the cache, which holds the whole batch
-rows of the rank (its own kv heads all-gathered over the split).  Decode
+compute this rank's ceil block of the q heads (none on a rank past the
+last block, which still joins every collective with zeros) and the kv
+heads they read, and its product with ``wo``'s rows of those heads,
+summed over the split; a block that crosses a kv group reads each of its
+heads' kv head by index.  The prefill writes every kv head into the
+cache, which holds the whole batch rows of the rank (its own kv heads
+all-gathered over the split).  Decode
 splits the cache positions instead, as the reference's constraint does:
 each rank attends with every head over its ceil block of the positions
 (:func:`repro_torch.launch.mesh.block_range`), and the blocks combine
@@ -35,10 +38,11 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.launch.mesh import block_range, gather_blocks
+from repro_torch.launch.mesh import (
+    block_range, gather_blocks, gather_ceil_blocks)
 from repro_torch.models.common import (
     apply_rope, current_mesh, current_model_axis, dense_init, init_rms_norm,
-    model_copy, model_max, model_sum, part_split, rms_norm,
+    model_copy, model_max, model_split, model_sum, part_split, rms_norm,
 )
 
 
@@ -58,10 +62,10 @@ def _softmax_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: torch.Tensor | None) -> torch.Tensor:
     """q (b, h, sq, hd), k/v (b, hkv, sk, hd); mask broadcasts against
     (b, hkv, group, sq, sk).  Logits in q's dtype, softmax in float32, as
-    the JAX einsum path."""
+    the JAX einsum path.  h may be 0 (a rank's empty block of heads)."""
     b, h, sq, hd = q.shape
     hkv = k.shape[1]
-    qg = q.reshape(b, hkv, h // hkv, sq, hd)
+    qg = q.reshape(b, hkv, h // hkv if hkv else 1, sq, hd)
     logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k) / (hd ** 0.5)
     logits = logits.float()
     if mask is not None:
@@ -115,7 +119,7 @@ class Attention(nn.Module):
         k = apply_rope(k.transpose(1, 2), positions[:, None, :],
                        cfg.rope_theta)
         v = v.transpose(1, 2)
-        if use_flash and prefix_len == 0:
+        if use_flash and prefix_len == 0 and q.shape[1]:
             if torch.is_grad_enabled() and q.requires_grad:
                 raise RuntimeError(
                     "the flash attention kernel has no backward (nor has "
@@ -131,7 +135,8 @@ class Attention(nn.Module):
                     mask = mask | (positions[:, None, None, None, :]
                                    < prefix_len)
             ctx = _softmax_attend(q, k, v, mask)
-        return ctx.transpose(1, 2).reshape(b, s, -1) @ self.wo
+        return ctx.transpose(1, 2).reshape(b, s, q.shape[1] * q.shape[3]) \
+            @ self.wo
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
                 use_flash: bool = False,
@@ -140,7 +145,7 @@ class Attention(nn.Module):
         ``prefix_len > 0`` lets every query see the keys before it
         (prefix-LM); the flash kernel is used only without such a prefix,
         and never where a gradient is wanted: it has no backward."""
-        if part_split(self.cfg, "attn")[1] > 1:
+        if part_split(self.cfg, "attn")[2] > 1:
             return model_sum(self._attend_sequence(
                 *self._project_block(model_copy(x)), positions,
                 use_flash=use_flash, prefix_len=prefix_len))
@@ -148,22 +153,38 @@ class Attention(nn.Module):
         return self._attend_sequence(q, k, v, positions, use_flash=use_flash,
                                      prefix_len=prefix_len)
 
+    def _kv_read(self, lo: int, hi: int) -> tuple:
+        """(klo, khi, index): the kv heads [klo, khi) that q heads [lo, hi)
+        read, and each q head's kv head in that range when the block does
+        not read them in equal groups of consecutive heads (None when it
+        does, or is empty)."""
+        group = self.cfg.num_heads // self.cfg.num_kv_heads
+        if hi == lo:
+            return lo // group, lo // group, None
+        klo, khi = lo // group, (hi - 1) // group + 1
+        index = [g // group - klo for g in range(lo, hi)]
+        per = (hi - lo) // (khi - klo)
+        if (hi - lo) % (khi - klo) == 0 and index == [
+                i // per for i in range(hi - lo)]:
+            return klo, khi, None
+        return klo, khi, index
+
     def _project_block(self, x: torch.Tensor):
-        """:meth:`project_qkv` of this rank's block of h / M q heads (``wq``
-        and ``bq`` hold its columns) and of the kv heads they read: the
-        block of ``wk``, ``wv`` when M divides the kv heads, else the
-        columns of the kv heads its q heads read, out of the whole
-        projections (whose gradient the ranks sum)."""
+        """:meth:`project_qkv` of this rank's ceil block [lo, hi) of the q
+        heads (``wq`` and ``bq`` hold its columns) and of the kv heads
+        they read: the block of ``wk``, ``wv`` when the split divides the
+        kv heads, else the columns of the kv heads the block reads, out of
+        the whole projections (whose gradient the ranks sum).  A block
+        that crosses a kv group gets one kv head a q head (by index)."""
         cfg = self.cfg
-        j, m = part_split(cfg, "attn")
-        h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_eff
-        hl = h // m
+        lo, hi, m = part_split(cfg, "attn")
+        hkv, hd = cfg.num_kv_heads, cfg.head_dim_eff
         wk, wv = self.wk, self.wv
         bk, bv = (self.bk, self.bv) if cfg.qkv_bias else (None, None)
+        index = None
         if hkv % m:
-            group = h // hkv
-            lo, hi = j * hl // group, ((j + 1) * hl - 1) // group + 1
-            cols = slice(lo * hd, hi * hd)
+            klo, khi, index = self._kv_read(lo, hi)
+            cols = slice(klo * hd, khi * hd)
             wk, wv = wk[:, cols], wv[:, cols]
             if cfg.qkv_bias:
                 bk, bv = bk[cols], bv[cols]
@@ -171,15 +192,20 @@ class Attention(nn.Module):
         q, k, v = x @ self.wq, x @ wk, x @ wv
         if cfg.qkv_bias:
             q, k, v = q + self.bq, k + bk, v + bv
-        return (q.reshape(b, s, hl, hd), k.reshape(b, s, -1, hd),
-                v.reshape(b, s, -1, hd))
+        q = q.reshape(b, s, hi - lo, hd)
+        k = k.reshape(b, s, wk.shape[1] // hd, hd)
+        v = v.reshape(b, s, wv.shape[1] // hd, hd)
+        if index is not None:
+            index = torch.tensor(index, device=x.device)
+            k, v = k.index_select(2, index), v.index_select(2, index)
+        return q, k, v
 
     def _whole_kv(self, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
         """Under a model split, every kv head of x's k and v: this rank's
         block ``k``, ``v`` all-gathered over the split when it divides the
         kv heads, else the whole projections (which the rank holds)."""
         cfg = self.cfg
-        m = part_split(cfg, "attn")[1]
+        m = part_split(cfg, "attn")[2]
         if cfg.num_kv_heads % m == 0:
             return gather_blocks(current_mesh(), [k, v], [2, 2],
                                  current_model_axis())
@@ -197,7 +223,7 @@ class Attention(nn.Module):
         and the values of [0, s) into ``cache`` in place (under a model
         split, every kv head: :meth:`_whole_kv`)."""
         s = x.shape[1]
-        split = part_split(self.cfg, "attn")[1] > 1
+        split = part_split(self.cfg, "attn")[2] > 1
         if split:
             q, k, v = self._project_block(model_copy(x))
             k_all, v_all = self._whole_kv(x, k, v)
@@ -222,10 +248,12 @@ class Attention(nn.Module):
         (:meth:`_decode_split`)."""
         cfg = self.cfg
         b = x.shape[0]
-        j, m = part_split(cfg, "attn")
+        lo, hi, m = part_split(cfg, "attn")
         if m > 1:
             q, k, v = self._project_block(x)
-            q, = gather_blocks(current_mesh(), [q], [2], current_model_axis())
+            q, = gather_ceil_blocks(current_mesh(), [q], [2],
+                                    [(1, cfg.num_heads)],
+                                    current_model_axis())
             k, v = self._whole_kv(x, k, v)
         else:
             q, k, v = self.project_qkv(x)
@@ -235,7 +263,7 @@ class Attention(nn.Module):
         cache.k[rows, pos] = k[:, :, 0].to(cache.k.dtype)
         cache.v[rows, pos] = v[:, 0].to(cache.v.dtype)
         if m > 1:
-            return self._decode_split(q, pos, cache, j, m)
+            return self._decode_split(q, pos, cache, lo, hi)
         s_max = cache.k.shape[1]
         valid = (torch.arange(s_max, device=x.device)[None, :]
                  <= pos[:, None])
@@ -245,21 +273,23 @@ class Attention(nn.Module):
         return ctx.transpose(1, 2).reshape(b, 1, -1) @ self.wo
 
     def _decode_split(self, q: torch.Tensor, pos: torch.Tensor,
-                      cache: KVCache, j: int, m: int) -> torch.Tensor:
-        """Every head's RoPE'd query q (b, h, 1, hd) over rank j's ceil
+                      cache: KVCache, lo: int, hi: int) -> torch.Tensor:
+        """Every head's RoPE'd query q (b, h, 1, hd) over this rank's ceil
         block of the cache rows, combined over the split: the logits' max
         (``model_max``), then the sums of the exponentials and of the
-        values they weigh (``model_sum``); then this rank's heads' product
-        with ``wo``'s rows of them, summed over the split."""
+        values they weigh (``model_sum``); then the product of this rank's
+        heads [lo, hi) with ``wo``'s rows of them, summed over the
+        split."""
         b, h, _, hd = q.shape
         hkv = cache.k.shape[2]
-        lo, hi = block_range(cache.k.shape[1], m, j)
-        kk = cache.k[:, lo:hi].transpose(1, 2)
-        vv = cache.v[:, lo:hi].transpose(1, 2)
+        j, m = model_split()
+        r0, r1 = block_range(cache.k.shape[1], m, j)
+        kk = cache.k[:, r0:r1].transpose(1, 2)
+        vv = cache.v[:, r0:r1].transpose(1, 2)
         qg = q.reshape(b, hkv, h // hkv, 1, hd)
         logits = (torch.einsum("bhgqd,bhkd->bhgqk", qg, kk)
                   / (hd ** 0.5)).float()
-        valid = (torch.arange(lo, hi, device=q.device)[None, :]
+        valid = (torch.arange(r0, r1, device=q.device)[None, :]
                  <= pos[:, None])
         logits = logits.masked_fill(~valid[:, None, None, None, :], -1e30)
         shift = model_max(logits.amax(dim=-1, keepdim=True))
@@ -267,9 +297,8 @@ class Attention(nn.Module):
         den = model_sum(p.sum(dim=-1, keepdim=True))
         num = model_sum(torch.einsum("bhgqk,bhkd->bhgqd", p.to(vv.dtype), vv))
         ctx = (num / den.to(num.dtype)).reshape(b, h, 1, hd)
-        hl = h // m
-        mine = ctx[:, j * hl:(j + 1) * hl].transpose(1, 2)
-        return model_sum(mine.reshape(b, 1, hl * hd) @ self.wo)
+        mine = ctx[:, lo:hi].transpose(1, 2)
+        return model_sum(mine.reshape(b, 1, (hi - lo) * hd) @ self.wo)
 
 
 # ---------------------------------------------------------------------------

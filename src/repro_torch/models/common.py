@@ -13,8 +13,8 @@ entropy and the MoE's load-balancing loss stay the reference's means over
 the whole batch.  ``model_axis`` names the axis whose ranks compute in
 blocks, the twin of the reference's activation ``shard`` constraints over
 ``"model"``: every rank of it holds the same rows, and computes only its
-block of the attention heads, the MLP's hidden units, the experts, Mamba's
-inner channels and the vocabulary (:func:`model_split`).
+ceil block of the attention heads, the MLP's hidden units, the experts,
+Mamba's heads and the vocabulary (:func:`model_split`, :func:`part_split`).
 :func:`model_copy` (identity forward, all-reduce backward) marks a
 replicated input of such a block, :func:`model_sum` (all-reduce forward,
 identity backward) the sum of the blocks' partial outputs.  Without a
@@ -29,7 +29,8 @@ import threading
 import torch
 import torch.nn.functional as F
 
-from repro_torch.launch.mesh import ceil_blocks
+from repro_torch.launch.mesh import (
+    block_range, ceil_blocks, gather_ceil_blocks)
 
 
 # ---------------------------------------------------------------------------
@@ -106,59 +107,47 @@ def model_split() -> tuple:
     return mesh.group_index(axis), mesh.shape[axis]
 
 
-def splits_over_model(cfg, owner: str, m: int) -> bool:
-    """Whether ``owner``'s units split evenly over ``m`` > 1 ranks of the
-    model axis: ``"attn"`` its heads, in blocks that line up with the kv
-    groups when the axis does not divide the kv heads; ``"moe"`` its
-    experts; ``"mamba"`` its heads.  Every other part splits (hidden
-    units and the vocabulary in ceil blocks)."""
-    if m == 1:
-        return False
+def part_units(cfg, owner: str) -> tuple:
+    """(units, channels a unit) of ``owner``'s part that a model axis
+    splits: ``"attn"`` its q heads, ``"moe"`` its experts, ``"mamba"`` its
+    heads."""
     if owner == "attn":
-        h, hkv = cfg.num_heads, cfg.num_kv_heads
-        if h % m:
-            return False
-        hl, group = h // m, h // hkv
-        return hkv % m == 0 or group % hl == 0 or hl % group == 0
+        return cfg.num_heads, cfg.head_dim_eff
     if owner == "moe":
-        return cfg.moe.num_experts % m == 0
+        return cfg.moe.num_experts, 1
     if owner == "mamba":
         mc = cfg.mamba
-        return (mc.expand * cfg.d_model // mc.head_dim) % m == 0
-    return True
+        return mc.expand * cfg.d_model // mc.head_dim, mc.head_dim
+    raise ValueError(owner)
 
 
 def whole_parts(cfg, m: int) -> list:
     """The parts of ``cfg``'s model that compute whole on every rank of a
-    model axis of ``m`` > 1 ranks, one line each: those whose heads or
-    experts the axis does not divide (:func:`splits_over_model`; the
-    reference's GSPMD splits them unevenly), and MLA and NFFT attention,
-    which never split.  A dry run's per-rank counts overstate these parts'
-    work up to ``m``-fold."""
-    if m == 1:
+    model axis of ``m`` > 1 ranks, one line each: MLA and NFFT attention,
+    which the reference never splits.  Every other part splits, in ceil
+    blocks where ``m`` does not divide its units (:func:`part_split`).  A
+    dry run's per-rank counts overstate these parts' work up to
+    ``m``-fold."""
+    if m == 1 or not any(cfg.is_attention_layer(i)
+                         for i in range(cfg.num_layers)):
         return []
-    out = []
-    if any(cfg.is_attention_layer(i) for i in range(cfg.num_layers)):
-        if cfg.mla is not None:
-            out.append("attn: MLA")
-        elif cfg.nfft_attention is not None:
-            out.append("attn: NFFT attention")
-        elif not splits_over_model(cfg, "attn", m):
-            out.append(f"attn: {cfg.num_heads} heads, {cfg.num_kv_heads} "
-                       f"kv heads")
-    if cfg.moe is not None and not splits_over_model(cfg, "moe", m):
-        out.append(f"moe: {cfg.moe.num_experts} experts")
-    if cfg.mamba is not None and not splits_over_model(cfg, "mamba", m):
-        mc = cfg.mamba
-        out.append(f"mamba: {mc.expand * cfg.d_model // mc.head_dim} heads")
-    return out
+    if cfg.mla is not None:
+        return ["attn: MLA"]
+    if cfg.nfft_attention is not None:
+        return ["attn: NFFT attention"]
+    return []
 
 
 def part_split(cfg, owner: str) -> tuple:
-    """:func:`model_split` for ``owner``'s units: (0, 1), computing whole,
-    when the model axis does not divide them (:func:`splits_over_model`)."""
+    """(lo, hi, m): this rank's ceil block [lo, hi) of ``owner``'s units
+    (:func:`part_units`; :func:`repro_torch.launch.mesh.block_range`) over
+    the model axis of ``m`` ranks; (0, units, 1) without a split.  A block
+    may be empty: its rank still joins every collective of the part, with
+    a partial output of zeros."""
     j, m = model_split()
-    return (j, m) if splits_over_model(cfg, owner, m) else (0, 1)
+    n = part_units(cfg, owner)[0]
+    lo, hi = block_range(n, m, j)
+    return lo, hi, m
 
 
 class _ModelCopy(torch.autograd.Function):
@@ -209,16 +198,10 @@ def model_max(t: torch.Tensor) -> torch.Tensor:
 
 def model_gather(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
     """Under a model split, the whole of ``n`` along ``dim`` from every
-    rank's ceil block ``t`` of it (each padded to the ceil block, one
-    all_gather), outside autograd: serving's logits."""
-    m = model_split()[1]
-    c = -(-n // m)
-    pad = list(t.shape)
-    pad[dim] = c - t.shape[dim]
-    if pad[dim]:
-        t = torch.cat([t, t.new_zeros(pad)], dim=dim)
-    whole = current_mesh().all_gather(t.detach(), current_model_axis(), dim)
-    return whole.narrow(dim, 0, n)
+    rank's ceil block ``t`` of it (one all_gather), outside autograd:
+    serving's logits."""
+    return gather_ceil_blocks(current_mesh(), [t.detach()], [dim], [(1, n)],
+                              current_model_axis())[0]
 
 
 def model_block(t: torch.Tensor, dim: int) -> torch.Tensor:

@@ -24,9 +24,10 @@ Decode per token: h = exp(dt A) h + dt B x;  y = C . h + D x, with a
 rolling conv buffer of the last d_conv - 1 raw projections.
 
 Under a model split (the sharded train and serving steps), the forward
-computes this rank's block of the heads, which are its block of the inner
-channels, from the whole B/C projections; the gated RMS norm sums its
-squares over the split, since it normalises the whole inner dim.  Prefill
+computes this rank's ceil block of the heads (none on a rank past the last
+block), which are its block of the inner channels, from the whole B/C
+projections; the gated RMS norm sums its squares over the split, since it
+normalises the whole inner dim (an empty block adds 0).  Prefill
 and decode keep the cache's whole shape but a rank reads and writes only
 its heads' state and its channels' conv buffer (and the whole B/C conv
 buffer): no collective moves state.
@@ -89,8 +90,11 @@ def ssd_chunked(x, dt, a, b_mat, c_mat, d_skip, chunk: int):
         raise ValueError(f"the chunked SSD pads nothing: {s} tokens are "
                          f"not a whole multiple of the chunk, {chunk}")
     nc = s // chunk
-    bh = b_mat.repeat_interleave(h // g, dim=2).reshape(bsz, nc, chunk, h, n)
-    ch = c_mat.repeat_interleave(h // g, dim=2).reshape(bsz, nc, chunk, h, n)
+    if g != h:  # g == h: a head a group already (and h may be 0)
+        b_mat = b_mat.repeat_interleave(h // g, dim=2)
+        c_mat = c_mat.repeat_interleave(h // g, dim=2)
+    bh = b_mat.reshape(bsz, nc, chunk, h, n)
+    ch = c_mat.reshape(bsz, nc, chunk, h, n)
     x = x.reshape(bsz, nc, chunk, h, p)
     dt = dt.reshape(bsz, nc, chunk, h)
 
@@ -176,7 +180,7 @@ class Mamba(nn.Module):
         ssm): the last d_conv - 1 raw projections in float32 (fewer when
         s is shorter) and the final state; under a model split, of this
         rank's channels and heads (:meth:`_forward_split`)]."""
-        if part_split(self.cfg, "mamba")[1] > 1:
+        if part_split(self.cfg, "mamba")[2] > 1:
             return self._forward_split(u, return_state)
         cfg = self.cfg
         mc, d_in, n_heads, _ = _dims(cfg)
@@ -203,12 +207,12 @@ class Mamba(nn.Module):
         return (x_raw[:, s - min(s, keep):].float(),
                 bc_raw[:, s - min(s, keep):].float(), state)
 
-    def _heads(self, t: torch.Tensor, j: int, hl: int) -> torch.Tensor:
-        """(..., g·n) B or C -> heads [j·hl, (j + 1)·hl)'s (..., hl, n)."""
+    def _heads(self, t: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+        """(..., g·n) B or C -> heads [lo, hi)'s (..., hi - lo, n)."""
         mc = self.cfg.mamba
         per = _dims(self.cfg)[2] // mc.n_groups
         return (t.reshape(t.shape[:-1] + (mc.n_groups, mc.d_state))
-                .repeat_interleave(per, dim=-2)[..., j * hl:(j + 1) * hl, :])
+                .repeat_interleave(per, dim=-2)[..., lo:hi, :])
 
     def _out_split(self, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
         """:meth:`_out` of this rank's channels: the gated RMS norm's sum of
@@ -224,16 +228,16 @@ class Mamba(nn.Module):
         return model_sum(y @ self.w_out)
 
     def _forward_split(self, u: torch.Tensor, return_state: bool = False):
-        """:meth:`forward` of this rank's H / M heads under a model split of
-        M: ``w_x``, ``w_z``, ``w_dt``, the x conv, ``a_log``, ``dt_bias``,
-        ``d_skip``, ``out_norm`` and ``w_out``'s rows hold its block; the
-        B/C projection and conv are whole (each rank's gradient a part).
-        ``return_state``: its channels' conv buffer, the whole B/C one and
-        its heads' state."""
+        """:meth:`forward` of this rank's ceil block of the heads under a
+        model split: ``w_x``, ``w_z``, ``w_dt``, the x conv, ``a_log``,
+        ``dt_bias``, ``d_skip``, ``out_norm`` and ``w_out``'s rows hold its
+        block; the B/C projection and conv are whole (each rank's gradient
+        a part).  ``return_state``: its channels' conv buffer, the whole
+        B/C one and its heads' state."""
         cfg = self.cfg
-        mc, d_in, n_heads, _ = _dims(cfg)
-        j, m = part_split(cfg, "mamba")
-        hl = n_heads // m
+        mc = cfg.mamba
+        lo, hi, _ = part_split(cfg, "mamba")
+        hl = hi - lo
         bsz, s, _ = u.shape
         chunk = min(mc.chunk_size, s)
         x_raw, z, bc_raw, dt = self._project(model_copy(u))
@@ -243,8 +247,8 @@ class Mamba(nn.Module):
         y, state = ssd_chunked(
             x.reshape(bsz, s, hl, mc.head_dim).float(),
             F.softplus(dt.float() + self.dt_bias), -torch.exp(self.a_log),
-            self._heads(bc[..., :gn], j, hl).float(),
-            self._heads(bc[..., gn:], j, hl).float(), self.d_skip, chunk)
+            self._heads(bc[..., :gn], lo, hi).float(),
+            self._heads(bc[..., gn:], lo, hi).float(), self.d_skip, chunk)
         out = self._out_split(y.reshape(bsz, s, hl * mc.head_dim)
                               .to(u.dtype), z)
         if not return_state:
@@ -255,14 +259,12 @@ class Mamba(nn.Module):
         """The views of ``cache`` this rank reads and writes: its channels'
         conv buffer and its heads' state under a model split, the whole
         B/C buffer; ``cache`` itself without one."""
-        j, m = part_split(self.cfg, "mamba")
+        lo, hi, m = part_split(self.cfg, "mamba")
         if m == 1:
             return cache
-        mc, d_in, n_heads, _ = _dims(self.cfg)
-        cl, hl = d_in // m, n_heads // m
-        return MambaCache(conv_x=cache.conv_x[..., j * cl:(j + 1) * cl],
-                          conv_bc=cache.conv_bc,
-                          ssm=cache.ssm[:, j * hl:(j + 1) * hl])
+        p = self.cfg.mamba.head_dim
+        return MambaCache(conv_x=cache.conv_x[..., lo * p:hi * p],
+                          conv_bc=cache.conv_bc, ssm=cache.ssm[:, lo:hi])
 
     def prefill(self, u: torch.Tensor, cache: MambaCache) -> torch.Tensor:
         """:meth:`forward`, and the conv buffers and final state written
@@ -283,9 +285,9 @@ class Mamba(nn.Module):
         buffers and the state advance in place (under a model split, this
         rank's heads: :meth:`_cache_block`)."""
         cfg = self.cfg
-        mc, d_in, n_heads, _ = _dims(cfg)
-        j, m = part_split(cfg, "mamba")
-        hl = n_heads // m
+        mc = cfg.mamba
+        lo, hi, m = part_split(cfg, "mamba")
+        hl = hi - lo
         bsz = u.shape[0]
         cache = self._cache_block(cache)
         x_raw, z, bc_raw, dt = (t[:, 0] for t in self._project(
@@ -301,8 +303,8 @@ class Mamba(nn.Module):
         bc = conv_step(cache.conv_bc, bc_raw, self.conv_bc_w, self.conv_bc_b)
         x = x.reshape(bsz, hl, mc.head_dim)
         gn = mc.n_groups * mc.d_state
-        bh = self._heads(bc[..., :gn], j, hl)  # (b, hl, n)
-        ch = self._heads(bc[..., gn:], j, hl)
+        bh = self._heads(bc[..., :gn], lo, hi)  # (b, hl, n)
+        ch = self._heads(bc[..., gn:], lo, hi)
         dt_f = F.softplus(dt.float() + self.dt_bias)  # (b, hl)
         decay = torch.exp(dt_f * -torch.exp(self.a_log)[None, :])
         xdt = x * dt_f[..., None]  # (b, hl, p)

@@ -175,8 +175,8 @@ class MoE(nn.Module):
 
         Under a model split of M, every rank routes the same rows alike
         (the routing, its aux loss and the slots are replicated), runs its
-        e / M experts (``w_up``, ``w_gate``, ``w_down`` hold theirs) on
-        their slots, combines the choices that landed on them (a choice
+        ceil block of the experts (``w_up``, ``w_gate``, ``w_down`` hold
+        theirs; none on a rank past the last block) on their slots, combines the choices that landed on them (a choice
         elsewhere reads the sink's zero row) and adds its block of the
         shared expert; the partial outputs are summed over the split: one
         all-reduce of (t, d), 2 (M - 1) / M t d elements on a ring, where
@@ -189,19 +189,18 @@ class MoE(nn.Module):
         t = b * s
         xt = x.reshape(t, d)
         r = self.route(xt)
-        j, m = part_split(self.cfg, "moe")
+        lo, hi, m = part_split(self.cfg, "moe")
         if m == 1:
             out = self._dispatch(xt, r.slot, r.top_p, r, moe.num_experts)
             if moe.num_shared_experts > 0:
                 out = out + self.shared(xt)
             return out.reshape(b, s, d).to(x.dtype), r.aux.float()
-        el = moe.num_experts // m
         flat = r.top_idx.reshape(r.slot.shape)
-        mine = r.within & (flat >= j * el) & (flat < (j + 1) * el)
-        slot = torch.where(mine, r.slot - j * el * r.capacity,
-                           torch.full_like(r.slot, el * r.capacity))
+        mine = r.within & (flat >= lo) & (flat < hi)
+        slot = torch.where(mine, r.slot - lo * r.capacity,
+                           torch.full_like(r.slot, (hi - lo) * r.capacity))
         xin = model_copy(xt)
-        out = self._dispatch(xin, slot, model_copy(r.top_p), r, el)
+        out = self._dispatch(xin, slot, model_copy(r.top_p), r, hi - lo)
         if moe.num_shared_experts > 0:
             out = out + self.shared.partial(xin)
         return model_sum(out).reshape(b, s, d).to(x.dtype), r.aux.float()

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+from _torch_shard_cases import replace_fields
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.data.pipeline import batch_for_step
 from repro_torch.launch import steps
@@ -29,12 +30,15 @@ from repro_torch.training import train_loop as ttl
 DECODE_POS = 40  # the live decode step's position (a mid-cache row)
 
 
-def config(arch: str, batch: int, token_groups: int | None = None):
+def config(arch: str, batch: int, token_groups: int | None = None,
+           over=()):
+    """The reduced config of ``arch``; ``over``: fields replaced
+    (``_torch_shard_cases.replace_fields``)."""
     cfg = reduced_config(get_config(arch), global_batch=batch)
     if token_groups is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, token_groups=token_groups))
-    return cfg
+    return replace_fields(cfg, over)
 
 
 def mesh(ctx, shape):
@@ -94,13 +98,13 @@ def live_and_dry(ctx, arch, shape, kind, rows):
 
 
 def serve(ctx, arch, shape, tree, prompt, tokens, max_seq,
-          token_groups=None):
+          token_groups=None, over=()):
     """The sharded prefill of ``prompt`` (b, s) and one decode step per
     column of ``tokens`` (b, n) at the positions after it, on mesh
     ``shape``, from the weights ``tree`` (the JAX package's parameter
     tree as numpy): the logits of every step, as numpy."""
     rows = prompt.shape[0]
-    cfg = config(arch, rows, token_groups)
+    cfg = config(arch, rows, token_groups, over)
     m = mesh(ctx, shape)
     prefill = steps.make_step_fn(cfg, "prefill", None, mesh=m)
     decode = steps.make_step_fn(cfg, "decode", None, mesh=m)

@@ -31,17 +31,29 @@ from repro_torch.training.optimizer import (
 from repro_torch.tree import tree_flatten_with_path, tree_leaves, tree_map
 
 
+def replace_fields(cfg, over=()):
+    """``cfg`` (either package's config) with each (field, value) of
+    ``over`` replaced; ``"moe.num_experts"`` names a sub-config's field."""
+    for name, value in over:
+        sub, _, field = name.rpartition(".")
+        if sub:
+            value = dataclasses.replace(getattr(cfg, sub), **{field: value})
+        cfg = dataclasses.replace(cfg, **{sub or field: value})
+    return cfg
+
+
 def config(arch: str, batch: int, token_groups: int | None = None,
-           vocab: int | None = None):
+           vocab: int | None = None, over=()):
     """The reduced config of ``arch`` for a global batch of ``batch`` rows;
-    ``token_groups`` replaces the MoE's, ``vocab`` the vocabulary size."""
+    ``token_groups`` replaces the MoE's, ``vocab`` the vocabulary size,
+    ``over`` other fields (:func:`replace_fields`)."""
     cfg = reduced_config(get_config(arch), global_batch=batch)
     if token_groups is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, token_groups=token_groups))
     if vocab is not None:
         cfg = dataclasses.replace(cfg, vocab_size=vocab)
-    return cfg
+    return replace_fields(cfg, over)
 
 
 def train_config(opt: str, micro: int, compress: bool) -> ttl.TrainConfig:
@@ -133,14 +145,15 @@ def digests(state, step) -> dict:
 
 
 def train(ctx, arch, shape, opt, micro, compress, batch_rows, plain, steps,
-          token_groups=None, save_dir=None, save_at=None, vocab=None):
+          token_groups=None, save_dir=None, save_at=None, vocab=None,
+          over=()):
     """``steps`` sharded steps on mesh ``shape`` from ``plain`` (or the
     seeded init); with ``save_dir``, a sharded checkpoint after
     ``save_at`` steps.  Returns metrics, the gathered state, digests of
     the unsplit leaves, bytes of state, each step's collective traffic
     (by kind, and by kind and axes)."""
     m = mesh(ctx, shape)
-    cfg = config(arch, batch_rows, token_groups, vocab)
+    cfg = config(arch, batch_rows, token_groups, vocab, over)
     tc = train_config(opt, micro, compress)
     state = state_for(ctx, cfg, tc, m, plain)
     step = ttl.make_train_step(cfg, tc, mesh=m)
@@ -203,13 +216,13 @@ def param_tree(model) -> dict:
     return tree_map(_np, model.stack_for_training())
 
 
-def forward_flops(ctx, arch, shape, batch_rows, token_groups=None):
+def forward_flops(ctx, arch, shape, batch_rows, token_groups=None, over=()):
     """Matmul FLOPs (``FlopCounterMode``) of the sharded step's forward of
     one batch on mesh ``shape`` (seeded init, no gradient), and of the
     single-device model's forward on this rank's rows of it."""
     from torch.utils.flop_counter import FlopCounterMode
     m = mesh(ctx, shape)
-    cfg = config(arch, batch_rows, token_groups)
+    cfg = config(arch, batch_rows, token_groups, over=over)
     tc = train_config("adamw", 1, False)
     state = state_for(ctx, cfg, tc, m)
     step = ttl.make_train_step(cfg, tc, mesh=m)

@@ -437,28 +437,67 @@ def test_decode_cell_traces_with_serving_replicated():
 
 @pytest.mark.parametrize("arch,want", [
     ("granite-3-2b", []), ("olmoe-1b-7b", []), ("mamba2-1.3b", []),
-    ("qwen1.5-32b", ["attn: 40 heads, 40 kv heads"]),
-    ("paligemma-3b", ["attn: 8 heads, 1 kv heads"]),
+    ("qwen1.5-32b", []), ("paligemma-3b", []),
     ("deepseek-v3-671b", ["attn: MLA"])])
 def test_parts_computed_whole_are_named(arch, want):
     """A part that a 16-way "model" axis does not split computes whole on
     every rank; the dry run names it, since its counts overstate a split
-    rank's work."""
+    rank's work.  Only MLA and NFFT attention are such parts: heads and
+    experts that the axis does not divide split in ceil blocks (qwen1.5-32b's
+    40 heads, paligemma-3b's 8)."""
     cfg = tconfigs.get_config(arch)
     assert whole_parts(cfg, 16) == want
     assert whole_parts(cfg, 1) == []
 
 
 def test_traced_cell_names_the_parts_computed_whole():
-    cfg = _reduced_granite()  # 4 heads, 1 kv head: no split over 8
+    cfg = _reduced_granite()  # 4 heads, 1 kv head: ceil blocks over 8
     decode = next(s for s in cfg.shapes if s.kind == "decode"
                   and not s.skip_reason)
     out = trace_cell(cfg, decode, Mesh({"data": 1, "model": 8}),
                      tc=TrainConfig(num_microbatches=1))
-    assert out["whole_parts"] == ["attn: 4 heads, 1 kv heads"]
+    assert out["whole_parts"] == []
     out = trace_cell(cfg, decode, Mesh({"data": 2, "model": 4}),
                      tc=TrainConfig(num_microbatches=1))
     assert out["whole_parts"] == []
+    mla = tconfigs.reduced_config(tconfigs.get_config("deepseek-v3-671b"))
+    decode = next(s for s in mla.shapes if s.kind == "decode"
+                  and not s.skip_reason)
+    out = trace_cell(mla, decode, Mesh({"data": 1, "model": 8}),
+                     tc=TrainConfig(num_microbatches=1))
+    assert out["whole_parts"] == ["attn: MLA"]
+
+
+def _head_train_flops(cfg, tokens: int, seq: int, tc) -> int:
+    """Matmul FLOPs of one q head of one layer in a train step over
+    ``tokens`` tokens of ``seq``-token rows (MHA: one kv head a q head):
+    its q, k, v and ``wo`` products and its causal-square attention, in
+    the forward, the block's remat recompute and the backward (twice the
+    forward's)."""
+    d, hd = cfg.d_model, cfg.head_dim_eff
+    forward = 4 * 2 * tokens * d * hd + 2 * 2 * tokens * seq * hd
+    return (3 + tc.remat) * forward
+
+
+def test_dry_run_counts_each_rank_its_ceil_block_of_heads():
+    """qwen1.5-32b at train_4k on the 16 x 16 mesh: its 40 heads split in
+    ceil blocks of 3 (ranks 0-12), 1 (rank 13) and 0 (ranks 14, 15).  The
+    ranks differ only in attention (16 divides the hidden units and the
+    vocabulary), so each rank's attention FLOPs over rank 15's are its
+    heads' by the formula: 3 heads at rank 0, 1 at rank 13, none at rank
+    15 (a rank that computed the 40 heads whole would count more than
+    rank 0)."""
+    cfg = tconfigs.get_config("qwen1.5-32b")
+    assert cfg.num_heads == cfg.num_kv_heads == 40
+    shape = next(s for s in cfg.shapes if s.name == "train_4k")
+    tc = TrainConfig.for_arch(cfg)
+    mesh = Mesh({"data": 16, "model": 16})
+    flops = {r: trace_cell(cfg, shape, mesh, rank=r, tc=tc)["stats"]
+             .matmul_flops for r in (0, 13, 15)}
+    tokens = shape.global_batch // 16 * shape.seq_len
+    head = cfg.num_layers * _head_train_flops(cfg, tokens, shape.seq_len, tc)
+    assert flops[0] - flops[15] == 3 * head
+    assert flops[13] - flops[15] == head
 
 
 def test_skipped_cells_keep_their_reason():

@@ -1163,6 +1163,53 @@ def test_train_step_on_card_matches_cpu(cuda):
                       twin.window_gather.launches)
 
 
+@pytest.mark.parametrize("arch,opt", [("olmoe-1b-7b", "adamw"),
+                                      ("mamba2-1.3b", "adamw"),
+                                      ("deepseek-v3-671b", "adafactor")])
+def test_family_train_step_on_card_matches_cpu(cuda, arch, opt):
+    """One train step of reduced olmoe-1b-7b (the router and aux loss),
+    mamba2-1.3b (the chunked SSD's backward) and deepseek-v3-671b (MLA, the
+    MTP loss; Adafactor) on the card against the CPU from one state
+    (float32, two microbatches): loss and grad_norm within 1e-4 relative,
+    every parameter within 1e-4 of its leaf's largest entry (of 1 for a
+    leaf that is zero at init, whose values are the update alone: see
+    tests/test_torch_train.py's ``_assert_params_close``); no kernel of
+    the package launches."""
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.train_loop import (
+        TrainConfig, init_train_state, make_train_step,
+        train_state_from_arrays)
+    from repro_torch.tree import tree_leaves
+    cfg = reduced_config(get_config(arch))
+    kw = {"factored_min_dim": 16} if opt == "adafactor" else {}
+    tc = TrainConfig(optimizer=OptimizerConfig(name=opt, **kw),
+                     num_microbatches=2)
+    cpu = init_train_state(cfg, tc, 0, device="cpu")
+    card = train_state_from_arrays(_train_state_arrays(cpu), cfg, tc,
+                                   device=cuda)
+    zero = [not bool(t.detach().any())
+            for t in tree_leaves(cpu.params.stack_for_training())]
+    step = make_train_step(cfg, tc)
+    before = (tfa.flash_attention.launches, tkm.kernel_matvec.launches,
+              twin.window_spread.launches, twin.window_gather.launches)
+    batch = batch_for_step(cfg, cfg.shapes[0], 0)
+    cpu, want = step(cpu, {k: torch.as_tensor(v) for k, v in batch.items()})
+    card, got = step(card, {k: torch.as_tensor(v, device=cuda)
+                            for k, v in batch.items()})
+    for k in ("loss", "grad_norm"):
+        assert abs(float(got[k]) - float(want[k])) <= 1e-4 * abs(
+            float(want[k])), k
+    for a, b, z in zip(tree_leaves(card.params.leaf_tree),
+                       tree_leaves(cpu.params.leaf_tree), zero):
+        a, b = a.detach().cpu(), b.detach()
+        scale = 1.0 if z else float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-4 * scale
+    assert before == (tfa.flash_attention.launches,
+                      tkm.kernel_matvec.launches, twin.window_spread.launches,
+                      twin.window_gather.launches)
+
+
 def test_lm_resume_on_card_bitwise(cuda, tmp_path):
     """The LM train step through run_resilient on the card, under the
     deterministic switch, killed at step 4 after the checkpoint at 2:

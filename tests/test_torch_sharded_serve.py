@@ -10,8 +10,12 @@ a prefill of 4 rows x 32 tokens and 4 decode steps on fixed tokens, from
 one set of weights (drawn with the port's ``init_params``, laid out as the
 JAX tree).  Every rank's logits of every step are within ``SERVE_TOL`` of
 the largest JAX logit from the JAX package's, and bitwise equal on every
-rank.  One ``RankPool`` of four ranks, one torch thread each; the rank
-side is ``tests/_torch_serve_cases.py``.
+rank.  Where "model" does not divide a part's units, each rank serves its
+ceil block of them: at (1, 4), granite with 6 heads over 2 kv heads
+(blocks 2, 2, 2, 0; rank 1's crosses a kv group), olmoe-1b-7b with 6
+experts and mamba2-1.3b with 6 heads (d_model 48), each by
+``dataclasses.replace`` in both packages.  One ``RankPool`` of four ranks,
+one torch thread each; the rank side is ``tests/_torch_serve_cases.py``.
 """
 
 import dataclasses
@@ -34,6 +38,11 @@ ROWS, PROMPT, DECODES, MAX_SEQ = 4, 32, 4, 64
 # (arch, mesh, token_groups)
 CASES = [("granite-3-2b", (2, 2), None), ("granite-3-2b", (1, 4), None),
          ("olmoe-1b-7b", (1, 4), 1), ("mamba2-1.3b", (1, 4), None)]
+# uneven splits at (1, 4): (arch, token_groups, fields replaced in both
+# packages' reduced configs)
+UNEVEN = [("granite-3-2b", None, (("num_heads", 6), ("num_kv_heads", 2))),
+          ("olmoe-1b-7b", 1, (("moe.num_experts", 6),)),
+          ("mamba2-1.3b", None, (("d_model", 48),))]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -50,13 +59,14 @@ def pool():
         yield ranks
 
 
-def _jax_steps(arch, token_groups, tree, prompt, tokens):
+def _jax_steps(arch, token_groups, tree, prompt, tokens, over=()):
     """The JAX package's single-device prefill and decode steps' logits."""
     jcfg = jconfigs.reduced_config(jconfigs.get_config(arch),
                                    global_batch=ROWS)
     if token_groups is not None:
         jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(
             jcfg.moe, token_groups=token_groups))
+    jcfg = C.replace_fields(jcfg, over)
     params = jax.tree.map(jnp.asarray, tree)
     prefill = jax.jit(lambda p, b, c: JM.forward_prefill(p, jcfg, b, c))
     decode = jax.jit(lambda p, t, pos, c: JM.forward_decode(p, jcfg, t, pos,
@@ -72,10 +82,8 @@ def _jax_steps(arch, token_groups, tree, prompt, tokens):
     return np.stack(out)
 
 
-@pytest.mark.parametrize("arch,shape,groups", CASES)
-def test_sharded_serving_matches_jax_single_device(pool, arch, shape,
-                                                   groups):
-    cfg = C.config(arch, ROWS, groups)
+def _check_serving(pool, arch, shape, groups, over=()):
+    cfg = C.config(arch, ROWS, groups, over)
     tree = tree_map(lambda t: t.detach().numpy().copy(),
                     TM.init_params(cfg, 3, device="cpu")
                     .stack_for_training())
@@ -84,8 +92,8 @@ def test_sharded_serving_matches_jax_single_device(pool, arch, shape,
     tokens = rng.integers(0, cfg.vocab_size, (ROWS, DECODES),
                           dtype=np.int32)
     outs = pool.run(C.serve, arch, shape, tree, prompt, tokens, MAX_SEQ,
-                    groups)
-    want = _jax_steps(arch, groups, tree, prompt, tokens)
+                    groups, over)
+    want = _jax_steps(arch, groups, tree, prompt, tokens, over)
     scale = np.abs(want).max()
     for out in outs:
         got = out["logits"]
@@ -94,3 +102,19 @@ def test_sharded_serving_matches_jax_single_device(pool, arch, shape,
         err = np.abs(got - want).max() / scale
         assert err <= SERVE_TOL, (out["rank"], err)
         assert np.array_equal(got, outs[0]["logits"]), out["rank"]
+
+
+@pytest.mark.parametrize("arch,shape,groups", CASES)
+def test_sharded_serving_matches_jax_single_device(pool, arch, shape,
+                                                   groups):
+    _check_serving(pool, arch, shape, groups)
+
+
+@pytest.mark.parametrize("arch,groups,over", UNEVEN,
+                         ids=lambda v: str(v).replace(" ", ""))
+def test_uneven_sharded_serving_matches_jax_single_device(pool, arch, groups,
+                                                          over):
+    """Prefill and decode with each rank's ceil block of the heads or
+    experts (weights stored in that block: ``compute_layout``); a rank
+    with an empty block still joins every collective."""
+    _check_serving(pool, arch, (1, 4), groups, over)

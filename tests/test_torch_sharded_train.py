@@ -31,6 +31,15 @@ that test holds the reference, against the single-device step:
   rank's forward matmul FLOPs (``FlopCounterMode``) held to the formula,
   its block's share of the single-device forward's; at (4, 1) no
   collective runs over "model";
+* where "model" does not divide a part's units, each rank computes its
+  ceil block of them (the last ranks' blocks short or empty), as GSPMD
+  pads: at (1, 4), reduced qwen1.5-32b with 5 heads (blocks 2, 2, 1, 0),
+  granite with 6 heads over 2 kv heads (blocks of 2: rank 1's crosses a
+  kv group), paligemma-3b with 2 heads over 1 kv head (1, 1, 0, 0),
+  olmoe-1b-7b with 6 experts (2, 2, 2, 0) and mamba2-1.3b with 6 heads
+  (d_model 48: 2, 2, 2, 0), each made by ``dataclasses.replace`` in both
+  packages, against the JAX step; each rank's forward FLOPs held to its
+  ceil block's formula;
 * elastic restore: a sharded checkpoint written at (4, 1) after 2 steps
   restores onto (2, 2) and onto one device, the third step's loss within
   1e-4 of continuing at (4, 1) (tests/test_distributed.py::
@@ -72,10 +81,13 @@ MOE_ARCH = "olmoe-1b-7b"
 STEP_TOL = 1e-5  # tests/test_torch_train.py's
 ELASTIC_TOL = 1e-4  # tests/test_distributed.py's
 MAMBA_ARCH = "mamba2-1.3b"
-# the zero-initialised vector leaves of the three families: the RMS norms'
-# gains (stored as weight - 1), Mamba's conv biases and dt_bias
+# the zero-initialised vector leaves of the families: the RMS norms' gains
+# (stored as weight - 1), Mamba's conv biases and dt_bias, and qwen's key
+# bias, whose gradient is zero in exact arithmetic (a key bias shifts each
+# query's logits alike, and the softmax ignores the shift): its values are
+# the optimizer's normalised updates of float noise alone
 ZERO_INIT = ("final_norm", "norm_ffn", "norm_mixer", "out_norm", "conv_x_b",
-             "conv_bc_b", "dt_bias")
+             "conv_bc_b", "dt_bias", "bk")
 STEPS = 3
 ROWS, ODD_ROWS = 8, 6
 MESHES = [(4, 1), (2, 2), (1, 4)]
@@ -85,12 +97,27 @@ CASES = [("adamw", 1, False), ("adamw", 2, True), ("adafactor", 1, False)]
 # at (1, 4) the MoE routes the batch as one group (the FSDP extent)
 SPLIT_CASES = [(MOE_ARCH, 1, None), (MAMBA_ARCH, None, None),
                (ARCH, None, 130)]
+# the uneven splits at (1, 4): (arch, token_groups, fields replaced in both
+# packages' reduced configs, each rank's block of the split part's units)
+UNEVEN_CASES = [
+    ("qwen1.5-32b", None, (("num_heads", 5), ("num_kv_heads", 5),
+                           ("head_dim", 16)), (2, 2, 1, 0)),
+    (ARCH, None, (("num_heads", 6), ("num_kv_heads", 2)), (2, 2, 2, 0)),
+    ("paligemma-3b", None, (("num_heads", 2),), (1, 1, 0, 0)),
+    (MOE_ARCH, 1, (("moe.num_experts", 6),), (2, 2, 2, 0)),
+    (MAMBA_ARCH, None, (("d_model", 48),), (2, 2, 2, 0))]
 
 
-def _jax_run(arch, case, rows, token_groups=None, vocab=None):
+def _uneven_id(case) -> str:
+    arch, _, over, blocks = case
+    fields = "-".join(f"{k.split('.')[-1]}{v}" for k, v in over)
+    return f"{arch}-{fields}-blocks{''.join(map(str, blocks))}"
+
+
+def _jax_run(arch, case, rows, token_groups=None, vocab=None, over=()):
     """The JAX package's initial state (plain numpy, no JAX classes), and
     after STEPS jitted single-device steps its metrics, parameters and
-    residuals."""
+    residuals.  ``over``: fields replaced (``C.replace_fields``)."""
     name, micro, compress = case
     jcfg = jconfigs.reduced_config(jconfigs.get_config(arch),
                                    global_batch=rows)
@@ -99,6 +126,7 @@ def _jax_run(arch, case, rows, token_groups=None, vocab=None):
             jcfg.moe, token_groups=token_groups))
     if vocab is not None:
         jcfg = dataclasses.replace(jcfg, vocab_size=vocab)
+    jcfg = C.replace_fields(jcfg, over)
     kw = {"factored_min_dim": 16} if name == "adafactor" else {}
     tc = jtl.TrainConfig(optimizer=jopt.OptimizerConfig(name=name, **kw),
                          num_microbatches=micro, compress_grads=compress)
@@ -148,6 +176,9 @@ def jax_refs():
         for split in SPLIT_CASES:
             refs[split] = ex.submit(_jax_run, split[0], CASES[0], ROWS,
                                     *split[1:])
+        for arch, groups, over, _ in UNEVEN_CASES:
+            refs[arch, over] = ex.submit(_jax_run, arch, CASES[0], ROWS,
+                                         groups, None, over)
         for case in CASES:
             refs[ARCH, case, ROWS] = ex.submit(_jax_run, ARCH, case, ROWS)
         refs[ARCH, CASES[0], ODD_ROWS] = ex.submit(_jax_run, ARCH, CASES[0],
@@ -247,13 +278,14 @@ def _rel(got, want):
 _SINGLE = {}
 
 
-def _single_params(ref, arch, case, rows, groups=None, vocab=None) -> list:
+def _single_params(ref, arch, case, rows, groups=None, vocab=None,
+                   over=()) -> list:
     """The port's single-device step's parameters after STEPS steps from the
     JAX initial state of ``ref`` (numpy leaves, the JAX layout; each case
     run once)."""
-    key = (arch, case, rows, groups, vocab)
+    key = (arch, case, rows, groups, vocab, over)
     if key not in _SINGLE:
-        cfg = C.config(arch, rows, groups, vocab)
+        cfg = C.config(arch, rows, groups, vocab, over)
         tc = C.train_config(*case)
         state = ttl.train_state_from_arrays(C._Plain(ref["plain"], case[0]),
                                             cfg, tc, device="cpu")
@@ -401,6 +433,25 @@ def test_split_families_match_jax_single_device(pool, jax_refs, split):
     assert all(axes == ("model",) for _, axes in by_axes)
 
 
+@pytest.mark.parametrize("uneven", UNEVEN_CASES, ids=_uneven_id)
+def test_uneven_splits_match_jax_single_device(pool, jax_refs, uneven):
+    """At (1, 4) a part whose units "model" does not divide splits in ceil
+    blocks: 5 q heads as 2, 2, 1, 0 (the kv projections computed whole,
+    each rank reading its heads' kv heads); 6 heads over 2 kv heads as
+    2, 2, 2, 0 (rank 1's heads 2 and 3 read kv heads 0 and 1, by index);
+    2 heads over 1 kv head as 1, 1, 0, 0; 6 experts as 2, 2, 2, 0; 6 Mamba
+    heads as 2, 2, 2, 0.  A rank with an empty block joins every
+    collective with zeros.  Three steps against the JAX single-device
+    step: the metrics at STEP_TOL, the parameters by ``_check_params``."""
+    arch, groups, over, _ = uneven
+    ref = jax_refs[arch, over].result()
+    outs = pool.run(C.train, arch, (1, 4), *CASES[0], ROWS, ref["plain"],
+                    STEPS, groups, None, None, None, over)
+    _check_against_jax(outs, ref, False, _single_params(
+        ref, arch, CASES[0], ROWS, groups, None, over), True)
+    assert all(axes == ("model",) for _, axes in outs[0]["traffic_axes"][0])
+
+
 def test_no_collective_over_model_at_4x1(pool):
     """At (4, 1) the split is off: every collective of a step runs over
     "data" (the storage-only step's); at (1, 4), over "model" alone."""
@@ -414,45 +465,103 @@ def test_no_collective_over_model_at_4x1(pool):
 def _block_flops(cfg, tokens: int, seq: int, m: int, j: int) -> int:
     """Matmul FLOPs of one rank's forward of reduced granite over ``tokens``
     tokens of ``seq``-token rows, on block ``j`` of a "model" split of
-    ``m``: per layer its h / m q heads (and the kv heads they read), their
-    causal-square attention, ``wo``'s rows of them, d_ff / m hidden units;
-    then its ceil block of the vocabulary."""
+    ``m``: per layer its ceil block of the q heads (and the kv heads they
+    read), their causal-square attention, ``wo``'s rows of them, its ceil
+    block of the d_ff hidden units; then its ceil block of the
+    vocabulary."""
     from repro_torch.launch.mesh import block_range
-    d, h, hkv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                     cfg.head_dim_eff)
-    hl = h // m
-    kv = hkv // m if hkv % m == 0 else max(1, hl * hkv // h)
+    d, hd = cfg.d_model, cfg.head_dim_eff
+    hl, kv = _heads_read(cfg, m, j)
+    lo, hi = block_range(cfg.d_ff, m, j)
     layer = (2 * tokens * d * hl * hd + 2 * 2 * tokens * d * kv * hd
              + 2 * 2 * tokens * seq * hl * hd + 2 * tokens * hl * hd * d
-             + 3 * 2 * tokens * d * cfg.d_ff // m)
+             + 3 * 2 * tokens * d * (hi - lo))
     lo, hi = block_range(cfg.vocab_size, m, j)
     return cfg.num_layers * layer + 2 * tokens * d * (hi - lo)
 
 
-def _replicated_flops(cfg, tokens: int, m: int) -> tuple:
-    """The matmul FLOPs every rank computes whole, (in the single-device
-    forward, on a rank of a split of ``m``): the kv projections "model"
-    cannot split (all kv heads; those a rank's q heads read), Mamba's B/C
-    projection, the MoE's router and its combine (each rank weighs every
-    choice)."""
-    d = cfg.d_model
-    single = rank = 0
+def _heads_read(cfg, m: int, j: int) -> tuple:
+    """(q heads, kv heads they read) of rank ``j``'s ceil block of the q
+    heads over ``m``: the kv heads' own block when ``m`` divides them."""
+    from repro_torch.launch.mesh import block_range
+    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    lo, hi = block_range(h, m, j)
+    if hkv % m == 0:
+        return hi - lo, hkv // m
+    group = h // hkv
+    return hi - lo, (hi - 1) // group + 1 - lo // group if hi > lo else 0
+
+
+def _split_units(cfg, tokens: int, seq: int, m: int, j: int) -> list:
+    """(FLOPs a unit, the part's units, rank ``j``'s units of it) for every
+    part a "model" split of ``m`` divides among its ranks, over the layers
+    of one forward of ``tokens`` tokens of ``seq``-token rows: q heads, the
+    kv heads they read, hidden units, experts on their capacity slots (one
+    token group), Mamba heads and the vocabulary rows.  Every other matmul
+    (the MoE's router and combine, Mamba's B/C projection, a frontend's
+    projection) each rank computes whole."""
+    from repro_torch.launch.mesh import block_range
+    from repro_torch.models.model import layer_signature
+    d, t = cfg.d_model, tokens
+    mats = 3 if cfg.activation in ("silu", "geglu") else 2
+
+    def ceil(n):
+        lo, hi = block_range(n, m, j)
+        return hi - lo
+
+    out = []
     for i in range(cfg.num_layers):
-        if cfg.is_attention_layer(i) and cfg.num_kv_heads % m:
-            hl = cfg.num_heads // m
-            kv = max(1, hl * cfg.num_kv_heads // cfg.num_heads)
-            per_head = 2 * 2 * tokens * d * cfg.head_dim_eff
-            single += per_head * cfg.num_kv_heads
-            rank += per_head * kv
-        both = 0
-        if not cfg.is_attention_layer(i):
-            both += 2 * tokens * d * 2 * cfg.mamba.n_groups * cfg.mamba.d_state
-        if cfg.is_moe_layer(i):
-            both += (2 * tokens * d * cfg.moe.num_experts
-                     + 2 * tokens * cfg.moe.top_k * d)
-        single += both
-        rank += both
-    return single, rank
+        sig = layer_signature(cfg, i)
+        if sig.mixer == "attn":
+            hd = cfg.head_dim_eff
+            hl, kv = _heads_read(cfg, m, j)
+            out.append((2 * t * d * hd + 2 * 2 * t * seq * hd
+                        + 2 * t * hd * d, cfg.num_heads, hl))
+            out.append((2 * 2 * t * d * hd, cfg.num_kv_heads, kv))
+        elif sig.mixer == "mamba":
+            mc = cfg.mamba
+            p, n, q = mc.head_dim, mc.d_state, min(mc.chunk_size, seq)
+            heads = mc.expand * d // p
+            out.append((2 * 2 * t * d * p + 2 * t * d + 2 * t * q * n
+                        + 2 * t * q * p + 2 * 2 * t * n * p + 2 * t * p * d,
+                        heads, ceil(heads)))
+        if sig.ffn == "dense":
+            out.append((mats * 2 * t * d, cfg.d_ff, ceil(cfg.d_ff)))
+        elif sig.ffn == "moe":
+            moe = cfg.moe
+            e, f = moe.num_experts, moe.d_ff_expert
+            capacity = max(1, int(moe.capacity_factor * t * moe.top_k / e))
+            out.append((capacity * mats * 2 * d * f, e, ceil(e)))
+    logit_rows = t
+    if cfg.frontend == "vision_stub":
+        logit_rows = t // seq * (seq - cfg.num_prefix_embeds)
+    out.append((2 * logit_rows * d, cfg.vocab_size, ceil(cfg.vocab_size)))
+    return out
+
+
+def _check_rank_flops(pool, arch, shape, groups, over=()):
+    """Each rank's matmul FLOPs of one microbatch's forward
+    (``FlopCounterMode``) are the single-device forward's on its rows less
+    the units of each split part that its ceil block leaves to the other
+    ranks (``_split_units``); for granite, exactly ``_block_flops``.  A
+    split that computed whole blocks would count the single-device
+    forward's."""
+    outs = pool.run(C.forward_flops, arch, shape, ROWS, groups, over)
+    cfg = C.config(arch, ROWS, groups, over=over)
+    m = shape[1]
+    tokens = ROWS // shape[0] * 64
+    single = outs[0]["single"]
+    assert all(o["single"] == single for o in outs)
+    if arch == ARCH and not over:
+        assert single == _block_flops(cfg, tokens, 64, 1, 0)
+    for o in outs:
+        j = o["rank"] % m
+        want = single - sum(per * (n - mine) for per, n, mine
+                            in _split_units(cfg, tokens, 64, m, j))
+        assert o["flops"] == want, (o["rank"], o["flops"], want, single)
+        if arch == ARCH and not over:
+            assert o["flops"] == _block_flops(cfg, tokens, 64, m, j)
+        assert o["flops"] < single
 
 
 @pytest.mark.parametrize("arch,shape,groups", [
@@ -460,25 +569,15 @@ def _replicated_flops(cfg, tokens: int, m: int) -> tuple:
     (MAMBA_ARCH, (1, 4), None)], ids=lambda v: str(v))
 def test_each_rank_computes_its_block_of_the_forward(pool, arch, shape,
                                                      groups):
-    """Each rank's matmul FLOPs of one microbatch's forward
-    (``FlopCounterMode``) are its block's share of the single-device
-    forward on its rows: (F_single - R) / M + R, with R the replicated
-    products (``_replicated_flops``); for granite, exactly
-    ``_block_flops``.  A split that computed whole blocks would count
-    F_single."""
-    outs = pool.run(C.forward_flops, arch, shape, ROWS, groups)
-    cfg = C.config(arch, ROWS, groups)
-    m = shape[1]
-    tokens = ROWS // shape[0] * 64
-    single = outs[0]["single"]
-    assert all(o["single"] == single for o in outs)
-    if arch == ARCH:
-        assert single == _block_flops(cfg, tokens, 64, 1, 0)
-    whole, repl = _replicated_flops(cfg, tokens, m)
-    for o in outs:
-        j = o["rank"] % m
-        assert o["flops"] == (single - whole) // m + repl, (
-            o["flops"], single, whole, repl)
-        if arch == ARCH:
-            assert o["flops"] == _block_flops(cfg, tokens, 64, m, j)
-        assert o["flops"] < single
+    """The even splits: every rank's block the same size
+    (``_check_rank_flops``)."""
+    _check_rank_flops(pool, arch, shape, groups)
+
+
+@pytest.mark.parametrize("uneven", UNEVEN_CASES, ids=_uneven_id)
+def test_each_rank_computes_its_ceil_block_of_the_forward(pool, uneven):
+    """The uneven splits at (1, 4): each rank's FLOPs are its ceil
+    block's (``_check_rank_flops``), none for a rank whose block is
+    empty."""
+    arch, groups, over, _ = uneven
+    _check_rank_flops(pool, arch, (1, 4), groups, over)

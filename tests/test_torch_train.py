@@ -20,6 +20,12 @@ numpy-seeded batches.  Tolerances:
   is held at 1e-6 on its own, at lr 1e-2, by ``test_one_update``;
 * ``forward_train`` against the JAX package's within 1e-5 relative, and
   against ``forward_train_reference`` exactly;
+* whole train steps of reduced olmoe-1b-7b and mamba2-1.3b (AdamW) and
+  deepseek-v3-671b (Adafactor, one MTP depth): step 0's gradient within
+  1e-4 of each leaf's largest entry, three steps' metrics within 1e-5
+  relative, then parameters within 1e-5 of each leaf's largest entry (of
+  1 for a leaf that is zero at init: ``_assert_params_close``) and the
+  optimizer's moments within 1e-4;
 * learn_sigma (granite-3-2b-nfft): every gradient leaf within 1e-4 of its
   largest entry (b_hat's float64 FFT, as tests/test_torch_nfft_attention);
 * compression: bit for bit.
@@ -451,6 +457,86 @@ def test_value_and_grad_of_deepseek_matches_jax():
     moe = grads["stack"][1]["moe"]  # the plan: one period of 5 layers
     assert float(moe["router"].abs().max()) > 0.0
     assert float(grads["mtp"][0]["combine"].abs().max()) > 0.0
+
+
+# the families' whole train steps: (arch, optimizer); deepseek-v3 trains
+# under Adafactor, the reference's choice at its size
+FAMILY_STEPS = [("olmoe-1b-7b", "adamw"), ("mamba2-1.3b", "adamw"),
+                ("deepseek-v3-671b", "adafactor")]
+
+
+def _assert_params_close(port_tree, jax_tree, init_tree, tol):
+    """Every parameter leaf within ``tol`` of its largest entry, but a leaf
+    that is zero at init (a norm gain stored as weight - 1, a conv bias,
+    dt_bias) within ``tol`` of 1, the scale of the gain 1 + w or of the
+    pre-activation it shifts.  Such a leaf holds the updates alone (at most
+    the schedule's summed lr, ~2e-5 after three warm-up steps), and on
+    elements whose gradient is as small as the optimizer's epsilon (~1e-8)
+    the float noise of the two packages' sums decides them: up to a few
+    1e-4 of the leaf's largest entry, a few 1e-9 absolute.  Their
+    gradients are held at GRAD_TOL, and the updates' arithmetic at OPT_TOL
+    (``test_one_update_matches_jax``)."""
+    got = tree_flatten_with_path(port_tree)
+    want = jax.tree_util.tree_flatten_with_path(jax_tree)[0]
+    init = jax.tree_util.tree_leaves(init_tree)
+    assert [p for p, _ in got] == [jax.tree_util.keystr(p) for p, _ in want]
+    for (path, g), (_, w), i in zip(got, want, init):
+        g, w = g.detach().numpy(), np.asarray(w)
+        assert g.shape == w.shape, path
+        scale = 1.0 if not np.any(i) else np.abs(w).max()
+        assert np.abs(g - w).max() <= tol * scale, (path, _rel(g, w))
+
+
+@pytest.mark.parametrize("arch,opt", FAMILY_STEPS)
+def test_train_steps_of_the_families_match_jax(arch, opt):
+    """Reduced olmoe-1b-7b (the router, top-2 of 8 experts, the aux loss),
+    mamba2-1.3b (the chunked SSD's backward) and deepseek-v3-671b (MLA,
+    MoE with a shared expert, one MTP depth; Adafactor), from the JAX
+    package's initial state: step 0's gradient, every leaf within GRAD_TOL
+    of its largest entry against ``jax.grad``; STEPS whole train steps
+    (gradients, clipping, schedule, update) against the JAX package's
+    jitted step, every metric within STEP_TOL relative; then every
+    parameter (and AdamW's master copy) within STEP_TOL
+    (``_assert_params_close``), and every moment, a statistic of the
+    gradients, within GRAD_TOL of its leaf's largest entry."""
+    jcfg, tcfg = _cfgs(arch)
+    jtc = jtl.TrainConfig(optimizer=jopt.OptimizerConfig(**_opt_cfg(opt)),
+                          num_microbatches=1)
+    state = jtl.init_train_state(jax.random.PRNGKey(0), jcfg, jtc)
+    init = _np_tree(state)
+    want_grads = _np_tree(jax.jit(jax.grad(lambda p, b: JM.forward_train(
+        p, jcfg, b)[0]))(state.params, jax.tree.map(jnp.asarray,
+                                                    _batch(jcfg, 0))))
+    tc = ttl.TrainConfig(optimizer=topt.OptimizerConfig(**_opt_cfg(opt)),
+                         num_microbatches=1)
+    tstate = ttl.train_state_from_arrays(init, tcfg, tc, device="cpu")
+    step = ttl.make_train_step(tcfg, tc)
+    _, _, grads = step.gradients(tstate.params, _torch_batch(_batch(jcfg,
+                                                                    0)))
+    _assert_tree_close(grads, want_grads, GRAD_TOL)
+    jstep = jax.jit(jtl.make_train_step(jcfg, jtc))
+    for s in range(STEPS):
+        state, want = jstep(state, jax.tree.map(jnp.asarray,
+                                                _batch(jcfg, s)))
+        tstate, got = step(tstate, _torch_batch(_batch(jcfg, s)))
+        assert sorted(got) == sorted(want)
+        for k, w in want.items():
+            w = float(w)
+            assert abs(float(got[k]) - w) <= STEP_TOL * abs(w), (s, k)
+    if jcfg.moe is not None:
+        assert float(got["aux_loss"]) > 0.0
+    if jcfg.mtp_depth:
+        assert float(got["mtp_loss"]) > 0.0
+    _assert_params_close(tstate.params.leaf_tree, _np_tree(state.params),
+                         init.params, STEP_TOL)
+    for field in state.opt_state._fields:
+        want = _np_tree(getattr(state.opt_state, field))
+        if field == "master":
+            _assert_params_close(tstate.opt_state.master, want,
+                                 init.params, STEP_TOL)
+        else:
+            _assert_tree_close(getattr(tstate.opt_state, field), want,
+                               GRAD_TOL)
 
 
 # -- learn_sigma: tests/test_differentiable.py's train step -------------------

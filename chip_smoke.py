@@ -64,7 +64,7 @@ y bitwise equal on every rank, the shard kernels against their plain
 versions on every rank's geometry, each rank's collective payload a
 matvec; then one NCCL rank (world size 1, psum).  Then the LM serving
 path: the flash attention kernels against their plain version (float32
-on the CUDA cores, bf16 and f16 on the tensor cores: the JAX kernel
+on the TF32 tensor cores in three products, bf16 and f16 on wgmma: the JAX kernel
 tests' shapes in float32 and bf16, granite-3-2b's heads in all three up
 to one bf16 layer at its 32,768-token prefill length, decode
 alignment), and granite-3-2b at full
@@ -191,8 +191,8 @@ HBM_BYTES_PER_S = 3.35e12
 # shared memory a block can use on the H100 (227 KB)
 SMEM_PER_BLOCK = 232448
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
-# ... and the bf16 dense tensor-core peak: the bound of attention, whatever
-# units a kernel uses
+# ... and the bf16 dense tensor-core peak: the bound of training's matmuls
+# (flash attention's bounds by dtype: roofline.TENSOR_PEAK_FLOPS)
 PEAK_BF16_TENSOR = 989e12
 
 N_MAIN = 100_000
@@ -347,8 +347,6 @@ KM_PATHS = (("guard", "spiral", N_GUARD, N_GUARD, 3, "gaussian", SIGMA, True),
 # is about the size of an output row that sees ~1000 random keys.)
 FLASH_TOL = {"float32": (2e-5, 0.0), "bfloat16": (2e-5, 2.0 ** -6),
              "float16": (2e-5, 2.0 ** -9)}
-# the tensor-core kernel that ships for bf16 / fp16
-FLASH_DESIGN = "wgmma"
 # the JAX sweep (b, hq, hkv, sq, sk, dh), causal and not, float32 and bf16
 FLASH_SWEEP = ((2, 4, 2, 128, 128, 64), (1, 8, 1, 100, 100, 64),
                (1, 2, 2, 64, 192, 32), (1, 16, 8, 96, 96, 128))
@@ -1774,7 +1772,9 @@ class Smoke:
         from repro_torch.serving.engine import Request, ServeEngine
 
         self.torch = torch
+        from repro_torch.launch import time_flash
         self.fa, self.lm, self.get_config = flash_attention, lm, get_config
+        self.tfl = time_flash  # flash's SDPA yardstick
         self.rl = roofline
         self.Request, self.ServeEngine = Request, ServeEngine
         self.fs, self.lan, self.spec = fastsum, lanczos, spectral
@@ -1915,13 +1915,16 @@ class Smoke:
         yield KM_RECT[0], KM_RECT[1], 2, 1, False
         yield KM_RECT[0], KM_RECT[1], 2, 1, True
 
-    def flash_bound(self, b, hq, hkv, sq, sk, dh, causal, itemsize):
+    def flash_bound(self, b, hq, hkv, sq, sk, dh, causal, dname):
         """(ms, bound_by, flops, bytes) of the card's least time for one
-        attention forward, its work counted by ``flash_attention.work``,
-        over the bf16 dense tensor-core peak."""
+        attention forward in dtype ``dname``, its work counted by
+        ``flash_attention.work``, over the dense tensor-core peak of that
+        dtype (``roofline.TENSOR_PEAK_FLOPS``: float32 runs as TF32)."""
+        itemsize = 4 if dname == "float32" else 2
         flops, nbytes = self.fa.work(b, hq, hkv, sq, sk, dh, causal,
                                      itemsize)
-        ms, by = self.rl.bound_ms(flops, nbytes, PEAK_BF16_TENSOR)
+        ms, by = self.rl.bound_ms(flops, nbytes,
+                                  self.rl.TENSOR_PEAK_FLOPS[dname])
         return ms, by, flops, nbytes
 
     def flash_inputs(self, b, hq, hkv, sq, sk, dh, dtype, seed):
@@ -2145,14 +2148,21 @@ class Smoke:
 
     def flash_build_report(self, text):
         """Registers, shared memory and spills of each instance of the
-        tensor-core flash kernel, from nvcc's -Xptxas -v report."""
+        flash kernels (wgmma for bf16 / f16, TF32 mma.sync for float32),
+        from nvcc's -Xptxas -v report."""
         rows, name = {}, None
         for line in text.splitlines():
             m = re.search(r"Compiling entry function '\w*flash_fwd_wgmmaI\d*"
                           r"(__nv_bfloat16|__half)Li(\d+)E", line)
+            m32 = re.search(r"Compiling entry function '\w*flash_fwd_tf32I"
+                            r"Li(\d+)E", line)
             if m:
                 name = ("bfloat16" if "bf" in m.group(1) else "float16",
                         int(m.group(2)))
+                rows[name] = {"smem": 0}
+                continue
+            if m32:
+                name = ("float32", int(m32.group(1)))
                 rows[name] = {"smem": 0}
                 continue
             if "Compiling entry function" in line:
@@ -2171,26 +2181,39 @@ class Smoke:
                 rows[name]["smem"] = int(m.group(1))
         want = {(dname, dh) for dname in ("bfloat16", "float16")
                 for dh in self.fa.WGMMA_HEAD_DIMS}
+        want |= {("float32", dh) for dh in self.fa.HEAD_DIMS}
         check(set(rows) == want, f"flash: tensor-core kernel instances "
               f"{sorted(rows)} in the ptxas report, expected {sorted(want)}")
         self.record["flash_build"] = []
         for (dname, dh), r in sorted(rows.items()):
-            # dynamic (TcTile::kSmem): two stages of K and V tiles
-            # (64 x dh), q's tile and its barrier where q is staged
-            # (dh = 256), 1024 bytes of alignment slack, three barriers
-            # per stage
-            tile = 64 * dh * 2
-            dyn = 2 * 2 * tile + (tile + 8 if dh == 256 else 0) + 1024 + 48
+            if dname == "float32":
+                # dynamic (F32Tile::kSmem): two stages of a K tile (rows of
+                # dh + 8 floats) and a V tile (dh + 4) of 64 keys (32 at
+                # dh = 128 and 256), and at dh = 256 q's 64 rows
+                keys = 64 if dh <= 80 else 32
+                dyn = 4 * (2 * keys * (2 * dh + 12)
+                           + (64 * (dh + 8) if dh == 256 else 0))
+                kernel = "flash_fwd_tf32"
+            else:
+                # dynamic (TcTile::kSmem): two stages of K and V tiles
+                # (64 x dh), q's tile and its barrier where q is staged
+                # (dh = 256), 1024 bytes of alignment slack, three
+                # barriers per stage
+                tile = 64 * dh * 2
+                dyn = (2 * 2 * tile + (tile + 8 if dh == 256 else 0) + 1024
+                       + 48)
+                kernel = "flash_fwd_wgmma"
             self.record["flash_build"].append(
-                {"dtype": dname, "dh": dh, **r, "dynamic_smem": dyn})
-            log(f"[build]   flash_fwd_wgmma {dname} dh={dh}: "
+                {"dtype": dname, "dh": dh, "kernel": kernel, **r,
+                 "dynamic_smem": dyn})
+            log(f"[build]   {kernel} {dname} dh={dh}: "
                 f"{r.get('registers')} registers, {r['smem'] + dyn} bytes "
                 f"shared memory per block ({dyn} dynamic), "
                 f"{r.get('spill_bytes')} bytes spilled")
             check(r.get("spill_bytes") == 0,
-                  f"flash_fwd_wgmma {dname} dh={dh} spills: {r}")
+                  f"{kernel} {dname} dh={dh} spills: {r}")
             check(r["smem"] + dyn <= SMEM_PER_BLOCK,
-                  f"flash_fwd_wgmma {dname} dh={dh}: {r['smem'] + dyn} "
+                  f"{kernel} {dname} dh={dh}: {r['smem'] + dyn} "
                   f"bytes of shared memory, over {SMEM_PER_BLOCK}")
 
     def window_cases(self):
@@ -5716,9 +5739,8 @@ class Smoke:
     def shard_serve_flash(self, arch, mesh):
         """The flash kernel at [shard_serve]'s per-rank prefill shape (its
         block of the heads, its rows), float32: against its plain version,
-        its time, plain time, bound and SDPA's time."""
+        its time, plain time, bound, ceiling and SDPA's time."""
         torch, fa = self.torch, self.fa
-        from torch.nn.attention import SDPBackend, sdpa_kernel
         cfg = shard_serve_config(arch)
         m = mesh[1]
         rows = SERVE_SHARD_ROWS // mesh[0]
@@ -5737,33 +5759,30 @@ class Smoke:
         plain_ms = self.time_ms(
             lambda: fa.flash_attention_plain(q, k, v, causal=True), reps=3,
             warmup=1)
-        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
-                          SDPBackend.EFFICIENT_ATTENTION,
-                          SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH]):
-            lib_ms = self.time_ms(lambda: torch.nn.functional.
-                                  scaled_dot_product_attention(
-                                      q, k, v, is_causal=True,
-                                      enable_gqa=hq != hkv), reps=10,
-                                  warmup=1)
-        bound_ms, by, flops, nbytes = self.flash_bound(*shape, True, 4)
+        lib_ms = self.tfl.sdpa_ms(q, k, v, True, reps=10)
+        bound_ms, by, flops, nbytes = self.flash_bound(*shape, True,
+                                                       "float32")
+        ceiling = self.rl.tf32_split_ceiling_ms(flops)
         path = f"shard_serve {arch} {mesh}"
         row = {"kernel": "flash_attention", "path": path, "b": rows,
                "hq": hq, "hkv": hkv, "sq": shape[3], "sk": shape[4],
                "dh": shape[5], "causal": True, "dtype": "float32",
-               "design": "cuda cores", "max_abs_err": err,
-               "limit_share": share, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": by, "flops": flops,
-               "bytes": nbytes, "library_ms": lib_ms,
+               "design": fa.design(torch.float32, shape[5]),
+               "max_abs_err": err, "limit_share": share, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+               "ceiling_ms": ceiling, "flops": flops, "bytes": nbytes,
+               "library_ms": lib_ms,
                "launches": self.path_launches[path]["flash_attention"]}
         self.record["times"].append(row)
         self.shard_serve_rows.append(row)
         log(f"[shard_serve] flash_attention {path} b={rows} hq={hq} "
             f"hkv={hkv} s={shape[3]} dh={shape[5]} causal float32 "
-            f"({self.record['device']['nvidia_smi']}): max_abs_err "
-            f"{err:.3e} ({share:.3f} of the limit); "
+            f"({row['design']}; {self.record['device']['nvidia_smi']}): "
+            f"max_abs_err {err:.3e} ({share:.3f} of the limit); "
             f"{ms:.4f} ms  bound {bound_ms:.4f} ms ({by}, "
-            f"{100 * bound_ms / ms:.2f}% of bound)  plain {plain_ms:.3f} ms  "
-            f"SDPA {lib_ms:.4f} ms (kernel {ms / lib_ms:.2f}x SDPA); "
+            f"{100 * bound_ms / ms:.2f}% of bound; ceiling {ceiling:.4f} ms, "
+            f"{100 * ceiling / ms:.1f}%)  plain {plain_ms:.3f} ms  "
+            f"{self.sdpa_text(ms, lib_ms)}; "
             f"{row['launches']} launches on the path (all ranks)")
         del q, k, v
 
@@ -6553,15 +6572,15 @@ class Smoke:
     def time_flash(self):
         """The flash kernel at the serve path's prompt lengths and at one
         layer of the config's prefill length, causal, bf16, b=1, granite
-        heads; beside its plain version and PyTorch's SDPA (the yardstick
-        only: the port never calls it)."""
+        heads; at the other paths' shapes (FAMILY_FLASH); and in float32 at
+        granite's heads and the longest prompt (the float32 engine's
+        kernel); beside the bound of the dtype (float32: also the ceiling
+        of three TF32 products), its plain version and PyTorch's SDPA on
+        its fused backends (the yardstick only: the port never calls
+        it)."""
         torch, fa = self.torch, self.fa
-        from torch.nn.attention import SDPBackend, sdpa_kernel
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        # fused backends only: the math fallback would hold the whole
-        # (32, s, s) score matrix at s = 32768
-        fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
-                 SDPBackend.CUDNN_ATTENTION]
+        # SDPA on its fused backends only: the math fallback would hold the
+        # whole (32, s, s) score matrix at s = 32768
         for s in FLASH_LENGTHS + (FLASH_LAYER_S,):
             shape = (1, 32, 8, s, s, 64)
             q, k, v = self.flash_inputs(*shape, torch.bfloat16, s)
@@ -6571,28 +6590,9 @@ class Smoke:
             plain_ms = self.time_ms(
                 lambda: fa.flash_attention_plain(q, k, v, causal=True),
                 reps=1 if long else 3, warmup=1)
-            with sdpa_kernel(fused):
-                lib_ms = self.time_ms(
-                    lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
-                    reps=3 if long else 20, warmup=1)
-            bound_ms, by, flops, nbytes = self.flash_bound(*shape, True, 2)
-            row = {"kernel": "flash_attention", "b": 1, "hq": 32, "hkv": 8,
-                   "sq": s, "sk": s, "dh": 64, "causal": True,
-                   "dtype": "bfloat16", "design": FLASH_DESIGN, "ms": ms,
-                   "plain_ms": plain_ms, "bound_ms": bound_ms,
-                   "bound_by": by, "flops": flops, "bytes": nbytes,
-                   "tflops": flops / ms / 1e9, "library_ms": lib_ms,
-                   "library_tflops": flops / lib_ms / 1e9,
-                   "kernel_over_library": ms / lib_ms}
-            self.record["times"].append(row)
-            self.kernel_times[("flash_attention", s)] = row
-            log(f"[times] flash_attention b=1 hq=32 hkv=8 s={s} dh=64 causal "
-                f"bf16 ({FLASH_DESIGN}): {ms:.4f} ms, {row['tflops']:.1f} "
-                f"TFLOP/s  bound {bound_ms:.4f} ms ({by}, "
-                f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB, "
-                f"{100 * bound_ms / ms:.2f}% of bound)  plain {plain_ms:.3f} "
-                f"ms  SDPA {lib_ms:.4f} ms, {row['library_tflops']:.1f} "
-                f"TFLOP/s (kernel {ms / lib_ms:.2f}x SDPA)")
+            lib_ms = self.tfl.sdpa_ms(q, k, v, True, reps=3 if long else 20)
+            self.flash_time_row("serve", s, shape, True, "bfloat16", ms,
+                                plain_ms, lib_ms)
             del q, k, v
         # the shapes of the other paths that launch it (FAMILY_FLASH)
         for path, label, shape, causal, dname in FAMILY_FLASH:
@@ -6604,50 +6604,57 @@ class Smoke:
             plain_ms = self.time_ms(
                 lambda: fa.flash_attention_plain(q, k, v, causal=causal),
                 reps=3, warmup=1)
-            # the math backend too: no fused one takes float32 with GQA
-            # (jamba's heads), and these scores fit (at most 1 GB)
-            with sdpa_kernel(fused + [SDPBackend.MATH]):
-                lib_ms = self.time_ms(
-                    lambda: sdpa(q, k, v, is_causal=causal,
-                                 enable_gqa=shape[1] != shape[2]),
-                    reps=10, warmup=1)
-            bound_ms, by, flops, nbytes = self.flash_bound(
-                *shape, causal, dtype.itemsize)
-            design = ("wgmma" if shape[5] in fa.WGMMA_HEAD_DIMS
-                      and dname != "float32" else "cuda cores")
-            b, hq, hkv, s, _, dh = shape
-            row = {"kernel": "flash_attention", "path": path, "label": label,
-                   "b": b, "hq": hq, "hkv": hkv, "sq": s, "sk": s, "dh": dh,
-                   "causal": causal, "dtype": dname, "design": design,
-                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                   "bound_by": by, "flops": flops, "bytes": nbytes,
-                   "tflops": flops / ms / 1e9, "library_ms": lib_ms,
-                   "kernel_over_library": ms / lib_ms}
-            self.record["times"].append(row)
-            self.kernel_times[("flash_attention", label)] = row
-            log(f"[times] flash_attention {label} b={b} hq={hq} hkv={hkv} "
-                f"s={s} dh={dh} causal={causal} {dname} ({design}): "
-                f"{ms:.4f} ms, {row['tflops']:.1f} TFLOP/s  bound "
-                f"{bound_ms:.4f} ms ({by}, {100 * bound_ms / ms:.2f}% of "
-                f"bound)  plain {plain_ms:.3f} ms  SDPA {lib_ms:.4f} ms "
-                f"(kernel {ms / lib_ms:.2f}x SDPA)")
+            lib_ms = self.tfl.sdpa_ms(q, k, v, causal, reps=10)
+            self.flash_time_row(path, label, shape, causal, dname, ms,
+                                plain_ms, lib_ms)
             del q, k, v
-        # the float32 kernel (CUDA cores) at the longest serve prompt
+        # the float32 kernel at the longest serve prompt
         s = FLASH_LENGTHS[-1]
         shape = (1, 32, 8, s, s, 64)
         q, k, v = self.flash_inputs(*shape, torch.float32, s)
         ms = self.time_ms(lambda: fa.flash_attention(q, k, v, causal=True),
                           reps=10, warmup=1)
-        _, _, flops, _ = self.flash_bound(*shape, True, 4)
-        self.record["times"].append({
-            "kernel": "flash_attention", "b": 1, "hq": 32, "hkv": 8,
-            "sq": s, "sk": s, "dh": 64, "causal": True, "dtype": "float32",
-            "design": "cuda cores", "ms": ms, "flops": flops,
-            "tflops": flops / ms / 1e9})
-        log(f"[times] flash_attention b=1 hq=32 hkv=8 s={s} dh=64 causal "
-            f"float32 (CUDA cores): {ms:.4f} ms, {flops / ms / 1e9:.1f} "
-            "TFLOP/s")
+        plain_ms = self.time_ms(
+            lambda: fa.flash_attention_plain(q, k, v, causal=True), reps=3,
+            warmup=1)
+        lib_ms = self.tfl.sdpa_ms(q, k, v, True, reps=10)
+        self.flash_time_row("serve float32", "granite_f32", shape, True,
+                            "float32", ms, plain_ms, lib_ms)
         del q, k, v
+
+    @staticmethod
+    def sdpa_text(ms, lib_ms):
+        return f"SDPA {lib_ms:.4f} ms (kernel {ms / lib_ms:.2f}x SDPA)"
+
+    def flash_time_row(self, path, label, shape, causal, dname, ms,
+                       plain_ms, lib_ms):
+        """Records and prints one [times] row of the flash kernel at a
+        path's shape: its time beside the bound of its dtype, the float32
+        ceiling, the plain version and SDPA."""
+        bound_ms, by, flops, nbytes = self.flash_bound(*shape, causal, dname)
+        ceiling = (self.rl.tf32_split_ceiling_ms(flops)
+                   if dname == "float32" else None)
+        b, hq, hkv, s, _, dh = shape
+        design = self.fa.design(getattr(self.torch, dname), dh)
+        row = {"kernel": "flash_attention", "path": path, "label": label,
+               "b": b, "hq": hq, "hkv": hkv, "sq": s, "sk": s, "dh": dh,
+               "causal": causal, "dtype": dname, "design": design,
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": by, "ceiling_ms": ceiling, "flops": flops,
+               "bytes": nbytes, "tflops": flops / ms / 1e9,
+               "library_ms": lib_ms,
+               "kernel_over_library": ms / lib_ms}
+        self.record["times"].append(row)
+        self.kernel_times[("flash_attention", label)] = row
+        ceil = (f"; ceiling {ceiling:.4f} ms, {100 * ceiling / ms:.1f}%"
+                if ceiling else "")
+        log(f"[times] flash_attention {label} b={b} hq={hq} hkv={hkv} "
+            f"s={s} dh={dh} causal={causal} {dname} ({design}; "
+            f"{self.record['device']['nvidia_smi']}): {ms:.4f} ms, "
+            f"{row['tflops']:.1f} TFLOP/s  bound {bound_ms:.4f} ms ({by}, "
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB, "
+            f"{100 * bound_ms / ms:.2f}% of bound{ceil})  plain "
+            f"{plain_ms:.3f} ms  {self.sdpa_text(ms, lib_ms)}")
 
     def time_serve(self):
         """Prefill at the serve path's lengths (CUDA events) and engine
@@ -7407,12 +7414,30 @@ class Smoke:
         t = self.kernel_times[("flash_attention", s)]
         out.append({
             "name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
-            "design": FLASH_DESIGN,
+            "design": t["design"],
             "replaces": "src/repro/kernels/flash_attention.py:34",
             "launches": self.serve_launches,
             "max_abs_err": check_row["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        # ... the float32 kernel on [serve]'s float32 engine: error and
+        # times at the same heads and length in float32
+        check_row = next(r for r in self.record["checks"]
+                         if r["kernel"] == "flash_attention"
+                         and r["label"] == "granite" and r["sq"] == s
+                         and r["dtype"] == "float32")
+        t = self.kernel_times[("flash_attention", "granite_f32")]
+        out.append({
+            "name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
+            "design": t["design"],
+            "replaces": "src/repro/kernels/flash_attention.py:34",
+            "path": "serve_f32", "shape": {k: t[k] for k in (
+                "b", "hq", "hkv", "sq", "sk", "dh", "causal", "dtype")},
+            "launches": self.path_launches["serve_f32"]["flash_attention"],
+            "max_abs_err": check_row["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "ceiling_ms": t["ceiling_ms"],
+            "library_ms": t["library_ms"]})
         # ... on [shard_serve]'s paths, at each case's per-rank shape
         for t in self.shard_serve_rows:
             out.append({
@@ -7424,7 +7449,7 @@ class Smoke:
                 "launches": t["launches"], "max_abs_err": t["max_abs_err"],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": t["library_ms"]})
+                "ceiling_ms": t["ceiling_ms"], "library_ms": t["library_ms"]})
         # ... and on the other paths that launch it, at each path's shape
         for path, label, shape, causal, dname in FAMILY_FLASH:
             check_row = next(r for r in self.record["checks"]
@@ -7442,7 +7467,8 @@ class Smoke:
                 "launches": self.path_launches[path]["flash_attention"],
                 "max_abs_err": check_row["max_abs_err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+                "bound_by": t["bound_by"], "ceiling_ms": t["ceiling_ms"],
+                "library_ms": t["library_ms"]})
         return out
 
 

@@ -9,14 +9,14 @@
 // k <= t + (sk - sq).  A row that sees no key at all (causal, sq > sk,
 // t < sq - sk) is written as 0.  Accumulation is float32 whatever T is.
 //
-// Replaces src/repro/kernels/flash_attention.py:_flash_kernel.  The TPU
-// kernel walks (q tile, KV tile) grid steps in order and carries the running
-// max, normaliser and accumulator in VMEM scratch from one KV step to the
-// next.  Hopper runs blocks in parallel and in no order, so the KV walk is a
-// loop inside the block instead, over 64-key tiles.  Causal blocks stop at
+// Replaces src/repro/kernels/flash_attention.py:_flash_kernel (body :34,
+// pallas_call :113).  The TPU kernel walks (q tile, KV tile) grid steps in
+// order and carries the running max, normaliser and accumulator in VMEM
+// scratch from one KV step to the next.  Hopper runs blocks in parallel and in no order, so the KV walk is a
+// loop inside the block instead, over tiles of keys.  Causal blocks stop at
 // the diagonal of their last row (the tiles past it are never read), only
 // the diagonal (or ragged) tile is masked, and the heaviest causal tiles are
-// launched first.  Two kernels, by dtype:
+// launched first.  Both kernels run on the tensor cores, one by dtype:
 //
 // bf16 and fp16: flash_fwd_wgmma, on the tensor cores through wgmma.
 //   A block is one consumer warpgroup, owning 64 query rows of one (batch,
@@ -68,21 +68,52 @@
 //   softmax and products take turns.  Every block also reads its head's
 //   K and V whole (from L2), 64 rows of q at a time.
 //
-// float32: flash_fwd_kernel, on the CUDA cores.  TF32 tensor cores would
-//   miss the float32 limit (2e-5 absolute), so float32, the path of the
-//   parity checks, keeps a query row
-//   per thread, or per two or four threads that each hold a part of the
-//   dims and are joined by shuffles per key (two for dh = 80 and 128, four
-//   for dh = 256), with the row's q, its float32 accumulator and its
-//   running max and normaliser in registers.  K and V tiles are staged
-//   through shared memory as float32, and every thread of a warp reads the
-//   same key at the same time (broadcast, 16 bytes per load).  Keys are
-//   scored kChunk at a time, so the accumulator is rescaled once per chunk
-//   and not once per key.  A stage holds 64 keys up to dh = 64, 32 up to
-//   dh = 128 and 16 at dh = 256, so that K and V stay under the 48 KB of
-//   static shared memory.
-//   What bounds it: operations, 2 dh multiply-adds per visible pair on the
-//   FP32 cores (67 TFLOP/s), each needing a quarter of a shared-memory load.
+// float32: flash_fwd_tf32, on the TF32 tensor cores through mma.sync.
+//   One TF32 product (10 fraction bits an operand) misses the float32 limit
+//   of 2e-5: a logit's error of ~2^-11 sqrt(dh) |q| |k| scale puts outputs
+//   ~60 times over it at granite-3-2b's heads (tests/test_torch_flash.py).
+//   So every operand x of both products (q and K for S = Q K^T, P and V for
+//   O += P V) is split into hi = TF32(x), rounded to nearest, and lo = x - hi
+//   truncated to TF32, and a b is taken as a_lo b_hi + a_hi b_lo + a_hi b_hi
+//   (the product SDPA's float32 path takes, cutlass's OpMultiplyAddFastF32):
+//   x = hi + lo to 2^-21 |x|, the left-out a_lo b_lo is ~2^-22 |a b|, and
+//   the outputs stay within 0.04-0.56 of the limit of the float32 attention
+//   at the paths' shapes.  The split is done on register fragments, as the
+//   operands are read; nothing of it is stored.
+//   A block is 4 warps, each owning 16 of the block's 64 query rows; every
+//   warp reads the whole K/V tile.  K and V tiles (kKeys rows) are copied
+//   by cp.async into a two-stage ring of padded rows: tile j + 1 loads while
+//   tile j is multiplied.  mma.sync.m16n8k8's A is 16 x 8, its B 8 x 8.
+//   The contraction over dh is taken in a permuted order, so that a lane
+//   reads q's and K's two neighbouring floats of a row (8-byte loads); P's
+//   A fragments are the S accumulator's own registers once the 8 keys of a
+//   step are taken in the order the accumulator holds them, and V's B
+//   fragments are read 4 bytes a lane at those keys.  The online softmax is
+//   flash_fwd_wgmma's: float32 on the accumulator fragments, p = exp2((s -
+//   m) c) taken on the raw scores.
+//   Why mma.sync and not wgmma: tf32 wgmma takes K-major operands only, so
+//   V would have to reach shared memory transposed, and B's low parts
+//   would need tiles of their own (four tiles a stage: 256 KB at dh = 256);
+//   mma.sync splits B where it is read.  On the H100 (700 W, time_flash.py
+//   at granite-3-2b's heads, s = 2048, causal) it takes 0.30 ms where the
+//   CUDA-core kernel it replaces took 1.38 ms (ROADMAP / PERF.md give the
+//   other shapes).  A wgmma version is untried.
+//   What bounds it: operations.  4 dh flops a visible (query, key) pair,
+//   three times over on the TF32 tensor cores: the card's least time is
+//   the work over 495 TFLOP/s (TF32, dense), and this design's own ceiling
+//   three times that.  Beside the products, each split costs four integer
+//   and float operations an operand element a warp reads (the split's
+//   rounding is done with bit operations: cvt.rna.tf32.f32 compiles to a
+//   NaN-handling sequence, a compare and a select an element, that made
+//   the kernel slower), each score ~10 float32 operations and one exp2.
+//   Registers (ptxas for sm_90a, no spill), dynamic shared memory and
+//   blocks an SM: dh 16: 119, 22.5 KB, 4; dh 32: 142, 38.9 KB, 3; dh 64:
+//   164, 71.7 KB, 3; dh 80: 183, 88.1 KB, 2; dh 128 (32 keys a tile): 219,
+//   68.6 KB, 2; dh 256 (32 keys a tile, q staged in shared memory: its raw
+//   fragments would take 128 registers beside the 128 of the accumulator):
+//   224, 197 KB, 1.  Two 16-row m-tiles a warp (each split K and V
+//   fragment feeding twice the products) ran barely faster at granite's
+//   causal heads for 70 more registers, and is not taken.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -97,164 +128,389 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// float32: the CUDA-core kernel
+// Shared by both kernels
 // ---------------------------------------------------------------------------
 
-constexpr int kRows = 64;   // query rows per block
-constexpr int kChunk = 16;  // keys scored per online-softmax update
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-// the kernel runs float32 only (bf16 and fp16 take the tensor cores)
-template <typename T>
-__device__ __forceinline__ float to_float(T x);
-template <>
-__device__ __forceinline__ float to_float<float>(float x) { return x; }
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
+// ---------------------------------------------------------------------------
+// float32: the tensor-core kernel (mma.sync m16n8k8 TF32, three products)
+// ---------------------------------------------------------------------------
 
+constexpr int kF32Rows = 64;      // query rows per block: 4 warps x 16
+constexpr int kF32Threads = 128;
+constexpr int kF32Stages = 2;     // K/V tiles in flight
+
+// One block's shared memory: kF32Stages stages of a K tile and a V tile of
+// kKeys rows, and (dh = 256) the block's 64 rows of q.  Rows are padded so
+// that the fragment reads below hit 32 different banks: K (and q) rows are
+// read 8 bytes a lane (lane (g, t4): row g, columns 2 t4, 2 t4 + 1), free of
+// conflicts when the stride is 8 or 24 mod 32 floats; V rows 4 bytes a lane
+// (rows 2 t4 and 2 t4 + 1, column g), when twice the stride is 8 mod 32.
 template <int DH>
-struct Shape {
-  // dims per thread: a divisor of DH and a multiple of 4 (float4 reads)
-  static constexpr int kDpt = DH == 80 ? 40 : (DH < 64 ? DH : 64);
-  static constexpr int kTpr = DH / kDpt;            // threads per query row
-  static constexpr int kThreads = kRows * kTpr;
-  // keys per staged tile: K and V stay under 48 KB of static shared memory
-  static constexpr int kKeys = DH <= 64 ? 64 : (DH <= 128 ? 32 : 16);
-  // floats per staged row part; the pad of 4 puts the parts of one key on
-  // different banks, so the threads of a row do not conflict
-  static constexpr int kPart = kDpt + 4;
-  static constexpr int kStride = kTpr * kPart;      // floats per staged key
-  static_assert(DH % kDpt == 0 && kDpt % 4 == 0 &&
-                    (kTpr == 1 || kTpr == 2 || kTpr == 4),
+struct F32Tile {
+  static_assert(DH == 16 || DH == 32 || DH == 64 || DH == 80 || DH == 128 ||
+                    DH == 256,
                 "unsupported head dim");
-  static_assert(2 * kKeys * kStride * 4 <= 48 * 1024,
-                "K and V stages over the static shared-memory limit");
+  // keys per tile: 64 while two stages leave room for three blocks an SM
+  // (two at dh = 80), else 32 (at dh = 256 one block an SM either way; 32
+  // keys ran 20 % faster than 16 there)
+  static constexpr int kKeys = DH <= 80 ? 64 : 32;
+  // blocks an SM the registers are capped for (65,536 / (128 x 170) = 3)
+  static constexpr int kMinBlocks = DH <= 64 ? 3 : (DH <= 128 ? 2 : 1);
+  // q as raw A fragments (DH / 2 registers) would not fit beside the
+  // 128-register accumulator at dh = 256: that block stages q in shared
+  // memory and reads its fragments from there
+  static constexpr bool kQShared = DH == 256;
+  static constexpr int kKStride = DH + 8;  // floats
+  static constexpr int kVStride = DH + 4;
+  static_assert(kKStride % 32 == 8 || kKStride % 32 == 24, "K stride");
+  static_assert((2 * kVStride) % 32 == 8, "V stride");
+  static constexpr int kSmem =
+      4 * (kF32Stages * kKeys * (kKStride + kVStride) +
+           (kQShared ? kF32Rows * kKStride : 0));
+  static_assert(kSmem <= 232448, "over the 227 KB of shared memory a block");
 };
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(Shape<DH>::kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int hq, int hkv,
-                 int sq, int sk, float scale_log2, int causal) {
-  using S = Shape<DH>;
-  __shared__ __align__(16) float ks[S::kKeys * S::kStride];
-  __shared__ __align__(16) float vs[S::kKeys * S::kStride];
+// 16 bytes from global to shared memory, asynchronously; src_bytes = 0
+// writes zeros (rows past the end)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// waits until at most one group (the newest) is in flight
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
 
-  const int tile = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int bh = blockIdx.y;
+// x = hi + lo to 2^-21 |x|, both TF32 (10 fraction bits, the low 13 bits
+// of a float32 clear).  hi rounds x to nearest, ties away from zero: half
+// a TF32 ulp added to the bits, the low bits cleared (what cvt.rna.tf32.f32
+// gives for a finite x, in two integer operations where cvt's NaN handling
+// compiles to five; the kernel was ~15 % slower with it).  x - hi is exact
+// in float32 (|x - hi| <= 2^-11 |x|), and lo truncates it to TF32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+// d += a b, one warp: a 16 x 8 (rows g, g + 8; columns t4, t4 + 4), b 8 x 8
+// (rows t4, t4 + 4; column g), d 16 x 8 (rows g, g + 8; columns 2 t4,
+// 2 t4 + 1), float32 accumulator
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// ... with both operands split: a_hi b_hi + a_hi b_lo + a_lo b_hi, the
+// small products first (a_lo b_lo, ~2^-22 of a b, is left out)
+__device__ __forceinline__ void mma_tf32x3(float (&d)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kF32Threads, F32Tile<DH>::kMinBlocks)
+flash_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ o, int hq,
+               int hkv, int sq, int sk, float scale_log2, int causal) {
+  using L = F32Tile<DH>;
+  constexpr int kKeys = L::kKeys, kN = kKeys / 8, kD8 = DH / 8;
+  constexpr int kRK = L::kKStride, kRV = L::kVStride;
+  extern __shared__ float4 f32_smem[];
+  float* const ks = reinterpret_cast<float*>(f32_smem);  // [stage][key][kRK]
+  float* const vs = ks + kF32Stages * kKeys * kRK;       // [stage][key][kRV]
+  float* const qs = vs + kF32Stages * kKeys * kRV;       // [row][kRK]
+
+  const int bh = blockIdx.x;
+  const int tile = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
   const int b = bh / hq, h = bh - b * hq;
   const long long kv_off =
       ((long long)b * hkv + h / (hq / hkv)) * (long long)sk * DH;
-  const int r = threadIdx.x / S::kTpr, part = threadIdx.x - r * S::kTpr;
-  const int row = tile * kRows + r;
-  const bool live = row < sq;
+  const float* const kh = k + kv_off;
+  const float* const vh = v + kv_off;
+  const int r0 = tile * kF32Rows;
   const int shift = sk - sq;
   // keys the block reads: all, or (causal) up to its last row's diagonal
   int k_end = sk;
   if (causal) {
-    const int last = min(tile * kRows + kRows, sq) - 1;
+    const int last = min(r0 + kF32Rows, sq) - 1;
     k_end = max(0, min(sk, last + shift + 1));
   }
-  // keys this row sees: [0, row_end)
-  const int row_end = causal ? min(sk, row + shift + 1) : sk;
+  const int n_tiles = (k_end + kKeys - 1) / kKeys;
 
-  float qr[S::kDpt], acc[S::kDpt];
-  const T* qrow = q + ((long long)bh * sq + row) * DH + part * S::kDpt;
-#pragma unroll
-  for (int d = 0; d < S::kDpt; ++d) {
-    qr[d] = live ? to_float<T>(qrow[d]) : 0.0f;
-    acc[d] = 0.0f;
-  }
-  float m = -INFINITY, l = 0.0f;
-
-  for (int k0 = 0; k0 < k_end; k0 += S::kKeys) {
-    const int tn = min(S::kKeys, k_end - k0);
-    __syncthreads();  // the previous tile is consumed
-    const T* kt = k + kv_off + (long long)k0 * DH;
-    const T* vt = v + kv_off + (long long)k0 * DH;
-    for (int e = threadIdx.x; e < tn * DH; e += S::kThreads) {
-      const int j = e / DH, c = e - j * DH;
-      const int at = j * S::kStride + (c / S::kDpt) * S::kPart + c % S::kDpt;
-      ks[at] = to_float<T>(kt[e]);
-      vs[at] = to_float<T>(vt[e]);
+  // K and V rows [j kKeys, (j + 1) kKeys) into stage st; rows past sk
+  // arrive as zeros (a masked key's p is 0, and 0 v must not be NaN)
+  auto load_tile = [&](int j, int st) {
+    const int k0 = j * kKeys;
+    float* const kd = ks + st * kKeys * kRK;
+    float* const vd = vs + st * kKeys * kRV;
+    for (int e = threadIdx.x; e < kKeys * DH / 4; e += kF32Threads) {
+      const int r = e / (DH / 4), c = 4 * (e - r * (DH / 4));
+      const bool in = k0 + r < sk;
+      const long long at = in ? (long long)(k0 + r) * DH + c : 0;
+      cp_async16(smem_u32(kd + r * kRK + c), kh + at, in ? 16 : 0);
+      cp_async16(smem_u32(vd + r * kRV + c), vh + at, in ? 16 : 0);
     }
+  };
+  if constexpr (L::kQShared) {  // the block's 64 rows of q, once
+    const float* const qh = q + (long long)bh * sq * DH;
+    for (int e = threadIdx.x; e < kF32Rows * DH / 4; e += kF32Threads) {
+      const int r = e / (DH / 4), c = 4 * (e - r * (DH / 4));
+      const bool in = r0 + r < sq;
+      const long long at = in ? (long long)(r0 + r) * DH + c : 0;
+      cp_async16(smem_u32(qs + r * kRK + c), qh + at, in ? 16 : 0);
+    }
+  }
+  if (n_tiles > 0) load_tile(0, 0);
+  cp_async_commit();
+
+  // warp w holds rows 16 w + g and 16 w + g + 8
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wr = r0 + warp * 16 + g;
+  // keys each row sees: [0, lim)
+  const int lim0 = causal ? min(sk, wr + shift + 1) : sk;
+  const int lim1 = causal ? min(sk, wr + 8 + shift + 1) : sk;
+  const float cexp = fabsf(scale_log2);
+
+  // The contraction over dh is taken in a permuted order: A column t4 of
+  // an 8-deep step is dim 2 t4 and column t4 + 4 dim 2 t4 + 1, for q and
+  // for K alike, so that a lane reads two neighbouring floats of a row.
+  // A negative scale flips q (exact), for cexp = |scale_log2|; where q is
+  // staged, the scores' signs flip instead (exact too).
+  float qf[L::kQShared ? 1 : kD8][4];
+  if constexpr (!L::kQShared) {
+    const float sgn = scale_log2 < 0.0f ? -1.0f : 1.0f;
+    const float* const q0 = q + ((long long)bh * sq + wr) * DH + 2 * t4;
+    const bool live0 = wr < sq, live1 = wr + 8 < sq;
+#pragma unroll
+    for (int kk = 0; kk < kD8; ++kk) {
+      const float2 x0 = live0 ? *reinterpret_cast<const float2*>(q0 + 8 * kk)
+                              : make_float2(0.0f, 0.0f);
+      const float2 x1 =
+          live1 ? *reinterpret_cast<const float2*>(q0 + 8 * DH + 8 * kk)
+                : make_float2(0.0f, 0.0f);
+      qf[kk][0] = sgn * x0.x;  // row g, dim 8 kk + 2 t4
+      qf[kk][1] = sgn * x1.x;  // row g + 8
+      qf[kk][2] = sgn * x0.y;  // row g, dim 8 kk + 2 t4 + 1
+      qf[kk][3] = sgn * x1.y;
+    }
+  }
+
+  float acc[kD8][4];
+#pragma unroll
+  for (int n = 0; n < kD8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.0f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j & 1;
+    if (j + 1 < n_tiles) load_tile(j + 1, st ^ 1);
+    cp_async_commit();  // empty on the last tile
+    cp_async_wait_one();  // tile j (and q) landed
     __syncthreads();
+    const int k0 = j * kKeys;
+    const float* const kt = ks + st * kKeys * kRK;
+    const float* const vt = vs + st * kKeys * kRV;
 
-    for (int j0 = 0; j0 < tn; j0 += kChunk) {
-      // scores of kChunk keys, in log2 units; masked keys are -inf
-      float s[kChunk];
-      float m_chunk = -INFINITY;
+    // S = Q K^T, 64 rows x kKeys keys, three TF32 products an 8-deep step
+    float s[kN][4];
 #pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
-        const int j = j0 + c;
-        float dot = 0.0f;
-        if (j < tn) {  // uniform across the block
-          const float4* kr = reinterpret_cast<const float4*>(
-              ks + j * S::kStride + part * S::kPart);
+    for (int n = 0; n < kN; ++n)
 #pragma unroll
-          for (int d4 = 0; d4 < S::kDpt / 4; ++d4) {
-            const float4 kk = kr[d4];
-            dot = fmaf(qr[4 * d4], kk.x, dot);
-            dot = fmaf(qr[4 * d4 + 1], kk.y, dot);
-            dot = fmaf(qr[4 * d4 + 2], kk.z, dot);
-            dot = fmaf(qr[4 * d4 + 3], kk.w, dot);
-          }
-        }
-        // the row's parts sit on neighbouring lanes
-        if (S::kTpr >= 2) dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-        if (S::kTpr >= 4) dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-        s[c] = (j < tn && k0 + j < row_end) ? dot * scale_log2 : -INFINITY;
-        m_chunk = fmaxf(m_chunk, s[c]);
-      }
-      const float m_new = fmaxf(m, m_chunk);
-      if (m_new == -INFINITY) continue;  // nothing visible to this row yet
-      const float alpha = exp2f(m - m_new);  // 0 while m is still -inf
-      l *= alpha;
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
 #pragma unroll
-      for (int d = 0; d < S::kDpt; ++d) acc[d] *= alpha;
+    for (int kk = 0; kk < kD8; ++kk) {
+      uint32_t ah[4], al[4];
+      if constexpr (L::kQShared) {
+        const float* const qr = qs + (warp * 16 + g) * kRK + 8 * kk + 2 * t4;
+        const float2 x0 = *reinterpret_cast<const float2*>(qr);
+        const float2 x1 = *reinterpret_cast<const float2*>(qr + 8 * kRK);
+        split_tf32(x0.x, ah[0], al[0]);
+        split_tf32(x1.x, ah[1], al[1]);
+        split_tf32(x0.y, ah[2], al[2]);
+        split_tf32(x1.y, ah[3], al[3]);
+      } else {
+        // split anew every tile: hoisted out of the loop, q's hi and lo
+        // would hold dh / 2 more registers a thread (a spill at dh = 128)
 #pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
-        const int j = j0 + c;
-        if (j >= tn) break;  // stale shared memory past the tile
-        const float p = exp2f(s[c] - m_new);
-        l += p;
-        const float4* vr = reinterpret_cast<const float4*>(
-            vs + j * S::kStride + part * S::kPart);
-#pragma unroll
-        for (int d4 = 0; d4 < S::kDpt / 4; ++d4) {
-          const float4 vv = vr[d4];
-          acc[4 * d4] = fmaf(p, vv.x, acc[4 * d4]);
-          acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
-          acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
-          acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
+        for (int e = 0; e < 4; ++e) {
+          float x = qf[kk][e];
+          asm volatile("" : "+f"(x));
+          split_tf32(x, ah[e], al[e]);
         }
       }
-      m = m_new;
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        const float2 kx = *reinterpret_cast<const float2*>(
+            kt + (8 * n + g) * kRK + 8 * kk + 2 * t4);
+        uint32_t bh2[2], bl2[2];
+        split_tf32(kx.x, bh2[0], bl2[0]);
+        split_tf32(kx.y, bh2[1], bl2[1]);
+        mma_tf32x3(s[n], ah, al, bh2, bl2);
+      }
     }
+    if constexpr (L::kQShared) {
+      if (scale_log2 < 0.0f) {
+#pragma unroll
+        for (int n = 0; n < kN; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] = -s[n][e];
+      }
+    }
+
+    // only a ragged or diagonal tile is masked
+    const bool masked =
+        k0 + kKeys > sk || (causal && k0 + kKeys - 1 > r0 + shift);
+    if (masked) {
+#pragma unroll
+      for (int n = 0; n < kN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + n * 8 + t4 * 2 + (e & 1);
+          if (key >= (e < 2 ? lim0 : lim1)) s[n][e] = -INFINITY;
+        }
+    }
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    // a row with nothing visible yet keeps m = -inf: subtract 0 instead,
+    // and its alpha is 0, never NaN
+    const float mu0 = mn0 == -INFINITY ? 0.0f : mn0;
+    const float mu1 = mn1 == -INFINITY ? 0.0f : mn1;
+    const float alpha0 = m0 == -INFINITY ? 0.0f : ex2((m0 - mu0) * cexp);
+    const float alpha1 = m1 == -INFINITY ? 0.0f : ex2((m1 - mu1) * cexp);
+    m0 = mn0;
+    m1 = mn1;
+    l0 *= alpha0;
+    l1 *= alpha1;
+#pragma unroll
+    for (int n = 0; n < kD8; ++n) {
+      acc[n][0] *= alpha0;
+      acc[n][1] *= alpha0;
+      acc[n][2] *= alpha1;
+      acc[n][3] *= alpha1;
+    }
+    if (masked) {  // a masked key is 0 even at scale 0 (-inf * 0 is NaN)
+#pragma unroll
+      for (int n = 0; n < kN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[n][e] = s[n][e] == -INFINITY
+                        ? 0.0f
+                        : ex2((s[n][e] - (e < 2 ? mu0 : mu1)) * cexp);
+    } else {
+#pragma unroll
+      for (int n = 0; n < kN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[n][e] = ex2((s[n][e] - (e < 2 ? mu0 : mu1)) * cexp);
+    }
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      l0 += s[n][0] + s[n][1];
+      l1 += s[n][2] + s[n][3];
+    }
+
+    // O += P V, three TF32 products an 8-key step.  The S fragment of
+    // 8-key block kb holds keys 2 t4 and 2 t4 + 1 of rows g and g + 8: it
+    // is the A fragment of that step when A column t4 stands for key 2 t4
+    // and t4 + 4 for key 2 t4 + 1, so a lane's B is V at those two keys.
+#pragma unroll
+    for (int kb = 0; kb < kN; ++kb) {
+      uint32_t ph[4], pl[4];
+      split_tf32(s[kb][0], ph[0], pl[0]);  // row g, key 2 t4
+      split_tf32(s[kb][2], ph[1], pl[1]);  // row g + 8, key 2 t4
+      split_tf32(s[kb][1], ph[2], pl[2]);  // row g, key 2 t4 + 1
+      split_tf32(s[kb][3], ph[3], pl[3]);  // row g + 8, key 2 t4 + 1
+      const float* const v0 = vt + (8 * kb + 2 * t4) * kRV + g;
+#pragma unroll
+      for (int n = 0; n < kD8; ++n) {
+        uint32_t bh2[2], bl2[2];
+        split_tf32(v0[8 * n], bh2[0], bl2[0]);
+        split_tf32(v0[kRV + 8 * n], bh2[1], bl2[1]);
+        mma_tf32x3(acc[n], ph, pl, bh2, bl2);
+      }
+    }
+    __syncthreads();  // stage st is consumed before tile j + 2 lands there
   }
 
-  if (live) {
-    const float inv = l > 0.0f ? 1.0f / l : 0.0f;  // no visible key -> 0
-    T* orow = o + ((long long)bh * sq + row) * DH + part * S::kDpt;
+  // the row sums over the quad; no visible key -> 0
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = l0 > 0.0f ? 1.0f / l0 : 0.0f;
+  const float inv1 = l1 > 0.0f ? 1.0f / l1 : 0.0f;
+  float* const orow = o + ((long long)bh * sq + wr) * DH + t4 * 2;
+  const bool live0 = wr < sq, live1 = wr + 8 < sq;
 #pragma unroll
-    for (int d = 0; d < S::kDpt; ++d) orow[d] = from_float<T>(acc[d] * inv);
+  for (int n = 0; n < kD8; ++n) {
+    if (live0)
+      *reinterpret_cast<float2*>(orow + n * 8) =
+          make_float2(acc[n][0] * inv0, acc[n][1] * inv0);
+    if (live1)
+      *reinterpret_cast<float2*>(orow + 8 * DH + n * 8) =
+          make_float2(acc[n][2] * inv1, acc[n][3] * inv1);
   }
 }
 
-template <typename T, int DH>
-int launch_dh(const void* q, const void* k, const void* v, void* o, int b,
-              int hq, int hkv, int sq, int sk, float scale_log2, int causal,
-              cudaStream_t stream) {
-  const dim3 grid((unsigned)((sq + kRows - 1) / kRows), (unsigned)(b * hq));
-  flash_fwd_kernel<T, DH><<<grid, Shape<DH>::kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), hq, hkv, sq, sk,
+template <int DH>
+int launch_tf32(const void* q, const void* k, const void* v, void* o, int b,
+                int hq, int hkv, int sq, int sk, float scale_log2, int causal,
+                cudaStream_t stream) {
+  const int tiles = (sq + kF32Rows - 1) / kF32Rows;
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  if (sk == 0)  // no row sees a key
+    return (int)cudaMemsetAsync(o, 0, (size_t)b * hq * sq * DH * sizeof(float),
+                                stream);
+  constexpr int smem = F32Tile<DH>::kSmem;
+  // above the 48 KB default only after an explicit opt-in; at dh 16 and 32
+  // none is asked, so a latency-bound launch makes no extra CUDA call
+  if (smem > 48 * 1024) {
+    const cudaError_t set = cudaFuncSetAttribute(
+        flash_fwd_tf32<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (set != cudaSuccess) return (int)set;
+  }
+  const dim3 grid((unsigned)(b * hq), (unsigned)tiles);
+  flash_fwd_tf32<DH><<<grid, kF32Threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), hq, hkv, sq, sk,
       scale_log2, causal);
   return (int)cudaGetLastError();
 }
-
 
 // ---------------------------------------------------------------------------
 // bf16 / fp16: the tensor-core kernel
@@ -298,10 +554,6 @@ struct TcTile {
                                24 * kTcStages;
   static_assert(kSmem <= 232448, "over the 227 KB of shared memory a block");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // a shared-memory matrix descriptor: start, leading and stride byte
 // offsets (16-byte units), swizzle layout
@@ -385,12 +637,6 @@ __device__ __forceinline__ void wg_pin(float (&d)[R][C]) {
   for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < C; ++j) asm volatile("" : "+f"(d[i][j])::"memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // (x, y) -> hi = T(x), T(y) packed, and lo = T(x - hi.x), T(y - hi.y)
@@ -1043,14 +1289,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
     return (int)cudaErrorInvalidValue;
   const float scale_log2 = (float)(scale * 1.4426950408889634);  // log2(e)
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // float32 on the CUDA cores, bf16 / fp16 on the tensor cores
-#define REPRO_FLASH_DH(DH)                                                \
-  case DH:                                                                \
-    if constexpr (std::is_same<T, float>::value)                          \
-      return launch_dh<T, DH>(q, k, v, o, b, hq, hkv, sq, sk, scale_log2, \
-                              causal, s);                                 \
-    else                                                                  \
-      return launch_tc<T, DH>(q, k, v, o, b, hq, hkv, sq, sk, scale_log2, \
+  // float32 on mma.sync (TF32, three products), bf16 / fp16 on wgmma
+#define REPRO_FLASH_DH(DH)                                                  \
+  case DH:                                                                  \
+    if constexpr (std::is_same<T, float>::value)                            \
+      return launch_tf32<DH>(q, k, v, o, b, hq, hkv, sq, sk, scale_log2,    \
+                             causal, s);                                    \
+    else                                                                    \
+      return launch_tc<T, DH>(q, k, v, o, b, hq, hkv, sq, sk, scale_log2,   \
                               causal, s);
   switch (dh) {
     REPRO_FLASH_DH(16)

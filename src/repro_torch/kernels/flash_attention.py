@@ -13,13 +13,17 @@ tile, and the serving path never reaches such a row.
 Replaces the TPU kernel ``src/repro/kernels/flash_attention.py:_flash_kernel``
 (its oracle is ``src/repro/kernels/ref.py:flash_attention_ref``).  A
 tensor on the CPU takes :func:`flash_attention_plain`; a CUDA tensor
-launches a hand-written kernel in ``csrc/flash_attention.cu`` or raises:
-bfloat16 and float16 the tensor-core kernel (wgmma, K/V tiles copied by
-TMA, P split into hi + lo in the input dtype for the PV product, so the
-result stays within two ulps of the float32 attention) at every head dim
-(dh 80, hubert's, as a 64-column region in 128-byte swizzle and a
-16-column tail in 32-byte swizzle; dh 256, gemma's and paligemma's, with
-q staged in shared memory), float32 the CUDA-core kernel.  A ``meta``
+launches a hand-written kernel in ``csrc/flash_attention.cu`` or raises,
+at every head dim in :data:`HEAD_DIMS`; :func:`design` names it.
+bfloat16 and float16 take the wgmma kernel (K/V tiles copied by TMA, P
+split into hi + lo in the input dtype for the PV product, so the result
+stays within two ulps of the float32 attention; dh 80, hubert's, as a
+64-column region in 128-byte swizzle and a 16-column tail in 32-byte
+swizzle; dh 256, gemma's and paligemma's, with q staged in shared
+memory).  float32 takes the TF32 tensor cores through ``mma.sync``
+m16n8k8, each operand split into a TF32 high and low part and each
+product taken as hi hi + hi lo + lo hi (one TF32 pass misses the float32
+limit of 2e-5), with K/V tiles staged by ``cp.async``.  A ``meta``
 tensor (the dry run) gets a ``meta`` result, and the kernel's :func:`work`
 goes to the active trace counter, which counts the launch.  The wrapper
 counts its launches on the card in ``flash_attention.launches``.
@@ -35,8 +39,11 @@ from repro_torch.kernels import _build
 # head dims the CUDA kernels are built for (a template parameter): every
 # registered config's attention head dim is one of them
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
-# ... of which the tensor-core kernel takes bf16 / fp16 at these: all
+# ... of which the wgmma kernel takes bf16 / fp16 at these: all
 WGMMA_HEAD_DIMS = HEAD_DIMS
+# the kernel that runs, by dtype (at every head dim of HEAD_DIMS)
+_DESIGN = {torch.float32: "mma.sync tf32x3", torch.bfloat16: "wgmma",
+           torch.float16: "wgmma"}
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 # bounds the plain version's (b, hq, rows, sk) logits tile, in elements
 _PLAIN_TILE_ELEMS = 1 << 25
@@ -86,6 +93,15 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             ctx = ctx.masked_fill(~visible.any(dim=1)[:, None], 0.0)
         out[:, :, s0:s0 + step] = ctx.to(q.dtype)
     return out
+
+
+def design(dtype: torch.dtype, dh: int) -> str:
+    """The name of the CUDA kernel that a CUDA tensor of ``dtype`` at head
+    dim ``dh`` launches: ``"wgmma"`` (bf16, f16) or ``"mma.sync tf32x3"``
+    (float32: TF32 ``mma.sync``, three products of split operands)."""
+    if dtype not in _DESIGN or dh not in HEAD_DIMS:
+        raise ValueError(f"no flash_attention kernel for {dtype} at dh {dh}")
+    return _DESIGN[dtype]
 
 
 def work(b: int, hq: int, hkv: int, sq: int, sk: int, dh: int,

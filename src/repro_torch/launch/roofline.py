@@ -7,6 +7,12 @@ full 700 W power limit), not measured here:
     PEAK_FLOPS  989e12 FLOP/s bf16 and fp16 on the tensor cores; 67e12
                 float32 and 34e12 float64 outside them (the f32 and f64
                 cells: the window and direct-sum kernels issue plain FMAs)
+    TENSOR_PEAK_FLOPS
+                the dense tensor-core peaks by input dtype: 989e12 bf16
+                and fp16, 495e12 float32 (run as TF32): the bound of a
+                kernel on the tensor cores (flash attention); the float32
+                flash kernel's own ceiling is TF32_SPLIT_PRODUCTS times
+                its operations term (:func:`tf32_split_ceiling_ms`)
     HBM_BW      3.35e12 bytes/s
     LINK_BW     50e9 bytes/s, one 400 Gb/s NDR InfiniBand port a GPU: the
                 link a 256-rank mesh's collectives cross, charged as the
@@ -18,6 +24,11 @@ the ``meta`` device, so its counts are per-rank quantities:
     compute_s    = flops / PEAK_FLOPS[dtype]
     memory_s     = hbm_bytes / HBM_BW
     collective_s = collective_bytes / LINK_BW
+
+so a float32 step's compute term charges every FLOP at the 67e12 of the
+FP32 cores, the float32 flash kernel's TF32 FLOPs too (the term is an
+upper bound there); a kernel's own bound (:func:`bound_ms`) takes the
+peak of the units it runs on.
 
 Collective bytes follow the reference's two models (``repro.launch.
 hlo_analysis``), derived from :class:`repro_torch.launch.mesh.Mesh`'s
@@ -54,6 +65,12 @@ from torch.utils.flop_counter import flop_registry
 
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12,
               "float64": 34e12}
+# ... and on the tensor cores, by input dtype (float32 runs as TF32)
+TENSOR_PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12,
+                     "float32": 495e12}
+# TF32 products a float32 product takes with each operand split into a
+# TF32 high and low part: hi hi + hi lo + lo hi
+TF32_SPLIT_PRODUCTS = 3
 HBM_BW = 3.35e12
 LINK_BW = 50e9
 POD_BOUNDARY = 256
@@ -72,6 +89,12 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float) -> tuple:
     t_bytes = nbytes / HBM_BW * 1e3
     return (max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def tf32_split_ceiling_ms(flops: float) -> float:
+    """The least time of ``flops`` float32 FLOPs taken as three TF32
+    products of split operands (the float32 flash kernel's ceiling)."""
+    return TF32_SPLIT_PRODUCTS * flops / TENSOR_PEAK_FLOPS["float32"] * 1e3
 
 
 def moved_bytes(kind: str, operand: int, group: int) -> int:

@@ -8,16 +8,21 @@ alignment).  Absolute limits are the JAX tests' own: 2e-5 in float32 and
 5e-2 in bfloat16.  Rows that see no key are 0 in the port (the oracle
 gives NaN there).
 
-The card runs bfloat16 and float16 on a tensor-core kernel that no CPU can
-run; ``_tile_emulation`` repeats its arithmetic tile by tile in plain
-PyTorch (64-row x 64-key tiles, float32 running max and normaliser, the
-causal stop at a block's last row, P split into hi + lo in the input
-dtype for the PV product, 0 for rows with no visible key; the same rows
-and keys at every head dim, 80 and 256 included), and the tests below hold
-it against the JAX kernel and the plain version.  The limit is
-two ulps of the output dtype, elementwise: |e - p| <= 2e-5 + r |p| with r
-= 2^-6 (bfloat16) or 2^-9 (float16), as on the card
-(tests/test_torch_gpu.py).
+The card runs every dtype on tensor-core kernels that no CPU can run;
+``_tile_emulation`` repeats their arithmetic tile by tile in plain PyTorch
+(64-row blocks, float32 running max and normaliser, the causal stop at a
+block's last row, 0 for rows with no visible key).  bfloat16 and float16
+(wgmma): 64-key tiles, P split into hi + lo in the input dtype for the PV
+product; the limit is two ulps of the output dtype, elementwise: |e - p| <=
+2e-5 + r |p| with r = 2^-6 (bfloat16) or 2^-9 (float16), as on the card
+(tests/test_torch_gpu.py).  float32 (TF32 mma.sync): the kernel's keys a
+tile at each head dim, and every operand of both products (q, k, p, v)
+split into a TF32 high part, rounded to nearest with ties away from zero
+as ``cvt.rna`` rounds, and the rest truncated to TF32, by the kernel's own
+bit operations; each product taken as hi hi + hi lo + lo hi; the limit is
+the JAX tests' 2e-5 absolute.  The tests below
+hold the emulation against the JAX kernel or its oracle and the plain
+version.
 """
 
 import jax.numpy as jnp
@@ -140,17 +145,56 @@ def test_flash_attention_rejects_bad_inputs(shapes, dtypes, err):
         tfa.flash_attention(q, k, v)
 
 
+def _tf32(x):
+    """x rounded to TF32 (10 fraction bits), to nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds a finite x, and as the kernel's
+    ``split_tf32`` does it: half a TF32 ulp added to the bits, the 13 low
+    bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    """x truncated to TF32: the 13 low bits cleared (``split_tf32``'s lo)."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(eq, a, b, split=True):
+    """The float32 kernel's product of float32 operands on the TF32 tensor
+    cores: each split into hi = TF32(x) and lo = x - hi truncated to TF32,
+    and lo hi + hi lo + hi hi summed in float32 (the products are exact);
+    ``split=False`` is one TF32 pass, hi hi."""
+    ah, bh = _tf32(a), _tf32(b)
+    if not split:
+        return torch.einsum(eq, ah, bh)
+    al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+            + torch.einsum(eq, ah, bh))
+
+
+def _f32_keys(dh):
+    """Keys a K/V tile of the float32 kernel (F32Tile::kKeys)."""
+    return 64 if dh <= 80 else 32
+
+
 def _tile_emulation(q, k, v, *, causal, scale=None, split=True, rows=64,
-                    keys=64):
-    """The tensor-core kernel's arithmetic (csrc/flash_attention.cu,
-    flash_fwd_wgmma) in plain PyTorch, one 64-row block and one 64-key tile
-    at a time.  ``split=False`` rounds P to the input dtype once instead, as
-    the TPU kernel does.  A negative scale flips q here; the kernel flips
-    q at dh <= 128 and the float32 scores at dh = 256 (q staged in shared
-    memory), both exact, so the scores are the same."""
+                    keys=None):
+    """The tensor-core kernels' arithmetic (csrc/flash_attention.cu) in
+    plain PyTorch, one 64-row block and one tile of keys at a time.
+    bfloat16 / float16 (flash_fwd_wgmma): 64-key tiles, P split into hi +
+    lo in the input dtype; ``split=False`` rounds P to the input dtype once
+    instead, as the TPU kernel does.  float32 (flash_fwd_tf32): the
+    kernel's keys a tile, S = Q K^T and P V as three TF32 products of split
+    operands (:func:`_tf32_product`); ``split=False`` is one TF32 pass.  A
+    negative scale flips q here; the kernels flip q, or the float32 scores
+    where q is staged in shared memory (dh = 256), both exact, so the
+    scores are the same."""
     dtype = q.dtype
     b, hq, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
+    f32 = dtype == torch.float32
+    if keys is None:
+        keys = _f32_keys(dh) if f32 else 64
     scale_log2 = torch.tensor((1.0 / dh ** 0.5 if scale is None else scale)
                               * LOG2E, dtype=torch.float32)
     if scale_log2 < 0:  # the kernel flips q's sign and uses |scale_log2|
@@ -172,7 +216,9 @@ def _tile_emulation(q, k, v, *, causal, scale=None, split=True, rows=64,
         for k0 in range(0, max(k_end, 0), keys):
             key = torch.arange(k0, min(k0 + keys, sk))
             # raw scores; p = exp2((s - m) scale_log2), the difference first
-            s = torch.einsum("bhqd,bhkd->bhqk", qt, kk[:, :, key])
+            s = (_tf32_product("bhqd,bhkd->bhqk", qt, kk[:, :, key], split)
+                 if f32 else
+                 torch.einsum("bhqd,bhkd->bhqk", qt, kk[:, :, key]))
             s = s.masked_fill(key[None, :] >= lim[:, None], float("-inf"))
             m_new = torch.maximum(m, s.amax(-1, keepdim=True))
             m_use = m_new.masked_fill(m_new == float("-inf"), 0.0)
@@ -181,13 +227,17 @@ def _tile_emulation(q, k, v, *, causal, scale=None, split=True, rows=64,
             p = torch.where(s == float("-inf"), 0.0,
                             torch.exp2((s - m_use) * scale_log2))
             l = l * alpha + p.sum(-1, keepdim=True)
-            hi = p.to(dtype).float()
-            acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", hi,
+            if f32:
+                acc = acc * alpha + _tf32_product(
+                    "bhqk,bhkd->bhqd", p, vv[:, :, key], split)
+            else:
+                hi = p.to(dtype).float()
+                acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", hi,
+                                                 vv[:, :, key])
+                if split:
+                    acc = acc + torch.einsum("bhqk,bhkd->bhqd",
+                                             (p - hi).to(dtype).float(),
                                              vv[:, :, key])
-            if split:
-                acc = acc + torch.einsum("bhqk,bhkd->bhqd",
-                                         (p - hi).to(dtype).float(),
-                                         vv[:, :, key])
             m = m_new
         out[:, :, r0:r0 + rows] = torch.where(
             l > 0, acc / l.clamp(min=1e-30), 0.0).to(dtype)
@@ -302,3 +352,114 @@ def test_time_flash_bounds_and_needs_a_card():
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="needs a CUDA card"):
             time_flash.main([])
+
+
+# the float32 kernel's limit: the JAX kernel tests' 2e-5 absolute
+F32_ATOL = 2e-5
+
+
+def _f32_emulation_share(b, hq, hkv, sq, sk, dh, causal, seed, scale=None,
+                         q_gain=1.0, split=True):
+    """(share of 2e-5 against the JAX oracle, against the plain version)
+    of the float32 kernel's emulation, over the rows that see a key (the
+    oracle gives NaN on the others; the emulation's 0 there is checked
+    against the plain version's 0)."""
+    q, k, v = (torch.as_tensor(a) for a in
+               _inputs(b, hq, hkv, sq, sk, dh, np.random.default_rng(seed)))
+    q = q * q_gain
+    got = _tile_emulation(q, k, v, causal=causal, scale=scale, split=split)
+    plain = tfa.flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    oracle = torch.as_tensor(np.array(ref.flash_attention_ref(
+        *(jnp.asarray(t.numpy()) for t in (q, k, v)), causal=causal,
+        **({} if scale is None else {"scale": scale}))))
+    seen = sq - max(0, sq - sk) if causal else sq
+    if seen < sq:
+        assert bool((got[:, :, :sq - seen] == 0).all())
+    return (_limit_share(got[:, :, sq - seen:], oracle[:, :, sq - seen:],
+                         F32_ATOL, 0.0),
+            _limit_share(got, plain, F32_ATOL, 0.0))
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk", [
+    (1, 4, 4, 130, 130),   # MHA, ragged 64-row block
+    (2, 8, 2, 70, 70),     # GQA group 4
+    (1, 4, 2, 65, 200),    # sk > sq: decode alignment, ragged
+    (1, 2, 1, 1, 150),     # one query against a cache
+    (1, 4, 2, 90, 40),     # sk < sq: causal rows without keys
+])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dh", [16, 64, 80, 128, 256])
+def test_tf32_split_emulation_matches_jax_and_plain(dh, causal, b, hq, hkv,
+                                                    sq, sk):
+    """The float32 kernel's arithmetic (TF32 hi/lo split, three products
+    for S and for P V, its keys a tile) within 2e-5 of the JAX oracle and
+    of the plain version at every head-dim class it is built for."""
+    to_jax, to_plain = _f32_emulation_share(b, hq, hkv, sq, sk, dh, causal,
+                                            sq + sk + dh)
+    assert to_jax <= 1.0 and to_plain <= 1.0
+
+
+@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("scale,q_gain", [(-0.2, 1.0), (0.05, 1.0),
+                                          (0.0, 1.0), (None, 4.0)])
+def test_tf32_split_emulation_scale_and_large_logits(dh, scale, q_gain):
+    """A negative scale (the kernel flips q, or the scores at dh = 256), a
+    zero scale (every visible key weighs the same) and large logits (q
+    times 4: logits of ~4 standard deviations, where a logit's error moves
+    the output most), within 2e-5 of the JAX oracle and the plain version.
+    (At q times 6 and dh = 256 the plain version's own float32 sums are
+    0.45-0.7 of the limit off the float64 attention on these inputs, and
+    the emulation's ~1.1: float32 itself runs out there.)"""
+    to_jax, to_plain = _f32_emulation_share(1, 4, 2, 100, 100, dh, True,
+                                            dh + 7, scale=scale,
+                                            q_gain=q_gain)
+    assert to_jax <= 1.0 and to_plain <= 1.0
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    """_tf32 keeps 10 fraction bits: 1 + 2^-11 (a tie) rounds away from
+    zero to 1 + 2^-10, and so does -(1 + 2^-11); 1 + 2^-12 rounds to 1;
+    hi + lo (lo = x - hi truncated to TF32) is x to 2^-21 |x|."""
+    x = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12,
+                      1 + 2.0 ** -10 + 2.0 ** -13])
+    hi = _tf32(x)
+    assert hi.tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0,
+                           1 + 2.0 ** -10]
+    y = torch.as_tensor(RNG.normal(size=4096).astype(np.float32))
+    hi = _tf32(y)
+    lo = _tf32_trunc(y - hi)
+    assert float(((y - hi).abs() / y.abs()).max()) <= 2.0 ** -11
+    assert float(((y - hi - lo).abs() / y.abs()).max()) <= 2.0 ** -21
+
+
+def test_one_tf32_pass_fails_the_float32_limit():
+    """Why the float32 kernel splits: at granite-3-2b's heads (32 on 8,
+    dh = 64, causal, s = 256), one TF32 pass for S and for P V puts outputs
+    ~60 times 2e-5 off the JAX oracle; the split stays within 0.1 of it."""
+    once, _ = _f32_emulation_share(1, 32, 8, 256, 256, 64, True, 64,
+                                   split=False)
+    split, _ = _f32_emulation_share(1, 32, 8, 256, 256, 64, True, 64)
+    assert once > 10.0
+    assert split <= 0.2
+
+
+def test_time_flash_float32_bound_and_ceiling():
+    """float32 runs at the TF32 dense peak (495 TFLOP/s): granite's heads at
+    s = 2048, causal, are 17,188,257,792 FLOPs, 0.0347 ms of bound, and
+    the three-product ceiling 0.1042 ms; bf16 stays at 989 TFLOP/s."""
+    from repro_torch.launch import roofline, time_flash
+    ms, by, flops = time_flash.bound(*time_flash.SHAPES["granite"],
+                                     dtype="float32")
+    assert (by, flops) == ("operations", 17_188_257_792)
+    assert abs(ms - 0.0347) < 5e-5
+    assert abs(roofline.tf32_split_ceiling_ms(flops) - 0.1042) < 5e-5
+    bf16_ms, _, _ = time_flash.bound(*time_flash.SHAPES["granite"])
+    assert abs(bf16_ms - 17_188_257_792 / 989e12 * 1e3) < 1e-9
+
+
+def test_design_names_the_kernel_that_runs():
+    assert tfa.design(torch.float32, 64) == "mma.sync tf32x3"
+    assert {tfa.design(dt, dh) for dt in (torch.bfloat16, torch.float16)
+            for dh in tfa.HEAD_DIMS} == {"wgmma"}
+    with pytest.raises(ValueError):
+        tfa.design(torch.float32, 48)

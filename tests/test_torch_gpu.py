@@ -565,9 +565,10 @@ HALF = [torch.bfloat16, torch.float16]
 
 def _flash_tc_case(cuda, dtype, shape_q, shape_kv, seed, q_gain=1.0,
                    grid=None, **kw):
-    """The tensor-core kernel (bf16/f16) against the plain version on the
-    same inputs, upcast to float32; launches counted.  ``grid`` rounds q
-    and k to multiples of 1/grid first."""
+    """A tensor-core kernel (bf16/f16: wgmma; float32: TF32 mma.sync,
+    three products) against the plain version on the same inputs, upcast
+    to float32; one launch counted.  ``grid`` rounds q and k to multiples
+    of 1/grid first."""
     q, k, v = _qkv(shape_q, shape_kv, torch.float32, cuda, seed)
     if grid:
         q, k = (torch.round(t * grid) / grid for t in (q, k))
@@ -705,9 +706,9 @@ def test_flash_rejects_unsupported_head_dim(cuda):
                                    torch.float16])
 def test_flash_cuda_core_head_dims_match_plain(cuda, dtype, dh, sq, sk,
                                                causal):
-    """dh = 80 (hubert) and 256 (gemma, paligemma): float32 on the CUDA
-    cores, bf16 and fp16 on the tensor cores; GQA, ragged tiles, cross
-    lengths, rows without keys."""
+    """dh = 80 (hubert) and 256 (gemma, paligemma), which the first float32
+    kernel ran on the CUDA cores: every dtype on the tensor cores now; GQA,
+    ragged tiles, cross lengths, rows without keys."""
     _flash_tc_case(cuda, dtype, (1, 4, sq, dh), (1, 2, sk, dh), sq + dh,
                    causal=causal)
 
@@ -720,6 +721,38 @@ def test_flash_hubert_and_gemma_heads_match_plain(cuda, dtype):
     _flash_tc_case(cuda, dtype, (1, 16, 1024, 80), (1, 16, 1024, 80), 80)
     _flash_tc_case(cuda, dtype, (1, 16, 1024, 256), (1, 16, 1024, 256),
                    256, causal=True)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk", [(1, 300), (63, 63), (65, 65), (200, 130),
+                                   (100, 40), (130, 500), (1000, 1000)])
+@pytest.mark.parametrize("dh", tfa.HEAD_DIMS)
+def test_flash_float32_tensor_cores_match_plain(cuda, dh, sq, sk, causal):
+    """The float32 kernel (TF32 mma.sync, hi/lo split, three products) at
+    every head dim it is built for, within 2e-5 of the plain version: a
+    single query, ragged 64-row blocks and key tiles, sk < sq (causal: the
+    first sq - sk rows see no key) and sk > sq (decode alignment), GQA 2:1,
+    one launch a call."""
+    _flash_tc_case(cuda, torch.float32, (1, 4, sq, dh), (1, 2, sk, dh),
+                   sq + sk + dh, causal=causal)
+
+
+@pytest.mark.parametrize("dh", tfa.HEAD_DIMS)
+def test_flash_float32_tensor_cores_rows_without_keys_are_zero(cuda, dh):
+    got = _flash_tc_case(cuda, torch.float32, (2, 4, 100, dh),
+                         (2, 2, 30, dh), 5, causal=True)
+    assert bool((got[:, :, :70] == 0).all())
+
+
+@pytest.mark.parametrize("scale,q_gain", [(-0.2, 1.0), (0.05, 1.0),
+                                          (0.0, 1.0), (None, 4.0)])
+@pytest.mark.parametrize("dh", tfa.HEAD_DIMS)
+def test_flash_float32_tensor_cores_scale_and_large_logits(cuda, dh, scale,
+                                                           q_gain):
+    """A negative scale (q flipped, or at dh = 256 the scores), a zero
+    scale, and q times 4 (logits of ~4 standard deviations)."""
+    _flash_tc_case(cuda, torch.float32, (1, 8, 257, dh), (1, 2, 257, dh),
+                   dh + 1, q_gain=q_gain, causal=True, scale=scale)
 
 
 @pytest.mark.parametrize("name", ["olmoe-1b-7b", "deepseek-v3-671b",

@@ -4169,7 +4169,9 @@ class Smoke:
     def det_reading(self, plan, base, w, tiles, c, reps):
         """The deterministic spread at one shape: repeats bitwise equal,
         error against plain, CUDA-event times of it, of the atomic mode and
-        of plain, the bound and the scratch."""
+        of plain, the bound, the scratch and partials, and its schedule
+        (output-block index): build ms (host clock), bytes, waves,
+        chunks."""
         torch, win = self.torch, self.win
         n, d, taps = w.shape
         pad = self.padded_grid_size(plan)
@@ -4181,7 +4183,7 @@ class Smoke:
                                            tiles=tiles)
         self.sync()
         t0 = time.perf_counter()
-        index = win.spread_cell_index(tiles, pad)
+        index = win.spread_block_index(tiles, pad, c, w.element_size())
         self.sync()
         index_ms = (time.perf_counter() - t0) * 1e3
         with self.durable.deterministic():
@@ -4199,8 +4201,15 @@ class Smoke:
         del outs, p_out
         return {"n": n, "d": d, "taps": taps, "c": c, "dtype": dname,
                 "padded": pad, "tiles": tiles.n_tiles,
-                "box_cells": index.total, "touched_cells": index.n_cells,
+                "box_cells": int(tiles.table[:, 5:8].to(torch.long)
+                                 .prod(dim=1).sum()),
+                "block_side": index.side, "waves": index.n_waves,
+                "chunks": index.chunks.shape[0],
+                "index_mb": index.nbytes / 1e6,
+                "scratch_bytes": win.window_spread_deterministic.scratch_bytes,
                 "scratch_mb": win.window_spread_deterministic.scratch_bytes
+                / 1e6,
+                "partial_mb": win.window_spread_deterministic.partial_bytes
                 / 1e6, "index_ms": index_ms, "repeats_equal": same,
                 "max_abs_err": err, "rel_err": rel,
                 "tol": TOL[("spread", dname)], "ms": det_ms,
@@ -4210,11 +4219,12 @@ class Smoke:
 
     def durable_spread_checks(self):
         card = self.record["device"]["nvidia_smi"]
-        log(f"[durable] deterministic window_spread (two phases, tile order) "
-            f"vs plain, {DET_REPEATS} repeats; CUDA events; {card}")
-        rows, plans = [], []
+        log(f"[durable] deterministic window_spread (waves of boxes, then "
+            f"output blocks by chunks) vs plain, {DET_REPEATS} repeats; "
+            f"CUDA events; scratch cap "
+            f"{self.win.DET_SCRATCH_BYTES / 1e6:.1f} MB; {card}")
+        rows = []
         for label, plan, base, w, tiles, chans in self.det_cases():
-            plans.append(tiles)
             for c in chans:
                 r = self.det_reading(plan, base, w, tiles, c,
                                      reps=3 if plan.taps > 16 else 10)
@@ -4226,8 +4236,10 @@ class Smoke:
                     f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
                     f"{100 * r['bound_ms'] / r['ms']:.2f}% of bound)  plain "
                     f"{r['plain_ms']:.3f} ms; scratch {r['scratch_mb']:.1f} "
-                    f"MB ({r['box_cells']} box cells, {r['touched_cells']} "
-                    f"grid cells, index {r['index_ms']:.1f} ms); rel "
+                    f"MB, partials {r['partial_mb']:.1f} MB; index "
+                    f"{r['index_mb']:.2f} MB built in {r['index_ms']:.1f} "
+                    f"ms, {r['waves']} waves, {r['chunks']} chunks of "
+                    f"{r['block_side']}^{r['d']}-cell blocks; rel "
                     f"{r['rel_err']:.3e} (tol {r['tol']:g}); repeats "
                     f"bitwise equal: {r['repeats_equal']}")
                 check(r["repeats_equal"],
@@ -4236,8 +4248,9 @@ class Smoke:
                 check(r["rel_err"] <= r["tol"],
                       f"deterministic spread {label} C={c} {r['dtype']}: rel "
                       f"{r['rel_err']:.3e}")
-        for tiles in plans:  # the m=9 pieces' index alone holds 5.5 GB
-            tiles.cell_index.clear()
+                check(r["scratch_bytes"] <= self.win.DET_SCRATCH_BYTES,
+                      f"deterministic spread {label} C={c} {r['dtype']}: "
+                      f"scratch {r['scratch_mb']:.1f} MB over the cap")
         self.record["durable_spread"] = rows
 
     def det_path_record(self, path, geometry, plan, geom, c):
@@ -4248,9 +4261,11 @@ class Smoke:
               "launched")
         r = self.det_reading(plan, geom.base, geom.weights, geom.tiles, c,
                              reps=10)
-        check(r["repeats_equal"] and r["rel_err"] <= r["tol"],
+        check(r["repeats_equal"] and r["rel_err"] <= r["tol"]
+              and r["scratch_bytes"] <= self.win.DET_SCRATCH_BYTES,
               f"deterministic spread at the {path} path's shape: "
-              f"{r['rel_err']:.3e}, repeats equal {r['repeats_equal']}")
+              f"{r['rel_err']:.3e}, repeats equal {r['repeats_equal']}, "
+              f"scratch {r['scratch_mb']:.1f} MB")
         r.update(path=path, geometry=geometry, launches=launches)
         self.det_records.append(r)
         self.record["times"].append(dict(r, kernel="spread_deterministic"))
@@ -4259,7 +4274,9 @@ class Smoke:
             f"{r['atomic_ms']:.4f})  bound {r['bound_ms']:.4f} ms "
             f"({100 * r['bound_ms'] / r['ms']:.2f}% of bound)  plain "
             f"{r['plain_ms']:.3f} ms; scratch {r['scratch_mb']:.1f} MB; "
-            f"{launches} launches on the path")
+            f"index {r['index_mb']:.2f} MB built in {r['index_ms']:.1f} ms, "
+            f"{r['waves']} waves, {r['chunks']} chunks; {launches} "
+            f"launches on the path")
 
     def report_line(self, rep):
         hidden = max(rep.snapshot_write_s - rep.snapshot_wait_s, 0.0)

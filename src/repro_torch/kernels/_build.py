@@ -53,8 +53,9 @@ ENTRY_POINTS = {
         (_WINDOW_ARGS,
          ("repro_window_spread_f64", "repro_window_spread_f32",
           "repro_window_gather_f64", "repro_window_gather_f32")),
-        # ... + scratch, box_off, entries, starts, cells, n_cells
-        (_WINDOW_ARGS + [_PTR, _PTR, _PTR, _PTR, _PTR, _I64],
+        # ... + scratch, box_off, pair_tile, chunks, partial, arrivals,
+        # waves (host), n_waves, side, pitch
+        (_WINDOW_ARGS + [_PTR] * 7 + [_I32, _I32, _I32],
          ("repro_window_spread_det_f64", "repro_window_spread_det_f32"))),
     # (a, b, x, y, partial, n_out, n_in, d, c, profile, param,
     #  zero_diagonal, splits, split_len, stream)

@@ -43,17 +43,30 @@
 //     in practice instruction issue and latency bound it.  The order in
 //     which tiles land, and so the result's last bits, vary from run to
 //     run.
-//   * deterministic (repro_window_spread_det_*): phase A is the same
-//     kernel, but each tile stores its whole box, zeros included, with
-//     plain stores into a scratch buffer at the tile's own offset (C
-//     order, the pass's channels innermost); phase B (reduce_kernel) gives
-//     one thread to each grid cell that some box touches and adds the
-//     boxes that cover it in ascending tile order, walking a CSR cell
-//     index built once per tile plan (nfft_window.py: spread_cell_index).
-//     One pass of up to 4 channels at a time, so the scratch holds the sum
-//     of the boxes' cells times at most 4 channels.  Two runs give the
-//     same bits.  The Python wrapper picks this mode when
-//     torch.are_deterministic_algorithms_enabled() is true.
+//   * deterministic (repro_window_spread_det_*): the tiles run in waves
+//     of consecutive tiles whose boxes, times the call's C channels, fit a
+//     scratch cap (nfft_window.py: DET_SCRATCH_BYTES).  Phase A of a wave
+//     is the same kernel over all C channels in one launch, but each tile
+//     stores its whole box, zeros included, with plain coalesced stores
+//     into the scratch at the tile's own int32 offset (C order, one plane
+//     of the wave's cells per channel).  Phase B (reduce_blocks_kernel)
+//     cuts the padded grid into
+//     aligned output blocks of side^d cells and runs one block per chunk
+//     of an output block's ascending tile list (nfft_window.py:
+//     spread_block_index, cached on the plan): its threads own the output
+//     block's cells x channels in registers and add, tile by tile in
+//     ascending order, the part of each tile's box inside the output
+//     block, read from the scratch in runs along the box's last axis.  A
+//     block whose list is one chunk stores its cells; otherwise each chunk
+//     writes a partial, and the chunk that arrives last at its output
+//     block (a counter a block, __threadfence before the atomicAdd, reset
+//     to 0 by the block that sums) adds the partials in chunk order.  From
+//     the second wave on, the cells are added onto the grid (each by one
+//     thread: load, add, store).  A cell's sum runs over waves, then
+//     chunks, then tiles, in an order fixed by the index alone, never by
+//     SM count or timing: two runs give the same bits.  The Python wrapper
+//     picks this mode when torch.are_deterministic_algorithms_enabled() is
+//     true.
 //
 // window_gather replaces src/repro/kernels/nfft_window.py:_gather_kernel.
 //   A block stages its tile's box in shared memory once, coalesced along
@@ -132,16 +145,17 @@ __device__ inline void stage_nodes(const Tile& tile, const int* __restrict__ bas
 // forms the plane weight, and then adds w0 * (w_plane * x) to each of its
 // column cells inside the window.  CC channels ride along in registers.
 // Channels [c_lo, c_hi) are spread, `chunk` at a time.  kDet: each pass's
-// box is stored at scratch[(box_off[tile] + cell) * cc + q] (cell in C order
-// over the box, cc the pass's channels) instead of added to the grid.
+// box is stored at scratch[(c0 + q) * pitch + box_off[tile] + cell] (cell
+// in C order over the box, one plane of `pitch` cells per channel) instead
+// of added to the grid.
 template <typename T, int D, int CC, bool kDet>
 __global__ void __launch_bounds__(kThreads)
 spread_kernel(const T* __restrict__ x, const int* __restrict__ base,
               const T* __restrict__ w, T* __restrict__ grid,
               const int* __restrict__ tiles, int taps, int c, long long P,
               int chunk, int max_rows, int c_lo, int c_hi,
-              T* __restrict__ scratch,
-              const long long* __restrict__ box_off) {
+              T* __restrict__ scratch, const int* __restrict__ box_off,
+              long long pitch) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Tile tile = load_tile(tiles, blockIdx.x);
   T* sw = reinterpret_cast<T*>(smem);           // max_rows * D * taps
@@ -213,13 +227,14 @@ spread_kernel(const T* __restrict__ x, const int* __restrict__ base,
       }
       if constexpr (kDet) {
         // the box's cell (k0 + k, pc) in C order: the column axis first
-        T* sc = scratch + (box_off[blockIdx.x] + (long long)k0 * plane + pc) * cc;
+        T* sc = scratch + (long long)c0 * pitch + box_off[blockIdx.x] +
+                (long long)k0 * plane + pc;
 #pragma unroll
         for (int k = 0; k < kCol; ++k) {
           if (k >= nk) break;
 #pragma unroll
           for (int q = 0; q < CC; ++q)
-            if (q < cc) sc[(long long)k * plane * cc + q] = acc[k][q];
+            if (q < cc) sc[q * pitch + (long long)k * plane] = acc[k][q];
         }
         continue;
       }
@@ -245,35 +260,182 @@ spread_kernel(const T* __restrict__ x, const int* __restrict__ base,
   }
 }
 
-// Deterministic spread, phase B: grid cell cells[u] gets, for each of the
-// pass's cc channels, the sum of scratch[entries[j] * cc + q] over
-// j in [starts[u], starts[u + 1]), in that (ascending tile) order.  Every
-// cell some box touches has exactly one thread, so no atomics.
-template <typename T, int CC>
-__global__ void __launch_bounds__(kThreads)
-reduce_kernel(const T* __restrict__ scratch,
-              const long long* __restrict__ entries,
-              const long long* __restrict__ starts,
-              const long long* __restrict__ cells, T* __restrict__ grid,
-              long long n_cells, int c, int c0, int cc) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       u < n_cells; u += stride) {
-    T acc[CC];
-#pragma unroll
-    for (int q = 0; q < CC; ++q) acc[q] = T(0);
-    const long long j1 = starts[u + 1];
-    for (long long j = starts[u]; j < j1; ++j) {
-      const T* v = scratch + entries[j] * cc;
-#pragma unroll
-      for (int q = 0; q < CC; ++q)
-        if (q < cc) acc[q] += v[q];
-    }
-    T* g = grid + cells[u] * c + c0;
-#pragma unroll
-    for (int q = 0; q < CC; ++q)
-      if (q < cc) g[q] = acc[q];
+// Deterministic spread, phase B.  One block per chunk, a row of `chunks`:
+// (output block, first entry of pair_tile, tiles, chunk k of the output
+// block's nk, nk, partial slot).  The output block is the aligned cube of
+// side = 1 << lb cells a side at its index's coordinates (nb blocks a
+// side, C order).  Its cells x channels are items, cells innermost; a
+// thread holds kItems of them in registers per round, blockDim.x apart
+// (as few warps, up to kThreads, as hold the items in one round), and
+// for each of the chunk's tiles, in ascending order, adds the tile's box
+// cell over each item it holds (read at scratch[q * pitch + box_off[tile]
+// + cell], cell in C order over the box: runs along the box's last axis),
+// kUnroll tiles' loads in flight before their adds.  A chunk that is its block's whole list writes the
+// grid (accumulate: adds to it, each cell by one thread); otherwise it
+// writes its partial, and the block's last chunk to arrive sums the nk
+// partials in chunk order and writes the grid.
+constexpr int kItems = 4;     // phase B: items a thread holds per round
+constexpr int kUnroll = 4;    // phase B: tiles whose loads are in flight
+constexpr int kStage = 128;   // phase B: tiles staged in shared memory
+constexpr int kSumUnroll = 8; // phase B: partials whose loads are in flight
+constexpr int kChunkCols = 6;
+constexpr int kWaveCols = 5;  // first tile, end tile, first chunk, end chunk, slots
+
+template <typename T, int D>
+__device__ inline void write_cell(T* __restrict__ grid, const int* origin,
+                                  int item, int c, int lb, long long P,
+                                  T v, int accumulate) {
+  int cell = item & ((1 << (lb * D)) - 1);
+  const int q = item >> (lb * D);
+  long long g = 0, stride = 1;
+  for (int a = D - 1; a >= 0; --a) {
+    const long long ga = origin[a] + (cell & ((1 << lb) - 1));
+    cell >>= lb;
+    if (ga >= P) return;  // past the grid's edge
+    g += ga * stride;
+    stride *= P;
   }
+  T* dst = grid + g * c + q;
+  *dst = accumulate ? *dst + v : v;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+reduce_blocks_kernel(const T* __restrict__ scratch,
+                     const int* __restrict__ tiles,
+                     const int* __restrict__ box_off,
+                     const int* __restrict__ pair_tile,
+                     const int* __restrict__ chunks, T* __restrict__ grid,
+                     T* __restrict__ partial, int* __restrict__ arrivals,
+                     int c, int pitch, long long P, int lb, int nb,
+                     int accumulate) {
+  __shared__ int s_lo[kStage][D];   // box corner minus the block's corner
+  __shared__ int s_ext[kStage][D];
+  __shared__ int s_off[kStage];
+  __shared__ int s_last;
+  const int* ch = chunks + (long long)blockIdx.x * kChunkCols;
+  const int block = ch[0], first = ch[1], count = ch[2], k = ch[3],
+            nk = ch[4], slot = ch[5];
+  int origin[D];
+  {
+    int rem = block;
+    for (int a = D - 1; a >= 0; --a) {
+      origin[a] = (rem % nb) << lb;
+      rem /= nb;
+    }
+  }
+  const int items = (1 << (lb * D)) * c;
+  const int nt = blockDim.x;
+  const int per_round = nt * kItems;
+  const bool once = count <= kStage;  // every tile staged up front
+
+  auto stage = [&](int j0) {
+    const int nj = min(kStage, count - j0);
+    for (int j = threadIdx.x; j < nj; j += nt) {
+      const int t = pair_tile[first + j0 + j];
+      const int* row = tiles + (long long)t * kTileCols;
+#pragma unroll
+      for (int a = 0; a < D; ++a) {
+        s_lo[j][a] = row[2 + a] - origin[a];
+        s_ext[j][a] = row[5 + a];
+      }
+      s_off[j] = box_off[t];
+    }
+  };
+  if (once) {
+    stage(0);
+    __syncthreads();
+  }
+
+  for (int i0 = 0; i0 < items; i0 += per_round) {
+    int xs[kItems][D], qs[kItems];
+    bool live[kItems];
+    T acc[kItems];
+#pragma unroll
+    for (int kk = 0; kk < kItems; ++kk) {
+      const int item = i0 + kk * nt + threadIdx.x;
+      live[kk] = item < items;
+      int cell = item & ((1 << (lb * D)) - 1);
+      qs[kk] = item >> (lb * D);
+#pragma unroll
+      for (int a = D - 1; a >= 0; --a) {
+        xs[kk][a] = cell & ((1 << lb) - 1);
+        cell >>= lb;
+      }
+      acc[kk] = T(0);
+    }
+    for (int j0 = 0; j0 < count; j0 += kStage) {
+      if (!once) {
+        __syncthreads();  // the last batch's readers are done
+        stage(j0);
+        __syncthreads();
+      }
+      const int nj = min(kStage, count - j0);
+      for (int j = 0; j < nj; j += kUnroll) {
+        T v[kUnroll][kItems];
+        bool in[kUnroll][kItems];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const bool tile_ok = j + u < nj;
+          const int js = tile_ok ? j + u : 0;
+          const int off = s_off[js];
+#pragma unroll
+          for (int kk = 0; kk < kItems; ++kk) {
+            bool ok = tile_ok && live[kk];
+            int cell = 0;
+#pragma unroll
+            for (int a = 0; a < D; ++a) {
+              const int ua = xs[kk][a] - s_lo[js][a];
+              ok = ok && (unsigned)ua < (unsigned)s_ext[js][a];
+              cell = cell * s_ext[js][a] + ua;
+            }
+            in[u][kk] = ok;
+            v[u][kk] = ok ? scratch[qs[kk] * pitch + off + cell] : T(0);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+          for (int kk = 0; kk < kItems; ++kk)
+            if (in[u][kk]) acc[kk] += v[u][kk];
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < kItems; ++kk) {
+      if (!live[kk]) continue;
+      const int item = i0 + kk * nt + threadIdx.x;
+      if (nk == 1)
+        write_cell<T, D>(grid, origin, item, c, lb, P, acc[kk], accumulate);
+      else
+        partial[(long long)slot * items + item] = acc[kk];
+    }
+  }
+  if (nk == 1) return;
+
+  // the last chunk to arrive at the output block sums the partials
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(arrivals + block, 1) == nk - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const T* base = partial + (long long)(slot - k) * items;
+  for (int item = threadIdx.x; item < items; item += nt) {
+    const T* p = base + item;
+    T total = T(0);
+    int j = 0;
+    for (; j + kSumUnroll <= nk; j += kSumUnroll) {
+      T v[kSumUnroll];
+#pragma unroll
+      for (int u = 0; u < kSumUnroll; ++u)
+        v[u] = __ldcg(p + (long long)(j + u) * items);
+#pragma unroll
+      for (int u = 0; u < kSumUnroll; ++u) total += v[u];
+    }
+    for (; j < nk; ++j) total += __ldcg(p + (long long)j * items);
+    write_cell<T, D>(grid, origin, item, c, lb, P, total, accumulate);
+  }
+  if (threadIdx.x == 0) arrivals[block] = 0;  // ready for the next call
 }
 
 // Stage channels [c0, c0 + CC) of a tile's box in shared memory, one warp
@@ -591,16 +753,13 @@ int allow_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// What the deterministic mode adds to a spread: the scratch and the plan's
-// cell index (all null / 0 for the atomic mode).
+// What the deterministic mode adds to phase A: the scratch and each tile's
+// offset in it (null for the atomic mode).
 template <typename T>
 struct DetArgs {
   T* scratch;
-  const long long* box_off;
-  const long long* entries;
-  const long long* starts;
-  const long long* cells;
-  long long n_cells;
+  const int* box_off;
+  long long pitch;  // scratch cells of one channel
 };
 
 template <typename T, int D, int CC, bool kDet>
@@ -615,7 +774,7 @@ int spread_cc(const T* x, const int* base, const T* w, T* grid,
   if (rc) return rc;
   kernel<<<(unsigned)n_tiles, kThreads, bytes, s>>>(
       x, base, w, grid, tiles, taps, c, P, chunk, max_rows, c_lo, c_hi,
-      det.scratch, det.box_off);
+      det.scratch, det.box_off, det.pitch);
   return (int)cudaGetLastError();
 }
 
@@ -651,23 +810,32 @@ int spread_any_d(int d, const T* x, const int* base, const T* w, T* grid,
 }
 
 template <typename T>
-int reduce_cc(const DetArgs<T>& det, T* grid, int c, int c0, int cc,
-              cudaStream_t s) {
-  if (det.n_cells == 0) return 0;
-  long long blocks = (det.n_cells + kThreads - 1) / kThreads;
-  if (blocks > 65535LL * 8) blocks = 65535LL * 8;
-  if (cc == 1)
-    reduce_kernel<T, 1><<<(unsigned)blocks, kThreads, 0, s>>>(
-        det.scratch, det.entries, det.starts, det.cells, grid, det.n_cells,
-        c, c0, cc);
-  else if (cc == 2)
-    reduce_kernel<T, 2><<<(unsigned)blocks, kThreads, 0, s>>>(
-        det.scratch, det.entries, det.starts, det.cells, grid, det.n_cells,
-        c, c0, cc);
-  else
-    reduce_kernel<T, kSpreadChunk><<<(unsigned)blocks, kThreads, 0, s>>>(
-        det.scratch, det.entries, det.starts, det.cells, grid, det.n_cells,
-        c, c0, cc);
+int reduce_blocks(int d, const T* scratch, const int* tiles,
+                  const int* box_off, const int* pair_tile, const int* chunks,
+                  long long n_chunks, T* grid, T* partial, int* arrivals,
+                  int c, int pitch, long long P, int lb, int nb,
+                  int accumulate, cudaStream_t s) {
+  // the warps that hold an output block's items in one round, at most 8
+  const long long items = (1LL << (lb * d)) * c;
+  long long warps = (items + 32 * kItems - 1) / (32 * kItems);
+  if (warps > kThreads / 32) warps = kThreads / 32;
+  const unsigned threads = (unsigned)(32 * warps);
+  switch (d) {
+    case 1:
+      reduce_blocks_kernel<T, 1><<<(unsigned)n_chunks, threads, 0, s>>>(
+          scratch, tiles, box_off, pair_tile, chunks, grid, partial,
+          arrivals, c, pitch, P, lb, nb, accumulate);
+      break;
+    case 2:
+      reduce_blocks_kernel<T, 2><<<(unsigned)n_chunks, threads, 0, s>>>(
+          scratch, tiles, box_off, pair_tile, chunks, grid, partial,
+          arrivals, c, pitch, P, lb, nb, accumulate);
+      break;
+    default:
+      reduce_blocks_kernel<T, 3><<<(unsigned)n_chunks, threads, 0, s>>>(
+          scratch, tiles, box_off, pair_tile, chunks, grid, partial,
+          arrivals, c, pitch, P, lb, nb, accumulate);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -713,7 +881,7 @@ int launch_spread(const void* x, const void* base, const void* w, void* grid,
                   void* stream) {
   if (bad_args(n_tiles, d, chunk, kSpreadChunk, max_rows, pieces))
     return (int)cudaErrorInvalidValue;
-  const DetArgs<T> none{nullptr, nullptr, nullptr, nullptr, nullptr, 0};
+  const DetArgs<T> none{nullptr, nullptr, 0};
   return spread_any_d<T, false>(
       d, static_cast<const T*>(x), static_cast<const int*>(base),
       static_cast<const T*>(w), static_cast<T*>(grid),
@@ -721,34 +889,60 @@ int launch_spread(const void* x, const void* base, const void* w, void* grid,
       0, c, none, static_cast<cudaStream_t>(stream));
 }
 
-// Both phases of the deterministic spread, one pass of `chunk` channels at
-// a time; the scratch holds one pass.
+// The deterministic spread, wave by wave, after zeroing the grid: phase A
+// over the wave's tiles and all C channels, then phase B over the wave's
+// chunks.  `waves` (host memory) holds kWaveCols numbers a wave; the waves
+// must cover the tiles in order, and their chunks the chunk table, or
+// nothing is launched.
 template <typename T>
 int launch_spread_det(const void* x, const void* base, const void* w,
                       void* grid, const void* tiles, long long n_tiles, int d,
                       int taps, int c, long long P, int chunk, int max_rows,
                       int pieces, void* stream, void* scratch,
-                      const void* box_off, const void* entries,
-                      const void* starts, const void* cells,
-                      long long n_cells) {
+                      const void* box_off, const void* pair_tile,
+                      const void* chunks, void* partial, void* arrivals,
+                      const void* waves, int n_waves, int side, int pitch) {
   if (bad_args(n_tiles, d, chunk, kSpreadChunk, max_rows, pieces) ||
-      n_cells < 0 || !scratch || !box_off || !entries || !starts || !cells)
+      !scratch || !box_off || !pair_tile || !chunks || !arrivals || !waves ||
+      n_waves < 1 || side < 1 || side > 1024 || (side & (side - 1)) ||
+      pitch < 1 || (long long)pitch * c > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
+  const long long* wv = static_cast<const long long*>(waves);
+  long long t_end = 0, ch_end = 0;
+  for (int i = 0; i < n_waves; ++i) {
+    const long long* r = wv + (long long)i * kWaveCols;
+    if (r[0] != t_end || r[1] <= r[0] || r[2] != ch_end || r[3] <= r[2] ||
+        r[3] - r[2] > 0x7fffffffLL || r[4] < 0 || (r[4] > 0 && !partial))
+      return (int)cudaErrorInvalidValue;
+    t_end = r[1];
+    ch_end = r[3];
+  }
+  if (t_end != n_tiles) return (int)cudaErrorInvalidValue;
+  int lb = 0;
+  while ((1 << lb) < side) ++lb;
+  const int nb = (int)((P + side - 1) / side);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   T* gp = static_cast<T*>(grid);
-  const DetArgs<T> det{static_cast<T*>(scratch),
-                       static_cast<const long long*>(box_off),
-                       static_cast<const long long*>(entries),
-                       static_cast<const long long*>(starts),
-                       static_cast<const long long*>(cells), n_cells};
-  for (int c0 = 0; c0 < c; c0 += chunk) {
-    const int cc = c - c0 < chunk ? c - c0 : chunk;
-    int rc = spread_any_d<T, true>(
+  T* sp = static_cast<T*>(scratch);
+  const int* tp = static_cast<const int*>(tiles);
+  const int* bo = static_cast<const int*>(box_off);
+  long long grid_cells = c;
+  for (int a = 0; a < d; ++a) grid_cells *= P;
+  int rc = (int)cudaMemsetAsync(gp, 0, (size_t)grid_cells * sizeof(T), s);
+  if (rc) return rc;
+  for (int i = 0; i < n_waves; ++i) {
+    const long long* r = wv + (long long)i * kWaveCols;
+    const DetArgs<T> det{sp, bo + r[0], pitch};
+    rc = spread_any_d<T, true>(
         d, static_cast<const T*>(x), static_cast<const int*>(base),
-        static_cast<const T*>(w), gp, static_cast<const int*>(tiles), n_tiles,
-        taps, c, P, cc, max_rows, c0, c0 + cc, det, s);
+        static_cast<const T*>(w), gp, tp + r[0] * kTileCols, r[1] - r[0],
+        taps, c, P, chunk, max_rows, 0, c, det, s);
     if (rc) return rc;
-    rc = reduce_cc<T>(det, gp, c, c0, cc, s);
+    rc = reduce_blocks<T>(
+        d, sp, tp, bo, static_cast<const int*>(pair_tile),
+        static_cast<const int*>(chunks) + r[2] * kChunkCols, r[3] - r[2], gp,
+        static_cast<T*>(partial), static_cast<int*>(arrivals), c, pitch, P,
+        lb, nb, i > 0, s);
     if (rc) return rc;
   }
   return 0;
@@ -779,7 +973,8 @@ int launch_gather(const void* grid, const void* base, const void* w,
 
 // Each entry point launches one block per tile (the gather of a pieced
 // plan: per row) on `stream` without synchronising and returns
-// cudaGetLastError() (0 on success).  The caller zeroes `grid` for spread.
+// cudaGetLastError() (0 on success).  The caller zeroes `grid` for the
+// atomic spread; the deterministic spread zeroes it itself.
 // `chunk` is the channels of one pass (spread <= 4, gather <= 8);
 // `max_cells` / `max_rows` are the plan's largest box and tile, which size
 // the dynamic shared memory; `pieces` is the tiles of each row's window
@@ -806,24 +1001,31 @@ int repro_window_spread_f32(const void* x, const void* base, const void* w,
                               P, chunk, max_rows, pieces, stream);
 }
 
-// The deterministic spread: as repro_window_spread_*, plus the scratch
-// (the plan's box cells times `chunk` elements) and the plan's cell index
-// (box_off: a tile's first cell in the scratch, n_tiles; entries: scratch
-// cells by grid cell, tile order kept, one per box cell; starts: n_cells +
-// 1 CSR offsets into entries; cells: the touched grid cells, ascending).
+// The deterministic spread: as repro_window_spread_*, plus its schedule
+// (nfft_window.py: SpreadBlockIndex): the scratch (C planes of `pitch`
+// cells, the largest wave's box cells), box_off (n_tiles int32: a tile's
+// first scratch cell in its wave), pair_tile (int32: the tiles of each
+// (wave, output block) run,
+// ascending), chunks (int32, kChunkCols a chunk), partial (slots of
+// side^d x C elements; null where no wave has one), arrivals (an int32
+// zero a output block, left zero), waves (host int64, kWaveCols a wave),
+// the output blocks' side, a power of two, and the pitch.
 int repro_window_spread_det_f64(const void* x, const void* base,
                                 const void* w, void* grid, const void* tiles,
                                 long long n_tiles, int d, int taps, int c,
                                 long long P, int chunk, int max_cells,
                                 int max_rows, int pieces, void* stream,
                                 void* scratch, const void* box_off,
-                                const void* entries, const void* starts,
-                                const void* cells, long long n_cells) {
+                                const void* pair_tile, const void* chunks,
+                                void* partial, void* arrivals,
+                                const void* waves, int n_waves, int side,
+                                int pitch) {
   (void)max_cells;
   return launch_spread_det<double>(x, base, w, grid, tiles, n_tiles, d, taps,
                                    c, P, chunk, max_rows, pieces, stream,
-                                   scratch, box_off, entries, starts, cells,
-                                   n_cells);
+                                   scratch, box_off, pair_tile, chunks,
+                                   partial, arrivals, waves, n_waves, side,
+                                   pitch);
 }
 
 int repro_window_spread_det_f32(const void* x, const void* base,
@@ -832,13 +1034,16 @@ int repro_window_spread_det_f32(const void* x, const void* base,
                                 long long P, int chunk, int max_cells,
                                 int max_rows, int pieces, void* stream,
                                 void* scratch, const void* box_off,
-                                const void* entries, const void* starts,
-                                const void* cells, long long n_cells) {
+                                const void* pair_tile, const void* chunks,
+                                void* partial, void* arrivals,
+                                const void* waves, int n_waves, int side,
+                                int pitch) {
   (void)max_cells;
   return launch_spread_det<float>(x, base, w, grid, tiles, n_tiles, d, taps,
                                   c, P, chunk, max_rows, pieces, stream,
-                                  scratch, box_off, entries, starts, cells,
-                                  n_cells);
+                                  scratch, box_off, pair_tile, chunks,
+                                  partial, arrivals, waves, n_waves, side,
+                                  pitch);
 }
 
 int repro_window_gather_f64(const void* grid, const void* base, const void* w,

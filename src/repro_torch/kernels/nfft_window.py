@@ -32,12 +32,18 @@ two modes, picked by PyTorch's own switch,
 * atomic (the switch off): each box goes onto the grid with atomics;
   neighbouring tiles' boxes overlap, so the order in which tiles land, and
   the result's last bits, vary from run to run.
-* deterministic (:func:`window_spread_deterministic`, the switch on): each
-  tile stores its box in a scratch buffer, and a second kernel adds, for
-  every grid cell, the boxes that cover it in ascending tile order,
-  through the plan's cell index (:func:`spread_cell_index`, built once per
-  plan on the card).  Two runs give the same bits.  It has no fallback: a
-  cell index, scratch or launch that fails raises.
+* deterministic (:func:`window_spread_deterministic`, the switch on): the
+  tiles run in waves of consecutive tiles whose boxes, times the call's
+  channels, fit :data:`DET_SCRATCH_BYTES` of scratch.  In each wave every
+  tile stores its box in the scratch (all channels in one launch); then
+  the padded grid, cut into aligned output blocks of
+  :data:`DET_BLOCK` cells a side, is summed in parallel by output block:
+  each output block's tiles, ascending, are cut into chunks, one CUDA
+  block a chunk adds its tiles' boxes in order, and the partials of a
+  block's chunks are added in chunk order.  The schedule
+  (:func:`spread_block_index`, built on the card and cached on the plan)
+  alone fixes every sum's order, so two runs give the same bits.  It has
+  no fallback: a schedule, scratch or launch that fails raises.
 
 The gather stages a tile's box in shared memory and is deterministic.  A
 window larger than the box budget is cut into pieces along its leading
@@ -68,6 +74,18 @@ BOX_CELLS = BOX_BYTES // 8
 # kChunk)
 SPREAD_CHUNK = 4
 KERNEL_CHUNK = 8
+# Deterministic spread.  Output blocks of at most DET_BLOCK[d] cells a
+# side, a power of two, halved while side^d * C exceeds DET_BLOCK_ITEMS
+# (det_block_side); an output block's tile list is cut into chunks of
+# DET_CHUNK_TILES tiles, or of more where a wave has over DET_WAVE_CHUNKS *
+# DET_CHUNK_TILES (output block, tile) pairs, so that a wave's chunks stay
+# near DET_WAVE_CHUNKS; a wave's boxes times the call's channels fill at
+# most DET_SCRATCH_BYTES of scratch.
+DET_BLOCK = {1: 16, 2: 8, 3: 8}
+DET_BLOCK_ITEMS = 1024
+DET_CHUNK_TILES = 16
+DET_WAVE_CHUNKS = 1024
+DET_SCRATCH_BYTES = 512 << 20
 # columns of TilePlan.table: row start, row count, box corner (3), box
 # extent (3), first window tap (3); unused dimensions have corner 0,
 # extent 1 and first tap 0
@@ -118,8 +136,9 @@ class TilePlan:
     max_rows: the most rows of one tile.
     pieces: tiles per row where windows are cut into pieces (every row has
       that many, consecutive); 1 for tiles of whole windows.
-    cell_index: the deterministic spread's :class:`SpreadCellIndex` by
-      padded grid size, built the first time that mode needs it.
+    block_index: the deterministic spread's :class:`SpreadBlockIndex` by
+      (padded grid size, wave cells, output block side), built the first
+      time that mode needs it.
     """
 
     table: torch.Tensor
@@ -129,8 +148,9 @@ class TilePlan:
     max_cells: int
     max_rows: int
     pieces: int = 1
-    cell_index: dict = dataclasses.field(default_factory=dict, compare=False,
-                                         hash=False, repr=False)
+    block_index: dict = dataclasses.field(default_factory=dict,
+                                          compare=False, hash=False,
+                                          repr=False)
 
     @property
     def n_tiles(self) -> int:
@@ -277,64 +297,183 @@ def _check_plan(tiles: TilePlan, n: int, d: int, taps: int,
 
 
 @dataclasses.dataclass(frozen=True)
-class SpreadCellIndex:
-    """Where the deterministic spread's boxes land, on the plan's device.
+class SpreadBlockIndex:
+    """The deterministic spread's schedule on the plan's device, int32.
 
-    The scratch holds every tile's box in tile order, each in C order:
-    ``box_off`` (n_tiles,) int64 is a tile's first scratch cell, and
-    ``total`` the scratch's cells.  ``cells`` (n_cells,) int64 are the flat
-    padded-grid cells some box covers, ascending; grid cell ``cells[u]`` is
-    the sum of the scratch cells ``entries[starts[u]:starts[u + 1]]``
-    (int64), which run in ascending tile order.
+    The tiles run in waves of consecutive tiles.  ``waves`` (n_waves, 5)
+    int64 on the host: first tile, end tile, first chunk, end chunk and
+    partial slots of each wave.  ``box_off`` (n_tiles,): a tile's first
+    cell in its wave's scratch (boxes in tile order, each in C order);
+    ``scratch_cells``: the largest wave's box cells, the pitch of the
+    scratch's one plane a channel.  The padded grid is
+    cut into aligned output blocks of ``side`` cells a side, ``blocks`` a
+    side, numbered in C order.  ``pair_tile`` (n_pairs,): for each wave and
+    each output block some box of the wave meets, in (wave, block) order,
+    the tiles whose box meets it, ascending.  ``chunks`` (n_chunks, 6):
+    output block, first entry of ``pair_tile``, tiles, chunk k of the
+    output block's nk in this wave, nk, and its partial slot in the wave
+    (-1 where nk is 1).  ``arrivals`` (blocks^d,): the kernel's arrival
+    count for each output block, zero between calls.
     """
 
+    side: int
+    blocks: int
+    waves: torch.Tensor
     box_off: torch.Tensor
-    entries: torch.Tensor
-    starts: torch.Tensor
-    cells: torch.Tensor
-    total: int
+    scratch_cells: int
+    pair_tile: torch.Tensor
+    chunks: torch.Tensor
+    arrivals: torch.Tensor
+    partial_slots: int  # the most of one wave
 
     @property
-    def n_cells(self) -> int:
-        return self.cells.shape[0]
+    def n_waves(self) -> int:
+        return self.waves.shape[0]
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the schedule."""
+        return sum(t.numel() * t.element_size() for t in (
+            self.box_off, self.pair_tile, self.chunks, self.arrivals))
 
 
-def spread_cell_index(tiles: TilePlan, padded_size: int) -> SpreadCellIndex:
-    """The plan's cell index for a padded grid of ``padded_size`` cells a
-    side (cached on the plan; built on its device with one stable sort and
-    two sizes read back).  Counts its builds in
-    ``spread_cell_index.builds``."""
-    cached = tiles.cell_index.get(padded_size)
+def det_block_side(d: int, c: int) -> int:
+    """Output block side of the deterministic spread for C channels:
+    :data:`DET_BLOCK` [d], halved while side^d * C exceeds
+    :data:`DET_BLOCK_ITEMS` (down to 1)."""
+    side = DET_BLOCK[d]
+    while side > 1 and side ** d * c > DET_BLOCK_ITEMS:
+        side //= 2
+    return side
+
+
+def det_wave_cells(c: int, itemsize: int) -> int:
+    """Box cells one wave may hold: :data:`DET_SCRATCH_BYTES` over C
+    channels of ``itemsize`` bytes."""
+    return DET_SCRATCH_BYTES // (c * itemsize)
+
+
+def _waves(ends: torch.Tensor, wave_cells: int) -> list:
+    """(first, end) tiles of each wave: greedy, consecutive tiles whose box
+    cells (cumulative ``ends``, on the host) sum to at most
+    ``wave_cells``."""
+    out, t0, done = [], 0, 0
+    n = ends.shape[0]
+    while t0 < n:
+        t1 = int(torch.searchsorted(ends, done + wave_cells, right=True))
+        if t1 <= t0:
+            raise ValueError(f"the deterministic spread's scratch cap of "
+                             f"{wave_cells} cells holds no box of tile {t0} "
+                             f"({int(ends[t0]) - done} cells)")
+        out.append((t0, t1))
+        done, t0 = int(ends[t1 - 1]), t1
+    return out
+
+
+def spread_block_index(tiles: TilePlan, padded_size: int, c: int,
+                       itemsize: int) -> SpreadBlockIndex:
+    """The deterministic spread's schedule for a padded grid of
+    ``padded_size`` cells a side and C channels of ``itemsize`` bytes:
+    waves of at most :func:`det_wave_cells` box cells, output blocks of
+    :func:`det_block_side` cells a side.  Cached on the plan by (padded
+    size, wave cells, side); built on its device from one stable sort of
+    (wave, output block) keys over the (output block, tile) pairs, reading
+    back a few integers a wave.  Counts its builds in
+    ``spread_block_index.builds``."""
+    d, n_tiles = tiles.d, tiles.n_tiles
+    wave_cells, side = det_wave_cells(c, itemsize), det_block_side(d, c)
+    key = (padded_size, wave_cells, side)
+    cached = tiles.block_index.get(key)
     if cached is not None:
         return cached
-    spread_cell_index.builds += 1
-    table = tiles.table.to(torch.long)
-    dev, d = table.device, tiles.d
-    ext = table[:, 5:8]
-    sizes = ext.prod(dim=1)
-    box_off = torch.cumsum(sizes, 0) - sizes
-    total = int(sizes.sum()) if tiles.n_tiles else 0
-    tile = torch.repeat_interleave(torch.arange(tiles.n_tiles, device=dev),
-                                   sizes, output_size=total)
-    local = torch.arange(total, device=dev) - box_off[tile]
-    e1, e2 = ext[tile, 1], ext[tile, 2]
-    at = (local // (e1 * e2), (local // e2) % e1, local % e2)
-    flat = torch.zeros_like(local)
-    for a in range(d):
-        flat = flat * padded_size + table[tile, 2 + a] + at[a]
-    del tile, local, e1, e2, at
-    keys, entries = torch.sort(flat, stable=True)
-    del flat
-    cells, counts = torch.unique_consecutive(keys, return_counts=True)
-    starts = torch.zeros(cells.shape[0] + 1, dtype=torch.long, device=dev)
-    torch.cumsum(counts, 0, out=starts[1:])
-    index = SpreadCellIndex(box_off.contiguous(), entries.contiguous(),
-                            starts, cells.contiguous(), total)
-    tiles.cell_index[padded_size] = index
+    spread_block_index.builds += 1
+    dev = tiles.table.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    corner, ext = tiles.table[:, 2:2 + d], tiles.table[:, 5:5 + d]
+    # products of columns written out: an integer prod() reduction on the
+    # card takes seconds the first time a process runs it
+    sizes = ext[:, 0].to(torch.long)
+    for a in range(1, d):
+        sizes = sizes * ext[:, a]
+    ends = torch.cumsum(sizes, 0)
+    blocks = -(-padded_size // side)
+    lo = torch.div(corner, side, rounding_mode="floor")
+    count = torch.div(corner + ext - 1, side, rounding_mode="floor") - lo + 1
+    per_tile = count[:, 0]
+    for a in range(1, d):
+        per_tile = per_tile * count[:, a]
+    # one read-back: the tiles' box ends (for the waves) and the pairs
+    head = torch.cat([ends, per_tile.sum(dtype=torch.long)[None]]).cpu()
+    ends_host, n_pairs = head[:-1], int(head[-1])
+    if n_pairs >= 2 ** 31:
+        raise ValueError(f"{n_pairs} (output block, tile) pairs pass int32")
+    spans = _waves(ends_host, wave_cells)
+    n_waves = len(spans)
+    firsts = torch.tensor([t0 for t0, _ in spans], dtype=torch.long)
+    lengths = torch.tensor([t1 - t0 for t0, t1 in spans], dtype=torch.long)
+    wave_start = torch.cat([torch.zeros(1, dtype=torch.long),
+                            ends_host[firsts[1:] - 1]])
+    scratch_cells = int((ends_host[firsts + lengths - 1] - wave_start).max())
+    wave = torch.repeat_interleave(torch.arange(n_waves, **i32),
+                                   lengths.to(dev), output_size=n_tiles)
+    box_off = (ends - sizes - wave_start.to(dev)[wave]).to(torch.int32)
+    # the (output block, tile) pairs, in tile order, and their blocks
+    tile = torch.repeat_interleave(torch.arange(n_tiles, **i32), per_tile,
+                                   output_size=n_pairs)
+    rest = torch.arange(n_pairs, **i32) - (
+        torch.cumsum(per_tile, 0, dtype=torch.int32) - per_tile)[tile]
+    block = torch.zeros_like(rest)
+    scale = 1
+    for a in range(d - 1, -1, -1):  # C order: the last axis fastest
+        at = count[:, a][tile]
+        block += (lo[:, a][tile] + rest % at) * scale
+        rest = torch.div(rest, at, rounding_mode="floor")
+        scale *= blocks
+    del rest
+    key_type = torch.int32 if n_waves * scale < 2 ** 31 else torch.long
+    keys, order = torch.sort(wave[tile].to(key_type) * scale + block,
+                             stable=True)
+    pair_tile = tile[order]
+    del tile, block, order
+    # runs of one (wave, block), cut into chunks of the wave's length
+    run_key, run_len = torch.unique_consecutive(keys, return_counts=True)
+    del keys
+    run_key = run_key.to(torch.long)
+    run_wave = torch.div(run_key, scale, rounding_mode="floor")
+    wave_pairs = torch.zeros(n_waves, dtype=torch.long, device=dev)
+    wave_pairs.index_add_(0, run_wave, run_len)
+    chunk_len = torch.clamp(-(-wave_pairs // DET_WAVE_CHUNKS),
+                            min=DET_CHUNK_TILES)[run_wave]
+    run_chunks = -(-run_len // chunk_len)
+    per_wave = torch.zeros((2, n_waves), dtype=torch.long, device=dev)
+    per_wave[0].index_add_(0, run_wave, run_chunks)
+    per_wave[1].index_add_(0, run_wave, run_chunks * (run_chunks > 1))
+    wave_chunks, wave_slots = per_wave.cpu()  # the second read-back
+    n_chunks = int(wave_chunks.sum())
+    run = torch.repeat_interleave(torch.arange(run_key.shape[0], device=dev),
+                                  run_chunks, output_size=n_chunks)
+    k = torch.arange(n_chunks, device=dev) - (torch.cumsum(run_chunks, 0)
+                                              - run_chunks)[run]
+    length, nk = chunk_len[run], run_chunks[run]
+    multi = (nk > 1).to(torch.long)
+    slot_base = (torch.cumsum(per_wave[1], 0) - per_wave[1])[run_wave[run]]
+    slot = torch.where(nk > 1, torch.cumsum(multi, 0) - multi - slot_base, -1)
+    first = (torch.cumsum(run_len, 0) - run_len)[run] + k * length
+    chunks = torch.stack([run_key[run] % scale, first,
+                          torch.minimum(length, run_len[run] - k * length),
+                          k, nk, slot], dim=1).to(torch.int32).contiguous()
+    chunk_end = torch.cumsum(wave_chunks, 0)
+    waves = torch.stack([firsts, firsts + lengths, chunk_end - wave_chunks,
+                         chunk_end, wave_slots], dim=1).contiguous()
+    index = SpreadBlockIndex(
+        side, blocks, waves, box_off.contiguous(), scratch_cells,
+        pair_tile.contiguous(), chunks, torch.zeros(blocks ** d, **i32),
+        int(wave_slots.max()))
+    tiles.block_index[key] = index
     return index
 
 
-spread_cell_index.builds = 0
+spread_block_index.builds = 0
 
 
 def gather_chunk(c: int) -> int:
@@ -422,15 +561,15 @@ def window_spread(x: torch.Tensor, base: torch.Tensor, weights: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"no window_spread kernel for device {x.device}")
     c = x.shape[1]
-    grid = torch.zeros((padded_size,) * d + (c,), dtype=x.dtype,
-                       device=x.device)
+    shape = (padded_size,) * d + (c,)
     if n == 0 or c == 0:
-        return grid
+        return torch.zeros(shape, dtype=x.dtype, device=x.device)
     if tiles is None:
         tiles = build_tile_plan(base, taps)
     if torch.are_deterministic_algorithms_enabled():
-        window_spread_deterministic(x, base, weights, grid, tiles)
-        return grid
+        grid = torch.empty(shape, dtype=x.dtype, device=x.device)
+        return window_spread_deterministic(x, base, weights, grid, tiles)
+    grid = torch.zeros(shape, dtype=x.dtype, device=x.device)
     _launch(f"repro_window_spread_{_suffix(x.dtype)}",
             (x, base, weights, grid), tiles,
             (d, taps, c, padded_size, min(c, SPREAD_CHUNK)),
@@ -446,14 +585,19 @@ def window_spread_deterministic(x: torch.Tensor, base: torch.Tensor,
                                 weights: torch.Tensor, grid: torch.Tensor,
                                 tiles: TilePlan) -> torch.Tensor:
     """The deterministic spread of :func:`window_spread` (CUDA tensors
-    only) into the zeroed ``grid``: every tile's box stored in scratch, then
-    the boxes that cover each grid cell added in tile order, one pass of up
-    to :data:`SPREAD_CHUNK` channels at a time.  Its scratch is the plan's
-    box cells times the pass's channels.  Raises where the cell index,
-    the scratch or a launch fails; there is no fallback.  Counts its calls
-    (two kernel launches a pass) in ``launches``; records its last scratch,
-    in bytes, in ``scratch_bytes``.  On ``meta`` tensors (the dry run)
-    it hands its :func:`work` to the active trace counter and returns
+    only) into ``grid``, which the launch zeroes first, wave by wave:
+    every tile's box stored
+    in scratch, all C channels in one launch, then each output block's
+    boxes added in tile order by chunks in parallel and the chunks'
+    partials in chunk order, through the plan's
+    :func:`spread_block_index`.  Its scratch, the largest wave's boxes
+    times C, is at most :data:`DET_SCRATCH_BYTES`.  Raises where the
+    schedule, the scratch or a launch fails; there is no fallback.  Counts
+    its calls (two kernel launches a wave) in ``launches``; records its
+    last scratch and partials, in bytes, in ``scratch_bytes`` and
+    ``partial_bytes``.  The schedule's arrival counters make calls on two
+    streams at once with one plan unsafe.  On ``meta`` tensors (the dry
+    run) it hands its :func:`work` to the active trace counter and returns
     ``grid``."""
     if x.device.type == "meta":
         n, d, taps = weights.shape
@@ -466,11 +610,16 @@ def window_spread_deterministic(x: torch.Tensor, base: torch.Tensor,
     n, c = x.shape
     d, taps = tiles.d, tiles.taps
     padded_size = grid.shape[0]
-    index = spread_cell_index(tiles, padded_size)
-    chunk = min(c, SPREAD_CHUNK)
-    scratch = torch.empty(index.total * chunk, dtype=x.dtype, device=x.device)
-    window_spread_deterministic.scratch_bytes = (scratch.numel()
-                                                 * scratch.element_size())
+    if grid.shape != (padded_size,) * d + (c,) or grid.dtype != x.dtype:
+        raise ValueError(f"grid must be {(padded_size,) * d + (c,)} "
+                         f"{x.dtype}, got {tuple(grid.shape)} {grid.dtype}")
+    itemsize = x.element_size()
+    index = spread_block_index(tiles, padded_size, c, itemsize)
+    cells = index.scratch_cells * c
+    partial = index.partial_slots * index.side ** d * c
+    window_spread_deterministic.scratch_bytes = cells * itemsize
+    window_spread_deterministic.partial_bytes = partial * itemsize
+    scratch = torch.empty(cells + partial, dtype=x.dtype, device=x.device)
     for t in (x, base, weights, grid):
         if not t.is_contiguous():
             raise ValueError("the CUDA window kernels need contiguous tensors")
@@ -479,10 +628,12 @@ def window_spread_deterministic(x: torch.Tensor, base: torch.Tensor,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), base.data_ptr(), weights.data_ptr(),
             grid.data_ptr(), tiles.table.data_ptr(), tiles.n_tiles, d, taps,
-            c, padded_size, chunk, tiles.max_cells, tiles.max_rows,
-            tiles.pieces, stream, scratch.data_ptr(),
-            index.box_off.data_ptr(), index.entries.data_ptr(),
-            index.starts.data_ptr(), index.cells.data_ptr(), index.n_cells)
+            c, padded_size, min(c, SPREAD_CHUNK), tiles.max_cells,
+            tiles.max_rows, tiles.pieces, stream, scratch.data_ptr(),
+            index.box_off.data_ptr(), index.pair_tile.data_ptr(),
+            index.chunks.data_ptr(), scratch.data_ptr() + cells * itemsize,
+            index.arrivals.data_ptr(), index.waves.data_ptr(),
+            index.n_waves, index.side, index.scratch_cells)
     if rc != 0:
         raise RuntimeError(f"the deterministic window_spread failed to "
                            f"launch: CUDA error {rc}")
@@ -492,6 +643,7 @@ def window_spread_deterministic(x: torch.Tensor, base: torch.Tensor,
 
 window_spread_deterministic.launches = 0
 window_spread_deterministic.scratch_bytes = 0
+window_spread_deterministic.partial_bytes = 0
 
 
 def window_gather(grid: torch.Tensor, base: torch.Tensor,

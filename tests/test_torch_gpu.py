@@ -7,8 +7,9 @@ is present.  Run on a machine with an H100:
 
 Tolerances, relative to the largest output entry: spread 1e-12 (f64) /
 1e-4 (f32), since its tiles' boxes land on the grid with atomics in a
-varying order (its deterministic mode adds them in tile order, and is
-held to the same tolerance and to bitwise repeats); gather 1e-13 / 1e-5 (another order of the window's sum);
+varying order (its deterministic mode adds them in an order its schedule
+fixes, and is held to the same tolerance and to bitwise repeats); gather
+1e-13 / 1e-5 (another order of the window's sum);
 kernel_matvec 1e-12 / 1e-4 (its sums run in another order than the plain
 version's matrix product, and float32 exp/sqrt differ by an ulp or two).
 flash_attention, elementwise |k - p| <= atol + rtol |p|: float32 2e-5
@@ -16,6 +17,8 @@ absolute, the JAX kernel tests' own limit (tests/test_kernels_pallas.py);
 bfloat16 and float16 two ulps of the output dtype (rtol 2^-6 and 2^-9,
 atol 2e-5), since both sides sum in float32 and round once.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -275,25 +278,82 @@ def test_deterministic_spread_repeats_bitwise_and_matches_plain(
     assert all(torch.equal(outs[0], o) for o in outs[1:])
     want = twin.window_spread_plain(x, base, w, padded_size=pad)
     assert _rel(outs[0], want) <= TOL[("spread", dtype)]
-    index = twin.spread_cell_index(tiles, pad)
+    index = twin.spread_block_index(tiles, pad, c, x.element_size())
     assert (twin.window_spread_deterministic.scratch_bytes
-            == index.total * min(c, twin.SPREAD_CHUNK) * x.element_size())
+            == index.scratch_cells * c * x.element_size()
+            <= twin.DET_SCRATCH_BYTES)
+
+
+def _det_repeats(x, base, w, pad, tiles, reps=5):
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return [twin.window_spread(x, base, w, padded_size=pad, tiles=tiles)
+                for _ in range(reps)]
+    finally:
+        torch.use_deterministic_algorithms(prev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["waves", "long lists"])
+def test_deterministic_spread_in_waves_and_over_many_chunks(
+        cuda, case, dtype, monkeypatch):
+    """The scratch cap cut to force at least three waves (later waves add
+    onto the grid), and output blocks whose tile lists span many chunks
+    (nodes crowded on a few corners: partials summed by the last chunk to
+    arrive): five runs bitwise equal, within the spread's tolerance of
+    plain, scratch within the cap, arrival counters left at zero."""
+    c = 5
+    if case == "waves":
+        plan, base, w = _geometry(tfs.SETUP_2, 3, 3000, dtype, cuda)
+        pad = padded_grid_size(plan)
+        taps = plan.taps
+    else:
+        taps, pad = 9, 48
+        base = torch.randint(20, 24, (20_000, 3), dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(3))
+        base = base.to(cuda)
+        w = torch.rand((20_000, 3, taps), dtype=dtype, device=cuda,
+                       generator=torch.Generator(device=cuda).manual_seed(4))
+    tiles = twin.build_tile_plan(base, taps)
+    cells = tiles.table[:, 5:8].to(torch.long).prod(dim=1)
+    if case == "waves":
+        cap = max(int(cells.max()), int(cells.sum()) // 4) * c * 8
+        monkeypatch.setattr(twin, "DET_SCRATCH_BYTES", cap)
+    x = torch.randn((base.shape[0], c), dtype=dtype, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(c))
+    outs = _det_repeats(x, base, w, pad, tiles)
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    want = twin.window_spread_plain(x, base, w, padded_size=pad)
+    assert _rel(outs[0], want) <= TOL[("spread", dtype)]
+    index = twin.spread_block_index(tiles, pad, c, x.element_size())
+    if case == "waves":
+        assert index.n_waves >= 3
+    else:
+        assert int(index.chunks[:, 4].max()) >= 8
+    assert (twin.window_spread_deterministic.scratch_bytes
+            <= twin.DET_SCRATCH_BYTES)
+    assert int(index.arrivals.abs().sum()) == 0
 
 
 def test_deterministic_spread_raises_instead_of_falling_back(cuda):
-    """A cell index with no cells leaves no scratch: the kernel refuses
-    the call, and the wrapper raises."""
+    """An output-block index whose waves stop one tile short of the plan:
+    the kernel refuses the call before any launch, and the wrapper
+    raises."""
     plan, base, w = _geometry(tfs.SETUP_2, 3, 500, torch.float64, cuda)
     pad = padded_grid_size(plan)
     x = torch.randn((500, 1), dtype=torch.float64, device=cuda)
     tiles = twin.build_tile_plan(base, plan.taps)
-    index = twin.spread_cell_index(tiles, pad)
-    tiles.cell_index[pad] = twin.SpreadCellIndex(
-        index.box_off, index.entries[:0], index.starts[:1], index.cells[:0],
-        0)
+    index = twin.spread_block_index(tiles, pad, 1, 8)
+    waves = index.waves.clone()
+    waves[-1, 1] -= 1
+    key = (pad, twin.det_wave_cells(1, 8), index.side)
+    assert tiles.block_index[key] is index
+    tiles.block_index[key] = dataclasses.replace(index, waves=waves)
     grid = torch.zeros((pad,) * 3 + (1,), dtype=torch.float64, device=cuda)
     with pytest.raises(RuntimeError, match="deterministic window_spread"):
         twin.window_spread_deterministic(x, base, w, grid, tiles)
+    assert int(grid.abs().sum()) == 0
 
 
 def test_durable_cg_on_card_resumes_bitwise(cuda, tmp_path):

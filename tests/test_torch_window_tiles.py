@@ -8,9 +8,10 @@ invariants are checked on the geometries the paths build, and both kernels'
 arithmetic is emulated tile by tile in PyTorch through the plan and held
 against the plain versions, ``repro.kernels.ref`` and the JAX package's
 Pallas kernels in interpret mode (as ``tests/test_kernels_pallas.py`` runs
-them); the deterministic spread's two phases likewise, through the
-plan's cell index.  Tolerances: 1e-12 relative to the largest output entry
-in float64 (only the order of the sums differs), 1e-5 in float32.
+them); the deterministic spread's waves, boxes, chunks and partials
+likewise, through the plan's output-block index.  Tolerances: 1e-12
+relative to the largest output entry in float64 (only the order of the
+sums differs), 1e-5 in float32.
 """
 
 import hashlib
@@ -199,40 +200,75 @@ def _emulate_gather(grid, base, weights, tiles, chunk=None):
     return out
 
 
+def _tile_boxes(x, base, weights, tiles):
+    """Every tile's box, all C channels: its windows (the taps it covers)
+    summed in row order, as phase A of the deterministic spread stores
+    it."""
+    n, d, taps = weights.shape
+    cube = twin._weight_cube(weights)
+    boxes = []
+    for start, count, *rest in tiles.table.tolist():
+        corner, ext, first, span = _covered(rest, d, taps)
+        taps_at = tuple(slice(f, f + s) for f, s in zip(first, span))
+        box = torch.zeros(ext + [x.shape[1]], dtype=x.dtype)
+        for r in range(start, start + count):
+            lo = [int(base[r, a]) + first[a] - corner[a] for a in range(d)]
+            patch = tuple(slice(v, v + s) for v, s in zip(lo, span))
+            box[patch] += (cube[r].reshape((taps,) * d)[taps_at][..., None]
+                           * x[r])
+        boxes.append(box)
+    return boxes
+
+
 def _emulate_deterministic_spread(x, base, weights, padded_size, tiles):
-    """The deterministic spread's arithmetic: phase A stores each tile's
-    box (summed in row order) in a scratch at the tile's offset, C order,
-    one pass of SPREAD_CHUNK channels at a time; phase B gives each touched
-    grid cell the sum of the boxes that cover it, in the cell index's order
-    (ascending tile), vectorized across cells but sequential along each
-    cell's list."""
+    """The deterministic spread's arithmetic, wave by wave through the
+    plan's output-block index: phase A stores each tile's box (summed in
+    row order, all channels) in the wave's scratch at its offset, C order;
+    phase B gives each chunk the sum, over its output block, of its tiles'
+    boxes in ascending tile order, and each output block the sum of its
+    chunks' partials in chunk order, stored onto the grid in the first
+    wave and added to it after."""
     n, d, taps = weights.shape
     c = x.shape[1]
-    index = twin.spread_cell_index(tiles, padded_size)
-    sizes = index.starts[1:] - index.starts[:-1]
-    flat = torch.zeros((padded_size ** d, c), dtype=x.dtype)
-    cube = twin._weight_cube(weights)
-    for c0 in range(0, c, twin.SPREAD_CHUNK):
-        cc = min(twin.SPREAD_CHUNK, c - c0)
-        scratch = torch.full((index.total, cc), float("nan"), dtype=x.dtype)
-        for t, (start, count, *rest) in enumerate(tiles.table.tolist()):
-            corner, ext, first, span = _covered(rest, d, taps)
-            taps_at = tuple(slice(f, f + s) for f, s in zip(first, span))
-            box = torch.zeros(ext + [cc], dtype=x.dtype)
-            for r in range(start, start + count):
-                lo = [int(base[r, a]) + first[a] - corner[a]
+    index = twin.spread_block_index(tiles, padded_size, c, x.element_size())
+    side, blocks = index.side, index.blocks
+    grid = torch.zeros((padded_size,) * d + (c,), dtype=x.dtype)
+    boxes = _tile_boxes(x, base, weights, tiles)
+    table, box_off = tiles.table.tolist(), index.box_off.tolist()
+    pair_tile, chunks = index.pair_tile.tolist(), index.chunks.tolist()
+    for w, (t0, t1, ch0, ch1, _) in enumerate(index.waves.tolist()):
+        scratch = torch.full((index.scratch_cells, c), float("nan"),
+                             dtype=x.dtype)
+        for t in range(t0, t1):
+            cells = boxes[t][..., 0].numel()
+            scratch[box_off[t]:box_off[t] + cells] = boxes[t].reshape(-1, c)
+        partials = {}
+        for block, first, count, k, nk, _ in chunks[ch0:ch1]:
+            origin = [(block // blocks ** (d - 1 - a)) % blocks * side
                       for a in range(d)]
-                patch = tuple(slice(v, v + s) for v, s in zip(lo, span))
-                box[patch] += (cube[r].reshape((taps,) * d)[taps_at][..., None]
-                               * x[r, c0:c0 + cc])
-            off = int(index.box_off[t])
-            scratch[off:off + box[..., 0].numel()] = box.reshape(-1, cc)
-        acc = torch.zeros((index.n_cells, cc), dtype=x.dtype)
-        for k in range(int(sizes.max())):
-            live = sizes > k
-            acc[live] += scratch[index.entries[index.starts[:-1][live] + k]]
-        flat[index.cells, c0:c0 + cc] = acc
-    return flat.reshape((padded_size,) * d + (c,))
+            acc = torch.zeros((side,) * d + (c,), dtype=x.dtype)
+            for t in pair_tile[first:first + count]:
+                corner, ext = table[t][2:2 + d], table[t][5:5 + d]
+                box = scratch[box_off[t]:box_off[t] + int(np.prod(ext))]
+                box = box.reshape(ext + [c])
+                lo = [max(corner[a], origin[a]) for a in range(d)]
+                hi = [min(corner[a] + ext[a], origin[a] + side)
+                      for a in range(d)]
+                acc[tuple(slice(lo[a] - origin[a], hi[a] - origin[a])
+                          for a in range(d))] += box[tuple(
+                              slice(lo[a] - corner[a], hi[a] - corner[a])
+                              for a in range(d))]
+            partials.setdefault(block, []).append((k, nk, origin, acc))
+        for parts in partials.values():
+            assert [k for k, *_ in parts] == list(range(parts[0][1]))
+            total = torch.zeros_like(parts[0][3])
+            for *_, acc in parts:
+                total += acc
+            origin = parts[0][2]
+            at = tuple(slice(o, min(o + side, padded_size)) for o in origin)
+            clip = tuple(slice(0, v.stop - v.start) for v in at)
+            grid[at] = total[clip] if w == 0 else grid[at] + total[clip]
+    return grid
 
 
 def _close(got, want, dtype):
@@ -452,46 +488,147 @@ def test_tile_emulation_in_channel_chunks(dtype):
                dtype)
 
 
-DETERMINISTIC_CASES = [("spiral", "SETUP_2", 3, 5), ("spiral", "SETUP_3", 1, 1),
+def _det_case(case):
+    """(x, base, weights, padded size, plan) of a deterministic-spread
+    case, float64: the spiral's geometries at n = 300, or a d = 3, m = 9
+    plan of window pieces on 12 random corners."""
+    if case == "m9 pieces":
+        plan = NfftPlan(d=3, n_bandwidth=8, m=9)
+        pad = padded_grid_size(plan)
+        base = _random_base(12, 3, plan.taps, pad, 4)
+        w = torch.as_tensor(np.random.default_rng(5).normal(
+            size=(12, 3, plan.taps)))
+        x = torch.as_tensor(np.random.default_rng(6).normal(size=(12, 2)))
+        tiles = twin.build_tile_plan(base, plan.taps)
+        assert tiles.pieces > 1
+        return x, base, w, pad, tiles
+    kind, setup_name, d, c = case
+    plan, geom = _geometry(kind, setup_name, d, 300)
+    x = torch.as_tensor(np.random.default_rng(c).normal(size=(300, c)))
+    return x, geom.base, geom.weights, padded_grid_size(plan), geom.tiles
+
+
+# the cases of both deterministic-spread tests: (kind, setup, d, C), the
+# m = 9 pieces, and "waves": SETUP_2 d=3 with the scratch cap cut to
+# force waves
+DETERMINISTIC_CASES = [("spiral", "SETUP_2", 3, 5), ("spiral", "SETUP_3", 2, 1),
+                       ("spiral", "SETUP_3", 1, 3), "m9 pieces", "waves",
                        ("uniform", "SETUP_3", 2, 2), ("unsorted", "SETUP_2", 3, 1),
                        ("ssl", None, 2, 1)]
 
 
-@pytest.mark.parametrize("kind,setup_name,d,c", DETERMINISTIC_CASES)
-def test_deterministic_spread_emulation_matches_plain(kind, setup_name, d,
-                                                      c):
-    """float64: within 1e-13 of the plain spread (relative to its largest
-    entry), and two runs bitwise equal."""
-    plan, geom = _geometry(kind, setup_name, d, 300)
-    pad = padded_grid_size(plan)
-    x = torch.as_tensor(np.random.default_rng(c).normal(size=(300, c)))
-    got = _emulate_deterministic_spread(x, geom.base, geom.weights, pad,
-                                        geom.tiles)
-    want = twin.window_spread_plain(x, geom.base, geom.weights,
-                                    padded_size=pad)
-    assert float((got - want).abs().max()) <= 1e-13 * float(want.abs().max())
-    again = _emulate_deterministic_spread(x, geom.base, geom.weights, pad,
-                                          geom.tiles)
+def _det_setup(case, monkeypatch):
+    if case != "waves":
+        return _det_case(case)
+    x, base, w, pad, tiles = _det_case(("spiral", "SETUP_2", 3, 2))
+    largest = int(tiles.table[:, 5:8].to(torch.long).prod(dim=1).max())
+    cells = int(tiles.table[:, 5:8].to(torch.long).prod(dim=1).sum())
+    # about a quarter of the plan's boxes a wave, at least the largest box
+    cap = max(largest, cells // 4) * x.shape[1] * 8
+    monkeypatch.setattr(twin, "DET_SCRATCH_BYTES", cap)
+    return x, base, w, pad, tiles
+
+
+@pytest.mark.parametrize("case", DETERMINISTIC_CASES, ids=str)
+def test_deterministic_spread_emulation_matches_plain_ref_and_pallas(
+        case, monkeypatch):
+    """float64: within 1e-13 of the plain spread, repro.kernels.ref and the
+    Pallas spread in interpret mode (relative to the largest entry), and
+    two runs bitwise equal."""
+    x, base, w, pad, tiles = _det_setup(case, monkeypatch)
+    got = _emulate_deterministic_spread(x, base, w, pad, tiles)
+    if case == "waves":
+        assert twin.spread_block_index(tiles, pad, x.shape[1],
+                                       8).n_waves >= 3
+    want = twin.window_spread_plain(x, base, w, padded_size=pad)
+    jb, jw, jx = (jnp.asarray(base.numpy()), jnp.asarray(w.numpy()),
+                  jnp.asarray(x.numpy()))
+    refs = [want, torch.as_tensor(np.array(
+        ref.window_spread_ref(jx, jb, jw, pad)))]
+    if case in ("m9 pieces", "waves") or case[0] == "spiral":
+        refs.append(torch.as_tensor(np.array(jwin.window_spread(
+            jx, jb, jw, padded_size=pad, node_tile=128, interpret=True))))
+    for r in refs:
+        assert float((got - r).abs().max()) <= 1e-13 * float(r.abs().max())
+    again = _emulate_deterministic_spread(x, base, w, pad, tiles)
     assert torch.equal(got, again)
 
 
-def test_deterministic_spread_emulation_on_piece_plans():
-    """d=3, m=9: pieces are tiles like any other; rows overlap across
-    tiles, so cells are summed from several boxes."""
-    plan = NfftPlan(d=3, n_bandwidth=8, m=9)
-    pad = padded_grid_size(plan)
-    base = _random_base(12, 3, plan.taps, pad, 4)
-    w = torch.as_tensor(np.random.default_rng(5).normal(
-        size=(12, 3, plan.taps)))
-    tiles = twin.build_tile_plan(base, plan.taps)
-    assert tiles.pieces > 1
-    x = torch.as_tensor(np.random.default_rng(6).normal(size=(12, 2)))
-    got = _emulate_deterministic_spread(x, base, w, pad, tiles)
-    want = twin.window_spread_plain(x, base, w, padded_size=pad)
-    assert float((got - want).abs().max()) <= 1e-13 * float(want.abs().max())
-    index = twin.spread_cell_index(tiles, pad)
-    assert index.n_cells < index.total  # windows overlap
-    assert twin.spread_cell_index(tiles, pad) is index  # cached on the plan
+def _blocks_met(table_row, d, side, blocks):
+    """The flat output blocks a tile's box meets."""
+    corner, ext = table_row[2:2 + d], table_row[5:5 + d]
+    ranges = [range(corner[a] // side, (corner[a] + ext[a] - 1) // side + 1)
+              for a in range(d)]
+    out = [0]
+    for r in ranges:
+        out = [o * blocks + b for o in out for b in r]
+    return out
+
+
+@pytest.mark.parametrize("case", DETERMINISTIC_CASES[:5], ids=str)
+def test_block_index_lists_every_intersection_once_in_tile_order(
+        case, monkeypatch):
+    """Each wave's (output block, tile) pairs, exactly once, in ascending
+    tile order within an output block, as int32; chunks of the wave's
+    chunk length cut each list in order, with consecutive partial slots;
+    the waves' boxes fit the cap; and a rebuild from a copy of the plan
+    gives the same tensors (the chunks depend on the index alone)."""
+    x, base, w, pad, tiles = _det_setup(case, monkeypatch)
+    d, c = tiles.d, x.shape[1]
+    wave_cells = twin.det_wave_cells(c, 8)
+    index = twin.spread_block_index(tiles, pad, c, 8)
+    assert twin.spread_block_index(tiles, pad, c, 8) is index
+    for t in (index.box_off, index.pair_tile, index.chunks, index.arrivals):
+        assert t.dtype == torch.int32
+    side, blocks = index.side, index.blocks
+    assert side == twin.det_block_side(d, c) and blocks == -(-pad // side)
+    assert side ** d * c <= max(twin.DET_BLOCK_ITEMS, c)
+    assert torch.equal(index.arrivals, torch.zeros(blocks ** d,
+                                                   dtype=torch.int32))
+    table = tiles.table.tolist()
+    sizes = tiles.table[:, 5:8].to(torch.long).prod(dim=1)
+    waves = index.waves.tolist()
+    assert waves[0][0] == 0 and waves[-1][1] == tiles.n_tiles
+    assert waves[-1][3] == index.chunks.shape[0]
+    chunks, pair_tile = index.chunks.tolist(), index.pair_tile.tolist()
+    seen, at = [], 0
+    for w_i, (t0, t1, ch0, ch1, slots) in enumerate(waves):
+        if w_i:
+            assert (t0, ch0) == tuple(waves[w_i - 1][1:4:2])
+        off = torch.cumsum(sizes[t0:t1], 0) - sizes[t0:t1]
+        assert torch.equal(index.box_off[t0:t1].to(torch.long), off)
+        assert int(sizes[t0:t1].sum()) <= min(wave_cells, index.scratch_cells)
+        want = sorted((b, t) for t in range(t0, t1)
+                      for b in _blocks_met(table[t], d, side, blocks))
+        length = max(twin.DET_CHUNK_TILES,
+                     -(-len(want) // twin.DET_WAVE_CHUNKS))
+        got, slot_seen = [], []
+        for block, first, count, k, nk, slot in chunks[ch0:ch1]:
+            assert first == at and 1 <= count <= length
+            at += count
+            run = pair_tile[first:first + count]
+            got += [(block, t) for t in run]
+            if k + 1 < nk:
+                assert count == length
+            assert slot == -1 if nk == 1 else slot >= 0
+            if nk > 1:
+                slot_seen.append(slot)
+        assert got == want  # block-major, tiles ascending: each pair once
+        assert sorted(slot_seen) == list(range(slots))
+        seen += got
+    # consecutive chunks of one (wave, block): k counts up, slots follow
+    for a, b in zip(chunks, chunks[1:]):
+        if b[3]:
+            assert (b[0], b[3], b[4], b[5]) == (a[0], a[3] + 1, a[4],
+                                                a[5] + 1)
+    assert len(seen) == index.pair_tile.numel()
+    fresh = twin.TilePlan(tiles.table.clone(), tiles.n, tiles.d, tiles.taps,
+                          tiles.max_cells, tiles.max_rows, tiles.pieces)
+    again = twin.spread_block_index(fresh, pad, c, 8)
+    assert again is not index
+    for name in ("waves", "box_off", "pair_tile", "chunks"):
+        assert torch.equal(getattr(again, name), getattr(index, name))
+    assert again.scratch_cells == index.scratch_cells
 
 
 def test_deterministic_mode_on_the_cpu_is_the_plain_spread():
@@ -513,24 +650,6 @@ def test_deterministic_mode_on_the_cpu_is_the_plain_spread():
     with pytest.raises(ValueError, match="on the card"):
         twin.window_spread_deterministic(x, geom.base, geom.weights,
                                          torch.zeros_like(want), geom.tiles)
-
-
-def test_cell_index_lists_every_box_cell_once_in_tile_order():
-    plan, geom = _geometry("spiral", "SETUP_3", 3, 300)
-    pad = padded_grid_size(plan)
-    tiles = geom.tiles
-    index = twin.spread_cell_index(tiles, pad)
-    sizes = tiles.table[:, 5:8].to(torch.long).prod(dim=1)
-    assert index.total == int(sizes.sum())
-    assert torch.equal(torch.sort(index.entries).values,
-                       torch.arange(index.total))
-    tile_of = torch.repeat_interleave(torch.arange(tiles.n_tiles), sizes)
-    run = tile_of[index.entries]
-    same_cell = torch.repeat_interleave(
-        torch.arange(index.n_cells), index.starts[1:] - index.starts[:-1])
-    step = same_cell[1:] == same_cell[:-1]
-    assert bool((run[1:][step] > run[:-1][step]).all())  # ascending tiles
-    assert bool((index.cells[1:] > index.cells[:-1]).all())
 
 
 @pytest.mark.parametrize("kind,setup_name,d", [("spiral", "SETUP_2", 3),

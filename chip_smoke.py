@@ -24,7 +24,7 @@ targets swapped, sigma-bar at n = 10^4 against a central difference of
 the direct sum (``kernel_matvec``), a broadcast bank of four, and the KRR
 validation loss's (log sigma, log beta) gradients (implicit-diff CG)
 against Richardson differences, with a poisoned training vector and
-eight steps of ``krr_fit_grad``; every pass one spread and one gather
+four steps of ``krr_fit_grad``; every pass one spread and one gather
 launch each way.  Then the paper's Section 5 and 6.2.1
 paths: the fused matvec against the two-NFFT reference (flat geometry,
 no hand-written kernel) at n = 10^5; traditional and hybrid Nyström at
@@ -140,7 +140,19 @@ deepseek-v3-671b (MLA, 256 experts) at full width with the depth cut 61 ->
 4 and MTP cut 1 -> 0 ([mla_serve]: no kernel launches; the MLA cache a
 token beside the expanded K/V; in float32 with 1 layer, absorbed decode
 steps against the expanded forward); jamba-1.5-large at its reduced config
-([hybrid_serve]: card against the same weights on the CPU); and
+([hybrid_serve]: card against the same weights on the CPU); then the three
+architectures no earlier phase runs at full width, every width kept and
+the depth cut as one card forces (WIDE_SERVE; each cut's memory plan from
+the meta device held against the card's peaks): llama3-405b with 4 of 126
+layers ([llama_serve]: GQA 16:1, 128 q heads on 8 at head dim 128,
+rope_theta 5e5, an untied 128,256-row head) and qwen1.5-32b with 32 of 64
+([qwen_serve]: 40 MHA heads, QKV biases drawn nonzero), each prefill
+launching flash once per layer and nothing else, flash against the einsum
+in bf16 and float32, and in float32 at 2 and 8 layers the engine against a
+manual loop; jamba-1.5-large with 2 of 72 layers ([jamba_serve]: Mamba +
+the 16-expert top-2 MoE, then Mamba + dense; no launch; the Mamba state a
+slot as its closed form; in float32 the engine against a manual loop and
+teacher-forced decode steps against the chunked forward); and
 [frontends]: hubert-xlarge at full width and depth prefilling 4,096 frames
 through the flash kernel at head dim 80 (non-causal, 48 launches),
 paligemma-3b at full width and depth (image prefix + tokens through the
@@ -159,8 +171,10 @@ sweep, multilayer, graph-serve and [dist] paths (the last on rank 0's
 shard, with the launches of every rank), the deterministic spread once per
 [durable] path, ``kernel_matvec`` once per path that launches it, flash
 attention once for [serve] and once per FAMILY_FLASH path, each with
-that path's launches and shape).  Needs one card and the repository
-checkout around this file; imports nothing of JAX.
+that path's launches and shape, and in float32 once per FAMILY_FLASH_F32
+path).  Before those two lines, [walls] gives every phase's wall.  Needs
+one card and the repository checkout around this file; imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -309,7 +323,7 @@ KRR_BETA, KRR_TOL, KRR_MAXITER = 1e-2, 1e-8, 2000
 GRAD_FD_TOL, GRAD_X_TOL = 1e-6, 1e-12
 GRAD_ORACLE_N, GRAD_ORACLE_TOL = 10_000, 1e-4
 GRAD_KRR_TOL, GRAD_KRR_FD_TOL, GRAD_KRR_H = 1e-10, 1e-5, 1e-3
-GRAD_FIT_STEPS = 8
+GRAD_FIT_STEPS = 4  # 8 until the three wide serving phases came
 BENCH_GRAD_RATIO = 3.5
 # The JAX package's values at the same settings, taken on the CPU (x64):
 # max|fast - exact| / max|exact| of the SSL operator's degrees and of the
@@ -368,7 +382,7 @@ SERVE_MARGIN = 1e-3
 # keeps them in float32, over 40 layers.  float32 (TF32 off): only the
 # order of the sums differs.
 SERVE_FLASH_VS_EINSUM = {"bfloat16": 5e-2, "float32": 1e-4}
-TICKS_TIMED = 32
+TICKS_TIMED = 16  # 32 until the three wide serving phases came
 # [nfft_serve]: granite-3-2b-nfft (the paper's NFFT kernel attention in
 # every layer, (S, z) as the whole cache) at full width and depth through
 # the same engine; prompts are whole 128-token chunks in 512..2048 (one of
@@ -412,6 +426,32 @@ MLA_F32_TOL = 1e-4
 HYBRID_ARCH = "jamba-1.5-large-398b"
 HYBRID_PROMPT_CAP = 256
 HYBRID_TOL = 1e-4
+# [llama_serve], [qwen_serve], [jamba_serve]: the three architectures that
+# no other phase runs at full width, through the same engine, every width
+# kept and only the depth cut, as far as one card forces: phase ->
+# (arch, bf16 depth, float32 depth).  llama3-405b (GQA 16:1, rope_theta
+# 5e5, an untied 128,256-row head) keeps 4 of its 126 layers in bf16 (33.9
+# GB of weights) and 2 in float32 (42.3 GB); qwen1.5-32b (40 MHA heads, QKV
+# biases) 32 of 64 in bf16 (36.8 GB, and a 10.7-GB KV cache at 4 x 4,096)
+# and 8 in float32 (23.0 GB); jamba-1.5-large 2 of 72 in both (layer 0
+# Mamba + MoE, layer 1 Mamba + dense: 24.3 / 48.6 GB; its attention layer
+# is the 8th of a period, and one period is 90 GB in bf16).  Each phase
+# checks the plan of `serve_memory_plan` against the card's peaks.
+WIDE_SERVE = {"llama_serve": ("llama3-405b", 4, 2),
+              "qwen_serve": ("qwen1.5-32b", 32, 8),
+              "jamba_serve": (HYBRID_ARCH, 2, 2)}
+# qwen's QKV biases are zeros at init; both dtypes draw them
+# WIDE_BIAS_SCALE N(0, 1) from a generator seeded WIDE_BIAS_SEED on the
+# card, as tests/test_torch_lm.py does on the CPU, so the add is not of
+# zeros
+WIDE_BIAS_SCALE, WIDE_BIAS_SEED = 0.1, 7
+# jamba's float32 decode vs the chunked forward: WIDE_F32_PREFILL tokens
+# (two 128-token chunks) and WIDE_F32_DECODE teacher-forced steps, within
+# SSM_F32_TOL, at capacity factor e / k (no choice dropped: the token
+# groups of a prefill, a decode step and the whole forward differ)
+WIDE_F32_PREFILL, WIDE_F32_DECODE = 256, 128
+# the card's memory that a phase's plan must stay under (of its 80 GB)
+WIDE_PLAN_LIMIT_GB = 70.0
 # [frontends]: hubert-xlarge (48 layers, head dim 80, non-causal) over one
 # sequence of HUBERT_FRAMES frame embeddings; paligemma-3b (head dim 256,
 # MQA) over its 256 image embeddings + VLM_TEXT tokens, then VLM_DECODE
@@ -430,7 +470,12 @@ FAMILY_FLASH = (
     ("frontends_hubert", "hubert", (1, 16, 16, 4096, 4096, 80), False,
      "bfloat16"),
     ("frontends_gemma", "gemma", (1, 16, 16, 2048, 2048, 256), True,
-     "bfloat16"))
+     "bfloat16"),
+    ("llama_serve", "llama", (1, 128, 8, 2048, 2048, 128), True, "bfloat16"),
+    ("qwen_serve", "qwen", (1, 40, 40, 2048, 2048, 128), True, "bfloat16"))
+# ... and the float32 engines among them: (path, label of a FAMILY_FLASH
+# row), timed in [times] at that row's shape in float32 too
+FAMILY_FLASH_F32 = (("llama_serve_f32", "llama"), ("qwen_serve_f32", "qwen"))
 # the x-gradient of kernel_matvec on the card (a second launch, point sets
 # swapped) against autograd through the plain version
 KM_GRAD_SHAPE = (3000, 7000, 2)
@@ -1692,11 +1737,63 @@ def dryrun_jobs(ctx, jobs_by_rank):
     return out
 
 
+def wide_config(phase: str, dtype: str):
+    """[phase]'s cut of its architecture (WIDE_SERVE) in ``dtype``."""
+    import repro_torch.configs as configs
+    arch, bf16_layers, f32_layers = WIDE_SERVE[phase]
+    return dataclasses.replace(
+        configs.get_config(arch), param_dtype=dtype, activation_dtype=dtype,
+        num_layers=bf16_layers if dtype == "bfloat16" else f32_layers)
+
+
+def serve_memory_plan(cfg, slots: int = SERVE_SLOTS,
+                      max_seq: int = SERVE_MAX_SEQ) -> dict:
+    """The bytes a serving phase holds on the card, from ``cfg``'s model
+    built on meta, its parameters taken in ``init_params``' order: the
+    weights; the caches of a ``slots`` x ``max_seq`` engine; and the peak
+    while the weights are drawn, where each matrix is drawn in float32
+    and scaled (``dense_init``, ``embed_init``): 8 bytes an element live at
+    once, beside the weights drawn before it.  The serving peak is at
+    least the weights and caches together."""
+    import torch
+    from repro_torch.models import model as lm
+    with torch.device("meta"):
+        model = lm.Model(cfg, generator=None, device="meta")
+    # the Model's own parameters are listed before its blocks; it draws
+    # embed and frontend_proj first, final_norm and lm_head after them
+    order = [getattr(model, n) for n in ("embed", "frontend_proj")
+             if getattr(model, n, None) is not None]
+    order += list(model.blocks.parameters()) + [model.final_norm]
+    order += [model.lm_head] if model.lm_head is not None else []
+    order += list(model.mtp.parameters())
+    held = init_peak = 0
+    for p in order:
+        if p.ndim >= 2:
+            init_peak = max(init_peak, held + 8 * p.numel())
+        held += p.numel() * p.element_size()
+    caches = lm.init_caches(cfg, slots, max_seq, device="meta")
+    cache_bytes = sum(t.numel() * t.element_size() for c in caches
+                      for t in c)
+    return {"params": sum(p.numel() for p in order), "weight_bytes": held,
+            "cache_bytes": cache_bytes, "init_peak_bytes": init_peak,
+            "peak_bytes": max(init_peak, held + cache_bytes)}
+
+
 def richardson(f, x0: float, h: float) -> float:
     """Central differences at steps h and h/2, extrapolated: O(h^4)."""
     d1 = (f(x0 + h) - f(x0 - h)) / (2 * h)
     d2 = (f(x0 + h / 2) - f(x0 - h / 2)) / h
     return (4 * d2 - d1) / 3
+
+
+# the phases in the order they run (Smoke.phase_<name>)
+PHASES = ("device", "build", "kernels", "kernel_matvec", "flash", "anchor",
+          "main_path", "guard", "ssl", "krr", "grad", "direct", "oracle",
+          "nystrom", "segment", "bank", "sweep", "multilayer", "graph_serve",
+          "durable", "dist", "serve", "nfft_serve", "times", "train",
+          "train_families", "shard_train", "shard_serve", "dryrun",
+          "moe_serve", "ssm_serve", "mla_serve", "hybrid_serve",
+          "llama_serve", "qwen_serve", "jamba_serve", "frontends")
 
 
 def log(msg: str = "") -> None:
@@ -2013,40 +2110,15 @@ class Smoke:
 
     # -- phases ------------------------------------------------------------
     def run(self):
-        self.phase_device()
-        self.phase_build()
-        self.phase_kernels()
-        self.phase_kernel_matvec()
-        self.phase_flash()
-        self.phase_anchor()
-        self.phase_main_path()
-        self.phase_guard()
-        self.phase_ssl()
-        self.phase_krr()
-        self.phase_grad()
-        self.phase_direct()
-        self.phase_oracle()
-        self.phase_nystrom()
-        self.phase_segment()
-        self.phase_bank()
-        self.phase_sweep()
-        self.phase_multilayer()
-        self.phase_graph_serve()
-        self.phase_durable()
-        self.phase_dist()
-        self.phase_serve()
-        self.phase_nfft_serve()
-        self.phase_times()
-        self.phase_train()
-        self.phase_train_families()
-        self.phase_shard_train()
-        self.phase_shard_serve()
-        self.phase_dryrun()
-        self.phase_moe_serve()
-        self.phase_ssm_serve()
-        self.phase_mla_serve()
-        self.phase_hybrid_serve()
-        self.phase_frontends()
+        """Every phase of PHASES in order; each one's wall printed at the
+        end ([walls])."""
+        walls = self.record["phase_walls"] = {}
+        for name in PHASES:
+            t0 = time.perf_counter()
+            getattr(self, f"phase_{name}")()
+            walls[name] = time.perf_counter() - t0
+        log("[walls] " + ", ".join(f"{k} {v:.1f}s" for k, v in walls.items())
+            + f"; total {sum(walls.values()):.1f}s")
 
     def phase_device(self):
         torch = self.torch
@@ -4872,12 +4944,12 @@ class Smoke:
         return float((logits[True] - logits[False]).abs().max()
                      / logits[False].abs().max())
 
-    def check_flash_vs_einsum(self, cfg, model, prompt):
+    def check_flash_vs_einsum(self, cfg, model, prompt, phase="serve"):
         dname = cfg.activation_dtype
         rel = self.flash_vs_einsum(cfg, model, prompt)
-        self.record["serve"].setdefault("flash_vs_einsum_rel", {})[dname] = rel
+        self.record[phase].setdefault("flash_vs_einsum_rel", {})[dname] = rel
         limit = SERVE_FLASH_VS_EINSUM[dname]
-        log(f"[serve] {dname} prefill of {len(prompt)} tokens, flash vs "
+        log(f"[{phase}] {dname} prefill of {len(prompt)} tokens, flash vs "
             f"einsum attention: rel {rel:.3e} of max |logit| (limit "
             f"{limit:g})")
         check(rel <= limit, f"{dname} flash vs einsum prefill: {rel}")
@@ -6625,6 +6697,21 @@ class Smoke:
             self.flash_time_row(path, label, shape, causal, dname, ms,
                                 plain_ms, lib_ms)
             del q, k, v
+        # ... in float32 too where a float32 engine launches it there
+        for path, label in FAMILY_FLASH_F32:
+            _, _, shape, causal, _ = next(r for r in FAMILY_FLASH
+                                          if r[1] == label)
+            q, k, v = self.flash_inputs(*shape, torch.float32, shape[3])
+            ms = self.time_ms(
+                lambda: fa.flash_attention(q, k, v, causal=causal),
+                reps=10, warmup=1)
+            plain_ms = self.time_ms(
+                lambda: fa.flash_attention_plain(q, k, v, causal=causal),
+                reps=3, warmup=1)
+            lib_ms = self.tfl.sdpa_ms(q, k, v, causal, reps=10)
+            self.flash_time_row(path, f"{label}_f32", shape, causal,
+                                "float32", ms, plain_ms, lib_ms)
+            del q, k, v
         # the float32 kernel at the longest serve prompt
         s = FLASH_LENGTHS[-1]
         shape = (1, 32, 8, s, s, 64)
@@ -6858,16 +6945,24 @@ class Smoke:
 
     def family_init(self, phase, cfg):
         """Seeded random weights on the card; (model, params, init s)."""
-        gc_collect(self.torch)
+        torch = self.torch
+        gc_collect(torch)
+        held = torch.cuda.memory_allocated(self.dev)
+        torch.cuda.reset_peak_memory_stats(self.dev)
         t0 = time.perf_counter()
         model = self.lm.init_params(cfg, SERVE_SEED, device=self.dev)
         self.sync()
         took = time.perf_counter() - t0
+        self.init_peak_gb = (torch.cuda.max_memory_allocated(self.dev)
+                             - held) / 1e9
         n_params = sum(p.numel() for p in model.parameters())
-        log(f"[{phase}] {cfg.name} {cfg.num_layers} layers d={cfg.d_model} "
+        log(f"[{phase}] {self.record['device']['nvidia_smi']}: {cfg.name} "
+            f"{cfg.num_layers} layers d={cfg.d_model} "
             f"{cfg.activation_dtype}: {n_params / 1e9:.3f}e9 params, "
             f"{sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f} GB "
-            f"(seed {SERVE_SEED}, init {took:.2f}s)")
+            f"(seed {SERVE_SEED}, init {took:.2f}s, peak "
+            f"{self.init_peak_gb:.2f} GB over the {held / 1e9:.2f} GB held "
+            "before)")
         return model, n_params, took
 
     def family_serve(self, phase, cfg, model, prompts):
@@ -6901,6 +6996,13 @@ class Smoke:
         tick_ms = (time.perf_counter() - t0) / TICKS_TIMED * 1e3
         slot_bytes = self.cache_bytes(engine.caches) / SERVE_SLOTS
         del engine
+        # a tick reads every weight (the experts' products run on every
+        # expert) but an untied embedding's, and every cache row once
+        read = sum(p.numel() * p.element_size() for p in model.parameters())
+        if model.lm_head is not None and model.embed is not None:
+            read -= model.embed.numel() * model.embed.element_size()
+        tick_bound_ms = (read + SERVE_SLOTS * slot_bytes) / HBM_BYTES_PER_S \
+            * 1e3
         new_tokens = sum(len(r.output) for r in reqs)
         rec = {"arch": cfg.name, "layers": cfg.num_layers,
                "d_model": cfg.d_model, "dtype": cfg.activation_dtype,
@@ -6910,7 +7012,8 @@ class Smoke:
                    SERVE_SLOTS * 1e3 / tick_ms,
                "nonfinite_logits": bad, "logits_checked": seen["n"],
                "peak_memory_gb": peak_gb, "launches": launches,
-               "cache_bytes_per_slot": slot_bytes, "card": card}
+               "cache_bytes_per_slot": slot_bytes, "card": card,
+               "tick_bound_ms": tick_bound_ms}
         log(f"[{phase}] ServeEngine slots={SERVE_SLOTS} max_seq="
             f"{SERVE_MAX_SEQ}, {len(prompts)} requests, prompts "
             f"{[len(p) for p in prompts]}, {SERVE_NEW} new tokens each")
@@ -6918,21 +7021,31 @@ class Smoke:
             f"{new_tokens} tokens, {new_tokens / wall:.1f} tok/s; tick "
             f"{tick_ms:.3f} ms with {SERVE_SLOTS} active slots (host clock "
             f"over {TICKS_TIMED} ticks, {rec['tick_tokens_per_s']:.1f} "
-            f"tok/s); peak memory {peak_gb:.2f} GB; cache "
+            f"tok/s; bound {tick_bound_ms:.3f} ms, the weights a tick reads "
+            f"and the caches at {HBM_BYTES_PER_S / 1e12:g} TB/s, "
+            f"{100 * tick_bound_ms / tick_ms:.1f}% of the tick); peak "
+            f"memory {peak_gb:.2f} GB; cache "
             f"{slot_bytes / 1e6:.1f} MB a slot; {seen['n']} logits, {bad} "
             f"non-finite; launches {launches}")
         check(bad == 0, f"{phase}: {bad} non-finite logits")
         return rec, reqs
 
-    def f32_engine_vs_manual(self, phase, cfg, prompts):
+    def f32_engine_vs_manual(self, phase, cfg, prompts, prepare=None,
+                             einsum_prompt=None):
         """float32 (TF32 off): the engine's tokens against an unbatched
-        prefill + decode loop, up to each request's first near tie."""
-        torch, lm = self.torch, self.lm
-        gc_collect(torch)
+        prefill + decode loop, up to each request's first near tie.
+        ``prepare(model)`` runs on the new model first; with
+        ``einsum_prompt``, its prefill through flash against the einsum
+        (before the engine, whose launches are counted from 0)."""
         with self.tf32_off():
             cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                         activation_dtype="float32")
-            model32 = lm.init_params(cfg32, SERVE_SEED, device=self.dev)
+            model32, _, _ = self.family_init(phase, cfg32)
+            if prepare is not None:
+                prepare(model32)
+            if einsum_prompt is not None:
+                self.check_flash_vs_einsum(cfg32, model32, einsum_prompt,
+                                           phase)
             self.reset_launches()
             reqs32, wall32 = self.serve(cfg32, model32, prompts)
             launches32 = self.read_launches(f"{phase}_f32")
@@ -6947,7 +7060,9 @@ class Smoke:
                       f"{phase} f32 engine vs manual, request {r.uid}: "
                       f"{r.output[:n]} != {want[:n]}")
             del model32
-        self.record[phase]["f32"] = {"wall_s": wall32,
+        self.record[phase]["f32"] = {"layers": cfg32.num_layers,
+                                     "init_peak_gb": self.init_peak_gb,
+                                     "wall_s": wall32,
                                      "steps_compared": stops,
                                      "launches": launches32}
         log(f"[{phase}] float32 (TF32 off): engine {wall32:.3f}s; engine vs "
@@ -7213,6 +7328,187 @@ class Smoke:
         del model, on_cpu
         rec["phase_s"] = time.perf_counter() - t0
         log(f"[hybrid_serve] phase {rec['phase_s']:.1f}s wall")
+
+    # -- [llama_serve], [qwen_serve], [jamba_serve] -------------------------
+    def draw_qkv_biases(self, model, phase) -> float:
+        """Every attention layer's bq, bk, bv drawn WIDE_BIAS_SCALE N(0, 1)
+        in float32 from one generator seeded WIDE_BIAS_SEED on the card,
+        layer by layer, and cast: both dtypes of a config get the same
+        biases up to rounding.  Returns the least max |b| over them, which
+        must not be 0."""
+        torch = self.torch
+        gen = torch.Generator(device=self.dev).manual_seed(WIDE_BIAS_SEED)
+        biases = [getattr(block.attn, name) for block in model.blocks
+                  if hasattr(block, "attn") for name in ("bq", "bk", "bv")]
+        for b in biases:
+            b.copy_(WIDE_BIAS_SCALE * torch.randn(
+                b.shape, generator=gen, dtype=torch.float32, device=self.dev))
+        least = min(float(b.abs().max()) for b in biases)
+        log(f"[{phase}] {len(biases)} QKV biases drawn "
+            f"{WIDE_BIAS_SCALE:g} N(0, 1) (seed {WIDE_BIAS_SEED}) on the "
+            f"card in {model.cfg.param_dtype}: least max |b| {least:.4f}")
+        check(biases and least > 0, "qkv biases: one is all zeros")
+        return least
+
+    def wide_plan(self, phase, cfg) -> dict:
+        """``serve_memory_plan`` of [phase]'s cut, printed and held to
+        WIDE_PLAN_LIMIT_GB."""
+        plan = {k.replace("_bytes", "_gb"): v / 1e9 if k != "params" else v
+                for k, v in serve_memory_plan(cfg).items()}
+        log(f"[{phase}] memory plan ({cfg.activation_dtype}, "
+            f"{cfg.num_layers} layers; meta, init_params' order): weights "
+            f"{plan['weight_gb']:.2f} GB, caches {SERVE_SLOTS} x "
+            f"{SERVE_MAX_SEQ} {plan['cache_gb']:.3f} GB, init peak "
+            f"{plan['init_peak_gb']:.2f} GB, serving at least "
+            f"{plan['peak_gb']:.2f} GB (limit {WIDE_PLAN_LIMIT_GB:g})")
+        check(plan["peak_gb"] <= WIDE_PLAN_LIMIT_GB,
+              f"{phase} memory plan {plan}")
+        return plan
+
+    def check_init_peak(self, phase, plan):
+        """The card's peak while the weights were drawn (``family_init``)
+        against the plan's: the plan counts every byte that init_params
+        holds, so the card may exceed it by the allocator's rounding
+        only."""
+        got, want = self.init_peak_gb, plan["init_peak_gb"]
+        log(f"[{phase}] {self.record['device']['nvidia_smi']}: init peak "
+            f"{got:.3f} GB, plan {want:.3f} GB")
+        check(got <= want + 0.1, f"{phase} init peak {got} GB > plan {want}")
+
+    def phase_llama_serve(self):
+        self.wide_attention_serve("llama_serve")
+
+    def phase_qwen_serve(self):
+        self.wide_attention_serve("qwen_serve")
+
+    def wide_attention_serve(self, phase):
+        """[llama_serve] / [qwen_serve]: llama3-405b or qwen1.5-32b at full
+        width, depth cut as WIDE_SERVE says, bf16, through ServeEngine:
+        every prefill launches the flash kernel once per layer (GQA 16:1;
+        40 MHA heads) and nothing else, every logit finite, one prefill
+        through flash against the einsum; qwen's QKV biases drawn nonzero;
+        in float32 (TF32 off) at the float32 depth, flash against the
+        einsum and the engine against a manual loop."""
+        t0 = time.perf_counter()
+        cfg = wide_config(phase, "bfloat16")
+        cfg32 = wide_config(phase, "float32")
+        full = self.get_config(cfg.name)
+        log(f"[{phase}] cut: {full.name} depth {full.num_layers} -> "
+            f"{cfg.num_layers} (bf16), {cfg32.num_layers} (float32); every "
+            f"width kept: d {cfg.d_model}, {cfg.num_heads} q heads on "
+            f"{cfg.num_kv_heads} kv heads at dh {cfg.head_dim_eff}, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab_size} (head "
+            f"{'tied' if cfg.tie_embeddings else 'untied'}), rope_theta "
+            f"{cfg.rope_theta:g}, qkv_bias {cfg.qkv_bias}")
+        plans = {c.activation_dtype: self.wide_plan(phase, c)
+                 for c in (cfg, cfg32)}
+        model, n_params, t_init = self.family_init(phase, cfg)
+        self.check_init_peak(phase, plans["bfloat16"])
+        init_peak = self.init_peak_gb
+        prepare = ((lambda m: self.draw_qkv_biases(m, phase))
+                   if cfg.qkv_bias else None)
+        bias = prepare(model) if prepare else None
+        prompts = self.family_prompts(cfg)
+        rec, _ = self.family_serve(phase, cfg, model, prompts)
+        rec.update(params=n_params, init_s=t_init, init_peak_gb=init_peak,
+                   plan=plans, bias_least_max_abs=bias,
+                   heads=[cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_eff],
+                   cuts={"num_layers": [full.num_layers, cfg.num_layers,
+                                        cfg32.num_layers]})
+        self.record[phase] = rec
+        flash = rec["launches"]["flash_attention"]
+        check(flash == cfg.num_layers * len(prompts),
+              f"{phase}: {flash} flash launches for {len(prompts)} prefills "
+              f"of {cfg.num_layers} layers")
+        check(sum(rec["launches"].values()) == flash,
+              f"{phase}: another kernel launched {rec['launches']}")
+        self.check_flash_vs_einsum(cfg, model, prompts[0], phase)
+        del model
+        launches32 = self.f32_engine_vs_manual(phase, cfg32, prompts,
+                                               prepare=prepare,
+                                               einsum_prompt=prompts[0])
+        self.check_init_peak(phase, plans["float32"])
+        check(launches32["flash_attention"] == cfg32.num_layers * len(prompts)
+              and sum(launches32.values()) == launches32["flash_attention"],
+              f"{phase} f32: launches {launches32}")
+        rec["phase_s"] = time.perf_counter() - t0
+        log(f"[{phase}] {rec['card']}: phase {rec['phase_s']:.1f}s wall")
+
+    def phase_jamba_serve(self):
+        """[jamba_serve]: jamba-1.5-large-398b at full width with the depth
+        cut 72 -> 2 (layer 0 Mamba + the 16-expert top-2 MoE, layer 1
+        Mamba + dense), bf16, through ServeEngine, prompts of whole
+        128-token chunks or shorter than one: no kernel of the package
+        launches, every logit finite, the Mamba state a slot as its closed
+        form; in float32 (TF32 off) the engine against a manual loop, and
+        teacher-forced decode steps against the chunked forward."""
+        torch, lm = self.torch, self.lm
+        phase = "jamba_serve"
+        t0 = time.perf_counter()
+        cfg = wide_config(phase, "bfloat16")
+        cfg32 = wide_config(phase, "float32")
+        full = self.get_config(cfg.name)
+        mc, moe = cfg.mamba, cfg.moe
+        d_in = mc.expand * cfg.d_model
+        sigs = [tuple(lm.layer_signature(cfg, i))
+                for i in range(cfg.num_layers)]
+        log(f"[{phase}] cut: {full.name} depth {full.num_layers} -> "
+            f"{cfg.num_layers} ({sigs}); every width kept: d "
+            f"{cfg.d_model}, Mamba {d_in // mc.head_dim} heads x "
+            f"{mc.head_dim}, d_state {mc.d_state}; {moe.num_experts} "
+            f"experts top-{moe.top_k}, d_ff_expert {moe.d_ff_expert} (an "
+            f"expert matrix of {moe.num_experts * cfg.d_model * moe.d_ff_expert:.3e} "
+            f"elements); the attention layer is layer {cfg.attn_every - 1} "
+            "of each period")
+        check(sigs == [("mamba", "moe"), ("mamba", "dense")],
+              f"{phase}: layer plan {sigs}")
+        plans = {c.activation_dtype: self.wide_plan(phase, c)
+                 for c in (cfg, cfg32)}
+        model, n_params, t_init = self.family_init(phase, cfg)
+        self.check_init_peak(phase, plans["bfloat16"])
+        init_peak = self.init_peak_gb
+        prompts = self.family_prompts(cfg, chunk=mc.chunk_size)
+        rec, _ = self.family_serve(phase, cfg, model, prompts)
+        want = cfg.num_layers * 4 * (
+            d_in // mc.head_dim * mc.d_state * mc.head_dim
+            + (mc.d_conv - 1) * (d_in + 2 * mc.n_groups * mc.d_state))
+        rec.update(params=n_params, init_s=t_init, init_peak_gb=init_peak,
+                   plan=plans, layers_plan=sigs,
+                   cuts={"num_layers": [full.num_layers, cfg.num_layers]})
+        self.record[phase] = rec
+        self.check_no_kernel_launches(rec["launches"], f"{phase}")
+        log(f"[{phase}] Mamba state a slot: "
+            f"{rec['cache_bytes_per_slot'] / 1e6:.3f} MB float32, closed form "
+            f"{cfg.num_layers} x 4 x (h n p + 3 (d_in + 2 n)) = "
+            f"{want / 1e6:.3f} MB")
+        check(rec["cache_bytes_per_slot"] == want,
+              f"{phase} state bytes a slot {rec['cache_bytes_per_slot']} != "
+              f"{want}")
+        del model
+        launches32 = self.f32_engine_vs_manual(phase, cfg32, prompts)
+        self.check_init_peak(phase, plans["float32"])
+        self.check_no_kernel_launches(launches32, f"{phase} f32")
+        with self.tf32_off():
+            whole = dataclasses.replace(cfg32, moe=dataclasses.replace(
+                moe, capacity_factor=moe.num_experts / moe.top_k))
+            model32, _, _ = self.family_init(phase, whole)
+            self.reset_launches()
+            rel = self.teacher_forced_vs_full(
+                whole, model32, WIDE_F32_PREFILL, WIDE_F32_DECODE, 13)
+            launches = self.read_launches(f"{phase}_consistency")
+            del model32
+        gc_collect(torch)
+        rec["decode_vs_forward_rel"] = rel
+        log(f"[{phase}] float32 (TF32 off), {whole.num_layers} layers, "
+            f"capacity factor {whole.moe.capacity_factor:g} (e / k: no "
+            f"choice dropped): prefill of {WIDE_F32_PREFILL} tokens and "
+            f"{WIDE_F32_DECODE} recurrent decode steps vs one chunked "
+            f"forward: rel {rel:.3e} of max |logit| (limit "
+            f"{SSM_F32_TOL:g})")
+        check(rel <= SSM_F32_TOL, f"{phase} decode vs forward: {rel}")
+        self.check_no_kernel_launches(launches, f"{phase} consistency")
+        rec["phase_s"] = time.perf_counter() - t0
+        log(f"[{phase}] {rec['card']}: phase {rec['phase_s']:.1f}s wall")
 
     # -- [frontends] ---------------------------------------------------------
     def phase_frontends(self):
@@ -7481,6 +7777,24 @@ class Smoke:
                 "path": path, "shape": {"b": b, "hq": hq, "hkv": hkv,
                                         "sq": s, "sk": s, "dh": dh,
                                         "causal": causal, "dtype": dname},
+                "launches": self.path_launches[path]["flash_attention"],
+                "max_abs_err": check_row["max_abs_err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "ceiling_ms": t["ceiling_ms"],
+                "library_ms": t["library_ms"]})
+        # ... and on the float32 engines among them
+        for path, label in FAMILY_FLASH_F32:
+            check_row = next(r for r in self.record["checks"]
+                             if r["kernel"] == "flash_attention"
+                             and r["label"] == label
+                             and r["dtype"] == "float32")
+            t = self.kernel_times[("flash_attention", f"{label}_f32")]
+            out.append({
+                "name": "flash_attention", "route": "cuda",
+                "source": FA_SOURCE, "design": t["design"],
+                "replaces": "src/repro/kernels/flash_attention.py:34",
+                "path": path, "shape": {k: t[k] for k in (
+                    "b", "hq", "hkv", "sq", "sk", "dh", "causal", "dtype")},
                 "launches": self.path_launches[path]["flash_attention"],
                 "max_abs_err": check_row["max_abs_err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -12,7 +12,8 @@ head dims whose rows are whole 128-byte swizzle regions; and the float32
 paths' shapes: each rank's prefill under ``[shard_serve]`` (granite-3-2b
 at (2, 2): b = 2, 16 on 4; at (1, 4): b = 4, 8 on 2; olmoe-1b-7b at (1,
 4): b = 4, 4 on 4 at dh 128; s = 2048, causal) and reduced jamba's (4 on
-1, 256, dh 16, causal). Each is timed with CUDA events over back-to-back
+1, 256, dh 16, causal); and llama3-405b (128 on 8, GQA 16:1) and
+qwen1.5-32b (40 on 40), both at 2048 and dh 128, causal, in either dtype. Each is timed with CUDA events over back-to-back
 calls after warm-up, and the device's time alone over the same calls
 replayed from one CUDA graph, beside its bound (4 dh flops a visible
 (query, key) pair over the dense tensor-core peak of the dtype,
@@ -56,7 +57,9 @@ SHAPES = {"granite": (1, 32, 8, 2048, 64, True),
           "granite@rank22": (2, 16, 4, 2048, 64, True),
           "granite@rank14": (4, 8, 2, 2048, 64, True),
           "olmoe@rank14": (4, 4, 4, 2048, 128, True),
-          "jamba": (1, 4, 1, 256, 16, True)}
+          "jamba": (1, 4, 1, 256, 16, True),
+          "llama": (1, 128, 8, 2048, 128, True),
+          "qwen": (1, 40, 40, 2048, 128, True)}
 # the limit of the dtype, (atol, rtol): two ulps; float32 2e-5 absolute
 TWO_ULPS = {"bfloat16": (2e-5, 2.0 ** -6), "float16": (2e-5, 2.0 ** -9),
             "float32": (2e-5, 0.0)}

@@ -26,6 +26,7 @@ import torch
 
 import _torch_dist_cases as dist_cases
 import _torch_shard_cases as shard_cases
+import _torch_wide_cases as wide
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core import fastsum as tfs
 from repro_torch.core import fastsum_exec as texec
@@ -944,6 +945,84 @@ def test_flash_prefill_matches_einsum_on_card(cuda):
         {"tokens": toks}, tmodel.init_caches(cfg, 2, 48, device=cuda),
         use_flash=flag)[0] for flag in (True, False)}
     assert _rel(got[True], got[False]) <= 1e-5
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv", [(128, 8), (40, 40)])
+def test_flash_wide_heads_match_plain(cuda, hq, hkv, dtype, causal):
+    """llama3-405b's heads (128 on 8, GQA 16:1) and qwen1.5-32b's (40 MHA)
+    at dh 128, s = 512: the TF32 kernel in float32, wgmma in bf16."""
+    q, k, v = _qkv((1, hq, 512, 128), (1, hkv, 512, 128), dtype, cuda, hq)
+    launches = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == launches + 1
+    want = tfa.flash_attention_plain(q, k, v, causal=causal)
+    assert _flash_close(got, want, dtype)
+
+
+@pytest.fixture
+def tf32_off():
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = prev
+
+
+@pytest.mark.parametrize("name", ["llama3-405b", "qwen1.5-32b"])
+def test_wide_variant_on_card_matches_cpu(cuda, tf32_off, name):
+    """Reduced llama3-405b at GQA 16:1 and qwen1.5-32b at 10 MHA heads with
+    nonzero QKV biases (tests/_torch_wide_cases.py; float32, TF32 off) on
+    the card against the same weights on the CPU: the engine's tokens
+    equal, flash once per layer and prefill, and a prefill + four decode
+    steps' logits within 1e-4 of the largest (the card's TF32 split flash
+    and cuBLAS against the CPU's einsum)."""
+    cfg = wide.variant(name, reduced_config(get_config(name)))
+    on_card = tmodel.init_params(cfg, 5, device=cuda)
+    if cfg.qkv_bias:
+        biases = [b for blk in on_card.blocks
+                  for b in (blk.attn.bq, blk.attn.bk, blk.attn.bv)]
+        for b, drawn in zip(biases, wide.qkv_biases(
+                [b.shape for b in biases], seed=3)):
+            b.copy_(torch.as_tensor(drawn, device=cuda))
+    on_cpu = tmodel.init_params(cfg, 5, device="cpu")
+    on_cpu.load_state_dict({k: v.cpu()
+                            for k, v in on_card.state_dict().items()})
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in (3, 40, 17, 64)]
+    toks = rng.integers(0, cfg.vocab_size, (2, 48))
+    steps = rng.integers(0, cfg.vocab_size, (4, 2, 1))
+    outputs, seqs = {}, {}
+    for dev, model in ((cuda, on_card), (torch.device("cpu"), on_cpu)):
+        engine = ServeEngine(cfg, model, slots=2, max_seq=96, device=dev)
+        reqs = [Request(uid=i, tokens=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            engine.submit(r)
+        launches = tfa.flash_attention.launches
+        engine.run_until_drained()
+        if dev.type == "cuda":
+            assert tfa.flash_attention.launches - launches \
+                == cfg.num_layers * len(prompts)
+        outputs[dev.type] = [r.output for r in reqs]
+        caches = tmodel.init_caches(cfg, 2, 64, device=dev)
+        logits, _ = model.forward_prefill(
+            {"tokens": torch.as_tensor(toks, device=dev)}, caches)
+        seq = [logits]
+        for i, tok in enumerate(steps):
+            logits, _ = model.forward_decode(
+                torch.as_tensor(tok, device=dev),
+                torch.full((2,), 48 + i, device=dev), caches)
+            seq.append(logits)
+        seqs[dev.type] = [t.cpu() for t in seq]
+    assert outputs["cuda"] == outputs["cpu"]
+    for got, want in zip(seqs["cuda"], seqs["cpu"]):
+        assert _rel(got, want) <= 1e-4
 
 
 def test_default_device_matches_tensors_on_card(cuda):
